@@ -1,0 +1,20 @@
+"""Split-bank kernels: CUDA kernels, plain versions and ``ops`` dispatch."""
+from repro_torch.kernels.split_gemm.ops import (
+    default_dense_impl,
+    launch_counts,
+    reset_launch_counts,
+    split_dense_ffn,
+    split_reduce_matmul,
+    split_stack_matmul,
+    split_swiglu,
+)
+
+__all__ = [
+    "default_dense_impl",
+    "launch_counts",
+    "reset_launch_counts",
+    "split_dense_ffn",
+    "split_reduce_matmul",
+    "split_stack_matmul",
+    "split_swiglu",
+]

@@ -1,0 +1,97 @@
+"""ctypes launch plumbing and argument checks shared by the split kernels."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+#: dtype codes of the C entry points (``csrc/split_tile.cuh``).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class CudaKernel:
+    """One C entry point of a kernel library plus its launch counter.
+
+    ``launches`` counts the wrapper calls that launched the kernel (one
+    per call, whether the entry point issues one CUDA launch or two); it
+    is a plain integer that a caller may read and reset."""
+
+    def __init__(self, name: str, n_ptrs: int, n_ints: int):
+        self.name = name
+        self.n_ptrs = n_ptrs
+        self.n_ints = n_ints
+        self.launches = 0
+        self._fn = None
+
+    def _entry(self):
+        if self._fn is None:
+            fn = getattr(build.load(self.name), self.name)
+            fn.argtypes = (
+                [ctypes.c_void_p] * self.n_ptrs
+                + [ctypes.c_int] * self.n_ints
+                + [ctypes.c_void_p]
+            )
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, tensors, ints) -> None:
+        """Launch on the current CUDA stream of the first tensor's device.
+        Raises if the launch was refused (``cudaGetLastError``)."""
+        assert len(tensors) == self.n_ptrs and len(ints) == self.n_ints
+        dev = tensors[0].device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            err = self._entry()(*[t.data_ptr() for t in tensors], *ints, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name}: CUDA launch failed with error {err}")
+        self.launches += 1
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (the wrapper then runs the
+    plain version); False when every tensor lies on one CUDA device.
+    Anything else raises."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"split kernel operands on several devices: {sorted(map(str, devs))}")
+    dev = next(iter(devs))
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"split kernels run on CUDA or CPU tensors, got {dev}")
+    return False
+
+
+def check_cuda_operands(name: str, x: torch.Tensor, *weights: torch.Tensor) -> int:
+    """Dtype and layout checks of a kernel launch; returns the dtype code."""
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: activations must be float32 or bfloat16, got {x.dtype}")
+    for w in weights:
+        if w.dtype != x.dtype:
+            if w.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+                raise TypeError(
+                    f"{name}: fp8-stored weights are not supported by the CUDA "
+                    "kernel yet (run impl='torch', which upcasts on use)"
+                )
+            raise TypeError(f"{name}: weight dtype {w.dtype} != activation dtype {x.dtype}")
+    for t in (x, *weights):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    return DTYPE_CODES[x.dtype]
+
+
+def bank_dims(name: str, local: torch.Tensor, remote: torch.Tensor) -> tuple:
+    """(n_local, n_remote, tail shape) of a (local, remote) bank pair."""
+    if local.dim() != 3 or remote.dim() != 3:
+        raise ValueError(f"{name}: banks must be 3-d stacks, got {local.shape} / {remote.shape}")
+    n_l, n_r = local.shape[0], remote.shape[0]
+    if n_l + n_r == 0:
+        raise ValueError(f"{name}: both banks are empty")
+    tail = tuple((local if n_l else remote).shape[1:])
+    for w, n in ((local, n_l), (remote, n_r)):
+        if n and tuple(w.shape[1:]) != tail:
+            raise ValueError(f"{name}: bank shapes disagree: {local.shape} vs {remote.shape}")
+    return n_l, n_r, tail

@@ -1,0 +1,57 @@
+"""Serving entry point of the port: ``build_engine``.
+
+The counterpart of ``repro.launch.serve.build_engine``: a DWDP context
+server and generation server over one model whose ``model`` mesh axis
+is G logical ranks on one device. Runs on the card unless the caller
+passes ``device="cpu"``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models.transformer import build_model
+from repro_torch.runtime.engine import ContextServer, DisaggregatedEngine, GenerationServer
+
+
+def build_engine(
+    cfg,
+    *,
+    mesh_shape=(1, 4),
+    prefill_len: int = 64,
+    cache_len: int = 128,
+    max_batch: int = 2,
+    ctx_mode: str = "dwdp",
+    gen_mode: str = "dwdp",
+    capacity_from: str = "local",
+    dtype: torch.dtype = torch.float32,
+    device="cuda",
+    seed: int = 0,
+    params: Optional[list] = None,
+    geom_kwargs: Optional[dict] = None,
+):
+    """Returns ``(DisaggregatedEngine, model)``.
+
+    ``params`` is a per-rank parameter list for this model (for instance
+    from ``checkpoint.convert.from_jax_params``); by default the weights
+    are drawn from a ``torch.Generator`` seeded with ``seed`` on the
+    device. ``cache_len`` is rounded up to a multiple of the rank count,
+    as the reference does, so the KV ring divides over the shards."""
+    sizes = {"data": mesh_shape[0], "model": mesh_shape[1]}
+    n_ranks = max(1, mesh_shape[0] * mesh_shape[1])
+    cache_len = -(-cache_len // n_ranks) * n_ranks
+    model = build_model(cfg, sizes, dtype=dtype, device=device, **(geom_kwargs or {}))
+    if params is None:
+        params = model.init_params(torch.Generator(device=model.device).manual_seed(seed))
+    elif len(params) != model.n_ranks:
+        raise ValueError(f"params hold {len(params)} ranks, the model has {model.n_ranks}")
+    ctx = ContextServer(
+        model, sizes, mode=ctx_mode, prefill_len=prefill_len, cache_len=cache_len,
+        capacity_from=capacity_from,
+    )
+    gen = GenerationServer(
+        model, sizes, mode=gen_mode, max_batch=max_batch, cache_len=cache_len,
+        capacity_from=capacity_from,
+    )
+    return DisaggregatedEngine(params, ctx, gen), model

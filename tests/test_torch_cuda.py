@@ -1,0 +1,52 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Runs where there is a card (a GPU machine need not have JAX, so this file
+imports none):
+
+    python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
+
+Without a card the test skips.
+"""
+import pytest
+import torch
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_versions():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    from repro_torch.kernels.split_gemm import dense, grouped, ops
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def check(got, ref, tol):
+        # error relative to max|ref|; tol is tests/test_kernels.py TOL
+        err = ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+        assert err <= tol, err
+
+    def rnd(*s, dt):
+        return (torch.randn(*s, generator=gen, device="cuda") * 0.1).to(dt)
+
+    for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for t, d, f, s_l, s_r in ((2, 256, 96, 1, 3), (37, 128, 64, 4, 0), (70, 64, 128, 0, 2)):
+            x, wl, wr = rnd(t, d, dt=dt), rnd(s_l, d, f, dt=dt), rnd(s_r, d, f, dt=dt)
+            xr, wl2, wr2 = rnd(s_l + s_r, t, f, dt=dt), rnd(s_l, f, d, dt=dt), rnd(s_r, f, d, dt=dt)
+            ws = [rnd(s_l, d, f, dt=dt), rnd(s_l, d, f, dt=dt), rnd(s_l, f, d, dt=dt),
+                  rnd(s_r, d, f, dt=dt), rnd(s_r, d, f, dt=dt), rnd(s_r, f, d, dt=dt)]
+            pairs = [
+                (dense.split_stack_gemm(x, wl, wr), dense.split_stack_gemm_torch(x, wl, wr)),
+                (dense.split_reduce_gemm(xr, wl2, wr2), dense.split_reduce_gemm_torch(xr, wl2, wr2)),
+                (dense.split_dense_swiglu(x, *ws), dense.split_dense_swiglu_torch(x, *ws)),
+            ]
+            for got, ref in pairs:
+                check(got, ref, tol)
+        for e, e_l, c in ((8, 2, 16), (4, 0, 1), (4, 4, 3)):
+            x = rnd(e, c, 128, dt=dt)
+            ws = [rnd(e_l, 128, 64, dt=dt), rnd(e_l, 128, 64, dt=dt), rnd(e_l, 64, 128, dt=dt),
+                  rnd(e - e_l, 128, 64, dt=dt), rnd(e - e_l, 128, 64, dt=dt),
+                  rnd(e - e_l, 64, 128, dt=dt)]
+            got = grouped.split_grouped_swiglu(x, *ws)
+            ref = grouped.split_grouped_swiglu_torch(x, *ws)
+            check(got, ref, tol)
+    torch.cuda.synchronize()
+    assert all(n > 0 for n in ops.launch_counts().values())

@@ -1,0 +1,91 @@
+"""The port's serving engine against the JAX package's, end to end, and
+the weights carried across (the card-only kernel test is
+tests/test_torch_cuda.py, which imports no JAX)."""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.checkpoint.npz import save_pytree
+from repro.configs import get_arch as jget_arch
+from repro.configs import reduced_variant as jreduced
+from repro.launch.serve import build_engine as jbuild_engine
+from repro.models.transformer import build_model as jbuild_model
+from repro.runtime.engine import Request as JRequest
+from repro_torch.checkpoint.convert import from_jax_params, load_npz
+from repro_torch.configs import get_arch, reduced_variant
+from repro_torch.launch.serve import build_engine
+from repro_torch.models.transformer import build_model
+from repro_torch.runtime.engine import Request
+
+GEOM = dict(shard_attention=True, expert_axes=("model",), moe_exec="gather")
+PROMPT, CACHE, OUT = 16, 32, 5
+
+
+@pytest.fixture(scope="module")
+def r1_smoke():
+    """Reduced DeepSeek-R1 (E = top_k = 4: every expert receives every
+    token, so no token is dropped in either layout at factor 1.25), the
+    JAX (1, 4) weights — the same canonical values as the (1, 1) engine's
+    — and seeded prompts."""
+    jcfg = jreduced(jget_arch("deepseek-r1"))
+    cfg = reduced_variant(get_arch("deepseek-r1"))
+    jm4 = jbuild_model(jcfg, {"data": 1, "model": 4}, dtype=jnp.float32, **GEOM)
+    jparams = jax.tree.map(np.asarray, jm4.init_params(jax.random.key(0)))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, PROMPT) for _ in range(3)]
+    return cfg, jcfg, jparams, prompts
+
+
+def test_engine_tokens_match_jax_engine(r1_smoke):
+    cfg, jcfg, jparams, prompts = r1_smoke
+    jeng, _ = jbuild_engine(jcfg, mesh_shape=(1, 1), prefill_len=PROMPT, cache_len=CACHE,
+                            max_batch=2, gen_mode="dwdp", dtype=jnp.float32, seed=0)
+    for i, p in enumerate(prompts):
+        jeng.submit(JRequest(i, p, OUT))
+    jeng.run(2 * OUT + 2)
+
+    model = build_model(cfg, {"data": 1, "model": 4}, device="cpu", **GEOM)
+    eng, _ = build_engine(cfg, mesh_shape=(1, 4), prefill_len=PROMPT, cache_len=CACHE,
+                          max_batch=2, device="cpu", params=from_jax_params(jparams, model),
+                          geom_kwargs=GEOM)
+    assert eng.gen.xp.seq_axes == ("model",)  # max_batch 2: KV cache seq-sharded
+    eng.warmup()  # off the serving path; must leave the slots untouched
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p, OUT))
+    eng.run(2 * OUT + 2)
+    assert not eng.busy()
+    assert eng.outputs == jeng.outputs
+    summary = eng.metrics.summary()
+    assert summary["completed"] == 3 and summary["total_output_tokens"] == 3 * OUT
+    assert summary["ttft_p50_s"] > 0 and summary["tpot_p50_s"] > 0
+
+
+def test_load_npz_reads_save_pytree(r1_smoke, tmp_path):
+    cfg, _, jparams, _ = r1_smoke
+    path = str(tmp_path / "ckpt.npz")
+    save_pytree(path, jparams, max_chunk_bytes=1 << 16)  # forces chunked leaves
+    loaded = load_npz(path)
+    model = build_model(cfg, {"data": 1, "model": 4}, device="cpu", **GEOM)
+    a, b = from_jax_params(loaded, model), from_jax_params(jparams, model)
+
+    def leaves(t):
+        return [x for v in t.values() for x in leaves(v)] if isinstance(t, dict) else [t]
+
+    for ra, rb in zip(a, b):
+        assert all(torch.equal(x, y) for x, y in zip(leaves(ra), leaves(rb)))
+
+
+def test_from_jax_params_checks_geometry(r1_smoke):
+    cfg, jcfg, jparams, _ = r1_smoke
+    model = build_model(cfg, {"data": 1, "model": 4}, device="cpu", **GEOM)
+    bad = dict(jparams, embed=jparams["embed"][:-4])
+    with pytest.raises(ValueError, match="vocab_pad"):
+        from_jax_params(bad, model)
+    # a tree built without the attention override keeps attention replicated
+    jm_repl = jbuild_model(jcfg, {"data": 1, "model": 4}, dtype=jnp.float32)
+    repl = jax.tree.map(np.asarray, jm_repl.init_params(jax.random.key(0)))
+    with pytest.raises(ValueError, match="attention stack"):
+        from_jax_params(repl, model)

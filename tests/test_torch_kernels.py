@@ -1,0 +1,203 @@
+"""The port's kernel modules against the JAX package at small shapes.
+
+Each plain version (what a kernel wrapper runs for CPU tensors) is held
+against the Pallas kernel in interpret mode, as tests/test_kernels.py
+runs it, and against the JAX package's jnp formulation. Inputs are made
+with numpy from a seed. The CUDA kernels themselves run only on the card
+(tests/test_torch_engine.py::test_cuda_kernels_match_plain_versions).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.split_gemm import ops as jops
+from repro.models import attention as jattn
+from repro.models import layers as jlayers
+from repro.models import moe as jmoe
+from repro_torch.kernels.split_gemm import _launch, dense, grouped
+from repro_torch.kernels.split_gemm import ops as tops
+from repro_torch.models import attention as tattn
+from repro_torch.models import layers as tlayers
+from repro_torch.models import moe as tmoe
+
+# tests/test_kernels.py TOL: fp32 2e-5, bf16 2e-2 (atol and rtol)
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _arrays(seed, *shapes, scale=0.1):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(s) * scale).astype(np.float32) for s in shapes]
+
+
+def _both(arrs, dt):
+    return [jnp.asarray(a, JDT[dt]) for a in arrs], [torch.from_numpy(a).to(TDT[dt]) for a in arrs]
+
+
+def _close(got_t, ref_j, dt):
+    np.testing.assert_allclose(
+        got_t.float().numpy(), np.asarray(ref_j, np.float32), atol=TOL[dt], rtol=TOL[dt]
+    )
+
+
+def _swiglu_shapes(e, e_l, c, d, f):
+    e_r = e - e_l
+    return [(e, c, d), (e_l, d, f), (e_l, d, f), (e_l, f, d), (e_r, d, f), (e_r, d, f), (e_r, f, d)]
+
+
+def _dense_swiglu_shapes(t, d, f, s_l, s_r):
+    return [(t, d), (s_l, d, f), (s_l, d, f), (s_l, f, d), (s_r, d, f), (s_r, d, f), (s_r, f, d)]
+
+
+# (E, E_l, C, D, F): a rotated split, all-remote (E_l = 0), all-local
+# (E_r = 0), capacities that are not multiples of 8, and C = 1; every
+# shape in fp32, two in bf16 (interpret-mode Pallas is the cost here).
+GROUPED = [(4, 2, 5, 64, 32), (4, 0, 1, 64, 32), (4, 4, 3, 64, 32), (8, 2, 1, 64, 64)]
+GROUPED_CASES = [(s, "float32") for s in GROUPED] + [(s, "bfloat16") for s in GROUPED[:2]]
+# (T, D, Fs, S_l, S_r)
+DENSE = [(5, 64, 32, 1, 3), (1, 64, 32, 0, 2), (2, 64, 32, 2, 0)]
+DENSE_CASES = [(s, "float32") for s in DENSE] + [(DENSE[0], "bfloat16")]
+
+
+@pytest.mark.parametrize("shape,dt", GROUPED_CASES, ids=str)
+def test_split_grouped_swiglu_plain_matches_pallas_and_jnp(shape, dt):
+    arrs = _arrays(sum(shape), *_swiglu_shapes(*shape))
+    jx, tx = _both(arrs, dt)
+    got = grouped.split_grouped_swiglu(*tx)  # CPU tensors: the plain version
+    assert torch.equal(got, grouped.split_grouped_swiglu_torch(*tx))
+    _close(got, jops.split_swiglu(*jx), dt)            # Pallas, interpret mode
+    _close(got, jops.split_swiglu(*jx, impl="jnp"), dt)
+
+
+@pytest.mark.parametrize("shape,dt", DENSE_CASES, ids=str)
+def test_split_dense_kernels_plain_match_pallas_and_jnp(shape, dt):
+    t, d, f, s_l, s_r = shape
+    s = s_l + s_r
+    x, wl, wr, xr, wl2, wr2 = _arrays(
+        sum(shape), (t, d), (s_l, d, f), (s_r, d, f), (s, t, f), (s_l, f, d), (s_r, f, d)
+    )
+    (jx, jwl, jwr, jxr, jwl2, jwr2), (tx, twl, twr, txr, twl2, twr2) = _both(
+        [x, wl, wr, xr, wl2, wr2], dt
+    )
+    got = dense.split_stack_gemm(tx, twl, twr)
+    _close(got, jops.split_stack_matmul(jx, jwl, jwr), dt)
+    _close(got, jops.split_stack_matmul(jx, jwl, jwr, impl="jnp"), dt)
+    got = dense.split_reduce_gemm(txr, twl2, twr2)
+    _close(got, jops.split_reduce_matmul(jxr, jwl2, jwr2), dt)
+    _close(got, jops.split_reduce_matmul(jxr, jwl2, jwr2, impl="jnp"), dt)
+    arrs = _arrays(sum(shape) + 1, *_dense_swiglu_shapes(*shape))
+    jd, td = _both(arrs, dt)
+    got = dense.split_dense_swiglu(*td)
+    _close(got, jops.split_dense_ffn(*jd), dt)
+    _close(got, jops.split_dense_ffn(*jd, impl="jnp"), dt)
+
+
+def test_ops_dispatch_impls_agree_on_cpu():
+    arrs = _arrays(3, *_swiglu_shapes(4, 1, 3, 32, 16))
+    t = [torch.from_numpy(a) for a in arrs]
+    for impl in (None, "kernel"):
+        assert torch.equal(tops.split_swiglu(*t, impl=impl), tops.split_swiglu(*t, impl="torch"))
+    with pytest.raises(ValueError, match="impl"):
+        tops.split_swiglu(*t, impl="pallas")
+    assert tops.default_dense_impl("prefill", torch.device("cpu")) == "torch"
+    assert tops.default_dense_impl("decode", torch.device("cuda")) == "kernel"
+    assert tops.default_dense_impl("train", torch.device("cuda")) == "torch"
+
+
+def test_wrapper_checks():
+    x, wl, wr = (torch.zeros(s) for s in ((2, 8), (1, 8, 4), (1, 8, 4)))
+    with pytest.raises(ValueError, match="does not match"):
+        dense.split_stack_gemm(torch.zeros(2, 6), wl, wr)
+    with pytest.raises(ValueError, match="disagree"):
+        dense.split_stack_gemm(x, wl, torch.zeros(1, 8, 5))
+    with pytest.raises(ValueError, match="both banks are empty"):
+        dense.split_stack_gemm(x, wl[:0], wr[:0])
+    with pytest.raises(ValueError, match="several devices"):
+        dense.split_stack_gemm(x, wl, wr.to("meta"))
+    with pytest.raises(TypeError, match="fp8"):
+        _launch.check_cuda_operands("k", x, wl.to(torch.float8_e4m3fn))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        _launch.check_cuda_operands("k", x.half(), wl.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        _launch.check_cuda_operands("k", x, wl.transpose(1, 2))
+
+
+# --------------------------------------------------------------------------
+# Routing, dispatch, attention and the small layers.
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("t,cap,num_real", [(12, 2, 6), (9, 2, 8), (5, 1, 8)])
+def test_route_topk_with_drops_matches_jax(t, cap, num_real):
+    x, w = _arrays(t, (t, 16), (16, 8), scale=1.0)
+    dj = jmoe.route_topk(jnp.asarray(x), jnp.asarray(w), 2, cap, num_real=num_real)
+    dt = tmoe.route_topk(torch.from_numpy(x), torch.from_numpy(w), 2, cap, num_real=num_real)
+    assert not bool(np.all(np.asarray(dj.keep)))  # some tokens dropped
+    np.testing.assert_array_equal(dt.flat_slot.numpy(), np.asarray(dj.flat_slot))
+    np.testing.assert_array_equal(dt.keep.numpy(), np.asarray(dj.keep))
+    np.testing.assert_allclose(dt.weight.numpy(), np.asarray(dj.weight), atol=1e-6)
+    xe_j = jmoe.dispatch_tokens(jnp.asarray(x), dj, 8, cap)
+    xe_t = tmoe.dispatch_tokens(torch.from_numpy(x), dt, 8, cap)
+    np.testing.assert_allclose(xe_t.numpy(), np.asarray(xe_j), atol=1e-6)
+    np.testing.assert_allclose(
+        tmoe.combine_tokens(xe_t, dt, t).numpy(),
+        np.asarray(jmoe.combine_tokens(xe_j, dj, t)), atol=1e-6,
+    )
+
+
+def test_route_topk_rows_and_capacity_match_jax():
+    x, w = _arrays(1, (3, 5, 16), (16, 8), scale=1.0)
+    dj = jmoe.route_topk_rows(jnp.asarray(x), jnp.asarray(w), 2, 2, num_real=7)
+    dt = tmoe.route_topk_rows(torch.from_numpy(x), torch.from_numpy(w), 2, 2, num_real=7)
+    np.testing.assert_array_equal(dt.flat_slot.numpy(), np.asarray(dj.flat_slot))
+    np.testing.assert_array_equal(dt.keep.numpy(), np.asarray(dj.keep))
+    np.testing.assert_allclose(dt.weight.numpy(), np.asarray(dj.weight), atol=1e-6)
+    for tokens in (1, 2, 7, 256, 1000):
+        for e, k, f in ((256, 8, 1.25), (8, 2, 4.0), (4, 4, 1.25)):
+            assert tmoe.capacity_for(tokens, e, k, f) == jmoe.capacity_for(tokens, e, k, f)
+
+
+@pytest.mark.parametrize("window,q_offset,sk", [(0, 0, 20), (6, 4, 24), (0, 8, 24)])
+def test_mha_prefill_matches_jax(window, q_offset, sk):
+    sq = sk - q_offset
+    q, k, v = _arrays(sk, (2, sq, 4, 8), (2, sk, 2, 8), (2, sk, 2, 8), scale=1.0)
+    ref = jattn.mha_prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            window=window, q_offset=q_offset, block_kv=8)
+    got = tattn.mha_prefill(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                            window=window, q_offset=q_offset, block_kv=8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+def test_mha_decode_partial_and_combine_match_jax():
+    q, k, v = _arrays(5, (2, 4, 8), (3, 2, 6, 2, 8), (3, 2, 6, 2, 8), scale=1.0)
+    kv_pos = np.array([[0, 1, 2, 3, -1, -1], [4, 5, 6, 7, 8, 9]], np.int32)
+    qpos = np.array([3, 7], np.int32)
+    outs_t, lses_t, outs_j, lses_j = [], [], [], []
+    for i in range(3):
+        pos_i = np.where(kv_pos >= 0, kv_pos + 10 * i, -1).astype(np.int32) if i else kv_pos
+        oj, lj = jattn.mha_decode_partial(jnp.asarray(q), jnp.asarray(k[i]), jnp.asarray(v[i]),
+                                          jnp.asarray(pos_i), jnp.asarray(qpos + 10 * (i == 2)))
+        ot, lt = tattn.mha_decode_partial(torch.from_numpy(q), torch.from_numpy(k[i]),
+                                          torch.from_numpy(v[i]), torch.from_numpy(pos_i),
+                                          torch.from_numpy(qpos + 10 * (i == 2)))
+        np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=1e-5)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-5)
+        outs_t.append(ot), lses_t.append(lt), outs_j.append(oj), lses_j.append(lj)
+    ref = jattn.combine_partials(jnp.stack(outs_j), jnp.stack(lses_j))
+    np.testing.assert_allclose(tattn.combine_partials(outs_t, lses_t).numpy(), np.asarray(ref),
+                               atol=1e-5)
+
+
+def test_rms_norm_rope_softcap_match_jax():
+    x, s = _arrays(9, (2, 5, 4, 16), (16,), scale=1.0)
+    pos = np.arange(10).reshape(2, 5).astype(np.int32)
+    np.testing.assert_allclose(
+        tlayers.rms_norm(torch.from_numpy(x), torch.from_numpy(s), 1e-6).numpy(),
+        np.asarray(jlayers.rms_norm(jnp.asarray(x), jnp.asarray(s), 1e-6)), atol=1e-5)
+    np.testing.assert_allclose(
+        tlayers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e4).numpy(),
+        np.asarray(jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e4)), atol=1e-5)
+    np.testing.assert_allclose(
+        tlayers.softcap(torch.from_numpy(x) * 40, 30.0).numpy(),
+        np.asarray(jlayers.softcap(jnp.asarray(x) * 40, 30.0)), atol=1e-4)
