@@ -6,21 +6,32 @@
 Phases (each fails loudly; the exit code is non-zero on any error):
 
 1. the card: name and power limit (``nvidia-smi``), torch and CUDA versions;
-2. build: every CUDA kernel of the DWDP path compiled with ``nvcc`` for
-   sm_90a from ``src/repro_torch/kernels/csrc`` (time and ``-Xptxas -v``);
-3. kernels: each kernel at the DeepSeek-R1 main-path shapes (prefill and
-   decode, per logical rank, G' = 4, bf16) held against its plain PyTorch
-   version (max error relative to max|ref| <= 2e-2), and timed with CUDA
-   events beside its plain version, a per-bank torch.matmul/bmm
-   composition (a yardstick the port never calls) and its bound;
-4. serve: ``build_engine`` at DeepSeek-R1 width (2 layers, first one
+2. build: every CUDA kernel of the port compiled with ``nvcc`` for sm_90a
+   from ``src/repro_torch/kernels/csrc``, one process per source, all at
+   once (time and ``-Xptxas -v``);
+3. kernels: each kernel at the DeepSeek-R1 main-path shapes (per logical
+   rank, G' = 4, bf16) held against its plain PyTorch version (max error
+   relative to max|ref| <= 2e-2), and timed with CUDA events beside its
+   plain version, a per-bank torch.matmul/bmm composition (a yardstick
+   the port never calls) and its bound. The demand kernel's padding rows
+   must be exact zeros and its real experts' blocks bitwise kernel #2's;
+4. ``ops.split_gemm`` (kernel #1's entry point; no engine calls it) at
+   R1 expert shapes, its launches counted;
+5. serve: ``build_engine`` at DeepSeek-R1 width (2 layers, first one
    dense), mesh (data=1, model=4) as 4 logical ranks, random weights from a
    seeded generator; 4 requests of 1024 tokens, 16 output tokens each,
-   max_batch 2. Every kernel must have launched on this path. One
-   prefill's logits are compared with the plain versions' (tolerance
+   max_batch 2. Every kernel of the all-fetch path must have launched.
+   One prefill's logits are compared with the plain versions' (tolerance
    below), and a request served alone must give the same tokens as served
    among the 4 (row-local capacity, ``capacity_from="global"``);
-5. a ``{"kernels": [...]}`` JSON line, then the last line
+6. fetch modes: the same 4 requests on the same weights under
+   ``expert_fetch`` demand, predictive and sync_free (route-before-gather
+   decode through the demand kernel, which must launch); every request's
+   tokens must equal the all-fetch tokens, and one decode step's logits
+   must be bitwise the all-fetch step's. Per mode: TPOT, peak memory,
+   landing bytes per decode step, fallbacks, summed ``pred_stats`` and a
+   profiled decode step;
+7. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
@@ -57,6 +68,16 @@ OUTPUT = 16
 MAX_BATCH = 2
 N_REQUESTS = 4
 GEOM = dict(shard_attention=True, expert_axes=("model",), moe_exec="gather")
+# The kernels the all-fetch serving path launches.
+ALL_FETCH_KERNELS = ("split_grouped_swiglu", "split_stack_gemm", "split_reduce_gemm",
+                     "split_dense_swiglu")
+# The route-before-gather modes. Residency-cache rows per rank and MoE
+# layer (88 MB each at R1 width): 8 keeps the all-fetch prefill's two
+# remote banks plus the 4 ranks' caches under the 70 GB limit.
+CACHE_BUDGET = 8
+FETCH_MODES = (("demand", {}), ("predictive", {"cache_budget": CACHE_BUDGET}),
+               ("sync_free", {"cache_budget": CACHE_BUDGET}))
+PEAK_LIMIT = 70e9
 
 
 def fail(msg: str) -> None:
@@ -113,7 +134,8 @@ def profile_step(label: str, fn) -> None:
         name = e.key
         if any(k in name for k in ("grouped_kernel", "gate_up_kernel", "reduce_kernel")):
             kind = "split kernels"
-        elif "Memcpy" in name or "memcpy" in name:
+        elif "Memcpy" in name or "memcpy" in name or "indexSelect" in name:
+            # landing copies of split banks, row gathers of demand payloads
             kind = "landing copies"
         else:
             kind = "other device work"
@@ -124,6 +146,7 @@ def profile_step(label: str, fn) -> None:
           + " ".join(f"[{k}: {v:.2f} ms]" for k, v in kinds.items()))
     for ms, count, name in sorted(rows, reverse=True)[:8]:
         print(f"  {ms:9.3f} ms  x{count:<5d} {name}")
+    return dict(kinds, device_ms=busy)
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -154,19 +177,30 @@ def library_versions():
             return torch.bmm(h, d).sum(0)
         return part(gl, ul, dl) + part(gr, ur, dr)
 
+    def part(xe, g, u, d):
+        return torch.bmm(F.silu(torch.bmm(xe, g)) * torch.bmm(xe, u), d)
+
     def grouped(x, gl, ul, dl, gr, ur, dr):
         e_l = gl.shape[0]
-
-        def part(xe, g, u, d):
-            return torch.bmm(F.silu(torch.bmm(xe, g)) * torch.bmm(xe, u), d)
         return torch.cat([part(x[:e_l], gl, ul, dl), part(x[e_l:], gr, ur, dr)], dim=0)
 
+    def demand(x, gl, ul, dl, gf, uf, df, valid):
+        e_l = gl.shape[0]
+        y_f = part(x[e_l:], gf, uf, df) * valid[:, None, None].to(x.dtype)
+        return torch.cat([part(x[:e_l], gl, ul, dl), y_f], dim=0)
+
+    def gemm(x, wl, wr):
+        e_l = wl.shape[0]
+        return torch.cat([torch.bmm(x[:e_l], wl), torch.bmm(x[e_l:], wr)], dim=0)
+
     return {"split_stack_gemm": stack, "split_reduce_gemm": reduce,
-            "split_dense_swiglu": dense, "split_grouped_swiglu": grouped}
+            "split_dense_swiglu": dense, "split_grouped_swiglu": grouped,
+            "split_grouped_swiglu_demand": demand, "split_grouped_gemm": gemm}
 
 
 def kernel_cases(cfg):
     """(kernel, phase, shapes) at the per-rank main-path shapes."""
+    from repro_torch.core.budget import demand_budget_rows
     from repro_torch.models.moe import capacity_for
 
     d, a = cfg.d_model, G
@@ -180,6 +214,14 @@ def kernel_cases(cfg):
         cases.append(("split_reduce_gemm", phase, dict(t=t, d=d, f=qd, s=a)))
         cases.append(("split_dense_swiglu", phase, dict(t=t, d=d, f=fs, s=G)))
         cases.append(("split_grouped_swiglu", phase, dict(c=c, d=d, f=fe, e=e, e_l=e // G)))
+        cases.append(("split_grouped_gemm", phase, dict(c=c, d=d, f=fe, e=e, e_l=e // G)))
+    # the demand kernel: 64 resident experts + 3 peers x the auto budget of
+    # 8 fetched rows, about half of them valid; decode (C 1, the few-row
+    # path) and one tensor-core tile shape (C 16)
+    e_f = (G - 1) * demand_budget_rows(MAX_BATCH * cfg.moe.top_k, e, e // G)
+    for phase, c in (("decode", 1), ("tile", 16)):
+        cases.append(("split_grouped_swiglu_demand", phase,
+                      dict(c=c, d=d, f=fe, e_l=e // G, e_f=e_f)))
     return cases
 
 
@@ -212,13 +254,32 @@ def run_kernel_case(name, shp, gen):
         kern, plain = dense.split_dense_swiglu, dense.split_dense_swiglu_torch
         nbytes = 2 * (2 * t * d + 3 * s * d * f)
         flops = 6 * s * t * d * f
-    else:
+    elif name == "split_grouped_swiglu":
         c, d, f, e, e_l = shp["c"], shp["d"], shp["f"], shp["e"], shp["e_l"]
         args = (rnd(e, c, d, scale=1.0), rnd(e_l, d, f), rnd(e_l, d, f), rnd(e_l, f, d),
                 rnd(e - e_l, d, f), rnd(e - e_l, d, f), rnd(e - e_l, f, d))
         kern, plain = grouped.split_grouped_swiglu, grouped.split_grouped_swiglu_torch
         nbytes = 2 * (2 * e * c * d + 3 * e * d * f)
         flops = 6 * e * c * d * f
+    elif name == "split_grouped_gemm":
+        c, d, f, e, e_l = shp["c"], shp["d"], shp["f"], shp["e"], shp["e_l"]
+        args = (rnd(e, c, d, scale=1.0), rnd(e_l, d, f), rnd(e - e_l, d, f))
+        kern, plain = grouped.split_grouped_gemm, grouped.split_grouped_gemm_torch
+        nbytes = 2 * (e * c * d + e * d * f + e * c * f)
+        flops = 2 * e * c * d * f
+    else:
+        c, d, f, e_l, e_f = shp["c"], shp["d"], shp["f"], shp["e_l"], shp["e_f"]
+        valid = torch.arange(e_f, device=dev) % 2 == 0
+        args = (rnd(e_l + e_f, c, d, scale=1.0), rnd(e_l, d, f), rnd(e_l, d, f), rnd(e_l, f, d),
+                rnd(e_f, d, f), rnd(e_f, d, f), rnd(e_f, f, d), valid)
+        kern = grouped.split_grouped_swiglu_demand
+        plain = grouped.split_grouped_swiglu_demand_torch
+        # this run's data: the real experts' rows and weights are read,
+        # every output block is written
+        n_real = e_l + int(valid.sum())
+        shp = dict(shp, n_valid=int(valid.sum()))
+        nbytes = 2 * (n_real * c * d + (e_l + e_f) * c * d + 3 * n_real * d * f)
+        flops = 6 * n_real * c * d * f
     got = kern(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
@@ -226,7 +287,7 @@ def run_kernel_case(name, shp, gen):
         fail(f"{name}: non-finite kernel output")
     abs_err = (got.float() - ref.float()).abs().max().item()
     rel_err = abs_err / max(ref.float().abs().max().item(), 1e-30)
-    wbytes = sum(a.numel() * a.element_size() for a in args[1:])
+    wbytes = sum(a.numel() * a.element_size() for a in args[1:] if a.dtype == bf)
     reps = 3 if wbytes > 4e9 else 20
     row = {
         "max_abs_err": abs_err,
@@ -237,11 +298,82 @@ def run_kernel_case(name, shp, gen):
         "library_ms": time_ms(lambda: lib(*args), reps),
     }
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    row["shape"] = shp
     del args, got, ref
     torch.cuda.empty_cache()
     if rel_err > KERNEL_TOL:
         fail(f"{name} {shp}: kernel disagrees with its plain version: rel err {rel_err:.3e} > {KERNEL_TOL}")
     return row
+
+
+def check_demand_matches_grouped(cfg, gen) -> dict:
+    """The demand kernel over a fetched bank that is a subset of kernel
+    #2's remote bank, on the same rows: its padding rows are exact zeros
+    and every real expert's block is bitwise kernel #2's (few-row path at
+    C 1, tensor-core tiles at C 16)."""
+    import torch
+    from repro_torch.core.budget import demand_budget_rows
+    from repro_torch.kernels.split_gemm import grouped
+
+    dev, bf = "cuda", torch.bfloat16
+    d, f, e = cfg.d_model, cfg.moe.d_ff, cfg.moe.num_experts
+    e_l = e // G
+    e_f = (G - 1) * demand_budget_rows(MAX_BATCH * cfg.moe.top_k, e, e_l)
+
+    def rnd(*shape, scale=0.05):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf)
+
+    wl = [rnd(e_l, d, f), rnd(e_l, d, f), rnd(e_l, f, d)]
+    wr = [rnd(e - e_l, d, f), rnd(e - e_l, d, f), rnd(e - e_l, f, d)]
+    idx = torch.randperm(e - e_l, generator=gen, device=dev)[:e_f]
+    wf = [w.index_select(0, idx) for w in wr]
+    valid = torch.arange(e_f, device=dev) % 2 == 0
+    out = {}
+    for c in (1, 16):
+        x2 = rnd(e, c, d, scale=1.0)
+        y2 = grouped.split_grouped_swiglu(x2, *wl, *wr)
+        x3 = torch.cat([x2[:e_l], x2[e_l:].index_select(0, idx)])
+        y3 = grouped.split_grouped_swiglu_demand(x3, *wl, *wf, valid)
+        torch.cuda.synchronize()
+        zeros = bool((y3[e_l:][~valid] == 0).all())
+        same = torch.equal(y3[:e_l], y2[:e_l]) and torch.equal(
+            y3[e_l:][valid], y2[e_l:].index_select(0, idx)[valid])
+        print(f"kernel split_grouped_swiglu_demand C {c}: padding rows exact zeros {zeros}; "
+              f"real experts bitwise split_grouped_swiglu's {same} ({e_l} local + "
+              f"{int(valid.sum())} of {e_f} fetched rows)")
+        if not (zeros and same):
+            fail(f"demand kernel at C {c}: zeros {zeros}, bitwise vs kernel #2 {same}")
+        out[c] = {"padding_zero": zeros, "bitwise_vs_split_grouped_swiglu": same}
+    del wl, wr, wf
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_split_gemm(cfg, gen) -> int:
+    """Kernel #1's path: its entry point ``ops.split_gemm`` (no engine
+    calls it) at R1 expert shapes, C 16 and C 1, with the launch counts
+    set to 0 just before and read just after."""
+    import torch
+    from repro_torch.kernels.split_gemm import ops
+
+    d, f, e = cfg.d_model, cfg.moe.d_ff, cfg.moe.num_experts
+    e_l = e // G
+    wl = (torch.randn(e_l, d, f, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    wr = (torch.randn(e - e_l, d, f, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    for c in (16, 1):
+        x = torch.randn(e, c, d, generator=gen, device="cuda").to(torch.bfloat16)
+        y = ops.split_gemm(x, wl, wr)
+        if y.shape != (e, c, f) or not torch.isfinite(y).all():
+            fail(f"ops.split_gemm C {c}: bad output {tuple(y.shape)}")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"ops.split_gemm path: launch counts {json.dumps(counts)}")
+    if counts["split_grouped_gemm"] <= 0:
+        fail("split_grouped_gemm never launched on its entry point")
+    del wl, wr
+    torch.cuda.empty_cache()
+    return counts["split_grouped_gemm"]
 
 
 # --------------------------------------------------------------------------
@@ -268,6 +400,103 @@ def serve(engine, prompts) -> dict:
         if steps > N_REQUESTS * OUTPUT + 8:
             fail("serving did not finish")
     return {rid: list(toks) for rid, toks in engine.outputs.items()}
+
+
+def serve_fetch_modes(cfg, engine, model, prompts, ref_outputs, ref_summary, ref_peak) -> dict:
+    """Serve the same requests on the all-fetch engine's weights under each
+    route-before-gather mode. Each mode's tokens must equal the all-fetch
+    tokens, and one decode step from the all-fetch engine's current state
+    (with the mode's warm predictor) must give bitwise the all-fetch step's
+    logits. Returns per-mode numbers."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core import execution, prefetch
+    from repro_torch.kernels.split_gemm import ops
+    from repro_torch.launch.serve import build_engine
+
+    params = engine.params
+    tok0, state0 = engine.gen.cur_token, engine.gen.state
+    ctx_all = execution.Ctx(model=model, xp=engine.gen.xp)
+
+    def one_step(state, ctx):
+        prefetch.LANDED.bytes = 0
+        logits = execution.forward_decode(params, tok0, state, ctx)["logits"]
+        torch.cuda.synchronize()
+        return logits, prefetch.LANDED.bytes
+
+    ref_logits, ref_landed = one_step(state0, ctx_all)
+    prof = profile_step("decode step, fetch all", lambda: one_step(state0, ctx_all))
+    rows = {"all": {"tpot_p50_s": ref_summary["tpot_p50_s"], "peak_gb": ref_peak / 1e9,
+                    "landed_gb_per_decode_step": ref_landed / 1e9, "profile_ms": prof}}
+    print(f"fetch all: tpot_p50_s {ref_summary['tpot_p50_s']:.4f} peak_gb {ref_peak / 1e9:.2f} "
+          f"landed_gb_per_decode_step {ref_landed / 1e9:.3f}")
+    for mode, kw in FETCH_MODES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng, m_model = build_engine(
+            cfg, mesh_shape=(1, G), prefill_len=PROMPT, cache_len=PROMPT + OUTPUT,
+            max_batch=MAX_BATCH, dtype=torch.bfloat16, device="cuda", params=params,
+            geom_kwargs=GEOM, expert_fetch=mode, **kw,
+        )
+        xp = eng.gen.xp
+        if not execution.demand_fetch_active(cfg, m_model.geom, xp):
+            fail(f"expert_fetch={mode}: the decode plan does not run the demand path")
+        eng.warmup()
+        ops.reset_launch_counts()
+        execution.DEMAND.layers = execution.DEMAND.fallbacks = 0
+        t0 = time.perf_counter()
+        outs = serve(eng, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        layers, fallbacks = execution.DEMAND.layers, execution.DEMAND.fallbacks
+        peak = torch.cuda.max_memory_allocated()
+        summ = eng.metrics.summary()
+        stats = np.sum(eng.gen.pred_stats, axis=0).tolist() if eng.gen.pred_stats else None
+        state = dict(state0)
+        if "pred" in eng.gen.state:
+            state["pred"] = eng.gen.state["pred"]
+        ctx = execution.Ctx(model=m_model, xp=xp)
+        logits, landed = one_step(state, ctx)
+        bitwise = torch.equal(logits, ref_logits)
+        prof = profile_step(f"decode step, fetch {mode}", lambda: one_step(state, ctx))
+        budgets = {
+            "demand_or_corr": execution.resolve_demand_budget(cfg, m_model.geom, xp),
+            "spec": (execution.resolve_spec_budget(cfg, m_model.geom, xp)
+                     if execution.predictive_fetch_active(cfg, m_model.geom, xp) else 0),
+            "cache_rows": kw.get("cache_budget", 0),
+        }
+        print(f"fetch {mode}: budgets {json.dumps(budgets)} tpot_p50_s {summ['tpot_p50_s']:.4f} "
+              f"tpot_p95_s {summ['tpot_p95_s']:.4f} ttft_p50_s {summ['ttft_p50_s']:.4f} "
+              f"wall_s {wall:.3f} peak_gb {peak / 1e9:.2f} landed_gb_per_decode_step "
+              f"{landed / 1e9:.3f} demand_layers {layers} fallbacks {fallbacks} "
+              f"pred_stats_sum {stats} launches {json.dumps(counts)} "
+              f"tokens_equal_all {outs == ref_outputs} logits_bitwise_all {bitwise}")
+        if outs != ref_outputs:
+            fail(f"expert_fetch={mode}: tokens differ from the all-fetch tokens: "
+                 f"{outs} vs {ref_outputs}")
+        if not bitwise:
+            err = (logits.float() - ref_logits.float()).abs().max().item()
+            fail(f"expert_fetch={mode}: decode logits not bitwise the all-fetch ones (max {err})")
+        if counts["split_grouped_swiglu_demand"] <= 0:
+            fail(f"expert_fetch={mode}: split_grouped_swiglu_demand never launched")
+        if peak > PEAK_LIMIT:
+            fail(f"expert_fetch={mode}: peak memory {peak / 1e9:.2f} GB > {PEAK_LIMIT / 1e9:.0f} GB")
+        rows[mode] = {
+            "budgets": budgets, "tpot_p50_s": summ["tpot_p50_s"], "tpot_p95_s": summ["tpot_p95_s"],
+            "ttft_p50_s": summ["ttft_p50_s"], "peak_gb": peak / 1e9,
+            "landed_gb_per_decode_step": landed / 1e9, "demand_layers": layers,
+            "fallbacks": fallbacks, "pred_stats_sum": stats, "launches": counts,
+            "profile_ms": prof,
+        }
+        del eng, m_model, state, ctx, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"fetch modes: {json.dumps({k: {kk: vv for kk, vv in v.items() if kk != 'launches'} for k, v in rows.items()})}")
+    return rows
 
 
 def main() -> None:
@@ -312,11 +541,13 @@ def main() -> None:
     results: dict = {}
     for name, phase, shp in kernel_cases(cfg):
         row = run_kernel_case(name, shp, gen)
-        results.setdefault(name, {})[phase] = dict(row, shape=shp)
-        print(f"kernel {name} {phase} {shp}: rel_err {row['max_rel_err']:.3e} "
+        results.setdefault(name, {})[phase] = row
+        print(f"kernel {name} {phase} {row['shape']}: rel_err {row['max_rel_err']:.3e} "
               f"(tol {KERNEL_TOL}) ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
               f"library_ms {row['library_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
               f"({row['bound_by']})")
+    demand_checks = check_demand_matches_grouped(cfg, gen)
+    gemm_launches = drive_split_gemm(cfg, gen)
 
     # ---- serve ----------------------------------------------------------
     torch.cuda.empty_cache()
@@ -358,11 +589,11 @@ def main() -> None:
     for rid, toks in outputs.items():
         if len(toks) != OUTPUT or not all(0 <= t < cfg.vocab_size for t in toks):
             fail(f"request {rid}: bad tokens {toks}")
-    missing = [k for k, n in counts.items() if n <= 0]
+    missing = [k for k in ALL_FETCH_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"kernels never launched on the served path: {missing}")
-    if peak > 80e9:
-        fail(f"peak memory {peak / 1e9:.2f} GB exceeds the card")
+    if peak > PEAK_LIMIT:
+        fail(f"peak memory {peak / 1e9:.2f} GB exceeds the {PEAK_LIMIT / 1e9:.0f} GB limit")
 
     # ---- prefill logits: kernels vs plain versions ------------------------
     lk = engine.ctx.forward(engine.params, prompts[0])["last_logits"]
@@ -419,22 +650,34 @@ def main() -> None:
                         ("decode", lambda: engine.gen.decode_step(engine.params))):
         profile_step(label, step)
 
+    # ---- the route-before-gather fetch modes on the same weights ----------
+    modes = serve_fetch_modes(cfg, engine, model, prompts, outputs, summary, peak)
+    demand_launches = sum(m["launches"]["split_grouped_swiglu_demand"]
+                          for mode, m in modes.items() if mode != "all")
+
     # ---- report ---------------------------------------------------------
     replaces = {
         "split_grouped_swiglu": "src/repro/kernels/split_gemm/split_gemm.py:261",
         "split_stack_gemm": "src/repro/kernels/split_gemm/dense.py:92",
         "split_reduce_gemm": "src/repro/kernels/split_gemm/dense.py:183",
         "split_dense_swiglu": "src/repro/kernels/split_gemm/dense.py:308",
+        "split_grouped_swiglu_demand": "src/repro/kernels/split_gemm/split_gemm.py:419",
+        "split_grouped_gemm": "src/repro/kernels/split_gemm/split_gemm.py:124",
     }
+    # each kernel's launches on its own path: the all-fetch serve, the
+    # three route-before-gather serves, ops.split_gemm
+    launches = dict(counts, split_grouped_swiglu_demand=demand_launches,
+                    split_grouped_gemm=gemm_launches)
     kernels = []
     for name in ops.KERNELS:
-        dec, pre = results[name]["decode"], results[name]["prefill"]
+        dec = results[name]["decode"]
+        others = {ph: row for ph, row in results[name].items() if ph != "decode"}
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces[name],
-            "launches": counts[name],
+            "launches": launches[name],
             "max_abs_err": dec["max_abs_err"],
             "max_rel_err": dec["max_rel_err"],
             "ms": dec["ms"],
@@ -443,8 +686,10 @@ def main() -> None:
             "bound_by": dec["bound_by"],
             "library_ms": dec["library_ms"],
             "shape": dec["shape"],
-            "prefill": pre,
+            **others,
         })
+        if name == "split_grouped_swiglu_demand":
+            kernels[-1]["checks"] = {f"C{c}": v for c, v in demand_checks.items()}
     print(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)

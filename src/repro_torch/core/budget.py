@@ -1,0 +1,43 @@
+"""Closed-form row budgets of the route-before-gather expert fetch.
+
+The port's own copy of ``repro.core.roofline.demand_budget_rows`` and
+``predictive_budget_rows``: the engine (``core.execution``) sizes each
+demand, speculative and correction round with them, so the payload the
+port lands is the payload the JAX package ships. The rest of the cost
+model is not ported yet.
+"""
+from __future__ import annotations
+
+import math
+
+
+def _coverage(n_draws: int, num_experts: int, local: int) -> float:
+    """Expected distinct experts of one peer's ``local`` slice hit by
+    ``n_draws`` uniform routing draws: ``local * (1 - (1 - 1/E)^n)``."""
+    e = max(1, num_experts)
+    return local * (1.0 - (1.0 - 1.0 / e) ** n_draws)
+
+
+def _align8(v: float) -> int:
+    return -(-math.ceil(v) // 8) * 8
+
+
+def demand_budget_rows(n_draws: int, num_experts: int, local: int) -> int:
+    """Per-peer demand-fetch rows: 2x the expected per-peer coverage,
+    rounded up to a multiple of 8, at least 8, clamped to ``local``."""
+    if local <= 0:
+        return 0
+    budget = _align8(2.0 * _coverage(n_draws, num_experts, local))
+    return max(1, min(max(8, budget), local))
+
+
+def predictive_budget_rows(n_draws: int, num_experts: int, local: int) -> tuple[int, int]:
+    """Per-peer ``(speculative, correction)`` rows of the predictive
+    fetch: 1x and 0.5x the expected per-peer coverage, each 8-aligned, at
+    least 8, clamped to ``local``."""
+    if local <= 0:
+        return 0, 0
+    expected = _coverage(n_draws, num_experts, local)
+    spec = min(local, max(8, _align8(expected)))
+    corr = min(local, max(8, _align8(expected / 2.0)))
+    return spec, corr

@@ -21,18 +21,30 @@ Ported: split ``attn_qkv`` / ``attn_out`` / ``dense_ffn`` /
 ``moe_experts`` banks under ``split:all:allgather``, prefill with
 sequence sharding and KV capture, decode over a sequence-sharded KV
 cache with an LSE combine, the vocab-sharded head with a cross-shard
-argmax. Not ported yet: demand/predictive/sync-free fetch, the ring
-transports, merged layouts, DEP, rotate execution, training.
+argmax, and the route-before-gather expert fetch (``moe_experts`` fetch
+``demand``, ``predictive`` and ``sync_free``): routing runs before the
+expert gather, the activated remote rows are fetched by a planned
+payload round, and the demand kernel runs over the compact (resident,
+fetched) bank; predictive decode adds a layer-ahead speculative round
+and a residency cache, sync-free mirrors the predictor on every rank.
+Where the JAX package branches on the device (the overflow
+``lax.cond``), the port reads the agreed flag on the host: one sync per
+demand-active MoE layer. Not ported yet: the validated fetch and fault
+injection, the ring transports, merged layouts, DEP, rotate execution,
+training.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Optional
+import math
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import BlockKind
 from repro_torch.core import prefetch
+from repro_torch.core.budget import demand_budget_rows, predictive_budget_rows
 from repro_torch.core.placement import make_placement
 from repro_torch.core.strategy import ExecutionPlan
 from repro_torch.kernels import split_gemm as split_gemm_lib
@@ -52,6 +64,8 @@ class Ctx:
     impl: Optional[str] = None  # None: the per-device default; "torch": plain versions
     pos: Any = None            # decode: (B,) per-row positions
     q_offsets: tuple = ()      # prefill: global offset of each rank's seq slice
+    # speculative-round plans of the current step, by layer (filled on use)
+    spec_plans: dict = dataclasses.field(default_factory=dict)
 
     @property
     def cfg(self):
@@ -92,9 +106,123 @@ def _require_split(geom: Geometry, xp: ExecutionPlan, axes, what: str) -> None:
         )
 
 
-def gather_set(sig: LayerSig, geom: Geometry, xp: ExecutionPlan) -> tuple[str, ...]:
+class DemandCounters:
+    """Route-before-gather layer runs and how many took the full-gather
+    fallback (overflow or mirror divergence); plain integers a caller may
+    read and reset."""
+
+    def __init__(self):
+        self.layers = 0
+        self.fallbacks = 0
+
+
+DEMAND = DemandCounters()
+
+
+# ==========================================================================
+# Route-before-gather gates and budgets (``execution.py:203-337`` of the
+# JAX package; the port has no per-layer-group policy overrides).
+# ==========================================================================
+def _routed_tokens(xp: ExecutionPlan) -> int:
+    """Per-rank routed token count."""
+    if xp.phase == "decode":
+        return max(1, xp.local_batch)
+    return max(1, xp.local_batch) * max(1, xp.local_seq)
+
+
+def moe_split_active(geom: Geometry, xp: ExecutionPlan) -> bool:
+    pl = geom.moe_placement
+    return (
+        xp.policy("moe_experts").layout == "split"
+        and xp.mode == "dwdp"
+        and geom.moe_exec == "gather"
+        and pl is not None
+        and pl.subgroup_size > 1
+    )
+
+
+def demand_fetch_active(cfg, geom: Geometry, xp: ExecutionPlan) -> bool:
+    """Does the MoE layer run the route-before-gather path (``fetch`` in
+    demand / predictive / sync_free)? Only over a single-axis split
+    placement, and only at partial coverage — ``rows * top_k < remote
+    experts`` — where the activated set can be a strict subset of the
+    remote bank; elsewhere the all-fetch gather is kept."""
+    if xp.policy("moe_experts").fetch not in ("demand", "predictive", "sync_free"):
+        return False
+    if cfg.moe is None or not moe_split_active(geom, xp) or len(geom.expert_axes) != 1:
+        return False
+    pl = geom.moe_placement
+    num_remote = (pl.subgroup_size - 1) * pl.local_count
+    return _routed_tokens(xp) * cfg.moe.top_k < num_remote
+
+
+def predictive_fetch_active(cfg, geom: Geometry, xp: ExecutionPlan) -> bool:
+    """Does the demand path also run the predictive engine (speculative
+    round + residency cache + correction round)? Decode only: the
+    ``PredictState`` lives in the decode state. Elsewhere ``predictive``
+    and ``sync_free`` run exactly as ``demand``."""
+    return (
+        xp.phase == "decode"
+        and xp.policy("moe_experts").fetch in ("predictive", "sync_free")
+        and demand_fetch_active(cfg, geom, xp)
+    )
+
+
+def sync_free_active(cfg, geom: Geometry, xp: ExecutionPlan) -> bool:
+    """Does the predictive decode run the sync-free variant (mirrored
+    predictor, no index exchange in the speculative round)?"""
+    return (
+        xp.policy("moe_experts").fetch == "sync_free"
+        and predictive_fetch_active(cfg, geom, xp)
+    )
+
+
+def resolve_demand_budget(cfg, geom: Geometry, xp: ExecutionPlan) -> int:
+    """Per-peer row budget of the demand round — of the correction round
+    where the predictive engine runs. A policy ``budget`` > 0 is honoured
+    (clamped to the per-rank expert count); auto (0) applies the closed
+    forms of ``core.budget``. Overflow falls back to the full gather, so
+    the budget tunes bytes, never results."""
+    pl = geom.moe_placement
+    local = pl.local_count
+    user = xp.policy("moe_experts").budget
+    if user > 0:
+        return min(user, local)
+    draws = _routed_tokens(xp) * cfg.moe.top_k
+    if predictive_fetch_active(cfg, geom, xp):
+        return predictive_budget_rows(draws, cfg.moe.num_experts, local)[1]
+    return demand_budget_rows(draws, cfg.moe.num_experts, local)
+
+
+def resolve_spec_budget(cfg, geom: Geometry, xp: ExecutionPlan) -> int:
+    """Per-peer row budget of the speculative round: the policy
+    ``budget`` if set, else the speculative half of
+    ``predictive_budget_rows``. The predictor never asks for more, so
+    this round cannot overflow."""
+    pl = geom.moe_placement
+    local = pl.local_count
+    user = xp.policy("moe_experts").budget
+    if user > 0:
+        return min(user, local)
+    return predictive_budget_rows(
+        _routed_tokens(xp) * cfg.moe.top_k, cfg.moe.num_experts, local
+    )[0]
+
+
+def resolve_cache_rows(cfg, geom: Geometry, xp: ExecutionPlan) -> int:
+    """Rows of the per-layer residency cache: the policy's
+    ``cache_budget``, capped at the remote bank. 0 = cache off."""
+    pl = geom.moe_placement
+    remote = (pl.subgroup_size - 1) * pl.local_count
+    return min(xp.policy("moe_experts").cache_budget, remote)
+
+
+def gather_set(sig: LayerSig, geom: Geometry, xp: ExecutionPlan, cfg=None) -> tuple[str, ...]:
     """Keys of a layer's param tree that the prefetch pipeline gathers
-    (``execution.gather_set`` of the JAX package, all-fetch DWDP)."""
+    (``execution.gather_set`` of the JAX package). A demand-active MoE
+    layer leaves its expert bank out — it is fetched inside the layer,
+    after routing — unless the predictive engine runs, whose speculative
+    round rides the pipeline (``cfg`` is needed for those checks)."""
     out: list[str] = []
     if sig.kind not in (BlockKind.GLOBAL_ATTN, BlockKind.LOCAL_ATTN):
         raise NotImplementedError(f"block kind {sig.kind} is not ported yet")
@@ -108,7 +236,12 @@ def gather_set(sig: LayerSig, geom: Geometry, xp: ExecutionPlan) -> tuple[str, .
             if geom.moe_exec != "gather":
                 raise NotImplementedError(f"moe_exec={geom.moe_exec!r} is not ported yet")
             _require_split(geom, xp, geom.expert_axes, "experts")
-            out.append("moe/experts")
+            if not (
+                cfg is not None
+                and demand_fetch_active(cfg, geom, xp)
+                and not predictive_fetch_active(cfg, geom, xp)
+            ):
+                out.append("moe/experts")
         if sig.shared_d_ff and geom.ffn_axes:
             _require_split(geom, xp, geom.ffn_axes, "shared expert")
             out.append("moe/shared")
@@ -142,9 +275,13 @@ def gather_attn(lps: list[dict], geom: Geometry, copy_stream=None) -> list[prefe
     ]
 
 
-def gather_ffn(keys: tuple[str, ...], lps: list[dict], rank: int, geom: Geometry,
-               copy_stream=None) -> dict:
-    """One rank's FFN-side banks: ``ffn`` / ``moe/shared`` / ``moe/experts``."""
+def gather_ffn(keys: tuple[str, ...], lps: list[dict], rank: int, ctx: Ctx,
+               copy_stream=None, preds=None, lid=None) -> dict:
+    """One rank's FFN-side banks: ``ffn`` / ``moe/shared`` / ``moe/experts``
+    (split banks; for a predictive decode layer the expert entry is the
+    speculative round's :class:`SpecBank`, driven by the layer's incoming
+    ``preds``)."""
+    geom = ctx.geom
     out = {}
     for key in keys:
         if key == "ffn":
@@ -153,10 +290,113 @@ def gather_ffn(keys: tuple[str, ...], lps: list[dict], rank: int, geom: Geometry
             shards, pl = [lp["moe"]["shared"] for lp in lps], _leading_placement(geom.ffn_shards)
         elif key == "moe/experts":
             shards, pl = [lp["moe"]["experts"] for lp in lps], geom.moe_placement
+            if predictive_fetch_active(ctx.cfg, geom, ctx.xp):
+                out[key] = _speculative_expert_gather(shards, rank, ctx, preds, lid, copy_stream)
+                continue
         else:
             continue
         out[key] = prefetch.gather_split_bank(shards, rank, pl, copy_stream=copy_stream)
     return out
+
+
+# ==========================================================================
+# The predictive fetch's speculative round (``_mirror_spec_masks`` /
+# ``_speculative_expert_gather`` of the JAX package).
+# ==========================================================================
+class SpecBank(NamedTuple):
+    """One rank's speculative round. ``bank``: the speculative rows as a
+    :class:`prefetch.DemandBank`. ``landing``: the rank's whole fetched
+    bank ``[cache | speculative | correction]`` per leaf — the head holds a
+    copy of the residency cache, ``bank.fetched`` views the middle and the
+    correction round lands into the tail — so the demand kernel reads one
+    bank and no concatenation is copied (the JAX package concatenates)."""
+
+    bank: prefetch.DemandBank
+    landing: dict
+
+
+def _mirror_spec_masks(pred: prefetch.PredictState, pl, sbudget: int) -> torch.Tensor:
+    """Sync-free: the ``(G', E)`` speculative bitmaps of every subgroup
+    position, derived from the rank's mirrored ``PredictState`` alone.
+    Deterministic in the mirror, so every rank derives the same schedule
+    and the speculative round needs no index exchange."""
+    extra = prefetch.predict_extra_score(pred.sig, pred.sigw)
+    return torch.stack([
+        prefetch.predict_bitmap(
+            pred.prev[q], pred.ema[q], pl, budget=sbudget,
+            exclude_ids=pred.cache_ids[q], exclude_valid=pred.cache_valid[q],
+            extra_score=extra[q],
+        )
+        for q in range(pl.subgroup_size)
+    ])
+
+
+def _spec_plans(ctx: Ctx, lid, preds: list) -> list:
+    """Every rank's speculative-round plan of layer ``lid`` this step,
+    computed once (by the layer's first pipeline unit or by the layer).
+    Plain predictive exchanges each rank's predicted bitmap
+    (``plan_demand_fetch``); sync-free derives every position's bitmap
+    from the rank's own mirror. The predictor asks for at most the budget
+    per peer, so the round never overflows."""
+    plans = ctx.spec_plans.get(lid)
+    if plans is not None:
+        return plans
+    if preds is None:
+        raise ValueError(
+            "predictive fetch needs the layer's PredictState in the decode state: "
+            "attach it with execution.attach_predict_state(state, model, xp)"
+        )
+    cfg, geom, xp = ctx.cfg, ctx.geom, ctx.xp
+    pl = geom.moe_placement
+    g, local = pl.subgroup_size, pl.local_count
+    sbudget = min(resolve_spec_budget(cfg, geom, xp), local)
+    if sync_free_active(cfg, geom, xp):
+        plans = []
+        for r, pred in enumerate(preds):
+            masks = _mirror_spec_masks(pred, pl, sbudget)
+            ids, valid, _ = prefetch.plan_from_bitmap(masks[r % g], r % g, g, local, sbudget)
+            no = torch.zeros((), dtype=torch.bool, device=ids.device)
+            plans.append(prefetch.DemandPlan(masks=masks, fetched_ids=ids, valid=valid, overflow=no))
+    else:
+        wanted = [
+            prefetch.predict_bitmap(pred.prev, pred.ema, pl, budget=sbudget,
+                                    exclude_ids=pred.cache_ids, exclude_valid=pred.cache_valid)
+            for pred in preds
+        ]
+        plans = prefetch.plan_demand_fetch(wanted, pl, budget=sbudget)
+    ctx.spec_plans[lid] = plans
+    return plans
+
+
+def _speculative_expert_gather(shards: list, rank: int, ctx: Ctx, preds: list, lid,
+                               copy_stream=None) -> SpecBank:
+    """The layer-ahead speculative round of ``rank``: the predicted hot
+    set, fetched from the previous step's ``PredictState`` alone (no
+    dependence on this step's routing), so it rides the bank pipeline
+    under the previous unit's compute. Allocates the rank's whole fetched
+    bank and copies the residency cache into its head."""
+    cfg, geom, xp = ctx.cfg, ctx.geom, ctx.xp
+    pl = geom.moe_placement
+    g, local = pl.subgroup_size, pl.local_count
+    sbudget = min(resolve_spec_budget(cfg, geom, xp), local)
+    cbudget = min(resolve_demand_budget(cfg, geom, xp), local)
+    plan = _spec_plans(ctx, lid, preds)[rank]
+    pred = preds[rank]
+    n_cache = pred.cache_ids.shape[-1]
+    n_spec = (g - 1) * sbudget
+    rows = n_cache + n_spec + (g - 1) * cbudget
+    landing = prefetch.tree_map(
+        lambda lo: torch.empty((rows,) + tuple(lo.shape[1:]), dtype=lo.dtype, device=lo.device),
+        shards[rank],
+    )
+    bank = prefetch.gather_demand_payload(
+        shards, plan, rank, pl, budget=sbudget, copy_stream=copy_stream,
+        out=prefetch.tree_map(lambda b: b[n_cache:n_cache + n_spec], landing),
+    )
+    on_side = torch.cuda.stream(copy_stream) if copy_stream is not None else contextlib.nullcontext()
+    with on_side:
+        prefetch.tree_map(lambda b, c: b[:n_cache].copy_(c, non_blocking=True), landing, pred.cache)
+    return SpecBank(bank=bank, landing=landing)
 
 
 class BankPipeline:
@@ -434,77 +674,317 @@ def _rolled_dispatch(d: moe_lib.Dispatch, roll: int, e_pad: int, capacity: int):
     return d._replace(flat_slot=exp * capacity + slot)
 
 
-def _moe_apply(x2d, mp, ctx: Ctx, banks: dict, rows: int, rank: int):
-    cfg, geom, xp = ctx.cfg, ctx.geom, ctx.xp
-    moe = cfg.moe
-    pl = geom.moe_placement
-    assert moe is not None and pl is not None
-    t = x2d.shape[0]
-    e_pad = pl.num_padded
+def _route(x2d, mp, ctx: Ctx, rows: int):
+    """The rank's routing of its own tokens: ``(dispatch, capacity)``."""
+    moe, xp = ctx.cfg.moe, ctx.xp
     if xp.capacity_from == "global":
         row_tokens = 1 if ctx.decode else xp.seq_len
         cap_row = moe_lib.capacity_for(row_tokens, moe.num_experts, moe.top_k, xp.capacity_factor)
         if not ctx.decode and xp.seq_shards > 1:
             cap_row = -(-cap_row // xp.seq_shards)
-        cap = rows * cap_row
         d = moe_lib.route_topk_rows(
             x2d.reshape(rows, -1, x2d.shape[-1]), mp["router"], moe.top_k,
             cap_row, num_real=moe.num_experts,
         )
-    else:
-        cap = moe_lib.capacity_for(t, moe.num_experts, moe.top_k, xp.capacity_factor)
-        d = moe_lib.route_topk(x2d, mp["router"], moe.top_k, cap, num_real=moe.num_experts)
+        return d, rows * cap_row
+    cap = moe_lib.capacity_for(x2d.shape[0], moe.num_experts, moe.top_k, xp.capacity_factor)
+    return moe_lib.route_topk(x2d, mp["router"], moe.top_k, cap, num_real=moe.num_experts), cap
 
-    ex = mp["experts"]
-    if pl.group_size == 1:
-        xe = moe_lib.dispatch_tokens(x2d, d, e_pad, cap)
-        ye = moe_lib.grouped_ffn(xe, ex["w_gate"], ex["w_up"], ex["w_down"])
-    else:
-        # §4.2 split path: tokens dispatch in rotated canonical order
-        # (resident experts first); the kernel reads both banks by pointer.
-        bank = banks["moe/experts"]
-        roll = (rank % pl.subgroup_size) * pl.local_count
-        d = _rolled_dispatch(d, roll, e_pad, cap)
-        xe = moe_lib.dispatch_tokens(x2d, d, e_pad, cap)
-        lo, re = bank.local, bank.remote
-        ye = split_gemm_lib.split_swiglu(
-            xe,
-            lo["w_gate"], lo["w_up"], lo["w_down"],
-            re["w_gate"], re["w_up"], re["w_down"],
-            impl=ctx.moe_impl,
-        )
-    y = moe_lib.combine_tokens(ye, d, t)
+
+def _split_moe(x2d, d, cap: int, bank: prefetch.SplitBank, rank: int, ctx: Ctx):
+    """§4.2 split path: tokens dispatch in rotated canonical order
+    (resident experts first); the kernel reads both banks by pointer."""
+    pl = ctx.geom.moe_placement
+    e_pad = pl.num_padded
+    d = _rolled_dispatch(d, (rank % pl.subgroup_size) * pl.local_count, e_pad, cap)
+    xe = moe_lib.dispatch_tokens(x2d, d, e_pad, cap)
+    lo, re = bank.local, bank.remote
+    ye = split_gemm_lib.split_swiglu(
+        xe,
+        lo["w_gate"], lo["w_up"], lo["w_down"],
+        re["w_gate"], re["w_up"], re["w_down"],
+        impl=ctx.moe_impl,
+    )
+    return moe_lib.combine_tokens(ye, d, x2d.shape[0])
+
+
+def _add_shared(y, x2d, mp, ctx: Ctx, banks: dict):
     if "shared" in mp:
         y = y + _ffn_apply(x2d, mp["shared"], ctx, banks.get("moe/shared"))
     return y
 
 
+def _moe_apply(x2d, mp, ctx: Ctx, banks: dict, rows: int, rank: int):
+    pl = ctx.geom.moe_placement
+    assert ctx.cfg.moe is not None and pl is not None
+    d, cap = _route(x2d, mp, ctx, rows)
+    if pl.group_size == 1:
+        ex = mp["experts"]
+        xe = moe_lib.dispatch_tokens(x2d, d, pl.num_padded, cap)
+        ye = moe_lib.grouped_ffn(xe, ex["w_gate"], ex["w_up"], ex["w_down"])
+        y = moe_lib.combine_tokens(ye, d, x2d.shape[0])
+    else:
+        y = _split_moe(x2d, d, cap, banks["moe/experts"], rank, ctx)
+    return _add_shared(y, x2d, mp, ctx, banks)
+
+
+# --------------------------------------------------------------------------
+# Route-before-gather MoE (``_moe_demand_apply`` of the JAX package).
+# --------------------------------------------------------------------------
+def _wanted_bitmap(d: moe_lib.Dispatch, e_pad: int) -> torch.Tensor:
+    """Activated-expert bitmap of the kept tokens (dropped tokens carry
+    zero combine weight, so their experts need no fetch)."""
+    hits = torch.zeros(e_pad, dtype=torch.int32, device=d.keep.device)
+    hits.index_add_(0, d.top_experts.reshape(-1), d.keep.to(torch.int32))
+    return hits > 0
+
+
+def _remap_and_run(x2d, d, cap: int, local_tree: dict, fetched: dict, ids, valid, p: int,
+                   ctx: Ctx):
+    """Dispatch through the compact bank — resident experts at ``[0,
+    local)``, fetched rows after them — and run the demand kernel. Experts
+    neither resident nor fetched receive only zero-weight traffic, so they
+    map to position 0."""
+    pl = ctx.geom.moe_placement
+    local, e_pad = pl.local_count, pl.num_padded
+    rows = valid.shape[0]
+    dev = x2d.device
+    pos = torch.zeros(e_pad + 1, dtype=torch.int64, device=dev)
+    pos[p * local + torch.arange(local, device=dev)] = torch.arange(local, device=dev)
+    pos[torch.where(valid, ids, e_pad)] = local + torch.arange(rows, device=dev)
+    exp = d.flat_slot // cap
+    slot = d.flat_slot - exp * cap
+    d2 = d._replace(flat_slot=pos[exp] * cap + slot)
+    xe = moe_lib.dispatch_tokens(x2d, d2, local + rows, cap)
+    lo, fe = local_tree, fetched
+    ye = split_gemm_lib.split_swiglu_demand(
+        xe,
+        lo["w_gate"], lo["w_up"], lo["w_down"],
+        fe["w_gate"], fe["w_up"], fe["w_down"],
+        valid,
+        impl=ctx.moe_impl,
+    )
+    return moe_lib.combine_tokens(ye, d2, x2d.shape[0])
+
+
+def _full_gather_moe(x2d, d, cap: int, shards: list, rank: int, ctx: Ctx):
+    """The overflow fallback: the full remote bank, landed now, and the
+    split path — exact for any routing."""
+    bank = prefetch.gather_split_bank(shards, rank, ctx.geom.moe_placement)
+    return _split_moe(x2d, d, cap, bank, rank, ctx)
+
+
+def _moe_demand_layer(h2fs: list, lps: list, ctx: Ctx, pipe: BankPipeline, lid, rows: int,
+                      preds, has_unit: bool):
+    """Route-before-gather MoE of one layer for every rank.
+
+    1. Every rank routes its tokens on its own router weights; the kept
+       tokens' experts form its wanted bitmap.
+    2. The cross-rank index round: the bitmaps are exchanged and each
+       rank's fetch schedule is compacted per peer to the budget; the
+       overflow flag is agreed over every rank and read on the host (the
+       layer's one sync — the JAX package branches on it on the device).
+    3. Per rank: the payload lands the requested rows (budget-padded) and
+       the demand kernel runs over the compact (resident, fetched) bank;
+       on overflow the full remote bank lands and the split path runs.
+
+    Predictive decode (``preds``: the layer's incoming per-rank
+    ``PredictState``) serves the wanted set first from the residency cache
+    and the layer-ahead speculative round (the pipeline unit's
+    :class:`SpecBank`); only the misses ride the correction round, whose
+    payload and the compact kernel run unconditionally — the full gather
+    replaces the result on fallback, as in the JAX package. The kernel
+    reads (cache | speculative | correction) as one fetched bank, so the
+    result is the all-fetch path's for any predictor state and budget.
+    Sync-free layers also cross-check the mirrored schedule with a digest
+    and replay every mirror's cache bookkeeping. Returns ``(outputs,
+    new per-rank PredictState or None)``."""
+    cfg, geom, xp = ctx.cfg, ctx.geom, ctx.xp
+    pl = geom.moe_placement
+    g, local, e_pad = pl.subgroup_size, pl.local_count, pl.num_padded
+    n = len(h2fs)
+    shards = [lp["moe"]["experts"] for lp in lps]
+    budget = resolve_demand_budget(cfg, geom, xp)
+    routes = [_route(x, lp["moe"], ctx, rows) for x, lp in zip(h2fs, lps)]
+    wanted = [_wanted_bitmap(d, e_pad) for d, _ in routes]
+
+    if not predictive_fetch_active(cfg, geom, xp):
+        plans = prefetch.plan_demand_fetch(wanted, pl, budget=budget)
+        fallback = bool(plans[0].overflow)
+        DEMAND.layers += 1
+        DEMAND.fallbacks += fallback
+        ys = []
+        for r in range(n):
+            banks = pipe.get(("ffn", lid, r)) if has_unit else {}
+            (d, cap), x2d = routes[r], h2fs[r]
+            if fallback:
+                y = _full_gather_moe(x2d, d, cap, shards, r, ctx)
+            else:
+                bank = prefetch.gather_demand_payload(shards, plans[r], r, pl, budget=budget)
+                y = _remap_and_run(x2d, d, cap, bank.local, bank.fetched, bank.fetched_ids,
+                                   bank.valid, r % g, ctx)
+                del bank
+            ys.append(_add_shared(y, x2d, lps[r]["moe"], ctx, banks))
+            del banks
+        return ys, None
+
+    sync_free = sync_free_active(cfg, geom, xp)
+    sbudget = min(resolve_spec_budget(cfg, geom, xp), local)
+    cbudget = min(budget, local)
+    spec_plans = _spec_plans(ctx, lid, preds)
+    dev = h2fs[0].device
+    diverged = torch.zeros((), dtype=torch.bool, device=dev)
+    if sync_free:
+        # mirrored-schedule cross-check: each rank's digest of the
+        # speculative schedule it derived, summed over its subgroup; any
+        # mismatch voids the speculative rows and forces the full gather
+        dgs = [prefetch.schedule_digest(pln.masks) for pln in spec_plans]
+        div = []
+        for r in range(n):
+            tot = sum(dgs[q] for q in prefetch.subgroup_ranks(r, pl))
+            div.append(torch.abs(g * dgs[r] - tot) > 0.5)
+        diverged = torch.stack(div).any()
+        cache_ids = [pred.cache_ids[r % g] for r, pred in enumerate(preds)]
+        cache_valid = [pred.cache_valid[r % g] for r, pred in enumerate(preds)]
+    else:
+        cache_ids = [pred.cache_ids for pred in preds]
+        cache_valid = [pred.cache_valid for pred in preds]
+    spec_valid = [pln.valid & ~diverged for pln in spec_plans]
+    have = [
+        (torch.cat([cache_ids[r], spec_plans[r].fetched_ids]),
+         torch.cat([cache_valid[r], spec_valid[r]]))
+        for r in range(n)
+    ]
+    corr_plans = prefetch.plan_demand_fetch(wanted, pl, budget=cbudget, exclude=have)
+    fallback = bool(corr_plans[0].overflow | diverged)
+    DEMAND.layers += 1
+    DEMAND.fallbacks += fallback
+    ys, new_preds = [], []
+    for r in range(n):
+        banks = pipe.get(("ffn", lid, r))
+        spec = banks["moe/experts"]
+        assert isinstance(spec, SpecBank), "predictive layers prefetch the speculative bank"
+        pred, p = preds[r], r % g
+        (d, cap), x2d = routes[r], h2fs[r]
+        n_cache = cache_ids[r].shape[0]
+        n_head = n_cache + (g - 1) * sbudget
+        corr = prefetch.gather_demand_payload(
+            shards, corr_plans[r], r, pl, budget=cbudget,
+            out=prefetch.tree_map(lambda b: b[n_head:], spec.landing),
+        )
+        ids_all = torch.cat([cache_ids[r], spec.bank.fetched_ids, corr.fetched_ids])
+        valid_all = torch.cat([cache_valid[r], spec_valid[r], corr.valid])
+        y = _remap_and_run(x2d, d, cap, shards[r], spec.landing, ids_all, valid_all, p, ctx)
+        if fallback:
+            y = _full_gather_moe(x2d, d, cap, shards, r, ctx)
+        ys.append(_add_shared(y, x2d, lps[r]["moe"], ctx, banks))
+
+        # ---- residency-cache insert: keep the EMA-hottest rows of (cache |
+        # this step's fetches); ids stay unique by the exclusion chain ----
+        neg_inf = torch.tensor(-math.inf, device=dev)
+        if sync_free:
+            # every rank replays every mirror's bookkeeping from the
+            # exchanged schedules and the pre-step mirror EMA
+            masks, resid_all = spec_plans[r].masks, corr_plans[r].masks
+            rep_ids, rep_valid, orders = [], [], []
+            for q in range(g):
+                s_ids, s_valid, _ = prefetch.plan_from_bitmap(masks[q], q, g, local, sbudget)
+                c_ids, c_valid, _ = prefetch.plan_from_bitmap(resid_all[q], q, g, local, cbudget)
+                ids_q = torch.cat([pred.cache_ids[q], s_ids, c_ids])
+                valid_q = torch.cat([pred.cache_valid[q], s_valid & ~diverged, c_valid])
+                score = torch.where(valid_q, pred.ema[q][ids_q], neg_inf)
+                order_q = torch.argsort(-score, stable=True)[:n_cache]
+                rep_ids.append(ids_q[order_q])
+                rep_valid.append(valid_q[order_q])
+                orders.append(order_q)
+            order = orders[p]
+            nc_valid = rep_valid[p]
+        else:
+            new_ema = prefetch.EMA_DECAY * pred.ema + (1.0 - prefetch.EMA_DECAY) * wanted[r].float()
+            score = torch.where(valid_all, new_ema[ids_all], neg_inf)
+            order = torch.argsort(-score, stable=True)[:n_cache]
+            nc_ids, nc_valid = ids_all[order], valid_all[order]
+        nc_w = prefetch.tree_map(
+            lambda w: prefetch.gather_rows(
+                w, order, torch.empty((order.shape[0],) + tuple(w.shape[1:]),
+                                      dtype=w.dtype, device=w.device)),
+            spec.landing,
+        )
+
+        # ---- hit/miss accounting over the wanted remote rows ----
+        local_mask = torch.zeros(e_pad, dtype=torch.bool, device=dev)
+        local_mask[p * local:(p + 1) * local] = True
+        wanted_remote = wanted[r] & ~local_mask
+        spec_map = prefetch.exclude_bitmap(e_pad, spec.bank.fetched_ids, spec_valid[r])
+        cache_map = prefetch.exclude_bitmap(e_pad, cache_ids[r], cache_valid[r])
+        n_pred = spec.bank.valid.sum().float()
+        n_new = spec.bank.valid.sum() + corr.valid.sum()
+        evicted = torch.clamp(cache_valid[r].sum() + n_new - nc_valid.sum(), min=0).float()
+        zero = torch.zeros((), device=dev)
+        if fallback:
+            # the full gather served every wanted remote row: no hits
+            stats = torch.stack([n_pred, zero, zero, wanted_remote.sum().float(), evicted])
+        else:
+            stats = torch.stack([
+                n_pred,
+                (wanted_remote & spec_map & ~cache_map).sum().float(),
+                (wanted_remote & cache_map).sum().float(),
+                corr.valid.sum().float(),
+                evicted,
+            ])
+        if sync_free:
+            k_top = d.top_experts.shape[-1]
+            routed = prefetch.routed_bitmaps(
+                torch.where(d.keep.reshape(-1, k_top), d.top_experts, e_pad), e_pad
+            )
+            new_preds.append(pred._replace(
+                cache_ids=torch.stack(rep_ids), cache_valid=torch.stack(rep_valid),
+                cache=nc_w, stats=stats, routed=routed,
+            ))
+        else:
+            new_preds.append(pred._replace(
+                prev=wanted[r], ema=new_ema, cache_ids=nc_ids, cache_valid=nc_valid,
+                cache=nc_w, stats=stats,
+            ))
+        del banks, spec, corr
+    return ys, new_preds
+
+
 # ==========================================================================
 # One layer, the stack.
 # ==========================================================================
-def apply_layer(xs, lps, sig: LayerSig, ctx: Ctx, lstates, pipe: BankPipeline, lid):
-    """One layer for every rank. ``lid`` names the layer's pipeline units."""
-    eps = ctx.cfg.norm_eps
-    keys = gather_set(sig, ctx.geom, ctx.xp)
+def apply_layer(xs, lps, sig: LayerSig, ctx: Ctx, lstates, pipe: BankPipeline, lid,
+                lpreds=None):
+    """One layer for every rank. ``lid`` names the layer's pipeline units;
+    ``lpreds`` is the layer's incoming per-rank ``PredictState`` (predictive
+    decode). Returns ``(xs, new_states, new_preds)``."""
+    cfg, eps = ctx.cfg, ctx.cfg.norm_eps
+    keys = gather_set(sig, ctx.geom, ctx.xp, cfg)
     hs = [rms_norm(x, lp["norm1"], eps) for x, lp in zip(xs, lps)]
     attn_banks = pipe.get(("attn", lid)) if "attn" in keys else None
     outs, new_states = _attn_layer(hs, lps, sig, ctx, lstates, attn_banks)
     del attn_banks
     xs = [x + o for x, o in zip(xs, outs)]
+    new_preds = None
     if "norm2" in lps[0]:
         ffn_keys = tuple(k for k in keys if k != "attn")
-        for r, lp in enumerate(lps):
-            h2 = rms_norm(xs[r], lp["norm2"], eps)
-            b, s, dm = h2.shape
-            h2f = h2.reshape(b * s, dm)
-            banks = pipe.get(("ffn", lid, r)) if ffn_keys else {}
-            if sig.is_moe:
-                y = _moe_apply(h2f, lp["moe"], ctx, banks, rows=b, rank=r)
-            else:
-                y = _ffn_apply(h2f, lp["ffn"], ctx, banks.get("ffn"))
-            del banks  # the next rank's unit lands in this one's place
-            xs[r] = xs[r] + y.reshape(b, s, dm)
-    return xs, new_states
+        h2s = [rms_norm(x, lp["norm2"], eps) for x, lp in zip(xs, lps)]
+        b, s, dm = h2s[0].shape
+        h2fs = [h.reshape(b * s, dm) for h in h2s]
+        if sig.is_moe and demand_fetch_active(cfg, ctx.geom, ctx.xp):
+            ys, new_preds = _moe_demand_layer(h2fs, lps, ctx, pipe, lid, b, lpreds,
+                                              bool(ffn_keys))
+        else:
+            ys = []
+            for r, lp in enumerate(lps):
+                banks = pipe.get(("ffn", lid, r)) if ffn_keys else {}
+                if sig.is_moe:
+                    ys.append(_moe_apply(h2fs[r], lp["moe"], ctx, banks, rows=b, rank=r))
+                else:
+                    ys.append(_ffn_apply(h2fs[r], lp["ffn"], ctx, banks.get("ffn")))
+                del banks  # the next rank's unit lands in this one's place
+        xs = [x + y.reshape(b, s, dm) for x, y in zip(xs, ys)]
+    return xs, new_states, new_preds
 
 
 def _index(tree, c):
@@ -524,11 +1004,18 @@ def _layer_params(params, group, c, j) -> list[dict]:
     return [_index(lp, c) for lp in lps] if group.scan else lps
 
 
-def _pipeline_units(params, ctx: Ctx) -> list:
+def _layer_preds(preds, group, c, j):
+    """The layer's incoming per-rank PredictState list, or None."""
+    if not preds or group.name not in preds or f"pos{j}" not in preds[group.name]:
+        return None
+    return preds[group.name][f"pos{j}"][c]
+
+
+def _pipeline_units(params, ctx: Ctx, preds=None) -> list:
     units = []
     geom, xp = ctx.geom, ctx.xp
     for group, c, j, sig in _layer_walk(ctx.model):
-        keys = gather_set(sig, geom, xp)
+        keys = gather_set(sig, geom, xp, ctx.cfg)
         if not keys:
             continue
         lid = (group.name, c, j)
@@ -537,19 +1024,25 @@ def _pipeline_units(params, ctx: Ctx) -> list:
             units.append((("attn", lid), lambda st, lps=lps: gather_attn(lps, geom, st)))
         ffn_keys = tuple(k for k in keys if k != "attn")
         if ffn_keys:
+            lpreds = _layer_preds(preds, group, c, j)
             for r in range(len(params)):
                 units.append((
                     ("ffn", lid, r),
-                    lambda st, lps=lps, r=r, ks=ffn_keys: gather_ffn(ks, lps, r, geom, st),
+                    lambda st, lps=lps, r=r, ks=ffn_keys, lpreds=lpreds, lid=lid: gather_ffn(
+                        ks, lps, r, ctx, st, lpreds, lid),
                 ))
     return units
 
 
 def _run_stack(params, xs, ctx: Ctx, states):
-    """The layer stack (scan groups become a Python loop over cycles)."""
+    """The layer stack (scan groups become a Python loop over cycles).
+    Returns ``(xs, new layer states, new predict states)``."""
     model = ctx.model
-    pipe = BankPipeline(_pipeline_units(params, ctx), model.device)
+    preds = states.get("pred") if states is not None else None
+    ctx.spec_plans = {}
+    pipe = BankPipeline(_pipeline_units(params, ctx, preds), model.device)
     new_layers: dict = {}
+    new_preds: dict = {}
     for group, c, j, sig in _layer_walk(model):
         lps = _layer_params(params, group, c, j)
         lstates = None
@@ -557,7 +1050,10 @@ def _run_stack(params, xs, ctx: Ctx, states):
             lstates = states["layers"][group.name][f"pos{j}"]
             if group.scan:
                 lstates = [_index(st, c) for st in lstates]
-        xs, ns = apply_layer(xs, lps, sig, ctx, lstates, pipe, (group.name, c, j))
+        xs, ns, npred = apply_layer(xs, lps, sig, ctx, lstates, pipe, (group.name, c, j),
+                                    _layer_preds(preds, group, c, j))
+        if npred is not None:
+            new_preds.setdefault(group.name, {}).setdefault(f"pos{j}", []).append(npred)
         if ns is not None:
             gd = new_layers.setdefault(group.name, {})
             if group.scan:
@@ -571,7 +1067,7 @@ def _run_stack(params, xs, ctx: Ctx, states):
                     {f: torch.stack([cyc[r][f] for cyc in cycles]) for f in cycles[0][r]}
                     for r in range(len(cycles[0]))
                 ]
-    return xs, new_layers
+    return xs, new_layers, new_preds
 
 
 def _check_sharding(ctx: Ctx) -> None:
@@ -600,7 +1096,7 @@ def forward_prefill(params: list[dict], tokens: torch.Tensor, ctx: Ctx) -> dict:
     s_l = s // n
     ctx.q_offsets = tuple(r * s_l for r in range(n))
     xs = [_embed(params, tokens[:, r * s_l:(r + 1) * s_l], ctx.model) for r in range(n)]
-    xs, new_states = _run_stack(params, xs, ctx, None)
+    xs, new_states, _ = _run_stack(params, xs, ctx, None)
     xl = rms_norm(xs[-1], params[-1]["final_norm"], ctx.cfg.norm_eps)[:, -1]
     logits = torch.cat([_rank_logits(xl, p, r, ctx) for r, p in enumerate(params)], dim=-1)
     out = {"last_logits": logits}
@@ -623,7 +1119,7 @@ def forward_decode(params: list[dict], token: torch.Tensor, state: dict, ctx: Ct
     n = ctx.model.n_ranks
     ctx.pos = state["pos"]
     x = _embed(params, token, ctx.model)
-    xs, new_layers = _run_stack(params, [x] * n, ctx, state)
+    xs, new_layers, new_preds = _run_stack(params, [x] * n, ctx, state)
     vals, idxs, logits = [], [], []
     for r, (x, p) in enumerate(zip(xs, params)):
         h = rms_norm(x, p["final_norm"], ctx.cfg.norm_eps)[:, 0]
@@ -634,4 +1130,120 @@ def forward_decode(params: list[dict], token: torch.Tensor, state: dict, ctx: Ct
     best = torch.stack(vals).argmax(dim=0)
     nxt = torch.stack(idxs).gather(0, best[None])[0].to(torch.int32)
     new_state = {"pos": state["pos"] + 1, "layers": new_layers}
-    return {"next_token": nxt[:, None], "state": new_state, "logits": torch.cat(logits, dim=-1)}
+    out = {"next_token": nxt[:, None], "state": new_state, "logits": torch.cat(logits, dim=-1)}
+    if new_preds:
+        new_preds = _fold_mirrors(new_preds, state["pred"], ctx)
+        new_state["pred"] = new_preds
+        # [predicted, spec_hit, cache_hit, corr_rows, evicted] expert rows
+        # this step, summed over layers and ranks
+        out["pred_stats"] = sum(
+            ps.stats for gd in new_preds.values() for cycles in gd.values()
+            for ranks in cycles for ps in ranks
+        )
+    return out
+
+
+def _fold_mirrors(new_preds: dict, preds_in: dict, ctx: Ctx) -> dict:
+    """The sync-free per-step mirror fold: union every sync-free layer's
+    routed bitmaps per rank, exchange them (with the position buckets) in
+    one packed all-gather per subgroup, fold each rank's mirror once from
+    its pre-step state with :func:`prefetch.update_predictor`, and write
+    the folded predictor fields into every sync-free layer's outgoing
+    state. No-op when no layer ran sync-free."""
+    sf = [
+        (gname, pos, c)
+        for gname, gd in new_preds.items() for pos, cycles in gd.items()
+        for c, ranks in enumerate(cycles) if ranks[0].routed is not None
+    ]
+    if not sf:
+        return new_preds
+    pl = ctx.geom.moe_placement
+    n = len(new_preds[sf[0][0]][sf[0][1]][sf[0][2]])
+    buckets = prefetch.position_buckets(ctx.pos)
+    packed = []
+    for r in range(n):
+        routed = None
+        for gname, pos, c in sf:
+            rr = new_preds[gname][pos][c][r].routed
+            routed = rr if routed is None else routed | rr
+        packed.append(prefetch.pack_mirror_payload(routed, buckets))
+    # pre-step mirrors are identical across sync-free layers by
+    # construction, so the first layer's incoming state seeds the fold
+    g0, p0, c0 = sf[0]
+    out = {gname: {pos: [list(r) for r in cycles] for pos, cycles in gd.items()}
+           for gname, gd in new_preds.items()}
+    for r in range(n):
+        gathered = torch.stack([packed[q] for q in prefetch.subgroup_ranks(r, pl)])
+        routed_all, buckets_all = prefetch.unpack_mirror_payload(gathered, pl.num_padded)
+        m = preds_in[g0][p0][c0][r]
+        prev, ema, aff, posb, sig, sigw = prefetch.update_predictor(
+            m.ema, m.aff, m.posb, m.sigw, routed_all, buckets_all)
+        for gname, pos, c in sf:
+            out[gname][pos][c][r] = out[gname][pos][c][r]._replace(
+                routed=None, prev=prev, ema=ema, aff=aff, posb=posb, sig=sig, sigw=sigw)
+    return out
+
+
+# ==========================================================================
+# Predictive-fetch state lifecycle (decode only).
+# ==========================================================================
+def init_predict_state(model: Model, xp: ExecutionPlan) -> dict:
+    """Cold per-rank :class:`prefetch.PredictState` of every predictive
+    MoE layer: ``{group: {posJ: [cycle][rank] PredictState}}``, or ``{}``
+    when the plan runs no predictive decode layer. Cold = empty predictor
+    and invalid cache: the first step's speculative round fetches nothing
+    and the correction round is the plain demand round."""
+    cfg, geom = model.cfg, model.geom
+    if not (cfg.moe is not None and predictive_fetch_active(cfg, geom, xp)):
+        return {}
+    pl = geom.moe_placement
+    e_pad, gsz = pl.num_padded, pl.subgroup_size
+    rows = resolve_cache_rows(cfg, geom, xp)
+    dm, fe = cfg.d_model, cfg.moe.d_ff
+    dev = model.device
+    sync_free = sync_free_active(cfg, geom, xp)
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def one_rank():
+        lead = (gsz,) if sync_free else ()
+        ps = prefetch.PredictState(
+            prev=zeros(*lead, e_pad, dtype=torch.bool),
+            ema=zeros(*lead, e_pad),
+            cache_ids=zeros(*lead, rows, dtype=torch.int64),
+            cache_valid=zeros(*lead, rows, dtype=torch.bool),
+            cache={
+                "w_gate": zeros(rows, dm, fe, dtype=model.dtype),
+                "w_up": zeros(rows, dm, fe, dtype=model.dtype),
+                "w_down": zeros(rows, fe, dm, dtype=model.dtype),
+            },
+            stats=zeros(5),
+        )
+        if sync_free:
+            ps = ps._replace(
+                aff=zeros(gsz, max(1, xp.local_batch), e_pad),
+                posb=zeros(gsz, prefetch.N_POS_BUCKETS, e_pad),
+                sig=zeros(gsz, 2, e_pad),
+                sigw=zeros(gsz, 2),
+            )
+        return ps
+
+    out: dict = {}
+    for group in model.plan:
+        gdict = {
+            f"pos{j}": [[one_rank() for _ in range(model.n_ranks)] for _ in range(group.n_cycles)]
+            for j, sig in enumerate(group.sigs) if sig.is_moe
+        }
+        if gdict:
+            out[group.name] = gdict
+    return out
+
+
+def attach_predict_state(state: dict, model: Model, xp: ExecutionPlan) -> dict:
+    """``state`` with a cold ``state["pred"]`` attached when the plan runs
+    the predictive fetch (unchanged otherwise)."""
+    pred = init_predict_state(model, xp)
+    if not pred:
+        return state
+    return dict(state, pred=pred)

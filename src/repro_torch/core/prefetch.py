@@ -16,10 +16,21 @@ Only the ``allgather`` transport is ported (one copy per peer shard, all
 independent); ``ring`` and ``ring_sliced`` are later work. The engine
 issues these copies on a side CUDA stream one unit of work ahead
 (``core.execution.BankPipeline``).
+
+The second half ports the route-before-gather primitives of the demand,
+predictive and sync-free expert fetch (``DemandBank``, ``PredictState``,
+``plan_demand_fetch``, ``gather_demand_payload``, the predictor and the
+sync-free mirror helpers). Their cross-rank steps run in process over the
+logical ranks: the bitmap all-gather is a ``torch.stack`` in subgroup
+order, the axis-agreed overflow flag an ``any`` over every rank, and a
+payload a row gather (:func:`gather_rows`) of the requested rows of each
+peer's resident shard into the requester's landing buffer. Expert ids
+are int64.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Any, NamedTuple
 
 import torch
@@ -35,6 +46,19 @@ class SplitBank(NamedTuple):
 
     local: PyTree
     remote: PyTree
+
+
+class LandingCounter:
+    """Bytes copied from peers' resident shards into landing buffers
+    (split banks and demand payloads): the in-process stand-in for the
+    wire bytes of the pulls. A plain integer a caller may read and
+    reset."""
+
+    def __init__(self):
+        self.bytes = 0
+
+
+LANDED = LandingCounter()
 
 
 class AttnBank(NamedTuple):
@@ -86,6 +110,7 @@ def gather_remote_shards(shards: list, rank: int, placement: Placement, *,
         with on_side:
             for j, src in enumerate(remote):
                 out[j * n:(j + 1) * n].copy_(src, non_blocking=True)
+        LANDED.bytes += out.numel() * out.element_size()
         return out
 
     if not peers:
@@ -118,3 +143,309 @@ def merge_split_bank(bank: SplitBank, rank: int, placement: Placement) -> PyTree
         return rot[idx]
 
     return tree_map(merge, bank.local, bank.remote)
+
+
+# --------------------------------------------------------------------------
+# On-demand expert fetch: the two-round route-before-gather primitive.
+# --------------------------------------------------------------------------
+class DemandBank(NamedTuple):
+    """Output of the on-demand expert fetch.
+
+    ``local``: the resident shard tree, untouched. ``fetched``: the
+    fetched tree, leading dim ``(G' - 1) * budget`` — peer-major (distance
+    1 first), each peer's chunk compacted to ascending expert id and padded
+    to the per-peer ``budget``. ``fetched_ids``: the padded-canonical
+    expert id of each fetched row (undefined where ``valid`` is False).
+    ``valid``: False rows are padding (their weights are real rows of the
+    peer's shard, never dispatched to)."""
+
+    local: PyTree
+    fetched: PyTree
+    fetched_ids: torch.Tensor
+    valid: torch.Tensor
+
+
+#: EMA decay of the predictive-fetch hotness tracker.
+EMA_DECAY = 0.875
+#: Sync-free richer-predictor decays: per-row expert affinity, decode-
+#: position bucket histograms, per-layer signal weights.
+AFF_DECAY = 0.9
+POS_DECAY = 0.96875
+SIGW_DECAY = 0.875
+#: Decode positions histogrammed into buckets of POS_BUCKET_SIZE steps
+#: (the last bucket is open-ended).
+N_POS_BUCKETS = 4
+POS_BUCKET_SIZE = 64
+
+
+class PredictState(NamedTuple):
+    """One logical rank's predictor + residency-cache state of one MoE
+    layer (the JAX package's ``PredictState`` without its leading per-rank
+    dim: the port keeps one object per rank).
+
+    ``prev`` (E,) bool: the previous step's activated bitmap. ``ema`` (E,)
+    f32: EMA activation frequency (:data:`EMA_DECAY`). ``cache_ids`` /
+    ``cache_valid`` (rows,) int64 / bool: the expert id of each cache slot.
+    ``cache``: the cached weight rows, ``(rows, ...)`` per leaf.
+    ``stats`` (5,) f32: this step's ``[predicted, spec_hit, cache_hit,
+    corr_rows, evicted]``.
+
+    Sync-free: ``prev``/``ema`` are ``(G', E)`` and ``cache_ids``/
+    ``cache_valid`` ``(G', rows)`` — every rank mirrors the bookkeeping of
+    each peer of its subgroup (the cached weights stay its own) — and the
+    richer predictor engages: ``aff`` (G', rows_b, E), ``posb`` (G',
+    N_POS_BUCKETS, E), ``sig`` (G', 2, E), ``sigw`` (G', 2). ``routed`` is
+    a within-step channel (a layer's routed bitmaps for the per-step
+    mirror fold), None in the carried state."""
+
+    prev: torch.Tensor
+    ema: torch.Tensor
+    cache_ids: torch.Tensor
+    cache_valid: torch.Tensor
+    cache: PyTree
+    stats: torch.Tensor
+    aff: Any = None
+    posb: Any = None
+    sig: Any = None
+    sigw: Any = None
+    routed: Any = None
+
+
+class DemandPlan(NamedTuple):
+    """One rank's view of the index exchange: ``masks`` (G', E) every
+    subgroup peer's wanted bitmap; ``fetched_ids`` / ``valid`` the
+    requester-side fetch schedule; ``overflow`` the agreed flag (0-d bool
+    tensor, the same object on every rank)."""
+
+    masks: torch.Tensor
+    fetched_ids: torch.Tensor
+    valid: torch.Tensor
+    overflow: torch.Tensor
+
+
+def _compact_requests(mask_slice: torch.Tensor, budget: int):
+    """Wanted indices of one peer slice in ascending order, padded to
+    ``budget`` with the unwanted ones (real rows, covered by ``valid``).
+    Returns ``(idx, valid, count)``."""
+    order = torch.argsort((~mask_slice).to(torch.int8), stable=True)
+    count = mask_slice.sum()
+    idx = order[:budget]
+    valid = torch.arange(idx.shape[0], device=mask_slice.device) < torch.clamp(count, max=budget)
+    return idx, valid, count
+
+
+def exclude_bitmap(num_padded: int, exclude_ids: torch.Tensor,
+                   exclude_valid: torch.Tensor) -> torch.Tensor:
+    """Scatter a (ids, valid) row set into a ``(num_padded,)`` bool bitmap;
+    invalid rows are dropped."""
+    out = torch.zeros(num_padded + 1, dtype=torch.bool, device=exclude_ids.device)
+    out[torch.where(exclude_valid, exclude_ids, num_padded)] = True
+    return out[:num_padded]
+
+
+def plan_from_bitmap(wanted: torch.Tensor, p: int, g: int, local: int, budget: int):
+    """Requester-side fetch schedule of subgroup position ``p`` from its
+    ``(num_padded,)`` wanted bitmap: per peer (distance 1 first) the
+    ascending-id compaction padded to ``budget``. Returns ``(fetched_ids,
+    valid, overflow)`` with a raw (un-agreed) 0-d overflow flag."""
+    ids, valids = [], []
+    overflow = torch.zeros((), dtype=torch.bool, device=wanted.device)
+    for t in range(1, g):
+        o = (p + t) % g
+        idx, valid_t, cnt = _compact_requests(wanted[o * local:(o + 1) * local], budget)
+        ids.append(o * local + idx)
+        valids.append(valid_t)
+        overflow = overflow | (cnt > budget)
+    if not ids:
+        return (torch.zeros(0, dtype=torch.int64, device=wanted.device),
+                torch.zeros(0, dtype=torch.bool, device=wanted.device), overflow)
+    return torch.cat(ids), torch.cat(valids), overflow
+
+
+def gather_rows(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``out[i] = src[idx[i]]`` for a contiguous stack of rows, copied as
+    the widest integer words that divide a row's bytes: the bytes move
+    unchanged, and ``index_select`` over 8-byte words runs near copy speed
+    where over 2-byte bf16 elements it does not."""
+    row = math.prod(src.shape[1:])
+    word = next(w for w in (torch.int64, torch.int32, torch.int16, torch.uint8)
+                if row * src.element_size() % w.itemsize == 0)
+    torch.index_select(src.reshape(src.shape[0], row).view(word), 0, idx,
+                       out=out.view(out.shape[0], row).view(word))
+    return out
+
+
+def subgroup_ranks(rank: int, placement: Placement) -> list[int]:
+    """The ranks of ``rank``'s subgroup, in subgroup-position order."""
+    g = placement.subgroup_size
+    base = (rank // g) * g
+    return [base + q for q in range(g)]
+
+
+def plan_demand_fetch(wanted: list, placement: Placement, *, budget: int,
+                      exclude: Any = None) -> list[DemandPlan]:
+    """Round 1 — the index exchange, for every rank at once. ``wanted[r]``
+    is rank r's ``(num_padded,)`` activated bitmap; ``exclude[r]``
+    (optional) the ``(ids, valid)`` rows rank r already holds, subtracted
+    before the exchange. The bitmaps are all-gathered per subgroup and the
+    overflow flag is agreed over every rank. Returns one plan per rank."""
+    g, local = placement.subgroup_size, placement.local_count
+    budget = min(budget, local)
+    if exclude is not None:
+        wanted = [
+            w & ~exclude_bitmap(placement.num_padded, ids, valid)
+            for w, (ids, valid) in zip(wanted, exclude)
+        ]
+    scheds = [plan_from_bitmap(w, r % g, g, local, budget) for r, w in enumerate(wanted)]
+    overflow = torch.stack([ovf for _, _, ovf in scheds]).any()
+    plans = []
+    for r, (ids, valid, _) in enumerate(scheds):
+        masks = torch.stack([wanted[q] for q in subgroup_ranks(r, placement)])
+        plans.append(DemandPlan(masks=masks, fetched_ids=ids, valid=valid, overflow=overflow))
+    return plans
+
+
+def gather_demand_payload(shards: list, plan: DemandPlan, rank: int, placement: Placement, *,
+                          budget: int, mode: str = "allgather", out: Any = None,
+                          copy_stream=None) -> DemandBank:
+    """Round 2 — the payload for ``rank``: each subgroup peer serves the
+    rows this rank asked it for out of its resident shard (the sender-side
+    compaction of ``plan.masks``, which every rank holds identically),
+    padded to ``budget``, landed peer-major into the rank's buffer
+    (``out``: a preallocated tree of ``(G'-1) * budget`` rows, or fresh
+    buffers allocated on the current stream). Copies run on
+    ``copy_stream`` when one is given."""
+    if mode != "allgather":
+        raise NotImplementedError(f"transport {mode!r} is not ported yet (only 'allgather')")
+    g, local = placement.subgroup_size, placement.local_count
+    budget = min(budget, local)
+    own = shards[rank]
+    ranks = subgroup_ranks(rank, placement)
+    p = rank % g
+    idx_by_t = []
+    for t in range(1, g):
+        o = (p + t) % g
+        idx, _, _ = _compact_requests(plan.masks[p, o * local:(o + 1) * local], budget)
+        idx_by_t.append((ranks[o], idx))
+
+    n_src = len(idx_by_t)
+    if copy_stream is not None:
+        # the row indices were computed on the current stream just now
+        copy_stream.wait_stream(torch.cuda.current_stream(copy_stream.device))
+
+    def land(lo, *leaves):
+        srcs, dst = leaves[:n_src], leaves[n_src:]
+        buf = dst[0] if dst else torch.empty(
+            ((g - 1) * budget,) + tuple(lo.shape[1:]), dtype=lo.dtype, device=lo.device)
+        on_side = (torch.cuda.stream(copy_stream) if copy_stream is not None
+                   else contextlib.nullcontext())
+        with on_side:
+            for t, (src, (_, idx)) in enumerate(zip(srcs, idx_by_t)):
+                gather_rows(src, idx, buf[t * budget:(t + 1) * budget])
+                if copy_stream is not None:
+                    idx.record_stream(copy_stream)
+        LANDED.bytes += buf.numel() * buf.element_size()
+        return buf
+
+    peers = [shards[r] for r, _ in idx_by_t]
+    fetched = tree_map(land, own, *peers, *(() if out is None else (out,)))
+    return DemandBank(local=own, fetched=fetched, fetched_ids=plan.fetched_ids, valid=plan.valid)
+
+
+def predict_bitmap(prev: torch.Tensor, ema: torch.Tensor, placement: Placement, *,
+                   budget: int, exclude_ids: Any = None, exclude_valid: Any = None,
+                   extra_score: Any = None) -> torch.Tensor:
+    """The speculative round's predicted bitmap: per subgroup slice the
+    top-``budget`` experts by score — previous-step activation (+2), EMA
+    frequency, the optional ``extra_score`` — minus the excluded
+    (cache-resident) rows. Cold experts (score 0) are never predicted.
+    Ties go to the lower expert id, as XLA's top-k does."""
+    e_pad, local, g = placement.num_padded, placement.local_count, placement.subgroup_size
+    budget = min(budget, local)
+    score = prev.float() * 2.0 + ema
+    if extra_score is not None:
+        score = score + extra_score
+    if exclude_ids is not None:
+        score = torch.where(exclude_bitmap(e_pad, exclude_ids, exclude_valid),
+                            torch.zeros((), device=score.device), score)
+    rows = score.reshape(g, local)
+    top_idx = torch.argsort(-rows, dim=-1, stable=True)[:, :budget]
+    top_vals = torch.gather(rows, 1, top_idx)
+    ids = (torch.arange(g, device=rows.device)[:, None] * local + top_idx).reshape(-1)
+    keep = (top_vals > 0.0).reshape(-1)
+    out = torch.zeros(e_pad + 1, dtype=torch.bool, device=rows.device)
+    out[torch.where(keep, ids, e_pad)] = True
+    return out[:e_pad]
+
+
+# --------------------------------------------------------------------------
+# Sync-free decode: mirrored-predictor helpers. Every rank derives every
+# subgroup peer's speculative schedule from its mirrored PredictState, so
+# the speculative round ships no index metadata; the mirrors are folded
+# from one exchanged payload per step and cross-checked with a digest.
+# --------------------------------------------------------------------------
+def routed_bitmaps(top_experts: torch.Tensor, num_padded: int) -> torch.Tensor:
+    """``(rows, num_padded)`` per-row activated bitmaps from ``(rows,
+    top_k)`` expert ids (ids >= num_padded are dropped)."""
+    rows = top_experts.shape[0]
+    out = torch.zeros(rows, num_padded + 1, dtype=torch.bool, device=top_experts.device)
+    safe = torch.clamp(top_experts, max=num_padded)
+    out[torch.arange(rows, device=top_experts.device)[:, None], safe] = True
+    return out[:, :num_padded]
+
+
+def position_buckets(pos: torch.Tensor) -> torch.Tensor:
+    """``(rows, N_POS_BUCKETS)`` one-hot of each row's decode-position
+    bucket."""
+    b = torch.clamp(pos // POS_BUCKET_SIZE, 0, N_POS_BUCKETS - 1)
+    return b[..., None] == torch.arange(N_POS_BUCKETS, device=pos.device)
+
+
+def pack_mirror_payload(routed: torch.Tensor, buckets: torch.Tensor) -> torch.Tensor:
+    """One rank's per-step mirror payload: ``[routed | buckets]`` flat."""
+    return torch.cat([routed.reshape(-1), buckets.reshape(-1)])
+
+
+def unpack_mirror_payload(packed: torch.Tensor, num_padded: int):
+    """Inverse of :func:`pack_mirror_payload`; leading dims pass through."""
+    rows = packed.shape[-1] // (num_padded + N_POS_BUCKETS)
+    r_end = rows * num_padded
+    lead = tuple(packed.shape[:-1])
+    routed = packed[..., :r_end].reshape(lead + (rows, num_padded))
+    buckets = packed[..., r_end:].reshape(lead + (rows, N_POS_BUCKETS))
+    return routed, buckets
+
+
+def predict_extra_score(sig: torch.Tensor, sigw: torch.Tensor) -> torch.Tensor:
+    """The richer predictors' additive score: ``(..., 2, E) x (..., 2) ->
+    (..., E)``, at most 2.0."""
+    return torch.einsum("...s,...se->...e", sigw, sig)
+
+
+def update_predictor(ema, aff, posb, sigw, routed, buckets):
+    """Fold one step of exchanged routing into predictor slots (leading
+    dims broadcast, so one call folds every mirror). ``routed`` (..., rows,
+    E) bool, ``buckets`` (..., rows, N_POS_BUCKETS) bool. Returns ``(prev,
+    ema, aff, posb, sig, sigw)``."""
+    union = routed.any(dim=-2)
+    uf = union.float()
+    new_ema = EMA_DECAY * ema + (1.0 - EMA_DECAY) * uf
+    rf = routed.float()
+    bf = buckets.float()
+    new_aff = AFF_DECAY * aff + (1.0 - AFF_DECAY) * rf
+    new_posb = POS_DECAY * posb + (1.0 - POS_DECAY) * torch.einsum("...bn,...be->...ne", bf, rf)
+    aff_sig = new_aff.amax(dim=-2)
+    pos_sig = (bf @ new_posb).amax(dim=-2)
+    sig = torch.stack([aff_sig, pos_sig], dim=-2)
+    sig = sig / torch.clamp(sig.amax(dim=-1, keepdim=True), min=1e-6)
+    qual = (sig * uf[..., None, :]).sum(dim=-1) / torch.clamp(uf.sum(dim=-1, keepdim=True), min=1.0)
+    new_sigw = torch.clamp(SIGW_DECAY * sigw + (1.0 - SIGW_DECAY) * qual, 0.0, 1.0)
+    return union, new_ema, new_aff, new_posb, sig, new_sigw
+
+
+def schedule_digest(masks: torch.Tensor) -> torch.Tensor:
+    """Integer-valued f32 digest of a derived schedule: the positionally
+    weighted sum of the mask bits (weights ``i % 61 + 1``)."""
+    flat = masks.reshape(-1).float()
+    w = torch.arange(flat.shape[0], device=flat.device, dtype=torch.float32) % 61.0 + 1.0
+    return (flat * w).sum()

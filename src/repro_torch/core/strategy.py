@@ -5,9 +5,12 @@ reads: ``GatherPolicy`` / ``PolicyTable`` (the per-family configuration
 surface — ``moe_experts``, ``attn_qkv``, ``attn_out``, ``dense_ffn``),
 ``ExecutionPlan``, ``plan_activation_sharding`` and
 ``make_execution_plan``. The roofline ``auto`` resolver and the
-deprecated flat knobs are not ported. The port executes the uniform
-``split:all:allgather`` table; other policies validate here and are
-refused by ``make_execution_plan`` until their slices land.
+deprecated flat knobs are not ported. The port executes
+``split:all:allgather`` for every family, and for ``moe_experts`` also
+the route-before-gather fetches ``demand``, ``predictive`` and
+``sync_free`` (with their ``budget`` / ``cache_budget``) over the
+``allgather`` transport; other policies validate here and are refused by
+``make_execution_plan`` until their slices land.
 """
 from __future__ import annotations
 
@@ -188,8 +191,16 @@ def plan_activation_sharding(
     return tuple(batch_axes), tuple(seq_axes)
 
 
-#: The one policy the port executes today, for every family.
+#: The policy the port executes for every family; ``moe_experts`` may
+#: also take any fetch of ``PORTED_EXPERT_FETCH`` with its budgets.
 PORTED_POLICY = GatherPolicy(layout="split", fetch="all", transport="allgather")
+PORTED_EXPERT_FETCH = ("all", "demand", "predictive", "sync_free")
+
+
+def _ported(family: str, pol: GatherPolicy) -> bool:
+    if family == "moe_experts" and pol.fetch in PORTED_EXPERT_FETCH:
+        pol = dataclasses.replace(pol, fetch="all", budget=0, cache_budget=0)
+    return pol == PORTED_POLICY
 
 
 def make_execution_plan(
@@ -217,10 +228,11 @@ def make_execution_plan(
     else:
         raise TypeError(f"cannot build a PolicyTable from {policy!r}")
     for fam in GATHER_FAMILIES:
-        if table.family(fam) != PORTED_POLICY:
+        if not _ported(fam, table.family(fam)):
             raise NotImplementedError(
                 f"policy {table.family(fam).spec()!r} for {fam} is not ported "
-                f"yet; the port runs {PORTED_POLICY.spec()!r}"
+                f"yet; the port runs {PORTED_POLICY.spec()!r} (moe_experts also "
+                f"with fetch in {PORTED_EXPERT_FETCH[1:]})"
             )
     batch_axes, seq_axes = plan_activation_sharding(model.cfg, shape, mesh_sizes)
     return ExecutionPlan(

@@ -24,6 +24,8 @@ KERNELS = (
     "split_stack_gemm",
     "split_reduce_gemm",
     "split_dense_swiglu",
+    "split_grouped_swiglu_demand",
+    "split_grouped_gemm",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -23,6 +23,13 @@
 // fixed order (k ascending, slices ascending, partials in index order)
 // with no atomics, so every result is deterministic. wgmma, TMA and
 // multi-stage pipelining are later work.
+//
+// The grouped and gate/up kernels take an optional ``valid`` vector (one
+// byte per expert of the second bank; nullptr: every expert is real).
+// The demand kernel passes it: a padding row of its budget-padded fetched
+// bank reads no weights, its accumulators stay zero and its output block
+// is written as zeros. Every other expert runs exactly the code it runs
+// without the vector, so its result is bitwise the same.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -65,6 +72,11 @@ struct Smem {
   T a[C::BM][C::BK + PAD];
   T b[NB][C::BK][C::BN + PAD];
 };
+
+// True for an expert of the second bank that ``valid`` marks as padding.
+__device__ __forceinline__ bool skip_expert(const unsigned char* valid, int g, int n_local) {
+  return valid != nullptr && g >= n_local && valid[g - n_local] == 0;
+}
 
 __device__ __forceinline__ bool aligned16(const void* p, long ld, int vec) {
   return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && (ld % vec == 0);
@@ -150,7 +162,7 @@ template <typename T, class C>
 __global__ void __launch_bounds__(C::THREADS)
 grouped_kernel(const T* __restrict__ A, long a_stride, const T* __restrict__ w_local,
                const T* __restrict__ w_remote, T* __restrict__ out, int n_local, int M, int K,
-               int N) {
+               int N, const unsigned char* __restrict__ valid) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<Smem<T, C, 1>*>(smem_raw);
   const int g = blockIdx.z;
@@ -160,7 +172,8 @@ grouped_kernel(const T* __restrict__ A, long a_stride, const T* __restrict__ w_l
   float acc[1][C::TM][C::TN];
   zero_acc<T, C, 1>(acc);
   const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
-  gemm_tile<T, C, 1>(sm, A + g * a_stride, K, B, N, M, N, K, m0, n0, acc);
+  if (!skip_expert(valid, g, n_local))
+    gemm_tile<T, C, 1>(sm, A + g * a_stride, K, B, N, M, N, K, m0, n0, acc);
   T* o = out + (long)g * M * N;
   const int tx = threadIdx.x % C::TX, ty = threadIdx.x / C::TX;
 #pragma unroll
@@ -181,7 +194,7 @@ __global__ void __launch_bounds__(C::THREADS)
 gate_up_kernel(const T* __restrict__ A, long a_stride, const T* __restrict__ g_local,
                const T* __restrict__ u_local, const T* __restrict__ g_remote,
                const T* __restrict__ u_remote, T* __restrict__ h, int n_local, int M, int K,
-               int N) {
+               int N, const unsigned char* __restrict__ valid) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<Smem<T, C, 2>*>(smem_raw);
   const int g = blockIdx.z;
@@ -192,7 +205,8 @@ gate_up_kernel(const T* __restrict__ A, long a_stride, const T* __restrict__ g_l
   float acc[2][C::TM][C::TN];
   zero_acc<T, C, 2>(acc);
   const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
-  gemm_tile<T, C, 2>(sm, A + g * a_stride, K, B, N, M, N, K, m0, n0, acc);
+  if (!skip_expert(valid, g, n_local))
+    gemm_tile<T, C, 2>(sm, A + g * a_stride, K, B, N, M, N, K, m0, n0, acc);
   T* o = h + (long)g * M * N;
   const int tx = threadIdx.x % C::TX, ty = threadIdx.x / C::TX;
 #pragma unroll
@@ -343,7 +357,7 @@ template <typename T>
 __global__ void __launch_bounds__(GV_THREADS)
 gv_grouped_kernel(const T* __restrict__ A, long a_stride, const T* __restrict__ w_local,
                   const T* __restrict__ w_remote, T* __restrict__ out, int n_local, int M, int K,
-                  int N) {
+                  int N, const unsigned char* __restrict__ valid) {
   __shared__ GvSmem<T, 1> sm;
   const int g = blockIdx.z;
   const long wsz = (long)K * N;
@@ -351,7 +365,7 @@ gv_grouped_kernel(const T* __restrict__ A, long a_stride, const T* __restrict__ 
   float acc[1][GV_MAXM][Vec<T>::N];
   gv_zero<T, 1>(acc);
   const int n0 = blockIdx.x * GV_BN;
-  gv_accum<T, 1>(A + g * a_stride, K, B, N, M, N, K, n0, acc);
+  if (!skip_expert(valid, g, n_local)) gv_accum<T, 1>(A + g * a_stride, K, B, N, M, N, K, n0, acc);
   float tot[1];
   gv_reduce<T, 1>(sm, acc, tot);
   const int m = threadIdx.x / GV_BN, c = n0 + threadIdx.x % GV_BN;
@@ -364,7 +378,7 @@ __global__ void __launch_bounds__(GV_THREADS)
 gv_gate_up_kernel(const T* __restrict__ A, long a_stride, const T* __restrict__ g_local,
                   const T* __restrict__ u_local, const T* __restrict__ g_remote,
                   const T* __restrict__ u_remote, T* __restrict__ h, int n_local, int M, int K,
-                  int N) {
+                  int N, const unsigned char* __restrict__ valid) {
   __shared__ GvSmem<T, 2> sm;
   const int g = blockIdx.z;
   const long wsz = (long)K * N;
@@ -374,7 +388,7 @@ gv_gate_up_kernel(const T* __restrict__ A, long a_stride, const T* __restrict__ 
   float acc[2][GV_MAXM][Vec<T>::N];
   gv_zero<T, 2>(acc);
   const int n0 = blockIdx.x * GV_BN;
-  gv_accum<T, 2>(A + g * a_stride, K, B, N, M, N, K, n0, acc);
+  if (!skip_expert(valid, g, n_local)) gv_accum<T, 2>(A + g * a_stride, K, B, N, M, N, K, n0, acc);
   float tot[2];
   gv_reduce<T, 2>(sm, acc, tot);
   const int m = threadIdx.x / GV_BN, c = n0 + threadIdx.x % GV_BN;
@@ -530,7 +544,7 @@ __global__ void __launch_bounds__(C::THREADS)
 mma_grouped_kernel(const __nv_bfloat16* __restrict__ A, long a_stride,
                    const __nv_bfloat16* __restrict__ w_local,
                    const __nv_bfloat16* __restrict__ w_remote, __nv_bfloat16* __restrict__ out,
-                   int n_local, int M, int K, int N) {
+                   int n_local, int M, int K, int N, const unsigned char* __restrict__ valid) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<MSmem<C, 1>*>(smem_raw);
   const int g = blockIdx.z;
@@ -539,7 +553,8 @@ mma_grouped_kernel(const __nv_bfloat16* __restrict__ A, long a_stride,
   float acc[1][C::WM][C::WN][4];
   mma_zero<C, 1>(acc);
   const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
-  mma_tile<C, 1>(sm, A + g * a_stride, K, B, N, M, N, K, m0, n0, acc);
+  if (!skip_expert(valid, g, n_local))
+    mma_tile<C, 1>(sm, A + g * a_stride, K, B, N, M, N, K, m0, n0, acc);
   __nv_bfloat16* o = out + (long)g * M * N;
   mma_for_each<C>(m0, n0, [&](int i, int j, int r, int row, int col) {
     if (row < M && col < N) o[(long)row * N + col] = __float2bfloat16(acc[0][i][j][r]);
@@ -553,7 +568,7 @@ mma_gate_up_kernel(const __nv_bfloat16* __restrict__ A, long a_stride,
                    const __nv_bfloat16* __restrict__ u_local,
                    const __nv_bfloat16* __restrict__ g_remote,
                    const __nv_bfloat16* __restrict__ u_remote, __nv_bfloat16* __restrict__ h,
-                   int n_local, int M, int K, int N) {
+                   int n_local, int M, int K, int N, const unsigned char* __restrict__ valid) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<MSmem<C, 2>*>(smem_raw);
   const int g = blockIdx.z;
@@ -565,7 +580,8 @@ mma_gate_up_kernel(const __nv_bfloat16* __restrict__ A, long a_stride,
   float acc[2][C::WM][C::WN][4];
   mma_zero<C, 2>(acc);
   const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
-  mma_tile<C, 2>(sm, A + g * a_stride, K, B, N, M, N, K, m0, n0, acc);
+  if (!skip_expert(valid, g, n_local))
+    mma_tile<C, 2>(sm, A + g * a_stride, K, B, N, M, N, K, m0, n0, acc);
   __nv_bfloat16* o = h + (long)g * M * N;
   mma_for_each<C>(m0, n0, [&](int i, int j, int r, int row, int col) {
     if (row < M && col < N) {
@@ -600,23 +616,24 @@ inline unsigned cdiv(long a, long b) { return (unsigned)((a + b - 1) / b); }
 
 template <class C>
 int launch_mma_grouped(const void* A, long a_stride, const void* wl, const void* wr, void* out,
-                       int n_local, int groups, int M, int K, int N, cudaStream_t st) {
+                       int n_local, int groups, int M, int K, int N, cudaStream_t st,
+                       const unsigned char* valid) {
   using B = __nv_bfloat16;
   dim3 grid(cdiv(N, C::BN), cdiv(M, C::BM), groups);
   mma_grouped_kernel<C><<<grid, C::THREADS, sizeof(MSmem<C, 1>), st>>>(
-      (const B*)A, a_stride, (const B*)wl, (const B*)wr, (B*)out, n_local, M, K, N);
+      (const B*)A, a_stride, (const B*)wl, (const B*)wr, (B*)out, n_local, M, K, N, valid);
   return (int)cudaGetLastError();
 }
 
 template <class C>
 int launch_mma_gate_up(const void* A, long a_stride, const void* gl, const void* ul,
                        const void* gr, const void* ur, void* h, int n_local, int groups, int M,
-                       int K, int N, cudaStream_t st) {
+                       int K, int N, cudaStream_t st, const unsigned char* valid) {
   using B = __nv_bfloat16;
   dim3 grid(cdiv(N, C::BN), cdiv(M, C::BM), groups);
   mma_gate_up_kernel<C><<<grid, C::THREADS, sizeof(MSmem<C, 2>), st>>>(
       (const B*)A, a_stride, (const B*)gl, (const B*)ul, (const B*)gr, (const B*)ur, (B*)h,
-      n_local, M, K, N);
+      n_local, M, K, N, valid);
   return (int)cudaGetLastError();
 }
 
@@ -634,53 +651,57 @@ template <typename T>
 constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
 
 // Launchers: the few-row path for M <= GV_MAXM; above it the tensor-core
-// path for bf16 and the FMA tile path for fp32.
+// path for bf16 and the FMA tile path for fp32. ``valid`` (optional)
+// marks the real experts of the second bank (see skip_expert).
 template <typename T, class C>
 int launch_grouped(const void* A, long a_stride, const void* wl, const void* wr, void* out,
-                   int n_local, int groups, int M, int K, int N, cudaStream_t st) {
+                   int n_local, int groups, int M, int K, int N, cudaStream_t st,
+                   const unsigned char* valid = nullptr) {
   if (groups == 0 || M == 0 || N == 0) return 0;
   if constexpr (kBf16<T>) {
     if (M > GV_MAXM)
       return M <= MSmall::BM
-                 ? launch_mma_grouped<MSmall>(A, a_stride, wl, wr, out, n_local, groups, M, K, N, st)
-                 : launch_mma_grouped<MLarge>(A, a_stride, wl, wr, out, n_local, groups, M, K, N, st);
+                 ? launch_mma_grouped<MSmall>(A, a_stride, wl, wr, out, n_local, groups, M, K, N,
+                                              st, valid)
+                 : launch_mma_grouped<MLarge>(A, a_stride, wl, wr, out, n_local, groups, M, K, N,
+                                              st, valid);
   }
   if (M <= GV_MAXM) {
     dim3 grid(cdiv(N, GV_BN), 1, groups);
     gv_grouped_kernel<T><<<grid, GV_THREADS, 0, st>>>(
-        (const T*)A, a_stride, (const T*)wl, (const T*)wr, (T*)out, n_local, M, K, N);
+        (const T*)A, a_stride, (const T*)wl, (const T*)wr, (T*)out, n_local, M, K, N, valid);
     return (int)cudaGetLastError();
   }
   dim3 grid(cdiv(N, C::BN), cdiv(M, C::BM), groups);
   grouped_kernel<T, C><<<grid, C::THREADS, sizeof(Smem<T, C, 1>), st>>>(
-      (const T*)A, a_stride, (const T*)wl, (const T*)wr, (T*)out, n_local, M, K, N);
+      (const T*)A, a_stride, (const T*)wl, (const T*)wr, (T*)out, n_local, M, K, N, valid);
   return (int)cudaGetLastError();
 }
 
 template <typename T, class C>
 int launch_gate_up(const void* A, long a_stride, const void* gl, const void* ul, const void* gr,
                    const void* ur, void* h, int n_local, int groups, int M, int K, int N,
-                   cudaStream_t st) {
+                   cudaStream_t st, const unsigned char* valid = nullptr) {
   if (groups == 0 || M == 0 || N == 0) return 0;
   if constexpr (kBf16<T>) {
     if (M > GV_MAXM)
       return M <= MSmall::BM
                  ? launch_mma_gate_up<MSmall>(A, a_stride, gl, ul, gr, ur, h, n_local, groups, M,
-                                              K, N, st)
+                                              K, N, st, valid)
                  : launch_mma_gate_up<MLarge>(A, a_stride, gl, ul, gr, ur, h, n_local, groups, M,
-                                              K, N, st);
+                                              K, N, st, valid);
   }
   if (M <= GV_MAXM) {
     dim3 grid(cdiv(N, GV_BN), 1, groups);
     gv_gate_up_kernel<T><<<grid, GV_THREADS, 0, st>>>(
         (const T*)A, a_stride, (const T*)gl, (const T*)ul, (const T*)gr, (const T*)ur, (T*)h,
-        n_local, M, K, N);
+        n_local, M, K, N, valid);
     return (int)cudaGetLastError();
   }
   dim3 grid(cdiv(N, C::BN), cdiv(M, C::BM), groups);
   gate_up_kernel<T, C><<<grid, C::THREADS, sizeof(Smem<T, C, 2>), st>>>(
       (const T*)A, a_stride, (const T*)gl, (const T*)ul, (const T*)gr, (const T*)ur, (T*)h,
-      n_local, M, K, N);
+      n_local, M, K, N, valid);
   return (int)cudaGetLastError();
 }
 

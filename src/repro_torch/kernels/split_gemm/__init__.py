@@ -4,9 +4,11 @@ from repro_torch.kernels.split_gemm.ops import (
     launch_counts,
     reset_launch_counts,
     split_dense_ffn,
+    split_gemm,
     split_reduce_matmul,
     split_stack_matmul,
     split_swiglu,
+    split_swiglu_demand,
 )
 
 __all__ = [
@@ -14,7 +16,9 @@ __all__ = [
     "launch_counts",
     "reset_launch_counts",
     "split_dense_ffn",
+    "split_gemm",
     "split_reduce_matmul",
     "split_stack_matmul",
     "split_swiglu",
+    "split_swiglu_demand",
 ]

@@ -28,13 +28,23 @@ from repro_torch.kernels.split_gemm.dense import (
     split_stack_gemm_torch,
 )
 from repro_torch.kernels.split_gemm.grouped import (
+    GROUPED_GEMM,
     GROUPED_SWIGLU,
+    GROUPED_SWIGLU_DEMAND,
+    split_grouped_gemm,
+    split_grouped_gemm_torch,
     split_grouped_swiglu,
+    split_grouped_swiglu_demand,
+    split_grouped_swiglu_demand_torch,
     split_grouped_swiglu_torch,
 )
 
-#: Every kernel of the slice, by kernel name.
-KERNELS = {k.name: k for k in (GROUPED_SWIGLU, STACK_GEMM, REDUCE_GEMM, DENSE_SWIGLU)}
+#: Every kernel of the port, by kernel name.
+KERNELS = {
+    k.name: k
+    for k in (GROUPED_SWIGLU, STACK_GEMM, REDUCE_GEMM, DENSE_SWIGLU, GROUPED_SWIGLU_DEMAND,
+              GROUPED_GEMM)
+}
 
 
 def launch_counts() -> dict[str, int]:
@@ -67,6 +77,20 @@ def split_swiglu(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r, *, impl=None):
     """Fused split grouped SwiGLU. x: (E, C, D) -> (E, C, D)."""
     fn = _pick(impl, split_grouped_swiglu, split_grouped_swiglu_torch, "split_swiglu")
     return fn(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r)
+
+
+def split_swiglu_demand(x, wg_l, wu_l, wd_l, wg_f, wu_f, wd_f, valid, *, impl=None):
+    """Fused SwiGLU over the (local, demand-fetched) bank pair.
+    x: (E_l + E_f, C, D) -> (E_l + E_f, C, D); ``valid`` (E_f,) bool."""
+    fn = _pick(impl, split_grouped_swiglu_demand, split_grouped_swiglu_demand_torch,
+               "split_swiglu_demand")
+    return fn(x, wg_l, wu_l, wd_l, wg_f, wu_f, wd_f, valid)
+
+
+def split_gemm(x, w_local, w_remote, *, impl=None):
+    """Grouped GEMM over split expert banks. x: (E, C, D) -> (E, C, F)."""
+    fn = _pick(impl, split_grouped_gemm, split_grouped_gemm_torch, "split_gemm")
+    return fn(x, w_local, w_remote)
 
 
 def split_stack_matmul(x, w_local, w_remote, *, impl=None):

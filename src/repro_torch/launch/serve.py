@@ -25,6 +25,10 @@ def build_engine(
     ctx_mode: str = "dwdp",
     gen_mode: str = "dwdp",
     capacity_from: str = "local",
+    expert_fetch: str = "all",
+    demand_budget: int = 0,
+    cache_budget: int = 0,
+    policy=None,
     dtype: torch.dtype = torch.float32,
     device="cuda",
     seed: int = 0,
@@ -37,7 +41,12 @@ def build_engine(
     from ``checkpoint.convert.from_jax_params``); by default the weights
     are drawn from a ``torch.Generator`` seeded with ``seed`` on the
     device. ``cache_len`` is rounded up to a multiple of the rank count,
-    as the reference does, so the KV ring divides over the shards."""
+    as the reference does, so the KV ring divides over the shards.
+    ``expert_fetch`` (all | demand | predictive | sync_free) with
+    ``demand_budget`` (per-peer rows, 0 = auto) and ``cache_budget``
+    (residency-cache rows, predictive / sync_free) form the uniform
+    policy of both servers unless ``policy`` (a ``PolicyTable``) is
+    given."""
     sizes = {"data": mesh_shape[0], "model": mesh_shape[1]}
     n_ranks = max(1, mesh_shape[0] * mesh_shape[1])
     cache_len = -(-cache_len // n_ranks) * n_ranks
@@ -46,12 +55,14 @@ def build_engine(
         params = model.init_params(torch.Generator(device=model.device).manual_seed(seed))
     elif len(params) != model.n_ranks:
         raise ValueError(f"params hold {len(params)} ranks, the model has {model.n_ranks}")
+    fetch = dict(expert_fetch=expert_fetch, demand_budget=demand_budget,
+                 cache_budget=cache_budget, policy=policy)
     ctx = ContextServer(
         model, sizes, mode=ctx_mode, prefill_len=prefill_len, cache_len=cache_len,
-        capacity_from=capacity_from,
+        capacity_from=capacity_from, **fetch,
     )
     gen = GenerationServer(
         model, sizes, mode=gen_mode, max_batch=max_batch, cache_len=cache_len,
-        capacity_from=capacity_from,
+        capacity_from=capacity_from, **fetch,
     )
     return DisaggregatedEngine(params, ctx, gen), model

@@ -3,8 +3,11 @@ capture), slot-based continuous-batching generation server, and the
 engine that moves requests between them.
 
 The port of ``repro.runtime.engine`` (``Request``, ``ContextServer``,
-``GenerationServer``, ``DisaggregatedEngine``) for the all-fetch DWDP
-path. PyTorch runs eagerly, so there is no variant cache to compile;
+``GenerationServer``, ``DisaggregatedEngine``) for the DWDP path with the
+all-fetch and the route-before-gather expert fetches (``expert_fetch``
+demand / predictive / sync_free; the generation server carries the
+predictive state across decode steps and keeps each step's
+``pred_stats``). PyTorch runs eagerly, so there is no variant cache to compile;
 the health monitor, the online scheduler and CUDA graphs come later.
 Times are seconds on the host clock, read after the device has
 finished (``torch.cuda.synchronize``).
@@ -20,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import InputShape
 from repro_torch.core import execution
-from repro_torch.core.strategy import make_execution_plan
+from repro_torch.core.strategy import PolicyTable, make_execution_plan
 from repro_torch.models.cache import init_decode_state
 from repro_torch.models.transformer import Model
 from repro_torch.runtime.metrics import RequestRecord, ServingMetrics
@@ -47,6 +50,15 @@ class Request:
             )
 
 
+def _policy(policy, expert_fetch: str, demand_budget: int, cache_budget: int):
+    """The servers' policy table: ``policy`` if given, else the uniform
+    split table with the expert fetch and its budgets."""
+    if policy is not None:
+        return policy
+    return PolicyTable.uniform(fetch=expert_fetch, budget=demand_budget,
+                               cache_budget=cache_budget)
+
+
 class ContextServer:
     """Prefill worker: returns (first_token, captured decode state).
     ``ContextServer`` prefills one request at a time (global batch 1), so
@@ -54,13 +66,15 @@ class ContextServer:
 
     def __init__(self, model: Model, mesh_sizes: dict, *, mode: str = "dwdp",
                  prefill_len: int, cache_len: int,
-                 capacity_from: str = "local"):
+                 capacity_from: str = "local", expert_fetch: str = "all",
+                 demand_budget: int = 0, cache_budget: int = 0, policy=None):
         self.model = model
         self.prefill_len = prefill_len
         self.cache_len = cache_len
         self.xp = make_execution_plan(
             model, InputShape("ctx", prefill_len, 1, "prefill"), mesh_sizes,
             mode=mode, capacity_from=capacity_from,
+            policy=_policy(policy, expert_fetch, demand_budget, cache_budget),
         )
 
     def forward(self, params, tokens: np.ndarray, *, impl: Optional[str] = None) -> dict:
@@ -81,20 +95,32 @@ class ContextServer:
 
 
 class GenerationServer:
-    """Slot-based continuous-batching decode worker."""
+    """Slot-based continuous-batching decode worker. Under the predictive
+    and sync-free fetch the decode state carries the per-rank predictor
+    and residency cache (``state["pred"]``, attached cold); it is per rank,
+    not per slot, so admitting a request leaves it as it is.
+    ``pred_stats`` keeps each decode step's ``[predicted, spec_hit,
+    cache_hit, corr_rows, evicted]`` expert rows (summed over layers and
+    ranks)."""
 
     def __init__(self, model: Model, mesh_sizes: dict, *, mode: str = "dwdp",
                  max_batch: int, cache_len: int,
-                 capacity_from: str = "local"):
+                 capacity_from: str = "local", expert_fetch: str = "all",
+                 demand_budget: int = 0, cache_budget: int = 0, policy=None):
         self.model = model
         self.max_batch = max_batch
         self.cache_len = cache_len
         self.xp = make_execution_plan(
             model, InputShape("gen", cache_len, max_batch, "decode"), mesh_sizes,
             mode=mode, capacity_from=capacity_from,
+            policy=_policy(policy, expert_fetch, demand_budget, cache_budget),
         )
         seq_shards = self.xp.seq_shards if self.xp.seq_axes else 1
-        self.state = init_decode_state(model, max_batch, cache_len, seq_shards=seq_shards)
+        self.state = execution.attach_predict_state(
+            init_decode_state(model, max_batch, cache_len, seq_shards=seq_shards),
+            model, self.xp,
+        )
+        self.pred_stats: list[np.ndarray] = []
         self.slot_req: list[Optional[int]] = [None] * max_batch
         self.slot_remaining = np.zeros(max_batch, np.int64)
         self.cur_token = torch.zeros((max_batch, 1), dtype=torch.int64, device=model.device)
@@ -124,6 +150,8 @@ class GenerationServer:
         out = execution.forward_decode(params, self.cur_token, self.state, ctx)
         self.state = out["state"]
         self.cur_token = out["next_token"].to(torch.int64)
+        if "pred_stats" in out:
+            self.pred_stats.append(out["pred_stats"].cpu().numpy())
         return out["next_token"][:, 0].cpu().numpy()
 
     def release(self, slot: int) -> None:
@@ -152,13 +180,15 @@ class DisaggregatedEngine:
     def warmup(self) -> None:
         """One prefill and one decode step off the serving path, so that
         one-time costs (kernel module loading, library handles) stay out
-        of the first request's TTFT. Slot state is left as it was: the
-        decode step's outputs are dropped (``forward_decode`` never
-        writes its input state)."""
+        of the first request's TTFT. Slot and predictive state are left as
+        they were: the decode step's outputs are dropped
+        (``forward_decode`` never writes its input state)."""
         self.ctx.forward(self.params, np.zeros(self.ctx.prefill_len, np.int64))
         state, token = self.gen.state, self.gen.cur_token
+        n_stats = len(self.gen.pred_stats)
         self.gen.decode_step(self.params)
         self.gen.state, self.gen.cur_token = state, token
+        del self.gen.pred_stats[n_stats:]
         self.now()
 
     def submit(self, req: Request) -> None:

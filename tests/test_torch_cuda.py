@@ -49,4 +49,43 @@ def test_cuda_kernels_match_plain_versions():
             ref = grouped.split_grouped_swiglu_torch(x, *ws)
             check(got, ref, tol)
     torch.cuda.synchronize()
-    assert all(n > 0 for n in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert all(counts[k.name] > 0 for k in (dense.STACK_GEMM, dense.REDUCE_GEMM,
+                                            dense.DENSE_SWIGLU, grouped.GROUPED_SWIGLU))
+
+
+@pytest.mark.cuda
+def test_cuda_demand_and_grouped_gemm_kernels():
+    """Kernels #3 and #1 against their plain versions; #3's padding rows
+    are exact zeros and its real experts' blocks are bitwise kernel #2's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    from repro_torch.kernels.split_gemm import grouped
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def rnd(*s, dt):
+        return (torch.randn(*s, generator=gen, device="cuda") * 0.1).to(dt)
+
+    def rel(got, ref):
+        return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+    for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for e_l, e_f, c in ((4, 6, 1), (3, 5, 2), (2, 4, 5), (0, 3, 17), (4, 0, 1)):
+            d, f = 128, 64
+            x = rnd(e_l + e_f, c, d, dt=dt)
+            ws = [rnd(e_l, d, f, dt=dt), rnd(e_l, d, f, dt=dt), rnd(e_l, f, d, dt=dt),
+                  rnd(e_f, d, f, dt=dt), rnd(e_f, d, f, dt=dt), rnd(e_f, f, d, dt=dt)]
+            valid = torch.arange(e_f, device="cuda") % 2 == 0
+            got = grouped.split_grouped_swiglu_demand(x, *ws, valid)
+            ref = grouped.split_grouped_swiglu_demand_torch(x, *ws, valid)
+            assert rel(got, ref) <= tol
+            assert torch.all(got[e_l:][~valid] == 0)
+            full = grouped.split_grouped_swiglu(x, *ws)
+            keep = torch.cat([torch.ones(e_l, dtype=torch.bool, device="cuda"), valid])
+            assert torch.equal(got[keep], full[keep])
+            w_l, w_r = rnd(e_l, d, f, dt=dt), rnd(e_f, d, f, dt=dt)
+            got = grouped.split_grouped_gemm(x, w_l, w_r)
+            assert rel(got, grouped.split_grouped_gemm_torch(x, w_l, w_r)) <= tol
+    torch.cuda.synchronize()
+    assert grouped.GROUPED_SWIGLU_DEMAND.launches > 0 and grouped.GROUPED_GEMM.launches > 0

@@ -20,8 +20,15 @@ from repro_torch.launch.serve import build_engine
 from repro_torch.models.transformer import build_model
 from repro_torch.runtime.engine import Request
 
+# One intra-op thread per process: the suite runs several test workers, and
+# the port's test shapes are too small to gain from more.
+torch.set_num_threads(1)
+
 GEOM = dict(shard_attention=True, expert_axes=("model",), moe_exec="gather")
 PROMPT, CACHE, OUT = 16, 32, 5
+# decode steps that serve 3 requests through 2 slots: OUT - 1 for the
+# first two, then OUT - 1 for the third
+STEPS = 2 * (OUT - 1)
 
 
 @pytest.fixture(scope="module")
@@ -45,7 +52,7 @@ def test_engine_tokens_match_jax_engine(r1_smoke):
                             max_batch=2, gen_mode="dwdp", dtype=jnp.float32, seed=0)
     for i, p in enumerate(prompts):
         jeng.submit(JRequest(i, p, OUT))
-    jeng.run(2 * OUT + 2)
+    jeng.run(STEPS)
 
     model = build_model(cfg, {"data": 1, "model": 4}, device="cpu", **GEOM)
     eng, _ = build_engine(cfg, mesh_shape=(1, 4), prefill_len=PROMPT, cache_len=CACHE,
@@ -55,7 +62,7 @@ def test_engine_tokens_match_jax_engine(r1_smoke):
     eng.warmup()  # off the serving path; must leave the slots untouched
     for i, p in enumerate(prompts):
         eng.submit(Request(i, p, OUT))
-    eng.run(2 * OUT + 2)
+    eng.run(STEPS)
     assert not eng.busy()
     assert eng.outputs == jeng.outputs
     summary = eng.metrics.summary()

@@ -12,6 +12,10 @@ import torch
 
 import repro  # noqa: F401
 
+# One intra-op thread per process: the suite runs several test workers, and
+# the port's test shapes are too small to gain from more.
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?:[\s.,]|$)", re.M)

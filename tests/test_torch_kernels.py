@@ -22,6 +22,10 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import moe as tmoe
 
+# One intra-op thread per process: the suite runs several test workers, and
+# the port's test shapes are too small to gain from more.
+torch.set_num_threads(1)
+
 # tests/test_kernels.py TOL: fp32 2e-5, bf16 2e-2 (atol and rtol)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

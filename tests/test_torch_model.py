@@ -27,6 +27,10 @@ from repro_torch.configs.base import ArchConfig, InputShape, MoEConfig
 from repro_torch.core import execution, strategy
 from repro_torch.models.transformer import build_model
 
+# One intra-op thread per process: the suite runs several test workers, and
+# the port's test shapes are too small to gain from more.
+torch.set_num_threads(1)
+
 ATOL = RTOL = 1e-4
 GEOM = dict(shard_attention=True, expert_axes=("model",), moe_exec="gather")
 # vocab divisible by 4 (identical canonical values at (1,1) and (1,4));

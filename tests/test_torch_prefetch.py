@@ -9,6 +9,10 @@ from repro_torch.core import placement as tplacement
 from repro_torch.core import prefetch
 from repro_torch.core.execution import BankPipeline
 
+# One intra-op thread per process: the suite runs several test workers, and
+# the port's test shapes are too small to gain from more.
+torch.set_num_threads(1)
+
 
 def _shards(pl, width=3):
     """Rank r's resident tree: rows tagged with their canonical slice id."""
