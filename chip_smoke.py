@@ -11,10 +11,12 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    once (time and ``-Xptxas -v``);
 3. kernels: each kernel at the DeepSeek-R1 main-path shapes (per logical
    rank, G' = 4, bf16) held against its plain PyTorch version (max error
-   relative to max|ref| <= 2e-2), and timed with CUDA events beside its
-   plain version, a per-bank torch.matmul/bmm composition (a yardstick
-   the port never calls) and its bound. The demand kernel's padding rows
-   must be exact zeros and its real experts' blocks bitwise kernel #2's;
+   relative to max|ref| <= 2e-2), and timed with CUDA events (median of 5
+   windows of >= 40 ms, with the fastest and slowest) beside its plain
+   version, a per-bank torch.matmul/bmm composition (a yardstick the port
+   never calls) and its bound. The demand kernel is checked at each fetch
+   mode's fetched bank; its padding rows must be exact zeros and its real
+   experts' blocks bitwise kernel #2's;
 4. ``ops.split_gemm`` (kernel #1's entry point; no engine calls it) at
    R1 expert shapes, its launches counted;
 5. serve: ``build_engine`` at DeepSeek-R1 width (2 layers, first one
@@ -40,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -78,6 +81,11 @@ CACHE_BUDGET = 8
 FETCH_MODES = (("demand", {}), ("predictive", {"cache_budget": CACHE_BUDGET}),
                ("sync_free", {"cache_budget": CACHE_BUDGET}))
 PEAK_LIMIT = 70e9
+# Kernel timing: TIME_WINDOWS windows of at least WINDOW_MS of back-to-back
+# launches each; the median window is reported beside the fastest and the
+# slowest.
+TIME_WINDOWS = 5
+WINDOW_MS = 40.0
 
 
 def fail(msg: str) -> None:
@@ -93,19 +101,28 @@ def card_line() -> str:
     return out[0]
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
+def time_ms(fn, warmup: int = 2) -> tuple[float, float, float]:
+    """(median, fastest, slowest) ms per call of ``fn`` over TIME_WINDOWS
+    windows timed with CUDA events; each window repeats ``fn`` enough
+    times to last at least WINDOW_MS."""
     import torch
 
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+
+    def window(reps: int) -> float:
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    reps = max(1, math.ceil(WINDOW_MS / max(window(1), 1e-3)))
+    per_call = sorted(window(reps) for _ in range(TIME_WINDOWS))
+    return per_call[TIME_WINDOWS // 2], per_call[0], per_call[-1]
 
 
 def profile_step(label: str, fn) -> None:
@@ -198,9 +215,20 @@ def library_versions():
             "split_grouped_swiglu_demand": demand, "split_grouped_gemm": gemm}
 
 
+def demand_fetched_rows(cfg) -> dict:
+    """Fetched-bank rows the demand kernel gets at R1 decode, by fetch
+    mode: demand lands 3 peers x the auto budget; predictive and sync-free
+    land [cache | 3 peers x speculative | 3 peers x correction]."""
+    from repro_torch.core.budget import demand_budget_rows, predictive_budget_rows
+
+    draws, e = MAX_BATCH * cfg.moe.top_k, cfg.moe.num_experts
+    spec, corr = predictive_budget_rows(draws, e, e // G)
+    return {"decode": (G - 1) * demand_budget_rows(draws, e, e // G),
+            "decode_predictive": CACHE_BUDGET + (G - 1) * (spec + corr)}
+
+
 def kernel_cases(cfg):
     """(kernel, phase, shapes) at the per-rank main-path shapes."""
-    from repro_torch.core.budget import demand_budget_rows
     from repro_torch.models.moe import capacity_for
 
     d, a = cfg.d_model, G
@@ -215,11 +243,13 @@ def kernel_cases(cfg):
         cases.append(("split_dense_swiglu", phase, dict(t=t, d=d, f=fs, s=G)))
         cases.append(("split_grouped_swiglu", phase, dict(c=c, d=d, f=fe, e=e, e_l=e // G)))
         cases.append(("split_grouped_gemm", phase, dict(c=c, d=d, f=fe, e=e, e_l=e // G)))
-    # the demand kernel: 64 resident experts + 3 peers x the auto budget of
-    # 8 fetched rows, about half of them valid; decode (C 1, the few-row
-    # path) and one tensor-core tile shape (C 16)
-    e_f = (G - 1) * demand_budget_rows(MAX_BATCH * cfg.moe.top_k, e, e // G)
-    for phase, c in (("decode", 1), ("tile", 16)):
+    # the demand kernel: 64 resident experts + the fetched bank of each
+    # mode's decode (C 1, the few-row path), about half its rows valid, and
+    # one tensor-core tile shape (C 16)
+    rows = demand_fetched_rows(cfg)
+    for phase, c, e_f in (("decode", 1, rows["decode"]),
+                          ("decode_predictive", 1, rows["decode_predictive"]),
+                          ("tile", 16, rows["decode"])):
         cases.append(("split_grouped_swiglu_demand", phase,
                       dict(c=c, d=d, f=fe, e_l=e // G, e_f=e_f)))
     return cases
@@ -287,16 +317,10 @@ def run_kernel_case(name, shp, gen):
         fail(f"{name}: non-finite kernel output")
     abs_err = (got.float() - ref.float()).abs().max().item()
     rel_err = abs_err / max(ref.float().abs().max().item(), 1e-30)
-    wbytes = sum(a.numel() * a.element_size() for a in args[1:] if a.dtype == bf)
-    reps = 3 if wbytes > 4e9 else 20
-    row = {
-        "max_abs_err": abs_err,
-        "max_rel_err": rel_err,
-        "tol_rel": KERNEL_TOL,
-        "ms": time_ms(lambda: kern(*args), reps),
-        "plain_ms": time_ms(lambda: plain(*args), reps),
-        "library_ms": time_ms(lambda: lib(*args), reps),
-    }
+    row = {"max_abs_err": abs_err, "max_rel_err": rel_err, "tol_rel": KERNEL_TOL}
+    for key, fn in (("ms", kern), ("plain_ms", plain), ("library_ms", lib)):
+        row[key], lo, hi = time_ms(lambda: fn(*args))
+        row[f"{key}_range"] = [lo, hi]
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
     row["shape"] = shp
     del args, got, ref
@@ -310,26 +334,25 @@ def check_demand_matches_grouped(cfg, gen) -> dict:
     """The demand kernel over a fetched bank that is a subset of kernel
     #2's remote bank, on the same rows: its padding rows are exact zeros
     and every real expert's block is bitwise kernel #2's (few-row path at
-    C 1, tensor-core tiles at C 16)."""
+    C 1 with each mode's fetched bank, tensor-core tiles at C 16)."""
     import torch
-    from repro_torch.core.budget import demand_budget_rows
     from repro_torch.kernels.split_gemm import grouped
 
     dev, bf = "cuda", torch.bfloat16
     d, f, e = cfg.d_model, cfg.moe.d_ff, cfg.moe.num_experts
     e_l = e // G
-    e_f = (G - 1) * demand_budget_rows(MAX_BATCH * cfg.moe.top_k, e, e_l)
+    rows = demand_fetched_rows(cfg)
 
     def rnd(*shape, scale=0.05):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf)
 
     wl = [rnd(e_l, d, f), rnd(e_l, d, f), rnd(e_l, f, d)]
     wr = [rnd(e - e_l, d, f), rnd(e - e_l, d, f), rnd(e - e_l, f, d)]
-    idx = torch.randperm(e - e_l, generator=gen, device=dev)[:e_f]
-    wf = [w.index_select(0, idx) for w in wr]
-    valid = torch.arange(e_f, device=dev) % 2 == 0
     out = {}
-    for c in (1, 16):
+    for c, e_f in ((1, rows["decode"]), (16, rows["decode"]), (1, rows["decode_predictive"])):
+        idx = torch.randperm(e - e_l, generator=gen, device=dev)[:e_f]
+        wf = [w.index_select(0, idx) for w in wr]
+        valid = torch.arange(e_f, device=dev) % 2 == 0
         x2 = rnd(e, c, d, scale=1.0)
         y2 = grouped.split_grouped_swiglu(x2, *wl, *wr)
         x3 = torch.cat([x2[:e_l], x2[e_l:].index_select(0, idx)])
@@ -338,13 +361,14 @@ def check_demand_matches_grouped(cfg, gen) -> dict:
         zeros = bool((y3[e_l:][~valid] == 0).all())
         same = torch.equal(y3[:e_l], y2[:e_l]) and torch.equal(
             y3[e_l:][valid], y2[e_l:].index_select(0, idx)[valid])
-        print(f"kernel split_grouped_swiglu_demand C {c}: padding rows exact zeros {zeros}; "
+        print(f"kernel split_grouped_swiglu_demand C {c} E_f {e_f}: padding rows exact zeros {zeros}; "
               f"real experts bitwise split_grouped_swiglu's {same} ({e_l} local + "
               f"{int(valid.sum())} of {e_f} fetched rows)")
         if not (zeros and same):
-            fail(f"demand kernel at C {c}: zeros {zeros}, bitwise vs kernel #2 {same}")
-        out[c] = {"padding_zero": zeros, "bitwise_vs_split_grouped_swiglu": same}
-    del wl, wr, wf
+            fail(f"demand kernel at C {c}, E_f {e_f}: zeros {zeros}, bitwise vs kernel #2 {same}")
+        out[f"C{c}_Ef{e_f}"] = {"padding_zero": zeros, "bitwise_vs_split_grouped_swiglu": same}
+        del wf
+    del wl, wr
     torch.cuda.empty_cache()
     return out
 
@@ -543,9 +567,9 @@ def main() -> None:
         row = run_kernel_case(name, shp, gen)
         results.setdefault(name, {})[phase] = row
         print(f"kernel {name} {phase} {row['shape']}: rel_err {row['max_rel_err']:.3e} "
-              f"(tol {KERNEL_TOL}) ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
-              f"library_ms {row['library_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
-              f"({row['bound_by']})")
+              f"(tol {KERNEL_TOL}) ms {row['ms']:.4f} {row['ms_range']} plain_ms "
+              f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms "
+              f"{row['bound_ms']:.4f} ({row['bound_by']})")
     demand_checks = check_demand_matches_grouped(cfg, gen)
     gemm_launches = drive_split_gemm(cfg, gen)
 
@@ -681,6 +705,7 @@ def main() -> None:
             "max_abs_err": dec["max_abs_err"],
             "max_rel_err": dec["max_rel_err"],
             "ms": dec["ms"],
+            "ms_range": dec["ms_range"],
             "plain_ms": dec["plain_ms"],
             "bound_ms": dec["bound_ms"],
             "bound_by": dec["bound_by"],
@@ -689,7 +714,7 @@ def main() -> None:
             **others,
         })
         if name == "split_grouped_swiglu_demand":
-            kernels[-1]["checks"] = {f"C{c}": v for c, v in demand_checks.items()}
+            kernels[-1]["checks"] = demand_checks
     print(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)

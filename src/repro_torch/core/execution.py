@@ -217,12 +217,12 @@ def resolve_cache_rows(cfg, geom: Geometry, xp: ExecutionPlan) -> int:
     return min(xp.policy("moe_experts").cache_budget, remote)
 
 
-def gather_set(sig: LayerSig, geom: Geometry, xp: ExecutionPlan, cfg=None) -> tuple[str, ...]:
+def gather_set(sig: LayerSig, geom: Geometry, xp: ExecutionPlan, cfg) -> tuple[str, ...]:
     """Keys of a layer's param tree that the prefetch pipeline gathers
     (``execution.gather_set`` of the JAX package). A demand-active MoE
     layer leaves its expert bank out — it is fetched inside the layer,
     after routing — unless the predictive engine runs, whose speculative
-    round rides the pipeline (``cfg`` is needed for those checks)."""
+    round rides the pipeline."""
     out: list[str] = []
     if sig.kind not in (BlockKind.GLOBAL_ATTN, BlockKind.LOCAL_ATTN):
         raise NotImplementedError(f"block kind {sig.kind} is not ported yet")
@@ -237,8 +237,7 @@ def gather_set(sig: LayerSig, geom: Geometry, xp: ExecutionPlan, cfg=None) -> tu
                 raise NotImplementedError(f"moe_exec={geom.moe_exec!r} is not ported yet")
             _require_split(geom, xp, geom.expert_axes, "experts")
             if not (
-                cfg is not None
-                and demand_fetch_active(cfg, geom, xp)
+                demand_fetch_active(cfg, geom, xp)
                 and not predictive_fetch_active(cfg, geom, xp)
             ):
                 out.append("moe/experts")

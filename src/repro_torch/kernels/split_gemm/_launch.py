@@ -50,6 +50,12 @@ class CudaKernel:
         self.launches += 1
 
 
+def cast_like(w, like):
+    """Weights stored in another type (fp8) upcast to the activation type
+    on use — the JAX package's ``_cast``."""
+    return w.to(like.dtype) if w.dtype != like.dtype else w
+
+
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (the wrapper then runs the
     plain version); False when every tensor lies on one CUDA device.

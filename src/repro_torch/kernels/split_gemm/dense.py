@@ -20,6 +20,7 @@ import torch
 from repro_torch.kernels.split_gemm._launch import (
     CudaKernel,
     bank_dims,
+    cast_like,
     check_cuda_operands,
     on_cpu,
 )
@@ -29,34 +30,28 @@ REDUCE_GEMM = CudaKernel("split_reduce_gemm", n_ptrs=4, n_ints=6)
 DENSE_SWIGLU = CudaKernel("split_dense_swiglu", n_ptrs=9, n_ints=6)
 
 
-def _w(w, like):
-    """Weights stored in another type (fp8) upcast to the activation type
-    on use — the JAX package's ``_cast``."""
-    return w.to(like.dtype) if w.dtype != like.dtype else w
-
-
 # --------------------------------------------------------------------------
 # Plain versions (the JAX package's ``ops.*_jnp`` formulations).
 # --------------------------------------------------------------------------
 def split_stack_gemm_torch(x, w_local, w_remote):
-    y_l = torch.einsum("td,sdf->stf", x, _w(w_local, x))
-    y_r = torch.einsum("td,sdf->stf", x, _w(w_remote, x))
+    y_l = torch.einsum("td,sdf->stf", x, cast_like(w_local, x))
+    y_r = torch.einsum("td,sdf->stf", x, cast_like(w_remote, x))
     return torch.cat([y_l, y_r], dim=0)
 
 
 def split_reduce_gemm_torch(x, w_local, w_remote):
     s_l = w_local.shape[0]
-    y_l = torch.einsum("stf,sfd->td", x[:s_l], _w(w_local, x))
-    y_r = torch.einsum("stf,sfd->td", x[s_l:], _w(w_remote, x))
+    y_l = torch.einsum("stf,sfd->td", x[:s_l], cast_like(w_local, x))
+    y_r = torch.einsum("stf,sfd->td", x[s_l:], cast_like(w_remote, x))
     return y_l + y_r
 
 
 def split_dense_swiglu_torch(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r):
     def part(wg, wu, wd):
         h = torch.nn.functional.silu(
-            torch.einsum("td,sdf->tsf", x, _w(wg, x))
-        ) * torch.einsum("td,sdf->tsf", x, _w(wu, x))
-        return torch.einsum("tsf,sfd->td", h, _w(wd, x))
+            torch.einsum("td,sdf->tsf", x, cast_like(wg, x))
+        ) * torch.einsum("td,sdf->tsf", x, cast_like(wu, x))
+        return torch.einsum("tsf,sfd->td", h, cast_like(wd, x))
 
     return part(wg_l, wu_l, wd_l) + part(wg_r, wu_r, wd_r)
 

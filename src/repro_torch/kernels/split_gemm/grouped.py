@@ -25,6 +25,7 @@ import torch
 from repro_torch.kernels.split_gemm._launch import (
     CudaKernel,
     bank_dims,
+    cast_like,
     check_cuda_operands,
     on_cpu,
 )
@@ -33,11 +34,6 @@ from repro_torch.models.moe import grouped_ffn
 GROUPED_SWIGLU = CudaKernel("split_grouped_swiglu", n_ptrs=9, n_ints=6)
 GROUPED_SWIGLU_DEMAND = CudaKernel("split_grouped_swiglu_demand", n_ptrs=10, n_ints=6)
 GROUPED_GEMM = CudaKernel("split_grouped_gemm", n_ptrs=4, n_ints=6)
-
-
-def _w(w, like):
-    """Weights stored in another type (fp8) upcast to the activation type."""
-    return w.to(like.dtype) if w.dtype != like.dtype else w
 
 
 # --------------------------------------------------------------------------
@@ -66,8 +62,8 @@ def split_grouped_swiglu_demand_torch(x, wg_l, wu_l, wd_l, wg_f, wu_f, wd_f, val
 def split_grouped_gemm_torch(x, w_local, w_remote):
     """Plain version: one einsum per bank, outputs concatenated."""
     e_l = w_local.shape[0]
-    y_l = torch.einsum("ecd,edf->ecf", x[:e_l], _w(w_local, x))
-    y_r = torch.einsum("ecd,edf->ecf", x[e_l:], _w(w_remote, x))
+    y_l = torch.einsum("ecd,edf->ecf", x[:e_l], cast_like(w_local, x))
+    y_r = torch.einsum("ecd,edf->ecf", x[e_l:], cast_like(w_remote, x))
     return torch.cat([y_l, y_r], dim=0)
 
 

@@ -28,7 +28,6 @@ def build_engine(
     expert_fetch: str = "all",
     demand_budget: int = 0,
     cache_budget: int = 0,
-    policy=None,
     dtype: torch.dtype = torch.float32,
     device="cuda",
     seed: int = 0,
@@ -45,8 +44,7 @@ def build_engine(
     ``expert_fetch`` (all | demand | predictive | sync_free) with
     ``demand_budget`` (per-peer rows, 0 = auto) and ``cache_budget``
     (residency-cache rows, predictive / sync_free) form the uniform
-    policy of both servers unless ``policy`` (a ``PolicyTable``) is
-    given."""
+    policy of both servers."""
     sizes = {"data": mesh_shape[0], "model": mesh_shape[1]}
     n_ranks = max(1, mesh_shape[0] * mesh_shape[1])
     cache_len = -(-cache_len // n_ranks) * n_ranks
@@ -56,7 +54,7 @@ def build_engine(
     elif len(params) != model.n_ranks:
         raise ValueError(f"params hold {len(params)} ranks, the model has {model.n_ranks}")
     fetch = dict(expert_fetch=expert_fetch, demand_budget=demand_budget,
-                 cache_budget=cache_budget, policy=policy)
+                 cache_budget=cache_budget)
     ctx = ContextServer(
         model, sizes, mode=ctx_mode, prefill_len=prefill_len, cache_len=cache_len,
         capacity_from=capacity_from, **fetch,

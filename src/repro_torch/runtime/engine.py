@@ -50,15 +50,6 @@ class Request:
             )
 
 
-def _policy(policy, expert_fetch: str, demand_budget: int, cache_budget: int):
-    """The servers' policy table: ``policy`` if given, else the uniform
-    split table with the expert fetch and its budgets."""
-    if policy is not None:
-        return policy
-    return PolicyTable.uniform(fetch=expert_fetch, budget=demand_budget,
-                               cache_budget=cache_budget)
-
-
 class ContextServer:
     """Prefill worker: returns (first_token, captured decode state).
     ``ContextServer`` prefills one request at a time (global batch 1), so
@@ -67,14 +58,15 @@ class ContextServer:
     def __init__(self, model: Model, mesh_sizes: dict, *, mode: str = "dwdp",
                  prefill_len: int, cache_len: int,
                  capacity_from: str = "local", expert_fetch: str = "all",
-                 demand_budget: int = 0, cache_budget: int = 0, policy=None):
+                 demand_budget: int = 0, cache_budget: int = 0):
         self.model = model
         self.prefill_len = prefill_len
         self.cache_len = cache_len
         self.xp = make_execution_plan(
             model, InputShape("ctx", prefill_len, 1, "prefill"), mesh_sizes,
             mode=mode, capacity_from=capacity_from,
-            policy=_policy(policy, expert_fetch, demand_budget, cache_budget),
+            policy=PolicyTable.uniform(fetch=expert_fetch, budget=demand_budget,
+                                       cache_budget=cache_budget),
         )
 
     def forward(self, params, tokens: np.ndarray, *, impl: Optional[str] = None) -> dict:
@@ -106,14 +98,15 @@ class GenerationServer:
     def __init__(self, model: Model, mesh_sizes: dict, *, mode: str = "dwdp",
                  max_batch: int, cache_len: int,
                  capacity_from: str = "local", expert_fetch: str = "all",
-                 demand_budget: int = 0, cache_budget: int = 0, policy=None):
+                 demand_budget: int = 0, cache_budget: int = 0):
         self.model = model
         self.max_batch = max_batch
         self.cache_len = cache_len
         self.xp = make_execution_plan(
             model, InputShape("gen", cache_len, max_batch, "decode"), mesh_sizes,
             mode=mode, capacity_from=capacity_from,
-            policy=_policy(policy, expert_fetch, demand_budget, cache_budget),
+            policy=PolicyTable.uniform(fetch=expert_fetch, budget=demand_budget,
+                                       cache_budget=cache_budget),
         )
         seq_shards = self.xp.seq_shards if self.xp.seq_axes else 1
         self.state = execution.attach_predict_state(

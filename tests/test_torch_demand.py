@@ -255,22 +255,76 @@ CACHE, STEPS = 64, 6
 FIRST = np.array([[7], [23]])
 
 
+def _canonical_weights(jcfg, geom, seed=42):
+    """Per-layer canonical (unsharded) weights drawn with numpy, scaled as
+    ``repro.models.transformer.init_params`` scales them."""
+    rng = np.random.default_rng(seed)
+    d, qd, kvd, fe = jcfg.d_model, jcfg.q_dim, jcfg.kv_dim, jcfg.moe.d_ff
+    num_padded, vocab_pad = geom.moe_placement.num_padded, geom.vocab_pad
+
+    def dense(*shape):
+        return (rng.standard_normal(shape) * shape[-2] ** -0.5).astype(np.float32)
+
+    layers = [dict(wq=dense(d, qd), wk=dense(d, kvd), wv=dense(d, kvd), wo=dense(qd, d),
+                   router=dense(d, num_padded), w_gate=dense(num_padded, d, fe),
+                   w_up=dense(num_padded, d, fe), w_down=dense(num_padded, fe, d))
+              for _ in range(jcfg.num_layers)]
+    vocab = (rng.standard_normal((vocab_pad, d)).astype(np.float32), dense(d, vocab_pad))
+    return layers, vocab
+
+
+def _jax_layout(jm, canon):
+    """The canonical weights in ``jm``'s storage layout: the tree
+    ``jm.init_params`` returns, with the layout steps of
+    ``init_attn_params`` and ``init_moe_params``."""
+    layers, (embed, head) = canon
+    geom, d = jm.geom, jm.cfg.d_model
+    a, ksd, table = geom.attn_shards, geom.kv_shard, geom.moe_placement.table().reshape(-1)
+    kv_rank = np.arange(a) // (a // ksd)
+
+    def layer(c):
+        qd, kvd = c["wq"].shape[1], c["wk"].shape[1]
+        kv = {k: c[k].reshape(d, ksd, kvd // ksd).transpose(1, 0, 2)[kv_rank] for k in ("wk", "wv")}
+        return {"norm1": np.zeros(d, np.float32), "norm2": np.zeros(d, np.float32),
+                "attn": {"wq": c["wq"].reshape(d, a, qd // a).transpose(1, 0, 2),
+                         "wo": c["wo"].reshape(a, qd // a, d), **kv},
+                "moe": {"router": c["router"],
+                        "experts": {k: c[k][table] for k in ("w_gate", "w_up", "w_down")}}}
+
+    it, tree = iter(layers), {}
+    for group in jm.plan:
+        gdict = {}
+        for j, _ in enumerate(group.sigs):
+            if group.scan:
+                per = [layer(next(it)) for _ in range(group.n_cycles)]
+                gdict[f"pos{j}"] = jax.tree.map(lambda *xs: np.stack(xs), *per)
+            else:
+                gdict[f"pos{j}"] = layer(next(it))
+        tree[group.name] = gdict
+    out = {"embed": embed, "final_norm": np.zeros(d, np.float32), "lm_head": head, "layers": tree}
+    ref = jax.eval_shape(jm.init_params, jax.random.key(0))
+    assert jax.tree.structure(out) == jax.tree.structure(ref)
+    assert all(x.shape == r.shape for x, r in zip(jax.tree.leaves(out), jax.tree.leaves(ref)))
+    return out
+
+
 @pytest.fixture(scope="module")
 def decode_setup():
-    """The port at (1, 4) on the JAX (1, 4) weights, and the JAX (1, 1)
-    engine's greedy decode tokens on the same canonical values (compiled
-    once)."""
+    """The port at (1, 4) and the JAX (1, 1) engine on the same canonical
+    weights (drawn with numpy), and the JAX engine's greedy decode tokens
+    (compiled once)."""
     jcfg = JArch(**FIELDS, moe=JMoE(**MOE))
     cfg = ArchConfig(**FIELDS, moe=MoEConfig(**MOE))
-    key = jax.random.key(42)
     jm1 = jbuild_model(jcfg, {"data": 1, "model": 1}, dtype=jnp.float32)
     jm4 = jbuild_model(jcfg, {"data": 1, "model": 4}, dtype=jnp.float32, **GEOM)
     model = build_model(cfg, {"data": 1, "model": 4}, device="cpu", **GEOM)
-    params = from_jax_params(jax.tree.map(np.asarray, jm4.init_params(key)), model)
+    canon = _canonical_weights(jcfg, jm1.geom)
+    params = from_jax_params(_jax_layout(jm4, canon), model)
     xp = jstrategy.make_execution_plan(jm1, JShape("d", CACHE, 2, "decode"),
                                        {"data": 1, "model": 1}, capacity_factor=CAP)
     step = jexec.make_step_fn(jm1, xp, make_smoke_mesh())
-    jparams, state = jm1.init_params(key), jinit_decode_state(jm1, 2, CACHE)
+    jparams = jax.tree.map(jnp.asarray, _jax_layout(jm1, canon))
+    state = jinit_decode_state(jm1, 2, CACHE)
     tok, jtoks = jnp.asarray(FIRST, jnp.int32), []
     for _ in range(STEPS):
         out = step(jparams, {"token": tok}, state)
