@@ -14,7 +14,12 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    relative to max|ref| <= 2e-2), and timed with CUDA events (median of 5
    windows of >= 40 ms, with the fastest and slowest) beside its plain
    version, a per-bank torch.matmul/bmm composition (a yardstick the port
-   never calls) and its bound. The demand kernel is checked at each fetch
+   never calls; for flash attention ``scaled_dot_product_attention`` with
+   an explicit mask) and its bound. Flash attention is held at R1's 1024-
+   and 8192-token prompts and Gemma-3's 4096-token prompt (local and
+   global layers), its error also held per query row and head, and its
+   bound counting only the visible keys' bytes and the visible query-key
+   pairs' operations. The demand kernel is checked at each fetch
    mode's fetched bank; its padding rows must be exact zeros and its real
    experts' blocks bitwise kernel #2's;
 4. ``ops.split_gemm`` (kernel #1's entry point; no engine calls it) at
@@ -23,9 +28,11 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    dense), mesh (data=1, model=4) as 4 logical ranks, random weights from a
    seeded generator; 4 requests of 1024 tokens, 16 output tokens each,
    max_batch 2. Every kernel of the all-fetch path must have launched.
-   One prefill's logits are compared with the plain versions' (tolerance
-   below), and a request served alone must give the same tokens as served
-   among the 4 (row-local capacity, ``capacity_from="global"``);
+   One prefill's and one decode step's logits are compared with the plain
+   versions' (tolerance below); one profiled prefill. A request served
+   alone must give the same tokens as served among the 4, and its first
+   decode step's logits beside another request those beside an empty slot
+   (row-local capacity, ``capacity_from="global"``);
 6. fetch modes: the same 4 requests on the same weights under
    ``expert_fetch`` demand, predictive and sync_free (route-before-gather
    decode through the demand kernel, which must launch); every request's
@@ -33,7 +40,19 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    must be bitwise the all-fetch step's. Per mode: TPOT, peak memory,
    landing bytes per decode step, fallbacks, summed ``pred_stats`` and a
    profiled decode step;
-7. a ``{"kernels": [...]}`` JSON line, then the last line
+7. DeepSeek-R1 at the paper's input length: the same weights behind a
+   ``prefill_len`` 8192 engine; 2 requests of 8192 tokens, 16 output tokens
+   each, max_batch 2; flash attention must launch; TTFT, TPOT, peak memory,
+   one profiled prefill, and one prefill's and one decode step's logits
+   against the plain versions;
+8. Gemma-3-27B (every width kept, 6 layers: one 5 local : 1 global
+   pattern), mesh (1, 4), random weights: 4 requests of 4096 tokens, 16
+   output tokens each, max_batch 2. Every kernel of its path must launch
+   (the dense split kernels and flash attention's window branch); prefill
+   and decode-step logits against the plain versions; a request alone
+   against among the others, tokens and first decode step's logits, as in
+   5; TTFT, TPOT, peak, one profiled prefill;
+9. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
@@ -73,7 +92,18 @@ N_REQUESTS = 4
 GEOM = dict(shard_attention=True, expert_axes=("model",), moe_exec="gather")
 # The kernels the all-fetch serving path launches.
 ALL_FETCH_KERNELS = ("split_grouped_swiglu", "split_stack_gemm", "split_reduce_gemm",
-                     "split_dense_swiglu")
+                     "split_dense_swiglu", "flash_attention")
+# DeepSeek-R1 at the paper's input length (it evaluates 8K prompts): the
+# same weights, 2 requests.
+LONG_PROMPT = 8192
+LONG_REQUESTS = 2
+# Gemma-3-27B: every width kept, one 5 local : 1 global pattern of its 62
+# layers; prompts of 4 windows. Dense: no expert kernels on its path.
+GEMMA_LAYERS = 6
+GEMMA_PROMPT = 4096
+GEMMA_GEOM = dict(shard_attention=True, ffn_axes_override=("model",))
+GEMMA_KERNELS = ("split_stack_gemm", "split_reduce_gemm", "split_dense_swiglu",
+                 "flash_attention")
 # The route-before-gather modes. Residency-cache rows per rank and MoE
 # layer (88 MB each at R1 width): 8 keeps the all-fetch prefill's two
 # remote banks plus the 4 ranks' caches under the 70 GB limit.
@@ -127,8 +157,8 @@ def time_ms(fn, warmup: int = 2) -> tuple[float, float, float]:
 
 def profile_step(label: str, fn) -> None:
     """Profile one call of ``fn``: device time by kind (the split kernels,
-    device-to-device copies of the landing banks, everything else) beside
-    the host wall time."""
+    the attention kernel, device-to-device copies of the landing banks,
+    everything else) beside the host wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -140,7 +170,8 @@ def profile_step(label: str, fn) -> None:
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3  # includes the profiler's own cost
-    kinds = {"split kernels": 0.0, "landing copies": 0.0, "other device work": 0.0}
+    kinds = {"split kernels": 0.0, "attention kernel": 0.0, "landing copies": 0.0,
+             "other device work": 0.0}
     rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -151,6 +182,8 @@ def profile_step(label: str, fn) -> None:
         name = e.key
         if any(k in name for k in ("grouped_kernel", "gate_up_kernel", "reduce_kernel")):
             kind = "split kernels"
+        elif "fa_bf16_kernel" in name or "fa_f32_kernel" in name:
+            kind = "attention kernel"
         elif "Memcpy" in name or "memcpy" in name or "indexSelect" in name:
             # landing copies of split banks, row gathers of demand payloads
             kind = "landing copies"
@@ -227,8 +260,9 @@ def demand_fetched_rows(cfg) -> dict:
             "decode_predictive": CACHE_BUDGET + (G - 1) * (spec + corr)}
 
 
-def kernel_cases(cfg):
-    """(kernel, phase, shapes) at the per-rank main-path shapes."""
+def kernel_cases(cfg, gemma):
+    """(kernel, phase, shapes) at the per-rank main-path shapes (R1's, and
+    Gemma-3's prefill for the dense kernels)."""
     from repro_torch.models.moe import capacity_for
 
     d, a = cfg.d_model, G
@@ -252,6 +286,10 @@ def kernel_cases(cfg):
                           ("tile", 16, rows["decode"])):
         cases.append(("split_grouped_swiglu_demand", phase,
                       dict(c=c, d=d, f=fe, e_l=e // G, e_f=e_f)))
+    t, d = GEMMA_PROMPT // G, gemma.d_model
+    for name, f in (("split_stack_gemm", gemma.q_dim // G), ("split_reduce_gemm", gemma.q_dim // G),
+                    ("split_dense_swiglu", gemma.d_ff // G)):
+        cases.append((name, "gemma3_prefill", dict(t=t, d=d, f=f, s=G)))
     return cases
 
 
@@ -330,6 +368,106 @@ def run_kernel_case(name, shp, gen):
     return row
 
 
+def flash_cases(r1, gemma) -> list:
+    """(phase, shape) of flash attention per logical rank at G' = 4: the
+    prefill shards of R1's 1024-token prompt (first and last rank), R1's
+    8192-token prompt (last rank) and Gemma-3's 4096-token prompt (last
+    rank, a local and a global layer)."""
+    def case(cfg, prompt, rank, window):
+        sq = prompt // G
+        return dict(b=1, sq=sq, sk=prompt, h=cfg.num_heads, kh=cfg.num_kv_heads,
+                    hd=cfg.head_dim, q_offset=rank * sq, window=window)
+
+    return [("r1_1024_first", case(r1, PROMPT, 0, 0)),
+            ("r1_1024_last", case(r1, PROMPT, G - 1, 0)),
+            ("r1_8192_last", case(r1, LONG_PROMPT, G - 1, 0)),
+            ("gemma3_4096_last_local", case(gemma, GEMMA_PROMPT, G - 1, gemma.window)),
+            ("gemma3_4096_last_global", case(gemma, GEMMA_PROMPT, G - 1, 0))]
+
+
+def visible_pairs(sq: int, sk: int, q_offset: int, window: int) -> int:
+    """Query-key pairs the causal mask (and the window) leave visible."""
+    n = 0
+    for i in range(sq):
+        p = q_offset + i
+        lo = max(0, p - window + 1) if window else 0
+        n += max(0, min(p, sk - 1) - lo + 1)
+    return n
+
+
+def visible_keys(sq: int, sk: int, q_offset: int, window: int) -> int:
+    """Keys some query row sees: [q_offset - window + 1, q_offset + Sq),
+    clipped to [0, Sk). The function never needs the others."""
+    lo = max(0, q_offset - window + 1) if window else 0
+    return max(0, min(q_offset + sq, sk) - lo)
+
+
+def run_flash_case(shp, gen) -> dict:
+    """Flash attention against its plain version on the same bf16 inputs,
+    timed beside the plain version and one ``scaled_dot_product_attention``
+    call (GQA, explicit boolean mask for the offset and the window; a
+    yardstick the port never calls). The error is held both over the whole
+    output (max error over max|ref|) and per query row and head (the worst
+    row's max error over that row's max|ref|): rows that see few keys have
+    outputs far larger than rows that see many."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    b, sq, sk, h, kh, hd = (shp[k] for k in ("b", "sq", "sk", "h", "kh", "hd"))
+    window, q_offset = shp["window"], shp["q_offset"]
+    q, k, v = (torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
+               for s in ((b, sq, h, hd), (b, sk, kh, hd), (b, sk, kh, hd)))
+    qpos = q_offset + torch.arange(sq, device="cuda")[:, None]
+    kpos = torch.arange(sk, device="cuda")[None, :]
+    mask = kpos <= qpos
+    if window:
+        mask &= qpos - kpos < window
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def kern():
+        return fa.flash_attention(q, k, v, window=window, q_offset=q_offset)
+
+    def plain():
+        return fa.flash_attention_torch(q, k, v, window=window, q_offset=q_offset)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    got, ref = kern(), plain()
+    lib = library().transpose(1, 2)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail(f"flash_attention {shp}: non-finite kernel output")
+    ref_abs = ref.float().abs()
+    scale = max(ref_abs.max().item(), 1e-30)
+    row_scale = ref_abs.amax(-1).clamp_min(1e-30)
+    diff = (got.float() - ref.float()).abs()
+    abs_err = diff.max().item()
+    rel_err = abs_err / scale
+    row_err = (diff.amax(-1) / row_scale).max().item()
+    lib_diff = (lib.float() - ref.float()).abs()
+    row = {"max_abs_err": abs_err, "max_rel_err": rel_err, "max_row_rel_err": row_err,
+           "tol_rel": KERNEL_TOL, "library_rel_err": lib_diff.max().item() / scale,
+           "library_row_rel_err": (lib_diff.amax(-1) / row_scale).max().item()}
+    del got, ref, lib, ref_abs, row_scale, diff, lib_diff
+    for key, fn in (("ms", kern), ("plain_ms", plain), ("library_ms", library)):
+        row[key], lo, hi = time_ms(fn)
+        row[f"{key}_range"] = [lo, hi]
+    # bytes: q read and out written, k and v read over the visible keys only
+    pairs = b * visible_pairs(sq, sk, q_offset, window)
+    keys = visible_keys(sq, sk, q_offset, window)
+    nbytes = 2 * (2 * b * sq * h * hd + 2 * b * keys * kh * hd)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * hd * h * pairs)
+    row["shape"] = dict(shp, visible_pairs=pairs, visible_keys=keys)
+    del q, k, v, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    if max(rel_err, row_err) > KERNEL_TOL:
+        fail(f"flash_attention {shp}: kernel disagrees with its plain version: "
+             f"rel err {rel_err:.3e}, worst row {row_err:.3e} > {KERNEL_TOL}")
+    return row
+
+
 def check_demand_matches_grouped(cfg, gen) -> dict:
     """The demand kernel over a fetched bank that is a subset of kernel
     #2's remote bank, on the same rows: its padding rows are exact zeros
@@ -378,20 +516,21 @@ def drive_split_gemm(cfg, gen) -> int:
     calls it) at R1 expert shapes, C 16 and C 1, with the launch counts
     set to 0 just before and read just after."""
     import torch
+    from repro_torch.kernels import registry
     from repro_torch.kernels.split_gemm import ops
 
     d, f, e = cfg.d_model, cfg.moe.d_ff, cfg.moe.num_experts
     e_l = e // G
     wl = (torch.randn(e_l, d, f, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
     wr = (torch.randn(e - e_l, d, f, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
-    ops.reset_launch_counts()
+    registry.reset_launch_counts()
     for c in (16, 1):
         x = torch.randn(e, c, d, generator=gen, device="cuda").to(torch.bfloat16)
         y = ops.split_gemm(x, wl, wr)
         if y.shape != (e, c, f) or not torch.isfinite(y).all():
             fail(f"ops.split_gemm C {c}: bad output {tuple(y.shape)}")
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts = registry.launch_counts()
     print(f"ops.split_gemm path: launch counts {json.dumps(counts)}")
     if counts["split_grouped_gemm"] <= 0:
         fail("split_grouped_gemm never launched on its entry point")
@@ -412,6 +551,85 @@ def r1_two_layers():
     )
 
 
+def gemma_six_layers():
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch("gemma3-27b"), num_layers=GEMMA_LAYERS)
+
+
+def serve_phase(label: str, cfg, engine, prompts, kernels) -> tuple[dict, dict]:
+    """Serve ``prompts`` on a fresh engine after its warmup, with the launch
+    counts set to 0 just before and read just after; every kernel in
+    ``kernels`` must have launched and the peak memory stay under the
+    limit. Then one prefill's and one decode step's logits against the
+    plain versions, and one profiled prefill. Returns (numbers, outputs)."""
+    import gc
+
+    import torch
+    from repro_torch.core import execution
+    from repro_torch.kernels import registry
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.warmup()
+    print(f"{label}: warmup {time.perf_counter() - t0:.2f} s, weights "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    outputs = serve(engine, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = registry.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    summary = engine.metrics.summary()
+    for rec in sorted(engine.metrics.records, key=lambda r: r.req_id):
+        print(f"{label} request {rec.req_id}: tokens {outputs[rec.req_id]} ttft_s "
+              f"{rec.ttft:.4f} tpot_s {rec.tpot:.4f}")
+    print(f"{label} serve: {json.dumps(summary)} wall_s {wall:.3f} peak_gb {peak / 1e9:.2f} "
+          f"launches {json.dumps(counts)}")
+    if summary["completed"] != len(prompts):
+        fail(f"{label}: {summary['completed']} of {len(prompts)} requests completed")
+    for rid, toks in outputs.items():
+        if len(toks) != OUTPUT or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"{label} request {rid}: bad tokens {toks}")
+    missing = [k for k in kernels if counts[k] <= 0]
+    if missing:
+        fail(f"{label}: kernels never launched on the served path: {missing}")
+
+    def prefill_logits(impl):
+        return engine.ctx.forward(engine.params, prompts[0], impl=impl)["last_logits"]
+
+    def decode_logits(impl):
+        gen = engine.gen
+        ctx = execution.Ctx(model=gen.model, xp=gen.xp, impl=impl)
+        return execution.forward_decode(engine.params, gen.cur_token, gen.state, ctx)["logits"]
+
+    # one prefill, and one decode step from the served state (both rows)
+    logit_err = {}
+    for step, run in (("prefill", prefill_logits), ("decode", decode_logits)):
+        lk = run(None)[:, :cfg.vocab_size].float()
+        lt = run("torch")[:, :cfg.vocab_size].float()
+        if not (torch.isfinite(lk).all() and torch.isfinite(lt).all()):
+            fail(f"{label}: non-finite {step} logits")
+        err = (torch.linalg.vector_norm(lk - lt) / torch.linalg.vector_norm(lt)).item()
+        logit_err[step] = err
+        print(f"{label} {step} logits kernels vs plain: norm-wise rel err {err:.3e} "
+              f"(tol {LOGIT_TOL}); argmax {lk.argmax(-1).tolist()} vs {lt.argmax(-1).tolist()}")
+        if err > LOGIT_TOL:
+            fail(f"{label}: {step} logits disagree: {err:.3e} > {LOGIT_TOL}")
+    prof = profile_step(f"{label} prefill", lambda: engine.ctx.forward(engine.params, prompts[0]))
+    phase_peak = torch.cuda.max_memory_allocated()
+    print(f"{label}: peak over the phase (plain versions and profile included) "
+          f"{phase_peak / 1e9:.2f} GB")
+    if phase_peak > PEAK_LIMIT:
+        fail(f"{label}: peak memory {phase_peak / 1e9:.2f} GB > {PEAK_LIMIT / 1e9:.0f} GB")
+    return {"summary": summary, "wall_s": wall, "peak_gb": peak / 1e9,
+            "phase_peak_gb": phase_peak / 1e9, "launches": counts,
+            "logit_norm_err": logit_err, "profile_prefill_ms": prof}, outputs
+
+
 def serve(engine, prompts) -> dict:
     from repro_torch.runtime.engine import Request
 
@@ -426,6 +644,54 @@ def serve(engine, prompts) -> dict:
     return {rid: list(toks) for rid, toks in engine.outputs.items()}
 
 
+def check_isolation(label: str, cfg, engine, model, prompts) -> dict:
+    """Request 0 served alone against served among the others, on fresh
+    servers with row-local capacity (``capacity_from="global"``): its
+    tokens must be equal, and its first decode step's logits, beside
+    request 1 or beside an empty slot, within LOGIT_TOL norm-wise. (With
+    tied embeddings and random weights greedy tokens can repeat the
+    prompt's last token whatever the context; the logits still carry it.)"""
+    import torch
+    from repro_torch.core import execution
+    from repro_torch.runtime.engine import ContextServer, DisaggregatedEngine, GenerationServer
+
+    sizes = {"data": 1, "model": G}
+    kw = dict(capacity_from="global")
+    ctx = ContextServer(model, sizes, prefill_len=engine.ctx.prefill_len,
+                        cache_len=engine.ctx.cache_len, **kw)
+
+    def gen_server():
+        return GenerationServer(model, sizes, max_batch=MAX_BATCH,
+                                cache_len=engine.gen.cache_len, **kw)
+
+    among = serve(DisaggregatedEngine(engine.params, ctx, gen_server()), prompts)[0]
+    alone = serve(DisaggregatedEngine(engine.params, ctx, gen_server()), prompts[:1])[0]
+
+    def first_step_logits(batch):
+        gen = gen_server()
+        for slot, tokens in enumerate(batch):
+            first, state = ctx.prefill(engine.params, tokens)
+            gen.admit(slot, slot, first, state)
+        step = execution.Ctx(model=model, xp=gen.xp)
+        out = execution.forward_decode(engine.params, gen.cur_token, gen.state, step)
+        return out["logits"][0, :cfg.vocab_size].float()
+
+    l_alone, l_among = first_step_logits(prompts[:1]), first_step_logits(prompts[:2])
+    if not (torch.isfinite(l_alone).all() and torch.isfinite(l_among).all()):
+        fail(f"{label}: non-finite decode logits of request 0")
+    err = (torch.linalg.vector_norm(l_alone - l_among) / torch.linalg.vector_norm(l_among)).item()
+    bitwise = torch.equal(l_alone, l_among)
+    print(f"{label} request 0 among {len(prompts)}: {among}\n{label} request 0 alone: {alone}\n"
+          f"{label} request 0 first decode step logits, alone vs beside request 1: norm-wise "
+          f"rel err {err:.3e} (tol {LOGIT_TOL}), bitwise {bitwise}")
+    if among != alone:
+        fail(f"{label}: a request served alone gave other tokens than served among the others")
+    if err > LOGIT_TOL:
+        fail(f"{label}: request 0's decode logits alone and among others disagree: "
+             f"{err:.3e} > {LOGIT_TOL}")
+    return {"tokens_equal": True, "first_step_logit_norm_err": err, "logits_bitwise": bitwise}
+
+
 def serve_fetch_modes(cfg, engine, model, prompts, ref_outputs, ref_summary, ref_peak) -> dict:
     """Serve the same requests on the all-fetch engine's weights under each
     route-before-gather mode. Each mode's tokens must equal the all-fetch
@@ -437,7 +703,7 @@ def serve_fetch_modes(cfg, engine, model, prompts, ref_outputs, ref_summary, ref
     import numpy as np
     import torch
     from repro_torch.core import execution, prefetch
-    from repro_torch.kernels.split_gemm import ops
+    from repro_torch.kernels import registry
     from repro_torch.launch.serve import build_engine
 
     params = engine.params
@@ -469,13 +735,13 @@ def serve_fetch_modes(cfg, engine, model, prompts, ref_outputs, ref_summary, ref
         if not execution.demand_fetch_active(cfg, m_model.geom, xp):
             fail(f"expert_fetch={mode}: the decode plan does not run the demand path")
         eng.warmup()
-        ops.reset_launch_counts()
+        registry.reset_launch_counts()
         execution.DEMAND.layers = execution.DEMAND.fallbacks = 0
         t0 = time.perf_counter()
         outs = serve(eng, prompts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
+        counts = registry.launch_counts()
         layers, fallbacks = execution.DEMAND.layers, execution.DEMAND.fallbacks
         peak = torch.cuda.max_memory_allocated()
         summ = eng.metrics.summary()
@@ -535,10 +801,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     import numpy as np
 
-    from repro_torch.kernels import build
-    from repro_torch.kernels.split_gemm import ops
+    from repro_torch.kernels import build, registry
     from repro_torch.launch.serve import build_engine
-    from repro_torch.runtime.engine import ContextServer, DisaggregatedEngine, GenerationServer
 
     t_start = time.perf_counter()
     card = card_line()
@@ -556,17 +820,25 @@ def main() -> None:
         print(f"ptxas -v {name}:")
         for ln in keep:
             print(f"  {ln}")
-    for name in ops.KERNELS:
+    for name in registry.KERNELS:
         build.load(name)
 
     # ---- kernel checks --------------------------------------------------
     cfg = r1_two_layers()
     gen = torch.Generator(device="cuda").manual_seed(0)
     results: dict = {}
-    for name, phase, shp in kernel_cases(cfg):
-        row = run_kernel_case(name, shp, gen)
+    gemma_cfg = gemma_six_layers()
+    cases = kernel_cases(cfg, gemma_cfg) + [("flash_attention", phase, shp)
+                                            for phase, shp in flash_cases(cfg, gemma_cfg)]
+    for name, phase, shp in cases:
+        if name == "flash_attention":
+            row = run_flash_case(shp, gen)
+        else:
+            row = run_kernel_case(name, shp, gen)
         results.setdefault(name, {})[phase] = row
-        print(f"kernel {name} {phase} {row['shape']}: rel_err {row['max_rel_err']:.3e} "
+        worst_row = (f" worst row {row['max_row_rel_err']:.3e}"
+                     if "max_row_rel_err" in row else "")
+        print(f"kernel {name} {phase} {row['shape']}: rel_err {row['max_rel_err']:.3e}{worst_row} "
               f"(tol {KERNEL_TOL}) ms {row['ms']:.4f} {row['ms_range']} plain_ms "
               f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms "
               f"{row['bound_ms']:.4f} ({row['bound_by']})")
@@ -575,7 +847,6 @@ def main() -> None:
 
     # ---- serve ----------------------------------------------------------
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, PROMPT) for _ in range(N_REQUESTS)]
     t0 = time.perf_counter()
@@ -591,65 +862,8 @@ def main() -> None:
           f"{model.geom.attn_shards} ffn_shards {model.geom.ffn_shards}; init "
           f"{time.perf_counter() - t0:.1f} s, weights "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    t0 = time.perf_counter()
-    engine.warmup()
-    print(f"warmup (one prefill + one decode step, first calls): {time.perf_counter() - t0:.2f} s")
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    outputs = serve(engine, prompts)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    for rec in sorted(engine.metrics.records, key=lambda r: r.req_id):
-        print(f"request {rec.req_id}: tokens {outputs[rec.req_id]} ttft_s {rec.ttft:.4f} "
-              f"tpot_s {rec.tpot:.4f}")
-    summary = engine.metrics.summary()
-    print(f"serve: {json.dumps(summary)} wall_s {wall:.3f}")
-    print(f"peak memory allocated: {peak / 1e9:.2f} GB")
-    print(f"launch counts on the served path: {json.dumps(counts)}")
-    if summary["completed"] != N_REQUESTS:
-        fail(f"{summary['completed']} of {N_REQUESTS} requests completed")
-    for rid, toks in outputs.items():
-        if len(toks) != OUTPUT or not all(0 <= t < cfg.vocab_size for t in toks):
-            fail(f"request {rid}: bad tokens {toks}")
-    missing = [k for k in ALL_FETCH_KERNELS if counts[k] <= 0]
-    if missing:
-        fail(f"kernels never launched on the served path: {missing}")
-    if peak > PEAK_LIMIT:
-        fail(f"peak memory {peak / 1e9:.2f} GB exceeds the {PEAK_LIMIT / 1e9:.0f} GB limit")
-
-    # ---- prefill logits: kernels vs plain versions ------------------------
-    lk = engine.ctx.forward(engine.params, prompts[0])["last_logits"]
-    lt = engine.ctx.forward(engine.params, prompts[0], impl="torch")["last_logits"]
-    v = cfg.vocab_size
-    lk, lt = lk[:, :v].float(), lt[:, :v].float()
-    if not (torch.isfinite(lk).all() and torch.isfinite(lt).all()):
-        fail("non-finite prefill logits")
-    logit_err = (torch.linalg.vector_norm(lk - lt) / torch.linalg.vector_norm(lt)).item()
-    max_err = ((lk - lt).abs().max() / lt.abs().max()).item()
-    print(f"prefill last_logits kernels vs plain: norm-wise rel err {logit_err:.3e} "
-          f"(tol {LOGIT_TOL}); max err / max|ref| {max_err:.3e}; "
-          f"argmax {int(lk.argmax())} vs {int(lt.argmax())}")
-    if logit_err > LOGIT_TOL:
-        fail(f"prefill logits disagree: {logit_err:.3e} > {LOGIT_TOL}")
-
-    # ---- a request alone vs among the others ------------------------------
-    sizes = {"data": 1, "model": G}
-
-    def fresh_engine():
-        kw = dict(capacity_from="global")
-        return DisaggregatedEngine(
-            engine.params,
-            ContextServer(model, sizes, prefill_len=PROMPT, cache_len=engine.ctx.cache_len, **kw),
-            GenerationServer(model, sizes, max_batch=MAX_BATCH, cache_len=engine.gen.cache_len, **kw),
-        )
-
-    among = serve(fresh_engine(), prompts)[0]
-    alone = serve(fresh_engine(), prompts[:1])[0]
-    print(f"request 0 among {N_REQUESTS}: {among}\nrequest 0 alone: {alone}")
-    if among != alone:
-        fail("a request served alone gave other tokens than served among the others")
+    r1, outputs = serve_phase(f"{cfg.name} {PROMPT}", cfg, engine, prompts, ALL_FETCH_KERNELS)
+    r1["isolation"] = check_isolation(cfg.name, cfg, engine, model, prompts)
 
     # ---- the whole path in fp32 at reduced width: kernels vs plain ---------
     from repro_torch.configs import reduced_variant
@@ -669,15 +883,43 @@ def main() -> None:
         fail(f"fp32 prefill logits disagree: {fp32_err:.3e} > {FP32_LOGIT_TOL}")
     del small
 
-    # ---- where the time goes: one prefill and one decode step, profiled ---
-    for label, step in (("prefill", lambda: engine.ctx.forward(engine.params, prompts[0])),
-                        ("decode", lambda: engine.gen.decode_step(engine.params))):
-        profile_step(label, step)
-
     # ---- the route-before-gather fetch modes on the same weights ----------
-    modes = serve_fetch_modes(cfg, engine, model, prompts, outputs, summary, peak)
+    modes = serve_fetch_modes(cfg, engine, model, prompts, outputs, r1["summary"],
+                              r1["peak_gb"] * 1e9)
     demand_launches = sum(m["launches"]["split_grouped_swiglu_demand"]
                           for mode, m in modes.items() if mode != "all")
+
+    # ---- DeepSeek-R1 at the paper's input length, on the same weights ------
+    params = engine.params
+    del engine, model
+    long_prompts = [rng.integers(0, cfg.vocab_size, LONG_PROMPT) for _ in range(LONG_REQUESTS)]
+    long_eng, _ = build_engine(
+        cfg, mesh_shape=(1, G), prefill_len=LONG_PROMPT, cache_len=LONG_PROMPT + OUTPUT,
+        max_batch=MAX_BATCH, dtype=torch.bfloat16, device="cuda", params=params,
+        geom_kwargs=GEOM,
+    )
+    r1_long, _ = serve_phase(f"{cfg.name} {LONG_PROMPT}", cfg, long_eng, long_prompts,
+                             ALL_FETCH_KERNELS)
+    del long_eng, params
+
+    # ---- Gemma-3-27B: sliding-window layers, dense split kernels -----------
+    gemma_prompts = [rng.integers(0, gemma_cfg.vocab_size, GEMMA_PROMPT)
+                     for _ in range(N_REQUESTS)]
+    gemma_eng, gmodel = build_engine(
+        gemma_cfg, mesh_shape=(1, G), prefill_len=GEMMA_PROMPT, cache_len=GEMMA_PROMPT + OUTPUT,
+        max_batch=MAX_BATCH, dtype=torch.bfloat16, device="cuda", seed=0,
+        geom_kwargs=GEMMA_GEOM,
+    )
+    print(f"model: {gemma_cfg.name} d_model {gemma_cfg.d_model} layers "
+          f"{gemma_cfg.num_layers} windows {[s.window for g in gmodel.plan for s in g.sigs]} "
+          f"attn_shards "
+          f"{gmodel.geom.attn_shards} kv_shard {gmodel.geom.kv_shard} ffn_shards "
+          f"{gmodel.geom.ffn_shards} vocab_pad {gmodel.geom.vocab_pad}")
+    gemma, _ = serve_phase(f"{gemma_cfg.name} {GEMMA_PROMPT}", gemma_cfg, gemma_eng,
+                           gemma_prompts, GEMMA_KERNELS)
+    gemma["isolation"] = check_isolation(gemma_cfg.name, gemma_cfg, gemma_eng, gmodel,
+                                         gemma_prompts)
+    del gemma_eng, gmodel
 
     # ---- report ---------------------------------------------------------
     replaces = {
@@ -687,21 +929,27 @@ def main() -> None:
         "split_dense_swiglu": "src/repro/kernels/split_gemm/dense.py:308",
         "split_grouped_swiglu_demand": "src/repro/kernels/split_gemm/split_gemm.py:419",
         "split_grouped_gemm": "src/repro/kernels/split_gemm/split_gemm.py:124",
+        "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:74",
     }
+    # the phase each kernel's headline numbers come from
+    primary = {"flash_attention": "r1_1024_last"}
     # each kernel's launches on its own path: the all-fetch serve, the
     # three route-before-gather serves, ops.split_gemm
-    launches = dict(counts, split_grouped_swiglu_demand=demand_launches,
+    launches = dict(r1["launches"], split_grouped_swiglu_demand=demand_launches,
                     split_grouped_gemm=gemm_launches)
     kernels = []
-    for name in ops.KERNELS:
-        dec = results[name]["decode"]
-        others = {ph: row for ph, row in results[name].items() if ph != "decode"}
+    for name in registry.KERNELS:
+        head = primary.get(name, "decode")
+        dec = results[name][head]
+        others = {ph: row for ph, row in results[name].items() if ph != head}
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": launches[name],
+            "launches_r1_8192": r1_long["launches"][name],
+            "launches_gemma3_4096": gemma["launches"][name],
             "max_abs_err": dec["max_abs_err"],
             "max_rel_err": dec["max_rel_err"],
             "ms": dec["ms"],
@@ -713,6 +961,8 @@ def main() -> None:
             "shape": dec["shape"],
             **others,
         })
+        if "max_row_rel_err" in dec:
+            kernels[-1]["max_row_rel_err"] = dec["max_row_rel_err"]
         if name == "split_grouped_swiglu_demand":
             kernels[-1]["checks"] = demand_checks
     print(f"total_s {time.perf_counter() - t_start:.1f}")

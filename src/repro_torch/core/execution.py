@@ -17,6 +17,9 @@ cross-rank operation in process:
 Weights move, activations do not: each rank serves its own tokens (its
 sequence shard in prefill, the replicated rows in decode) end to end,
 running the split kernels straight off its (resident, remote) bank pair.
+Prefill attention runs the flash kernel over the gathered K/V (causal, or
+sliding-window on local layers); decode attention is plain PyTorch, as
+the JAX package computes it in jnp.
 Ported: split ``attn_qkv`` / ``attn_out`` / ``dense_ffn`` /
 ``moe_experts`` banks under ``split:all:allgather``, prefill with
 sequence sharding and KV capture, decode over a sequence-sharded KV
@@ -47,6 +50,7 @@ from repro_torch.core import prefetch
 from repro_torch.core.budget import demand_budget_rows, predictive_budget_rows
 from repro_torch.core.placement import make_placement
 from repro_torch.core.strategy import ExecutionPlan
+from repro_torch.kernels import flash_attention as flash_lib
 from repro_torch.kernels import split_gemm as split_gemm_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
@@ -86,6 +90,13 @@ class Ctx:
     @property
     def moe_impl(self) -> str:
         return self.impl or "kernel"
+
+    @property
+    def attn_impl(self) -> str:
+        """Prefill attention's impl: an alias of ``dense_impl`` (the flash
+        kernel on the card, the plain version on the CPU and in training),
+        named for its call site."""
+        return self.dense_impl
 
 
 # ==========================================================================
@@ -621,7 +632,8 @@ def _attn_layer(hs, lps, sig: LayerSig, ctx: Ctx, lstates, banks):
         k_all = torch.cat(ks, dim=1) if xp.seq_axes else ks[0]
         v_all = torch.cat(vs, dim=1) if xp.seq_axes else vs[0]
         outs = [
-            attn_lib.mha_prefill(q, k_all, v_all, window=sig.window, q_offset=ctx.q_offsets[r])
+            flash_lib.flash_attention(q, k_all, v_all, window=sig.window,
+                                      q_offset=ctx.q_offsets[r], impl=ctx.attn_impl)
             for r, q in enumerate(qs)
         ]
         if ctx.capture_len:

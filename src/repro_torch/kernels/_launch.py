@@ -1,4 +1,4 @@
-"""ctypes launch plumbing and argument checks shared by the split kernels."""
+"""ctypes launch plumbing and argument checks shared by the port's kernels."""
 from __future__ import annotations
 
 import ctypes
@@ -7,7 +7,8 @@ import torch
 
 from repro_torch.kernels import build
 
-#: dtype codes of the C entry points (``csrc/split_tile.cuh``).
+#: dtype codes of the C entry points (``csrc/split_tile.cuh``,
+#: ``csrc/flash_attention.cu``).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -62,12 +63,12 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     Anything else raises."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
-        raise ValueError(f"split kernel operands on several devices: {sorted(map(str, devs))}")
+        raise ValueError(f"kernel operands on several devices: {sorted(map(str, devs))}")
     dev = next(iter(devs))
     if dev.type == "cpu":
         return True
     if dev.type != "cuda":
-        raise ValueError(f"split kernels run on CUDA or CPU tensors, got {dev}")
+        raise ValueError(f"the kernels run on CUDA or CPU tensors, got {dev}")
     return False
 
 

@@ -26,6 +26,7 @@ KERNELS = (
     "split_dense_swiglu",
     "split_grouped_swiglu_demand",
     "split_grouped_gemm",
+    "flash_attention",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,8 +1,6 @@
 """Split-bank kernels: CUDA kernels, plain versions and ``ops`` dispatch."""
 from repro_torch.kernels.split_gemm.ops import (
     default_dense_impl,
-    launch_counts,
-    reset_launch_counts,
     split_dense_ffn,
     split_gemm,
     split_reduce_matmul,
@@ -13,8 +11,6 @@ from repro_torch.kernels.split_gemm.ops import (
 
 __all__ = [
     "default_dense_impl",
-    "launch_counts",
-    "reset_launch_counts",
     "split_dense_ffn",
     "split_gemm",
     "split_reduce_matmul",

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.split_gemm._launch import (
+from repro_torch.kernels._launch import (
     CudaKernel,
     bank_dims,
     cast_like,

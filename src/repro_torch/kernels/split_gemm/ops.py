@@ -17,9 +17,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.split_gemm.dense import (
-    DENSE_SWIGLU,
-    REDUCE_GEMM,
-    STACK_GEMM,
     split_dense_swiglu,
     split_dense_swiglu_torch,
     split_reduce_gemm,
@@ -28,9 +25,6 @@ from repro_torch.kernels.split_gemm.dense import (
     split_stack_gemm_torch,
 )
 from repro_torch.kernels.split_gemm.grouped import (
-    GROUPED_GEMM,
-    GROUPED_SWIGLU,
-    GROUPED_SWIGLU_DEMAND,
     split_grouped_gemm,
     split_grouped_gemm_torch,
     split_grouped_swiglu,
@@ -38,22 +32,6 @@ from repro_torch.kernels.split_gemm.grouped import (
     split_grouped_swiglu_demand_torch,
     split_grouped_swiglu_torch,
 )
-
-#: Every kernel of the port, by kernel name.
-KERNELS = {
-    k.name: k
-    for k in (GROUPED_SWIGLU, STACK_GEMM, REDUCE_GEMM, DENSE_SWIGLU, GROUPED_SWIGLU_DEMAND,
-              GROUPED_GEMM)
-}
-
-
-def launch_counts() -> dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
 
 
 def default_dense_impl(phase: str, device: torch.device) -> str:

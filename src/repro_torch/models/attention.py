@@ -1,9 +1,11 @@
 """GQA attention: chunked prefill + cache decode with LSE (per-rank math).
 
 The port of ``repro.models.attention``. Plain PyTorch, as the JAX engine
-uses plain jnp here. ``mha_prefill`` keeps the block loop over KV blocks
-with an online softmax, so a full-width prefill never forms the
-(B, H, S, S) logits. Sequence-sharded decode returns ``(out, lse)``
+uses plain jnp here. ``mha_prefill`` is the plain version of the flash
+attention kernel (TPU kernel #7), ``kernels.flash_attention.ops.
+flash_attention_torch``, re-exported here: it keeps the block loop over
+KV blocks with an online softmax, so a full-width prefill never forms
+the (B, H, S, S) logits. Sequence-sharded decode returns ``(out, lse)``
 pairs that ``combine_partials`` (or the engine's rank-ordered combine)
 reduces.
 """
@@ -13,62 +15,10 @@ import math
 
 import torch
 
-NEG_INF = -1e30
+from repro_torch.kernels.flash_attention.ops import NEG_INF
+from repro_torch.kernels.flash_attention.ops import flash_attention_torch as mha_prefill
 
-
-def mha_prefill(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    window: int = 0,
-    q_offset: int = 0,
-    kv_offset: int = 0,
-    block_kv: int = 512,
-) -> torch.Tensor:
-    """Chunked causal attention. q: (B,Sq,H,hd); k,v: (B,Sk,Kh,hd).
-
-    window=0 means full causal; window=w limits attention to the last w
-    keys. ``kv_offset`` is the absolute position of k[:, 0]; ``q_offset``
-    that of q[:, 0]. Returns (B,Sq,H,hd)."""
-    b, sq, h, hd = q.shape
-    sk, kh = k.shape[1], k.shape[2]
-    rep = h // kh
-    scale = 1.0 / math.sqrt(hd)
-    dev = q.device
-
-    qt = (q * scale).permute(0, 2, 1, 3).reshape(b, kh, rep, sq, hd)
-    kt = k.permute(0, 2, 1, 3)  # (B,Kh,Sk,hd)
-    vt = v.permute(0, 2, 1, 3)
-
-    block_kv = min(block_kv, sk)
-    nblk = -(-sk // block_kv)
-    q_pos = q_offset + torch.arange(sq, device=dev)
-
-    acc = torch.zeros(b, kh, rep, sq, hd, dtype=torch.float32, device=dev)
-    m_run = torch.full((b, kh, rep, sq), NEG_INF, dtype=torch.float32, device=dev)
-    l_run = torch.zeros(b, kh, rep, sq, dtype=torch.float32, device=dev)
-    for blk in range(nblk):
-        start = blk * block_kv
-        kj = kt[:, :, start:start + block_kv]
-        vj = vt[:, :, start:start + block_kv]
-        n = kj.shape[2]
-        logits = torch.einsum("bkrqd,bkld->bkrql", qt.float(), kj.float())
-        k_pos = kv_offset + start + torch.arange(n, device=dev)
-        mask = k_pos[None, :] <= q_pos[:, None]
-        if window:
-            mask &= q_pos[:, None] - k_pos[None, :] < window
-        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
-        # padded tail keys of the JAX block scan are masked out there; here
-        # the last block is simply shorter, which leaves the sums unchanged
-        m_new = torch.maximum(m_run, logits.amax(dim=-1))
-        p = torch.exp(logits - m_new[..., None])
-        corr = torch.exp(m_run - m_new)
-        l_run = l_run * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bkrql,bkld->bkrqd", p, vj.float())
-        m_run = m_new
-    out = acc / torch.clamp(l_run[..., None], min=1e-30)
-    return out.reshape(b, h, sq, hd).permute(0, 2, 1, 3).to(q.dtype)
+__all__ = ["NEG_INF", "combine_partials", "mha_decode_partial", "mha_prefill"]
 
 
 def mha_decode_partial(

@@ -15,7 +15,8 @@ import torch
 def test_cuda_kernels_match_plain_versions():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
-    from repro_torch.kernels.split_gemm import dense, grouped, ops
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.split_gemm import dense, grouped
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -49,7 +50,7 @@ def test_cuda_kernels_match_plain_versions():
             ref = grouped.split_grouped_swiglu_torch(x, *ws)
             check(got, ref, tol)
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts = registry.launch_counts()
     assert all(counts[k.name] > 0 for k in (dense.STACK_GEMM, dense.REDUCE_GEMM,
                                             dense.DENSE_SWIGLU, grouped.GROUPED_SWIGLU))
 
@@ -89,3 +90,43 @@ def test_cuda_demand_and_grouped_gemm_kernels():
             assert rel(got, grouped.split_grouped_gemm_torch(x, w_l, w_r)) <= tol
     torch.cuda.synchronize()
     assert grouped.GROUPED_SWIGLU_DEMAND.launches > 0 and grouped.GROUPED_GEMM.launches > 0
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_kernel():
+    """Kernel #7 against its plain version (flash_attention_torch) at a
+    windowed shape with ragged Sq and Sk and a causal GQA shape with an
+    offset; and the wrapper's checks of what the kernel does not take."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    launches = fa.FLASH_ATTENTION.launches
+    # (b, sq, sk, h, kh, hd, window, q_offset)
+    for b, sq, sk, h, kh, hd, window, q_offset in ((1, 100, 300, 4, 2, 64, 70, 200),
+                                                    (2, 128, 384, 8, 2, 128, 0, 256)):
+        for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            q, k, v = (torch.randn(*s, generator=gen, device="cuda").to(dt)
+                       for s in ((b, sq, h, hd), (b, sk, kh, hd), (b, sk, kh, hd)))
+            got = fa.flash_attention(q, k, v, window=window, q_offset=q_offset)
+            ref = fa.flash_attention_torch(q, k, v, window=window, q_offset=q_offset)
+            diff, ref_abs = (got.float() - ref.float()).abs(), ref.float().abs()
+            err = (diff.max() / ref_abs.max()).item()
+            # per query row and head too: rows that see few keys dominate max|ref|
+            row_err = (diff.amax(-1) / ref_abs.amax(-1).clamp_min(1e-30)).max().item()
+            assert max(err, row_err) <= tol, (b, sq, sk, window, dt, err, row_err)
+    torch.cuda.synchronize()
+    assert fa.FLASH_ATTENTION.launches == launches + 4
+    q = torch.zeros(1, 64, 4, 128, device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros(1, 64, 2, 128, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="share"):
+        fa.flash_attention(q, k.float(), k)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
+    with pytest.raises(ValueError, match="aligned"):
+        k63 = k[:, :63].contiguous()
+        fa.flash_attention(q.reshape(-1)[1:1 + 63 * 4 * 128].view(1, 63, 4, 128), k63, k63)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q[..., :96].contiguous(), k[..., :96].contiguous(),
+                           k[..., :96].contiguous())

@@ -35,6 +35,7 @@ from repro_torch.checkpoint.convert import from_jax_params
 from repro_torch.configs.base import ArchConfig, InputShape, MoEConfig
 from repro_torch.core import execution, prefetch, strategy
 from repro_torch.core.placement import make_placement
+from repro_torch.kernels import registry
 from repro_torch.kernels.split_gemm import grouped
 from repro_torch.kernels.split_gemm import ops as tops
 from repro_torch.launch.serve import build_engine
@@ -116,7 +117,7 @@ def test_demand_ops_dispatch_and_checks():
         grouped.split_grouped_swiglu_demand(*arrs, valid[:2])
     with pytest.raises(ValueError, match="does not match"):
         grouped.split_grouped_gemm(arrs[0][:4], arrs[1], arrs[4])
-    assert {"split_grouped_swiglu_demand", "split_grouped_gemm"} <= set(tops.KERNELS)
+    assert {"split_grouped_swiglu_demand", "split_grouped_gemm"} <= set(registry.KERNELS)
 
 
 # --------------------------------------------------------------------------

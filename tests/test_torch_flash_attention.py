@@ -1,0 +1,110 @@
+"""The port's flash attention (kernel #7) against the JAX package's.
+
+On CPU tensors the wrapper runs its plain version (``mha_prefill``), so
+this holds the function the CUDA kernel must compute: the same numpy
+inputs go through the port and through ``flash_attention_ref`` (fp32
+atol/rtol 2e-5, bf16 2e-2: tests/test_kernels.py TOL) and, at three
+shapes in fp32, the Pallas kernel in interpret mode. The shape grid is
+tests/test_kernels.py's: GQA rep 1/2/4, windows 33/64/100, q_offset 256
+and a ragged Sk of 320. The CUDA kernel itself runs only on the card
+(tests/test_torch_cuda.py).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as jflash
+from repro.kernels.flash_attention import flash_attention_ref as jref
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.models.attention import mha_prefill
+
+# One intra-op thread per process: the suite runs several test workers, and
+# the port's test shapes are too small to gain from more.
+torch.set_num_threads(1)
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# (b, sq, sk, h, kh, hd, window, q_offset): tests/test_kernels.py's grid
+SHAPES = [
+    (2, 128, 128, 4, 2, 64, 0, 0),
+    (1, 128, 384, 8, 8, 128, 0, 256),
+    (2, 256, 256, 4, 1, 64, 100, 0),
+    (1, 128, 128, 6, 3, 64, 33, 0),
+    (1, 64, 320, 4, 4, 64, 64, 256),
+    (1, 128, 128, 4, 2, 128, 0, 0),
+]
+# Pallas in interpret mode costs 1-4 s a call: a windowed GQA shape, the
+# offset causal shape and the ragged-Sk windowed shape.
+INTERPRET = [SHAPES[3], SHAPES[1], SHAPES[4]]
+
+
+@pytest.fixture(scope="module")
+def jax_fns():
+    """The JAX package's reference and Pallas kernel (interpret mode),
+    jitted once for the module."""
+    ref = jax.jit(jref, static_argnames=("window", "q_offset"))
+    pallas = jax.jit(jflash, static_argnames=("window", "q_offset", "block_q", "block_k",
+                                              "interpret"))
+    return ref, pallas
+
+
+def _inputs(shape, seed=1):
+    b, sq, sk, h, kh, hd, _, _ = shape
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, sq, h, hd), (b, sk, kh, hd), (b, sk, kh, hd))]
+
+
+def _port(arrs, dt, window, q_offset, impl=None):
+    q, k, v = (torch.from_numpy(a).to(TDT[dt]) for a in arrs)
+    return fa.flash_attention(q, k, v, window=window, q_offset=q_offset, impl=impl)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_matches_jax_ref(jax_fns, shape, dt):
+    window, q_offset = shape[6], shape[7]
+    arrs = _inputs(shape)
+    ref = jax_fns[0](*(jnp.asarray(a, JDT[dt]) for a in arrs), window=window, q_offset=q_offset)
+    got = _port(arrs, dt, window, q_offset)
+    assert got.shape == tuple(ref.shape) and got.dtype == TDT[dt]
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
+                               atol=TOL[dt], rtol=TOL[dt])
+
+
+@pytest.mark.parametrize("shape", INTERPRET, ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_matches_pallas_interpret(jax_fns, shape):
+    window, q_offset = shape[6], shape[7]
+    arrs = _inputs(shape, seed=2)
+    ref = jax_fns[1](*(jnp.asarray(a) for a in arrs), window=window, q_offset=q_offset,
+                     block_q=64, block_k=64, interpret=True)
+    got = _port(arrs, "float32", window, q_offset)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_checks_and_dispatch():
+    """CPU tensors and impl="torch" run the plain version (bitwise
+    mha_prefill); malformed calls raise on every device."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(SHAPES[4]))
+    ref = mha_prefill(q, k, v, window=64, q_offset=256)
+    launches = fa.FLASH_ATTENTION.launches
+    for impl in (None, "kernel", "torch"):
+        assert torch.equal(fa.flash_attention(q, k, v, window=64, q_offset=256, impl=impl), ref)
+    assert fa.FLASH_ATTENTION.launches == launches  # the plain version is no launch
+    with pytest.raises(ValueError, match="impl"):
+        fa.flash_attention(q, k, v, impl="pallas")
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention(q, k, v, q_offset=257)  # row 63 would see no key of its own
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention(q, k, v, window=-1)
+    with pytest.raises(ValueError, match="disagree"):
+        fa.flash_attention(q[..., :32], k, v)
+    with pytest.raises(ValueError, match="disagree"):
+        fa.flash_attention(q[:, :, :3], k[:, :, :2], v[:, :, :2])  # 3 heads over 2 kv heads
+    with pytest.raises(ValueError, match="shaped like k"):
+        fa.flash_attention(q, k, v[:, :-1])
+    with pytest.raises(ValueError, match="several devices"):
+        fa.flash_attention(q, k.to("meta"), v)

@@ -16,7 +16,8 @@ from repro.kernels.split_gemm import ops as jops
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import moe as jmoe
-from repro_torch.kernels.split_gemm import _launch, dense, grouped
+from repro_torch.kernels import _launch
+from repro_torch.kernels.split_gemm import dense, grouped
 from repro_torch.kernels.split_gemm import ops as tops
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
