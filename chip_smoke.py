@@ -21,7 +21,13 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    bound counting only the visible keys' bytes and the visible query-key
    pairs' operations. The demand kernel is checked at each fetch
    mode's fetched bank; its padding rows must be exact zeros and its real
-   experts' blocks bitwise kernel #2's;
+   experts' blocks bitwise kernel #2's. Kernels #5 and #6 are also held
+   at R1 8192's per-rank prefill (2048 rows); at each of their cases the
+   plan of every launch (path, tile, stages, splits) is printed, must be
+   the Hopper path (TMA, mbarrier ring, wgmma) above 2 rows and the
+   few-row path at 2, as counted by the wrapper, and a second launch must
+   give the same bits. One 64 x 64 x 64 tile through TMA and wgmma is held
+   against an fp32 product;
 4. ``ops.split_gemm`` (kernel #1's entry point; no engine calls it) at
    R1 expert shapes, its launches counted;
 5. serve: ``build_engine`` at DeepSeek-R1 width (2 layers, first one
@@ -29,7 +35,8 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    seeded generator; 4 requests of 1024 tokens, 16 output tokens each,
    max_batch 2. Every kernel of the all-fetch path must have launched.
    One prefill's and one decode step's logits are compared with the plain
-   versions' (tolerance below); one profiled prefill. A request served
+   versions' (tolerance below); one profiled prefill; the path counts of
+   kernels #5 and #6 over the serve are printed. A request served
    alone must give the same tokens as served among the 4, and its first
    decode step's logits beside another request those beside an empty slot
    (row-local capacity, ``capacity_from="global"``);
@@ -59,6 +66,7 @@ Needs a CUDA device and the repository's ``src/`` beside this file.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -73,6 +81,10 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 KERNEL_TOL = 2e-2             # bf16, relative to max|ref| (tests/test_kernels.py TOL)
+# The single wgmma tile: exact bf16 products summed in fp32 in another order.
+TILE_TOL = 1e-5
+# The kernels whose plan picks a path: Hopper above 2 rows, few-row at 2.
+NEW_PATH_KERNELS = ("split_reduce_gemm", "split_dense_swiglu")
 # End to end through two bf16 layers the kernels and the plain versions
 # round at different points (the kernels round h once after silu*mul in
 # fp32, the plain versions after every product), and with random weights
@@ -180,7 +192,8 @@ def profile_step(label: str, fn) -> None:
         if us is None:
             us = e.self_cuda_time_total
         name = e.key
-        if any(k in name for k in ("grouped_kernel", "gate_up_kernel", "reduce_kernel")):
+        if any(k in name for k in ("grouped_kernel", "gate_up_kernel", "reduce_kernel",
+                                   "hopper_kernel")):
             kind = "split kernels"
         elif "fa_bf16_kernel" in name or "fa_f32_kernel" in name:
             kind = "attention kernel"
@@ -286,6 +299,10 @@ def kernel_cases(cfg, gemma):
                           ("tile", 16, rows["decode"])):
         cases.append(("split_grouped_swiglu_demand", phase,
                       dict(c=c, d=d, f=fe, e_l=e // G, e_f=e_f)))
+    # R1 at the paper's 8K prompt: 2048 rows per rank, the same widths
+    t = LONG_PROMPT // G
+    cases.append(("split_reduce_gemm", "prefill_8192", dict(t=t, d=d, f=qd, s=a)))
+    cases.append(("split_dense_swiglu", "prefill_8192", dict(t=t, d=d, f=fs, s=G)))
     t, d = GEMMA_PROMPT // G, gemma.d_model
     for name, f in (("split_stack_gemm", gemma.q_dim // G), ("split_reduce_gemm", gemma.q_dim // G),
                     ("split_dense_swiglu", gemma.d_ff // G)):
@@ -348,7 +365,13 @@ def run_kernel_case(name, shp, gen):
         shp = dict(shp, n_valid=int(valid.sum()))
         nbytes = 2 * (n_real * c * d + (e_l + e_f) * c * d + 3 * n_real * d * f)
         flops = 6 * n_real * c * d * f
+    plans = None
+    if name in NEW_PATH_KERNELS:
+        plans = (dense.dense_swiglu_plans(*args) if name == "split_dense_swiglu"
+                 else (dense.reduce_plan(*args),))
+        before = collections.Counter(dense.PATHS)
     got = kern(*args)
+    ran = None if plans is None else dense.PATHS - before
     ref = plain(*args)
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
@@ -356,6 +379,8 @@ def run_kernel_case(name, shp, gen):
     abs_err = (got.float() - ref.float()).abs().max().item()
     rel_err = abs_err / max(ref.float().abs().max().item(), 1e-30)
     row = {"max_abs_err": abs_err, "max_rel_err": rel_err, "tol_rel": KERNEL_TOL}
+    if plans is not None:
+        row.update(check_plans(name, shp, plans, ran, torch.equal(kern(*args), got)))
     for key, fn in (("ms", kern), ("plain_ms", plain), ("library_ms", lib)):
         row[key], lo, hi = time_ms(lambda: fn(*args))
         row[f"{key}_range"] = [lo, hi]
@@ -366,6 +391,46 @@ def run_kernel_case(name, shp, gen):
     if rel_err > KERNEL_TOL:
         fail(f"{name} {shp}: kernel disagrees with its plain version: rel err {rel_err:.3e} > {KERNEL_TOL}")
     return row
+
+
+def check_plans(name, shp, plans, ran, bitwise) -> dict:
+    """Kernels #5 and #6: the plan each launch ran (counted by the wrapper),
+    which must be the Hopper path above 2 rows and the few-row path at 2
+    rows or fewer (bf16, every width a multiple of 8 at these shapes), and
+    a second launch bitwise equal to the first. ``ran``: the wrapper's path
+    counts of the first launch."""
+    from repro_torch.kernels.split_gemm import dense
+
+    launches = ("gate_up", "reduce") if name == "split_dense_swiglu" else ("reduce",)
+    want = "hopper" if shp["t"] > dense.FEW_ROW_MAXM else "few_row"
+    out = {"bitwise_repeat": bitwise}
+    for launch, plan in zip(launches, plans):
+        n = ran[(name, launch, plan.path)]
+        out[f"plan_{launch}"] = {"path": plan.path, "tile": list(plan.tile),
+                                 "stages": plan.stages, "splits": plan.splits,
+                                 "chunk": plan.chunk}
+        if plan.path != want or n != 1:
+            fail(f"{name} {shp}: {launch} launch ran {plan.path} ({n} counted), not {want}")
+    if not bitwise:
+        fail(f"{name} {shp}: a second launch gave other bits")
+    return out
+
+
+def check_hopper_tile(gen) -> float:
+    """The prefill path's building blocks on one tile (one TMA load per
+    operand, four wgmma m64n64k16 steps) against a plain fp32 product."""
+    import torch
+    from repro_torch.kernels.split_gemm import dense
+
+    a = torch.randn(64, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    b = torch.randn(64, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    ref = a.float() @ b.float()
+    err = ((dense.hopper_tile_check(a, b) - ref).abs().max() / ref.abs().max()).item()
+    print(f"hopper single tile (64 x 64 x 64, TMA + wgmma) vs fp32 product: rel err {err:.3e} "
+          f"(tol {TILE_TOL})")
+    if err > TILE_TOL:
+        fail(f"hopper single-tile check: rel err {err:.3e} > {TILE_TOL}")
+    return err
 
 
 def flash_cases(r1, gemma) -> list:
@@ -568,6 +633,7 @@ def serve_phase(label: str, cfg, engine, prompts, kernels) -> tuple[dict, dict]:
     import torch
     from repro_torch.core import execution
     from repro_torch.kernels import registry
+    from repro_torch.kernels.split_gemm import dense
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -577,18 +643,20 @@ def serve_phase(label: str, cfg, engine, prompts, kernels) -> tuple[dict, dict]:
     print(f"{label}: warmup {time.perf_counter() - t0:.2f} s, weights "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     registry.reset_launch_counts()
+    dense.PATHS.clear()
     t0 = time.perf_counter()
     outputs = serve(engine, prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = registry.launch_counts()
+    paths = {"/".join(k): v for k, v in sorted(dense.PATHS.items())}
     peak = torch.cuda.max_memory_allocated()
     summary = engine.metrics.summary()
     for rec in sorted(engine.metrics.records, key=lambda r: r.req_id):
         print(f"{label} request {rec.req_id}: tokens {outputs[rec.req_id]} ttft_s "
               f"{rec.ttft:.4f} tpot_s {rec.tpot:.4f}")
     print(f"{label} serve: {json.dumps(summary)} wall_s {wall:.3f} peak_gb {peak / 1e9:.2f} "
-          f"launches {json.dumps(counts)}")
+          f"launches {json.dumps(counts)} paths of #5/#6 {json.dumps(paths)}")
     if summary["completed"] != len(prompts):
         fail(f"{label}: {summary['completed']} of {len(prompts)} requests completed")
     for rid, toks in outputs.items():
@@ -626,7 +694,7 @@ def serve_phase(label: str, cfg, engine, prompts, kernels) -> tuple[dict, dict]:
     if phase_peak > PEAK_LIMIT:
         fail(f"{label}: peak memory {phase_peak / 1e9:.2f} GB > {PEAK_LIMIT / 1e9:.0f} GB")
     return {"summary": summary, "wall_s": wall, "peak_gb": peak / 1e9,
-            "phase_peak_gb": phase_peak / 1e9, "launches": counts,
+            "phase_peak_gb": phase_peak / 1e9, "launches": counts, "paths": paths,
             "logit_norm_err": logit_err, "profile_prefill_ms": prof}, outputs
 
 
@@ -838,10 +906,13 @@ def main() -> None:
         results.setdefault(name, {})[phase] = row
         worst_row = (f" worst row {row['max_row_rel_err']:.3e}"
                      if "max_row_rel_err" in row else "")
+        plans = " ".join(f"{k} {json.dumps(v)}" for k, v in row.items() if k.startswith("plan_"))
         print(f"kernel {name} {phase} {row['shape']}: rel_err {row['max_rel_err']:.3e}{worst_row} "
               f"(tol {KERNEL_TOL}) ms {row['ms']:.4f} {row['ms_range']} plain_ms "
               f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms "
-              f"{row['bound_ms']:.4f} ({row['bound_by']})")
+              f"{row['bound_ms']:.4f} ({row['bound_by']})"
+              + (f" {plans} bitwise_repeat {row['bitwise_repeat']}" if plans else ""))
+    tile_err = check_hopper_tile(gen)
     demand_checks = check_demand_matches_grouped(cfg, gen)
     gemm_launches = drive_split_gemm(cfg, gen)
 
@@ -965,6 +1036,12 @@ def main() -> None:
             kernels[-1]["max_row_rel_err"] = dec["max_row_rel_err"]
         if name == "split_grouped_swiglu_demand":
             kernels[-1]["checks"] = demand_checks
+        if name in NEW_PATH_KERNELS:
+            kernels[-1]["header"] = "src/repro_torch/kernels/csrc/split_hopper.cuh"
+            kernels[-1].update({k: v for k, v in dec.items()
+                                if k.startswith("plan_") or k == "bitwise_repeat"})
+        if name == "split_reduce_gemm":
+            kernels[-1]["hopper_tile_rel_err"] = tile_err
     print(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -17,10 +17,12 @@ class CudaKernel:
 
     ``launches`` counts the wrapper calls that launched the kernel (one
     per call, whether the entry point issues one CUDA launch or two); it
-    is a plain integer that a caller may read and reset."""
+    is a plain integer that a caller may read and reset. ``lib`` names the
+    kernel library when the entry point is not its namesake."""
 
-    def __init__(self, name: str, n_ptrs: int, n_ints: int):
+    def __init__(self, name: str, n_ptrs: int, n_ints: int, lib: str | None = None):
         self.name = name
+        self.lib = lib or name
         self.n_ptrs = n_ptrs
         self.n_ints = n_ints
         self.launches = 0
@@ -28,7 +30,7 @@ class CudaKernel:
 
     def _entry(self):
         if self._fn is None:
-            fn = getattr(build.load(self.name), self.name)
+            fn = getattr(build.load(self.lib), self.name)
             fn.argtypes = (
                 [ctypes.c_void_p] * self.n_ptrs
                 + [ctypes.c_int] * self.n_ints

@@ -7,29 +7,46 @@
 // rounded to the activation type before the down product (as the Pallas
 // kernel does, split_gemm.py:225).
 //
-// Bound on the H100: the 3 * S * D * Fs weight bytes. The Pallas kernel
-// keeps a (T, D) fp32 output accumulator in VMEM; at D = 7168 that does
-// not fit a block's 227 KB of shared memory. Schedule chosen: write h to
-// a scratch (S, T, Fs) buffer in the activation type (launch 1, gate and
-// up fused on one activation tile, silu*mul on the fp32 accumulators) and
-// run the down product as a second launch, the ordered slice reduction
-// of split_reduce_gemm. h is T * S * Fs elements — a small fraction of
-// the weight bytes — and no atomics are used, so the sum is deterministic.
-// Both launches pick their inner loop by row count (split_tile.cuh): two
-// rows or fewer (decode) stream the weights straight into registers;
-// more rows run mma.sync on shared-memory tiles (bf16; FMAs for fp32).
+// Bound on the H100: the 3 * S * D * Fs weight bytes at decode; the
+// operations at prefill (6 * S * T * D * Fs). The Pallas kernel keeps a
+// (T, D) fp32 output accumulator in VMEM; at D = 7168 that does not fit a
+// block's 227 KB of shared memory. Schedule: write h to a scratch
+// (S, T, Fs) buffer in the activation type (launch 1, gate and up on one
+// activation tile, silu*mul on the fp32 accumulators), then the down
+// product as the ordered slice reduction of split_reduce_gemm. Each launch
+// takes the path of its own plan (kernels/split_gemm/dense.py::plan_split):
+// bf16 with widths that are multiples of 8 runs split_hopper.cuh
+// (TMA + mbarrier ring + wgmma over more than 2 rows; the few-row kernels,
+// k split to fill the card, at 2 rows or fewer); fp32 and other widths
+// keep the split_tile.cuh launchers. No atomics: results are
+// deterministic.
+#include "split_hopper.cuh"
 #include "split_tile.cuh"
 
 extern "C" int split_dense_swiglu(const void* x, const void* g_local, const void* u_local,
                                   const void* d_local, const void* g_remote,
                                   const void* u_remote, const void* d_remote, void* h,
-                                  void* out, int s_local, int s_remote, int t, int d, int fs,
-                                  int dtype, void* stream) {
+                                  void* out, void* scratch, int s_local, int s_remote, int t,
+                                  int d, int fs, int dtype, int gu_path, int gu_stages,
+                                  int gu_splits, int gu_chunk, int dn_path, int dn_stages,
+                                  int dn_splits, int dn_chunk, void* stream) {
   const int s = s_local + s_remote;
   cudaStream_t st = (cudaStream_t)stream;
-  int err = SPLIT_DISPATCH(dtype, t, split_tile::launch_gate_up, x, 0L, g_local, u_local,
-                           g_remote, u_remote, h, s_local, s, t, d, fs, st);
+  float* part = (float*)scratch;
+  int err;
+  if (gu_path == split_hopper::PATH_TILE)
+    err = SPLIT_DISPATCH(dtype, t, split_tile::launch_gate_up, x, 0L, g_local, u_local,
+                         g_remote, u_remote, h, s_local, s, t, d, fs, st);
+  else
+    err = dtype != 1 ? (int)cudaErrorInvalidValue
+                     : split_hopper::launch_gate_up(x, g_local, u_local, g_remote, u_remote, h,
+                                                    part, s_local, s, t, d, fs, gu_path,
+                                                    gu_stages, gu_splits, gu_chunk, st);
   if (err) return err;
-  return SPLIT_DISPATCH(dtype, t, split_tile::launch_reduce, h, d_local, d_remote, out,
-                        s_local, s, t, fs, d, st);
+  if (dn_path == split_hopper::PATH_TILE)
+    return SPLIT_DISPATCH(dtype, t, split_tile::launch_reduce, h, d_local, d_remote, out,
+                          s_local, s, t, fs, d, st);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  return split_hopper::launch_reduce(h, d_local, d_remote, out, part, s_local, s, t, fs, d,
+                                     dn_path, dn_stages, dn_splits, dn_chunk, st);
 }

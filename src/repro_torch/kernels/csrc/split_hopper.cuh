@@ -1,0 +1,788 @@
+// Hopper paths of split_reduce_gemm (#5) and split_dense_swiglu (#6), bf16.
+//
+// Replaces, for these two kernels only, the mma.sync tiles and the few-row
+// register path of split_tile.cuh (which kernels #1-#4 keep). Both compute
+// what repro/kernels/split_gemm/dense.py::split_reduce_gemm and
+// ::split_dense_swiglu compute. The plan (path, tile width, stages, splits,
+// k chunk) is chosen in Python (kernels/split_gemm/dense.py::plan_split) as
+// a pure function of the shapes and passed in as ints.
+//
+// Prefill (more than 2 rows, every width a multiple of 8): one warp-
+// specialised mainloop, two epilogues.
+//   reduce   out    = sum_s A[s] @ W(s), slices ascending, k ascending
+//   gate_up  h[s]   = bf16(silu(A @ Wg(s)) * (A @ Wu(s)))
+// Block: three warpgroups. Warpgroup 2's first thread is the producer: it
+// keeps TMA loads of the A tile (128 x 64, K-major) and the B tiles (64 x
+// 64 boxes of the row-major (K, N) banks, N-major) in flight into a ring of
+// shared-memory stages, each with a full and an empty mbarrier. Warpgroups 0
+// and 1 (64 rows each) issue wgmma m64n256k16 (reduce) or two m64n128k16
+// (gate_up, one per matrix) straight from the 128-byte-swizzled tiles, B
+// with the transpose bit, one wgmma group in flight. setmaxnreg moves
+// registers from the producer to the consumers (128 fp32 accumulators a
+// thread). The bank is chosen per slice: one TMA map per nonempty bank
+// tensor, the producer switches maps at each slice boundary of its k loop;
+// an empty bank has no map and is never read. A is 3-d (S, T, Fs) for
+// reduce, so a slice's ragged last k tile reads zeros and never the next
+// slice's rows; TMA zero-fills reads past T, K and N, and the epilogue
+// masks its stores.
+//
+// What bounds it on the H100: at R1's 256-row prefill shard the weight
+// bytes and the operations are close (235 MB, 60 GFLOP for #5); at 1024
+// and 2048 rows the operations (989 TFLOP/s bf16). The ring keeps 4 x 48 KB
+// of loads in flight per SM, so the tensor cores never wait on a
+// synchronous copy. Where the output tiles number fewer than two waves of
+// 132 SMs, the plan may split the slice-k loop into fp32 partials
+// (splits, T, N), summed in split order by a second launch: no atomics.
+//
+// Decode (at most 2 rows): few-row kernels split the k rows over ~1000-2000
+// blocks to fill all 132 SMs; each thread streams 16-byte weight loads,
+// 8 in flight, into fp32 sums; the 8 warps of a block are summed in warp
+// order through shared memory into per-split fp32 partials, and a second
+// launch sums the splits in order (and applies silu * up for gate_up).
+// Bound: the weight bytes at 3.35 TB/s.
+//
+// Every sum runs in a fixed order that depends on the shapes only, and a
+// row's result never reads another row's data: repeated launches give the
+// same bits, and a row's output does not depend on the other rows.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums: types only, nothing is linked
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace split_hopper {
+
+using bf16 = __nv_bfloat16;
+
+// Plan paths, as passed by the wrappers (dense.py PATH_CODES).
+constexpr int PATH_TILE = 0;     // split_tile.cuh's launchers (mma.sync or FMA tiles)
+constexpr int PATH_HOPPER = 1;
+constexpr int PATH_FEW_ROW = 2;
+
+// ---------------------------------------------------------------------------
+// Prefill mainloop.
+// ---------------------------------------------------------------------------
+constexpr int BM = 128, BK = 64;
+constexpr int BOX_N = 64;                      // bf16 columns of one 128-byte swizzle row
+constexpr int CONSUMERS = 2;                   // warpgroups of 64 rows
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int A_BYTES = BM * BK * 2;           // 16 KB
+constexpr int B_BYTES = BK * BOX_N * 2;        // 8 KB
+constexpr int MAX_SMEM = 232448;               // a block's shared memory on the H100
+
+// Dynamic shared memory of a ring: 1024 bytes of alignment slack, the
+// stages, a full and an empty barrier per stage.
+inline size_t smem_bytes(int stages, int stage_bytes) {
+  return 1024 + (size_t)stages * stage_bytes + 2 * (size_t)stages * sizeof(uint64_t);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait for the phase of parity ``parity`` to complete. A wait that lasts
+// longer than ~2^35 cycles (over 10 s) traps: a lost copy ends the launch
+// with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 35)) __trap();
+}
+
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                       int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                       int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1). For
+// the K-major A tile: LBO unused (16 bytes), SBO 1024 bytes (8 rows of 128
+// bytes). For the N-major B tile: LBO the byte distance between two
+// 64-column boxes, SBO 1024 bytes (8 k rows).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accumulator accesses across wgmma.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 256, fp32 fragment) += A (64 x 16, K-major) @ B (16 x 256, N-major,
+// the transpose-B bit set); scale-d is 1, so d accumulates.
+__device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 128, fp32 fragment) += A (64 x 16, K-major) @ B (16 x 128, N-major,
+// the transpose-B bit set); scale-d is 1, so d accumulates.
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 64, fp32 fragment) += A (64 x 16, K-major) @ B (16 x 64, N-major,
+// the transpose-B bit set); scale-d is 1, so d accumulates.
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_n(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  if constexpr (N == 256) wgmma_m64n256(d, da, db);
+  else wgmma_m64n128(d, da, db);
+}
+
+enum Op { REDUCE = 0, GATE_UP = 1 };
+
+// Output columns per block (dense.py HOPPER_BN): reduce 256 columns of its
+// one matrix, gate_up 128 of each of two (wider than 128 x 128 won at every
+// main-path shape, tools/sweep_dense_plans.py).
+template <int OP>
+struct Tile {
+  static constexpr int MATS = OP == REDUCE ? 1 : 2;     // B matrices per stage
+  static constexpr int NB = OP == REDUCE ? 4 : 2;       // 64-column boxes per matrix
+  static constexpr int BN = NB * BOX_N;                 // columns per matrix
+  static constexpr int STAGE = A_BYTES + MATS * NB * B_BYTES;
+  static constexpr int ACC = BN / 2;                    // fp32 per thread per matrix
+};
+
+template <int R>
+__device__ __forceinline__ void zero(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = 0.f;
+}
+
+__device__ __forceinline__ float silu_mul(float g, float u) { return g / (1.f + __expf(-g)) * u; }
+
+// REDUCE: grid (m tiles, column tiles, splits); b0 maps the (S_b, K, N)
+// bank (NB boxes per stage), out is bf16 (T, N) or, with splits > 1, fp32
+// partials (splits, T, N). GATE_UP: grid (m tiles, column tiles, slices);
+// b0 maps the gate bank, b1 the up bank (NB boxes each); out is h (S, T, N).
+template <int OP>
+__global__ void __launch_bounds__(THREADS, 1)
+hopper_kernel(const __grid_constant__ CUtensorMap a_map,
+              const __grid_constant__ CUtensorMap b0_local,
+              const __grid_constant__ CUtensorMap b0_remote,
+              const __grid_constant__ CUtensorMap b1_local,
+              const __grid_constant__ CUtensorMap b1_remote, void* __restrict__ out,
+              int n_local, int n_slices, int M, int N, int k_tiles, int stages, int splits) {
+  using TL = Tile<OP>;
+  constexpr int NB = TL::NB;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + (size_t)stages * TL::STAGE);
+  const uint32_t ring_u32 = smem_u32(ring);
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * stages;
+
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * TL::BN;
+  long it0 = 0, it1 = k_tiles;
+  if (OP == REDUCE) {
+    const long total = (long)n_slices * k_tiles;
+    it0 = blockIdx.z * total / splits;
+    it1 = (blockIdx.z + 1) * total / splits;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // ---- producer ------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == CONSUMERS * 128) {
+      int st = 0;
+      uint32_t ph = 0;
+      for (long it = it0; it < it1; ++it) {
+        const int s = OP == REDUCE ? (int)(it / k_tiles) : (int)blockIdx.z;
+        const int k = (OP == REDUCE ? (int)(it % k_tiles) : (int)it) * BK;
+        const bool loc = s < n_local;
+        const int sb = loc ? s : s - n_local;
+        mbar_wait(empty0 + 8 * st, ph ^ 1);
+        const uint32_t full = full0 + 8 * st;
+        const uint32_t a = ring_u32 + st * TL::STAGE;
+        mbar_expect_tx(full, TL::STAGE);
+        if (OP == REDUCE) tma_3d(a, &a_map, full, k, m0, s);
+        else tma_2d(a, &a_map, full, k, m0);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          tma_3d(a + A_BYTES + j * B_BYTES, loc ? &b0_local : &b0_remote, full, n0 + j * BOX_N,
+                 k, sb);
+          if (OP == GATE_UP)
+            tma_3d(a + A_BYTES + (NB + j) * B_BYTES, loc ? &b1_local : &b1_remote, full,
+                   n0 + j * BOX_N, k, sb);
+        }
+        if (++st == stages) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers -----------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    constexpr int R = TL::ACC;
+    float acc0[R], acc1[OP == REDUCE ? 1 : R];
+    zero(acc0);
+    zero(acc1);
+    int st = 0, prev = 0;
+    uint32_t ph = 0;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    for (long it = it0; it < it1; ++it) {
+      mbar_wait(full0 + 8 * st, ph);
+      const uint32_t a = ring_u32 + st * TL::STAGE + wg * (64 * BK * 2);
+      const uint32_t b = ring_u32 + st * TL::STAGE + A_BYTES;
+      fence_regs(acc0);
+      fence_regs(acc1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t da = smem_desc(a + kk * 32, 16, 1024);
+        wgmma_n<TL::BN>(acc0, da, smem_desc(b + kk * 2048, B_BYTES, 1024));
+        if constexpr (OP == GATE_UP)
+          wgmma_n<TL::BN>(acc1, da, smem_desc(b + NB * B_BYTES + kk * 2048, B_BYTES, 1024));
+      }
+      wgmma_commit();
+      fence_regs(acc0);
+      fence_regs(acc1);
+      wgmma_wait<1>();  // the previous stage's group is done: release it
+      if (it > it0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
+      prev = st;
+      if (++st == stages) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc0);
+    fence_regs(acc1);
+
+    // ---- epilogue: fragment element i of thread (warp, lane) is row
+    // warp*16 + lane/4 + 8*((i/2)%2), column (i/4)*8 + 2*(lane%4) + i%2.
+    const int row0 = m0 + wg * 64 + warp * 16 + lane / 4;
+    const int col0 = n0 + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < R; i += 2) {
+      const int row = row0 + 8 * ((i / 2) % 2);
+      const int col = col0 + (i / 4) * 8;
+      if (row >= M || col >= N) continue;  // N % 8 == 0: col + 1 < N too
+      if constexpr (OP == REDUCE) {
+        if (splits == 1) {
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + (long)row * N + col) =
+              __floats2bfloat162_rn(acc0[i], acc0[i + 1]);
+        } else {
+          *reinterpret_cast<float2*>(static_cast<float*>(out) +
+                                     ((long)blockIdx.z * M + row) * N + col) =
+              make_float2(acc0[i], acc0[i + 1]);
+        }
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) +
+                                          ((long)blockIdx.z * M + row) * N + col) =
+            __floats2bfloat162_rn(silu_mul(acc0[i], acc1[i]), silu_mul(acc0[i + 1], acc1[i + 1]));
+      }
+    }
+  }
+}
+
+// out (count elements, count % 4 == 0) = bf16(sum over splits of part), in split order.
+__global__ void finish_reduce_kernel(const float* __restrict__ part, bf16* __restrict__ out,
+                                     int splits, long count) {
+  const long i = 4 * ((long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= count) return;
+  float4 s = *reinterpret_cast<const float4*>(part + i);
+  for (int z = 1; z < splits; ++z) {
+    const float4 p = *reinterpret_cast<const float4*>(part + (long)z * count + i);
+    s.x += p.x;
+    s.y += p.y;
+    s.z += p.z;
+    s.w += p.w;
+  }
+  *reinterpret_cast<__nv_bfloat162*>(out + i) = __floats2bfloat162_rn(s.x, s.y);
+  *reinterpret_cast<__nv_bfloat162*>(out + i + 2) = __floats2bfloat162_rn(s.z, s.w);
+}
+
+// h (count = S*M*N elements) = bf16(silu(sum_z gate) * sum_z up), partials
+// (splits, 2, S, M, N) summed in split order.
+__global__ void finish_gate_up_kernel(const float* __restrict__ part, bf16* __restrict__ h,
+                                      int splits, long count) {
+  const long i = 2 * ((long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= count) return;
+  float2 g = make_float2(0.f, 0.f), u = g;
+  for (int z = 0; z < splits; ++z) {
+    const float2 pg = *reinterpret_cast<const float2*>(part + (2L * z) * count + i);
+    const float2 pu = *reinterpret_cast<const float2*>(part + (2L * z + 1) * count + i);
+    g.x += pg.x;
+    g.y += pg.y;
+    u.x += pu.x;
+    u.y += pu.y;
+  }
+  *reinterpret_cast<__nv_bfloat162*>(h + i) =
+      __floats2bfloat162_rn(silu_mul(g.x, u.x), silu_mul(g.y, u.y));
+}
+
+// ---------------------------------------------------------------------------
+// Few-row path (at most FR_MAXM rows): grid (256-column blocks, [slices,]
+// k splits). Lane l of every warp owns columns n0 + 8l .. n0 + 8l + 7;
+// warp w takes the k rows k0 + w, k0 + w + 8, ... of its split's chunk,
+// several rows' 16-byte loads in flight at once.
+// ---------------------------------------------------------------------------
+constexpr int FR_THREADS = 256, FR_WARPS = 8, FR_COLS = 256, FR_MAXM = 2;
+constexpr int FR_UNROLL = 4;    // gate_up: 2 matrices, 8 loads in flight per thread
+constexpr int FR_UNROLL_R = 8;  // reduce: 8 loads in flight per thread
+
+__device__ __forceinline__ uint4 ld_stream(const bf16* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void fr_fma(float (&acc)[FR_MAXM][8], const uint4& w,
+                                       const float (&a)[FR_MAXM]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    const float2 f = __bfloat1622float2(h[v]);
+#pragma unroll
+    for (int m = 0; m < FR_MAXM; ++m) {
+      acc[m][2 * v] = fmaf(a[m], f.x, acc[m][2 * v]);
+      acc[m][2 * v + 1] = fmaf(a[m], f.y, acc[m][2 * v + 1]);
+    }
+  }
+}
+
+// Sum the FR_WARPS warps' sums in warp order and store the rows < M of
+// this block's columns (< N) at dst[nb] + m * N + n0 + col.
+template <int NB>
+__device__ __forceinline__ void fr_store(float (&red)[FR_WARPS][NB][FR_MAXM][FR_COLS],
+                                         const float (&acc)[NB][FR_MAXM][8], float* const* dst,
+                                         int M, int N, int n0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int m = 0; m < FR_MAXM; ++m)
+#pragma unroll
+      for (int v = 0; v < 8; ++v) red[warp][nb][m][lane * 8 + v] = acc[nb][m][v];
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < NB * FR_MAXM * FR_COLS; idx += FR_THREADS) {
+    const int nb = idx / (FR_MAXM * FR_COLS), m = (idx / FR_COLS) % FR_MAXM, col = idx % FR_COLS;
+    if (m >= M || n0 + col >= N) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < FR_WARPS; ++w) s += red[w][nb][m][col];
+    dst[nb][(long)m * N + n0 + col] = s;
+  }
+}
+
+// part (S * per_slice, M, N): block row y = s * per_slice + p sums the
+// chunk p of slice s's k rows of A[s] @ W(s) (a chunk never crosses a
+// slice, so the bank and A pointers are fixed per block).
+__global__ void __launch_bounds__(FR_THREADS)
+fr_reduce_kernel(const bf16* __restrict__ A, const bf16* __restrict__ w_local,
+                 const bf16* __restrict__ w_remote, float* __restrict__ part, int n_local, int M,
+                 int Fs, int N, int chunk, int per_slice) {
+  __shared__ float red[FR_WARPS][1][FR_MAXM][FR_COLS];
+  const int n0 = blockIdx.x * FR_COLS, z = blockIdx.y;
+  const int s = z / per_slice;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k0 = (z - s * per_slice) * chunk, k1 = min(Fs, k0 + chunk);
+  const int c = n0 + lane * 8;
+  const bf16* w = (s < n_local ? w_local + (long)s * Fs * N
+                               : w_remote + (long)(s - n_local) * Fs * N) + c;
+  const bf16* a_s = A + (long)s * M * Fs;
+  float acc[1][FR_MAXM][8] = {};
+  if (c < N) {
+    for (int k = k0 + warp; k < k1; k += FR_WARPS * FR_UNROLL_R) {
+      uint4 wv[FR_UNROLL_R];
+      float a[FR_UNROLL_R][FR_MAXM];
+#pragma unroll
+      for (int u = 0; u < FR_UNROLL_R; ++u) {
+        const int kk = k + u * FR_WARPS;
+        wv[u] = make_uint4(0, 0, 0, 0);
+#pragma unroll
+        for (int m = 0; m < FR_MAXM; ++m) a[u][m] = 0.f;
+        if (kk < k1) {
+          wv[u] = ld_stream(w + (long)kk * N);
+#pragma unroll
+          for (int m = 0; m < FR_MAXM; ++m)
+            if (m < M) a[u][m] = __bfloat162float(a_s[(long)m * Fs + kk]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < FR_UNROLL_R; ++u) fr_fma(acc[0], wv[u], a[u]);
+    }
+  }
+  float* dst[1] = {part + (long)z * M * N};
+  fr_store<1>(red, acc, dst, M, N, n0);
+}
+
+// part (ksplit, 2, S, M, N): the split's k rows of x @ Wg(s) and x @ Wu(s).
+__global__ void __launch_bounds__(FR_THREADS)
+fr_gate_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g_local,
+                  const bf16* __restrict__ u_local, const bf16* __restrict__ g_remote,
+                  const bf16* __restrict__ u_remote, float* __restrict__ part, int n_local,
+                  int n_slices, int M, int K, int N, int chunk) {
+  __shared__ float red[FR_WARPS][2][FR_MAXM][FR_COLS];
+  const int n0 = blockIdx.x * FR_COLS, s = blockIdx.y, z = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k0 = z * chunk, k1 = min(K, k0 + chunk);
+  const int c = n0 + lane * 8;
+  const bool loc = s < n_local;
+  const long off = (long)(loc ? s : s - n_local) * K * N;
+  const bf16* wg = (loc ? g_local : g_remote) + off;
+  const bf16* wu = (loc ? u_local : u_remote) + off;
+  float acc[2][FR_MAXM][8] = {};
+  if (c < N) {
+    for (int k = k0 + warp; k < k1; k += FR_WARPS * FR_UNROLL) {
+      uint4 g[FR_UNROLL], u4[FR_UNROLL];
+      float a[FR_UNROLL][FR_MAXM];
+#pragma unroll
+      for (int u = 0; u < FR_UNROLL; ++u) {
+        const int kk = k + u * FR_WARPS;
+        g[u] = u4[u] = make_uint4(0, 0, 0, 0);
+#pragma unroll
+        for (int m = 0; m < FR_MAXM; ++m) a[u][m] = 0.f;
+        if (kk < k1) {
+          g[u] = ld_stream(wg + (long)kk * N + c);
+          u4[u] = ld_stream(wu + (long)kk * N + c);
+#pragma unroll
+          for (int m = 0; m < FR_MAXM; ++m)
+            if (m < M) a[u][m] = __bfloat162float(x[(long)m * K + kk]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < FR_UNROLL; ++u) {
+        fr_fma(acc[0], g[u], a[u]);
+        fr_fma(acc[1], u4[u], a[u]);
+      }
+    }
+  }
+  const long plane = (long)n_slices * M * N;
+  float* dst[2] = {part + 2L * z * plane + (long)s * M * N,
+                   part + (2L * z + 1) * plane + (long)s * M * N};
+  fr_store<2>(red, acc, dst, M, N, n0);
+}
+
+// ---------------------------------------------------------------------------
+// Host side.
+// ---------------------------------------------------------------------------
+inline unsigned cdiv(long a, long b) { return (unsigned)((a + b - 1) / b); }
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded: the
+// library needs no -lcuda.
+inline EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Errors of the host side, beside cudaError_t codes: no driver entry point,
+// a refused tensor map (ENCODE_ERROR + the CUresult), a refused shared-
+// memory attribute (ATTR_ERROR + the cudaError_t).
+constexpr int NO_ENCODE = 9000, ENCODE_ERROR = 10000, ATTR_ERROR = 20000;
+
+// A bf16 map of a contiguous row-major tensor, dims innermost first, with
+// 128-byte swizzle. A tensor with a zero dim gets a zeroed map (never used).
+inline int make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                    const uint32_t* box) {
+  *map = CUtensorMap{};
+  for (int i = 0; i < rank; ++i)
+    if (dims[i] == 0) return 0;
+  EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return NO_ENCODE;
+  cuuint64_t gd[3], gs[2];
+  cuuint32_t bx[3], es[3] = {1, 1, 1};
+  uint64_t stride = sizeof(bf16);
+  for (int i = 0; i < rank; ++i) {
+    gd[i] = dims[i];
+    bx[i] = box[i];
+    if (i + 1 < rank) gs[i] = stride *= dims[i];
+  }
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), gd,
+                         gs, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR + (int)r;
+}
+
+// Maps of a (S_b, K, N) bank: 64 x 64 boxes.
+inline int bank_map(CUtensorMap* map, const void* w, int n_banks, int K, int N) {
+  const uint64_t dims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)n_banks};
+  const uint32_t box[3] = {BOX_N, BK, 1};
+  return make_map(map, w, 3, dims, box);
+}
+
+template <int OP>
+inline int hopper_launch(int stages, cudaStream_t st, const CUtensorMap& a, const CUtensorMap& b0l,
+                         const CUtensorMap& b0r, const CUtensorMap& b1l, const CUtensorMap& b1r,
+                         void* out, int n_local, int n_slices, int M, int N, int k_tiles,
+                         int splits) {
+  using TL = Tile<OP>;
+  const size_t smem = smem_bytes(stages, TL::STAGE);
+  // at least 2 stages: a stage is released one stage late
+  if (stages < 2 || smem > MAX_SMEM || splits < 1) return (int)cudaErrorInvalidValue;
+  // Set on every launch: a function-local "done" flag of an inline template
+  // is one symbol for every library that includes this header, and each
+  // library has its own kernel to set it on.
+  const int err = (int)cudaFuncSetAttribute(
+      hopper_kernel<OP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return ATTR_ERROR + err;
+  dim3 grid(cdiv(M, BM), cdiv(N, TL::BN), OP == REDUCE ? splits : n_slices);
+  hopper_kernel<OP><<<grid, THREADS, smem, st>>>(a, b0l, b0r, b1l, b1r, out, n_local, n_slices,
+                                                 M, N, k_tiles, stages, splits);
+  return (int)cudaGetLastError();
+}
+
+inline int finish_reduce(const float* part, void* out, int splits, long count, cudaStream_t st) {
+  finish_reduce_kernel<<<cdiv(count / 4, 256), 256, 0, st>>>(part, (bf16*)out, splits, count);
+  return (int)cudaGetLastError();
+}
+
+// out (M, N) = sum_s A[s] @ W(s): A (S, M, K) bf16, banks (S_l, K, N) /
+// (S - S_l, K, N). scratch: fp32 partials when splits > 1.
+inline int launch_reduce(const void* A, const void* wl, const void* wr, void* out, float* scratch,
+                         int n_local, int n_slices, int M, int K, int N, int path, int stages,
+                         int splits, int chunk, cudaStream_t st) {
+  if (M == 0 || N == 0) return 0;
+  if (path == PATH_FEW_ROW) {
+    if (M > FR_MAXM) return (int)cudaErrorInvalidValue;
+    const int per_slice = cdiv(K, chunk);  // splits == n_slices * per_slice
+    if (chunk < 1 || splits != n_slices * per_slice) return (int)cudaErrorInvalidValue;
+    dim3 grid(cdiv(N, FR_COLS), splits);
+    fr_reduce_kernel<<<grid, FR_THREADS, 0, st>>>((const bf16*)A, (const bf16*)wl,
+                                                  (const bf16*)wr, scratch, n_local, M, K, N,
+                                                  chunk, per_slice);
+    const int err = (int)cudaGetLastError();
+    return err ? err : finish_reduce(scratch, out, splits, (long)M * N, st);
+  }
+  CUtensorMap a, bl, br;
+  const uint64_t adims[3] = {(uint64_t)K, (uint64_t)M, (uint64_t)n_slices};
+  const uint32_t abox[3] = {BK, BM, 1};
+  int err = make_map(&a, A, 3, adims, abox);
+  if (!err) err = bank_map(&bl, wl, n_local, K, N);
+  if (!err) err = bank_map(&br, wr, n_slices - n_local, K, N);
+  if (err) return err;
+  err = hopper_launch<REDUCE>(stages, st, a, bl, br, bl, br, splits == 1 ? out : (void*)scratch,
+                             n_local, n_slices, M, N, cdiv(K, BK), splits);
+  if (err || splits == 1) return err;
+  return finish_reduce(scratch, out, splits, (long)M * N, st);
+}
+
+// h[s] (M, N) = bf16(silu(x @ Wg(s)) * (x @ Wu(s))): x (M, K), gate/up
+// banks (S_*, K, N). scratch: the few-row path's fp32 partials.
+inline int launch_gate_up(const void* x, const void* gl, const void* ul, const void* gr,
+                          const void* ur, void* h, float* scratch, int n_local, int n_slices,
+                          int M, int K, int N, int path, int stages, int splits, int chunk,
+                          cudaStream_t st) {
+  if (M == 0 || N == 0) return 0;
+  if (path == PATH_FEW_ROW) {
+    if (M > FR_MAXM) return (int)cudaErrorInvalidValue;
+    dim3 grid(cdiv(N, FR_COLS), n_slices, splits);
+    fr_gate_up_kernel<<<grid, FR_THREADS, 0, st>>>((const bf16*)x, (const bf16*)gl,
+                                                   (const bf16*)ul, (const bf16*)gr,
+                                                   (const bf16*)ur, scratch, n_local, n_slices,
+                                                   M, K, N, chunk);
+    int err = (int)cudaGetLastError();
+    if (err) return err;
+    const long count = (long)n_slices * M * N;
+    finish_gate_up_kernel<<<cdiv(count / 2, 256), 256, 0, st>>>(scratch, (bf16*)h, splits,
+                                                                count);
+    return (int)cudaGetLastError();
+  }
+  CUtensorMap a, g_l, u_l, g_r, u_r;
+  const uint64_t adims[2] = {(uint64_t)K, (uint64_t)M};
+  const uint32_t abox[2] = {BK, BM};
+  int err = make_map(&a, x, 2, adims, abox);
+  if (!err) err = bank_map(&g_l, gl, n_local, K, N);
+  if (!err) err = bank_map(&u_l, ul, n_local, K, N);
+  if (!err) err = bank_map(&g_r, gr, n_slices - n_local, K, N);
+  if (!err) err = bank_map(&u_r, ur, n_slices - n_local, K, N);
+  if (err) return err;
+  return hopper_launch<GATE_UP>(stages, st, a, g_l, g_r, u_l, u_r, h, n_local, n_slices, M, N,
+                                cdiv(K, BK), 1);
+}
+
+// ---------------------------------------------------------------------------
+// Single-tile check of the prefill path's building blocks: out (64 x 64,
+// fp32) = A (64 x K) @ B (K x 64), K <= 64, through one TMA load of each
+// operand (the main path's boxes and swizzle, zero-filled past K) and four
+// wgmma m64n64k16 steps on the same descriptors. tests/test_torch_cuda.py
+// and chip_smoke.py hold it against a plain product.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(128)
+tile_check_kernel(const __grid_constant__ CUtensorMap a_map,
+                  const __grid_constant__ CUtensorMap b_map, float* __restrict__ out) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* tiles = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t a = smem_u32(tiles), b = a + 64 * BK * 2;
+  const uint32_t bar = smem_u32(tiles + 64 * BK * 2 + B_BYTES);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar, 64 * BK * 2 + B_BYTES);
+    tma_2d(a, &a_map, bar, 0, 0);
+    tma_3d(b, &b_map, bar, 0, 0, 0);
+  }
+  mbar_wait(bar, 0);
+  float acc[32];
+  zero(acc);
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_m64n64(acc, smem_desc(a + kk * 32, 16, 1024), smem_desc(b + kk * 2048, B_BYTES, 1024));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    out[(warp * 16 + lane / 4 + 8 * ((i / 2) % 2)) * 64 + (i / 4) * 8 + 2 * (lane % 4) + i % 2] =
+        acc[i];
+}
+
+inline int tile_check(const void* A, const void* B, float* out, int K, cudaStream_t st) {
+  if (K < 1 || K > BK) return (int)cudaErrorInvalidValue;
+  CUtensorMap a, b;
+  const uint64_t adims[2] = {(uint64_t)K, 64};
+  const uint32_t abox[2] = {BK, 64};
+  int err = make_map(&a, A, 2, adims, abox);
+  if (!err) err = bank_map(&b, B, 1, K, 64);
+  if (err) return err;
+  tile_check_kernel<<<1, 128, 1024 + 64 * BK * 2 + B_BYTES + 8, st>>>(a, b, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace split_hopper

@@ -5,19 +5,39 @@
 // (S - S_l, Fs, D) -> out (T, D). The slice sum is order-independent, so
 // the rotated remote-bank order needs no fix-up.
 //
-// Bound on the H100: the S * Fs * D weight bytes (T << Fs). Design: one
-// block per (D tile, T tile) keeps one fp32 sum per output element and
-// loops over every slice and every K tile in a fixed order — no atomics
-// and no second pass, so the result is deterministic; each slice's bank
-// is selected by pointer and its tiles are read once. Decode (T <= 2)
-// takes the few-row path (weights streamed into registers, k-partials
-// added in a fixed order); prefill runs mma.sync on shared-memory tiles
-// (bf16; FMAs for fp32).
+// Bound on the H100: the S * Fs * D weight bytes at decode (T 2) and at
+// R1's prefill shard (T 256, where the operations come close); the
+// operations at T 1024 and 2048. Design: the wrapper's plan
+// (kernels/split_gemm/dense.py::plan_split) picks the path. bf16 with
+// every width a multiple of 8 runs split_hopper.cuh: more than 2 rows a
+// TMA + mbarrier ring feeding wgmma from two consumer warpgroups (128 x 256
+// output tiles, the bank's TMA map switched at each slice boundary,
+// optional fp32 split-k partials summed in order by a second launch); at
+// most 2 rows the few-row kernels, k split over enough blocks to fill the
+// card. fp32, and bf16 widths that are not multiples of 8, keep the
+// split_tile.cuh launcher (FMA or mma.sync tiles, one block per output
+// tile looping over every slice in order). No atomics anywhere: results
+// are deterministic.
+#include "split_hopper.cuh"
 #include "split_tile.cuh"
 
 extern "C" int split_reduce_gemm(const void* x, const void* w_local, const void* w_remote,
-                                 void* out, int s_local, int s_remote, int t, int fs, int d,
-                                 int dtype, void* stream) {
-  return SPLIT_DISPATCH(dtype, t, split_tile::launch_reduce, x, w_local, w_remote, out,
-                        s_local, s_local + s_remote, t, fs, d, (cudaStream_t)stream);
+                                 void* out, void* scratch, int s_local, int s_remote, int t,
+                                 int fs, int d, int dtype, int path, int stages, int splits,
+                                 int chunk, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (path == split_hopper::PATH_TILE)
+    return SPLIT_DISPATCH(dtype, t, split_tile::launch_reduce, x, w_local, w_remote, out,
+                          s_local, s_local + s_remote, t, fs, d, st);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  return split_hopper::launch_reduce(x, w_local, w_remote, out, (float*)scratch, s_local,
+                                     s_local + s_remote, t, fs, d, path, stages, splits, chunk,
+                                     st);
+}
+
+// The prefill path's single-tile check (split_hopper.cuh::tile_check):
+// out (64, 64) fp32 = a (64, k) @ b (k, 64), bf16, k <= 64.
+extern "C" int split_hopper_tile_check(const void* a, const void* b, void* out, int k,
+                                       void* stream) {
+  return split_hopper::tile_check(a, b, (float*)out, k, (cudaStream_t)stream);
 }

@@ -12,8 +12,18 @@ runs its plain version for CPU tensors:
   ``dense.py::split_dense_swiglu``): y = sum_s swiglu_s(x), (T, D) -> (T, D).
 
 Slices ``[0, S_l)`` read the local bank, the rest the remote bank.
+
+``split_reduce_gemm`` and both launches of ``split_dense_swiglu`` run the
+path that ``plan_split`` picks from the shapes (``csrc/split_hopper.cuh``):
+``hopper`` (TMA, an mbarrier ring and wgmma) over more than 2 bf16 rows,
+``few_row`` at 2 rows or fewer, and the ``split_tile.cuh`` tiles
+(``mma`` in bf16, ``fma`` in fp32) for fp32 and for widths or pointers the
+tensor maps cannot take. ``PATHS`` counts the launches of each path.
 """
 from __future__ import annotations
+
+import collections
+from typing import NamedTuple
 
 import torch
 
@@ -26,8 +36,172 @@ from repro_torch.kernels._launch import (
 )
 
 STACK_GEMM = CudaKernel("split_stack_gemm", n_ptrs=4, n_ints=6)
-REDUCE_GEMM = CudaKernel("split_reduce_gemm", n_ptrs=4, n_ints=6)
-DENSE_SWIGLU = CudaKernel("split_dense_swiglu", n_ptrs=9, n_ints=6)
+REDUCE_GEMM = CudaKernel("split_reduce_gemm", n_ptrs=5, n_ints=10)
+DENSE_SWIGLU = CudaKernel("split_dense_swiglu", n_ptrs=10, n_ints=14)
+#: The prefill path's single-tile check (not on any serving path).
+HOPPER_TILE_CHECK = CudaKernel("split_hopper_tile_check", n_ptrs=3, n_ints=1,
+                               lib="split_reduce_gemm")
+
+# --------------------------------------------------------------------------
+# Plans (csrc/split_hopper.cuh; the constants below are its own).
+# --------------------------------------------------------------------------
+#: C path codes: split_tile.cuh's launchers (mma.sync or FMA tiles), the
+#: Hopper mainloop, the few-row kernels.
+PATH_CODES = {"mma": 0, "fma": 0, "hopper": 1, "few_row": 2}
+SMS = 132                      # H100 SXM streaming multiprocessors
+SMEM = 232448                  # shared memory of one block
+HOPPER_BM, HOPPER_BK = 128, 64
+#: columns per block of each B matrix on the Hopper path (gate_up: of each of
+#: 2); wider than 128 x 128 won at every main-path shape
+#: (tools/sweep_dense_plans.py, PERF.md)
+HOPPER_BN = {"reduce": 256, "gate_up": 128}
+MAX_SPLITS = 8
+MIN_SPLIT_K_TILES = 2          # k tiles a split keeps at least
+# The split decision's cost model: a full wave of the Hopper path runs at
+# about PLAN_FLOPS (H100, tools/sweep_dense_plans.py), the fp32 partials
+# are written and read once at HBM_BYTES, and their sum is one more launch.
+PLAN_FLOPS = 600e12
+HBM_BYTES = 3.35e12
+SPLIT_LAUNCH_S = 5e-6
+FEW_ROW_MAXM = 2
+FEW_ROW_COLS = 256             # 32 lanes x 8 bf16 columns
+#: blocks a few-row launch aims for (the best of 512-4096 in the sweep)
+FEW_ROW_BLOCKS = {"reduce": 1024, "gate_up": 2048}
+FEW_ROW_K = 32                 # a split's k rows come in multiples of this
+
+#: Launches per (kernel, launch, path), counted by the wrappers.
+PATHS: collections.Counter = collections.Counter()
+
+
+class Plan(NamedTuple):
+    path: str          # "hopper" | "few_row" | "mma" | "fma"
+    tile: tuple        # (BM, BN, BK) of the hopper path, () otherwise
+    stages: int        # ring stages (hopper)
+    splits: int        # k splits: fp32 partials summed in order by a second launch
+    chunk: int         # k rows per split (few_row)
+    scratch: int       # fp32 scratch elements
+
+    def ints(self) -> list:
+        return [PATH_CODES[self.path], self.stages, self.splits, self.chunk]
+
+
+def stage_bytes(op: str) -> int:
+    """Bytes of one ring stage of the Hopper path: the A tile and the B boxes."""
+    mats = 1 if op == "reduce" else 2
+    return 2 * HOPPER_BM * HOPPER_BK + mats * 2 * HOPPER_BK * HOPPER_BN[op]
+
+
+def max_stages(op: str) -> int:
+    """The most ring stages (and their two barriers) that fit a block's
+    shared memory beside 1024 bytes of alignment slack: 4 of 48 KB."""
+    return (SMEM - 1024) // (stage_bytes(op) + 16)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan_split(op: str, dtype: torch.dtype, rows: int, k: int, n: int, slices: int,
+               aligned: bool = True) -> Plan:
+    """The launch plan of one split launch, a pure function of its shapes.
+
+    ``op`` "reduce": out (rows, n) = sum over ``slices`` of (rows, k) @ (k, n);
+    "gate_up": per slice silu((rows, k) @ Wg) * ((rows, k) @ Wu), (k, n) each.
+    ``aligned``: every operand's pointer is 16-byte aligned (the wrappers
+    also require k and n to be multiples of 8).
+
+    - fp32: "fma"; bf16 with a width that is not a multiple of 8 or an
+      unaligned pointer: "mma" (split_tile.cuh's mma.sync tiles).
+    - at most 2 rows: "few_row" (``few_row_plan``), about FEW_ROW_BLOCKS[op]
+      blocks.
+    - more rows: "hopper" with 128 x 256 output tiles (reduce) or 128 x 128
+      per matrix (gate_up), as many ring stages as fit (4 of 48 KB). A
+      reduce whose tiles number fewer than two waves of SMS splits its
+      slice-k loop into ``splits`` pieces where the waves saved outweigh
+      the fp32 partials' traffic and launch (the cost model above; each
+      split keeps at least MIN_SPLIT_K_TILES k tiles); gate_up never
+      splits.
+    """
+    if op not in HOPPER_BN:
+        raise ValueError(f"unknown split op {op!r}")
+    if dtype != torch.bfloat16:
+        return Plan("fma", (), 0, 1, 0, 0)
+    if not aligned or k % 8 or n % 8:
+        return Plan("mma", (), 0, 1, 0, 0)
+    if rows <= FEW_ROW_MAXM:
+        return few_row_plan(op, rows, k, n, slices)
+    bn = HOPPER_BN[op]
+    tile = (HOPPER_BM, bn, HOPPER_BK)
+    splits = 1
+    if op == "reduce":
+        tiles = _cdiv(rows, HOPPER_BM) * _cdiv(n, bn)
+        if tiles < 2 * SMS:
+            top = max(1, min(MAX_SPLITS, slices * _cdiv(k, HOPPER_BK) // MIN_SPLIT_K_TILES))
+            flops = 2 * rows * n * slices * k
+
+            def cost(s):  # seconds: quantized waves of work, then the partials
+                t = flops / PLAN_FLOPS * _cdiv(tiles * s, SMS) * SMS / (tiles * s)
+                return t + (8 * s * rows * n / HBM_BYTES + SPLIT_LAUNCH_S if s > 1 else 0)
+
+            splits = min(range(1, top + 1), key=lambda s: (cost(s), s))
+    scratch = splits * rows * n if splits > 1 else 0
+    return Plan("hopper", tile, max_stages(op), splits, 0, scratch)
+
+
+def few_row_plan(op: str, rows: int, k: int, n: int, slices: int,
+                 blocks: int | None = None) -> Plan:
+    """The few-row launch with about ``blocks`` blocks: each block streams
+    a chunk of ``chunk`` k rows (a multiple of FEW_ROW_K) of 256 columns;
+    a reduce's chunks never cross a slice (``splits`` = slices x chunks
+    per slice)."""
+    blocks = blocks or FEW_ROW_BLOCKS[op]
+    cols = _cdiv(n, FEW_ROW_COLS)
+    if op == "reduce":
+        per = _cdiv(_cdiv(blocks, cols), slices)
+        chunk = _cdiv(_cdiv(k, per), FEW_ROW_K) * FEW_ROW_K
+        splits = slices * _cdiv(k, chunk)
+        scratch = splits * rows * n
+    else:
+        per = _cdiv(blocks, cols * slices)
+        chunk = _cdiv(_cdiv(k, per), FEW_ROW_K) * FEW_ROW_K
+        splits = _cdiv(k, chunk)
+        scratch = splits * 2 * slices * rows * n
+    return Plan("few_row", (), 0, splits, chunk, scratch)
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.numel() == 0 or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def reduce_plan(x, w_local, w_remote) -> Plan:
+    """The plan ``split_reduce_gemm`` runs for these operands."""
+    s, t, f = x.shape
+    d = (w_local if w_local.shape[0] else w_remote).shape[2]
+    return plan_split("reduce", x.dtype, t, f, d, s, _aligned(x, w_local, w_remote))
+
+
+def dense_swiglu_plans(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r) -> tuple[Plan, Plan]:
+    """(gate/up plan, down plan) that ``split_dense_swiglu`` runs."""
+    t, d = x.shape
+    s = wg_l.shape[0] + wg_r.shape[0]
+    f = (wg_l if wg_l.shape[0] else wg_r).shape[2]
+    ok = _aligned(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r)
+    return (plan_split("gate_up", x.dtype, t, d, f, s, ok),
+            plan_split("reduce", x.dtype, t, f, d, s, ok))
+
+
+def hopper_tile_check(a, b):
+    """(64, k) @ (k, 64) -> (64, 64) fp32 through one TMA load per operand and
+    four wgmma steps (the prefill path's building blocks); bf16, k <= 64,
+    on the card only."""
+    if a.device.type != "cuda" or a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise ValueError("hopper_tile_check takes bf16 CUDA tensors")
+    k = a.shape[1]
+    if a.shape != (64, k) or b.shape != (k, 64) or not 1 <= k <= HOPPER_BK or k % 8:
+        raise ValueError(f"hopper_tile_check: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    out = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    HOPPER_TILE_CHECK.launch([a.contiguous(), b.contiguous(), out], [k])
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -74,8 +248,9 @@ def split_stack_gemm(x, w_local, w_remote):
     return out
 
 
-def split_reduce_gemm(x, w_local, w_remote):
-    """(S, T, Fs) x banks (S_l, Fs, D) / (S - S_l, Fs, D) -> (T, D)."""
+def split_reduce_gemm(x, w_local, w_remote, plan: Plan | None = None):
+    """(S, T, Fs) x banks (S_l, Fs, D) / (S - S_l, Fs, D) -> (T, D).
+    ``plan``: the launch plan on the card (default ``reduce_plan``'s)."""
     name = REDUCE_GEMM.name
     s_l, s_r, (f, d) = bank_dims(name, w_local, w_remote)
     if x.dim() != 3 or x.shape[0] != s_l + s_r or x.shape[2] != f:
@@ -84,13 +259,19 @@ def split_reduce_gemm(x, w_local, w_remote):
         return split_reduce_gemm_torch(x, w_local, w_remote)
     code = check_cuda_operands(name, x, w_local, w_remote)
     t = x.shape[1]
+    plan = plan or reduce_plan(x, w_local, w_remote)
     out = torch.empty((t, d), dtype=x.dtype, device=x.device)
-    REDUCE_GEMM.launch([x, w_local, w_remote, out], [s_l, s_r, t, f, d, code])
+    scratch = torch.empty(plan.scratch, dtype=torch.float32, device=x.device)
+    REDUCE_GEMM.launch([x, w_local, w_remote, out, scratch],
+                       [s_l, s_r, t, f, d, code, *plan.ints()])
+    PATHS[(name, "reduce", plan.path)] += 1
     return out
 
 
-def split_dense_swiglu(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r):
-    """(T, D) x gate/up banks (S_*, D, Fs), down banks (S_*, Fs, D) -> (T, D)."""
+def split_dense_swiglu(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r, plans: tuple | None = None):
+    """(T, D) x gate/up banks (S_*, D, Fs), down banks (S_*, Fs, D) -> (T, D).
+    ``plans``: (gate/up, down) launch plans on the card (default
+    ``dense_swiglu_plans``')."""
     name = DENSE_SWIGLU.name
     s_l, s_r, (d, f) = bank_dims(name, wg_l, wg_r)
     for lo, re, tail in ((wu_l, wu_r, (d, f)), (wd_l, wd_r, (f, d))):
@@ -103,7 +284,14 @@ def split_dense_swiglu(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r):
         return split_dense_swiglu_torch(*ops)
     code = check_cuda_operands(name, *ops)
     t = x.shape[0]
+    gate_up, down = plans or dense_swiglu_plans(*ops)
     h = torch.empty((s_l + s_r, t, f), dtype=x.dtype, device=x.device)
     out = torch.empty((t, d), dtype=x.dtype, device=x.device)
-    DENSE_SWIGLU.launch([*ops, h, out], [s_l, s_r, t, d, f, code])
+    # one scratch for both launches: stream order keeps them apart
+    scratch = torch.empty(max(gate_up.scratch, down.scratch), dtype=torch.float32,
+                          device=x.device)
+    DENSE_SWIGLU.launch([*ops, h, out, scratch],
+                        [s_l, s_r, t, d, f, code, *gate_up.ints(), *down.ints()])
+    PATHS[(name, "gate_up", gate_up.path)] += 1
+    PATHS[(name, "reduce", down.path)] += 1
     return out

@@ -130,3 +130,81 @@ def test_cuda_flash_attention_kernel():
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q[..., :96].contiguous(), k[..., :96].contiguous(),
                            k[..., :96].contiguous())
+
+
+@pytest.mark.cuda
+def test_cuda_hopper_single_tile():
+    """The prefill path's building blocks on one tile: one TMA load of a
+    (64, k) K-major A and a (k, 64) N-major B (128-byte swizzle, zero fill
+    past k) and four wgmma m64n64k16 steps, against a plain fp32 product."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    from repro_torch.kernels.split_gemm import dense
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for k in (16, 40, 64):
+        a = torch.randn(64, k, generator=gen, device="cuda").to(torch.bfloat16)
+        b = torch.randn(k, 64, generator=gen, device="cuda").to(torch.bfloat16)
+        got = dense.hopper_tile_check(a, b)
+        ref = a.float() @ b.float()
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        assert err <= 1e-5, (k, err)
+
+
+# (T, Fs, D, S_l, S_r, path): ragged rows, Fs and D that are not multiples
+# of the tile, an empty remote bank and an empty local bank, split-k
+# partials (T 100), the few-row path (T <= 2) and a width that is not a
+# multiple of 8 (split_tile.cuh's mma.sync tiles).
+RAGGED = [(3, 1024, 64, 4, 0, "hopper"), (17, 200, 136, 0, 2, "hopper"),
+          (100, 2048, 64, 1, 3, "hopper"), (300, 512, 264, 2, 1, "hopper"),
+          (2048, 256, 384, 1, 3, "hopper"), (2, 520, 776, 1, 3, "few_row"),
+          (1, 64, 64, 0, 2, "few_row"), (37, 100, 130, 1, 1, "mma")]
+
+
+@pytest.mark.cuda
+def test_cuda_dense_paths_ragged_deterministic_row_local():
+    """Kernels #5 and #6 on every path of their plans against the plain
+    versions (2e-2 relative to max|ref|), the path that ran counted; a
+    repeated launch gives the same bits, and row 0's output the same bits
+    whatever the other rows hold."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    from repro_torch.kernels.split_gemm import dense
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf = torch.bfloat16
+
+    def rnd(*s):
+        return (torch.randn(*s, generator=gen, device="cuda") * 0.1).to(bf)
+
+    def rel(got, ref):
+        return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+    for t, f, d, s_l, s_r, path in RAGGED:
+        s = s_l + s_r
+        xr, wl, wr = rnd(s, t, f), rnd(s_l, f, d), rnd(s_r, f, d)
+        plan = dense.reduce_plan(xr, wl, wr)
+        assert plan.path == path, (t, f, d, plan)
+        before = dense.PATHS[("split_reduce_gemm", "reduce", path)]
+        got = dense.split_reduce_gemm(xr, wl, wr)
+        assert dense.PATHS[("split_reduce_gemm", "reduce", path)] == before + 1
+        assert rel(got, dense.split_reduce_gemm_torch(xr, wl, wr)) <= 2e-2, (t, f, d, plan)
+        assert torch.equal(dense.split_reduce_gemm(xr, wl, wr), got)
+        other = xr.clone()
+        other[:, 1:] = rnd(s, t - 1, f)
+        assert torch.equal(dense.split_reduce_gemm(other, wl, wr)[0], got[0])
+
+        x = rnd(t, d)
+        ws = [rnd(s_l, d, f), rnd(s_l, d, f), rnd(s_l, f, d),
+              rnd(s_r, d, f), rnd(s_r, d, f), rnd(s_r, f, d)]
+        gate_up, down = dense.dense_swiglu_plans(x, *ws)
+        assert gate_up.path == down.path == path, (t, f, d, gate_up, down)
+        before = dense.PATHS[("split_dense_swiglu", "gate_up", path)]
+        got = dense.split_dense_swiglu(x, *ws)
+        assert dense.PATHS[("split_dense_swiglu", "gate_up", path)] == before + 1
+        assert rel(got, dense.split_dense_swiglu_torch(x, *ws)) <= 2e-2, (t, f, d, gate_up)
+        assert torch.equal(dense.split_dense_swiglu(x, *ws), got)
+        other = x.clone()
+        other[1:] = rnd(t - 1, d)
+        assert torch.equal(dense.split_dense_swiglu(other, *ws)[0], got[0])
+    torch.cuda.synchronize()

@@ -130,6 +130,51 @@ def test_wrapper_checks():
         _launch.check_cuda_operands("k", x, wl.transpose(1, 2))
 
 
+# (op, dtype, rows, k, n, slices, aligned) -> path, tile, splits: the plans
+# of kernels #5 and #6 (dense.plan_split) at R1's and Gemma-3's per-rank
+# shapes (G' = 4) and at the edges of each path.
+BF, F32 = torch.bfloat16, torch.float32
+PLANS = [
+    (("reduce", BF, 256, 4096, 7168, 4, True), "hopper", (128, 256, 64), 2),    # R1 #5, 1024
+    (("reduce", BF, 256, 4608, 7168, 4, True), "hopper", (128, 256, 64), 2),    # R1 #6 down
+    (("gate_up", BF, 256, 7168, 4608, 4, True), "hopper", (128, 128, 64), 1),   # R1 #6 gate/up
+    (("reduce", BF, 2048, 4096, 7168, 4, True), "hopper", (128, 256, 64), 1),   # R1 #5, 8192
+    (("reduce", BF, 1024, 1024, 5376, 4, True), "hopper", (128, 256, 64), 1),   # Gemma-3 #5
+    (("reduce", BF, 1024, 5376, 5376, 4, True), "hopper", (128, 256, 64), 3),   # Gemma-3 down
+    (("reduce", BF, 2, 4096, 7168, 4, True), "few_row", (), 40),                # R1 decode #5
+    (("gate_up", BF, 2, 7168, 4608, 4, True), "few_row", (), 28),               # R1 decode #6
+    (("reduce", BF, 3, 1024, 64, 4, True), "hopper", (128, 256, 64), 1),        # 3 rows
+    (("reduce", BF, 37, 100, 130, 2, True), "mma", (), 1),                      # width % 8
+    (("gate_up", BF, 256, 7168, 4608, 4, False), "mma", (), 1),                 # unaligned
+    (("reduce", F32, 256, 4096, 7168, 4, True), "fma", (), 1),                  # fp32
+]
+
+
+@pytest.mark.parametrize("args,path,tile,splits", PLANS, ids=str)
+def test_dense_launch_plans(args, path, tile, splits):
+    op, dtype, rows, k, n, slices, aligned = args
+    plan = dense.plan_split(*args)
+    assert (plan.path, plan.tile, plan.splits) == (path, tile, splits)
+    assert plan == dense.plan_split(*args)  # a pure function of the shapes
+    if path == "hopper":
+        bm, bn, _ = tile
+        tiles = -(-rows // bm) * -(-n // bn)
+        assert splits == 1 or tiles < 2 * dense.SMS  # splits only below two waves
+        assert op == "reduce" or splits == 1
+        assert 2 <= plan.stages == dense.max_stages(op)
+        assert 1024 + plan.stages * (dense.stage_bytes(op) + 16) <= dense.SMEM
+        assert plan.scratch == (splits * rows * n if splits > 1 else 0)
+    elif path == "few_row":
+        assert plan.chunk % dense.FEW_ROW_K == 0
+        per = -(-k // plan.chunk)
+        blocks = -(-n // dense.FEW_ROW_COLS) * (slices * per if op == "reduce" else slices * splits)
+        assert dense.FEW_ROW_BLOCKS[op] // 2 <= blocks < 2 * dense.FEW_ROW_BLOCKS[op]
+        assert plan.scratch == splits * rows * n * (1 if op == "reduce" else 2 * slices)
+        assert op == "gate_up" or splits == slices * per
+    else:
+        assert plan.scratch == 0 and plan.ints()[0] == 0
+
+
 # --------------------------------------------------------------------------
 # Routing, dispatch, attention and the small layers.
 # --------------------------------------------------------------------------
