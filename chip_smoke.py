@@ -21,13 +21,16 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    bound counting only the visible keys' bytes and the visible query-key
    pairs' operations. The demand kernel is checked at each fetch
    mode's fetched bank; its padding rows must be exact zeros and its real
-   experts' blocks bitwise kernel #2's. Kernels #5 and #6 are also held
-   at R1 8192's per-rank prefill (2048 rows); at each of their cases the
-   plan of every launch (path, tile, stages, splits) is printed, must be
-   the Hopper path (TMA, mbarrier ring, wgmma) above 2 rows and the
-   few-row path at 2, as counted by the wrapper, and a second launch must
-   give the same bits. One 64 x 64 x 64 tile through TMA and wgmma is held
-   against an fp32 product;
+   experts' blocks bitwise kernel #2's (at C 1, 16 and 88). Kernel #4 is
+   also held at the k/v projections' widths (R1 Fs 256 at 2, 256 and 2048
+   rows, Gemma-3 Fs 512), #4, #5 and #6 at R1 8192's per-rank prefill
+   (2048 rows) and #2 at its expert capacity (C 88). At each case of #2-#6
+   the plan of every launch (path, tile, stages, splits) is printed and
+   must be, as counted by the wrapper, the Hopper path (TMA, mbarrier
+   ring, wgmma) above 2 rows; at 2 rows or fewer the few-row path of
+   split_hopper.cuh (#4-#6) or of split_tile.cuh (#2, #3); a second launch
+   must give the same bits. One 64 x 64 x 64 tile through TMA and wgmma is
+   held against an fp32 product;
 4. ``ops.split_gemm`` (kernel #1's entry point; no engine calls it) at
    R1 expert shapes, its launches counted;
 5. serve: ``build_engine`` at DeepSeek-R1 width (2 layers, first one
@@ -36,7 +39,9 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    max_batch 2. Every kernel of the all-fetch path must have launched.
    One prefill's and one decode step's logits are compared with the plain
    versions' (tolerance below); one profiled prefill; the path counts of
-   kernels #5 and #6 over the serve are printed. A request served
+   kernels #2-#6 over the serve are printed, and every launch above 2 rows
+   must have run the Hopper path, every #4-#6 launch at 2 rows or fewer
+   the few-row path. A request served
    alone must give the same tokens as served among the 4, and its first
    decode step's logits beside another request those beside an empty slot
    (row-local capacity, ``capacity_from="global"``);
@@ -83,8 +88,15 @@ BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 KERNEL_TOL = 2e-2             # bf16, relative to max|ref| (tests/test_kernels.py TOL)
 # The single wgmma tile: exact bf16 products summed in fp32 in another order.
 TILE_TOL = 1e-5
-# The kernels whose plan picks a path: Hopper above 2 rows, few-row at 2.
-NEW_PATH_KERNELS = ("split_reduce_gemm", "split_dense_swiglu")
+# The kernels whose plan picks a path: Hopper above 2 rows; at 2 rows or
+# fewer split_hopper.cuh's few-row path (#4-#6) or split_tile.cuh's (#2,
+# #3: their few-row port is later work). Kernel -> (launches, few-row path).
+PLANNED = {"split_stack_gemm": (("stack",), "few_row"),
+           "split_reduce_gemm": (("reduce",), "few_row"),
+           "split_dense_swiglu": (("gate_up", "reduce"), "few_row"),
+           "split_grouped_swiglu": (("gate_up", "down"), "tile_few_row"),
+           "split_grouped_swiglu_demand": (("gate_up", "down"), "tile_few_row")}
+GROUPED_KERNELS = ("split_grouped_swiglu", "split_grouped_swiglu_demand")
 # End to end through two bf16 layers the kernels and the plain versions
 # round at different points (the kernels round h once after silu*mul in
 # fp32, the plain versions after every product), and with random weights
@@ -193,7 +205,7 @@ def profile_step(label: str, fn) -> None:
             us = e.self_cuda_time_total
         name = e.key
         if any(k in name for k in ("grouped_kernel", "gate_up_kernel", "reduce_kernel",
-                                   "hopper_kernel")):
+                                   "hopper_kernel", "slices_kernel")):
             kind = "split kernels"
         elif "fa_bf16_kernel" in name or "fa_f32_kernel" in name:
             kind = "attention kernel"
@@ -279,13 +291,14 @@ def kernel_cases(cfg, gemma):
     from repro_torch.models.moe import capacity_for
 
     d, a = cfg.d_model, G
-    qd = cfg.q_dim // a
+    qd, kvd = cfg.q_dim // a, cfg.kv_dim // a
     fs = cfg.d_ff // G
     e, fe = cfg.moe.num_experts, cfg.moe.d_ff
     cases = []
     for phase, t, c in (("prefill", PROMPT // G, capacity_for(PROMPT // G, e, cfg.moe.top_k, 1.25)),
                         ("decode", MAX_BATCH, capacity_for(MAX_BATCH, e, cfg.moe.top_k, 1.25))):
         cases.append(("split_stack_gemm", phase, dict(t=t, d=d, f=qd, s=a)))
+        cases.append(("split_stack_gemm", f"{phase}_kv", dict(t=t, d=d, f=kvd, s=a)))
         cases.append(("split_reduce_gemm", phase, dict(t=t, d=d, f=qd, s=a)))
         cases.append(("split_dense_swiglu", phase, dict(t=t, d=d, f=fs, s=G)))
         cases.append(("split_grouped_swiglu", phase, dict(c=c, d=d, f=fe, e=e, e_l=e // G)))
@@ -299,14 +312,21 @@ def kernel_cases(cfg, gemma):
                           ("tile", 16, rows["decode"])):
         cases.append(("split_grouped_swiglu_demand", phase,
                       dict(c=c, d=d, f=fe, e_l=e // G, e_f=e_f)))
-    # R1 at the paper's 8K prompt: 2048 rows per rank, the same widths
+    # R1 at the paper's 8K prompt: 2048 rows per rank, the same widths;
+    # the expert capacity of a 2048-token shard (88)
     t = LONG_PROMPT // G
+    cases.append(("split_stack_gemm", "prefill_8192", dict(t=t, d=d, f=qd, s=a)))
+    cases.append(("split_stack_gemm", "prefill_8192_kv", dict(t=t, d=d, f=kvd, s=a)))
     cases.append(("split_reduce_gemm", "prefill_8192", dict(t=t, d=d, f=qd, s=a)))
     cases.append(("split_dense_swiglu", "prefill_8192", dict(t=t, d=d, f=fs, s=G)))
+    c = capacity_for(t, e, cfg.moe.top_k, 1.25)
+    cases.append(("split_grouped_swiglu", "prefill_8192", dict(c=c, d=d, f=fe, e=e, e_l=e // G)))
     t, d = GEMMA_PROMPT // G, gemma.d_model
-    for name, f in (("split_stack_gemm", gemma.q_dim // G), ("split_reduce_gemm", gemma.q_dim // G),
-                    ("split_dense_swiglu", gemma.d_ff // G)):
-        cases.append((name, "gemma3_prefill", dict(t=t, d=d, f=f, s=G)))
+    for name, phase, f in (("split_stack_gemm", "gemma3_prefill", gemma.q_dim // G),
+                           ("split_stack_gemm", "gemma3_prefill_kv", gemma.kv_dim // G),
+                           ("split_reduce_gemm", "gemma3_prefill", gemma.q_dim // G),
+                           ("split_dense_swiglu", "gemma3_prefill", gemma.d_ff // G)):
+        cases.append((name, phase, dict(t=t, d=d, f=f, s=G)))
     return cases
 
 
@@ -366,12 +386,15 @@ def run_kernel_case(name, shp, gen):
         nbytes = 2 * (n_real * c * d + (e_l + e_f) * c * d + 3 * n_real * d * f)
         flops = 6 * n_real * c * d * f
     plans = None
-    if name in NEW_PATH_KERNELS:
-        plans = (dense.dense_swiglu_plans(*args) if name == "split_dense_swiglu"
-                 else (dense.reduce_plan(*args),))
-        before = collections.Counter(dense.PATHS)
+    if name in PLANNED:
+        plans = {"split_stack_gemm": lambda: (dense.stack_plan(*args),),
+                 "split_reduce_gemm": lambda: (dense.reduce_plan(*args),),
+                 "split_dense_swiglu": lambda: dense.dense_swiglu_plans(*args),
+                 }.get(name, lambda: grouped.grouped_swiglu_plans(*args[:7]))()
+        counter = grouped.PATHS if name in GROUPED_KERNELS else dense.PATHS
+        before = collections.Counter(counter)
     got = kern(*args)
-    ran = None if plans is None else dense.PATHS - before
+    ran = None if plans is None else counter - before
     ref = plain(*args)
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
@@ -394,18 +417,19 @@ def run_kernel_case(name, shp, gen):
 
 
 def check_plans(name, shp, plans, ran, bitwise) -> dict:
-    """Kernels #5 and #6: the plan each launch ran (counted by the wrapper),
-    which must be the Hopper path above 2 rows and the few-row path at 2
-    rows or fewer (bf16, every width a multiple of 8 at these shapes), and
-    a second launch bitwise equal to the first. ``ran``: the wrapper's path
-    counts of the first launch."""
+    """Kernels #2-#6: the plan each launch ran (counted by the wrapper),
+    which must be the Hopper path above 2 rows and the kernel's few-row
+    path at 2 rows or fewer (PLANNED; bf16, every width a multiple of 8 at
+    these shapes), and a second launch bitwise equal to the first. ``ran``:
+    the wrapper's path counts of the first launch."""
     from repro_torch.kernels.split_gemm import dense
 
-    launches = ("gate_up", "reduce") if name == "split_dense_swiglu" else ("reduce",)
-    want = "hopper" if shp["t"] > dense.FEW_ROW_MAXM else "few_row"
+    launches, few = PLANNED[name]
+    rows = shp["c"] if "c" in shp else shp["t"]
+    want = "hopper" if rows > dense.FEW_ROW_MAXM else few
     out = {"bitwise_repeat": bitwise}
     for launch, plan in zip(launches, plans):
-        n = ran[(name, launch, plan.path)]
+        n = ran[(name, launch, plan.path, dense.row_class(rows))]
         out[f"plan_{launch}"] = {"path": plan.path, "tile": list(plan.tile),
                                  "stages": plan.stages, "splits": plan.splits,
                                  "chunk": plan.chunk}
@@ -414,6 +438,26 @@ def check_plans(name, shp, plans, ran, bitwise) -> dict:
     if not bitwise:
         fail(f"{name} {shp}: a second launch gave other bits")
     return out
+
+
+def path_counts() -> dict:
+    """The launches of kernels #2-#6 by (kernel, launch, path, row class),
+    as the wrappers counted them since the counters were cleared."""
+    from repro_torch.kernels.split_gemm import dense, grouped
+
+    return {"/".join(k): v for k, v in sorted((dense.PATHS + grouped.PATHS).items())}
+
+
+def check_paths(label: str, paths: dict) -> None:
+    """Every launch of #2-#6 above 2 rows ran the Hopper path, and every
+    one at 2 rows or fewer its kernel's few-row path (PLANNED)."""
+    bad = {}
+    for key, n in paths.items():
+        name, _, path, rows = key.split("/")
+        if name in PLANNED and path != ("hopper" if rows == "rows>2" else PLANNED[name][1]):
+            bad[key] = n
+    if bad:
+        fail(f"{label}: launches off their planned path: {bad}")
 
 
 def check_hopper_tile(gen) -> float:
@@ -536,8 +580,9 @@ def run_flash_case(shp, gen) -> dict:
 def check_demand_matches_grouped(cfg, gen) -> dict:
     """The demand kernel over a fetched bank that is a subset of kernel
     #2's remote bank, on the same rows: its padding rows are exact zeros
-    and every real expert's block is bitwise kernel #2's (few-row path at
-    C 1 with each mode's fetched bank, tensor-core tiles at C 16)."""
+    and every real expert's block is bitwise kernel #2's (split_tile.cuh's
+    few-row path at C 1 with each mode's fetched bank, the Hopper path at
+    C 16 and at R1 8192's C 88)."""
     import torch
     from repro_torch.kernels.split_gemm import grouped
 
@@ -552,7 +597,8 @@ def check_demand_matches_grouped(cfg, gen) -> dict:
     wl = [rnd(e_l, d, f), rnd(e_l, d, f), rnd(e_l, f, d)]
     wr = [rnd(e - e_l, d, f), rnd(e - e_l, d, f), rnd(e - e_l, f, d)]
     out = {}
-    for c, e_f in ((1, rows["decode"]), (16, rows["decode"]), (1, rows["decode_predictive"])):
+    for c, e_f in ((1, rows["decode"]), (16, rows["decode"]), (88, rows["decode"]),
+                   (1, rows["decode_predictive"])):
         idx = torch.randperm(e - e_l, generator=gen, device=dev)[:e_f]
         wf = [w.index_select(0, idx) for w in wr]
         valid = torch.arange(e_f, device=dev) % 2 == 0
@@ -633,7 +679,7 @@ def serve_phase(label: str, cfg, engine, prompts, kernels) -> tuple[dict, dict]:
     import torch
     from repro_torch.core import execution
     from repro_torch.kernels import registry
-    from repro_torch.kernels.split_gemm import dense
+    from repro_torch.kernels.split_gemm import dense, grouped
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -644,19 +690,21 @@ def serve_phase(label: str, cfg, engine, prompts, kernels) -> tuple[dict, dict]:
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     registry.reset_launch_counts()
     dense.PATHS.clear()
+    grouped.PATHS.clear()
     t0 = time.perf_counter()
     outputs = serve(engine, prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = registry.launch_counts()
-    paths = {"/".join(k): v for k, v in sorted(dense.PATHS.items())}
+    paths = path_counts()
     peak = torch.cuda.max_memory_allocated()
     summary = engine.metrics.summary()
     for rec in sorted(engine.metrics.records, key=lambda r: r.req_id):
         print(f"{label} request {rec.req_id}: tokens {outputs[rec.req_id]} ttft_s "
               f"{rec.ttft:.4f} tpot_s {rec.tpot:.4f}")
     print(f"{label} serve: {json.dumps(summary)} wall_s {wall:.3f} peak_gb {peak / 1e9:.2f} "
-          f"launches {json.dumps(counts)} paths of #5/#6 {json.dumps(paths)}")
+          f"launches {json.dumps(counts)} paths of #2-#6 {json.dumps(paths)}")
+    check_paths(label, paths)
     if summary["completed"] != len(prompts):
         fail(f"{label}: {summary['completed']} of {len(prompts)} requests completed")
     for rid, toks in outputs.items():
@@ -772,6 +820,7 @@ def serve_fetch_modes(cfg, engine, model, prompts, ref_outputs, ref_summary, ref
     import torch
     from repro_torch.core import execution, prefetch
     from repro_torch.kernels import registry
+    from repro_torch.kernels.split_gemm import dense, grouped
     from repro_torch.launch.serve import build_engine
 
     params = engine.params
@@ -804,12 +853,16 @@ def serve_fetch_modes(cfg, engine, model, prompts, ref_outputs, ref_summary, ref
             fail(f"expert_fetch={mode}: the decode plan does not run the demand path")
         eng.warmup()
         registry.reset_launch_counts()
+        dense.PATHS.clear()
+        grouped.PATHS.clear()
         execution.DEMAND.layers = execution.DEMAND.fallbacks = 0
         t0 = time.perf_counter()
         outs = serve(eng, prompts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = registry.launch_counts()
+        paths = path_counts()
+        check_paths(f"expert_fetch={mode}", paths)
         layers, fallbacks = execution.DEMAND.layers, execution.DEMAND.fallbacks
         peak = torch.cuda.max_memory_allocated()
         summ = eng.metrics.summary()
@@ -831,7 +884,7 @@ def serve_fetch_modes(cfg, engine, model, prompts, ref_outputs, ref_summary, ref
               f"tpot_p95_s {summ['tpot_p95_s']:.4f} ttft_p50_s {summ['ttft_p50_s']:.4f} "
               f"wall_s {wall:.3f} peak_gb {peak / 1e9:.2f} landed_gb_per_decode_step "
               f"{landed / 1e9:.3f} demand_layers {layers} fallbacks {fallbacks} "
-              f"pred_stats_sum {stats} launches {json.dumps(counts)} "
+              f"pred_stats_sum {stats} launches {json.dumps(counts)} paths {json.dumps(paths)} "
               f"tokens_equal_all {outs == ref_outputs} logits_bitwise_all {bitwise}")
         if outs != ref_outputs:
             fail(f"expert_fetch={mode}: tokens differ from the all-fetch tokens: "
@@ -847,7 +900,7 @@ def serve_fetch_modes(cfg, engine, model, prompts, ref_outputs, ref_summary, ref
             "budgets": budgets, "tpot_p50_s": summ["tpot_p50_s"], "tpot_p95_s": summ["tpot_p95_s"],
             "ttft_p50_s": summ["ttft_p50_s"], "peak_gb": peak / 1e9,
             "landed_gb_per_decode_step": landed / 1e9, "demand_layers": layers,
-            "fallbacks": fallbacks, "pred_stats_sum": stats, "launches": counts,
+            "fallbacks": fallbacks, "pred_stats_sum": stats, "launches": counts, "paths": paths,
             "profile_ms": prof,
         }
         del eng, m_model, state, ctx, logits
@@ -993,6 +1046,11 @@ def main() -> None:
     del gemma_eng, gmodel
 
     # ---- report ---------------------------------------------------------
+    served = collections.Counter()
+    for run in (r1, r1_long, gemma):
+        served.update(run["paths"])
+    print(f"paths of #2-#6 over the three serves (R1 {PROMPT}, R1 {LONG_PROMPT}, Gemma-3 "
+          f"{GEMMA_PROMPT}): {json.dumps(dict(sorted(served.items())))}")
     replaces = {
         "split_grouped_swiglu": "src/repro/kernels/split_gemm/split_gemm.py:261",
         "split_stack_gemm": "src/repro/kernels/split_gemm/dense.py:92",
@@ -1036,7 +1094,7 @@ def main() -> None:
             kernels[-1]["max_row_rel_err"] = dec["max_row_rel_err"]
         if name == "split_grouped_swiglu_demand":
             kernels[-1]["checks"] = demand_checks
-        if name in NEW_PATH_KERNELS:
+        if name in PLANNED:
             kernels[-1]["header"] = "src/repro_torch/kernels/csrc/split_hopper.cuh"
             kernels[-1].update({k: v for k, v in dec.items()
                                 if k.startswith("plan_") or k == "bitwise_repeat"})

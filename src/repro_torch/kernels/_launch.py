@@ -41,13 +41,18 @@ class CudaKernel:
         return self._fn
 
     def launch(self, tensors, ints) -> None:
-        """Launch on the current CUDA stream of the first tensor's device.
-        Raises if the launch was refused (``cudaGetLastError``)."""
+        """Launch on the current CUDA stream of the first tensor's device
+        (``None`` in ``tensors`` passes a null pointer). Raises if the
+        launch was refused (``cudaGetLastError``)."""
         assert len(tensors) == self.n_ptrs and len(ints) == self.n_ints
         dev = tensors[0].device
         stream = torch.cuda.current_stream(dev).cuda_stream
-        with torch.cuda.device(dev):
-            err = self._entry()(*[t.data_ptr() for t in tensors], *ints, stream)
+        ptrs = [0 if t is None else t.data_ptr() for t in tensors]
+        if dev.index == torch.cuda.current_device():
+            err = self._entry()(*ptrs, *ints, stream)
+        else:
+            with torch.cuda.device(dev):
+                err = self._entry()(*ptrs, *ints, stream)
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with error {err}")
         self.launches += 1

@@ -27,26 +27,30 @@ extern "C" int split_dense_swiglu(const void* x, const void* g_local, const void
                                   const void* d_local, const void* g_remote,
                                   const void* u_remote, const void* d_remote, void* h,
                                   void* out, void* scratch, int s_local, int s_remote, int t,
-                                  int d, int fs, int dtype, int gu_path, int gu_stages,
-                                  int gu_splits, int gu_chunk, int dn_path, int dn_stages,
-                                  int dn_splits, int dn_chunk, void* stream) {
+                                  int d, int fs, int dtype, int gu_path, int gu_bm, int gu_bn,
+                                  int gu_stages, int gu_splits, int gu_chunk,
+                                   int dn_path, int dn_bm, int dn_bn,
+                                  int dn_stages, int dn_splits, int dn_chunk,
+                                  void* stream) {
   const int s = s_local + s_remote;
   cudaStream_t st = (cudaStream_t)stream;
   float* part = (float*)scratch;
+  const split_hopper::Plan gu{gu_path, gu_bm, gu_bn, gu_stages, gu_splits, gu_chunk};
+  const split_hopper::Plan dn{dn_path, dn_bm, dn_bn, dn_stages, dn_splits, dn_chunk};
   int err;
-  if (gu_path == split_hopper::PATH_TILE)
+  if (gu.path == split_hopper::PATH_TILE)
     err = SPLIT_DISPATCH(dtype, t, split_tile::launch_gate_up, x, 0L, g_local, u_local,
                          g_remote, u_remote, h, s_local, s, t, d, fs, st);
   else
     err = dtype != 1 ? (int)cudaErrorInvalidValue
-                     : split_hopper::launch_gate_up(x, g_local, u_local, g_remote, u_remote, h,
-                                                    part, s_local, s, t, d, fs, gu_path,
-                                                    gu_stages, gu_splits, gu_chunk, st);
+                     : split_hopper::launch_slices<split_hopper::GATE_UP>(
+                           x, 1, g_local, u_local, g_remote, u_remote, h, part, nullptr,
+                           s_local, s, t, d, fs, gu, st);
   if (err) return err;
-  if (dn_path == split_hopper::PATH_TILE)
+  if (dn.path == split_hopper::PATH_TILE)
     return SPLIT_DISPATCH(dtype, t, split_tile::launch_reduce, h, d_local, d_remote, out,
                           s_local, s, t, fs, d, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  return split_hopper::launch_reduce(h, d_local, d_remote, out, part, s_local, s, t, fs, d,
-                                     dn_path, dn_stages, dn_splits, dn_chunk, st);
+  return split_hopper::launch_reduce(h, d_local, d_remote, out, part, s_local, s, t, fs, d, dn,
+                                     st);
 }

@@ -5,30 +5,50 @@
 // Computes y[e] = (silu(x[e] @ Wg(e)) * (x[e] @ Wu(e))) @ Wd(e) for every
 // expert e: x (E, C, D); gate/up banks (E_*, D, F), down banks (E_*, F, D)
 // -> y (E, C, D). Experts [0, E_l) read the local bank, the rest the
-// remote bank, selected by pointer per block; an empty bank is never read.
+// remote bank; an empty bank is never read.
 //
 // Bound on the H100: the 3 * E * D * F expert weight bytes (C is 16 slots
-// in prefill, 1 in decode), 22.5 GB per layer at DeepSeek-R1 width. The
-// Pallas kernel's (C, D) fp32 output accumulator (458 KB at C 16, D 7168)
-// does not fit a block's 227 KB of shared memory. Schedule chosen: write
-// h to a scratch (E, C, F) buffer in the activation type (launch 1: gate
-// and up fused on one activation tile, silu*mul on the fp32 accumulators,
-// rounded once as split_gemm.py:225 does) and run the down product as a
-// second grouped launch. Every weight tile is read once; h is 1/D of the
-// gate/up bytes per slot. No atomics: each output element has one fp32
-// accumulator in a fixed K order, so the result is deterministic.
-// Both launches pick their inner loop by row count (split_tile.cuh): two
-// rows or fewer (decode) stream the weights straight into registers;
-// more rows run mma.sync on shared-memory tiles (bf16; FMAs for fp32).
+// at R1's 1024-token prefill, 88 at its 8192-token prefill, 1 at decode),
+// 22.5 GB per layer at DeepSeek-R1 width: 6.7 ms at 3.35 TB/s. The Pallas
+// kernel's (C, D) fp32 output accumulator (458 KB at C 16, D 7168) does
+// not fit a block's 227 KB of shared memory, so h goes to a scratch
+// (E, C, F) buffer in the activation type (gate and up fused on one
+// activation tile, silu*mul on the fp32 accumulators, rounded once as
+// split_gemm.py:225 does) and the down product is a second launch.
+//
+// Design: each launch takes the path of the wrapper's plan
+// (kernels/split_gemm/grouped.py::plan_grouped, a pure function of C, D,
+// F). Above 2 rows (bf16, widths multiples of 8) split_hopper.cuh's TMA +
+// mbarrier ring + wgmma mainloop: gate/up is op GATE_UP and down op STACK,
+// both with a 3-d activation map (E, C, K) read per expert, so all of an
+// expert's C rows sit in one m tile (BM 64 at C <= 64, else 128; TMA
+// zero-fills the rows past C, never the next expert's) and every weight
+// byte is streamed once. At 2 rows or fewer (decode) split_tile.cuh's
+// few-row register path, as in fp32 and for widths the maps cannot take.
+// No atomics: each output element has one fp32 accumulator in a fixed k
+// order, so the result is deterministic and a row's result never depends
+// on another row or expert.
+#include "split_hopper.cuh"
 #include "split_tile.cuh"
 
 extern "C" int split_grouped_swiglu(const void* x, const void* g_local, const void* u_local,
                                     const void* d_local, const void* g_remote,
                                     const void* u_remote, const void* d_remote, void* h,
                                     void* out, int e_local, int e_remote, int c, int d, int f,
-                                    int dtype, void* stream) {
+                                    int dtype, int gu_path, int gu_bm, int gu_bn, int gu_stages,
+                                    int gu_splits, int gu_chunk, int dn_path,
+                                    int dn_bm, int dn_bn, int dn_stages, int dn_splits,
+                                    int dn_chunk, void* stream) {
   const int e = e_local + e_remote;
   cudaStream_t st = (cudaStream_t)stream;
+  if (gu_path != split_hopper::PATH_TILE || dn_path != split_hopper::PATH_TILE) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    const split_hopper::Plan gu{gu_path, gu_bm, gu_bn, gu_stages, gu_splits, gu_chunk};
+    const split_hopper::Plan dn{dn_path, dn_bm, dn_bn, dn_stages, dn_splits, dn_chunk};
+    return split_hopper::launch_grouped_swiglu(x, g_local, u_local, d_local, g_remote, u_remote,
+                                               d_remote, h, out, nullptr, e_local, e, c, d, f,
+                                               gu, dn, st);
+  }
   int err = SPLIT_DISPATCH(dtype, c, split_tile::launch_gate_up, x, (long)c * d, g_local,
                            u_local, g_remote, u_remote, h, e_local, e, c, d, f, st);
   if (err) return err;

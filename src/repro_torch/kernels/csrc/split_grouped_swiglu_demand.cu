@@ -8,21 +8,21 @@
 // (E_l, D, F) / (E_l, F, D); fetched banks (E_f, D, F) / (E_f, F, D), the
 // demand-fetched rows padded to a per-peer budget; valid (E_f,) bytes
 // marking the real fetched rows -> y (E_l + E_f, C, D). Expert e < E_l
-// reads the local bank, the others the fetched bank, selected by pointer
-// per block. A padding row (valid 0) reads no weights and its output block
-// is exactly zero.
+// reads the local bank, the others the fetched bank. A padding row
+// (valid 0) reads no weights and its output block is exactly zero.
 //
 // Bound on the H100: the weight bytes of the real experts, 3 * D * F per
 // expert (E_l + the valid fetched rows; 88 MB per expert at DeepSeek-R1
-// width). Design: kernel #2's two launches (split_grouped_swiglu.cu) —
-// gate and up into an (E, C, F) h scratch, then the grouped down product —
-// with the valid vector passed to both (split_tile.cuh skip_expert), so
-// padding rows cost a block that exits without touching device memory
-// beyond its zero output. A real expert runs the very inner loops of
-// kernel #2 (few-row register path for <= 2 rows, mma.sync tiles above),
-// so its (C, D) block is bitwise identical to kernel #2's for the same
-// rows and weights: the demand, predictive and sync-free decodes give the
-// all-fetch decode's bits.
+// width). Design: kernel #2's two launches (split_grouped_swiglu.cu) on
+// kernel #2's plan for the same C, D and F (grouped.py::plan_grouped),
+// with the valid vector passed to both: on split_hopper.cuh's path (above
+// 2 rows) a padding expert's producer issues no loads and its block
+// writes zeros; on split_tile.cuh's few-row path (decode) a padding
+// expert's block exits without reading weights (skip_expert). A real
+// expert runs the very code of kernel #2, so its (C, D) block is bitwise
+// kernel #2's for the same rows and weights: the demand, predictive and
+// sync-free decodes give the all-fetch decode's bits.
+#include "split_hopper.cuh"
 #include "split_tile.cuh"
 
 extern "C" int split_grouped_swiglu_demand(const void* x, const void* g_local,
@@ -30,10 +30,22 @@ extern "C" int split_grouped_swiglu_demand(const void* x, const void* g_local,
                                            const void* g_fetched, const void* u_fetched,
                                            const void* d_fetched, const void* valid, void* h,
                                            void* out, int e_local, int e_fetched, int c, int d,
-                                           int f, int dtype, void* stream) {
+                                           int f, int dtype, int gu_path, int gu_bm, int gu_bn,
+                                           int gu_stages, int gu_splits, int gu_chunk,
+                                            int dn_path, int dn_bm, int dn_bn,
+                                           int dn_stages, int dn_splits, int dn_chunk,
+                                            void* stream) {
   const int e = e_local + e_fetched;
   const unsigned char* v = (const unsigned char*)valid;
   cudaStream_t st = (cudaStream_t)stream;
+  if (gu_path != split_hopper::PATH_TILE || dn_path != split_hopper::PATH_TILE) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    const split_hopper::Plan gu{gu_path, gu_bm, gu_bn, gu_stages, gu_splits, gu_chunk};
+    const split_hopper::Plan dn{dn_path, dn_bm, dn_bn, dn_stages, dn_splits, dn_chunk};
+    return split_hopper::launch_grouped_swiglu(x, g_local, u_local, d_local, g_fetched,
+                                               u_fetched, d_fetched, h, out, v, e_local, e, c, d,
+                                               f, gu, dn, st);
+  }
   int err = SPLIT_DISPATCH(dtype, c, split_tile::launch_gate_up, x, (long)c * d, g_local,
                            u_local, g_fetched, u_fetched, h, e_local, e, c, d, f, st, v);
   if (err) return err;

@@ -1,40 +1,47 @@
-// Hopper paths of split_reduce_gemm (#5) and split_dense_swiglu (#6), bf16.
+// Hopper paths of the split-bank GEMMs, bf16: split_stack_gemm (#4), the
+// grouped SwiGLU above 2 rows (#2, and #3 on #2's plan), split_reduce_gemm
+// (#5) and split_dense_swiglu (#6).
 //
-// Replaces, for these two kernels only, the mma.sync tiles and the few-row
-// register path of split_tile.cuh (which kernels #1-#4 keep). Both compute
-// what repro/kernels/split_gemm/dense.py::split_reduce_gemm and
-// ::split_dense_swiglu compute. The plan (path, tile width, stages, splits,
-// k chunk) is chosen in Python (kernels/split_gemm/dense.py::plan_split) as
-// a pure function of the shapes and passed in as ints.
+// Replaces, for these kernels, the mma.sync tiles and the few-row register
+// path of split_tile.cuh (which #1, and #2/#3 at 2 rows or fewer, keep).
+// The plan (path, block tile, stages, splits, k chunk) is chosen in Python
+// (kernels/split_gemm/dense.py::plan_split, grouped.py::plan_grouped) as a
+// pure function of the shapes and passed in as ints.
 //
 // Prefill (more than 2 rows, every width a multiple of 8): one warp-
-// specialised mainloop, two epilogues.
+// specialised mainloop, three epilogues.
 //   reduce   out    = sum_s A[s] @ W(s), slices ascending, k ascending
 //   gate_up  h[s]   = bf16(silu(A @ Wg(s)) * (A @ Wu(s)))
-// Block: three warpgroups. Warpgroup 2's first thread is the producer: it
-// keeps TMA loads of the A tile (128 x 64, K-major) and the B tiles (64 x
-// 64 boxes of the row-major (K, N) banks, N-major) in flight into a ring of
-// shared-memory stages, each with a full and an empty mbarrier. Warpgroups 0
-// and 1 (64 rows each) issue wgmma m64n256k16 (reduce) or two m64n128k16
-// (gate_up, one per matrix) straight from the 128-byte-swizzled tiles, B
-// with the transpose bit, one wgmma group in flight. setmaxnreg moves
-// registers from the producer to the consumers (128 fp32 accumulators a
-// thread). The bank is chosen per slice: one TMA map per nonempty bank
-// tensor, the producer switches maps at each slice boundary of its k loop;
-// an empty bank has no map and is never read. A is 3-d (S, T, Fs) for
-// reduce, so a slice's ragged last k tile reads zeros and never the next
-// slice's rows; TMA zero-fills reads past T, K and N, and the epilogue
-// masks its stores.
+//   stack    out[s] = A @ W(s)
+// A is one activation shared by every slice (#4, #6) or one per slice
+// (#5's (S, T, Fs); the grouped kernels' (E, C, K) experts).
+// Block: CW consumer warpgroups (64 rows each: BM 64 or 128) and a
+// producer warpgroup whose first thread keeps TMA loads of the A tile (BM
+// x 64, K-major) and the B tiles (64 x 64 boxes of the row-major (K, N)
+// banks, N-major) in flight into a ring of shared-memory stages, each with
+// a full and an empty mbarrier. The consumers issue wgmma m64n256k16 or
+// m64n128k16 (two, gate and up, for gate_up) straight from the
+// 128-byte-swizzled tiles, B with the transpose bit, one wgmma group in
+// flight. With two consumer warpgroups setmaxnreg moves registers from the
+// producer to them (128 fp32 accumulators a thread). The bank is chosen
+// per slice: one TMA map per nonempty bank tensor, the producer switches
+// maps at each slice boundary; an empty bank has no map and is never read.
+// A is a 3-d map, so a ragged tile reads zeros and never the next slice's
+// (or expert's) rows; TMA zero-fills reads past M, K and N. The epilogue
+// stages the tile in the idle ring and stores it with masked, coalesced
+// 16-byte writes.
 //
 // What bounds it on the H100: at R1's 256-row prefill shard the weight
-// bytes and the operations are close (235 MB, 60 GFLOP for #5); at 1024
-// and 2048 rows the operations (989 TFLOP/s bf16). The ring keeps 4 x 48 KB
-// of loads in flight per SM, so the tensor cores never wait on a
+// bytes and the operations are close (235 MB, 60 GFLOP for #4 and #5); at
+// 1024 and 2048 rows the operations (989 TFLOP/s bf16); the grouped
+// kernels at C 16 and 88 the expert weight bytes. The ring keeps up to
+// ~200 KB of loads in flight per SM, so the tensor cores never wait on a
 // synchronous copy. Where the output tiles number fewer than two waves of
-// 132 SMs, the plan may split the slice-k loop into fp32 partials
-// (splits, T, N), summed in split order by a second launch: no atomics.
+// 132 SMs (R1's narrow k/v projections), the plan may split the k loop
+// into fp32 partials, summed in split order by a second launch: no
+// atomics.
 //
-// Decode (at most 2 rows): few-row kernels split the k rows over ~1000-2000
+// Decode (at most 2 rows): few-row kernels split the k rows over ~250-2000
 // blocks to fill all 132 SMs; each thread streams 16-byte weight loads,
 // 8 in flight, into fp32 sums; the 8 warps of a block are summed in warp
 // order through shared memory into per-split fp32 partials, and a second
@@ -63,22 +70,31 @@ constexpr int PATH_FEW_ROW = 2;
 // ---------------------------------------------------------------------------
 // Prefill mainloop.
 // ---------------------------------------------------------------------------
-constexpr int BM = 128, BK = 64;
+constexpr int BK = 64;
 constexpr int BOX_N = 64;                      // bf16 columns of one 128-byte swizzle row
-constexpr int CONSUMERS = 2;                   // warpgroups of 64 rows
-constexpr int THREADS = 128 * (CONSUMERS + 1);
-constexpr int A_BYTES = BM * BK * 2;           // 16 KB
 constexpr int B_BYTES = BK * BOX_N * 2;        // 8 KB
 constexpr int MAX_SMEM = 232448;               // a block's shared memory on the H100
 
 // Dynamic shared memory of a ring: 1024 bytes of alignment slack, the
-// stages, a full and an empty barrier per stage.
-inline size_t smem_bytes(int stages, int stage_bytes) {
-  return 1024 + (size_t)stages * stage_bytes + 2 * (size_t)stages * sizeof(uint64_t);
+// stages (or, if larger, the epilogue's staging tile, which reuses them),
+// a full and an empty barrier per stage.
+__host__ __device__ inline size_t ring_bytes(int stages, int stage_bytes, int epi_bytes) {
+  const size_t ring = (size_t)stages * stage_bytes;
+  return ring > (size_t)epi_bytes ? ring : (size_t)epi_bytes;
+}
+inline size_t smem_bytes(int stages, int stage_bytes, int epi_bytes) {
+  return 1024 + ring_bytes(stages, stage_bytes, epi_bytes) +
+         2 * (size_t)stages * sizeof(uint64_t);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Barrier 1 among the first ``threads`` threads of the block (the consumer
+// warpgroups; barrier 0 is __syncthreads).
+__device__ __forceinline__ void consumers_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -238,18 +254,26 @@ __device__ __forceinline__ void wgmma_n(float (&d)[N / 2], uint64_t da, uint64_t
   else wgmma_m64n128(d, da, db);
 }
 
-enum Op { REDUCE = 0, GATE_UP = 1 };
+enum Op { REDUCE = 0, GATE_UP = 1, STACK = 2 };
 
-// Output columns per block (dense.py HOPPER_BN): reduce 256 columns of its
-// one matrix, gate_up 128 of each of two (wider than 128 x 128 won at every
-// main-path shape, tools/sweep_dense_plans.py).
-template <int OP>
+// The block tile of an op (dense.py HOPPER_TILES): CW consumer warpgroups
+// of 64 rows each (BM 64 or 128), NB 64-column boxes per B matrix (BN 128
+// or 256; gate_up has two B matrices, gate and up).
+template <int OP, int NB_, int CW_>
 struct Tile {
-  static constexpr int MATS = OP == REDUCE ? 1 : 2;     // B matrices per stage
-  static constexpr int NB = OP == REDUCE ? 4 : 2;       // 64-column boxes per matrix
+  static constexpr int CW = CW_;
+  static constexpr int BM = 64 * CW;
+  static constexpr int NB = NB_;
   static constexpr int BN = NB * BOX_N;                 // columns per matrix
+  static constexpr int MATS = OP == GATE_UP ? 2 : 1;    // B matrices per stage
+  static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int STAGE = A_BYTES + MATS * NB * B_BYTES;
   static constexpr int ACC = BN / 2;                    // fp32 per thread per matrix
+  static constexpr int THREADS = 128 * (CW + 1);        // + the producer warpgroup
+  // The epilogue stages the tile in shared memory, rows padded by 8
+  // elements (conflict-free fragment writes), fp32 at most.
+  static constexpr int EPI_LD = BN + 8;
+  static constexpr int EPI_BYTES = BM * EPI_LD * 4;
 };
 
 template <int R>
@@ -260,69 +284,88 @@ __device__ __forceinline__ void zero(float (&d)[R]) {
 
 __device__ __forceinline__ float silu_mul(float g, float u) { return g / (1.f + __expf(-g)) * u; }
 
-// REDUCE: grid (m tiles, column tiles, splits); b0 maps the (S_b, K, N)
-// bank (NB boxes per stage), out is bf16 (T, N) or, with splits > 1, fp32
-// partials (splits, T, N). GATE_UP: grid (m tiles, column tiles, slices);
-// b0 maps the gate bank, b1 the up bank (NB boxes each); out is h (S, T, N).
-template <int OP>
-__global__ void __launch_bounds__(THREADS, 1)
+// A is always a 3-d map (slices, M, K), box (BK, BM, 1).
+// REDUCE: grid (m tiles, column tiles, splits); the block sums its split's
+//   share of the slice-major (slice, k tile) loop of A[s] @ W(s); out is
+//   bf16 (M, N) or, with splits > 1, fp32 partials (splits, M, N).
+// GATE_UP: grid (m tiles, column tiles, slices); b0 maps the gate bank, b1
+//   the up bank; out is h (S, M, N) = bf16(silu(A @ Wg(s)) * (A @ Wu(s))).
+// STACK: grid (m tiles, column tiles, slices x splits), z = s * splits +
+//   split; the block sums its split's share of the k tiles of A @ W(s);
+//   out is bf16 (S, M, N) or, with splits > 1, fp32 partials (splits, S,
+//   M, N).
+// GATE_UP and STACK read A[0] (a_slices 1: one activation shared by every
+// slice) or A[s] (a_slices S: an activation per slice, the experts of the
+// grouped kernels). valid (nullptr, or a byte per slice of the second
+// bank): a slice marked 0 is padding; its producer issues no loads, and
+// its block writes zeros.
+template <int OP, int NB, int CW>
+__global__ void __launch_bounds__(Tile<OP, NB, CW>::THREADS, 1)
 hopper_kernel(const __grid_constant__ CUtensorMap a_map,
               const __grid_constant__ CUtensorMap b0_local,
               const __grid_constant__ CUtensorMap b0_remote,
               const __grid_constant__ CUtensorMap b1_local,
               const __grid_constant__ CUtensorMap b1_remote, void* __restrict__ out,
-              int n_local, int n_slices, int M, int N, int k_tiles, int stages, int splits) {
-  using TL = Tile<OP>;
-  constexpr int NB = TL::NB;
+              const unsigned char* __restrict__ valid, int n_local, int n_slices, int a_slices,
+              int M, int N, int k_tiles, int stages, int splits) {
+  using TL = Tile<OP, NB, CW>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + (size_t)stages * TL::STAGE);
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(ring + ring_bytes(stages, TL::STAGE, TL::EPI_BYTES));
   const uint32_t ring_u32 = smem_u32(ring);
   const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * stages;
 
-  const int m0 = blockIdx.x * BM;
+  const int m0 = blockIdx.x * TL::BM;
   const int n0 = blockIdx.y * TL::BN;
-  long it0 = 0, it1 = k_tiles;
+  int s = 0, split = 0;
+  long it0, it1;
   if (OP == REDUCE) {
     const long total = (long)n_slices * k_tiles;
     it0 = blockIdx.z * total / splits;
     it1 = (blockIdx.z + 1) * total / splits;
+  } else {
+    s = OP == STACK ? (int)blockIdx.z / splits : (int)blockIdx.z;
+    split = OP == STACK ? (int)blockIdx.z % splits : 0;
+    it0 = (long)split * k_tiles / splits;
+    it1 = (long)(split + 1) * k_tiles / splits;
+    if (valid != nullptr && s >= n_local && valid[s - n_local] == 0) it1 = it0;  // padding
   }
+  const int az = a_slices > 1 ? s : 0;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, CONSUMERS * 4);  // one arrival per consumer warp
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, CW * 4);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == CONSUMERS) {
+  if (wg == CW) {
     // ---- producer ------------------------------------------------------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == CONSUMERS * 128) {
+    if constexpr (CW == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == CW * 128) {
       int st = 0;
       uint32_t ph = 0;
       for (long it = it0; it < it1; ++it) {
-        const int s = OP == REDUCE ? (int)(it / k_tiles) : (int)blockIdx.z;
+        const int ss = OP == REDUCE ? (int)(it / k_tiles) : s;
         const int k = (OP == REDUCE ? (int)(it % k_tiles) : (int)it) * BK;
-        const bool loc = s < n_local;
-        const int sb = loc ? s : s - n_local;
+        const bool loc = ss < n_local;
+        const int sb = loc ? ss : ss - n_local;
         mbar_wait(empty0 + 8 * st, ph ^ 1);
         const uint32_t full = full0 + 8 * st;
         const uint32_t a = ring_u32 + st * TL::STAGE;
         mbar_expect_tx(full, TL::STAGE);
-        if (OP == REDUCE) tma_3d(a, &a_map, full, k, m0, s);
-        else tma_2d(a, &a_map, full, k, m0);
+        tma_3d(a, &a_map, full, k, m0, OP == REDUCE ? ss : az);
 #pragma unroll
         for (int j = 0; j < NB; ++j) {
-          tma_3d(a + A_BYTES + j * B_BYTES, loc ? &b0_local : &b0_remote, full, n0 + j * BOX_N,
-                 k, sb);
+          tma_3d(a + TL::A_BYTES + j * B_BYTES, loc ? &b0_local : &b0_remote, full,
+                 n0 + j * BOX_N, k, sb);
           if (OP == GATE_UP)
-            tma_3d(a + A_BYTES + (NB + j) * B_BYTES, loc ? &b1_local : &b1_remote, full,
+            tma_3d(a + TL::A_BYTES + (NB + j) * B_BYTES, loc ? &b1_local : &b1_remote, full,
                    n0 + j * BOX_N, k, sb);
         }
         if (++st == stages) {
@@ -333,9 +376,10 @@ hopper_kernel(const __grid_constant__ CUtensorMap a_map,
     }
   } else {
     // ---- consumers -----------------------------------------------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    // (one consumer warpgroup keeps its registers: 256 threads x 255 fit)
+    if constexpr (CW == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     constexpr int R = TL::ACC;
-    float acc0[R], acc1[OP == REDUCE ? 1 : R];
+    float acc0[R], acc1[OP == GATE_UP ? R : 1];
     zero(acc0);
     zero(acc1);
     int st = 0, prev = 0;
@@ -344,7 +388,7 @@ hopper_kernel(const __grid_constant__ CUtensorMap a_map,
     for (long it = it0; it < it1; ++it) {
       mbar_wait(full0 + 8 * st, ph);
       const uint32_t a = ring_u32 + st * TL::STAGE + wg * (64 * BK * 2);
-      const uint32_t b = ring_u32 + st * TL::STAGE + A_BYTES;
+      const uint32_t b = ring_u32 + st * TL::STAGE + TL::A_BYTES;
       fence_regs(acc0);
       fence_regs(acc1);
       wgmma_fence();
@@ -370,29 +414,49 @@ hopper_kernel(const __grid_constant__ CUtensorMap a_map,
     fence_regs(acc0);
     fence_regs(acc1);
 
-    // ---- epilogue: fragment element i of thread (warp, lane) is row
-    // warp*16 + lane/4 + 8*((i/2)%2), column (i/4)*8 + 2*(lane%4) + i%2.
-    const int row0 = m0 + wg * 64 + warp * 16 + lane / 4;
-    const int col0 = n0 + 2 * (lane % 4);
+    // ---- epilogue: the consumers stage the tile in the ring, idle once
+    // every consumer warpgroup is past its last wgmma, then store it with
+    // coalesced 16-byte writes (4-byte fragment stores straight to global
+    // memory took ~10 % of a compute-bound launch). Fragment element i of
+    // thread (warp, lane) is row warp*16 + lane/4 + 8*((i/2)%2), column
+    // (i/4)*8 + 2*(lane%4) + i%2.
+    consumers_sync(CW * 128);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const bool f32 = OP != GATE_UP && splits > 1;  // fp32 partials
+    const int r0 = wg * 64 + warp * 16 + lane / 4, c0 = 2 * (lane % 4);
 #pragma unroll
     for (int i = 0; i < R; i += 2) {
-      const int row = row0 + 8 * ((i / 2) % 2);
-      const int col = col0 + (i / 4) * 8;
-      if (row >= M || col >= N) continue;  // N % 8 == 0: col + 1 < N too
-      if constexpr (OP == REDUCE) {
-        if (splits == 1) {
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + (long)row * N + col) =
-              __floats2bfloat162_rn(acc0[i], acc0[i + 1]);
-        } else {
-          *reinterpret_cast<float2*>(static_cast<float*>(out) +
-                                     ((long)blockIdx.z * M + row) * N + col) =
-              make_float2(acc0[i], acc0[i + 1]);
-        }
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) +
-                                          ((long)blockIdx.z * M + row) * N + col) =
-            __floats2bfloat162_rn(silu_mul(acc0[i], acc1[i]), silu_mul(acc0[i + 1], acc1[i + 1]));
+      const int at = (r0 + 8 * ((i / 2) % 2)) * TL::EPI_LD + c0 + (i / 4) * 8;
+      float v0 = acc0[i], v1 = acc0[i + 1];
+      if constexpr (OP == GATE_UP) {
+        v0 = silu_mul(v0, acc1[i]);
+        v1 = silu_mul(v1, acc1[i + 1]);
       }
+      if (f32)
+        *reinterpret_cast<float2*>(reinterpret_cast<float*>(ring) + at) = make_float2(v0, v1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<bf16*>(ring) + at) =
+            __floats2bfloat162_rn(v0, v1);
+    }
+    consumers_sync(CW * 128);
+    // element (row, col) of this tile's output matrix is base + row * N + col
+    long base;
+    if (OP == REDUCE) base = splits == 1 ? 0 : (long)blockIdx.z * M * N;
+    else if (OP == GATE_UP) base = (long)s * M * N;
+    else base = (splits == 1 ? (long)s : (long)split * n_slices + s) * M * N;
+    const int v = f32 ? 4 : 8;  // elements of a 16-byte chunk; N % 8 == 0
+    const int per_row = TL::BN / v;
+    for (int idx = threadIdx.x; idx < TL::BM * per_row; idx += CW * 128) {
+      const int r = idx / per_row, c = (idx % per_row) * v;
+      if (m0 + r >= M || n0 + c >= N) continue;
+      const long o = base + (long)(m0 + r) * N + n0 + c;
+      const int at = r * TL::EPI_LD + c;
+      if (f32)
+        *reinterpret_cast<uint4*>(static_cast<float*>(out) + o) =
+            *reinterpret_cast<const uint4*>(reinterpret_cast<const float*>(ring) + at);
+      else
+        *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + o) =
+            *reinterpret_cast<const uint4*>(reinterpret_cast<const bf16*>(ring) + at);
     }
   }
 }
@@ -531,51 +595,55 @@ fr_reduce_kernel(const bf16* __restrict__ A, const bf16* __restrict__ w_local,
   fr_store<1>(red, acc, dst, M, N, n0);
 }
 
-// part (ksplit, 2, S, M, N): the split's k rows of x @ Wg(s) and x @ Wu(s).
+// part (ksplit, MATS, S, M, N): the split's k rows of x @ W0(s) and, for
+// gate_up (MATS 2), of x @ W1(s); 8 loads in flight per thread either way.
+template <int MATS>
 __global__ void __launch_bounds__(FR_THREADS)
-fr_gate_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g_local,
-                  const bf16* __restrict__ u_local, const bf16* __restrict__ g_remote,
-                  const bf16* __restrict__ u_remote, float* __restrict__ part, int n_local,
-                  int n_slices, int M, int K, int N, int chunk) {
-  __shared__ float red[FR_WARPS][2][FR_MAXM][FR_COLS];
+fr_slices_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0_local,
+                 const bf16* __restrict__ w1_local, const bf16* __restrict__ w0_remote,
+                 const bf16* __restrict__ w1_remote, float* __restrict__ part, int n_local,
+                 int n_slices, int M, int K, int N, int chunk) {
+  constexpr int U = MATS == 2 ? FR_UNROLL : FR_UNROLL_R;
+  __shared__ float red[FR_WARPS][MATS][FR_MAXM][FR_COLS];
   const int n0 = blockIdx.x * FR_COLS, s = blockIdx.y, z = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int k0 = z * chunk, k1 = min(K, k0 + chunk);
   const int c = n0 + lane * 8;
   const bool loc = s < n_local;
   const long off = (long)(loc ? s : s - n_local) * K * N;
-  const bf16* wg = (loc ? g_local : g_remote) + off;
-  const bf16* wu = (loc ? u_local : u_remote) + off;
-  float acc[2][FR_MAXM][8] = {};
+  const bf16* w[2] = {(loc ? w0_local : w0_remote) + off,
+                      MATS == 2 ? (loc ? w1_local : w1_remote) + off : nullptr};
+  float acc[MATS][FR_MAXM][8] = {};
   if (c < N) {
-    for (int k = k0 + warp; k < k1; k += FR_WARPS * FR_UNROLL) {
-      uint4 g[FR_UNROLL], u4[FR_UNROLL];
-      float a[FR_UNROLL][FR_MAXM];
+    for (int k = k0 + warp; k < k1; k += FR_WARPS * U) {
+      uint4 wv[MATS][U];
+      float a[U][FR_MAXM];
 #pragma unroll
-      for (int u = 0; u < FR_UNROLL; ++u) {
+      for (int u = 0; u < U; ++u) {
         const int kk = k + u * FR_WARPS;
-        g[u] = u4[u] = make_uint4(0, 0, 0, 0);
+#pragma unroll
+        for (int j = 0; j < MATS; ++j) wv[j][u] = make_uint4(0, 0, 0, 0);
 #pragma unroll
         for (int m = 0; m < FR_MAXM; ++m) a[u][m] = 0.f;
         if (kk < k1) {
-          g[u] = ld_stream(wg + (long)kk * N + c);
-          u4[u] = ld_stream(wu + (long)kk * N + c);
+#pragma unroll
+          for (int j = 0; j < MATS; ++j) wv[j][u] = ld_stream(w[j] + (long)kk * N + c);
 #pragma unroll
           for (int m = 0; m < FR_MAXM; ++m)
             if (m < M) a[u][m] = __bfloat162float(x[(long)m * K + kk]);
         }
       }
 #pragma unroll
-      for (int u = 0; u < FR_UNROLL; ++u) {
-        fr_fma(acc[0], g[u], a[u]);
-        fr_fma(acc[1], u4[u], a[u]);
-      }
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int j = 0; j < MATS; ++j) fr_fma(acc[j], wv[j][u], a[u]);
     }
   }
   const long plane = (long)n_slices * M * N;
-  float* dst[2] = {part + 2L * z * plane + (long)s * M * N,
-                   part + (2L * z + 1) * plane + (long)s * M * N};
-  fr_store<2>(red, acc, dst, M, N, n0);
+  float* dst[MATS];
+#pragma unroll
+  for (int j = 0; j < MATS; ++j) dst[j] = part + ((long)MATS * z + j) * plane + (long)s * M * N;
+  fr_store<MATS>(red, acc, dst, M, N, n0);
 }
 
 // ---------------------------------------------------------------------------
@@ -612,6 +680,9 @@ constexpr int NO_ENCODE = 9000, ENCODE_ERROR = 10000, ATTR_ERROR = 20000;
 
 // A bf16 map of a contiguous row-major tensor, dims innermost first, with
 // 128-byte swizzle. A tensor with a zero dim gets a zeroed map (never used).
+// TMA takes a 16-byte aligned base and strides that are multiples of 16
+// bytes (for the grouped kernels' per-expert activations: C * D * 2 and
+// C * F * 2 bytes).
 inline int make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
                     const uint32_t* box) {
   *map = CUtensorMap{};
@@ -622,10 +693,14 @@ inline int make_map(CUtensorMap* map, const void* base, int rank, const uint64_t
   cuuint64_t gd[3], gs[2];
   cuuint32_t bx[3], es[3] = {1, 1, 1};
   uint64_t stride = sizeof(bf16);
+  if (reinterpret_cast<uintptr_t>(base) % 16) return (int)cudaErrorMisalignedAddress;
   for (int i = 0; i < rank; ++i) {
     gd[i] = dims[i];
     bx[i] = box[i];
-    if (i + 1 < rank) gs[i] = stride *= dims[i];
+    if (i + 1 < rank) {
+      gs[i] = stride *= dims[i];
+      if (gs[i] % 16) return (int)cudaErrorInvalidPitchValue;
+    }
   }
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), gd,
                          gs, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -640,25 +715,66 @@ inline int bank_map(CUtensorMap* map, const void* w, int n_banks, int K, int N) 
   return make_map(map, w, 3, dims, box);
 }
 
-template <int OP>
-inline int hopper_launch(int stages, cudaStream_t st, const CUtensorMap& a, const CUtensorMap& b0l,
-                         const CUtensorMap& b0r, const CUtensorMap& b1l, const CUtensorMap& b1r,
-                         void* out, int n_local, int n_slices, int M, int N, int k_tiles,
-                         int splits) {
-  using TL = Tile<OP>;
-  const size_t smem = smem_bytes(stages, TL::STAGE);
+// Map of an activation (slices, M, K): (BK, bm, 1) boxes. TMA zero-fills
+// the rows past M, so a ragged tile never reads the next slice's rows.
+inline int act_map(CUtensorMap* map, const void* A, int slices, int M, int K, int bm) {
+  const uint64_t dims[3] = {(uint64_t)K, (uint64_t)M, (uint64_t)slices};
+  const uint32_t box[3] = {BK, (uint32_t)bm, 1};
+  return make_map(map, A, 3, dims, box);
+}
+
+// A launch plan, as the wrappers pass it (dense.py Plan.ints()): the path,
+// the block tile (BM, BN) of the Hopper path, ring stages, k splits, and
+// the few-row path's k chunk.
+struct Plan {
+  int path, bm, bn, stages, splits, chunk;
+};
+
+// The arguments of hopper_kernel beside its maps.
+struct Args {
+  void* out;
+  const unsigned char* valid;
+  int n_local, n_slices, a_slices, M, N, k_tiles, stages, splits;
+};
+
+template <int OP, int NB, int CW>
+inline int hopper_launch(const CUtensorMap& a, const CUtensorMap& b0l, const CUtensorMap& b0r,
+                         const CUtensorMap& b1l, const CUtensorMap& b1r, const Args& g,
+                         cudaStream_t st) {
+  using TL = Tile<OP, NB, CW>;
+  const size_t smem = smem_bytes(g.stages, TL::STAGE, TL::EPI_BYTES);
   // at least 2 stages: a stage is released one stage late
-  if (stages < 2 || smem > MAX_SMEM || splits < 1) return (int)cudaErrorInvalidValue;
+  if (g.stages < 2 || smem > MAX_SMEM || g.splits < 1) return (int)cudaErrorInvalidValue;
   // Set on every launch: a function-local "done" flag of an inline template
   // is one symbol for every library that includes this header, and each
   // library has its own kernel to set it on.
   const int err = (int)cudaFuncSetAttribute(
-      hopper_kernel<OP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      hopper_kernel<OP, NB, CW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return ATTR_ERROR + err;
-  dim3 grid(cdiv(M, BM), cdiv(N, TL::BN), OP == REDUCE ? splits : n_slices);
-  hopper_kernel<OP><<<grid, THREADS, smem, st>>>(a, b0l, b0r, b1l, b1r, out, n_local, n_slices,
-                                                 M, N, k_tiles, stages, splits);
+  const unsigned z = OP == REDUCE ? g.splits : OP == STACK ? g.n_slices * g.splits : g.n_slices;
+  dim3 grid(cdiv(g.M, TL::BM), cdiv(g.N, TL::BN), z);
+  hopper_kernel<OP, NB, CW><<<grid, TL::THREADS, smem, st>>>(
+      a, b0l, b0r, b1l, b1r, g.out, g.valid, g.n_local, g.n_slices, g.a_slices, g.M, g.N,
+      g.k_tiles, g.stages, g.splits);
   return (int)cudaGetLastError();
+}
+
+// The block tiles (BM, BN) each op is built for (dense.py HOPPER_TILES).
+template <int OP>
+inline int hopper_tiled(int bm, int bn, const CUtensorMap& a, const CUtensorMap& b0l,
+                        const CUtensorMap& b0r, const CUtensorMap& b1l, const CUtensorMap& b1r,
+                        const Args& g, cudaStream_t st) {
+  if constexpr (OP == REDUCE) {
+    if (bm == 128 && bn == 256) return hopper_launch<OP, 4, 2>(a, b0l, b0r, b1l, b1r, g, st);
+  } else if constexpr (OP == GATE_UP) {
+    if (bm == 128 && bn == 128) return hopper_launch<OP, 2, 2>(a, b0l, b0r, b1l, b1r, g, st);
+    if (bm == 64 && bn == 128) return hopper_launch<OP, 2, 1>(a, b0l, b0r, b1l, b1r, g, st);
+  } else {
+    if (bm == 128 && bn == 256) return hopper_launch<OP, 4, 2>(a, b0l, b0r, b1l, b1r, g, st);
+    if (bm == 128 && bn == 128) return hopper_launch<OP, 2, 2>(a, b0l, b0r, b1l, b1r, g, st);
+    if (bm == 64 && bn == 256) return hopper_launch<OP, 4, 1>(a, b0l, b0r, b1l, b1r, g, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 inline int finish_reduce(const float* part, void* out, int splits, long count, cudaStream_t st) {
@@ -669,65 +785,101 @@ inline int finish_reduce(const float* part, void* out, int splits, long count, c
 // out (M, N) = sum_s A[s] @ W(s): A (S, M, K) bf16, banks (S_l, K, N) /
 // (S - S_l, K, N). scratch: fp32 partials when splits > 1.
 inline int launch_reduce(const void* A, const void* wl, const void* wr, void* out, float* scratch,
-                         int n_local, int n_slices, int M, int K, int N, int path, int stages,
-                         int splits, int chunk, cudaStream_t st) {
+                         int n_local, int n_slices, int M, int K, int N, const Plan& p,
+                         cudaStream_t st) {
   if (M == 0 || N == 0) return 0;
-  if (path == PATH_FEW_ROW) {
+  if (p.path == PATH_FEW_ROW) {
     if (M > FR_MAXM) return (int)cudaErrorInvalidValue;
-    const int per_slice = cdiv(K, chunk);  // splits == n_slices * per_slice
-    if (chunk < 1 || splits != n_slices * per_slice) return (int)cudaErrorInvalidValue;
-    dim3 grid(cdiv(N, FR_COLS), splits);
+    const int per_slice = cdiv(K, p.chunk);  // splits == n_slices * per_slice
+    if (p.chunk < 1 || p.splits != n_slices * per_slice) return (int)cudaErrorInvalidValue;
+    dim3 grid(cdiv(N, FR_COLS), p.splits);
     fr_reduce_kernel<<<grid, FR_THREADS, 0, st>>>((const bf16*)A, (const bf16*)wl,
                                                   (const bf16*)wr, scratch, n_local, M, K, N,
-                                                  chunk, per_slice);
+                                                  p.chunk, per_slice);
     const int err = (int)cudaGetLastError();
-    return err ? err : finish_reduce(scratch, out, splits, (long)M * N, st);
+    return err ? err : finish_reduce(scratch, out, p.splits, (long)M * N, st);
   }
+  if (p.path != PATH_HOPPER) return (int)cudaErrorInvalidValue;
   CUtensorMap a, bl, br;
-  const uint64_t adims[3] = {(uint64_t)K, (uint64_t)M, (uint64_t)n_slices};
-  const uint32_t abox[3] = {BK, BM, 1};
-  int err = make_map(&a, A, 3, adims, abox);
+  int err = act_map(&a, A, n_slices, M, K, p.bm);
   if (!err) err = bank_map(&bl, wl, n_local, K, N);
   if (!err) err = bank_map(&br, wr, n_slices - n_local, K, N);
   if (err) return err;
-  err = hopper_launch<REDUCE>(stages, st, a, bl, br, bl, br, splits == 1 ? out : (void*)scratch,
-                             n_local, n_slices, M, N, cdiv(K, BK), splits);
-  if (err || splits == 1) return err;
-  return finish_reduce(scratch, out, splits, (long)M * N, st);
+  const Args g{p.splits == 1 ? out : (void*)scratch, nullptr, n_local, n_slices, n_slices, M, N,
+               (int)cdiv(K, BK), p.stages, p.splits};
+  err = hopper_tiled<REDUCE>(p.bm, p.bn, a, bl, br, bl, br, g, st);
+  if (err || p.splits == 1) return err;
+  return finish_reduce(scratch, out, p.splits, (long)M * N, st);
 }
 
-// h[s] (M, N) = bf16(silu(x @ Wg(s)) * (x @ Wu(s))): x (M, K), gate/up
-// banks (S_*, K, N). scratch: the few-row path's fp32 partials.
-inline int launch_gate_up(const void* x, const void* gl, const void* ul, const void* gr,
-                          const void* ur, void* h, float* scratch, int n_local, int n_slices,
-                          int M, int K, int N, int path, int stages, int splits, int chunk,
-                          cudaStream_t st) {
-  if (M == 0 || N == 0) return 0;
-  if (path == PATH_FEW_ROW) {
-    if (M > FR_MAXM) return (int)cudaErrorInvalidValue;
-    dim3 grid(cdiv(N, FR_COLS), n_slices, splits);
-    fr_gate_up_kernel<<<grid, FR_THREADS, 0, st>>>((const bf16*)x, (const bf16*)gl,
-                                                   (const bf16*)ul, (const bf16*)gr,
-                                                   (const bf16*)ur, scratch, n_local, n_slices,
-                                                   M, K, N, chunk);
-    int err = (int)cudaGetLastError();
+// Per slice s < S: GATE_UP h[s] (M, N) = bf16(silu(A @ Wg(s)) * (A @ Wu(s)))
+// (b0 the gate banks, b1 the up banks); STACK out[s] (M, N) = A @ W(s) (b0
+// the banks, b1 unused). A is (M, K), shared by every slice (a_slices 1),
+// or (S, M, K), one per slice (a_slices S: the grouped kernels' experts).
+// Banks (S_l, K, N) / (S - S_l, K, N). scratch: fp32 partials (few-row
+// path, split k). valid: see hopper_kernel (Hopper path only).
+template <int OP>
+inline int launch_slices(const void* A, int a_slices, const void* b0l, const void* b1l,
+                         const void* b0r, const void* b1r, void* out, float* scratch,
+                         const unsigned char* valid, int n_local, int n_slices, int M, int K,
+                         int N, const Plan& p, cudaStream_t st) {
+  static_assert(OP == GATE_UP || OP == STACK, "launch_slices: gate_up or stack");
+  if (M == 0 || N == 0 || n_slices == 0) return 0;
+  const long count = (long)n_slices * M * N;
+  if (a_slices != 1 && a_slices != n_slices) return (int)cudaErrorInvalidValue;
+  if (p.path == PATH_FEW_ROW) {
+    // one activation for every slice, every slice real
+    if (M > FR_MAXM || a_slices != 1 || valid != nullptr || p.chunk < 1 ||
+        p.splits != (int)cdiv(K, p.chunk))
+      return (int)cudaErrorInvalidValue;
+    dim3 grid(cdiv(N, FR_COLS), n_slices, p.splits);
+    fr_slices_kernel<OP == GATE_UP ? 2 : 1><<<grid, FR_THREADS, 0, st>>>(
+        (const bf16*)A, (const bf16*)b0l, (const bf16*)b1l, (const bf16*)b0r, (const bf16*)b1r,
+        scratch, n_local, n_slices, M, K, N, p.chunk);
+    const int err = (int)cudaGetLastError();
     if (err) return err;
-    const long count = (long)n_slices * M * N;
-    finish_gate_up_kernel<<<cdiv(count / 2, 256), 256, 0, st>>>(scratch, (bf16*)h, splits,
+    if (OP == STACK) return finish_reduce(scratch, out, p.splits, count, st);
+    finish_gate_up_kernel<<<cdiv(count / 2, 256), 256, 0, st>>>(scratch, (bf16*)out, p.splits,
                                                                 count);
     return (int)cudaGetLastError();
   }
-  CUtensorMap a, g_l, u_l, g_r, u_r;
-  const uint64_t adims[2] = {(uint64_t)K, (uint64_t)M};
-  const uint32_t abox[2] = {BK, BM};
-  int err = make_map(&a, x, 2, adims, abox);
-  if (!err) err = bank_map(&g_l, gl, n_local, K, N);
-  if (!err) err = bank_map(&u_l, ul, n_local, K, N);
-  if (!err) err = bank_map(&g_r, gr, n_slices - n_local, K, N);
-  if (!err) err = bank_map(&u_r, ur, n_slices - n_local, K, N);
+  if (p.path != PATH_HOPPER || (OP == GATE_UP && p.splits != 1)) return (int)cudaErrorInvalidValue;
+  CUtensorMap a, m0l, m0r, m1l, m1r;
+  int err = act_map(&a, A, a_slices, M, K, p.bm);
+  if (!err) err = bank_map(&m0l, b0l, n_local, K, N);
+  if (!err) err = bank_map(&m0r, b0r, n_slices - n_local, K, N);
+  if (OP == GATE_UP) {
+    if (!err) err = bank_map(&m1l, b1l, n_local, K, N);
+    if (!err) err = bank_map(&m1r, b1r, n_slices - n_local, K, N);
+  } else {
+    m1l = m0l;
+    m1r = m0r;
+  }
   if (err) return err;
-  return hopper_launch<GATE_UP>(stages, st, a, g_l, g_r, u_l, u_r, h, n_local, n_slices, M, N,
-                                cdiv(K, BK), 1);
+  const Args g{p.splits == 1 ? out : (void*)scratch, valid, n_local, n_slices, a_slices, M, N,
+               (int)cdiv(K, BK), p.stages, p.splits};
+  err = hopper_tiled<OP>(p.bm, p.bn, a, m0l, m0r, m1l, m1r, g, st);
+  if (err || p.splits == 1) return err;
+  return finish_reduce(scratch, out, p.splits, count, st);
+}
+
+// The grouped SwiGLU (kernels #2 and #3) on the Hopper path: x (E, C, D),
+// gate/up banks (E_l, D, F) / (E - E_l, D, F), down banks (E_l, F, D) /
+// (E - E_l, F, D). Launch 1 (GATE_UP, A per expert) writes h (E, C, F);
+// launch 2 (STACK, A per expert) writes out (E, C, D). Every weight byte is
+// streamed once per m tile; at C <= BM all of an expert's rows sit in one.
+inline int launch_grouped_swiglu(const void* x, const void* gl, const void* ul, const void* dl,
+                                 const void* gr, const void* ur, const void* dr, void* h,
+                                 void* out, const unsigned char* valid, int n_local, int E,
+                                 int C, int D, int F, const Plan& gu, const Plan& dn,
+                                 cudaStream_t st) {
+  if (gu.path != PATH_HOPPER || dn.path != PATH_HOPPER || dn.splits != 1)
+    return (int)cudaErrorInvalidValue;
+  const int err = launch_slices<GATE_UP>(x, E, gl, ul, gr, ur, h, nullptr, valid, n_local, E, C,
+                                         D, F, gu, st);
+  if (err) return err;
+  return launch_slices<STACK>(h, E, dl, nullptr, dr, nullptr, out, nullptr, valid, n_local, E, C,
+                              F, D, dn, st);
 }
 
 // ---------------------------------------------------------------------------

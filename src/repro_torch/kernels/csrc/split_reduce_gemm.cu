@@ -23,16 +23,16 @@
 
 extern "C" int split_reduce_gemm(const void* x, const void* w_local, const void* w_remote,
                                  void* out, void* scratch, int s_local, int s_remote, int t,
-                                 int fs, int d, int dtype, int path, int stages, int splits,
-                                 int chunk, void* stream) {
+                                 int fs, int d, int dtype, int path, int bm, int bn, int stages,
+                                 int splits, int chunk, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (path == split_hopper::PATH_TILE)
     return SPLIT_DISPATCH(dtype, t, split_tile::launch_reduce, x, w_local, w_remote, out,
                           s_local, s_local + s_remote, t, fs, d, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const split_hopper::Plan plan{path, bm, bn, stages, splits, chunk};
   return split_hopper::launch_reduce(x, w_local, w_remote, out, (float*)scratch, s_local,
-                                     s_local + s_remote, t, fs, d, path, stages, splits, chunk,
-                                     st);
+                                     s_local + s_remote, t, fs, d, plan, st);
 }
 
 // The prefill path's single-tile check (split_hopper.cuh::tile_check):

@@ -5,19 +5,37 @@
 // s < S_l and from the remote bank otherwise: x (T, D), banks
 // (S_l, D, Fs) / (S - S_l, D, Fs) -> out (S, T, Fs), fp32 accumulation.
 //
-// Bound on the H100: at the serving token counts (T = 2 decode rows, 256
-// prefill tokens per rank) the weight bytes dominate (T << D), so the
-// kernel is bound by streaming the banks. Design: one block per (Fs tile,
-// T tile, slice), the slice's bank chosen by pointer. Decode (T <= 2)
-// takes the few-row path of split_tile.cuh: 16-byte weight loads straight
-// into registers, no padding rows computed. Prefill stages (32 x 64..128)
-// tiles in shared memory and runs mma.sync on the tensor cores (bf16; FMAs
-// for fp32), so the weights are read once per 16 or 64 tokens.
+// Bound on the H100: the S * D * Fs weight bytes at decode (T 2) and at
+// R1's 256-row prefill shard (where the operations come close); the
+// operations at 1024 and 2048 rows. R1's k and v projections are narrow
+// (Fs 256, 8 kv heads over 4 slices), so their output tiles alone cannot
+// fill 132 SMs. Design: the wrapper's plan
+// (kernels/split_gemm/dense.py::plan_split, op "stack") picks the path.
+// bf16 with every width a multiple of 8 runs split_hopper.cuh: more than 2
+// rows the TMA + mbarrier ring feeding wgmma (op STACK: grid (m tiles,
+// column tiles, slices x splits), the activation map shared by every
+// slice, the slice's bank map chosen per block, an output block per
+// slice); where the tiles fill too few SMs the plan splits k into fp32
+// partials, summed in split order by a second launch. At most 2 rows the
+// few-row kernel streams the banks with k split over ~1000 blocks. fp32,
+// and bf16 widths or pointers the tensor maps cannot take, keep
+// split_tile.cuh's grouped launcher. No atomics: results are
+// deterministic.
+#include "split_hopper.cuh"
 #include "split_tile.cuh"
 
 extern "C" int split_stack_gemm(const void* x, const void* w_local, const void* w_remote,
-                                void* out, int s_local, int s_remote, int t, int d, int f,
-                                int dtype, void* stream) {
-  return SPLIT_DISPATCH(dtype, t, split_tile::launch_grouped, x, 0L, w_local, w_remote, out,
-                        s_local, s_local + s_remote, t, d, f, (cudaStream_t)stream);
+                                void* out, void* scratch, int s_local, int s_remote, int t,
+                                int d, int f, int dtype, int path, int bm, int bn, int stages,
+                                int splits, int chunk, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int s = s_local + s_remote;
+  if (path == split_hopper::PATH_TILE)
+    return SPLIT_DISPATCH(dtype, t, split_tile::launch_grouped, x, 0L, w_local, w_remote, out,
+                          s_local, s, t, d, f, st);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const split_hopper::Plan plan{path, bm, bn, stages, splits, chunk};
+  return split_hopper::launch_slices<split_hopper::STACK>(x, 1, w_local, nullptr, w_remote,
+                                                          nullptr, out, (float*)scratch, nullptr,
+                                                          s_local, s, t, d, f, plan, st);
 }

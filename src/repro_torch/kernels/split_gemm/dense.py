@@ -13,16 +13,17 @@ runs its plain version for CPU tensors:
 
 Slices ``[0, S_l)`` read the local bank, the rest the remote bank.
 
-``split_reduce_gemm`` and both launches of ``split_dense_swiglu`` run the
-path that ``plan_split`` picks from the shapes (``csrc/split_hopper.cuh``):
-``hopper`` (TMA, an mbarrier ring and wgmma) over more than 2 bf16 rows,
-``few_row`` at 2 rows or fewer, and the ``split_tile.cuh`` tiles
-(``mma`` in bf16, ``fma`` in fp32) for fp32 and for widths or pointers the
-tensor maps cannot take. ``PATHS`` counts the launches of each path.
+Every launch of the three runs the path that ``plan_split`` picks from the
+shapes (``csrc/split_hopper.cuh``): ``hopper`` (TMA, an mbarrier ring and
+wgmma) over more than 2 bf16 rows, ``few_row`` at 2 rows or fewer, and
+the ``split_tile.cuh`` tiles (``mma`` in bf16, ``fma`` in fp32) for fp32
+and for widths or pointers the tensor maps cannot take. ``PATHS`` counts
+the launches of each path.
 """
 from __future__ import annotations
 
 import collections
+import functools
 from typing import NamedTuple
 
 import torch
@@ -35,9 +36,9 @@ from repro_torch.kernels._launch import (
     on_cpu,
 )
 
-STACK_GEMM = CudaKernel("split_stack_gemm", n_ptrs=4, n_ints=6)
-REDUCE_GEMM = CudaKernel("split_reduce_gemm", n_ptrs=5, n_ints=10)
-DENSE_SWIGLU = CudaKernel("split_dense_swiglu", n_ptrs=10, n_ints=14)
+STACK_GEMM = CudaKernel("split_stack_gemm", n_ptrs=5, n_ints=12)
+REDUCE_GEMM = CudaKernel("split_reduce_gemm", n_ptrs=5, n_ints=12)
+DENSE_SWIGLU = CudaKernel("split_dense_swiglu", n_ptrs=10, n_ints=18)
 #: The prefill path's single-tile check (not on any serving path).
 HOPPER_TILE_CHECK = CudaKernel("split_hopper_tile_check", n_ptrs=3, n_ints=1,
                                lib="split_reduce_gemm")
@@ -45,16 +46,22 @@ HOPPER_TILE_CHECK = CudaKernel("split_hopper_tile_check", n_ptrs=3, n_ints=1,
 # --------------------------------------------------------------------------
 # Plans (csrc/split_hopper.cuh; the constants below are its own).
 # --------------------------------------------------------------------------
-#: C path codes: split_tile.cuh's launchers (mma.sync or FMA tiles), the
-#: Hopper mainloop, the few-row kernels.
-PATH_CODES = {"mma": 0, "fma": 0, "hopper": 1, "few_row": 2}
+#: C path codes: split_tile.cuh's launchers (mma.sync or FMA tiles, and its
+#: few-row register path, which the grouped kernels keep at <= 2 rows), the
+#: Hopper mainloop, split_hopper.cuh's few-row kernels.
+PATH_CODES = {"mma": 0, "fma": 0, "tile_few_row": 0, "hopper": 1, "few_row": 2}
 SMS = 132                      # H100 SXM streaming multiprocessors
 SMEM = 232448                  # shared memory of one block
-HOPPER_BM, HOPPER_BK = 128, 64
-#: columns per block of each B matrix on the Hopper path (gate_up: of each of
-#: 2); wider than 128 x 128 won at every main-path shape
-#: (tools/sweep_dense_plans.py, PERF.md)
-HOPPER_BN = {"reduce": 256, "gate_up": 128}
+HOPPER_BK = 64
+#: the (BM, BN) block tiles the Hopper mainloop is built for, per op
+#: (split_hopper.cuh hopper_tiled): BM 64 is one consumer warpgroup, 128
+#: two; BN counts the columns of each B matrix (gate_up has two). Reduce
+#: and gate_up keep the tiles that won at every main-path shape of #5/#6;
+#: stack takes 128 columns only where 256 leave SMs idle (R1's and
+#: Gemma-3's k/v widths); BM 64 serves at most 64 rows (#2's C 16)
+#: (tools/sweep_dense_plans.py, PERF.md).
+HOPPER_TILES = {"reduce": ((128, 256),), "gate_up": ((128, 128), (64, 128)),
+                "stack": ((128, 256), (128, 128), (64, 256))}
 MAX_SPLITS = 8
 MIN_SPLIT_K_TILES = 2          # k tiles a split keeps at least
 # The split decision's cost model: a full wave of the Hopper path runs at
@@ -66,15 +73,21 @@ SPLIT_LAUNCH_S = 5e-6
 FEW_ROW_MAXM = 2
 FEW_ROW_COLS = 256             # 32 lanes x 8 bf16 columns
 #: blocks a few-row launch aims for (the best of 512-4096 in the sweep)
-FEW_ROW_BLOCKS = {"reduce": 1024, "gate_up": 2048}
+FEW_ROW_BLOCKS = {"reduce": 1024, "gate_up": 2048, "stack": 256}
 FEW_ROW_K = 32                 # a split's k rows come in multiples of this
 
-#: Launches per (kernel, launch, path), counted by the wrappers.
+#: Launches per (kernel, launch, path, row class), counted by the wrappers.
 PATHS: collections.Counter = collections.Counter()
 
 
+def row_class(rows: int) -> str:
+    """The row class of a launch in the ``PATHS`` keys: the few-row paths
+    serve "rows<=2", the Hopper path "rows>2"."""
+    return "rows>2" if rows > FEW_ROW_MAXM else "rows<=2"
+
+
 class Plan(NamedTuple):
-    path: str          # "hopper" | "few_row" | "mma" | "fma"
+    path: str          # "hopper" | "few_row" | "mma" | "fma" | "tile_few_row"
     tile: tuple        # (BM, BN, BK) of the hopper path, () otherwise
     stages: int        # ring stages (hopper)
     splits: int        # k splits: fp32 partials summed in order by a second launch
@@ -82,31 +95,46 @@ class Plan(NamedTuple):
     scratch: int       # fp32 scratch elements
 
     def ints(self) -> list:
-        return [PATH_CODES[self.path], self.stages, self.splits, self.chunk]
+        bm, bn = self.tile[:2] if self.tile else (0, 0)
+        return [PATH_CODES[self.path], bm, bn, self.stages, self.splits, self.chunk]
 
 
-def stage_bytes(op: str) -> int:
+def stage_bytes(op: str, bm: int, bn: int) -> int:
     """Bytes of one ring stage of the Hopper path: the A tile and the B boxes."""
-    mats = 1 if op == "reduce" else 2
-    return 2 * HOPPER_BM * HOPPER_BK + mats * 2 * HOPPER_BK * HOPPER_BN[op]
+    mats = 2 if op == "gate_up" else 1
+    return 2 * bm * HOPPER_BK + mats * 2 * HOPPER_BK * bn
 
 
-def max_stages(op: str) -> int:
+def max_stages(op: str, bm: int, bn: int) -> int:
     """The most ring stages (and their two barriers) that fit a block's
-    shared memory beside 1024 bytes of alignment slack: 4 of 48 KB."""
-    return (SMEM - 1024) // (stage_bytes(op) + 16)
+    shared memory beside 1024 bytes of alignment slack (4 of 48 KB at
+    128 x 256)."""
+    return (SMEM - 1024) // (stage_bytes(op, bm, bn) + 16)
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def hopper_plan(op: str, rows: int, k: int, n: int, slices: int, bm: int, bn: int,
+                splits: int = 1) -> Plan:
+    """The Hopper launch of ``op`` with a (bm, bn) tile, the most stages
+    that fit, and ``splits`` k splits (reduce, stack)."""
+    if (bm, bn) not in HOPPER_TILES[op]:
+        raise ValueError(f"{op}: no {bm} x {bn} Hopper tile")
+    per = 1 if op == "reduce" else slices  # output blocks of the partials
+    scratch = splits * per * rows * n if splits > 1 else 0
+    return Plan("hopper", (bm, bn, HOPPER_BK), max_stages(op, bm, bn), splits, 0, scratch)
+
+
+@functools.lru_cache(maxsize=None)  # a pure function, on every launch's host path
 def plan_split(op: str, dtype: torch.dtype, rows: int, k: int, n: int, slices: int,
                aligned: bool = True) -> Plan:
     """The launch plan of one split launch, a pure function of its shapes.
 
     ``op`` "reduce": out (rows, n) = sum over ``slices`` of (rows, k) @ (k, n);
-    "gate_up": per slice silu((rows, k) @ Wg) * ((rows, k) @ Wu), (k, n) each.
+    "gate_up": per slice silu((rows, k) @ Wg) * ((rows, k) @ Wu), (k, n)
+    each; "stack": per slice (rows, k) @ W(s), (k, n).
     ``aligned``: every operand's pointer is 16-byte aligned (the wrappers
     also require k and n to be multiples of 8).
 
@@ -114,15 +142,17 @@ def plan_split(op: str, dtype: torch.dtype, rows: int, k: int, n: int, slices: i
       unaligned pointer: "mma" (split_tile.cuh's mma.sync tiles).
     - at most 2 rows: "few_row" (``few_row_plan``), about FEW_ROW_BLOCKS[op]
       blocks.
-    - more rows: "hopper" with 128 x 256 output tiles (reduce) or 128 x 128
-      per matrix (gate_up), as many ring stages as fit (4 of 48 KB). A
-      reduce whose tiles number fewer than two waves of SMS splits its
-      slice-k loop into ``splits`` pieces where the waves saved outweigh
-      the fp32 partials' traffic and launch (the cost model above; each
-      split keeps at least MIN_SPLIT_K_TILES k tiles); gate_up never
-      splits.
+    - more rows: "hopper", BM 64 (one consumer warpgroup) at most 64 rows
+      for gate_up and stack, else 128; reduce 128 x 256, gate_up 128
+      columns of each matrix, stack 256 or 128 columns; as many ring
+      stages as fit. Reduce and stack pick the tile width and ``splits``
+      (k split into fp32 partials) that the cost model above puts first,
+      the wider tile and fewer splits on a tie: tiles that fill fewer than
+      two waves of SMS may split where the waves saved outweigh the
+      partials' traffic and launch (each split keeps at least
+      MIN_SPLIT_K_TILES k tiles); gate_up never splits.
     """
-    if op not in HOPPER_BN:
+    if op not in HOPPER_TILES:
         raise ValueError(f"unknown split op {op!r}")
     if dtype != torch.bfloat16:
         return Plan("fma", (), 0, 1, 0, 0)
@@ -130,22 +160,29 @@ def plan_split(op: str, dtype: torch.dtype, rows: int, k: int, n: int, slices: i
         return Plan("mma", (), 0, 1, 0, 0)
     if rows <= FEW_ROW_MAXM:
         return few_row_plan(op, rows, k, n, slices)
-    bn = HOPPER_BN[op]
-    tile = (HOPPER_BM, bn, HOPPER_BK)
-    splits = 1
-    if op == "reduce":
-        tiles = _cdiv(rows, HOPPER_BM) * _cdiv(n, bn)
+    bm = 64 if rows <= 64 and op != "reduce" else 128
+    if op == "gate_up":
+        return hopper_plan(op, rows, k, n, slices, bm, 128)
+    flops = 2 * rows * n * slices * k
+    k_tiles = (slices if op == "reduce" else 1) * _cdiv(k, HOPPER_BK)
+    per = 1 if op == "reduce" else slices
+
+    def cost(bn, s):  # seconds: quantized waves of work, then the partials
+        blocks = _cdiv(rows, bm) * _cdiv(n, bn) * per * s
+        t = flops / PLAN_FLOPS * _cdiv(blocks, SMS) * SMS / blocks
+        return t + (8 * s * per * rows * n / HBM_BYTES + SPLIT_LAUNCH_S if s > 1 else 0)
+
+    options = []
+    for bm_, bn in HOPPER_TILES[op]:
+        if bm_ != bm:
+            continue
+        tiles = _cdiv(rows, bm) * _cdiv(n, bn) * per
+        top = 1
         if tiles < 2 * SMS:
-            top = max(1, min(MAX_SPLITS, slices * _cdiv(k, HOPPER_BK) // MIN_SPLIT_K_TILES))
-            flops = 2 * rows * n * slices * k
-
-            def cost(s):  # seconds: quantized waves of work, then the partials
-                t = flops / PLAN_FLOPS * _cdiv(tiles * s, SMS) * SMS / (tiles * s)
-                return t + (8 * s * rows * n / HBM_BYTES + SPLIT_LAUNCH_S if s > 1 else 0)
-
-            splits = min(range(1, top + 1), key=lambda s: (cost(s), s))
-    scratch = splits * rows * n if splits > 1 else 0
-    return Plan("hopper", tile, max_stages(op), splits, 0, scratch)
+            top = max(1, min(MAX_SPLITS, k_tiles // MIN_SPLIT_K_TILES))
+        options += [(cost(bn, s), -bn, s) for s in range(1, top + 1)]
+    _, neg_bn, splits = min(options)
+    return hopper_plan(op, rows, k, n, slices, bm, -neg_bn, splits)
 
 
 def few_row_plan(op: str, rows: int, k: int, n: int, slices: int,
@@ -162,15 +199,24 @@ def few_row_plan(op: str, rows: int, k: int, n: int, slices: int,
         splits = slices * _cdiv(k, chunk)
         scratch = splits * rows * n
     else:
+        mats = 2 if op == "gate_up" else 1
         per = _cdiv(blocks, cols * slices)
         chunk = _cdiv(_cdiv(k, per), FEW_ROW_K) * FEW_ROW_K
         splits = _cdiv(k, chunk)
-        scratch = splits * 2 * slices * rows * n
+        scratch = splits * mats * slices * rows * n
     return Plan("few_row", (), 0, splits, chunk, scratch)
 
 
 def _aligned(*tensors) -> bool:
     return all(t.numel() == 0 or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def stack_plan(x, w_local, w_remote) -> Plan:
+    """The plan ``split_stack_gemm`` runs for these operands."""
+    t, d = x.shape
+    s = w_local.shape[0] + w_remote.shape[0]
+    f = (w_local if w_local.shape[0] else w_remote).shape[2]
+    return plan_split("stack", x.dtype, t, d, f, s, _aligned(x, w_local, w_remote))
 
 
 def reduce_plan(x, w_local, w_remote) -> Plan:
@@ -188,6 +234,11 @@ def dense_swiglu_plans(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r) -> tuple[Plan, Pla
     ok = _aligned(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r)
     return (plan_split("gate_up", x.dtype, t, d, f, s, ok),
             plan_split("reduce", x.dtype, t, f, d, s, ok))
+
+
+def _scratch(n: int, device):
+    """fp32 scratch of ``n`` elements, or None (a null pointer) for none."""
+    return torch.empty(n, dtype=torch.float32, device=device) if n else None
 
 
 def hopper_tile_check(a, b):
@@ -233,8 +284,9 @@ def split_dense_swiglu_torch(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r):
 # --------------------------------------------------------------------------
 # Kernel wrappers.
 # --------------------------------------------------------------------------
-def split_stack_gemm(x, w_local, w_remote):
-    """(T, D) x banks (S_l, D, Fs) / (S - S_l, D, Fs) -> (S, T, Fs)."""
+def split_stack_gemm(x, w_local, w_remote, plan: Plan | None = None):
+    """(T, D) x banks (S_l, D, Fs) / (S - S_l, D, Fs) -> (S, T, Fs).
+    ``plan``: the launch plan on the card (default ``stack_plan``'s)."""
     name = STACK_GEMM.name
     s_l, s_r, (d, f) = bank_dims(name, w_local, w_remote)
     if x.dim() != 2 or x.shape[1] != d:
@@ -243,8 +295,12 @@ def split_stack_gemm(x, w_local, w_remote):
         return split_stack_gemm_torch(x, w_local, w_remote)
     code = check_cuda_operands(name, x, w_local, w_remote)
     t = x.shape[0]
+    plan = plan or stack_plan(x, w_local, w_remote)
     out = torch.empty((s_l + s_r, t, f), dtype=x.dtype, device=x.device)
-    STACK_GEMM.launch([x, w_local, w_remote, out], [s_l, s_r, t, d, f, code])
+    scratch = _scratch(plan.scratch, x.device)
+    STACK_GEMM.launch([x, w_local, w_remote, out, scratch],
+                      [s_l, s_r, t, d, f, code, *plan.ints()])
+    PATHS[(name, "stack", plan.path, row_class(t))] += 1
     return out
 
 
@@ -261,10 +317,10 @@ def split_reduce_gemm(x, w_local, w_remote, plan: Plan | None = None):
     t = x.shape[1]
     plan = plan or reduce_plan(x, w_local, w_remote)
     out = torch.empty((t, d), dtype=x.dtype, device=x.device)
-    scratch = torch.empty(plan.scratch, dtype=torch.float32, device=x.device)
+    scratch = _scratch(plan.scratch, x.device)
     REDUCE_GEMM.launch([x, w_local, w_remote, out, scratch],
                        [s_l, s_r, t, f, d, code, *plan.ints()])
-    PATHS[(name, "reduce", plan.path)] += 1
+    PATHS[(name, "reduce", plan.path, row_class(t))] += 1
     return out
 
 
@@ -288,10 +344,9 @@ def split_dense_swiglu(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r, plans: tuple | Non
     h = torch.empty((s_l + s_r, t, f), dtype=x.dtype, device=x.device)
     out = torch.empty((t, d), dtype=x.dtype, device=x.device)
     # one scratch for both launches: stream order keeps them apart
-    scratch = torch.empty(max(gate_up.scratch, down.scratch), dtype=torch.float32,
-                          device=x.device)
+    scratch = _scratch(max(gate_up.scratch, down.scratch), x.device)
     DENSE_SWIGLU.launch([*ops, h, out, scratch],
                         [s_l, s_r, t, d, f, code, *gate_up.ints(), *down.ints()])
-    PATHS[(name, "gate_up", gate_up.path)] += 1
-    PATHS[(name, "reduce", down.path)] += 1
+    PATHS[(name, "gate_up", gate_up.path, row_class(t))] += 1
+    PATHS[(name, "reduce", down.path, row_class(t))] += 1
     return out

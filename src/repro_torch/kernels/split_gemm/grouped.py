@@ -17,8 +17,20 @@ runs its plain version for CPU tensors:
 
 Experts ``[0, E_l)`` read the local bank, the rest the second bank; no
 merged bank is built.
+
+``split_grouped_swiglu`` and ``split_grouped_swiglu_demand`` run the two
+launches (gate/up, down) that ``plan_grouped`` picks from the per-expert
+shapes: ``hopper`` (``csrc/split_hopper.cuh``: TMA, an mbarrier ring and
+wgmma, the activation read per expert) above 2 bf16 rows, and
+``split_tile.cuh``'s launchers otherwise (``tile_few_row`` at 2 rows or
+fewer, ``mma``/``fma`` as in ``dense.plan_split``). The demand kernel runs
+the plan of kernel #2 for the same shapes, so its real experts get #2's
+bits. ``PATHS`` counts the launches of each path.
 """
 from __future__ import annotations
+
+import collections
+import functools
 
 import torch
 
@@ -29,11 +41,67 @@ from repro_torch.kernels._launch import (
     check_cuda_operands,
     on_cpu,
 )
+from repro_torch.kernels.split_gemm.dense import (
+    FEW_ROW_MAXM,
+    Plan,
+    _aligned,
+    hopper_plan,
+    row_class,
+)
 from repro_torch.models.moe import grouped_ffn
 
-GROUPED_SWIGLU = CudaKernel("split_grouped_swiglu", n_ptrs=9, n_ints=6)
-GROUPED_SWIGLU_DEMAND = CudaKernel("split_grouped_swiglu_demand", n_ptrs=10, n_ints=6)
+GROUPED_SWIGLU = CudaKernel("split_grouped_swiglu", n_ptrs=9, n_ints=18)
+GROUPED_SWIGLU_DEMAND = CudaKernel("split_grouped_swiglu_demand", n_ptrs=10, n_ints=18)
 GROUPED_GEMM = CudaKernel("split_grouped_gemm", n_ptrs=4, n_ints=6)
+
+#: Launches per (kernel, launch, path, row class) of the grouped SwiGLU
+#: kernels, counted by the wrappers (``dense.row_class``).
+PATHS: collections.Counter = collections.Counter()
+
+
+# --------------------------------------------------------------------------
+# Plans.
+# --------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)  # a pure function, on every launch's host path
+def plan_grouped(op: str, dtype: torch.dtype, rows: int, k: int, n: int,
+                 aligned: bool = True) -> Plan:
+    """The plan of one launch of the grouped SwiGLU: ``op`` "gate_up"
+    (rows C, k D, n F) or "down" (rows C, k F, n D). A pure function of the
+    per-expert shapes, never of the expert count, so the demand kernel
+    (#3) runs kernel #2's plan and gets #2's bits.
+
+    - fp32: "fma"; bf16 with a width that is not a multiple of 8 or an
+      unaligned pointer: "mma" (split_tile.cuh's mma.sync tiles).
+    - at most 2 rows (decode): "tile_few_row" (split_tile.cuh's few-row
+      register path).
+    - more rows: "hopper", op GATE_UP (128 columns of gate and up) for
+      gate/up and op STACK (256 columns) for down, the activation read per
+      expert; BM 64 (one consumer warpgroup) at C <= 64, else 128, so up
+      to 128 slots of an expert sit in one m tile and every weight byte is
+      streamed once; no split (the experts fill the card).
+    """
+    if op not in ("gate_up", "down"):
+        raise ValueError(f"unknown grouped op {op!r}")
+    if dtype != torch.bfloat16:
+        return Plan("fma", (), 0, 1, 0, 0)
+    if not aligned or k % 8 or n % 8:
+        return Plan("mma", (), 0, 1, 0, 0)
+    if rows <= FEW_ROW_MAXM:
+        return Plan("tile_few_row", (), 0, 1, 0, 0)
+    bm = 64 if rows <= 64 else 128
+    if op == "gate_up":
+        return hopper_plan("gate_up", rows, k, n, 1, bm, 128)
+    return hopper_plan("stack", rows, k, n, 1, bm, 256)
+
+
+def grouped_swiglu_plans(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r) -> tuple[Plan, Plan]:
+    """(gate/up plan, down plan) of the grouped SwiGLU for these operands
+    (#2's, and #3's with its fetched banks in place of the remote ones)."""
+    _, c, d = x.shape
+    f = (wg_l if wg_l.shape[0] else wg_r).shape[2]
+    ok = _aligned(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r)
+    return (plan_grouped("gate_up", x.dtype, c, d, f, ok),
+            plan_grouped("down", x.dtype, c, f, d, ok))
 
 
 # --------------------------------------------------------------------------
@@ -84,26 +152,32 @@ def _swiglu_dims(name, x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r):
     return e, c, d, e_l, e_r, f
 
 
-def split_grouped_swiglu(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r):
+def split_grouped_swiglu(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r, plans: tuple | None = None):
     """Fused per-expert SwiGLU over split banks: (E, C, D) -> (E, C, D).
 
-    Gate/up banks (E_*, D, F), down banks (E_*, F, D)."""
+    Gate/up banks (E_*, D, F), down banks (E_*, F, D). ``plans``: (gate/up,
+    down) launch plans on the card (default ``grouped_swiglu_plans``')."""
     name = GROUPED_SWIGLU.name
     e, c, d, e_l, e_r, f = _swiglu_dims(name, x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r)
     ops = (x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r)
     if on_cpu(*ops):
         return split_grouped_swiglu_torch(*ops)
     code = check_cuda_operands(name, *ops)
+    gate_up, down = plans or grouped_swiglu_plans(*ops)
     h = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    GROUPED_SWIGLU.launch([*ops, h, out], [e_l, e_r, c, d, f, code])
+    GROUPED_SWIGLU.launch([*ops, h, out],
+                          [e_l, e_r, c, d, f, code, *gate_up.ints(), *down.ints()])
+    PATHS[(name, "gate_up", gate_up.path, row_class(c))] += 1
+    PATHS[(name, "down", down.path, row_class(c))] += 1
     return out
 
 
 def split_grouped_swiglu_demand(x, wg_l, wu_l, wd_l, wg_f, wu_f, wd_f, valid):
     """Fused SwiGLU over the (local, fetched) bank pair: (E_l + E_f, C, D)
     -> (E_l + E_f, C, D); ``valid`` (E_f,) bool marks the real fetched
-    rows (padding rows read no weights and give zeros)."""
+    rows (padding rows read no weights and give zeros). Runs kernel #2's
+    plans for these shapes."""
     name = GROUPED_SWIGLU_DEMAND.name
     e, c, d, e_l, e_f, f = _swiglu_dims(name, x, wg_l, wu_l, wd_l, wg_f, wu_f, wd_f)
     if valid.dim() != 1 or valid.shape[0] != e_f or valid.dtype != torch.bool:
@@ -113,10 +187,14 @@ def split_grouped_swiglu_demand(x, wg_l, wu_l, wd_l, wg_f, wu_f, wd_f, valid):
     if on_cpu(*ops, valid):
         return split_grouped_swiglu_demand_torch(*ops, valid)
     code = check_cuda_operands(name, *ops)
+    gate_up, down = grouped_swiglu_plans(*ops)
     valid = valid.contiguous()
     h = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    GROUPED_SWIGLU_DEMAND.launch([*ops, valid, h, out], [e_l, e_f, c, d, f, code])
+    GROUPED_SWIGLU_DEMAND.launch([*ops, valid, h, out],
+                                 [e_l, e_f, c, d, f, code, *gate_up.ints(), *down.ints()])
+    PATHS[(name, "gate_up", gate_up.path, row_class(c))] += 1
+    PATHS[(name, "down", down.path, row_class(c))] += 1
     return out
 
 

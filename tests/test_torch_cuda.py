@@ -185,9 +185,10 @@ def test_cuda_dense_paths_ragged_deterministic_row_local():
         xr, wl, wr = rnd(s, t, f), rnd(s_l, f, d), rnd(s_r, f, d)
         plan = dense.reduce_plan(xr, wl, wr)
         assert plan.path == path, (t, f, d, plan)
-        before = dense.PATHS[("split_reduce_gemm", "reduce", path)]
+        key = ("split_reduce_gemm", "reduce", path, dense.row_class(t))
+        before = dense.PATHS[key]
         got = dense.split_reduce_gemm(xr, wl, wr)
-        assert dense.PATHS[("split_reduce_gemm", "reduce", path)] == before + 1
+        assert dense.PATHS[key] == before + 1
         assert rel(got, dense.split_reduce_gemm_torch(xr, wl, wr)) <= 2e-2, (t, f, d, plan)
         assert torch.equal(dense.split_reduce_gemm(xr, wl, wr), got)
         other = xr.clone()
@@ -199,12 +200,142 @@ def test_cuda_dense_paths_ragged_deterministic_row_local():
               rnd(s_r, d, f), rnd(s_r, d, f), rnd(s_r, f, d)]
         gate_up, down = dense.dense_swiglu_plans(x, *ws)
         assert gate_up.path == down.path == path, (t, f, d, gate_up, down)
-        before = dense.PATHS[("split_dense_swiglu", "gate_up", path)]
+        key = ("split_dense_swiglu", "gate_up", path, dense.row_class(t))
+        before = dense.PATHS[key]
         got = dense.split_dense_swiglu(x, *ws)
-        assert dense.PATHS[("split_dense_swiglu", "gate_up", path)] == before + 1
+        assert dense.PATHS[key] == before + 1
         assert rel(got, dense.split_dense_swiglu_torch(x, *ws)) <= 2e-2, (t, f, d, gate_up)
         assert torch.equal(dense.split_dense_swiglu(x, *ws), got)
         other = x.clone()
         other[1:] = rnd(t - 1, d)
         assert torch.equal(dense.split_dense_swiglu(other, *ws)[0], got[0])
+    torch.cuda.synchronize()
+
+
+# (T, D, Fs, S_l, S_r, path, splits) of kernel #4: ragged rows (3, 17, 88,
+# 130), D and Fs that are not tile multiples, an empty remote bank and an
+# empty local bank, split-k partials (R1's width at a narrow Fs), the
+# few-row path (T <= 2) and a width that is not a multiple of 8
+# (split_tile.cuh's mma.sync tiles).
+STACK = [(3, 256, 1032, 4, 0, "hopper", 1), (17, 200, 136, 0, 2, "hopper", 1),
+         (88, 1024, 264, 1, 3, "hopper", 1), (130, 7168, 256, 1, 3, "hopper", 8),
+         (2, 520, 776, 1, 3, "few_row", 9), (1, 64, 64, 0, 2, "few_row", 2),
+         (37, 100, 130, 1, 1, "mma", 1)]
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+def test_cuda_stack_gemm_paths_ragged_deterministic_row_local():
+    """Kernel #4 on its default plans and on every Hopper tile (BM 64/128 x
+    BN 128/256, with 2 ring stages and with 3 k splits) against the plain
+    version (2e-2 relative to max|ref|), the path that ran counted; a
+    repeated launch gives the same bits, and row 0's output the same bits
+    whatever the other rows hold."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    from repro_torch.kernels.split_gemm import dense
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rnd(*s):
+        return (torch.randn(*s, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+
+    for t, d, f, s_l, s_r, path, splits in STACK:
+        x, wl, wr = rnd(t, d), rnd(s_l, d, f), rnd(s_r, d, f)
+        ref = dense.split_stack_gemm_torch(x, wl, wr)
+        plan = dense.stack_plan(x, wl, wr)
+        assert (plan.path, plan.splits) == (path, splits), (t, d, f, plan)
+        plans = [plan]
+        if path == "hopper":
+            for bm, bn in dense.HOPPER_TILES["stack"]:
+                p = dense.hopper_plan("stack", t, d, f, s_l + s_r, bm, bn)
+                plans += [p._replace(stages=2),
+                          dense.hopper_plan("stack", t, d, f, s_l + s_r, bm, bn, splits=3)]
+        for p in plans:
+            key = ("split_stack_gemm", "stack", p.path, dense.row_class(t))
+            before = dense.PATHS[key]
+            got = dense.split_stack_gemm(x, wl, wr, plan=p)
+            assert dense.PATHS[key] == before + 1
+            assert _rel(got, ref) <= 2e-2, (t, d, f, p)
+            assert torch.equal(dense.split_stack_gemm(x, wl, wr, plan=p), got), p
+            if t > 1:
+                other = x.clone()
+                other[1:] = rnd(t - 1, d)
+                assert torch.equal(dense.split_stack_gemm(other, wl, wr, plan=p)[:, 0],
+                                   got[:, 0]), p
+    torch.cuda.synchronize()
+
+
+# (E, E_l, C, D, F, path) of kernels #2 and #3: ragged capacities (3, 17,
+# 88, 130: BM 64, 128 and two m tiles), D and F that are not tile
+# multiples, an empty local bank and an empty remote bank, split_tile.cuh's
+# few-row path (C 2) and a width that is not a multiple of 8.
+GROUPED = [(6, 2, 3, 136, 72, "hopper"), (5, 0, 17, 64, 200, "hopper"),
+           (4, 4, 88, 128, 64, "hopper"), (3, 1, 130, 72, 136, "hopper"),
+           (4, 2, 2, 128, 64, "tile_few_row"), (3, 1, 20, 100, 64, "mma")]
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_swiglu_paths_ragged_deterministic_local():
+    """Kernel #2 on its default plans and, on the Hopper path, on every
+    tile of each launch, against the plain version (2e-2); the paths that
+    ran counted; bitwise on repeat; expert 0's output unchanged when the
+    other experts' rows change and row 0's when the other rows change;
+    and kernel #3 on the same rows over a fetched subset of the remote
+    bank: its real experts bitwise #2's, its padding rows exact zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    from repro_torch.kernels.split_gemm import dense, grouped
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def rnd(*s, scale=0.1):
+        return (torch.randn(*s, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    for e, e_l, c, d, f, path in GROUPED:
+        e_r = e - e_l
+        x = rnd(e, c, d, scale=1.0)
+        ws = [rnd(e_l, d, f), rnd(e_l, d, f), rnd(e_l, f, d),
+              rnd(e_r, d, f), rnd(e_r, d, f), rnd(e_r, f, d)]
+        ref = grouped.split_grouped_swiglu_torch(x, *ws)
+        gu, dn = grouped.grouped_swiglu_plans(x, *ws)
+        assert gu.path == dn.path == path, (e, c, d, f, gu, dn)
+        plans = [(gu, dn)]
+        if path == "hopper":
+            plans += [(dense.hopper_plan("gate_up", c, d, f, 1, bm, bn), dn)
+                      for bm, bn in dense.HOPPER_TILES["gate_up"]]
+            plans += [(gu, dense.hopper_plan("stack", c, f, d, 1, bm, bn)._replace(stages=2))
+                      for bm, bn in dense.HOPPER_TILES["stack"]]
+        for pl in plans:
+            keys = [("split_grouped_swiglu", launch, p.path, dense.row_class(c))
+                    for launch, p in zip(("gate_up", "down"), pl)]
+            before = [grouped.PATHS[k] for k in keys]
+            got = grouped.split_grouped_swiglu(x, *ws, plans=pl)
+            assert [grouped.PATHS[k] for k in keys] == [b + 1 for b in before]
+            assert _rel(got, ref) <= 2e-2, (e, c, d, f, pl)
+            assert torch.equal(grouped.split_grouped_swiglu(x, *ws, plans=pl), got), pl
+            other = x.clone()
+            other[1:] = rnd(e - 1, c, d, scale=1.0)
+            assert torch.equal(grouped.split_grouped_swiglu(other, *ws, plans=pl)[0], got[0])
+            if c > 1:
+                other = x.clone()
+                other[:, 1:] = rnd(e, c - 1, d, scale=1.0)
+                assert torch.equal(grouped.split_grouped_swiglu(other, *ws, plans=pl)[:, 0],
+                                   got[:, 0])
+        # kernel #3 over a fetched subset of the remote bank, one row in two valid
+        if e_r:
+            full = grouped.split_grouped_swiglu(x, *ws)
+            idx = torch.randperm(e_r, generator=gen, device="cuda")[:max(1, e_r - 1)]
+            valid = torch.arange(idx.numel(), device="cuda") % 2 == 0
+            x3 = torch.cat([x[:e_l], x[e_l:].index_select(0, idx)])
+            wf = [w.index_select(0, idx) for w in ws[3:]]
+            y3 = grouped.split_grouped_swiglu_demand(x3, *ws[:3], *wf, valid)
+            assert torch.all(y3[e_l:][~valid] == 0)
+            assert torch.equal(y3[:e_l], full[:e_l])
+            assert torch.equal(y3[e_l:][valid], full[e_l:].index_select(0, idx)[valid])
+            ref3 = grouped.split_grouped_swiglu_demand_torch(x3, *ws[:3], *wf, valid)
+            assert _rel(y3, ref3) <= 2e-2
     torch.cuda.synchronize()

@@ -131,8 +131,10 @@ def test_wrapper_checks():
 
 
 # (op, dtype, rows, k, n, slices, aligned) -> path, tile, splits: the plans
-# of kernels #5 and #6 (dense.plan_split) at R1's and Gemma-3's per-rank
-# shapes (G' = 4) and at the edges of each path.
+# of kernels #4, #5 and #6 (dense.plan_split) and of #2's two launches
+# (grouped.plan_grouped, ops "expert_gate_up" and "expert_down", slices =
+# experts) at R1's and Gemma-3's per-rank shapes (G' = 4) and at the edges
+# of each path.
 BF, F32 = torch.bfloat16, torch.float32
 PLANS = [
     (("reduce", BF, 256, 4096, 7168, 4, True), "hopper", (128, 256, 64), 2),    # R1 #5, 1024
@@ -147,31 +149,71 @@ PLANS = [
     (("reduce", BF, 37, 100, 130, 2, True), "mma", (), 1),                      # width % 8
     (("gate_up", BF, 256, 7168, 4608, 4, False), "mma", (), 1),                 # unaligned
     (("reduce", F32, 256, 4096, 7168, 4, True), "fma", (), 1),                  # fp32
+    (("stack", BF, 256, 7168, 4096, 4, True), "hopper", (128, 256, 64), 1),     # R1 wq, 1024
+    (("stack", BF, 256, 7168, 256, 4, True), "hopper", (128, 128, 64), 8),      # R1 wk/wv
+    (("stack", BF, 2048, 7168, 4096, 4, True), "hopper", (128, 256, 64), 1),    # R1 wq, 8192
+    (("stack", BF, 2048, 7168, 256, 4, True), "hopper", (128, 128, 64), 1),     # R1 wk, 8192
+    (("stack", BF, 1024, 5376, 1024, 4, True), "hopper", (128, 256, 64), 1),    # Gemma-3 wq
+    (("stack", BF, 1024, 5376, 512, 4, True), "hopper", (128, 128, 64), 1),     # Gemma-3 wk
+    (("stack", BF, 2, 7168, 4096, 4, True), "few_row", (), 4),                  # R1 decode wq
+    (("stack", BF, 2, 7168, 256, 4, True), "few_row", (), 56),                  # R1 decode wk
+    (("stack", BF, 17, 200, 136, 2, True), "hopper", (64, 256, 64), 1),         # 17 rows
+    (("stack", BF, 130, 7168, 256, 4, True), "hopper", (128, 128, 64), 8),      # 130 rows
+    (("stack", BF, 37, 100, 130, 2, True), "mma", (), 1),                       # width % 8
+    (("stack", BF, 256, 7168, 4096, 4, False), "mma", (), 1),                   # unaligned
+    (("stack", F32, 256, 7168, 4096, 4, True), "fma", (), 1),                   # fp32
+    (("expert_gate_up", BF, 16, 7168, 2048, 256, True), "hopper", (64, 128, 64), 1),   # R1 C 16
+    (("expert_down", BF, 16, 2048, 7168, 256, True), "hopper", (64, 256, 64), 1),
+    (("expert_gate_up", BF, 88, 7168, 2048, 256, True), "hopper", (128, 128, 64), 1),  # C 88
+    (("expert_down", BF, 88, 2048, 7168, 256, True), "hopper", (128, 256, 64), 1),
+    (("expert_gate_up", BF, 1, 7168, 2048, 256, True), "tile_few_row", (), 1),         # decode
+    (("expert_down", BF, 1, 2048, 7168, 88, True), "tile_few_row", (), 1),             # #3
+    (("expert_gate_up", BF, 130, 72, 136, 3, True), "hopper", (128, 128, 64), 1),      # 130
+    (("expert_down", BF, 3, 72, 136, 6, True), "hopper", (64, 256, 64), 1),            # 3
+    (("expert_gate_up", BF, 20, 100, 64, 3, True), "mma", (), 1),                      # % 8
+    (("expert_down", F32, 16, 2048, 7168, 256, True), "fma", (), 1),                   # fp32
 ]
 
 
 @pytest.mark.parametrize("args,path,tile,splits", PLANS, ids=str)
 def test_dense_launch_plans(args, path, tile, splits):
     op, dtype, rows, k, n, slices, aligned = args
-    plan = dense.plan_split(*args)
+    if op.startswith("expert_"):
+        # the grouped plans take the per-expert shapes only, so the demand
+        # kernel (another expert count) runs kernel #2's plan
+        kop = "gate_up" if op == "expert_gate_up" else "stack"
+        plan = grouped.plan_grouped(op[len("expert_"):], dtype, rows, k, n, aligned)
+        assert plan == grouped.plan_grouped(op[len("expert_"):], dtype, rows, k, n, aligned)
+        per, slices = 1, 1
+    else:
+        kop = op
+        plan = dense.plan_split(*args)
+        assert plan == dense.plan_split(*args)  # a pure function of the shapes
+        per = 1 if op == "reduce" else slices
     assert (plan.path, plan.tile, plan.splits) == (path, tile, splits)
-    assert plan == dense.plan_split(*args)  # a pure function of the shapes
+    assert plan.ints()[0] == dense.PATH_CODES[path]
     if path == "hopper":
         bm, bn, _ = tile
-        tiles = -(-rows // bm) * -(-n // bn)
+        assert (bm, bn) in dense.HOPPER_TILES[kop]
+        assert (bm == 64) == (rows <= 64 and kop != "reduce")
+        tiles = -(-rows // bm) * -(-n // bn) * per
         assert splits == 1 or tiles < 2 * dense.SMS  # splits only below two waves
-        assert op == "reduce" or splits == 1
-        assert 2 <= plan.stages == dense.max_stages(op)
-        assert 1024 + plan.stages * (dense.stage_bytes(op) + 16) <= dense.SMEM
-        assert plan.scratch == (splits * rows * n if splits > 1 else 0)
+        assert kop != "gate_up" or splits == 1
+        assert 2 <= plan.stages == dense.max_stages(kop, bm, bn)
+        assert 1024 + plan.stages * (dense.stage_bytes(kop, bm, bn) + 16) <= dense.SMEM
+        assert plan.scratch == (splits * per * rows * n if splits > 1 else 0)
+        assert plan.ints()[1:3] == [bm, bn]
     elif path == "few_row":
+        assert rows <= dense.FEW_ROW_MAXM
         assert plan.chunk % dense.FEW_ROW_K == 0
-        per = -(-k // plan.chunk)
-        blocks = -(-n // dense.FEW_ROW_COLS) * (slices * per if op == "reduce" else slices * splits)
+        per_k = -(-k // plan.chunk)
+        blocks = -(-n // dense.FEW_ROW_COLS) * slices * (per_k if op == "reduce" else splits)
         assert dense.FEW_ROW_BLOCKS[op] // 2 <= blocks < 2 * dense.FEW_ROW_BLOCKS[op]
-        assert plan.scratch == splits * rows * n * (1 if op == "reduce" else 2 * slices)
-        assert op == "gate_up" or splits == slices * per
+        mats = {"reduce": 1, "gate_up": 2 * slices, "stack": slices}[op]
+        assert plan.scratch == splits * rows * n * mats
+        assert op != "reduce" or splits == slices * per_k
     else:
+        assert path != "tile_few_row" or rows <= dense.FEW_ROW_MAXM
         assert plan.scratch == 0 and plan.ints()[0] == 0
 
 

@@ -1,22 +1,38 @@
 #!/usr/bin/env python3
-"""Time kernels #5 (``split_reduce_gemm``) and #6 (``split_dense_swiglu``)
-on the card under candidate launch plans, at the main path's per-rank
-shapes (G' = 4, bf16): DeepSeek-R1 prefill at 1024- and 8192-token
-prompts (256 and 2048 rows), decode (2 rows), Gemma-3-27B prefill at a
-4096-token prompt (1024 rows).
+"""Time the split kernels on the card under candidate launch plans, at
+the main path's per-rank shapes (G' = 4, bf16): DeepSeek-R1 prefill at
+1024- and 8192-token prompts (256 and 2048 rows; expert capacity 16 and
+88), decode (2 rows), Gemma-3-27B prefill at a 4096-token prompt (1024
+rows).
 
-    python3 tools/sweep_dense_plans.py [--out build/sweep_dense_plans.json]
+    python3 tools/sweep_dense_plans.py [--kernels stack,grouped,reduce,dense]
+                                       [--out build/sweep_dense_plans.json]
+    python3 tools/sweep_dense_plans.py --defaults [--src OTHER/src] [--out ...]
 
-Candidates, beside the default plan (``dense.plan_split``): the Hopper
-path's ring depth (2 stages to as many as fit) and, where a reduce has
-fewer than two waves of tiles, split-k 1-4; the few-row path's block
-target (k chunk).
+Kernels: "stack" #4 (``split_stack_gemm``) at R1's q and k/v widths and
+Gemma-3's; "grouped" #2 (``split_grouped_swiglu``) at C 16 and 88;
+"reduce" #5 (``split_reduce_gemm``); "dense" #6 (``split_dense_swiglu``).
+Default: stack and grouped.
+Candidates, beside the default plan (``dense.plan_split``,
+``grouped.plan_grouped``): every Hopper block tile of the op (BM 64 or
+128, BN 128 or 256), the ring depth (2 stages to as many as fit) and,
+where the tiles number fewer than two waves, split-k 1-16 (stack) or 1-4
+(reduce); the few-row path's block target (k chunk). #2's gate/up and
+down launches are varied one at a time, the other on its default plan.
 Each plan's output is held against the default plan's (2e-2 relative to
 max|ref|). #6's down product is timed as ``split_reduce_gemm`` on its
 shapes, its gate/up launch as #6 minus that. Times: CUDA events, median of
 5 windows of >= 40 ms (``chip_smoke.time_ms``), beside the card's name and
 power limit and one per-bank torch.matmul/bmm composition (the yardstick
-of ``chip_smoke.py``).
+of ``chip_smoke.py``). #4 and #2 also get ``device_ms``: the same calls
+captured into a CUDA graph and replayed, the device time without the host
+time between launches (small launches are bound by the host).
+
+``--defaults`` times only the default plans of #4 and #2 at those cases,
+through the wrappers' public signatures, so that ``--src`` may point at
+another checkout's ``src`` (an earlier commit, unpacked with ``git
+archive``): run it for both trees in one call, in turns, to compare them
+on one card.
 """
 from __future__ import annotations
 
@@ -26,39 +42,191 @@ import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
 G = 4
-R1 = dict(d=7168, qd=4096, fs=4608)
-GEMMA = dict(d=5376, qd=1024, fs=5376)
-FEW_ROW_TARGETS = (512, 1024, 2048, 4096)
+R1 = dict(d=7168, qd=4096, kvd=256, fs=4608, fe=2048, e=256)
+GEMMA = dict(d=5376, qd=1024, kvd=512, fs=5376)
+FEW_ROW_TARGETS = (128, 256, 512, 1024, 2048, 4096)
+# (label, rows, widths, Fs) of kernel #4; (label, C) of kernel #2
+STACK_CASES = [("r1_1024", 256, R1, "qd"), ("r1_1024_kv", 256, R1, "kvd"),
+               ("r1_8192", 2048, R1, "qd"), ("r1_8192_kv", 2048, R1, "kvd"),
+               ("decode", 2, R1, "qd"), ("decode_kv", 2, R1, "kvd"),
+               ("gemma3", 1024, GEMMA, "qd"), ("gemma3_kv", 1024, GEMMA, "kvd")]
+GROUPED_CASES = [("r1_1024", 16), ("r1_8192", 88)]
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "sweep_dense_plans.json"))
+    ap.add_argument("--kernels", default="stack,grouped")
+    ap.add_argument("--cases", default="",
+                    help="comma-separated case labels to run (default: all)")
+    ap.add_argument("--defaults", action="store_true",
+                    help="time the default plans of #4 and #2 only")
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"),
+                    help="the src directory whose repro_torch is timed")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.src))
     import torch
 
     import chip_smoke
-    from repro_torch.kernels.split_gemm import dense
 
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=os.path.join(ROOT, "build", "sweep_dense_plans.json"))
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("sweep_dense_plans: needs a CUDA device")
     card = chip_smoke.card_line()
     print(f"card: {card}")
+    print(f"src: {os.path.abspath(args.src)}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     lib = chip_smoke.library_versions()
 
-    def rnd(*s):
-        return (torch.randn(*s, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    def rnd(*s, scale=0.05):
+        return (torch.randn(*s, generator=gen, device="cuda") * scale).to(torch.bfloat16)
 
     def rel(got, ref):
         return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
     def ms(fn):
         return chip_smoke.time_ms(fn)[0]
+
+    def device_ms(fn, reps=10):
+        """ms per call of ``fn``'s device work alone: ``reps`` calls
+        captured into one CUDA graph, its replays timed as ``ms`` times a
+        call (no host time between the launches)."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(reps):
+                fn()
+        t = ms(graph.replay) / reps
+        del graph
+        return t
+
+    def both(fn):  # (ms, device_ms) of one call
+        return dict(ms=ms(fn), device_ms=device_ms(fn))
+
+    rows = []
+
+    def record(**row):
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    kernels = ("stack", "grouped") if args.defaults else args.kernels.split(",")
+    if args.cases:
+        keep = set(args.cases.split(","))
+        STACK_CASES[:] = [c for c in STACK_CASES if c[0] in keep]
+        GROUPED_CASES[:] = [c for c in GROUPED_CASES if c[0] in keep]
+    if "stack" in kernels:
+        sweep_stack(args.defaults, rnd, rel, both, lib, record)
+    if "grouped" in kernels:
+        sweep_grouped(args.defaults, rnd, rel, both, lib, record)
+    if "reduce" in kernels or "dense" in kernels:
+        sweep_reduce_dense(kernels, rnd, rel, ms, lib, record)
+    bad = [r for r in rows if r["err"] > chip_smoke.KERNEL_TOL]
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as fh:
+        json.dump({"card": card, "src": os.path.abspath(args.src), "rows": rows}, fh, indent=1)
+    print(card)
+    if bad:
+        sys.exit(f"sweep_dense_plans: {len(bad)} plans disagree with the default plan: {bad}")
+
+
+def sweep_stack(defaults, rnd, rel, both, lib, record) -> None:
+    """Kernel #4: the default plan and, unless ``defaults``, every Hopper
+    tile x stages {2, 4, most} x splits (1-16 below two waves), or
+    the few-row block targets."""
+    from repro_torch.kernels.split_gemm import dense
+
+    for label, t, w, fkey in STACK_CASES:
+        d, f = w["d"], w[fkey]
+        x, wl, wr = rnd(t, d), rnd(1, d, f), rnd(G - 1, d, f)
+        ref = dense.split_stack_gemm(x, wl, wr)
+        lib_t = both(lambda: lib["split_stack_gemm"](x, wl, wr))
+        base = dict(case=label, kernel="split_stack_gemm", t=t, k=d, n=f,
+                    library_ms=lib_t["ms"], library_device_ms=lib_t["device_ms"])
+        record(**base, plan="default", err=0.0,
+               **both(lambda: dense.split_stack_gemm(x, wl, wr)))
+        if defaults:
+            continue
+        plan = dense.stack_plan(x, wl, wr)
+        record(**base, plan=f"default = {plan.path} {list(plan.tile)} stages {plan.stages} "
+               f"splits {plan.splits} chunk {plan.chunk}", err=0.0, ms=None)
+        for name, cand in stack_candidates(dense, t, d, f):
+            got = dense.split_stack_gemm(x, wl, wr, plan=cand)
+            record(**base, plan=name, err=rel(got, ref),
+                   **both(lambda: dense.split_stack_gemm(x, wl, wr, plan=cand)))
+        del x, wl, wr, ref
+
+
+def stack_candidates(dense, t, d, f):
+    if t <= dense.FEW_ROW_MAXM:
+        for blocks in FEW_ROW_TARGETS:
+            yield f"few_row blocks~{blocks}", dense.few_row_plan("stack", t, d, f, G, blocks)
+        return
+    for bm, bn in dense.HOPPER_TILES["stack"]:
+        tiles = dense._cdiv(t, bm) * dense._cdiv(f, bn) * G
+        most = dense.max_stages("stack", bm, bn)
+        for stages in sorted({2, 4, most}):
+            for splits in ((1, 2, 4, 8, 16) if tiles < 2 * dense.SMS else (1,)):
+                plan = dense.hopper_plan("stack", t, d, f, G, bm, bn, splits)
+                yield (f"hopper {bm}x{bn} stages {stages} splits {splits}",
+                       plan._replace(stages=stages))
+
+
+def sweep_grouped(defaults, rnd, rel, both, lib, record) -> None:
+    """Kernel #2: the default plans and, unless ``defaults``, every tile and
+    ring depth of the gate/up launch (down on its default plan), then of
+    the down launch (gate/up on its default plan)."""
+    from repro_torch.kernels.split_gemm import dense, grouped
+
+    d, f, e = R1["d"], R1["fe"], R1["e"]
+    e_l = e // G
+    ws = [rnd(e_l, d, f), rnd(e_l, d, f), rnd(e_l, f, d), rnd(e - e_l, d, f),
+          rnd(e - e_l, d, f), rnd(e - e_l, f, d)]
+    for label, c in GROUPED_CASES:
+        x = rnd(e, c, d, scale=1.0)
+        ref = grouped.split_grouped_swiglu(x, *ws)
+        lib_t = both(lambda: lib["split_grouped_swiglu"](x, *ws))
+        base = dict(case=label, kernel="split_grouped_swiglu", t=c, k=d, n=f,
+                    library_ms=lib_t["ms"], library_device_ms=lib_t["device_ms"])
+        record(**base, plan="default", err=0.0,
+               **both(lambda: grouped.split_grouped_swiglu(x, *ws)))
+        if defaults:
+            continue
+        gu, dn = grouped.grouped_swiglu_plans(x, *ws)
+        record(**base, plan=f"default = gate_up {list(gu.tile)} stages {gu.stages}, down "
+               f"{list(dn.tile)} stages {dn.stages}", err=0.0, ms=None)
+        cands = []
+        for bm, bn in dense.HOPPER_TILES["gate_up"]:
+            if bm >= c or bm == 128:
+                for stages in range(2, dense.max_stages("gate_up", bm, bn) + 1):
+                    p = dense.hopper_plan("gate_up", c, d, f, 1, bm, bn)._replace(stages=stages)
+                    cands.append((f"gate_up {bm}x{bn} stages {stages}", (p, dn)))
+        for bm, bn in dense.HOPPER_TILES["stack"]:
+            if bm >= c or bm == 128:
+                most = dense.max_stages("stack", bm, bn)
+                for stages in sorted({2, 3, 4, most}):
+                    p = dense.hopper_plan("stack", c, f, d, 1, bm, bn)._replace(stages=stages)
+                    cands.append((f"down {bm}x{bn} stages {stages}", (gu, p)))
+        for name, pl in cands:
+            got = grouped.split_grouped_swiglu(x, *ws, plans=pl)
+            record(**base, plan=name, err=rel(got, ref),
+                   **both(lambda: grouped.split_grouped_swiglu(x, *ws, plans=pl)))
+        del x, ref
+    del ws
+    import torch
+    torch.cuda.empty_cache()
+
+
+def sweep_reduce_dense(kernels, rnd, rel, ms, lib, record) -> None:
+    """Kernels #5 and #6: ring depth and split-k 1-4 of the
+    Hopper path, the few-row block target."""
+    import torch
+    from repro_torch.kernels.split_gemm import dense
 
     def candidates(op, t, k, n, s):
         base = dense.plan_split(op, torch.bfloat16, t, k, n, s)
@@ -68,56 +236,46 @@ def main() -> None:
                 yield f"blocks~{blocks}", dense.few_row_plan(op, t, k, n, s, blocks)
             return
         yield "default", base
-        tiles = dense._cdiv(t, dense.HOPPER_BM) * dense._cdiv(n, dense.HOPPER_BN[op])
+        bm, bn = base.tile[:2]
+        tiles = dense._cdiv(t, bm) * dense._cdiv(n, bn)
         few = op == "reduce" and tiles < 2 * dense.SMS
-        for stages in range(2, dense.max_stages(op) + 1):
+        for stages in range(2, dense.max_stages(op, bm, bn) + 1):
             for splits in ((1, 2, 3, 4) if few else (1,)):
-                plan = base._replace(stages=stages, splits=splits,
-                                     scratch=splits * t * n if splits > 1 else 0)
-                yield f"stages {stages} splits {splits}", plan
+                plan = dense.hopper_plan(op, t, k, n, s, bm, bn, splits)
+                yield f"stages {stages} splits {splits}", plan._replace(stages=stages)
 
-    rows = []
     shapes = [("r1_1024", 256, R1), ("r1_8192", 2048, R1), ("decode", 2, R1),
               ("gemma3", 1024, GEMMA)]
     for label, t, w in shapes:
         d = w["d"]
-        # #5 at the attention-output shape and at #6's down shape
-        for kern, f in (("split_reduce_gemm", w["qd"]), ("down", w["fs"])):
-            x, wl, wr = rnd(G, t, f), rnd(1, f, d), rnd(G - 1, f, d)
-            ref = dense.split_reduce_gemm(x, wl, wr)
-            lib_ms = ms(lambda: lib["split_reduce_gemm"](x, wl, wr))
-            for name, plan in candidates("reduce", t, f, d, G):
-                err = rel(dense.split_reduce_gemm(x, wl, wr, plan=plan), ref)
-                row = dict(case=label, kernel=kern, t=t, k=f, n=d, plan=name, err=err,
+        if "reduce" in kernels:
+            # #5 at the attention-output shape and at #6's down shape
+            for kern, f in (("split_reduce_gemm", w["qd"]), ("down", w["fs"])):
+                x, wl, wr = rnd(G, t, f), rnd(1, f, d), rnd(G - 1, f, d)
+                ref = dense.split_reduce_gemm(x, wl, wr)
+                lib_ms = ms(lambda: lib["split_reduce_gemm"](x, wl, wr))
+                for name, plan in candidates("reduce", t, f, d, G):
+                    err = rel(dense.split_reduce_gemm(x, wl, wr, plan=plan), ref)
+                    record(case=label, kernel=kern, t=t, k=f, n=d, plan=name, err=err,
                            ms=ms(lambda: dense.split_reduce_gemm(x, wl, wr, plan=plan)),
                            library_ms=lib_ms)
-                rows.append(row)
-                print(json.dumps(row), flush=True)
-            del x, wl, wr, ref
-        f = w["fs"]
-        x = rnd(t, d)
-        ws = [rnd(1, d, f), rnd(1, d, f), rnd(1, f, d), rnd(G - 1, d, f), rnd(G - 1, d, f),
-              rnd(G - 1, f, d)]
-        ref = dense.split_dense_swiglu(x, *ws)
-        down = dense.dense_swiglu_plans(x, *ws)[1]
-        lib_ms = ms(lambda: lib["split_dense_swiglu"](x, *ws))
-        for name, plan in candidates("gate_up", t, d, f, G):
-            err = rel(dense.split_dense_swiglu(x, *ws, plans=(plan, down)), ref)
-            row = dict(case=label, kernel="split_dense_swiglu", t=t, k=d, n=f,
+                del x, wl, wr, ref
+        if "dense" in kernels:
+            f = w["fs"]
+            x = rnd(t, d)
+            ws = [rnd(1, d, f), rnd(1, d, f), rnd(1, f, d), rnd(G - 1, d, f), rnd(G - 1, d, f),
+                  rnd(G - 1, f, d)]
+            ref = dense.split_dense_swiglu(x, *ws)
+            down = dense.dense_swiglu_plans(x, *ws)[1]
+            lib_ms = ms(lambda: lib["split_dense_swiglu"](x, *ws))
+            for name, plan in candidates("gate_up", t, d, f, G):
+                err = rel(dense.split_dense_swiglu(x, *ws, plans=(plan, down)), ref)
+                record(case=label, kernel="split_dense_swiglu", t=t, k=d, n=f,
                        plan=f"gate_up {name}", err=err,
                        ms=ms(lambda: dense.split_dense_swiglu(x, *ws, plans=(plan, down))),
                        library_ms=lib_ms)
-            rows.append(row)
-            print(json.dumps(row), flush=True)
-        del x, ws, ref
+            del x, ws, ref
         torch.cuda.empty_cache()
-    bad = [r for r in rows if r["err"] > chip_smoke.KERNEL_TOL]
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as fh:
-        json.dump({"card": card, "rows": rows}, fh, indent=1)
-    print(card)
-    if bad:
-        sys.exit(f"sweep_dense_plans: {len(bad)} plans disagree with the default plan: {bad}")
 
 
 if __name__ == "__main__":
