@@ -19,7 +19,10 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    and 8192-token prompts and Gemma-3's 4096-token prompt (local and
    global layers), its error also held per query row and head, and its
    bound counting only the visible keys' bytes and the visible query-key
-   pairs' operations. The demand kernel is checked at each fetch
+   pairs' operations; each case prints its plan (bf16 at hd 128 must run
+   the Hopper path, TMA-fed K/V and wgmma), a second launch must give the
+   same bits, and a ragged case (Sq, Sk not multiples of 128, a window and
+   an offset) joins the five. The demand kernel is checked at each fetch
    mode's fetched bank; its padding rows must be exact zeros and its real
    experts' blocks bitwise kernel #2's (at C 1, 16 and 88). Kernel #4 is
    also held at the k/v projections' widths (R1 Fs 256 at 2, 256 and 2048
@@ -27,10 +30,10 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    (2048 rows) and #2 at its expert capacity (C 88). At each case of #2-#6
    the plan of every launch (path, tile, stages, splits) is printed and
    must be, as counted by the wrapper, the Hopper path (TMA, mbarrier
-   ring, wgmma) above 2 rows; at 2 rows or fewer the few-row path of
-   split_hopper.cuh (#4-#6) or of split_tile.cuh (#2, #3); a second launch
-   must give the same bits. One 64 x 64 x 64 tile through TMA and wgmma is
-   held against an fp32 product;
+   ring, wgmma) above 2 rows; at 2 rows or fewer split_hopper.cuh's
+   few-row path (#4-#6) or its Hopper path at BM 64 (#2, #3); a second
+   launch must give the same bits. One 64 x 64 x 64 tile through TMA and
+   wgmma is held against an fp32 product;
 4. ``ops.split_gemm`` (kernel #1's entry point; no engine calls it) at
    R1 expert shapes, its launches counted;
 5. serve: ``build_engine`` at DeepSeek-R1 width (2 layers, first one
@@ -40,8 +43,9 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    One prefill's and one decode step's logits are compared with the plain
    versions' (tolerance below); one profiled prefill; the path counts of
    kernels #2-#6 over the serve are printed, and every launch above 2 rows
-   must have run the Hopper path, every #4-#6 launch at 2 rows or fewer
-   the few-row path. A request served
+   must have run the Hopper path, every one at 2 rows or fewer its
+   kernel's path as above, and every flash attention launch the Hopper
+   path (its plans are counted and printed per serve). A request served
    alone must give the same tokens as served among the 4, and its first
    decode step's logits beside another request those beside an empty slot
    (row-local capacity, ``capacity_from="global"``);
@@ -88,14 +92,14 @@ BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 KERNEL_TOL = 2e-2             # bf16, relative to max|ref| (tests/test_kernels.py TOL)
 # The single wgmma tile: exact bf16 products summed in fp32 in another order.
 TILE_TOL = 1e-5
-# The kernels whose plan picks a path: Hopper above 2 rows; at 2 rows or
-# fewer split_hopper.cuh's few-row path (#4-#6) or split_tile.cuh's (#2,
-# #3: their few-row port is later work). Kernel -> (launches, few-row path).
+# The kernels whose plan picks a path: split_hopper.cuh's Hopper path above
+# 2 rows; at 2 rows or fewer its few-row path (#4-#6) or its Hopper path
+# at BM 64 (#2, #3). Kernel -> (launches, path at 2 rows or fewer).
 PLANNED = {"split_stack_gemm": (("stack",), "few_row"),
            "split_reduce_gemm": (("reduce",), "few_row"),
            "split_dense_swiglu": (("gate_up", "reduce"), "few_row"),
-           "split_grouped_swiglu": (("gate_up", "down"), "tile_few_row"),
-           "split_grouped_swiglu_demand": (("gate_up", "down"), "tile_few_row")}
+           "split_grouped_swiglu": (("gate_up", "down"), "hopper"),
+           "split_grouped_swiglu_demand": (("gate_up", "down"), "hopper")}
 GROUPED_KERNELS = ("split_grouped_swiglu", "split_grouped_swiglu_demand")
 # End to end through two bf16 layers the kernels and the plain versions
 # round at different points (the kernels round h once after silu*mul in
@@ -207,7 +211,7 @@ def profile_step(label: str, fn) -> None:
         if any(k in name for k in ("grouped_kernel", "gate_up_kernel", "reduce_kernel",
                                    "hopper_kernel", "slices_kernel")):
             kind = "split kernels"
-        elif "fa_bf16_kernel" in name or "fa_f32_kernel" in name:
+        elif any(k in name for k in ("fa_wgmma_kernel", "fa_bf16_kernel", "fa_f32_kernel")):
             kind = "attention kernel"
         elif "Memcpy" in name or "memcpy" in name or "indexSelect" in name:
             # landing copies of split banks, row gathers of demand payloads
@@ -418,10 +422,10 @@ def run_kernel_case(name, shp, gen):
 
 def check_plans(name, shp, plans, ran, bitwise) -> dict:
     """Kernels #2-#6: the plan each launch ran (counted by the wrapper),
-    which must be the Hopper path above 2 rows and the kernel's few-row
-    path at 2 rows or fewer (PLANNED; bf16, every width a multiple of 8 at
-    these shapes), and a second launch bitwise equal to the first. ``ran``:
-    the wrapper's path counts of the first launch."""
+    which must be the Hopper path above 2 rows and the kernel's path at 2
+    rows or fewer (PLANNED; bf16, every width a multiple of 8 at these
+    shapes), and a second launch bitwise equal to the first. ``ran``: the
+    wrapper's path counts of the first launch."""
     from repro_torch.kernels.split_gemm import dense
 
     launches, few = PLANNED[name]
@@ -441,18 +445,40 @@ def check_plans(name, shp, plans, ran, bitwise) -> dict:
 
 
 def path_counts() -> dict:
-    """The launches of kernels #2-#6 by (kernel, launch, path, row class),
-    as the wrappers counted them since the counters were cleared."""
+    """The launches of kernels #2-#6 by (kernel, launch, path, row class)
+    and of flash attention by plan, as the wrappers counted them since the
+    counters were cleared."""
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.split_gemm import dense, grouped
 
-    return {"/".join(k): v for k, v in sorted((dense.PATHS + grouped.PATHS).items())}
+    paths = {"/".join(k): v for k, v in sorted((dense.PATHS + grouped.PATHS).items())}
+    paths.update({f"flash_attention/{flash_plan_label(p)}": v for p, v in sorted(fa.PATHS.items())})
+    return paths
+
+
+def clear_path_counts() -> None:
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.split_gemm import dense, grouped
+
+    for counter in (dense.PATHS, grouped.PATHS, fa.PATHS):
+        counter.clear()
+
+
+def flash_plan_label(plan) -> str:
+    return (f"{plan.path} {plan.bq}x{plan.bkv} stages {plan.stages}" if plan.path == "wgmma"
+            else plan.path)
 
 
 def check_paths(label: str, paths: dict) -> None:
-    """Every launch of #2-#6 above 2 rows ran the Hopper path, and every
-    one at 2 rows or fewer its kernel's few-row path (PLANNED)."""
+    """Every launch of #2-#6 above 2 rows ran the Hopper path, every one at
+    2 rows or fewer its kernel's path (PLANNED), and every flash attention
+    launch (bf16, hd 128 on the serving paths) the Hopper path."""
     bad = {}
     for key, n in paths.items():
+        if key.startswith("flash_attention/"):
+            if not key.split("/")[1].startswith("wgmma "):
+                bad[key] = n
+            continue
         name, _, path, rows = key.split("/")
         if name in PLANNED and path != ("hopper" if rows == "rows>2" else PLANNED[name][1]):
             bad[key] = n
@@ -491,7 +517,11 @@ def flash_cases(r1, gemma) -> list:
             ("r1_1024_last", case(r1, PROMPT, G - 1, 0)),
             ("r1_8192_last", case(r1, LONG_PROMPT, G - 1, 0)),
             ("gemma3_4096_last_local", case(gemma, GEMMA_PROMPT, G - 1, gemma.window)),
-            ("gemma3_4096_last_global", case(gemma, GEMMA_PROMPT, G - 1, 0))]
+            ("gemma3_4096_last_global", case(gemma, GEMMA_PROMPT, G - 1, 0)),
+            # ragged: neither Sq nor Sk a multiple of 128, a window, an offset
+            ("gemma3_ragged", dict(b=1, sq=1000, sk=3001, h=gemma.num_heads,
+                                   kh=gemma.num_kv_heads, hd=gemma.head_dim, q_offset=2001,
+                                   window=700))]
 
 
 def visible_pairs(sq: int, sk: int, q_offset: int, window: int) -> int:
@@ -511,14 +541,33 @@ def visible_keys(sq: int, sk: int, q_offset: int, window: int) -> int:
     return max(0, min(q_offset + sq, sk) - lo)
 
 
+def sdpa_version(q, k, v, window: int, q_offset: int):
+    """One ``scaled_dot_product_attention`` call computing flash attention
+    on (B, S, heads, hd) inputs (GQA, an explicit boolean mask for the
+    offset and the window): a yardstick the port never calls. Returns a
+    function of no arguments giving (B, H, Sq, hd)."""
+    import torch
+
+    sq, sk = q.shape[1], k.shape[1]
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = kpos <= qpos
+    if window:
+        mask &= qpos - kpos < window
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
 def run_flash_case(shp, gen) -> dict:
     """Flash attention against its plain version on the same bf16 inputs,
     timed beside the plain version and one ``scaled_dot_product_attention``
-    call (GQA, explicit boolean mask for the offset and the window; a
-    yardstick the port never calls). The error is held both over the whole
-    output (max error over max|ref|) and per query row and head (the worst
-    row's max error over that row's max|ref|): rows that see few keys have
-    outputs far larger than rows that see many."""
+    call (``sdpa_version``). The error is held both over the whole output
+    (max error over max|ref|) and per query row and head (the worst row's
+    max error over that row's max|ref|): rows that see few keys have
+    outputs far larger than rows that see many. The plan must be the
+    Hopper path (bf16, hd 128), counted by the wrapper, and a second launch
+    must give the same bits."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa
 
@@ -526,12 +575,7 @@ def run_flash_case(shp, gen) -> dict:
     window, q_offset = shp["window"], shp["q_offset"]
     q, k, v = (torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
                for s in ((b, sq, h, hd), (b, sk, kh, hd), (b, sk, kh, hd)))
-    qpos = q_offset + torch.arange(sq, device="cuda")[:, None]
-    kpos = torch.arange(sk, device="cuda")[None, :]
-    mask = kpos <= qpos
-    if window:
-        mask &= qpos - kpos < window
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    plan = fa.flash_plan(q.dtype, b, sq, h, hd)
 
     def kern():
         return fa.flash_attention(q, k, v, window=window, q_offset=q_offset)
@@ -539,13 +583,18 @@ def run_flash_case(shp, gen) -> dict:
     def plain():
         return fa.flash_attention_torch(q, k, v, window=window, q_offset=q_offset)
 
-    def library():
-        return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True)
-
-    got, ref = kern(), plain()
+    library = sdpa_version(q, k, v, window, q_offset)
+    before = fa.PATHS[plan]
+    got = kern()
+    ran = fa.PATHS[plan] - before
+    bitwise = torch.equal(kern(), got)
+    ref = plain()
     lib = library().transpose(1, 2)
     torch.cuda.synchronize()
+    if plan.path != "wgmma" or ran != 1:
+        fail(f"flash_attention {shp}: ran {flash_plan_label(plan)} ({ran} counted), not wgmma")
+    if not bitwise:
+        fail(f"flash_attention {shp}: a second launch gave other bits")
     if not torch.isfinite(got).all():
         fail(f"flash_attention {shp}: non-finite kernel output")
     ref_abs = ref.float().abs()
@@ -558,7 +607,8 @@ def run_flash_case(shp, gen) -> dict:
     lib_diff = (lib.float() - ref.float()).abs()
     row = {"max_abs_err": abs_err, "max_rel_err": rel_err, "max_row_rel_err": row_err,
            "tol_rel": KERNEL_TOL, "library_rel_err": lib_diff.max().item() / scale,
-           "library_row_rel_err": (lib_diff.amax(-1) / row_scale).max().item()}
+           "library_row_rel_err": (lib_diff.amax(-1) / row_scale).max().item(),
+           "plan": plan._asdict(), "bitwise_repeat": bitwise}
     del got, ref, lib, ref_abs, row_scale, diff, lib_diff
     for key, fn in (("ms", kern), ("plain_ms", plain), ("library_ms", library)):
         row[key], lo, hi = time_ms(fn)
@@ -569,7 +619,7 @@ def run_flash_case(shp, gen) -> dict:
     nbytes = 2 * (2 * b * sq * h * hd + 2 * b * keys * kh * hd)
     row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * hd * h * pairs)
     row["shape"] = dict(shp, visible_pairs=pairs, visible_keys=keys)
-    del q, k, v, qt, kt, vt, mask
+    del q, k, v, library
     torch.cuda.empty_cache()
     if max(rel_err, row_err) > KERNEL_TOL:
         fail(f"flash_attention {shp}: kernel disagrees with its plain version: "
@@ -580,9 +630,9 @@ def run_flash_case(shp, gen) -> dict:
 def check_demand_matches_grouped(cfg, gen) -> dict:
     """The demand kernel over a fetched bank that is a subset of kernel
     #2's remote bank, on the same rows: its padding rows are exact zeros
-    and every real expert's block is bitwise kernel #2's (split_tile.cuh's
-    few-row path at C 1 with each mode's fetched bank, the Hopper path at
-    C 16 and at R1 8192's C 88)."""
+    and every real expert's block is bitwise kernel #2's (split_hopper.cuh's
+    Hopper path at C 1 with each mode's fetched bank, at C 16 and at R1
+    8192's C 88)."""
     import torch
     from repro_torch.kernels.split_gemm import grouped
 
@@ -679,7 +729,6 @@ def serve_phase(label: str, cfg, engine, prompts, kernels) -> tuple[dict, dict]:
     import torch
     from repro_torch.core import execution
     from repro_torch.kernels import registry
-    from repro_torch.kernels.split_gemm import dense, grouped
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -689,8 +738,7 @@ def serve_phase(label: str, cfg, engine, prompts, kernels) -> tuple[dict, dict]:
     print(f"{label}: warmup {time.perf_counter() - t0:.2f} s, weights "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     registry.reset_launch_counts()
-    dense.PATHS.clear()
-    grouped.PATHS.clear()
+    clear_path_counts()
     t0 = time.perf_counter()
     outputs = serve(engine, prompts)
     torch.cuda.synchronize()
@@ -703,7 +751,7 @@ def serve_phase(label: str, cfg, engine, prompts, kernels) -> tuple[dict, dict]:
         print(f"{label} request {rec.req_id}: tokens {outputs[rec.req_id]} ttft_s "
               f"{rec.ttft:.4f} tpot_s {rec.tpot:.4f}")
     print(f"{label} serve: {json.dumps(summary)} wall_s {wall:.3f} peak_gb {peak / 1e9:.2f} "
-          f"launches {json.dumps(counts)} paths of #2-#6 {json.dumps(paths)}")
+          f"launches {json.dumps(counts)} paths of #2-#7 {json.dumps(paths)}")
     check_paths(label, paths)
     if summary["completed"] != len(prompts):
         fail(f"{label}: {summary['completed']} of {len(prompts)} requests completed")
@@ -820,7 +868,6 @@ def serve_fetch_modes(cfg, engine, model, prompts, ref_outputs, ref_summary, ref
     import torch
     from repro_torch.core import execution, prefetch
     from repro_torch.kernels import registry
-    from repro_torch.kernels.split_gemm import dense, grouped
     from repro_torch.launch.serve import build_engine
 
     params = engine.params
@@ -853,8 +900,7 @@ def serve_fetch_modes(cfg, engine, model, prompts, ref_outputs, ref_summary, ref
             fail(f"expert_fetch={mode}: the decode plan does not run the demand path")
         eng.warmup()
         registry.reset_launch_counts()
-        dense.PATHS.clear()
-        grouped.PATHS.clear()
+        clear_path_counts()
         execution.DEMAND.layers = execution.DEMAND.fallbacks = 0
         t0 = time.perf_counter()
         outs = serve(eng, prompts)
@@ -959,7 +1005,7 @@ def main() -> None:
         results.setdefault(name, {})[phase] = row
         worst_row = (f" worst row {row['max_row_rel_err']:.3e}"
                      if "max_row_rel_err" in row else "")
-        plans = " ".join(f"{k} {json.dumps(v)}" for k, v in row.items() if k.startswith("plan_"))
+        plans = " ".join(f"{k} {json.dumps(v)}" for k, v in row.items() if k.startswith("plan"))
         print(f"kernel {name} {phase} {row['shape']}: rel_err {row['max_rel_err']:.3e}{worst_row} "
               f"(tol {KERNEL_TOL}) ms {row['ms']:.4f} {row['ms_range']} plain_ms "
               f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms "
@@ -1049,7 +1095,7 @@ def main() -> None:
     served = collections.Counter()
     for run in (r1, r1_long, gemma):
         served.update(run["paths"])
-    print(f"paths of #2-#6 over the three serves (R1 {PROMPT}, R1 {LONG_PROMPT}, Gemma-3 "
+    print(f"paths of #2-#7 over the three serves (R1 {PROMPT}, R1 {LONG_PROMPT}, Gemma-3 "
           f"{GEMMA_PROMPT}): {json.dumps(dict(sorted(served.items())))}")
     replaces = {
         "split_grouped_swiglu": "src/repro/kernels/split_gemm/split_gemm.py:261",
@@ -1091,7 +1137,8 @@ def main() -> None:
             **others,
         })
         if "max_row_rel_err" in dec:
-            kernels[-1]["max_row_rel_err"] = dec["max_row_rel_err"]
+            kernels[-1].update(max_row_rel_err=dec["max_row_rel_err"], plan=dec["plan"],
+                               bitwise_repeat=dec["bitwise_repeat"])
         if name == "split_grouped_swiglu_demand":
             kernels[-1]["checks"] = demand_checks
         if name in PLANNED:

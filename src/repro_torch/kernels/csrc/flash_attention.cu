@@ -8,37 +8,54 @@
 // Numerics follow the Pallas kernel: q is scaled by 1/sqrt(hd) in q's type,
 // logits and the online-softmax state (m, l, acc) are fp32, masked logits
 // are -1e30, p is rounded to v's type before the PV product (bf16), and
-// the output is acc / max(l, 1e-30) rounded to q's type.
+// the output is acc / max(l, 1e-30) rounded to q's type. (exp is taken as
+// exp2 of the fp32 logit times log2(e).)
 //
 // Bound on the H100: at the prefill shapes (256-2048 query rows per rank
-// against 1024-8192 keys, 128 heads, hd 128) the unmasked query-key pairs
-// cost 4 * hd operations per head each, against one read of q, k and v
-// and one write of out: compute-bound, at 989 TFLOP/s (bf16), except the
-// shortest causal prompt, which is about even.
+// against 1024-8192 keys, 32-128 heads, hd 128) the visible query-key
+// pairs cost 4 * hd operations per head each, against one read of q and of
+// the visible k and v and one write of out: compute-bound at 989 TFLOP/s
+// (bf16), except the shortest causal prompt, which is about even.
 //
-// Design: one block of 4 warps per (query head, 64-query tile, batch row);
-// each warp owns 16 query rows. The block stages its q tile (scaled) in
-// shared memory once and keeps it in registers as mma fragments, then
-// walks the 64-key tiles of k and v through a two-stage shared-memory ring
-// filled by cp.async (the next tile lands while this one is computed),
-// running mma.sync m16n8k16 (bf16 in, fp32 accumulate) for both QK^T and
-// PV; the S accumulator fragment is re-packed in registers as the A
-// fragment of the PV product, so p never leaves the registers. The key loop visits
-// only the tiles that intersect [q_lo - window + 1, q_hi] of the query
-// tile (the Pallas kernel visits every tile and masks): a fully masked
-// tile contributes exactly zero once a visible key has set m, and every
-// row sees its own key, so skipping changes no result. Masks are applied
-// only on tiles that straddle a boundary. Blocks are scheduled heaviest
-// first: every head's last query tile (which sees the most keys) before
-// any head's second-to-last. fp32 inputs take a plain FMA path with the
-// same tiles (no tensor cores, synchronous loads). Later work: wgmma, TMA,
-// larger query tiles.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Design, bf16 at hd 128 (every launch of the serving path; the wrapper's
+// plan, ops.py::flash_plan, a pure function of the shapes, picks the
+// tiles): warp-specialised like split_hopper.cuh, on hopper.cuh's helpers.
+// A block owns BQ = 64 * CW query rows of one head (CW = 2 consumer
+// warpgroups of 64 rows, or 1) and a producer warpgroup whose first thread
+// issues every load: the q tile once, then the visible key tiles of BKV
+// keys (128 or 64), heaviest first (the diagonal tile, then down), each K
+// and V tile by TMA through 4-d tensor maps over the (B, Sk, Kh, hd)
+// tensors (two 64-column boxes, 128-byte swizzle) into a ring of stages
+// with a K-full, a V-full and an empty mbarrier each. Each consumer
+// warpgroup scales its q rows in shared memory (rounded to bf16), then per
+// key tile: S = q K^T by wgmma m64nBKVk16 from shared memory (A = q and B
+// = K, both K-major); mask (boundary tiles only); online softmax on the
+// accumulator fragment (a row lives in a quad of lanes: two shuffles for
+// the max, the row sum kept per thread until the end, exp2 with log2(e)
+// folded in); p packed to bf16 in registers is the A fragment of O += P V
+// (wgmma m64n128k16, A from registers, B = V N-major with the transpose
+// bit), so p never touches shared memory; then the warpgroup releases the
+// stage. The two consumer warpgroups interleave their softmax and their
+// tensor-core work on the SM (setmaxnreg moves registers from the producer
+// to them); one consumer warpgroup with 64-key tiles runs two blocks an SM. The output, O / max(l, 1e-30) in bf16, is staged in
+// the warpgroup's q tile in the 128-byte-swizzled layout and written by a
+// TMA store, which clips the rows past Sq. Blocks run heaviest query
+// tiles first, and the query heads that share a kv head are adjacent
+// blocks, so their K/V reads hit L2. Only the key tiles that intersect
+// [q_lo - window + 1, q_hi] are visited: a fully masked tile contributes
+// exactly zero once a visible key has set m, and every row sees its own
+// key, so skipping changes no result.
+//
+// fp32, and bf16 at hd 64, keep the earlier kernels below: 64 query rows
+// and 64-key tiles per block of 4 warps; bf16 with mma.sync m16n8k16 and a
+// two-stage cp.async ring, fp32 with FMAs and synchronous loads.
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace fa {
+
+using namespace hopper;
 
 constexpr int BQ = 64;       // query rows per block
 constexpr int BKV = 64;      // keys per tile
@@ -52,20 +69,23 @@ struct Geo {
   float scale;
 };
 
-// Key tiles [t_lo, t_hi] that hold a key visible to query rows [q0, q1).
+// Key tiles [t_lo, t_hi] of TK keys that hold a key visible to query rows
+// [q0, q1).
+template <int TK = BKV>
 __device__ __forceinline__ void tile_range(const Geo& g, int q0, int q1, int& t_lo, int& t_hi) {
   const int qa_lo = g.q_offset + q0, qa_hi = g.q_offset + q1 - 1;
   const int k_hi = min(qa_hi, g.sk - 1);
   const int k_lo = g.window > 0 ? max(0, qa_lo - g.window + 1) : 0;
-  t_lo = k_lo / BKV;
-  t_hi = k_hi / BKV;
+  t_lo = k_lo / TK;
+  t_hi = k_hi / TK;
 }
 
-// True when every key of tile [k0, k0 + BKV) is visible to every row of
+// True when every key of tile [k0, k0 + TK) is visible to every row of
 // [q0, q1): no mask needed.
+template <int TK = BKV>
 __device__ __forceinline__ bool tile_full(const Geo& g, int q0, int q1, int k0) {
   const int qa_lo = g.q_offset + q0, qa_hi = g.q_offset + q1 - 1;
-  const int k_last = k0 + BKV - 1;
+  const int k_last = k0 + TK - 1;
   return k_last <= qa_lo && k_last < g.sk && (g.window <= 0 || qa_hi - k0 < g.window);
 }
 
@@ -75,7 +95,7 @@ __device__ __forceinline__ bool visible(const Geo& g, int row, int key) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16).
+// bf16 at hd 64: tensor cores (mma.sync m16n8k16).
 // ---------------------------------------------------------------------------
 template <int HD>
 struct BfSmem {
@@ -446,6 +466,281 @@ fa_f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at hd 128: TMA + mbarrier ring + wgmma (Hopper).
+// ---------------------------------------------------------------------------
+constexpr int WG_HD = 128;
+constexpr int ROW = 128;                 // bytes of one 64-column box row (128-byte swizzle)
+constexpr int BOX_ROWS = 64;             // rows of a q / out box: one warpgroup's
+constexpr int Q_BOX = BOX_ROWS * ROW;    // 8 KB
+constexpr int Q_WG = 2 * Q_BOX;          // one warpgroup's q tile: two 64-column boxes
+constexpr float L2E = 1.4426950408889634f;
+
+// The block tile: CW consumer warpgroups of 64 query rows (BQ 64 or 128),
+// key tiles of BKV keys (64 or 128).
+template <int CW_, int BKV_>
+struct WgTile {
+  static constexpr int CW = CW_, BKV = BKV_, BQ = 64 * CW;
+  static constexpr int THREADS = 128 * (CW + 1);  // + the producer warpgroup
+  static constexpr int Q_BYTES = CW * Q_WG;
+  static constexpr int KV_BOX = BKV * ROW;        // one 64-column box of a K or V tile
+  static constexpr int KV_BYTES = 2 * KV_BOX;
+  static constexpr int STAGE = 2 * KV_BYTES;      // K then V
+  // one consumer warpgroup with 64-key tiles fits two blocks an SM (128
+  // registers a thread); with 128-key tiles it takes the SM (no spills)
+  static constexpr int MIN_BLOCKS = CW == 1 && BKV == 64 ? 2 : 1;
+};
+
+// Dynamic shared memory: 1024 bytes of alignment slack, the q tile, the
+// stages, the q barrier and three barriers per stage.
+template <class TL>
+inline size_t wg_smem_bytes(int stages) {
+  return 1024 + TL::Q_BYTES + (size_t)stages * TL::STAGE + 8 * (1 + 3 * (size_t)stages);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S (64 x BKV) = q (64 x 128) @ K^T: A the warpgroup's q tile, B the K tile
+// (BKV keys x 128, K-major); both two 64-column boxes, 128-byte swizzle.
+template <int BKV>
+__device__ __forceinline__ void qk_wgmma(float (&s)[BKV / 2], uint32_t q, uint32_t k) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < WG_HD / 16; ++kk) {
+    const uint64_t da = smem_desc(q + (kk / 4) * Q_BOX + (kk % 4) * 32, 16, 1024);
+    const uint64_t db = smem_desc(k + (kk / 4) * (BKV * ROW) + (kk % 4) * 32, 16, 1024);
+    if constexpr (BKV == 128) wgmma_m64n128<0>(s, da, db);
+    else wgmma_m64n64<0>(s, da, db);
+  }
+  wgmma_commit();
+}
+
+// grid: one block per (head, query tile, batch row), heads fastest, the
+// heaviest query tiles first. q_map / o_map: (hd, H, Sq, B), boxes (64, 1,
+// 64, 1); k_map / v_map: (hd, Kh, Sk, B), boxes (64, 1, BKV, 1).
+template <int CW, int BKV>
+__global__ void __launch_bounds__(WgTile<CW, BKV>::THREADS, WgTile<CW, BKV>::MIN_BLOCKS)
+fa_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                const __grid_constant__ CUtensorMap o_map, Geo g, int stages) {
+  using TL = WgTile<CW, BKV>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t q_s = smem_u32(base), ring = q_s + TL::Q_BYTES;
+  const uint32_t q_full = ring + stages * TL::STAGE;
+  const uint32_t full_k = q_full + 8, full_v = full_k + 8 * stages, empty = full_v + 8 * stages;
+
+  const int n_qt = (g.sq + TL::BQ - 1) / TL::BQ;
+  const int head = blockIdx.x % g.h;
+  const int rest = blockIdx.x / g.h;
+  const int qt = n_qt - 1 - rest % n_qt;  // heaviest query tiles first
+  const int bi = rest / n_qt;
+  const int kvh = head / (g.h / g.kh);
+  const int q0 = qt * TL::BQ, q1 = min(q0 + TL::BQ, g.sq);
+  int t_lo, t_hi;
+  tile_range<BKV>(g, q0, q1, t_lo, t_hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full_k + 8 * i, 1);
+      mbar_init(full_v + 8 * i, 1);
+      mbar_init(empty + 8 * i, CW * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CW) {
+    // ---- producer ------------------------------------------------------
+    if constexpr (CW == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == CW * 128) {
+      const int q_wgs = min(CW, (g.sq - q0 + 63) / 64);  // warpgroups with rows
+      mbar_expect_tx(q_full, q_wgs * Q_WG);
+      for (int w = 0; w < q_wgs; ++w)
+        for (int b = 0; b < 2; ++b)
+          tma_4d(q_s + w * Q_WG + b * Q_BOX, &q_map, q_full, 64 * b, head, q0 + 64 * w, bi);
+      int st = 0;
+      uint32_t ph = 0;
+      for (int t = t_hi; t >= t_lo; --t) {
+        mbar_wait(empty + 8 * st, ph ^ 1);
+        const uint32_t kt = ring + st * TL::STAGE, vt = kt + TL::KV_BYTES;
+        mbar_expect_tx(full_k + 8 * st, TL::KV_BYTES);
+        for (int b = 0; b < 2; ++b)
+          tma_4d(kt + b * TL::KV_BOX, &k_map, full_k + 8 * st, 64 * b, kvh, t * BKV, bi);
+        mbar_expect_tx(full_v + 8 * st, TL::KV_BYTES);
+        for (int b = 0; b < 2; ++b)
+          tma_4d(vt + b * TL::KV_BOX, &v_map, full_v + 8 * st, 64 * b, kvh, t * BKV, bi);
+        if (++st == stages) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers -----------------------------------------------------
+    if constexpr (CW == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int gq = lane / 4, tq = lane % 4;
+    const int r0 = q0 + 64 * wg, r1 = min(r0 + 64, g.sq);  // this warpgroup's rows
+    const uint32_t q_w = q_s + wg * Q_WG;
+    // the key tiles this warpgroup sees (none when it has no rows)
+    int w_lo = 1, w_hi = 0;
+    if (r0 < r1) {
+      tile_range<BKV>(g, r0, r1, w_lo, w_hi);
+      // q * scale rounded to bf16, in place (the swizzle moves whole
+      // 16-byte chunks, so an elementwise pass may ignore it)
+      mbar_wait(q_full, 0);
+      uint4* qv = reinterpret_cast<uint4*>(base + wg * Q_WG);
+      for (int i = tid; i < Q_WG / 16; i += 128) {
+        uint4 u = qv[i];
+        __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(h2[e]);
+          h2[e] = __floats2bfloat162_rn(f.x * g.scale, f.y * g.scale);
+        }
+        qv[i] = u;
+      }
+      fence_async_shared();
+      bar_sync(1 + wg, 128);
+    }
+
+    float o[64];
+    zero(o);
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    const int row0 = r0 + warp * 16 + gq;  // this thread's rows: row0, row0 + 8
+    int st = 0;
+    uint32_t ph = 0;
+    for (int t = t_hi; t >= t_lo; --t) {
+      const uint32_t kt = ring + st * TL::STAGE, vt = kt + TL::KV_BYTES;
+      mbar_wait(full_k + 8 * st, ph);
+      if (t >= w_lo && t <= w_hi) {
+        const int k0 = t * BKV;
+        float s[BKV / 2];
+        zero(s);
+        fence_regs(s);
+        qk_wgmma<BKV>(s, q_w, kt);
+        wgmma_wait<0>();
+        fence_regs(s);
+        if (!tile_full<BKV>(g, r0, r1, k0)) {
+#pragma unroll
+          for (int i = 0; i < BKV / 2; ++i)
+            if (!visible(g, row0 + 8 * ((i / 2) % 2), k0 + (i / 4) * 8 + 2 * tq + (i % 2)))
+              s[i] = NEG_INF;
+        }
+        // online softmax; element i of s is row (i / 2) % 2, key octet i / 4
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int i = 0; i < BKV / 2; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+        float msc[2], corr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          // a row with no visible key yet keeps p = 0 (its m stays -1e30)
+          msc[r] = mx[r] == NEG_INF ? 0.f : mx[r] * L2E;
+          corr[r] = ex2(fmaf(m[r], L2E, -msc[r]));
+          m[r] = mx[r];
+          l[r] *= corr[r];
+        }
+#pragma unroll
+        for (int i = 0; i < BKV / 2; ++i) {
+          s[i] = ex2(fmaf(s[i], L2E, -msc[(i / 2) % 2]));
+          l[(i / 2) % 2] += s[i];  // this thread's share; the quad sums at the end
+        }
+#pragma unroll
+        for (int i = 0; i < 64; ++i) o[i] *= corr[(i / 2) % 2];
+        // p in bf16: the S fragment of key octets 2kk and 2kk + 1 is the A
+        // fragment of the kk-th 16-key step
+        uint32_t pa[BKV / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const __nv_bfloat162 h2 = __floats2bfloat162_rn(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+            pa[kk][r] = *reinterpret_cast<const uint32_t*>(&h2);
+          }
+        mbar_wait(full_v + 8 * st, ph);
+        fence_regs(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk)
+          wgmma_m64n128_rs(o, pa[kk], smem_desc(vt + kk * 16 * ROW, TL::KV_BOX, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+      }
+      if (lane == 0) mbar_arrive(empty + 8 * st);
+      if (++st == stages) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+    if (r0 >= r1) return;
+
+    // ---- epilogue: O / max(l, 1e-30) in bf16, staged in the warpgroup's q
+    // tile in the 128-byte-swizzled box layout, then one TMA store per box
+    // (rows past Sq are clipped). Fragment element i of thread (warp,
+    // lane) is row warp*16 + lane/4 + 8*((i/2)%2), column (i/4)*8 +
+    // 2*(lane%4) + i%2.
+    float den[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      den[r] = fmaxf(l[r], 1e-30f);
+    }
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int row = warp * 16 + gq + 8 * ((i / 2) % 2), col = (i / 4) * 8 + 2 * tq;
+      const int box = col / 64, chunk = ((col % 64) / 8) ^ (row % 8);
+      *reinterpret_cast<__nv_bfloat162*>(base + wg * Q_WG + box * Q_BOX + row * ROW + chunk * 16 +
+                                         (col % 8) * 2) =
+          __floats2bfloat162_rn(o[i] / den[(i / 2) % 2], o[i + 1] / den[(i / 2) % 2]);
+    }
+    fence_async_shared();
+    bar_sync(1 + wg, 128);
+    if (tid == 0) {
+      for (int b = 0; b < 2; ++b) tma_store_4d(&o_map, q_w + b * Q_BOX, 64 * b, head, r0, bi);
+      tma_store_wait();
+    }
+  }
+}
+
+// The maps of the Hopper path: q and out (hd, H, Sq, B) in 64-row boxes,
+// k and v (hd, Kh, Sk, B) in BKV-row boxes.
+template <int CW, int BKV>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, int b, const Geo& g,
+                 int stages, cudaStream_t st) {
+  using TL = WgTile<CW, BKV>;
+  const size_t smem = wg_smem_bytes<TL>(stages);
+  if (stages < 1 || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm, om;
+  const uint64_t qdims[4] = {WG_HD, (uint64_t)g.h, (uint64_t)g.sq, (uint64_t)b};
+  const uint64_t kdims[4] = {WG_HD, (uint64_t)g.kh, (uint64_t)g.sk, (uint64_t)b};
+  const uint32_t qbox[4] = {64, 1, BOX_ROWS, 1}, kbox[4] = {64, 1, BKV, 1};
+  int err = make_map(&qm, q, 4, qdims, qbox);
+  if (!err) err = make_map(&om, out, 4, qdims, qbox);
+  if (!err) err = make_map(&km, k, 4, kdims, kbox);
+  if (!err) err = make_map(&vm, v, 4, kdims, kbox);
+  if (err) return err;
+  // set on every launch (see split_hopper.cuh hopper_launch)
+  err = (int)cudaFuncSetAttribute(fa_wgmma_kernel<CW, BKV>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return ATTR_ERROR + err;
+  const unsigned grid = (unsigned)g.h * cdiv(g.sq, TL::BQ) * (unsigned)b;
+  fa_wgmma_kernel<CW, BKV><<<grid, TL::THREADS, smem, st>>>(qm, km, vm, om, g, stages);
+  return (int)cudaGetLastError();
+}
+
 template <class Smem, class Kern, class T>
 int launch(Kern kern, const void* q, const void* k, const void* v, void* out, int b,
            const Geo& g, cudaStream_t st) {
@@ -460,21 +755,31 @@ int launch(Kern kern, const void* q, const void* k, const void* v, void* out, in
 }  // namespace fa
 
 // dtype codes shared with the Python wrapper: 0 = float32, 1 = bfloat16.
-// hd must be 64 or 128 and q, k, v 16-byte aligned; the wrapper checks
-// shapes, types and layout.
+// The plan (ops.py flash_plan): path 1 = the Hopper kernel (bf16, hd 128)
+// with bq query rows (64 or 128), bkv keys per tile (64 or 128) and that
+// many ring stages; path 0 = the earlier kernels (fp32 at hd 64 or 128,
+// bf16 at hd 64).
+// q, k, v and out must be 16-byte aligned; the wrapper checks shapes,
+// types and layout.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out, int b,
                                int sq, int sk, int h, int kh, int hd, int q_offset, int window,
-                               int dtype, void* stream) {
+                               int dtype, int path, int bq, int bkv, int stages, void* stream) {
   if (b == 0 || sq == 0) return 0;
   const fa::Geo g{sq, sk, h, kh, q_offset, window, (float)(1.0 / sqrt((double)hd))};
   cudaStream_t st = (cudaStream_t)stream;
+  if (path == 1) {
+    if (dtype != 1 || hd != fa::WG_HD) return (int)cudaErrorInvalidValue;
+    if (bq == 128 && bkv == 128) return fa::launch_wgmma<2, 128>(q, k, v, out, b, g, stages, st);
+    if (bq == 64 && bkv == 128) return fa::launch_wgmma<1, 128>(q, k, v, out, b, g, stages, st);
+    if (bq == 128 && bkv == 64) return fa::launch_wgmma<2, 64>(q, k, v, out, b, g, stages, st);
+    if (bq == 64 && bkv == 64) return fa::launch_wgmma<1, 64>(q, k, v, out, b, g, stages, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (path != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     if (hd == 64)
       return fa::launch<fa::BfSmem<64>, decltype(&fa::fa_bf16_kernel<64>), fa::bf16>(
           fa::fa_bf16_kernel<64>, q, k, v, out, b, g, st);
-    if (hd == 128)
-      return fa::launch<fa::BfSmem<128>, decltype(&fa::fa_bf16_kernel<128>), fa::bf16>(
-          fa::fa_bf16_kernel<128>, q, k, v, out, b, g, st);
   } else if (dtype == 0) {
     if (hd == 64)
       return fa::launch<fa::F32Smem<64>, decltype(&fa::fa_f32_kernel<64>), float>(

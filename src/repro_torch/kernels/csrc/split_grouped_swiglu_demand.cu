@@ -15,13 +15,14 @@
 // expert (E_l + the valid fetched rows; 88 MB per expert at DeepSeek-R1
 // width). Design: kernel #2's two launches (split_grouped_swiglu.cu) on
 // kernel #2's plan for the same C, D and F (grouped.py::plan_grouped),
-// with the valid vector passed to both: on split_hopper.cuh's path (above
-// 2 rows) a padding expert's producer issues no loads and its block
-// writes zeros; on split_tile.cuh's few-row path (decode) a padding
-// expert's block exits without reading weights (skip_expert). A real
-// expert runs the very code of kernel #2, so its (C, D) block is bitwise
-// kernel #2's for the same rows and weights: the demand, predictive and
-// sync-free decodes give the all-fetch decode's bits.
+// with the valid vector passed to both: on split_hopper.cuh's Hopper path
+// (every capacity in bf16, decode included) a padding expert's producer
+// issues no loads and its block writes zeros (so do its few-row kernels,
+// a tuning candidate); on split_tile.cuh's launchers (fp32, other widths)
+// a padding expert's block exits without reading weights (skip_expert). A
+// real expert runs the very code of kernel #2, so its (C, D) block is
+// bitwise kernel #2's for the same rows and weights: the demand,
+// predictive and sync-free decodes give the all-fetch decode's bits.
 #include "split_hopper.cuh"
 #include "split_tile.cuh"
 
@@ -32,9 +33,8 @@ extern "C" int split_grouped_swiglu_demand(const void* x, const void* g_local,
                                            void* out, int e_local, int e_fetched, int c, int d,
                                            int f, int dtype, int gu_path, int gu_bm, int gu_bn,
                                            int gu_stages, int gu_splits, int gu_chunk,
-                                            int dn_path, int dn_bm, int dn_bn,
-                                           int dn_stages, int dn_splits, int dn_chunk,
-                                            void* stream) {
+                                           int dn_path, int dn_bm, int dn_bn, int dn_stages,
+                                           int dn_splits, int dn_chunk, void* stream) {
   const int e = e_local + e_fetched;
   const unsigned char* v = (const unsigned char*)valid;
   cudaStream_t st = (cudaStream_t)stream;
@@ -42,9 +42,10 @@ extern "C" int split_grouped_swiglu_demand(const void* x, const void* g_local,
     if (dtype != 1) return (int)cudaErrorInvalidValue;
     const split_hopper::Plan gu{gu_path, gu_bm, gu_bn, gu_stages, gu_splits, gu_chunk};
     const split_hopper::Plan dn{dn_path, dn_bm, dn_bn, dn_stages, dn_splits, dn_chunk};
+    // kernel #2's default plans: no k split, no scratch
     return split_hopper::launch_grouped_swiglu(x, g_local, u_local, d_local, g_fetched,
-                                               u_fetched, d_fetched, h, out, v, e_local, e, c, d,
-                                               f, gu, dn, st);
+                                               u_fetched, d_fetched, h, out, nullptr, v,
+                                               e_local, e, c, d, f, gu, dn, st);
   }
   int err = SPLIT_DISPATCH(dtype, c, split_tile::launch_gate_up, x, (long)c * d, g_local,
                            u_local, g_fetched, u_fetched, h, e_local, e, c, d, f, st, v);

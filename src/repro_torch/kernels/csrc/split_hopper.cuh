@@ -1,15 +1,18 @@
 // Hopper paths of the split-bank GEMMs, bf16: split_stack_gemm (#4), the
-// grouped SwiGLU above 2 rows (#2, and #3 on #2's plan), split_reduce_gemm
-// (#5) and split_dense_swiglu (#6).
+// grouped SwiGLU (#2, and #3 on #2's plan), split_reduce_gemm (#5) and
+// split_dense_swiglu (#6). The TMA, mbarrier and wgmma helpers are
+// hopper.cuh's.
 //
 // Replaces, for these kernels, the mma.sync tiles and the few-row register
-// path of split_tile.cuh (which #1, and #2/#3 at 2 rows or fewer, keep).
-// The plan (path, block tile, stages, splits, k chunk) is chosen in Python
-// (kernels/split_gemm/dense.py::plan_split, grouped.py::plan_grouped) as a
-// pure function of the shapes and passed in as ints.
+// path of split_tile.cuh (which #1, fp32 and widths that are not multiples
+// of 8 keep). The plan (path, block tile, stages, splits, k chunk) is
+// chosen in Python (kernels/split_gemm/dense.py::plan_split,
+// grouped.py::plan_grouped) as a pure function of the shapes and passed in
+// as ints.
 //
-// Prefill (more than 2 rows, every width a multiple of 8): one warp-
-// specialised mainloop, three epilogues.
+// The Hopper path (#4-#6 above 2 rows; #2/#3 at every capacity, decode's
+// C 1 included; every width a multiple of 8): one warp-specialised
+// mainloop, three epilogues.
 //   reduce   out    = sum_s A[s] @ W(s), slices ascending, k ascending
 //   gate_up  h[s]   = bf16(silu(A @ Wg(s)) * (A @ Wu(s)))
 //   stack    out[s] = A @ W(s)
@@ -34,31 +37,36 @@
 // What bounds it on the H100: at R1's 256-row prefill shard the weight
 // bytes and the operations are close (235 MB, 60 GFLOP for #4 and #5); at
 // 1024 and 2048 rows the operations (989 TFLOP/s bf16); the grouped
-// kernels at C 16 and 88 the expert weight bytes. The ring keeps up to
-// ~200 KB of loads in flight per SM, so the tensor cores never wait on a
-// synchronous copy. Where the output tiles number fewer than two waves of
-// 132 SMs (R1's narrow k/v projections), the plan may split the k loop
-// into fp32 partials, summed in split order by a second launch: no
+// kernels at every capacity the expert weight bytes (22.5 GB a layer at
+// R1 width: at C 1 the tile's 63 zero-filled rows cost tensor work but no
+// bytes, and 4 to 5 stages of ~40 KB keep the loads in flight). The ring
+// keeps up to ~200 KB of loads in flight per SM, so the tensor cores never
+// wait on a synchronous copy. Where the output tiles number fewer than two
+// waves of 132 SMs (R1's narrow k/v projections), the plan may split the
+// k loop into fp32 partials, summed in split order by a second launch: no
 // atomics.
 //
-// Decode (at most 2 rows): few-row kernels split the k rows over ~250-2000
-// blocks to fill all 132 SMs; each thread streams 16-byte weight loads,
-// 8 in flight, into fp32 sums; the 8 warps of a block are summed in warp
-// order through shared memory into per-split fp32 partials, and a second
-// launch sums the splits in order (and applies silu * up for gate_up).
-// Bound: the weight bytes at 3.35 TB/s.
+// The few-row path (#4-#6 at most 2 rows): few-row kernels stream the
+// weights in 16-byte loads (ld.global.nc.L1::no_allocate, 8 in flight per
+// thread, a warp reading 512 contiguous bytes of a k row) into fp32 sums;
+// the 8 warps of a block are summed in warp order through shared memory.
+// They split the k rows over ~250-2000 blocks to fill all 132 SMs into
+// fp32 partials that a second launch sums in order (and applies silu * up
+// for gate_up). They also take an activation per slice and the valid
+// bytes of #3, and without a k split write their bf16 output themselves:
+// the grouped kernels' decode design that the Hopper path beat
+// (tools/sweep_dense_plans.py). Bound: the weight bytes at 3.35 TB/s.
 //
 // Every sum runs in a fixed order that depends on the shapes only, and a
 // row's result never reads another row's data: repeated launches give the
 // same bits, and a row's output does not depend on the other rows.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums: types only, nothing is linked
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace split_hopper {
+
+using namespace hopper;
 
 using bf16 = __nv_bfloat16;
 
@@ -73,7 +81,6 @@ constexpr int PATH_FEW_ROW = 2;
 constexpr int BK = 64;
 constexpr int BOX_N = 64;                      // bf16 columns of one 128-byte swizzle row
 constexpr int B_BYTES = BK * BOX_N * 2;        // 8 KB
-constexpr int MAX_SMEM = 232448;               // a block's shared memory on the H100
 
 // Dynamic shared memory of a ring: 1024 bytes of alignment slack, the
 // stages (or, if larger, the epilogue's staging tile, which reuses them),
@@ -85,167 +92,6 @@ __host__ __device__ inline size_t ring_bytes(int stages, int stage_bytes, int ep
 inline size_t smem_bytes(int stages, int stage_bytes, int epi_bytes) {
   return 1024 + ring_bytes(stages, stage_bytes, epi_bytes) +
          2 * (size_t)stages * sizeof(uint64_t);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Barrier 1 among the first ``threads`` threads of the block (the consumer
-// warpgroups; barrier 0 is __syncthreads).
-__device__ __forceinline__ void consumers_sync(int threads) {
-  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait for the phase of parity ``parity`` to complete. A wait that lasts
-// longer than ~2^35 cycles (over 10 s) traps: a lost copy ends the launch
-// with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > (1ll << 35)) __trap();
-}
-
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1). For
-// the K-major A tile: LBO unused (16 bytes), SBO 1024 bytes (8 rows of 128
-// bytes). For the N-major B tile: LBO the byte distance between two
-// 64-column boxes, SBO 1024 bytes (8 k rows).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving accumulator accesses across wgmma.
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 256, fp32 fragment) += A (64 x 16, K-major) @ B (16 x 256, N-major,
-// the transpose-B bit set); scale-d is 1, so d accumulates.
-__device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d (64 x 128, fp32 fragment) += A (64 x 16, K-major) @ B (16 x 128, N-major,
-// the transpose-B bit set); scale-d is 1, so d accumulates.
-__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d (64 x 64, fp32 fragment) += A (64 x 16, K-major) @ B (16 x 64, N-major,
-// the transpose-B bit set); scale-d is 1, so d accumulates.
-__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
 }
 
 template <int N>
@@ -275,12 +121,6 @@ struct Tile {
   static constexpr int EPI_LD = BN + 8;
   static constexpr int EPI_BYTES = BM * EPI_LD * 4;
 };
-
-template <int R>
-__device__ __forceinline__ void zero(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) d[i] = 0.f;
-}
 
 __device__ __forceinline__ float silu_mul(float g, float u) { return g / (1.f + __expf(-g)) * u; }
 
@@ -420,8 +260,8 @@ hopper_kernel(const __grid_constant__ CUtensorMap a_map,
     // memory took ~10 % of a compute-bound launch). Fragment element i of
     // thread (warp, lane) is row warp*16 + lane/4 + 8*((i/2)%2), column
     // (i/4)*8 + 2*(lane%4) + i%2.
-    consumers_sync(CW * 128);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bar_sync(1, CW * 128);
+    fence_async_shared();
     const bool f32 = OP != GATE_UP && splits > 1;  // fp32 partials
     const int r0 = wg * 64 + warp * 16 + lane / 4, c0 = 2 * (lane % 4);
 #pragma unroll
@@ -438,7 +278,7 @@ hopper_kernel(const __grid_constant__ CUtensorMap a_map,
         *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<bf16*>(ring) + at) =
             __floats2bfloat162_rn(v0, v1);
     }
-    consumers_sync(CW * 128);
+    bar_sync(1, CW * 128);
     // element (row, col) of this tile's output matrix is base + row * N + col
     long base;
     if (OP == REDUCE) base = splits == 1 ? 0 : (long)blockIdx.z * M * N;
@@ -529,12 +369,10 @@ __device__ __forceinline__ void fr_fma(float (&acc)[FR_MAXM][8], const uint4& w,
   }
 }
 
-// Sum the FR_WARPS warps' sums in warp order and store the rows < M of
-// this block's columns (< N) at dst[nb] + m * N + n0 + col.
+// Each warp's sums into red, visible to the whole block.
 template <int NB>
-__device__ __forceinline__ void fr_store(float (&red)[FR_WARPS][NB][FR_MAXM][FR_COLS],
-                                         const float (&acc)[NB][FR_MAXM][8], float* const* dst,
-                                         int M, int N, int n0) {
+__device__ __forceinline__ void fr_stage(float (&red)[FR_WARPS][NB][FR_MAXM][FR_COLS],
+                                         const float (&acc)[NB][FR_MAXM][8]) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb)
@@ -543,6 +381,15 @@ __device__ __forceinline__ void fr_store(float (&red)[FR_WARPS][NB][FR_MAXM][FR_
 #pragma unroll
       for (int v = 0; v < 8; ++v) red[warp][nb][m][lane * 8 + v] = acc[nb][m][v];
   __syncthreads();
+}
+
+// Sum the FR_WARPS warps' sums in warp order and store the rows < M of
+// this block's columns (< N) at dst[nb] + m * N + n0 + col.
+template <int NB>
+__device__ __forceinline__ void fr_store(float (&red)[FR_WARPS][NB][FR_MAXM][FR_COLS],
+                                         const float (&acc)[NB][FR_MAXM][8], float* const* dst,
+                                         int M, int N, int n0) {
+  fr_stage<NB>(red, acc);
   for (int idx = threadIdx.x; idx < NB * FR_MAXM * FR_COLS; idx += FR_THREADS) {
     const int nb = idx / (FR_MAXM * FR_COLS), m = (idx / FR_COLS) % FR_MAXM, col = idx % FR_COLS;
     if (m >= M || n0 + col >= N) continue;
@@ -550,6 +397,30 @@ __device__ __forceinline__ void fr_store(float (&red)[FR_WARPS][NB][FR_MAXM][FR_
 #pragma unroll
     for (int w = 0; w < FR_WARPS; ++w) s += red[w][nb][m][col];
     dst[nb][(long)m * N + n0 + col] = s;
+  }
+}
+
+// fr_store's warp-order sums written as the final bf16 output at out + m *
+// N + n0 + col (a launch without a k split): silu(gate) * up for NB 2 (the
+// gate_up op), the sum for NB 1. The same sums and the same arithmetic as
+// fr_store followed by finish_gate_up_kernel / finish_reduce_kernel at one
+// split, so the same bits.
+template <int NB>
+__device__ __forceinline__ void fr_store_bf16(float (&red)[FR_WARPS][NB][FR_MAXM][FR_COLS],
+                                              const float (&acc)[NB][FR_MAXM][8], bf16* out,
+                                              int M, int N, int n0) {
+  fr_stage<NB>(red, acc);
+  for (int idx = threadIdx.x; idx < FR_MAXM * FR_COLS; idx += FR_THREADS) {
+    const int m = idx / FR_COLS, col = idx % FR_COLS;
+    if (m >= M || n0 + col >= N) continue;
+    float s[NB];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      s[nb] = 0.f;
+#pragma unroll
+      for (int w = 0; w < FR_WARPS; ++w) s[nb] += red[w][nb][m][col];
+    }
+    out[(long)m * N + n0 + col] = __float2bfloat16_rn(NB == 2 ? silu_mul(s[0], s[NB - 1]) : s[0]);
   }
 }
 
@@ -595,14 +466,21 @@ fr_reduce_kernel(const bf16* __restrict__ A, const bf16* __restrict__ w_local,
   fr_store<1>(red, acc, dst, M, N, n0);
 }
 
-// part (ksplit, MATS, S, M, N): the split's k rows of x @ W0(s) and, for
-// gate_up (MATS 2), of x @ W1(s); 8 loads in flight per thread either way.
+// part (ksplit, MATS, S, M, N): the split's k rows of x[s] @ W0(s) and,
+// for gate_up (MATS 2), of x[s] @ W1(s); 8 loads in flight per thread
+// either way. x[s] = x + s * a_stride (a_stride 0: one activation shared
+// by every slice; M * K: one per slice, the grouped kernels' experts).
+// valid (nullptr, or a byte per slice of the second bank): a slice marked
+// 0 is padding and issues no weight loads; its sums are zeros. out
+// (non-null only without a k split): the bf16 result is written there
+// (fr_store_bf16) instead of fp32 partials.
 template <int MATS>
 __global__ void __launch_bounds__(FR_THREADS)
 fr_slices_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0_local,
                  const bf16* __restrict__ w1_local, const bf16* __restrict__ w0_remote,
-                 const bf16* __restrict__ w1_remote, float* __restrict__ part, int n_local,
-                 int n_slices, int M, int K, int N, int chunk) {
+                 const bf16* __restrict__ w1_remote, float* __restrict__ part,
+                 bf16* __restrict__ out, const unsigned char* __restrict__ valid, long a_stride,
+                 int n_local, int n_slices, int M, int K, int N, int chunk) {
   constexpr int U = MATS == 2 ? FR_UNROLL : FR_UNROLL_R;
   __shared__ float red[FR_WARPS][MATS][FR_MAXM][FR_COLS];
   const int n0 = blockIdx.x * FR_COLS, s = blockIdx.y, z = blockIdx.z;
@@ -610,11 +488,13 @@ fr_slices_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0_local,
   const int k0 = z * chunk, k1 = min(K, k0 + chunk);
   const int c = n0 + lane * 8;
   const bool loc = s < n_local;
+  const bool real = loc || valid == nullptr || valid[s - n_local] != 0;
   const long off = (long)(loc ? s : s - n_local) * K * N;
   const bf16* w[2] = {(loc ? w0_local : w0_remote) + off,
                       MATS == 2 ? (loc ? w1_local : w1_remote) + off : nullptr};
+  x += s * a_stride;
   float acc[MATS][FR_MAXM][8] = {};
-  if (c < N) {
+  if (c < N && real) {
     for (int k = k0 + warp; k < k1; k += FR_WARPS * U) {
       uint4 wv[MATS][U];
       float a[U][FR_MAXM];
@@ -639,6 +519,10 @@ fr_slices_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0_local,
         for (int j = 0; j < MATS; ++j) fr_fma(acc[j], wv[j][u], a[u]);
     }
   }
+  if (out != nullptr) {
+    fr_store_bf16<MATS>(red, acc, out + (long)s * M * N, M, N, n0);
+    return;
+  }
   const long plane = (long)n_slices * M * N;
   float* dst[MATS];
 #pragma unroll
@@ -649,65 +533,6 @@ fr_slices_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0_local,
 // ---------------------------------------------------------------------------
 // Host side.
 // ---------------------------------------------------------------------------
-inline unsigned cdiv(long a, long b) { return (unsigned)((a + b - 1) / b); }
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded: the
-// library needs no -lcuda.
-inline EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// Errors of the host side, beside cudaError_t codes: no driver entry point,
-// a refused tensor map (ENCODE_ERROR + the CUresult), a refused shared-
-// memory attribute (ATTR_ERROR + the cudaError_t).
-constexpr int NO_ENCODE = 9000, ENCODE_ERROR = 10000, ATTR_ERROR = 20000;
-
-// A bf16 map of a contiguous row-major tensor, dims innermost first, with
-// 128-byte swizzle. A tensor with a zero dim gets a zeroed map (never used).
-// TMA takes a 16-byte aligned base and strides that are multiples of 16
-// bytes (for the grouped kernels' per-expert activations: C * D * 2 and
-// C * F * 2 bytes).
-inline int make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                    const uint32_t* box) {
-  *map = CUtensorMap{};
-  for (int i = 0; i < rank; ++i)
-    if (dims[i] == 0) return 0;
-  EncodeTiled enc = encode_fn();
-  if (enc == nullptr) return NO_ENCODE;
-  cuuint64_t gd[3], gs[2];
-  cuuint32_t bx[3], es[3] = {1, 1, 1};
-  uint64_t stride = sizeof(bf16);
-  if (reinterpret_cast<uintptr_t>(base) % 16) return (int)cudaErrorMisalignedAddress;
-  for (int i = 0; i < rank; ++i) {
-    gd[i] = dims[i];
-    bx[i] = box[i];
-    if (i + 1 < rank) {
-      gs[i] = stride *= dims[i];
-      if (gs[i] % 16) return (int)cudaErrorInvalidPitchValue;
-    }
-  }
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), gd,
-                         gs, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR + (int)r;
-}
-
 // Maps of a (S_b, K, N) bank: 64 x 64 boxes.
 inline int bank_map(CUtensorMap* map, const void* w, int n_banks, int K, int N) {
   const uint64_t dims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)n_banks};
@@ -816,8 +641,8 @@ inline int launch_reduce(const void* A, const void* wl, const void* wr, void* ou
 // (b0 the gate banks, b1 the up banks); STACK out[s] (M, N) = A @ W(s) (b0
 // the banks, b1 unused). A is (M, K), shared by every slice (a_slices 1),
 // or (S, M, K), one per slice (a_slices S: the grouped kernels' experts).
-// Banks (S_l, K, N) / (S - S_l, K, N). scratch: fp32 partials (few-row
-// path, split k). valid: see hopper_kernel (Hopper path only).
+// Banks (S_l, K, N) / (S - S_l, K, N). scratch: fp32 partials (split k).
+// valid: see hopper_kernel and fr_slices_kernel.
 template <int OP>
 inline int launch_slices(const void* A, int a_slices, const void* b0l, const void* b1l,
                          const void* b0r, const void* b1r, void* out, float* scratch,
@@ -828,16 +653,17 @@ inline int launch_slices(const void* A, int a_slices, const void* b0l, const voi
   const long count = (long)n_slices * M * N;
   if (a_slices != 1 && a_slices != n_slices) return (int)cudaErrorInvalidValue;
   if (p.path == PATH_FEW_ROW) {
-    // one activation for every slice, every slice real
-    if (M > FR_MAXM || a_slices != 1 || valid != nullptr || p.chunk < 1 ||
-        p.splits != (int)cdiv(K, p.chunk))
+    if (M > FR_MAXM || p.chunk < 1 || p.splits != (int)cdiv(K, p.chunk))
       return (int)cudaErrorInvalidValue;
+    // one split: the kernel writes the bf16 output itself
+    bf16* direct = p.splits == 1 ? (bf16*)out : nullptr;
     dim3 grid(cdiv(N, FR_COLS), n_slices, p.splits);
     fr_slices_kernel<OP == GATE_UP ? 2 : 1><<<grid, FR_THREADS, 0, st>>>(
         (const bf16*)A, (const bf16*)b0l, (const bf16*)b1l, (const bf16*)b0r, (const bf16*)b1r,
-        scratch, n_local, n_slices, M, K, N, p.chunk);
+        scratch, direct, valid, a_slices > 1 ? (long)M * K : 0, n_local, n_slices, M, K, N,
+        p.chunk);
     const int err = (int)cudaGetLastError();
-    if (err) return err;
+    if (err || direct != nullptr) return err;
     if (OP == STACK) return finish_reduce(scratch, out, p.splits, count, st);
     finish_gate_up_kernel<<<cdiv(count / 2, 256), 256, 0, st>>>(scratch, (bf16*)out, p.splits,
                                                                 count);
@@ -863,22 +689,26 @@ inline int launch_slices(const void* A, int a_slices, const void* b0l, const voi
   return finish_reduce(scratch, out, p.splits, count, st);
 }
 
-// The grouped SwiGLU (kernels #2 and #3) on the Hopper path: x (E, C, D),
-// gate/up banks (E_l, D, F) / (E - E_l, D, F), down banks (E_l, F, D) /
-// (E - E_l, F, D). Launch 1 (GATE_UP, A per expert) writes h (E, C, F);
-// launch 2 (STACK, A per expert) writes out (E, C, D). Every weight byte is
-// streamed once per m tile; at C <= BM all of an expert's rows sit in one.
+// The grouped SwiGLU (kernels #2 and #3): x (E, C, D), gate/up banks (E_l,
+// D, F) / (E - E_l, D, F), down banks (E_l, F, D) / (E - E_l, F, D).
+// Launch 1 (GATE_UP, A per expert) writes h (E, C, F); launch 2 (STACK, A
+// per expert) writes out (E, C, D). Each launch runs the Hopper path (every
+// weight byte streamed once per m tile; at C <= BM all of an expert's rows
+// sit in one) or, as a tuning candidate at most 2 rows, the few-row path
+// (256 columns of one expert per block). scratch: fp32 partials of a
+// launch whose plan splits k (few-row path), shared by the two launches.
 inline int launch_grouped_swiglu(const void* x, const void* gl, const void* ul, const void* dl,
                                  const void* gr, const void* ur, const void* dr, void* h,
-                                 void* out, const unsigned char* valid, int n_local, int E,
-                                 int C, int D, int F, const Plan& gu, const Plan& dn,
-                                 cudaStream_t st) {
-  if (gu.path != PATH_HOPPER || dn.path != PATH_HOPPER || dn.splits != 1)
-    return (int)cudaErrorInvalidValue;
-  const int err = launch_slices<GATE_UP>(x, E, gl, ul, gr, ur, h, nullptr, valid, n_local, E, C,
+                                 void* out, float* scratch, const unsigned char* valid,
+                                 int n_local, int E, int C, int D, int F, const Plan& gu,
+                                 const Plan& dn, cudaStream_t st) {
+  const bool ok_gu = gu.path == PATH_HOPPER || gu.path == PATH_FEW_ROW;
+  const bool ok_dn = dn.path == PATH_FEW_ROW || (dn.path == PATH_HOPPER && dn.splits == 1);
+  if (!ok_gu || !ok_dn) return (int)cudaErrorInvalidValue;
+  const int err = launch_slices<GATE_UP>(x, E, gl, ul, gr, ur, h, scratch, valid, n_local, E, C,
                                          D, F, gu, st);
   if (err) return err;
-  return launch_slices<STACK>(h, E, dl, nullptr, dr, nullptr, out, nullptr, valid, n_local, E, C,
+  return launch_slices<STACK>(h, E, dl, nullptr, dr, nullptr, out, scratch, valid, n_local, E, C,
                               F, D, dn, st);
 }
 

@@ -271,21 +271,25 @@ def test_cuda_stack_gemm_paths_ragged_deterministic_row_local():
 
 # (E, E_l, C, D, F, path) of kernels #2 and #3: ragged capacities (3, 17,
 # 88, 130: BM 64, 128 and two m tiles), D and F that are not tile
-# multiples, an empty local bank and an empty remote bank, split_tile.cuh's
-# few-row path (C 2) and a width that is not a multiple of 8.
+# multiples, an empty local bank and an empty remote bank, decode's C 1
+# and 2 (D and F multiples of 8 but not of the tiles) and a width that is
+# not a multiple of 8.
 GROUPED = [(6, 2, 3, 136, 72, "hopper"), (5, 0, 17, 64, 200, "hopper"),
            (4, 4, 88, 128, 64, "hopper"), (3, 1, 130, 72, 136, "hopper"),
-           (4, 2, 2, 128, 64, "tile_few_row"), (3, 1, 20, 100, 64, "mma")]
+           (4, 2, 2, 128, 64, "hopper"), (5, 2, 1, 264, 72, "hopper"),
+           (4, 1, 2, 136, 520, "hopper"), (3, 1, 20, 100, 64, "mma")]
 
 
 @pytest.mark.cuda
 def test_cuda_grouped_swiglu_paths_ragged_deterministic_local():
     """Kernel #2 on its default plans and, on the Hopper path, on every
-    tile of each launch, against the plain version (2e-2); the paths that
-    ran counted; bitwise on repeat; expert 0's output unchanged when the
-    other experts' rows change and row 0's when the other rows change;
-    and kernel #3 on the same rows over a fetched subset of the remote
-    bank: its real experts bitwise #2's, its padding rows exact zeros."""
+    tile of each launch (at 2 rows or fewer also the few-row kernel,
+    without and with a k split), against the plain version (2e-2);
+    the paths that ran counted; bitwise on repeat; expert 0's output
+    unchanged when the other experts' rows change and row 0's when the
+    other rows change; and kernel #3 on the same rows over a fetched
+    subset of the remote bank: its real experts bitwise #2's, its padding
+    rows exact zeros."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
     from repro_torch.kernels.split_gemm import dense, grouped
@@ -304,6 +308,11 @@ def test_cuda_grouped_swiglu_paths_ragged_deterministic_local():
         gu, dn = grouped.grouped_swiglu_plans(x, *ws)
         assert gu.path == dn.path == path, (e, c, d, f, gu, dn)
         plans = [(gu, dn)]
+        if c <= dense.FEW_ROW_MAXM:
+            # the few-row decode design, without and with a k split
+            few = grouped.few_row_grouped_plan
+            plans += [(few("gate_up", c, d, f), few("down", c, f, d)),
+                      (few("gate_up", c, d, f, chunk=64), few("down", c, f, d, chunk=32))]
         if path == "hopper":
             plans += [(dense.hopper_plan("gate_up", c, d, f, 1, bm, bn), dn)
                       for bm, bn in dense.HOPPER_TILES["gate_up"]]
@@ -339,3 +348,45 @@ def test_cuda_grouped_swiglu_paths_ragged_deterministic_local():
             ref3 = grouped.split_grouped_swiglu_demand_torch(x3, *ws[:3], *wf, valid)
             assert _rel(y3, ref3) <= 2e-2
     torch.cuda.synchronize()
+
+
+# (b, sq, sk, h, kh, window, q_offset) of kernel #7's Hopper path (bf16, hd
+# 128): ragged Sq and Sk (not multiples of 64 or 128) with a window and an
+# offset, a causal GQA shape whose default plan has 128 query rows (h *
+# cdiv(sq, 128) >= 132 blocks), one whose plan has 64, and two batch rows.
+FLASH = [(1, 100, 300, 4, 2, 70, 200), (1, 300, 1111, 48, 8, 0, 811),
+         (2, 190, 450, 6, 3, 129, 260), (1, 77, 77, 2, 1, 0, 0)]
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_wgmma_tiles():
+    """Kernel #7's Hopper path (TMA-fed K/V, wgmma) at every query tile
+    (128 and 64 rows) and key tile (128 and 64 keys) of its plans, with 1
+    and the most ring stages, against the plain version (2e-2 relative to
+    max|ref|, over the whole output and per query row and head); bitwise
+    on repeat; the default plans take both query tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    seen = set()
+    for b, sq, sk, h, kh, window, q_offset in FLASH:
+        q, k, v = (torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
+                   for s in ((b, sq, h, 128), (b, sk, kh, 128), (b, sk, kh, 128)))
+        ref = fa.flash_attention_torch(q, k, v, window=window, q_offset=q_offset)
+        default = fa.flash_plan(torch.bfloat16, b, sq, h, 128)
+        assert default.path == "wgmma"
+        seen.add(default.bq)
+        plans = [default] + [fa.wgmma_plan(bq, bkv, st) for bq, bkv in fa.WGMMA_TILES
+                             for st in (1, None)]
+        for plan in plans:
+            got = fa.flash_attention(q, k, v, window=window, q_offset=q_offset, plan=plan)
+            diff, ref_abs = (got.float() - ref.float()).abs(), ref.float().abs()
+            err = (diff.max() / ref_abs.max()).item()
+            row_err = (diff.amax(-1) / ref_abs.amax(-1).clamp_min(1e-30)).max().item()
+            assert max(err, row_err) <= 2e-2, (b, sq, sk, window, plan, err, row_err)
+            again = fa.flash_attention(q, k, v, window=window, q_offset=q_offset, plan=plan)
+            assert torch.equal(again, got), plan
+    torch.cuda.synchronize()
+    assert seen == {64, 128}

@@ -166,8 +166,12 @@ PLANS = [
     (("expert_down", BF, 16, 2048, 7168, 256, True), "hopper", (64, 256, 64), 1),
     (("expert_gate_up", BF, 88, 7168, 2048, 256, True), "hopper", (128, 128, 64), 1),  # C 88
     (("expert_down", BF, 88, 2048, 7168, 256, True), "hopper", (128, 256, 64), 1),
-    (("expert_gate_up", BF, 1, 7168, 2048, 256, True), "tile_few_row", (), 1),         # decode
-    (("expert_down", BF, 1, 2048, 7168, 88, True), "tile_few_row", (), 1),             # #3
+    (("expert_gate_up", BF, 1, 7168, 2048, 256, True), "hopper", (64, 128, 64), 1),    # decode
+    (("expert_down", BF, 1, 2048, 7168, 88, True), "hopper", (64, 256, 64), 1),        # #3
+    (("expert_gate_up", BF, 2, 7168, 2048, 256, True), "hopper", (64, 128, 64), 1),    # C 2
+    (("expert_down", BF, 2, 2048, 7168, 256, True), "hopper", (64, 256, 64), 1),
+    (("expert_gate_up", BF, 1, 136, 72, 3, True), "hopper", (64, 128, 64), 1),         # ragged
+    (("expert_down", F32, 1, 2048, 7168, 256, True), "fma", (), 1),                    # fp32
     (("expert_gate_up", BF, 130, 72, 136, 3, True), "hopper", (128, 128, 64), 1),      # 130
     (("expert_down", BF, 3, 72, 136, 6, True), "hopper", (64, 256, 64), 1),            # 3
     (("expert_gate_up", BF, 20, 100, 64, 3, True), "mma", (), 1),                      # % 8
@@ -213,8 +217,29 @@ def test_dense_launch_plans(args, path, tile, splits):
         assert plan.scratch == splits * rows * n * mats
         assert op != "reduce" or splits == slices * per_k
     else:
-        assert path != "tile_few_row" or rows <= dense.FEW_ROW_MAXM
         assert plan.scratch == 0 and plan.ints()[0] == 0
+
+
+@pytest.mark.parametrize("c", [1, 2, 16])
+@pytest.mark.parametrize("experts", [(1, 2), (64, 24), (64, 192)])
+def test_grouped_plans_ignore_expert_count(c, experts):
+    """The grouped SwiGLU's plans (#2's, and #3's with its fetched bank)
+    depend on (C, D, F) only: the same plans at 3, 88 and 256 experts, so
+    the demand kernel runs kernel #2's code and gets its bits."""
+    d, f = 136, 72
+    e_l, e_r = experts
+
+    def plans(e_l, e_r):
+        x = torch.zeros(e_l + e_r, c, d, dtype=torch.bfloat16)
+        ws = [torch.zeros(n, *s, dtype=torch.bfloat16)
+              for n in (e_l, e_r) for s in ((d, f), (d, f), (f, d))]
+        return grouped.grouped_swiglu_plans(x, *ws[:3], *ws[3:])
+
+    got = plans(e_l, e_r)
+    assert got == plans(1, 2) == plans(64, 192)
+    assert got == (grouped.plan_grouped("gate_up", torch.bfloat16, c, d, f),
+                   grouped.plan_grouped("down", torch.bfloat16, c, f, d))
+    assert [p.path for p in got] == ["hopper", "hopper"]
 
 
 # --------------------------------------------------------------------------

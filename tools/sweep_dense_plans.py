@@ -1,34 +1,45 @@
 #!/usr/bin/env python3
-"""Time the split kernels on the card under candidate launch plans, at
-the main path's per-rank shapes (G' = 4, bf16): DeepSeek-R1 prefill at
-1024- and 8192-token prompts (256 and 2048 rows; expert capacity 16 and
-88), decode (2 rows), Gemma-3-27B prefill at a 4096-token prompt (1024
-rows).
+"""Time the split kernels and flash attention on the card under candidate
+launch plans, at the main path's per-rank shapes (G' = 4, bf16):
+DeepSeek-R1 prefill at 1024- and 8192-token prompts (256 and 2048 rows;
+expert capacity 16 and 88), decode (2 rows; expert capacity 1),
+Gemma-3-27B prefill at a 4096-token prompt (1024 rows).
 
-    python3 tools/sweep_dense_plans.py [--kernels stack,grouped,reduce,dense]
+    python3 tools/sweep_dense_plans.py [--kernels stack,grouped,reduce,dense,flash]
                                        [--out build/sweep_dense_plans.json]
     python3 tools/sweep_dense_plans.py --defaults [--src OTHER/src] [--out ...]
 
 Kernels: "stack" #4 (``split_stack_gemm``) at R1's q and k/v widths and
-Gemma-3's; "grouped" #2 (``split_grouped_swiglu``) at C 16 and 88;
-"reduce" #5 (``split_reduce_gemm``); "dense" #6 (``split_dense_swiglu``).
-Default: stack and grouped.
+Gemma-3's; "grouped" #2 (``split_grouped_swiglu``) at C 16 and 88 and at
+decode, C 1 and 2; "reduce" #5 (``split_reduce_gemm``); "dense" #6
+(``split_dense_swiglu``); "flash" #7 (``flash_attention``) at the five
+prefill shards of ``chip_smoke.py`` (R1 1024 first and last rank, R1 8192
+last rank, Gemma-3 4096 local and global layer) and its ragged case.
+Default: stack, grouped and flash.
 Candidates, beside the default plan (``dense.plan_split``,
-``grouped.plan_grouped``): every Hopper block tile of the op (BM 64 or
-128, BN 128 or 256), the ring depth (2 stages to as many as fit) and,
-where the tiles number fewer than two waves, split-k 1-16 (stack) or 1-4
-(reduce); the few-row path's block target (k chunk). #2's gate/up and
-down launches are varied one at a time, the other on its default plan.
+``grouped.plan_grouped``, ``flash_attention.ops.flash_plan``): every
+Hopper block tile of the op (BM 64 or 128, BN 128 or 256), the ring depth
+(2 stages to as many as fit) and, where the tiles number fewer than two
+waves, split-k 1-16 (stack) or 1-4 (reduce); the few-row path's block
+target (k chunk). #2's gate/up and down launches are varied one at a
+time, the other on its default plan; at C 1 and 2 the two designs of its
+decode path, (a) split_hopper.cuh's few-row kernel (with and without a k
+split) and (b) its Hopper path at BM 64, both launches alike, beside the
+split_tile.cuh few-row path that #2 ran there before. #7: every query
+tile (128 or 64 rows) x key tile (128 or 64 keys) x ring depth of its
+Hopper kernel (its earlier mma.sync kernel: ``--defaults`` with ``--src``
+at an earlier checkout).
 Each plan's output is held against the default plan's (2e-2 relative to
 max|ref|). #6's down product is timed as ``split_reduce_gemm`` on its
 shapes, its gate/up launch as #6 minus that. Times: CUDA events, median of
 5 windows of >= 40 ms (``chip_smoke.time_ms``), beside the card's name and
-power limit and one per-bank torch.matmul/bmm composition (the yardstick
-of ``chip_smoke.py``). #4 and #2 also get ``device_ms``: the same calls
-captured into a CUDA graph and replayed, the device time without the host
-time between launches (small launches are bound by the host).
+power limit and one per-bank torch.matmul/bmm composition (#7:
+``scaled_dot_product_attention``; the yardsticks of ``chip_smoke.py``).
+#4, #2 and #7 also get ``device_ms``: the same calls captured into a CUDA
+graph and replayed, the device time without the host time between
+launches (small launches are bound by the host).
 
-``--defaults`` times only the default plans of #4 and #2 at those cases,
+``--defaults`` times only the default plans of #4, #2 and #7 at those cases,
 through the wrappers' public signatures, so that ``--src`` may point at
 another checkout's ``src`` (an earlier commit, unpacked with ``git
 archive``): run it for both trees in one call, in turns, to compare them
@@ -53,17 +64,24 @@ STACK_CASES = [("r1_1024", 256, R1, "qd"), ("r1_1024_kv", 256, R1, "kvd"),
                ("r1_8192", 2048, R1, "qd"), ("r1_8192_kv", 2048, R1, "kvd"),
                ("decode", 2, R1, "qd"), ("decode_kv", 2, R1, "kvd"),
                ("gemma3", 1024, GEMMA, "qd"), ("gemma3_kv", 1024, GEMMA, "kvd")]
-GROUPED_CASES = [("r1_1024", 16), ("r1_8192", 88)]
+GROUPED_CASES = [("r1_1024", 16), ("r1_8192", 88), ("decode", 1), ("decode_c2", 2)]
+# (label, Sq, Sk, H, Kh, window, q_offset) of kernel #7 (batch 1, hd 128)
+FLASH_CASES = [("r1_1024_first", 256, 1024, 128, 8, 0, 0),
+               ("r1_1024_last", 256, 1024, 128, 8, 0, 768),
+               ("r1_8192_last", 2048, 8192, 128, 8, 0, 6144),
+               ("gemma3_local", 1024, 4096, 32, 16, 1024, 3072),
+               ("gemma3_global", 1024, 4096, 32, 16, 0, 3072),
+               ("gemma3_ragged", 1000, 3001, 32, 16, 700, 2001)]
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "sweep_dense_plans.json"))
-    ap.add_argument("--kernels", default="stack,grouped")
+    ap.add_argument("--kernels", default="stack,grouped,flash")
     ap.add_argument("--cases", default="",
                     help="comma-separated case labels to run (default: all)")
     ap.add_argument("--defaults", action="store_true",
-                    help="time the default plans of #4 and #2 only")
+                    help="time the default plans of #4, #2 and #7 only")
     ap.add_argument("--src", default=os.path.join(ROOT, "src"),
                     help="the src directory whose repro_torch is timed")
     args = ap.parse_args()
@@ -115,15 +133,18 @@ def main() -> None:
         rows.append(row)
         print(json.dumps(row), flush=True)
 
-    kernels = ("stack", "grouped") if args.defaults else args.kernels.split(",")
+    kernels = ("stack", "grouped", "flash") if args.defaults else args.kernels.split(",")
     if args.cases:
         keep = set(args.cases.split(","))
         STACK_CASES[:] = [c for c in STACK_CASES if c[0] in keep]
         GROUPED_CASES[:] = [c for c in GROUPED_CASES if c[0] in keep]
+        FLASH_CASES[:] = [c for c in FLASH_CASES if c[0] in keep]
     if "stack" in kernels:
         sweep_stack(args.defaults, rnd, rel, both, lib, record)
     if "grouped" in kernels:
         sweep_grouped(args.defaults, rnd, rel, both, lib, record)
+    if "flash" in kernels:
+        sweep_flash(args.defaults, gen, rel, both, record)
     if "reduce" in kernels or "dense" in kernels:
         sweep_reduce_dense(kernels, rnd, rel, ms, lib, record)
     bad = [r for r in rows if r["err"] > chip_smoke.KERNEL_TOL]
@@ -198,15 +219,16 @@ def sweep_grouped(defaults, rnd, rel, both, lib, record) -> None:
         if defaults:
             continue
         gu, dn = grouped.grouped_swiglu_plans(x, *ws)
-        record(**base, plan=f"default = gate_up {list(gu.tile)} stages {gu.stages}, down "
-               f"{list(dn.tile)} stages {dn.stages}", err=0.0, ms=None)
-        cands = []
-        for bm, bn in dense.HOPPER_TILES["gate_up"]:
+        record(**base, plan=f"default = gate_up {gu.path} {list(gu.tile)} stages {gu.stages} "
+               f"chunk {gu.chunk}, down {dn.path} {list(dn.tile)} stages {dn.stages} "
+               f"chunk {dn.chunk}", err=0.0, ms=None)
+        cands = list(grouped_decode_candidates(dense, grouped, c, d, f)) if c <= 2 else []
+        for bm, bn in (dense.HOPPER_TILES["gate_up"] if c > 2 else ()):
             if bm >= c or bm == 128:
                 for stages in range(2, dense.max_stages("gate_up", bm, bn) + 1):
                     p = dense.hopper_plan("gate_up", c, d, f, 1, bm, bn)._replace(stages=stages)
                     cands.append((f"gate_up {bm}x{bn} stages {stages}", (p, dn)))
-        for bm, bn in dense.HOPPER_TILES["stack"]:
+        for bm, bn in (dense.HOPPER_TILES["stack"] if c > 2 else ()):
             if bm >= c or bm == 128:
                 most = dense.max_stages("stack", bm, bn)
                 for stages in sorted({2, 3, 4, most}):
@@ -220,6 +242,62 @@ def sweep_grouped(defaults, rnd, rel, both, lib, record) -> None:
     del ws
     import torch
     torch.cuda.empty_cache()
+
+
+def grouped_decode_candidates(dense, grouped, c, d, f):
+    """#2's decode plans at C <= 2: (a) the few-row kernel without and with
+    a k split, (b) the Hopper path at BM 64 at several ring depths, and
+    split_tile.cuh's few-row path (the grouped kernels' earlier decode path;
+    plan "mma" reaches it at <= 2 rows)."""
+    few = grouped.few_row_grouped_plan
+    yield "split_tile few-row (earlier decode path)", (dense.Plan("mma", (), 0, 1, 0, 0),) * 2
+    for gc_, dc_ in ((None, None), (3584, None), (1792, None), (None, 1024), (None, 512),
+                     (1792, 512)):
+        yield (f"(a) few_row gate_up chunk {gc_ or d} down chunk {dc_ or f}",
+               (few("gate_up", c, d, f, gc_), few("down", c, f, d, dc_)))
+    gu_most = dense.max_stages("gate_up", 64, 128)
+    dn_most = dense.max_stages("stack", 64, 256)
+    for st_gu, st_dn in sorted({(2, 2), (4, 4), (gu_most, dn_most)}):
+        yield (f"(b) hopper BM 64 gate_up stages {st_gu} down stages {st_dn}",
+               (dense.hopper_plan("gate_up", c, d, f, 1, 64, 128)._replace(stages=st_gu),
+                dense.hopper_plan("stack", c, f, d, 1, 64, 256)._replace(stages=st_dn)))
+
+
+def sweep_flash(defaults, gen, rel, both, record) -> None:
+    """Kernel #7: the default plan and, unless ``defaults``, every Hopper
+    tile x ring depth, beside ``scaled_dot_product_attention``; each held
+    against the default plan (over the whole output: the per-row check is
+    ``chip_smoke.py``'s)."""
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    for label, sq, sk, h, kh, window, q_offset in FLASH_CASES:
+        q, k, v = (torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
+                   for s in ((1, sq, h, 128), (1, sk, kh, 128), (1, sk, kh, 128)))
+        kw = dict(window=window, q_offset=q_offset)
+        ref = fa.flash_attention(q, k, v, **kw)
+        lib_t = both(chip_smoke.sdpa_version(q, k, v, window, q_offset))
+        base = dict(case=label, kernel="flash_attention", sq=sq, sk=sk, h=h, kh=kh, **kw,
+                    library_ms=lib_t["ms"], library_device_ms=lib_t["device_ms"])
+        record(**base, plan="default", err=0.0, **both(lambda: fa.flash_attention(q, k, v, **kw)))
+        if defaults:
+            continue
+        plan = fa.flash_plan(torch.bfloat16, 1, sq, h, 128)
+        record(**base, plan=f"default = {plan.path} {plan.bq}x{plan.bkv} stages {plan.stages}",
+               err=0.0, ms=None)
+        cands = []
+        for bq, bkv in fa.WGMMA_TILES:
+            for st in range(1, 7):
+                if fa.wgmma_smem(bq, bkv, st) <= fa.SMEM:
+                    cands.append((f"wgmma {bq}x{bkv} stages {st}", fa.wgmma_plan(bq, bkv, st)))
+        for name, pl in cands:
+            got = fa.flash_attention(q, k, v, **kw, plan=pl)
+            record(**base, plan=name, err=rel(got, ref),
+                   **both(lambda: fa.flash_attention(q, k, v, **kw, plan=pl)))
+        del q, k, v, ref
+        torch.cuda.empty_cache()
 
 
 def sweep_reduce_dense(kernels, rnd, rel, ms, lib, record) -> None:
