@@ -452,7 +452,7 @@ def path_counts() -> dict:
     from repro_torch.kernels.split_gemm import dense, grouped
 
     paths = {"/".join(k): v for k, v in sorted((dense.PATHS + grouped.PATHS).items())}
-    paths.update({f"flash_attention/{flash_plan_label(p)}": v for p, v in sorted(fa.PATHS.items())})
+    paths.update({f"flash_attention/{fa.plan_label(p)}": v for p, v in sorted(fa.PATHS.items())})
     return paths
 
 
@@ -462,11 +462,6 @@ def clear_path_counts() -> None:
 
     for counter in (dense.PATHS, grouped.PATHS, fa.PATHS):
         counter.clear()
-
-
-def flash_plan_label(plan) -> str:
-    return (f"{plan.path} {plan.bq}x{plan.bkv} stages {plan.stages}" if plan.path == "wgmma"
-            else plan.path)
 
 
 def check_paths(label: str, paths: dict) -> None:
@@ -575,7 +570,7 @@ def run_flash_case(shp, gen) -> dict:
     window, q_offset = shp["window"], shp["q_offset"]
     q, k, v = (torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
                for s in ((b, sq, h, hd), (b, sk, kh, hd), (b, sk, kh, hd)))
-    plan = fa.flash_plan(q.dtype, b, sq, h, hd)
+    plan = fa.flash_plan(q.dtype, hd)
 
     def kern():
         return fa.flash_attention(q, k, v, window=window, q_offset=q_offset)
@@ -592,7 +587,7 @@ def run_flash_case(shp, gen) -> dict:
     lib = library().transpose(1, 2)
     torch.cuda.synchronize()
     if plan.path != "wgmma" or ran != 1:
-        fail(f"flash_attention {shp}: ran {flash_plan_label(plan)} ({ran} counted), not wgmma")
+        fail(f"flash_attention {shp}: ran {fa.plan_label(plan)} ({ran} counted), not wgmma")
     if not bitwise:
         fail(f"flash_attention {shp}: a second launch gave other bits")
     if not torch.isfinite(got).all():

@@ -20,15 +20,14 @@
 // Design, bf16 at hd 128 (every launch of the serving path; the wrapper's
 // plan, ops.py::flash_plan, a pure function of the shapes, picks the
 // tiles): warp-specialised like split_hopper.cuh, on hopper.cuh's helpers.
-// A block owns BQ = 64 * CW query rows of one head (CW = 2 consumer
-// warpgroups of 64 rows, or 1) and a producer warpgroup whose first thread
-// issues every load: the q tile once, then the visible key tiles of BKV
-// keys (128 or 64), heaviest first (the diagonal tile, then down), each K
+// A block owns 128 query rows of one head (two consumer warpgroups of 64
+// rows) and a producer warpgroup whose first thread issues every load: the
+// q tile once, then the visible key tiles of 128 keys, heaviest first (the diagonal tile, then down), each K
 // and V tile by TMA through 4-d tensor maps over the (B, Sk, Kh, hd)
 // tensors (two 64-column boxes, 128-byte swizzle) into a ring of stages
 // with a K-full, a V-full and an empty mbarrier each. Each consumer
 // warpgroup scales its q rows in shared memory (rounded to bf16), then per
-// key tile: S = q K^T by wgmma m64nBKVk16 from shared memory (A = q and B
+// key tile: S = q K^T by wgmma m64n128k16 from shared memory (A = q and B
 // = K, both K-major); mask (boundary tiles only); online softmax on the
 // accumulator fragment (a row lives in a quad of lanes: two shuffles for
 // the max, the row sum kept per thread until the end, exp2 with log2(e)
@@ -37,8 +36,8 @@
 // bit), so p never touches shared memory; then the warpgroup releases the
 // stage. The two consumer warpgroups interleave their softmax and their
 // tensor-core work on the SM (setmaxnreg moves registers from the producer
-// to them); one consumer warpgroup with 64-key tiles runs two blocks an SM. The output, O / max(l, 1e-30) in bf16, is staged in
-// the warpgroup's q tile in the 128-byte-swizzled layout and written by a
+// to them). The output, O / max(l, 1e-30) in bf16, is staged in the
+// warpgroup's q tile in the 128-byte-swizzled layout and written by a
 // TMA store, which clips the rows past Sq. Blocks run heaviest query
 // tiles first, and the query heads that share a kv head are adjacent
 // blocks, so their K/V reads hit L2. Only the key tiles that intersect
@@ -476,24 +475,21 @@ constexpr int Q_BOX = BOX_ROWS * ROW;    // 8 KB
 constexpr int Q_WG = 2 * Q_BOX;          // one warpgroup's q tile: two 64-column boxes
 constexpr float L2E = 1.4426950408889634f;
 
-// The block tile: CW consumer warpgroups of 64 query rows (BQ 64 or 128),
-// key tiles of BKV keys (64 or 128).
-template <int CW_, int BKV_>
+// The block tile: CW consumer warpgroups of 64 query rows, key tiles of
+// BKV keys (the tile that won at every prefill shape of the serving path:
+// tools/sweep_dense_plans.py, PERF.md).
 struct WgTile {
-  static constexpr int CW = CW_, BKV = BKV_, BQ = 64 * CW;
+  static constexpr int CW = 2, BKV = 128, BQ = 64 * CW;
   static constexpr int THREADS = 128 * (CW + 1);  // + the producer warpgroup
   static constexpr int Q_BYTES = CW * Q_WG;
   static constexpr int KV_BOX = BKV * ROW;        // one 64-column box of a K or V tile
   static constexpr int KV_BYTES = 2 * KV_BOX;
   static constexpr int STAGE = 2 * KV_BYTES;      // K then V
-  // one consumer warpgroup with 64-key tiles fits two blocks an SM (128
-  // registers a thread); with 128-key tiles it takes the SM (no spills)
-  static constexpr int MIN_BLOCKS = CW == 1 && BKV == 64 ? 2 : 1;
 };
+using TL = WgTile;
 
 // Dynamic shared memory: 1024 bytes of alignment slack, the q tile, the
 // stages, the q barrier and three barriers per stage.
-template <class TL>
 inline size_t wg_smem_bytes(int stages) {
   return 1024 + TL::Q_BYTES + (size_t)stages * TL::STAGE + 8 * (1 + 3 * (size_t)stages);
 }
@@ -504,17 +500,16 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// S (64 x BKV) = q (64 x 128) @ K^T: A the warpgroup's q tile, B the K tile
-// (BKV keys x 128, K-major); both two 64-column boxes, 128-byte swizzle.
-template <int BKV>
-__device__ __forceinline__ void qk_wgmma(float (&s)[BKV / 2], uint32_t q, uint32_t k) {
+// S (64 x 128 keys) = q (64 x 128) @ K^T: A the warpgroup's q tile, B the
+// K tile (128 keys x 128, K-major); both two 64-column boxes, 128-byte
+// swizzle.
+__device__ __forceinline__ void qk_wgmma(float (&s)[TL::BKV / 2], uint32_t q, uint32_t k) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < WG_HD / 16; ++kk) {
     const uint64_t da = smem_desc(q + (kk / 4) * Q_BOX + (kk % 4) * 32, 16, 1024);
-    const uint64_t db = smem_desc(k + (kk / 4) * (BKV * ROW) + (kk % 4) * 32, 16, 1024);
-    if constexpr (BKV == 128) wgmma_m64n128<0>(s, da, db);
-    else wgmma_m64n64<0>(s, da, db);
+    const uint64_t db = smem_desc(k + (kk / 4) * TL::KV_BOX + (kk % 4) * 32, 16, 1024);
+    wgmma_m64n128<0>(s, da, db);
   }
   wgmma_commit();
 }
@@ -522,13 +517,12 @@ __device__ __forceinline__ void qk_wgmma(float (&s)[BKV / 2], uint32_t q, uint32
 // grid: one block per (head, query tile, batch row), heads fastest, the
 // heaviest query tiles first. q_map / o_map: (hd, H, Sq, B), boxes (64, 1,
 // 64, 1); k_map / v_map: (hd, Kh, Sk, B), boxes (64, 1, BKV, 1).
-template <int CW, int BKV>
-__global__ void __launch_bounds__(WgTile<CW, BKV>::THREADS, WgTile<CW, BKV>::MIN_BLOCKS)
+__global__ void __launch_bounds__(TL::THREADS, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                 const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap v_map,
                 const __grid_constant__ CUtensorMap o_map, Geo g, int stages) {
-  using TL = WgTile<CW, BKV>;
+  constexpr int CW = TL::CW, BKV = TL::BKV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -560,7 +554,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int wg = threadIdx.x / 128;
   if (wg == CW) {
     // ---- producer ------------------------------------------------------
-    if constexpr (CW == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == CW * 128) {
       const int q_wgs = min(CW, (g.sq - q0 + 63) / 64);  // warpgroups with rows
       mbar_expect_tx(q_full, q_wgs * Q_WG);
@@ -586,7 +580,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     // ---- consumers -----------------------------------------------------
-    if constexpr (CW == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int gq = lane / 4, tq = lane % 4;
     const int r0 = q0 + 64 * wg, r1 = min(r0 + 64, g.sq);  // this warpgroup's rows
@@ -627,7 +621,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         float s[BKV / 2];
         zero(s);
         fence_regs(s);
-        qk_wgmma<BKV>(s, q_w, kt);
+        qk_wgmma(s, q_w, kt);
         wgmma_wait<0>();
         fence_regs(s);
         if (!tile_full<BKV>(g, r0, r1, k0)) {
@@ -717,27 +711,25 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
 // The maps of the Hopper path: q and out (hd, H, Sq, B) in 64-row boxes,
 // k and v (hd, Kh, Sk, B) in BKV-row boxes.
-template <int CW, int BKV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, int b, const Geo& g,
                  int stages, cudaStream_t st) {
-  using TL = WgTile<CW, BKV>;
-  const size_t smem = wg_smem_bytes<TL>(stages);
+  const size_t smem = wg_smem_bytes(stages);
   if (stages < 1 || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   CUtensorMap qm, km, vm, om;
   const uint64_t qdims[4] = {WG_HD, (uint64_t)g.h, (uint64_t)g.sq, (uint64_t)b};
   const uint64_t kdims[4] = {WG_HD, (uint64_t)g.kh, (uint64_t)g.sk, (uint64_t)b};
-  const uint32_t qbox[4] = {64, 1, BOX_ROWS, 1}, kbox[4] = {64, 1, BKV, 1};
+  const uint32_t qbox[4] = {64, 1, BOX_ROWS, 1}, kbox[4] = {64, 1, TL::BKV, 1};
   int err = make_map(&qm, q, 4, qdims, qbox);
   if (!err) err = make_map(&om, out, 4, qdims, qbox);
   if (!err) err = make_map(&km, k, 4, kdims, kbox);
   if (!err) err = make_map(&vm, v, 4, kdims, kbox);
   if (err) return err;
   // set on every launch (see split_hopper.cuh hopper_launch)
-  err = (int)cudaFuncSetAttribute(fa_wgmma_kernel<CW, BKV>,
+  err = (int)cudaFuncSetAttribute(fa_wgmma_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return ATTR_ERROR + err;
   const unsigned grid = (unsigned)g.h * cdiv(g.sq, TL::BQ) * (unsigned)b;
-  fa_wgmma_kernel<CW, BKV><<<grid, TL::THREADS, smem, st>>>(qm, km, vm, om, g, stages);
+  fa_wgmma_kernel<<<grid, TL::THREADS, smem, st>>>(qm, km, vm, om, g, stages);
   return (int)cudaGetLastError();
 }
 
@@ -756,24 +748,19 @@ int launch(Kern kern, const void* q, const void* k, const void* v, void* out, in
 
 // dtype codes shared with the Python wrapper: 0 = float32, 1 = bfloat16.
 // The plan (ops.py flash_plan): path 1 = the Hopper kernel (bf16, hd 128)
-// with bq query rows (64 or 128), bkv keys per tile (64 or 128) and that
-// many ring stages; path 0 = the earlier kernels (fp32 at hd 64 or 128,
+// with that many ring stages; path 0 = the earlier kernels (fp32 at hd 64 or 128,
 // bf16 at hd 64).
 // q, k, v and out must be 16-byte aligned; the wrapper checks shapes,
 // types and layout.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out, int b,
                                int sq, int sk, int h, int kh, int hd, int q_offset, int window,
-                               int dtype, int path, int bq, int bkv, int stages, void* stream) {
+                               int dtype, int path, int stages, void* stream) {
   if (b == 0 || sq == 0) return 0;
   const fa::Geo g{sq, sk, h, kh, q_offset, window, (float)(1.0 / sqrt((double)hd))};
   cudaStream_t st = (cudaStream_t)stream;
   if (path == 1) {
     if (dtype != 1 || hd != fa::WG_HD) return (int)cudaErrorInvalidValue;
-    if (bq == 128 && bkv == 128) return fa::launch_wgmma<2, 128>(q, k, v, out, b, g, stages, st);
-    if (bq == 64 && bkv == 128) return fa::launch_wgmma<1, 128>(q, k, v, out, b, g, stages, st);
-    if (bq == 128 && bkv == 64) return fa::launch_wgmma<2, 64>(q, k, v, out, b, g, stages, st);
-    if (bq == 64 && bkv == 64) return fa::launch_wgmma<1, 64>(q, k, v, out, b, g, stages, st);
-    return (int)cudaErrorInvalidValue;
+    return fa::launch_wgmma(q, k, v, out, b, g, stages, st);
   }
   if (path != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {

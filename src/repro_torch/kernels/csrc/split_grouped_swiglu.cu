@@ -27,8 +27,9 @@
 // 63 zero rows of each tile cost tensor work (~1.5 ms of the tensor
 // cores) well under the weight bytes' 6.7 ms, and 4-5 ring stages keep
 // ~160-200 KB of loads in flight per SM: ~96 % of the byte bound on the
-// H100, ahead of split_hopper.cuh's few-row kernel (the other decode
-// design, a tuning candidate) and of the per-bank torch.bmm composition.
+// H100, ahead of split_hopper.cuh's few-row kernels extended per expert
+// (the other decode design, timed and dropped: PERF.md) and of the
+// per-bank torch.bmm composition.
 // fp32 and other widths keep split_tile.cuh's launchers.
 // No atomics: each output element has one fp32 accumulator in a fixed k
 // order, so the result is deterministic and a row's result never depends
@@ -39,9 +40,9 @@
 extern "C" int split_grouped_swiglu(const void* x, const void* g_local, const void* u_local,
                                     const void* d_local, const void* g_remote,
                                     const void* u_remote, const void* d_remote, void* h,
-                                    void* out, void* scratch, int e_local, int e_remote, int c,
-                                    int d, int f, int dtype, int gu_path, int gu_bm, int gu_bn,
-                                    int gu_stages, int gu_splits, int gu_chunk, int dn_path,
+                                    void* out, int e_local, int e_remote, int c, int d, int f,
+                                    int dtype, int gu_path, int gu_bm, int gu_bn, int gu_stages,
+                                    int gu_splits, int gu_chunk, int dn_path,
                                     int dn_bm, int dn_bn, int dn_stages, int dn_splits,
                                     int dn_chunk, void* stream) {
   const int e = e_local + e_remote;
@@ -51,8 +52,8 @@ extern "C" int split_grouped_swiglu(const void* x, const void* g_local, const vo
     const split_hopper::Plan gu{gu_path, gu_bm, gu_bn, gu_stages, gu_splits, gu_chunk};
     const split_hopper::Plan dn{dn_path, dn_bm, dn_bn, dn_stages, dn_splits, dn_chunk};
     return split_hopper::launch_grouped_swiglu(x, g_local, u_local, d_local, g_remote, u_remote,
-                                               d_remote, h, out, (float*)scratch, nullptr,
-                                               e_local, e, c, d, f, gu, dn, st);
+                                               d_remote, h, out, nullptr, e_local, e, c, d, f,
+                                               gu, dn, st);
   }
   int err = SPLIT_DISPATCH(dtype, c, split_tile::launch_gate_up, x, (long)c * d, g_local,
                            u_local, g_remote, u_remote, h, e_local, e, c, d, f, st);

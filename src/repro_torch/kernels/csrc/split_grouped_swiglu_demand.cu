@@ -17,9 +17,9 @@
 // kernel #2's plan for the same C, D and F (grouped.py::plan_grouped),
 // with the valid vector passed to both: on split_hopper.cuh's Hopper path
 // (every capacity in bf16, decode included) a padding expert's producer
-// issues no loads and its block writes zeros (so do its few-row kernels,
-// a tuning candidate); on split_tile.cuh's launchers (fp32, other widths)
-// a padding expert's block exits without reading weights (skip_expert). A
+// issues no loads and its block writes zeros; on split_tile.cuh's
+// launchers (fp32, other widths) a padding expert's block exits without
+// reading weights (skip_expert). A
 // real expert runs the very code of kernel #2, so its (C, D) block is
 // bitwise kernel #2's for the same rows and weights: the demand,
 // predictive and sync-free decodes give the all-fetch decode's bits.
@@ -42,10 +42,9 @@ extern "C" int split_grouped_swiglu_demand(const void* x, const void* g_local,
     if (dtype != 1) return (int)cudaErrorInvalidValue;
     const split_hopper::Plan gu{gu_path, gu_bm, gu_bn, gu_stages, gu_splits, gu_chunk};
     const split_hopper::Plan dn{dn_path, dn_bm, dn_bn, dn_stages, dn_splits, dn_chunk};
-    // kernel #2's default plans: no k split, no scratch
     return split_hopper::launch_grouped_swiglu(x, g_local, u_local, d_local, g_fetched,
-                                               u_fetched, d_fetched, h, out, nullptr, v,
-                                               e_local, e, c, d, f, gu, dn, st);
+                                               u_fetched, d_fetched, h, out, v, e_local, e, c, d,
+                                               f, gu, dn, st);
   }
   int err = SPLIT_DISPATCH(dtype, c, split_tile::launch_gate_up, x, (long)c * d, g_local,
                            u_local, g_fetched, u_fetched, h, e_local, e, c, d, f, st, v);

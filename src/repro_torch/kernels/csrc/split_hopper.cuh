@@ -52,10 +52,9 @@
 // the 8 warps of a block are summed in warp order through shared memory.
 // They split the k rows over ~250-2000 blocks to fill all 132 SMs into
 // fp32 partials that a second launch sums in order (and applies silu * up
-// for gate_up). They also take an activation per slice and the valid
-// bytes of #3, and without a k split write their bf16 output themselves:
-// the grouped kernels' decode design that the Hopper path beat
-// (tools/sweep_dense_plans.py). Bound: the weight bytes at 3.35 TB/s.
+// for gate_up). Bound: the weight bytes at 3.35 TB/s. (Extended with an
+// activation per expert and #3's valid bytes, they lost to the Hopper path
+// as the grouped kernels' decode design: PERF.md.)
 //
 // Every sum runs in a fixed order that depends on the shapes only, and a
 // row's result never reads another row's data: repeated launches give the
@@ -369,10 +368,12 @@ __device__ __forceinline__ void fr_fma(float (&acc)[FR_MAXM][8], const uint4& w,
   }
 }
 
-// Each warp's sums into red, visible to the whole block.
+// Sum the FR_WARPS warps' sums in warp order and store the rows < M of
+// this block's columns (< N) at dst[nb] + m * N + n0 + col.
 template <int NB>
-__device__ __forceinline__ void fr_stage(float (&red)[FR_WARPS][NB][FR_MAXM][FR_COLS],
-                                         const float (&acc)[NB][FR_MAXM][8]) {
+__device__ __forceinline__ void fr_store(float (&red)[FR_WARPS][NB][FR_MAXM][FR_COLS],
+                                         const float (&acc)[NB][FR_MAXM][8], float* const* dst,
+                                         int M, int N, int n0) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb)
@@ -381,15 +382,6 @@ __device__ __forceinline__ void fr_stage(float (&red)[FR_WARPS][NB][FR_MAXM][FR_
 #pragma unroll
       for (int v = 0; v < 8; ++v) red[warp][nb][m][lane * 8 + v] = acc[nb][m][v];
   __syncthreads();
-}
-
-// Sum the FR_WARPS warps' sums in warp order and store the rows < M of
-// this block's columns (< N) at dst[nb] + m * N + n0 + col.
-template <int NB>
-__device__ __forceinline__ void fr_store(float (&red)[FR_WARPS][NB][FR_MAXM][FR_COLS],
-                                         const float (&acc)[NB][FR_MAXM][8], float* const* dst,
-                                         int M, int N, int n0) {
-  fr_stage<NB>(red, acc);
   for (int idx = threadIdx.x; idx < NB * FR_MAXM * FR_COLS; idx += FR_THREADS) {
     const int nb = idx / (FR_MAXM * FR_COLS), m = (idx / FR_COLS) % FR_MAXM, col = idx % FR_COLS;
     if (m >= M || n0 + col >= N) continue;
@@ -397,30 +389,6 @@ __device__ __forceinline__ void fr_store(float (&red)[FR_WARPS][NB][FR_MAXM][FR_
 #pragma unroll
     for (int w = 0; w < FR_WARPS; ++w) s += red[w][nb][m][col];
     dst[nb][(long)m * N + n0 + col] = s;
-  }
-}
-
-// fr_store's warp-order sums written as the final bf16 output at out + m *
-// N + n0 + col (a launch without a k split): silu(gate) * up for NB 2 (the
-// gate_up op), the sum for NB 1. The same sums and the same arithmetic as
-// fr_store followed by finish_gate_up_kernel / finish_reduce_kernel at one
-// split, so the same bits.
-template <int NB>
-__device__ __forceinline__ void fr_store_bf16(float (&red)[FR_WARPS][NB][FR_MAXM][FR_COLS],
-                                              const float (&acc)[NB][FR_MAXM][8], bf16* out,
-                                              int M, int N, int n0) {
-  fr_stage<NB>(red, acc);
-  for (int idx = threadIdx.x; idx < FR_MAXM * FR_COLS; idx += FR_THREADS) {
-    const int m = idx / FR_COLS, col = idx % FR_COLS;
-    if (m >= M || n0 + col >= N) continue;
-    float s[NB];
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      s[nb] = 0.f;
-#pragma unroll
-      for (int w = 0; w < FR_WARPS; ++w) s[nb] += red[w][nb][m][col];
-    }
-    out[(long)m * N + n0 + col] = __float2bfloat16_rn(NB == 2 ? silu_mul(s[0], s[NB - 1]) : s[0]);
   }
 }
 
@@ -466,21 +434,14 @@ fr_reduce_kernel(const bf16* __restrict__ A, const bf16* __restrict__ w_local,
   fr_store<1>(red, acc, dst, M, N, n0);
 }
 
-// part (ksplit, MATS, S, M, N): the split's k rows of x[s] @ W0(s) and,
-// for gate_up (MATS 2), of x[s] @ W1(s); 8 loads in flight per thread
-// either way. x[s] = x + s * a_stride (a_stride 0: one activation shared
-// by every slice; M * K: one per slice, the grouped kernels' experts).
-// valid (nullptr, or a byte per slice of the second bank): a slice marked
-// 0 is padding and issues no weight loads; its sums are zeros. out
-// (non-null only without a k split): the bf16 result is written there
-// (fr_store_bf16) instead of fp32 partials.
+// part (ksplit, MATS, S, M, N): the split's k rows of x @ W0(s) and, for
+// gate_up (MATS 2), of x @ W1(s); 8 loads in flight per thread either way.
 template <int MATS>
 __global__ void __launch_bounds__(FR_THREADS)
 fr_slices_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0_local,
                  const bf16* __restrict__ w1_local, const bf16* __restrict__ w0_remote,
-                 const bf16* __restrict__ w1_remote, float* __restrict__ part,
-                 bf16* __restrict__ out, const unsigned char* __restrict__ valid, long a_stride,
-                 int n_local, int n_slices, int M, int K, int N, int chunk) {
+                 const bf16* __restrict__ w1_remote, float* __restrict__ part, int n_local,
+                 int n_slices, int M, int K, int N, int chunk) {
   constexpr int U = MATS == 2 ? FR_UNROLL : FR_UNROLL_R;
   __shared__ float red[FR_WARPS][MATS][FR_MAXM][FR_COLS];
   const int n0 = blockIdx.x * FR_COLS, s = blockIdx.y, z = blockIdx.z;
@@ -488,13 +449,11 @@ fr_slices_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0_local,
   const int k0 = z * chunk, k1 = min(K, k0 + chunk);
   const int c = n0 + lane * 8;
   const bool loc = s < n_local;
-  const bool real = loc || valid == nullptr || valid[s - n_local] != 0;
   const long off = (long)(loc ? s : s - n_local) * K * N;
   const bf16* w[2] = {(loc ? w0_local : w0_remote) + off,
                       MATS == 2 ? (loc ? w1_local : w1_remote) + off : nullptr};
-  x += s * a_stride;
   float acc[MATS][FR_MAXM][8] = {};
-  if (c < N && real) {
+  if (c < N) {
     for (int k = k0 + warp; k < k1; k += FR_WARPS * U) {
       uint4 wv[MATS][U];
       float a[U][FR_MAXM];
@@ -518,10 +477,6 @@ fr_slices_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0_local,
 #pragma unroll
         for (int j = 0; j < MATS; ++j) fr_fma(acc[j], wv[j][u], a[u]);
     }
-  }
-  if (out != nullptr) {
-    fr_store_bf16<MATS>(red, acc, out + (long)s * M * N, M, N, n0);
-    return;
   }
   const long plane = (long)n_slices * M * N;
   float* dst[MATS];
@@ -641,8 +596,8 @@ inline int launch_reduce(const void* A, const void* wl, const void* wr, void* ou
 // (b0 the gate banks, b1 the up banks); STACK out[s] (M, N) = A @ W(s) (b0
 // the banks, b1 unused). A is (M, K), shared by every slice (a_slices 1),
 // or (S, M, K), one per slice (a_slices S: the grouped kernels' experts).
-// Banks (S_l, K, N) / (S - S_l, K, N). scratch: fp32 partials (split k).
-// valid: see hopper_kernel and fr_slices_kernel.
+// Banks (S_l, K, N) / (S - S_l, K, N). scratch: fp32 partials (few-row
+// path, split k). valid: see hopper_kernel (Hopper path only).
 template <int OP>
 inline int launch_slices(const void* A, int a_slices, const void* b0l, const void* b1l,
                          const void* b0r, const void* b1r, void* out, float* scratch,
@@ -653,17 +608,16 @@ inline int launch_slices(const void* A, int a_slices, const void* b0l, const voi
   const long count = (long)n_slices * M * N;
   if (a_slices != 1 && a_slices != n_slices) return (int)cudaErrorInvalidValue;
   if (p.path == PATH_FEW_ROW) {
-    if (M > FR_MAXM || p.chunk < 1 || p.splits != (int)cdiv(K, p.chunk))
+    // one activation for every slice, every slice real
+    if (M > FR_MAXM || a_slices != 1 || valid != nullptr || p.chunk < 1 ||
+        p.splits != (int)cdiv(K, p.chunk))
       return (int)cudaErrorInvalidValue;
-    // one split: the kernel writes the bf16 output itself
-    bf16* direct = p.splits == 1 ? (bf16*)out : nullptr;
     dim3 grid(cdiv(N, FR_COLS), n_slices, p.splits);
     fr_slices_kernel<OP == GATE_UP ? 2 : 1><<<grid, FR_THREADS, 0, st>>>(
         (const bf16*)A, (const bf16*)b0l, (const bf16*)b1l, (const bf16*)b0r, (const bf16*)b1r,
-        scratch, direct, valid, a_slices > 1 ? (long)M * K : 0, n_local, n_slices, M, K, N,
-        p.chunk);
+        scratch, n_local, n_slices, M, K, N, p.chunk);
     const int err = (int)cudaGetLastError();
-    if (err || direct != nullptr) return err;
+    if (err) return err;
     if (OP == STACK) return finish_reduce(scratch, out, p.splits, count, st);
     finish_gate_up_kernel<<<cdiv(count / 2, 256), 256, 0, st>>>(scratch, (bf16*)out, p.splits,
                                                                 count);
@@ -689,26 +643,22 @@ inline int launch_slices(const void* A, int a_slices, const void* b0l, const voi
   return finish_reduce(scratch, out, p.splits, count, st);
 }
 
-// The grouped SwiGLU (kernels #2 and #3): x (E, C, D), gate/up banks (E_l,
-// D, F) / (E - E_l, D, F), down banks (E_l, F, D) / (E - E_l, F, D).
-// Launch 1 (GATE_UP, A per expert) writes h (E, C, F); launch 2 (STACK, A
-// per expert) writes out (E, C, D). Each launch runs the Hopper path (every
-// weight byte streamed once per m tile; at C <= BM all of an expert's rows
-// sit in one) or, as a tuning candidate at most 2 rows, the few-row path
-// (256 columns of one expert per block). scratch: fp32 partials of a
-// launch whose plan splits k (few-row path), shared by the two launches.
+// The grouped SwiGLU (kernels #2 and #3) on the Hopper path: x (E, C, D),
+// gate/up banks (E_l, D, F) / (E - E_l, D, F), down banks (E_l, F, D) /
+// (E - E_l, F, D). Launch 1 (GATE_UP, A per expert) writes h (E, C, F);
+// launch 2 (STACK, A per expert) writes out (E, C, D). Every weight byte is
+// streamed once per m tile; at C <= BM all of an expert's rows sit in one.
 inline int launch_grouped_swiglu(const void* x, const void* gl, const void* ul, const void* dl,
                                  const void* gr, const void* ur, const void* dr, void* h,
-                                 void* out, float* scratch, const unsigned char* valid,
-                                 int n_local, int E, int C, int D, int F, const Plan& gu,
-                                 const Plan& dn, cudaStream_t st) {
-  const bool ok_gu = gu.path == PATH_HOPPER || gu.path == PATH_FEW_ROW;
-  const bool ok_dn = dn.path == PATH_FEW_ROW || (dn.path == PATH_HOPPER && dn.splits == 1);
-  if (!ok_gu || !ok_dn) return (int)cudaErrorInvalidValue;
-  const int err = launch_slices<GATE_UP>(x, E, gl, ul, gr, ur, h, scratch, valid, n_local, E, C,
+                                 void* out, const unsigned char* valid, int n_local, int E,
+                                 int C, int D, int F, const Plan& gu, const Plan& dn,
+                                 cudaStream_t st) {
+  if (gu.path != PATH_HOPPER || dn.path != PATH_HOPPER || dn.splits != 1)
+    return (int)cudaErrorInvalidValue;
+  const int err = launch_slices<GATE_UP>(x, E, gl, ul, gr, ur, h, nullptr, valid, n_local, E, C,
                                          D, F, gu, st);
   if (err) return err;
-  return launch_slices<STACK>(h, E, dl, nullptr, dr, nullptr, out, scratch, valid, n_local, E, C,
+  return launch_slices<STACK>(h, E, dl, nullptr, dr, nullptr, out, nullptr, valid, n_local, E, C,
                               F, D, dn, st);
 }
 

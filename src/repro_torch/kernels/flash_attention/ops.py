@@ -13,9 +13,9 @@ out like q; query head ``h`` reads kv head ``h // (H // Kh)``; query row
 
 On the card each launch runs the plan ``flash_plan`` picks from the
 shapes: "wgmma" (bf16 at hd 128, every launch of the serving path: TMA-fed
-K/V tiles, wgmma, 128 or 64 query rows a block) or "mma" (fp32, and bf16
-at hd 64: the earlier mma.sync / FMA kernels; bf16 at hd 128 has no
-"mma" kernel).
+K/V tiles, wgmma, 128 query rows and 128-key tiles a block) or "mma"
+(fp32, and bf16 at hd 64: the earlier mma.sync / FMA kernels; bf16 at hd
+128 has no "mma" kernel).
 
 The plain version, ``flash_attention_torch`` (online softmax over
 512-key blocks, every block visited and masked), is also the port's
@@ -31,16 +31,17 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels._launch import DTYPE_CODES, CudaKernel, on_cpu
-from repro_torch.kernels.split_gemm.dense import SMEM, SMS
+from repro_torch.kernels.split_gemm.dense import SMEM
 
 NEG_INF = -1e30
 
-FLASH_ATTENTION = CudaKernel("flash_attention", n_ptrs=4, n_ints=13)
+FLASH_ATTENTION = CudaKernel("flash_attention", n_ptrs=4, n_ints=11)
 #: head dims the kernel is built for
 HEAD_DIMS = (64, 128)
-#: (query rows, keys per tile) of the Hopper kernel (csrc/flash_attention.cu
-#: launch_wgmma): 128 rows are two consumer warpgroups, 64 one
-WGMMA_TILES = ((128, 128), (64, 128), (128, 64), (64, 64))
+#: query rows (two consumer warpgroups) and keys per tile of the Hopper
+#: kernel (csrc/flash_attention.cu WgTile): the tile that won at every
+#: prefill shape of the serving path (tools/sweep_dense_plans.py, PERF.md)
+WGMMA_BQ = WGMMA_BKV = 128
 PATH_CODES = {"mma": 0, "wgmma": 1}
 #: Launches per plan on the card, counted by the wrapper.
 PATHS: collections.Counter = collections.Counter()
@@ -48,46 +49,42 @@ PATHS: collections.Counter = collections.Counter()
 
 class FlashPlan(NamedTuple):
     path: str      # "wgmma" | "mma"
-    bq: int        # query rows per block (wgmma)
-    bkv: int       # keys per tile (wgmma)
     stages: int    # K/V ring stages (wgmma)
 
     def ints(self) -> list:
-        return [PATH_CODES[self.path], self.bq, self.bkv, self.stages]
+        return [PATH_CODES[self.path], self.stages]
 
 
-def wgmma_smem(bq: int, bkv: int, stages: int) -> int:
+def plan_label(plan: FlashPlan) -> str:
+    return (f"wgmma {WGMMA_BQ}x{WGMMA_BKV} stages {plan.stages}" if plan.path == "wgmma"
+            else plan.path)
+
+
+def wgmma_smem(stages: int) -> int:
     """Shared memory of the Hopper kernel: alignment slack, the q tile,
     the K/V stages and their barriers (csrc/flash_attention.cu
     wg_smem_bytes)."""
-    return 1024 + bq * 256 + stages * 4 * bkv * 128 + 8 * (1 + 3 * stages)
+    return 1024 + WGMMA_BQ * 256 + stages * 4 * WGMMA_BKV * 128 + 8 * (1 + 3 * stages)
 
 
-def wgmma_plan(bq: int, bkv: int, stages: int | None = None) -> FlashPlan:
-    """The Hopper launch with a (bq, bkv) tile and ``stages`` ring stages
-    (default: as many as fit, at most 3)."""
-    if (bq, bkv) not in WGMMA_TILES:
-        raise ValueError(f"flash_attention: no {bq} x {bkv} Hopper tile")
+def wgmma_plan(stages: int | None = None) -> FlashPlan:
+    """The Hopper launch with ``stages`` ring stages (default: as many as
+    fit, 3)."""
     if stages is None:
-        stages = max(s for s in (1, 2, 3) if wgmma_smem(bq, bkv, s) <= SMEM)
-    if stages < 1 or wgmma_smem(bq, bkv, stages) > SMEM:
-        raise ValueError(f"flash_attention: {stages} stages of a {bq} x {bkv} tile do not fit")
-    return FlashPlan("wgmma", bq, bkv, stages)
+        stages = max(s for s in (1, 2, 3) if wgmma_smem(s) <= SMEM)
+    if stages < 1 or wgmma_smem(stages) > SMEM:
+        raise ValueError(f"flash_attention: {stages} ring stages do not fit")
+    return FlashPlan("wgmma", stages)
 
 
 @functools.lru_cache(maxsize=None)  # a pure function, on every launch's host path
-def flash_plan(dtype: torch.dtype, b: int, sq: int, h: int, hd: int) -> FlashPlan:
-    """The launch plan of one flash attention call, a pure function of
-    its shapes: bf16 at hd 128 runs "wgmma", with 128 query rows (two
-    consumer warpgroups) and 128-key tiles where those blocks fill the
-    SMS at least once, else 64 rows and 64-key tiles in 2 stages (two
-    blocks an SM, twice the blocks); anything else "mma" (the earlier
-    kernels)."""
+def flash_plan(dtype: torch.dtype, hd: int) -> FlashPlan:
+    """The launch plan of one flash attention call: bf16 at hd 128 runs
+    "wgmma" with the most ring stages that fit; anything else "mma" (the
+    earlier kernels)."""
     if dtype != torch.bfloat16 or hd != 128:
-        return FlashPlan("mma", 0, 0, 0)
-    if b * h * -(-sq // 128) >= SMS:
-        return wgmma_plan(128, 128)
-    return wgmma_plan(64, 64, 2)
+        return FlashPlan("mma", 0)
+    return wgmma_plan()
 
 
 def flash_attention_torch(
@@ -186,7 +183,7 @@ def flash_attention(q, k, v, *, window: int = 0, q_offset: int = 0, impl=None,
     sk, kh = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {hd} is not built (kernel head dims {HEAD_DIMS})")
-    plan = plan or flash_plan(q.dtype, b, sq, h, hd)
+    plan = plan or flash_plan(q.dtype, hd)
     out = torch.empty_like(q)
     FLASH_ATTENTION.launch([q, k, v, out], [b, sq, sk, h, kh, hd, q_offset, window,
                                             DTYPE_CODES[q.dtype], *plan.ints()])

@@ -47,9 +47,10 @@ HOPPER_TILE_CHECK = CudaKernel("split_hopper_tile_check", n_ptrs=3, n_ints=1,
 # Plans (csrc/split_hopper.cuh; the constants below are its own).
 # --------------------------------------------------------------------------
 #: C path codes: split_tile.cuh's launchers (mma.sync or FMA tiles, and its
-#: few-row register path at <= 2 rows), the Hopper mainloop,
+#: few-row register path at <= 2 rows, which the grouped kernels name
+#: "tile_few_row" for fp32 and other widths), the Hopper mainloop,
 #: split_hopper.cuh's few-row kernels.
-PATH_CODES = {"mma": 0, "fma": 0, "hopper": 1, "few_row": 2}
+PATH_CODES = {"mma": 0, "fma": 0, "tile_few_row": 0, "hopper": 1, "few_row": 2}
 SMS = 132                      # H100 SXM streaming multiprocessors
 SMEM = 232448                  # shared memory of one block
 HOPPER_BK = 64
@@ -87,7 +88,7 @@ def row_class(rows: int) -> str:
 
 
 class Plan(NamedTuple):
-    path: str          # "hopper" | "few_row" | "mma" | "fma"
+    path: str          # "hopper" | "few_row" | "mma" | "fma" | "tile_few_row"
     tile: tuple        # (BM, BN, BK) of the hopper path, () otherwise
     stages: int        # ring stages (hopper)
     splits: int        # k splits: fp32 partials summed in order by a second launch

@@ -22,8 +22,9 @@ merged bank is built.
 launches (gate/up, down) that ``plan_grouped`` picks from the per-expert
 shapes: in bf16 ``hopper`` (``csrc/split_hopper.cuh``: TMA, an mbarrier
 ring and wgmma, the activation read per expert) at every capacity, decode
-(C 1) included; ``split_tile.cuh``'s launchers (``mma``/``fma`` as in
-``dense.plan_split``) for fp32 and other widths. The demand kernel runs
+(C 1) included; ``split_tile.cuh``'s launchers for fp32 and other widths
+(``tile_few_row``, its few-row register kernels, at 2 rows or fewer;
+``mma``/``fma`` as in ``dense.plan_split`` above). The demand kernel runs
 the plan of kernel #2 for the same shapes, so its real experts get #2's
 bits. ``PATHS`` counts the launches of each path.
 """
@@ -42,16 +43,15 @@ from repro_torch.kernels._launch import (
     on_cpu,
 )
 from repro_torch.kernels.split_gemm.dense import (
+    FEW_ROW_MAXM,
     Plan,
     _aligned,
-    _cdiv,
-    _scratch,
     hopper_plan,
     row_class,
 )
 from repro_torch.models.moe import grouped_ffn
 
-GROUPED_SWIGLU = CudaKernel("split_grouped_swiglu", n_ptrs=10, n_ints=18)
+GROUPED_SWIGLU = CudaKernel("split_grouped_swiglu", n_ptrs=9, n_ints=18)
 GROUPED_SWIGLU_DEMAND = CudaKernel("split_grouped_swiglu_demand", n_ptrs=10, n_ints=18)
 GROUPED_GEMM = CudaKernel("split_grouped_gemm", n_ptrs=4, n_ints=6)
 
@@ -71,41 +71,30 @@ def plan_grouped(op: str, dtype: torch.dtype, rows: int, k: int, n: int,
     per-expert shapes, never of the expert count, so the demand kernel
     (#3) runs kernel #2's plan and gets #2's bits.
 
-    - fp32: "fma"; bf16 with a width that is not a multiple of 8 or an
-      unaligned pointer: "mma" (split_tile.cuh's mma.sync tiles).
+    - fp32, or bf16 with a width that is not a multiple of 8 or an
+      unaligned pointer: split_tile.cuh's launchers, "tile_few_row" (its
+      few-row register kernels) at <= 2 rows, else "fma" (fp32) or "mma"
+      (its mma.sync tiles).
     - otherwise "hopper", op GATE_UP (128 columns of gate and up) for
       gate/up and op STACK (256 columns) for down, the activation read per
       expert; BM 64 (one consumer warpgroup) at C <= 64, else 128, so up
       to 128 slots of an expert sit in one m tile and every weight byte is
       streamed once; no split (the experts fill the card). At decode (C 1,
-      TMA zero-filling the other 63 rows of the tile) this beat the
-      few-row kernel (``few_row_grouped_plan``) and the library call
-      (tools/sweep_dense_plans.py, PERF.md).
+      TMA zero-filling the other 63 rows of the tile) this beat
+      split_hopper.cuh's few-row kernels extended per expert and the
+      library call (tools/sweep_dense_plans.py, PERF.md).
     """
     if op not in ("gate_up", "down"):
         raise ValueError(f"unknown grouped op {op!r}")
-    if dtype != torch.bfloat16:
-        return Plan("fma", (), 0, 1, 0, 0)
-    if not aligned or k % 8 or n % 8:
-        return Plan("mma", (), 0, 1, 0, 0)
+    hopper = dtype == torch.bfloat16 and aligned and not (k % 8 or n % 8)
+    if not hopper:
+        if rows <= FEW_ROW_MAXM:
+            return Plan("tile_few_row", (), 0, 1, 0, 0)
+        return Plan("mma" if dtype == torch.bfloat16 else "fma", (), 0, 1, 0, 0)
     bm = 64 if rows <= 64 else 128
     if op == "gate_up":
         return hopper_plan("gate_up", rows, k, n, 1, bm, 128)
     return hopper_plan("stack", rows, k, n, 1, bm, 256)
-
-
-def few_row_grouped_plan(op: str, rows: int, k: int, n: int, chunk: int | None = None) -> Plan:
-    """The few-row launch of the grouped SwiGLU (at most 2 rows; the
-    decode design that lost to the Hopper path in the sweep, kept as its
-    candidate): a block streams 256 columns of one expert over ``chunk``
-    k rows (default all of them: no split, and the kernel writes the bf16
-    output itself); with a split, ``scratch`` counts the fp32 partials per
-    expert."""
-    chunk = min(chunk or k, k)
-    splits = _cdiv(k, chunk)
-    mats = 2 if op == "gate_up" else 1
-    scratch = splits * mats * rows * n if splits > 1 else 0
-    return Plan("few_row", (), 0, splits, chunk, scratch)
 
 
 def grouped_swiglu_plans(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r) -> tuple[Plan, Plan]:
@@ -170,8 +159,7 @@ def split_grouped_swiglu(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r, plans: tuple | N
     """Fused per-expert SwiGLU over split banks: (E, C, D) -> (E, C, D).
 
     Gate/up banks (E_*, D, F), down banks (E_*, F, D). ``plans``: (gate/up,
-    down) launch plans on the card (default ``grouped_swiglu_plans``'; a
-    plan's ``scratch`` counts fp32 elements per expert)."""
+    down) launch plans on the card (default ``grouped_swiglu_plans``')."""
     name = GROUPED_SWIGLU.name
     e, c, d, e_l, e_r, f = _swiglu_dims(name, x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r)
     ops = (x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r)
@@ -181,8 +169,7 @@ def split_grouped_swiglu(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r, plans: tuple | N
     gate_up, down = plans or grouped_swiglu_plans(*ops)
     h = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    scratch = _scratch(e * max(gate_up.scratch, down.scratch), x.device)
-    GROUPED_SWIGLU.launch([*ops, h, out, scratch],
+    GROUPED_SWIGLU.launch([*ops, h, out],
                           [e_l, e_r, c, d, f, code, *gate_up.ints(), *down.ints()])
     PATHS[(name, "gate_up", gate_up.path, row_class(c))] += 1
     PATHS[(name, "down", down.path, row_class(c))] += 1

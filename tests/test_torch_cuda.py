@@ -273,23 +273,23 @@ def test_cuda_stack_gemm_paths_ragged_deterministic_row_local():
 # 88, 130: BM 64, 128 and two m tiles), D and F that are not tile
 # multiples, an empty local bank and an empty remote bank, decode's C 1
 # and 2 (D and F multiples of 8 but not of the tiles) and a width that is
-# not a multiple of 8.
+# not a multiple of 8, above 2 rows (split_tile.cuh's mma.sync tiles) and
+# at 2 (its few-row register kernels).
 GROUPED = [(6, 2, 3, 136, 72, "hopper"), (5, 0, 17, 64, 200, "hopper"),
            (4, 4, 88, 128, 64, "hopper"), (3, 1, 130, 72, 136, "hopper"),
            (4, 2, 2, 128, 64, "hopper"), (5, 2, 1, 264, 72, "hopper"),
-           (4, 1, 2, 136, 520, "hopper"), (3, 1, 20, 100, 64, "mma")]
+           (4, 1, 2, 136, 520, "hopper"), (3, 1, 20, 100, 64, "mma"),
+           (3, 1, 2, 100, 64, "tile_few_row")]
 
 
 @pytest.mark.cuda
 def test_cuda_grouped_swiglu_paths_ragged_deterministic_local():
     """Kernel #2 on its default plans and, on the Hopper path, on every
-    tile of each launch (at 2 rows or fewer also the few-row kernel,
-    without and with a k split), against the plain version (2e-2);
-    the paths that ran counted; bitwise on repeat; expert 0's output
-    unchanged when the other experts' rows change and row 0's when the
-    other rows change; and kernel #3 on the same rows over a fetched
-    subset of the remote bank: its real experts bitwise #2's, its padding
-    rows exact zeros."""
+    tile of each launch, against the plain version (2e-2); the paths that
+    ran counted; bitwise on repeat; expert 0's output unchanged when the
+    other experts' rows change and row 0's when the other rows change;
+    and kernel #3 on the same rows over a fetched subset of the remote
+    bank: its real experts bitwise #2's, its padding rows exact zeros."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
     from repro_torch.kernels.split_gemm import dense, grouped
@@ -308,11 +308,6 @@ def test_cuda_grouped_swiglu_paths_ragged_deterministic_local():
         gu, dn = grouped.grouped_swiglu_plans(x, *ws)
         assert gu.path == dn.path == path, (e, c, d, f, gu, dn)
         plans = [(gu, dn)]
-        if c <= dense.FEW_ROW_MAXM:
-            # the few-row decode design, without and with a k split
-            few = grouped.few_row_grouped_plan
-            plans += [(few("gate_up", c, d, f), few("down", c, f, d)),
-                      (few("gate_up", c, d, f, chunk=64), few("down", c, f, d, chunk=32))]
         if path == "hopper":
             plans += [(dense.hopper_plan("gate_up", c, d, f, 1, bm, bn), dn)
                       for bm, bn in dense.HOPPER_TILES["gate_up"]]
@@ -352,34 +347,30 @@ def test_cuda_grouped_swiglu_paths_ragged_deterministic_local():
 
 # (b, sq, sk, h, kh, window, q_offset) of kernel #7's Hopper path (bf16, hd
 # 128): ragged Sq and Sk (not multiples of 64 or 128) with a window and an
-# offset, a causal GQA shape whose default plan has 128 query rows (h *
-# cdiv(sq, 128) >= 132 blocks), one whose plan has 64, and two batch rows.
+# offset, a causal GQA shape of more blocks than SMs, small grids, and two
+# batch rows.
 FLASH = [(1, 100, 300, 4, 2, 70, 200), (1, 300, 1111, 48, 8, 0, 811),
          (2, 190, 450, 6, 3, 129, 260), (1, 77, 77, 2, 1, 0, 0)]
 
 
 @pytest.mark.cuda
 def test_cuda_flash_attention_wgmma_tiles():
-    """Kernel #7's Hopper path (TMA-fed K/V, wgmma) at every query tile
-    (128 and 64 rows) and key tile (128 and 64 keys) of its plans, with 1
-    and the most ring stages, against the plain version (2e-2 relative to
-    max|ref|, over the whole output and per query row and head); bitwise
-    on repeat; the default plans take both query tiles."""
+    """Kernel #7's Hopper path (TMA-fed K/V, wgmma; 128 query rows and
+    128-key tiles) on its default plan and at every ring depth (1-3
+    stages), against the plain version (2e-2 relative to max|ref|, over
+    the whole output and per query row and head); bitwise on repeat."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
     from repro_torch.kernels.flash_attention import ops as fa
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    seen = set()
     for b, sq, sk, h, kh, window, q_offset in FLASH:
         q, k, v = (torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
                    for s in ((b, sq, h, 128), (b, sk, kh, 128), (b, sk, kh, 128)))
         ref = fa.flash_attention_torch(q, k, v, window=window, q_offset=q_offset)
-        default = fa.flash_plan(torch.bfloat16, b, sq, h, 128)
-        assert default.path == "wgmma"
-        seen.add(default.bq)
-        plans = [default] + [fa.wgmma_plan(bq, bkv, st) for bq, bkv in fa.WGMMA_TILES
-                             for st in (1, None)]
+        default = fa.flash_plan(torch.bfloat16, 128)
+        assert default == fa.wgmma_plan(3)
+        plans = [default] + [fa.wgmma_plan(st) for st in (1, 2)]
         for plan in plans:
             got = fa.flash_attention(q, k, v, window=window, q_offset=q_offset, plan=plan)
             diff, ref_abs = (got.float() - ref.float()).abs(), ref.float().abs()
@@ -389,4 +380,3 @@ def test_cuda_flash_attention_wgmma_tiles():
             again = fa.flash_attention(q, k, v, window=window, q_offset=q_offset, plan=plan)
             assert torch.equal(again, got), plan
     torch.cuda.synchronize()
-    assert seen == {64, 128}

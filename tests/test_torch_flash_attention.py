@@ -113,32 +113,33 @@ def test_flash_attention_checks_and_dispatch():
 # (dtype, b, sq, h, hd) -> the CUDA kernel's plan: chip_smoke.py's five
 # prefill shards (R1 1024 first and last rank: Sq 256, 128 heads; R1 8192
 # last rank: Sq 2048; Gemma-3 4096 local and global layer: Sq 1024, 32
-# heads; G' = 4) and its ragged Gemma-3 case (Sq 1000) take 128 query rows
-# and 128-key tiles in 3 stages; a shape whose 128-row blocks number fewer
-# than the 132 SMs 64 rows and 64-key tiles in 2 stages; fp32 and hd 64
-# the earlier kernels.
+# heads; G' = 4), its ragged Gemma-3 case (Sq 1000) and grids of fewer
+# blocks than the 132 SMs take 128 query rows and 128-key tiles in 3
+# stages; fp32 and hd 64 the earlier kernels.
 BF = torch.bfloat16
 FLASH_PLANS = [
-    ((BF, 1, 256, 128, 128), ("wgmma", 128, 128, 3)),
-    ((BF, 1, 2048, 128, 128), ("wgmma", 128, 128, 3)),
-    ((BF, 1, 1024, 32, 128), ("wgmma", 128, 128, 3)),
-    ((BF, 1, 1000, 32, 128), ("wgmma", 128, 128, 3)),
-    ((BF, 2, 190, 6, 128), ("wgmma", 64, 64, 2)),
-    ((BF, 1, 300, 44, 128), ("wgmma", 128, 128, 3)),    # 132 blocks: one full wave
-    ((BF, 1, 300, 43, 128), ("wgmma", 64, 64, 2)),      # 129 blocks
-    ((torch.float32, 1, 256, 128, 128), ("mma", 0, 0, 0)),
-    ((BF, 1, 256, 128, 64), ("mma", 0, 0, 0)),
+    ((BF, 1, 256, 128, 128), ("wgmma", 3)),
+    ((BF, 1, 2048, 128, 128), ("wgmma", 3)),
+    ((BF, 1, 1024, 32, 128), ("wgmma", 3)),
+    ((BF, 1, 1000, 32, 128), ("wgmma", 3)),
+    ((BF, 2, 190, 6, 128), ("wgmma", 3)),
+    ((BF, 1, 300, 44, 128), ("wgmma", 3)),     # 132 blocks: one full wave
+    ((BF, 1, 300, 43, 128), ("wgmma", 3)),     # 129 blocks
+    ((torch.float32, 1, 256, 128, 128), ("mma", 0)),
+    ((BF, 1, 256, 128, 64), ("mma", 0)),
 ]
 
 
 @pytest.mark.parametrize("args,want", FLASH_PLANS, ids=str)
 def test_flash_plan(args, want):
-    """flash_plan is a pure function of the shapes; its Hopper plans fit
-    a block's shared memory."""
-    plan = fa.flash_plan(*args)
-    assert tuple(plan) == want and plan == fa.flash_plan(*args)
-    assert plan.ints()[0] == fa.PATH_CODES[plan.path]
+    """flash_plan is a pure function of the type and head dim, the same at
+    every shape; its Hopper plan fits a block's shared memory with the
+    most ring stages that do."""
+    dtype, _, _, _, hd = args
+    plan = fa.flash_plan(dtype, hd)
+    assert tuple(plan) == want and plan == fa.flash_plan(dtype, hd)
+    assert plan.ints() == [fa.PATH_CODES[plan.path], plan.stages]
     if plan.path == "wgmma":
-        assert (plan.bq, plan.bkv) in fa.WGMMA_TILES
-        assert fa.wgmma_smem(plan.bq, plan.bkv, plan.stages) <= fa.SMEM
-        assert plan == fa.wgmma_plan(plan.bq, plan.bkv, plan.stages)
+        assert fa.wgmma_smem(plan.stages) <= fa.SMEM < fa.wgmma_smem(plan.stages + 1)
+        assert plan == fa.wgmma_plan(plan.stages) == fa.wgmma_plan()
+        assert fa.plan_label(plan) == "wgmma 128x128 stages 3"

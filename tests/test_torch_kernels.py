@@ -171,7 +171,8 @@ PLANS = [
     (("expert_gate_up", BF, 2, 7168, 2048, 256, True), "hopper", (64, 128, 64), 1),    # C 2
     (("expert_down", BF, 2, 2048, 7168, 256, True), "hopper", (64, 256, 64), 1),
     (("expert_gate_up", BF, 1, 136, 72, 3, True), "hopper", (64, 128, 64), 1),         # ragged
-    (("expert_down", F32, 1, 2048, 7168, 256, True), "fma", (), 1),                    # fp32
+    (("expert_down", F32, 1, 2048, 7168, 256, True), "tile_few_row", (), 1),           # fp32
+    (("expert_gate_up", BF, 2, 100, 64, 3, True), "tile_few_row", (), 1),              # % 8
     (("expert_gate_up", BF, 130, 72, 136, 3, True), "hopper", (128, 128, 64), 1),      # 130
     (("expert_down", BF, 3, 72, 136, 6, True), "hopper", (64, 256, 64), 1),            # 3
     (("expert_gate_up", BF, 20, 100, 64, 3, True), "mma", (), 1),                      # % 8
@@ -217,6 +218,7 @@ def test_dense_launch_plans(args, path, tile, splits):
         assert plan.scratch == splits * rows * n * mats
         assert op != "reduce" or splits == slices * per_k
     else:
+        assert path != "tile_few_row" or rows <= dense.FEW_ROW_MAXM
         assert plan.scratch == 0 and plan.ints()[0] == 0
 
 

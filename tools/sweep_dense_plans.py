@@ -22,13 +22,11 @@ Hopper block tile of the op (BM 64 or 128, BN 128 or 256), the ring depth
 (2 stages to as many as fit) and, where the tiles number fewer than two
 waves, split-k 1-16 (stack) or 1-4 (reduce); the few-row path's block
 target (k chunk). #2's gate/up and down launches are varied one at a
-time, the other on its default plan; at C 1 and 2 the two designs of its
-decode path, (a) split_hopper.cuh's few-row kernel (with and without a k
-split) and (b) its Hopper path at BM 64, both launches alike, beside the
-split_tile.cuh few-row path that #2 ran there before. #7: every query
-tile (128 or 64 rows) x key tile (128 or 64 keys) x ring depth of its
-Hopper kernel (its earlier mma.sync kernel: ``--defaults`` with ``--src``
-at an earlier checkout).
+time, the other on its default plan; at C 1 and 2 its decode path (the
+Hopper path at BM 64) at several ring depths, both launches alike, beside
+the split_tile.cuh few-row path that #2 ran there before. #7: the ring
+depth of its Hopper kernel (its earlier mma.sync kernel: ``--defaults``
+with ``--src`` at an earlier checkout).
 Each plan's output is held against the default plan's (2e-2 relative to
 max|ref|). #6's down product is timed as ``split_reduce_gemm`` on its
 shapes, its gate/up launch as #6 minus that. Times: CUDA events, median of
@@ -222,7 +220,7 @@ def sweep_grouped(defaults, rnd, rel, both, lib, record) -> None:
         record(**base, plan=f"default = gate_up {gu.path} {list(gu.tile)} stages {gu.stages} "
                f"chunk {gu.chunk}, down {dn.path} {list(dn.tile)} stages {dn.stages} "
                f"chunk {dn.chunk}", err=0.0, ms=None)
-        cands = list(grouped_decode_candidates(dense, grouped, c, d, f)) if c <= 2 else []
+        cands = list(grouped_decode_candidates(dense, c, d, f)) if c <= 2 else []
         for bm, bn in (dense.HOPPER_TILES["gate_up"] if c > 2 else ()):
             if bm >= c or bm == 128:
                 for stages in range(2, dense.max_stages("gate_up", bm, bn) + 1):
@@ -244,28 +242,23 @@ def sweep_grouped(defaults, rnd, rel, both, lib, record) -> None:
     torch.cuda.empty_cache()
 
 
-def grouped_decode_candidates(dense, grouped, c, d, f):
-    """#2's decode plans at C <= 2: (a) the few-row kernel without and with
-    a k split, (b) the Hopper path at BM 64 at several ring depths, and
-    split_tile.cuh's few-row path (the grouped kernels' earlier decode path;
-    plan "mma" reaches it at <= 2 rows)."""
-    few = grouped.few_row_grouped_plan
-    yield "split_tile few-row (earlier decode path)", (dense.Plan("mma", (), 0, 1, 0, 0),) * 2
-    for gc_, dc_ in ((None, None), (3584, None), (1792, None), (None, 1024), (None, 512),
-                     (1792, 512)):
-        yield (f"(a) few_row gate_up chunk {gc_ or d} down chunk {dc_ or f}",
-               (few("gate_up", c, d, f, gc_), few("down", c, f, d, dc_)))
+def grouped_decode_candidates(dense, c, d, f):
+    """#2's decode plans at C <= 2: the Hopper path at BM 64 at several
+    ring depths, and split_tile.cuh's few-row path (the grouped kernels'
+    earlier decode path)."""
+    yield ("split_tile few-row (earlier decode path)",
+           (dense.Plan("tile_few_row", (), 0, 1, 0, 0),) * 2)
     gu_most = dense.max_stages("gate_up", 64, 128)
     dn_most = dense.max_stages("stack", 64, 256)
     for st_gu, st_dn in sorted({(2, 2), (4, 4), (gu_most, dn_most)}):
-        yield (f"(b) hopper BM 64 gate_up stages {st_gu} down stages {st_dn}",
+        yield (f"hopper BM 64 gate_up stages {st_gu} down stages {st_dn}",
                (dense.hopper_plan("gate_up", c, d, f, 1, 64, 128)._replace(stages=st_gu),
                 dense.hopper_plan("stack", c, f, d, 1, 64, 256)._replace(stages=st_dn)))
 
 
 def sweep_flash(defaults, gen, rel, both, record) -> None:
-    """Kernel #7: the default plan and, unless ``defaults``, every Hopper
-    tile x ring depth, beside ``scaled_dot_product_attention``; each held
+    """Kernel #7: the default plan and, unless ``defaults``, every ring
+    depth of its Hopper kernel, beside ``scaled_dot_product_attention``; each held
     against the default plan (over the whole output: the per-row check is
     ``chip_smoke.py``'s)."""
     import torch
@@ -284,14 +277,10 @@ def sweep_flash(defaults, gen, rel, both, record) -> None:
         record(**base, plan="default", err=0.0, **both(lambda: fa.flash_attention(q, k, v, **kw)))
         if defaults:
             continue
-        plan = fa.flash_plan(torch.bfloat16, 1, sq, h, 128)
-        record(**base, plan=f"default = {plan.path} {plan.bq}x{plan.bkv} stages {plan.stages}",
-               err=0.0, ms=None)
-        cands = []
-        for bq, bkv in fa.WGMMA_TILES:
-            for st in range(1, 7):
-                if fa.wgmma_smem(bq, bkv, st) <= fa.SMEM:
-                    cands.append((f"wgmma {bq}x{bkv} stages {st}", fa.wgmma_plan(bq, bkv, st)))
+        plan = fa.flash_plan(torch.bfloat16, 128)
+        record(**base, plan=f"default = {fa.plan_label(plan)}", err=0.0, ms=None)
+        cands = [(fa.plan_label(pl), pl)
+                 for pl in map(fa.wgmma_plan, (st for st in range(1, 7) if fa.wgmma_smem(st) <= fa.SMEM))]
         for name, pl in cands:
             got = fa.flash_attention(q, k, v, **kw, plan=pl)
             record(**base, plan=name, err=rel(got, ref),
