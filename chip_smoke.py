@@ -34,8 +34,16 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    few-row path (#4-#6) or its Hopper path at BM 64 (#2, #3); a second
    launch must give the same bits. One 64 x 64 x 64 tile through TMA and
    wgmma is held against an fp32 product;
+   Kernel #1 is held at R1's expert shapes at C 1, 16 and 88, with bf16
+   and with e4m3-stored banks (bf16 activations; its fp8 bound counts
+   1-byte weights, and the bf16 kernel on the widened banks is timed
+   beside it, no PyTorch call multiplying bf16 by fp8 as it does); its
+   plan is printed and must be the Hopper path at every launch. With e4m3
+   and e5m2 banks at C 1, 16 and 88 its result must be bitwise the bf16
+   kernel's on the widened banks under the same block tile;
 4. ``ops.split_gemm`` (kernel #1's entry point; no engine calls it) at
-   R1 expert shapes, its launches counted;
+   R1 expert shapes, C 16 and 1, with bf16 and then e4m3 banks: its
+   launches counted, every one on the Hopper path;
 5. serve: ``build_engine`` at DeepSeek-R1 width (2 layers, first one
    dense), mesh (data=1, model=4) as 4 logical ranks, random weights from a
    seeded generator; 4 requests of 1024 tokens, 16 output tokens each,
@@ -94,13 +102,18 @@ KERNEL_TOL = 2e-2             # bf16, relative to max|ref| (tests/test_kernels.p
 TILE_TOL = 1e-5
 # The kernels whose plan picks a path: split_hopper.cuh's Hopper path above
 # 2 rows; at 2 rows or fewer its few-row path (#4-#6) or its Hopper path
-# at BM 64 (#2, #3). Kernel -> (launches, path at 2 rows or fewer).
+# at BM 64 (#1-#3). Kernel -> (launches, path at 2 rows or fewer).
 PLANNED = {"split_stack_gemm": (("stack",), "few_row"),
            "split_reduce_gemm": (("reduce",), "few_row"),
            "split_dense_swiglu": (("gate_up", "reduce"), "few_row"),
            "split_grouped_swiglu": (("gate_up", "down"), "hopper"),
-           "split_grouped_swiglu_demand": (("gate_up", "down"), "hopper")}
-GROUPED_KERNELS = ("split_grouped_swiglu", "split_grouped_swiglu_demand")
+           "split_grouped_swiglu_demand": (("gate_up", "down"), "hopper"),
+           "split_grouped_gemm": (("gemm",), "hopper")}
+GROUPED_KERNELS = ("split_grouped_swiglu", "split_grouped_swiglu_demand", "split_grouped_gemm")
+# Kernel #1's bank types: bf16, and fp8 widened to bf16 on the chip (the
+# kernel cases and the entry-point path run e4m3; the bitwise check both).
+GEMM_WEIGHTS = ("bfloat16", "float8_e4m3fn")
+FP8_WEIGHTS = ("float8_e4m3fn", "float8_e5m2")
 # End to end through two bf16 layers the kernels and the plain versions
 # round at different points (the kernels round h once after silu*mul in
 # fp32, the plain versions after every product), and with random weights
@@ -306,7 +319,7 @@ def kernel_cases(cfg, gemma):
         cases.append(("split_reduce_gemm", phase, dict(t=t, d=d, f=qd, s=a)))
         cases.append(("split_dense_swiglu", phase, dict(t=t, d=d, f=fs, s=G)))
         cases.append(("split_grouped_swiglu", phase, dict(c=c, d=d, f=fe, e=e, e_l=e // G)))
-        cases.append(("split_grouped_gemm", phase, dict(c=c, d=d, f=fe, e=e, e_l=e // G)))
+        cases += gemm_cases(phase, c, d, fe, e)
     # the demand kernel: 64 resident experts + the fetched bank of each
     # mode's decode (C 1, the few-row path), about half its rows valid, and
     # one tensor-core tile shape (C 16)
@@ -325,6 +338,7 @@ def kernel_cases(cfg, gemma):
     cases.append(("split_dense_swiglu", "prefill_8192", dict(t=t, d=d, f=fs, s=G)))
     c = capacity_for(t, e, cfg.moe.top_k, 1.25)
     cases.append(("split_grouped_swiglu", "prefill_8192", dict(c=c, d=d, f=fe, e=e, e_l=e // G)))
+    cases += gemm_cases("prefill_8192", c, d, fe, e)
     t, d = GEMMA_PROMPT // G, gemma.d_model
     for name, phase, f in (("split_stack_gemm", "gemma3_prefill", gemma.q_dim // G),
                            ("split_stack_gemm", "gemma3_prefill_kv", gemma.kv_dim // G),
@@ -332,6 +346,13 @@ def kernel_cases(cfg, gemma):
                            ("split_dense_swiglu", "gemma3_prefill", gemma.d_ff // G)):
         cases.append((name, phase, dict(t=t, d=d, f=f, s=G)))
     return cases
+
+
+def gemm_cases(phase, c, d, f, e) -> list:
+    """Kernel #1 at expert capacity ``c`` with each of GEMM_WEIGHTS (the
+    fp8 phases named ``<phase>_<type>``)."""
+    return [("split_grouped_gemm", phase if w == "bfloat16" else f"{phase}_{w.split('_')[1]}",
+             dict(c=c, d=d, f=f, e=e, e_l=e // G, weight=w)) for w in GEMM_WEIGHTS]
 
 
 def run_kernel_case(name, shp, gen):
@@ -372,10 +393,17 @@ def run_kernel_case(name, shp, gen):
         flops = 6 * e * c * d * f
     elif name == "split_grouped_gemm":
         c, d, f, e, e_l = shp["c"], shp["d"], shp["f"], shp["e"], shp["e_l"]
-        args = (rnd(e, c, d, scale=1.0), rnd(e_l, d, f), rnd(e - e_l, d, f))
+        wdt = getattr(torch, shp["weight"])
+        args = (rnd(e, c, d, scale=1.0), rnd(e_l, d, f).to(wdt), rnd(e - e_l, d, f).to(wdt))
         kern, plain = grouped.split_grouped_gemm, grouped.split_grouped_gemm_torch
-        nbytes = 2 * (e * c * d + e * d * f + e * c * f)
+        # x read and y written in bf16, the banks at their stored width
+        nbytes = 2 * (e * c * d + e * c * f) + wdt.itemsize * e * d * f
         flops = 2 * e * c * d * f
+        if wdt != bf:
+            # no PyTorch call multiplies bf16 by fp8 without quantizing the
+            # activations: the bf16 kernel on the widened banks stands beside it
+            lib = None
+            widened = (args[0], args[1].to(bf), args[2].to(bf))
     else:
         c, d, f, e_l, e_f = shp["c"], shp["d"], shp["f"], shp["e_l"], shp["e_f"]
         valid = torch.arange(e_f, device=dev) % 2 == 0
@@ -394,6 +422,7 @@ def run_kernel_case(name, shp, gen):
         plans = {"split_stack_gemm": lambda: (dense.stack_plan(*args),),
                  "split_reduce_gemm": lambda: (dense.reduce_plan(*args),),
                  "split_dense_swiglu": lambda: dense.dense_swiglu_plans(*args),
+                 "split_grouped_gemm": lambda: (grouped.gemm_plan(*args),),
                  }.get(name, lambda: grouped.grouped_swiglu_plans(*args[:7]))()
         counter = grouped.PATHS if name in GROUPED_KERNELS else dense.PATHS
         before = collections.Counter(counter)
@@ -409,8 +438,15 @@ def run_kernel_case(name, shp, gen):
     if plans is not None:
         row.update(check_plans(name, shp, plans, ran, torch.equal(kern(*args), got)))
     for key, fn in (("ms", kern), ("plain_ms", plain), ("library_ms", lib)):
+        if fn is None:
+            row[key] = row[f"{key}_range"] = None
+            continue
         row[key], lo, hi = time_ms(lambda: fn(*args))
         row[f"{key}_range"] = [lo, hi]
+    if name == "split_grouped_gemm" and lib is None:
+        row["widened_bf16_ms"], lo, hi = time_ms(lambda: kern(*widened))
+        row["widened_bf16_ms_range"] = [lo, hi]
+        del widened
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
     row["shape"] = shp
     del args, got, ref
@@ -431,9 +467,10 @@ def check_plans(name, shp, plans, ran, bitwise) -> dict:
     launches, few = PLANNED[name]
     rows = shp["c"] if "c" in shp else shp["t"]
     want = "hopper" if rows > dense.FEW_ROW_MAXM else few
+    tail = (shp["weight"],) if "weight" in shp else ()  # #1 counts its banks' type
     out = {"bitwise_repeat": bitwise}
     for launch, plan in zip(launches, plans):
-        n = ran[(name, launch, plan.path, dense.row_class(rows))]
+        n = ran[(name, launch, plan.path, dense.row_class(rows), *tail)]
         out[f"plan_{launch}"] = {"path": plan.path, "tile": list(plan.tile),
                                  "stages": plan.stages, "splits": plan.splits,
                                  "chunk": plan.chunk}
@@ -465,7 +502,7 @@ def clear_path_counts() -> None:
 
 
 def check_paths(label: str, paths: dict) -> None:
-    """Every launch of #2-#6 above 2 rows ran the Hopper path, every one at
+    """Every launch of #1-#6 above 2 rows ran the Hopper path, every one at
     2 rows or fewer its kernel's path (PLANNED), and every flash attention
     launch (bf16, hd 128 on the serving paths) the Hopper path."""
     bad = {}
@@ -474,7 +511,7 @@ def check_paths(label: str, paths: dict) -> None:
             if not key.split("/")[1].startswith("wgmma "):
                 bad[key] = n
             continue
-        name, _, path, rows = key.split("/")
+        name, _, path, rows, *_ = key.split("/")
         if name in PLANNED and path != ("hopper" if rows == "rows>2" else PLANNED[name][1]):
             bad[key] = n
     if bad:
@@ -667,10 +704,52 @@ def check_demand_matches_grouped(cfg, gen) -> dict:
     return out
 
 
+def check_fp8_matches_widened(cfg, gen) -> dict:
+    """Kernel #1 with e4m3 and e5m2 banks at R1's expert shapes, C 1, 16
+    and 88: its result must be bitwise the bf16 kernel's on the widened
+    banks (``w.to(bfloat16)``, exact) under the same block tile, since the
+    widening is exact and the same tile bits meet the same wgmma sequence."""
+    import torch
+    from repro_torch.kernels.split_gemm import grouped
+
+    bf = torch.bfloat16
+    d, f, e = cfg.d_model, cfg.moe.d_ff, cfg.moe.num_experts
+    e_l = e // G
+    wl = (torch.randn(e_l, d, f, generator=gen, device="cuda") * 0.05).to(bf)
+    wr = (torch.randn(e - e_l, d, f, generator=gen, device="cuda") * 0.05).to(bf)
+    out = {}
+    for wname in FP8_WEIGHTS:
+        wdt = getattr(torch, wname)
+        ql, qr = wl.to(wdt), wr.to(wdt)
+        wide = (ql.to(bf), qr.to(bf))
+        for c in (1, 16, 88):
+            x = torch.randn(e, c, d, generator=gen, device="cuda").to(bf)
+            p8, p16 = grouped.gemm_plan(x, ql, qr), grouped.gemm_plan(x, *wide)
+            y8 = grouped.split_grouped_gemm(x, ql, qr)
+            y16 = grouped.split_grouped_gemm(x, *wide)
+            torch.cuda.synchronize()
+            same = torch.equal(y8, y16)
+            print(f"kernel split_grouped_gemm {wname} C {c}: bitwise the bf16 kernel on the "
+                  f"widened banks {same} (tiles {list(p8.tile)} / {list(p16.tile)}, stages "
+                  f"{p8.stages} / {p16.stages})")
+            if p8.path != "hopper" or p8.tile != p16.tile:
+                fail(f"split_grouped_gemm {wname} C {c}: plans {p8} / {p16}")
+            if not same:
+                err = (y8.float() - y16.float()).abs().max().item()
+                fail(f"split_grouped_gemm {wname} C {c}: not bitwise the bf16 kernel on the "
+                     f"widened banks (max diff {err})")
+            out[f"{wname}_C{c}"] = same
+        del ql, qr, wide
+    del wl, wr
+    torch.cuda.empty_cache()
+    return out
+
+
 def drive_split_gemm(cfg, gen) -> int:
     """Kernel #1's path: its entry point ``ops.split_gemm`` (no engine
-    calls it) at R1 expert shapes, C 16 and C 1, with the launch counts
-    set to 0 just before and read just after."""
+    calls it) at R1 expert shapes, C 16 and C 1, with bf16 banks and then
+    with e4m3 banks, with the launch counts set to 0 just before and read
+    just after; every launch must have run the Hopper path."""
     import torch
     from repro_torch.kernels import registry
     from repro_torch.kernels.split_gemm import ops
@@ -679,18 +758,29 @@ def drive_split_gemm(cfg, gen) -> int:
     e_l = e // G
     wl = (torch.randn(e_l, d, f, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
     wr = (torch.randn(e - e_l, d, f, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    xs = {c: torch.randn(e, c, d, generator=gen, device="cuda").to(torch.bfloat16)
+          for c in (16, 1)}
+    banks = [(w, wl.to(getattr(torch, w)), wr.to(getattr(torch, w))) for w in GEMM_WEIGHTS]
+    del wl, wr
     registry.reset_launch_counts()
-    for c in (16, 1):
-        x = torch.randn(e, c, d, generator=gen, device="cuda").to(torch.bfloat16)
-        y = ops.split_gemm(x, wl, wr)
-        if y.shape != (e, c, f) or not torch.isfinite(y).all():
-            fail(f"ops.split_gemm C {c}: bad output {tuple(y.shape)}")
+    clear_path_counts()
+    for wname, bl, br in banks:
+        for c, x in xs.items():
+            y = ops.split_gemm(x, bl, br)
+            if y.shape != (e, c, f) or y.dtype != torch.bfloat16 or not torch.isfinite(y).all():
+                fail(f"ops.split_gemm {wname} C {c}: bad output {tuple(y.shape)} {y.dtype}")
     torch.cuda.synchronize()
     counts = registry.launch_counts()
-    print(f"ops.split_gemm path: launch counts {json.dumps(counts)}")
+    paths = path_counts()
+    print(f"ops.split_gemm path: launch counts {json.dumps(counts)} paths {json.dumps(paths)}")
     if counts["split_grouped_gemm"] <= 0:
         fail("split_grouped_gemm never launched on its entry point")
-    del wl, wr
+    check_paths("ops.split_gemm", paths)
+    for wname, *_ in banks:
+        if not any(k.startswith("split_grouped_gemm/gemm/hopper/") and k.endswith(wname)
+                   for k in paths):
+            fail(f"ops.split_gemm: no Hopper-path launch with {wname} banks")
+    del banks, xs
     torch.cuda.empty_cache()
     return counts["split_grouped_gemm"]
 
@@ -1001,13 +1091,17 @@ def main() -> None:
         worst_row = (f" worst row {row['max_row_rel_err']:.3e}"
                      if "max_row_rel_err" in row else "")
         plans = " ".join(f"{k} {json.dumps(v)}" for k, v in row.items() if k.startswith("plan"))
+        library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+        widened = (f" widened_bf16_ms {row['widened_bf16_ms']:.4f}"
+                   if "widened_bf16_ms" in row else "")
         print(f"kernel {name} {phase} {row['shape']}: rel_err {row['max_rel_err']:.3e}{worst_row} "
               f"(tol {KERNEL_TOL}) ms {row['ms']:.4f} {row['ms_range']} plain_ms "
-              f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms "
+              f"{row['plain_ms']:.4f} library_ms {library}{widened} bound_ms "
               f"{row['bound_ms']:.4f} ({row['bound_by']})"
               + (f" {plans} bitwise_repeat {row['bitwise_repeat']}" if plans else ""))
     tile_err = check_hopper_tile(gen)
     demand_checks = check_demand_matches_grouped(cfg, gen)
+    fp8_checks = check_fp8_matches_widened(cfg, gen)
     gemm_launches = drive_split_gemm(cfg, gen)
 
     # ---- serve ----------------------------------------------------------
@@ -1136,6 +1230,8 @@ def main() -> None:
                                bitwise_repeat=dec["bitwise_repeat"])
         if name == "split_grouped_swiglu_demand":
             kernels[-1]["checks"] = demand_checks
+        if name == "split_grouped_gemm":
+            kernels[-1]["fp8_bitwise_widened_bf16"] = fp8_checks
         if name in PLANNED:
             kernels[-1]["header"] = "src/repro_torch/kernels/csrc/split_hopper.cuh"
             kernels[-1].update({k: v for k, v in dec.items()

@@ -10,6 +10,8 @@ from repro_torch.kernels import build
 #: dtype codes of the C entry points (``csrc/split_tile.cuh``,
 #: ``csrc/flash_attention.cu``).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the weight storage types kernel #1 widens to bf16 on the chip
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
 
 
 class CudaKernel:
@@ -79,18 +81,32 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
-def check_cuda_operands(name: str, x: torch.Tensor, *weights: torch.Tensor) -> int:
-    """Dtype and layout checks of a kernel launch; returns the dtype code."""
+def check_cuda_operands(name: str, x: torch.Tensor, *weights: torch.Tensor,
+                        fp8: bool = False) -> int:
+    """Dtype and layout checks of a kernel launch; returns the dtype code.
+
+    ``fp8``: the kernel takes fp8-stored weights (all of one type) beside
+    bfloat16 activations (kernel #1); every other kernel refuses them."""
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: activations must be float32 or bfloat16, got {x.dtype}")
     for w in weights:
         if w.dtype != x.dtype:
-            if w.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
-                raise TypeError(
-                    f"{name}: fp8-stored weights are not supported by the CUDA "
-                    "kernel yet (run impl='torch', which upcasts on use)"
-                )
+            if w.dtype in FP8_DTYPES:
+                if not fp8:
+                    raise TypeError(
+                        f"{name}: fp8-stored weights are not supported by this CUDA "
+                        "kernel (run impl='torch', which upcasts on use)"
+                    )
+                if x.dtype != torch.bfloat16:
+                    raise TypeError(
+                        f"{name}: fp8-stored weights need bfloat16 activations on the "
+                        f"CUDA kernel, got {x.dtype} (run impl='torch', which upcasts on use)"
+                    )
+                continue
             raise TypeError(f"{name}: weight dtype {w.dtype} != activation dtype {x.dtype}")
+    if len({w.dtype for w in weights}) > 1:
+        raise TypeError(f"{name}: the weights are stored in several dtypes: "
+                        f"{sorted(str(w.dtype) for w in weights)}")
     for t in (x, *weights):
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")

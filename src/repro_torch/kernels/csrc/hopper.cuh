@@ -108,6 +108,21 @@ __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, const uint4& v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
 // wgmma shared-memory descriptor, 128-byte swizzle (layout type 1). For a
 // K-major tile: LBO unused (16 bytes), SBO 1024 bytes (8 rows of 128
 // bytes). For an N-major tile: LBO the byte distance between two
@@ -273,12 +288,13 @@ inline EncodeTiled encode_fn() {
 constexpr int NO_ENCODE = 9000, ENCODE_ERROR = 10000, ATTR_ERROR = 20000;
 
 // A bf16 map of a contiguous row-major tensor of rank <= 5, dims innermost
-// first, with 128-byte swizzle. A tensor with a zero dim gets a zeroed map
-// (never used). TMA takes a 16-byte aligned base and strides that are
+// first, with 128-byte swizzle; ``bytes1``: a map of 1-byte elements (the
+// fp8-stored banks) without swizzle. A tensor with a zero dim gets a zeroed
+// map (never used). TMA takes a 16-byte aligned base and strides that are
 // multiples of 16 bytes (for the grouped kernels' per-expert activations:
-// C * D * 2 and C * F * 2 bytes).
+// C * D * 2 and C * F * 2 bytes; for an fp8 bank's rows: F bytes).
 inline int make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                    const uint32_t* box) {
+                    const uint32_t* box, bool bytes1 = false) {
   *map = CUtensorMap{};
   if (rank < 1 || rank > 5) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < rank; ++i)
@@ -287,7 +303,7 @@ inline int make_map(CUtensorMap* map, const void* base, int rank, const uint64_t
   if (enc == nullptr) return NO_ENCODE;
   cuuint64_t gd[5], gs[4];
   cuuint32_t bx[5], es[5] = {1, 1, 1, 1, 1};
-  uint64_t stride = sizeof(__nv_bfloat16);
+  uint64_t stride = bytes1 ? 1 : sizeof(__nv_bfloat16);
   if (reinterpret_cast<uintptr_t>(base) % 16) return (int)cudaErrorMisalignedAddress;
   for (int i = 0; i < rank; ++i) {
     gd[i] = dims[i];
@@ -297,9 +313,11 @@ inline int make_map(CUtensorMap* map, const void* base, int rank, const uint64_t
       if (gs[i] % 16) return (int)cudaErrorInvalidPitchValue;
     }
   }
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), gd,
-                         gs, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r =
+      enc(map, bytes1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+          const_cast<void*>(base), gd, gs, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          bytes1 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR + (int)r;
 }
 

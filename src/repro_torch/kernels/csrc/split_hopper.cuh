@@ -1,16 +1,17 @@
-// Hopper paths of the split-bank GEMMs, bf16: split_stack_gemm (#4), the
-// grouped SwiGLU (#2, and #3 on #2's plan), split_reduce_gemm (#5) and
-// split_dense_swiglu (#6). The TMA, mbarrier and wgmma helpers are
+// Hopper paths of the split-bank GEMMs, bf16 activations: split_stack_gemm
+// (#4), the grouped SwiGLU (#2, and #3 on #2's plan), split_reduce_gemm
+// (#5), split_dense_swiglu (#6) and split_grouped_gemm (#1, whose banks
+// may also be stored in fp8). The TMA, mbarrier and wgmma helpers are
 // hopper.cuh's.
 //
 // Replaces, for these kernels, the mma.sync tiles and the few-row register
-// path of split_tile.cuh (which #1, fp32 and widths that are not multiples
-// of 8 keep). The plan (path, block tile, stages, splits, k chunk) is
-// chosen in Python (kernels/split_gemm/dense.py::plan_split,
+// path of split_tile.cuh (which fp32 and widths that are not multiples of
+// 8 keep). The plan (path, block tile, stages, splits, k chunk) is chosen
+// in Python (kernels/split_gemm/dense.py::plan_split,
 // grouped.py::plan_grouped) as a pure function of the shapes and passed in
 // as ints.
 //
-// The Hopper path (#4-#6 above 2 rows; #2/#3 at every capacity, decode's
+// The Hopper path (#4-#6 above 2 rows; #1-#3 at every capacity, decode's
 // C 1 included; every width a multiple of 8): one warp-specialised
 // mainloop, three epilogues.
 //   reduce   out    = sum_s A[s] @ W(s), slices ascending, k ascending
@@ -46,6 +47,32 @@
 // k loop into fp32 partials, summed in split order by a second launch: no
 // atomics.
 //
+// fp8-stored banks (kernel #1, op STACK; the weight type WT a template
+// parameter of the mainloop, the bf16 instantiations unchanged): wgmma has
+// no bf16 x fp8 form, and quantizing the activations would compute
+// another function, so the weights are widened exactly to bf16 on the
+// chip (every e4m3 and e5m2 value, NaN and e5m2's infinities included, is
+// a bf16 value). The producer TMA-loads each B box as 64 x 64 bytes
+// (1-byte elements, no swizzle) into a stage that is half the bf16 one.
+// The consumer warpgroups widen their stage, on their own, before its
+// wgmma: each thread takes 16 fp8 bytes of a k row (one 16-byte shared
+// load, the warp reading 512 contiguous bytes), widens them
+// (cvt.rn.f16x2.{e4m3,e5m2}x2, f16 -> f32, the f32's top half: exact)
+// and stores the two 16-byte chunks at their 128-byte-swizzled places in
+// a bf16 B tile that the unchanged wgmma descriptors read (the 8 lanes of
+// a store phase hit 8 distinct chunks: no bank conflicts). Then
+// fence.proxy.async and a barrier of the consumer threads. The widened
+// tiles are WIDE_BUFS (3) buffers outside the ring: buffer i % 3 is
+// rewritten at iteration i and was last read by the wgmma of iteration
+// i - 3; a consumer gets there only past the barrier of iteration i - 1,
+// which every consumer passes only after waiting out its wgmma group
+// i - 3, so no wgmma still reads it, with one or two consumer warpgroups.
+// The widening of stage i overlaps the wgmma of stage i - 1. In flight per SM
+// at R1 width: 5 stages of 8 KB (A, zero-filled at C 1) + 16 KB (fp8 B)
+// at BM 64, 4 of 16 + 16 KB at BM 128, beside 96 KB of widened tiles.
+// The result is bitwise the bf16 kernel's on the widened banks under the
+// same block tile: the same B tile bits meet the same wgmma sequence.
+//
 // The few-row path (#4-#6 at most 2 rows): few-row kernels stream the
 // weights in 16-byte loads (ld.global.nc.L1::no_allocate, 8 in flight per
 // thread, a warp reading 512 contiguous bytes of a k row) into fp32 sums;
@@ -60,6 +87,8 @@
 // row's result never reads another row's data: repeated launches give the
 // same bits, and a row's output does not depend on the other rows.
 #pragma once
+
+#include <cuda_fp16.h>
 
 #include "hopper.cuh"
 
@@ -80,16 +109,24 @@ constexpr int PATH_FEW_ROW = 2;
 constexpr int BK = 64;
 constexpr int BOX_N = 64;                      // bf16 columns of one 128-byte swizzle row
 constexpr int B_BYTES = BK * BOX_N * 2;        // 8 KB
+constexpr int B8_BYTES = BK * BOX_N;           // 4 KB: one fp8 box, 64-byte rows
+constexpr int WIDE_BUFS = 3;                   // widened bf16 B tiles of an fp8 ring
+
+// Weight types of the banks (grouped.py WEIGHT_CODES): the activation's
+// own, or fp8 widened to bf16 on the chip (op STACK, bf16 activations).
+constexpr int W_SAME = 0, W_E4M3 = 1, W_E5M2 = 2;
 
 // Dynamic shared memory of a ring: 1024 bytes of alignment slack, the
-// stages (or, if larger, the epilogue's staging tile, which reuses them),
-// a full and an empty barrier per stage.
-__host__ __device__ inline size_t ring_bytes(int stages, int stage_bytes, int epi_bytes) {
-  const size_t ring = (size_t)stages * stage_bytes;
+// stages and the widened B tiles of an fp8 ring (or, if larger, the
+// epilogue's staging tile, which reuses them), a full and an empty barrier
+// per stage.
+__host__ __device__ inline size_t ring_bytes(int stages, int stage_bytes, int epi_bytes,
+                                             int wide_bytes = 0) {
+  const size_t ring = (size_t)stages * stage_bytes + wide_bytes;
   return ring > (size_t)epi_bytes ? ring : (size_t)epi_bytes;
 }
-inline size_t smem_bytes(int stages, int stage_bytes, int epi_bytes) {
-  return 1024 + ring_bytes(stages, stage_bytes, epi_bytes) +
+inline size_t smem_bytes(int stages, int stage_bytes, int epi_bytes, int wide_bytes = 0) {
+  return 1024 + ring_bytes(stages, stage_bytes, epi_bytes, wide_bytes) +
          2 * (size_t)stages * sizeof(uint64_t);
 }
 
@@ -103,16 +140,19 @@ enum Op { REDUCE = 0, GATE_UP = 1, STACK = 2 };
 
 // The block tile of an op (dense.py HOPPER_TILES): CW consumer warpgroups
 // of 64 rows each (BM 64 or 128), NB 64-column boxes per B matrix (BN 128
-// or 256; gate_up has two B matrices, gate and up).
-template <int OP, int NB_, int CW_>
+// or 256; gate_up has two B matrices, gate and up); WT the weight type.
+template <int OP, int NB_, int CW_, int WT = W_SAME>
 struct Tile {
   static constexpr int CW = CW_;
   static constexpr int BM = 64 * CW;
   static constexpr int NB = NB_;
   static constexpr int BN = NB * BOX_N;                 // columns per matrix
   static constexpr int MATS = OP == GATE_UP ? 2 : 1;    // B matrices per stage
+  static constexpr bool FP8 = WT != W_SAME;
+  static constexpr int BOX = FP8 ? B8_BYTES : B_BYTES;  // a landed B box
   static constexpr int A_BYTES = BM * BK * 2;
-  static constexpr int STAGE = A_BYTES + MATS * NB * B_BYTES;
+  static constexpr int STAGE = A_BYTES + MATS * NB * BOX;
+  static constexpr int WIDE = FP8 ? WIDE_BUFS * NB * B_BYTES : 0;  // widened B tiles
   static constexpr int ACC = BN / 2;                    // fp32 per thread per matrix
   static constexpr int THREADS = 128 * (CW + 1);        // + the producer warpgroup
   // The epilogue stages the tile in shared memory, rows padded by 8
@@ -122,6 +162,50 @@ struct Tile {
 };
 
 __device__ __forceinline__ float silu_mul(float g, float u) { return g / (1.f + __expf(-g)) * u; }
+
+// Two fp8 values (the low byte first) -> bf16x2, exactly: the hardware's
+// fp8x2 -> f16x2 conversion, f16 -> f32, and the top half of each f32 (an
+// fp8 value has at most 4 significant bits, so the f32's low 16 bits are
+// zero and the top half is its bf16; NaN and infinity stay so).
+template <int WT>
+__device__ __forceinline__ uint32_t widen2(uint32_t v) {
+  uint32_t h;
+  if constexpr (WT == W_E4M3)
+    asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(h) : "h"((uint16_t)v));
+  else
+    asm("cvt.rn.f16x2.e5m2x2 %0, %1;\n" : "=r"(h) : "h"((uint16_t)v));
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
+  return __byte_perm(__float_as_uint(f.x), __float_as_uint(f.y), 0x7632);
+}
+
+// Widen one stage's NB fp8 boxes (64 k rows of 64 bytes each, at src)
+// into the bf16 B tile at dst: NB boxes of 64 rows x 128 bytes, 16-byte
+// chunk c of row r at r * 128 + (c ^ (r % 8)) * 16 (the 128-byte swizzle
+// TMA gives a bf16 box). Thread t of the THREADS consumer threads takes
+// the 16-byte pieces t, t + THREADS, ...: piece i is box i / 256, row
+// (i / 4) % 64, bytes 16 * (i % 4) of the row, whose 16 bf16 values are
+// chunks 2 (i % 4) and 2 (i % 4) + 1 of the bf16 row. All of a thread's
+// loads are issued before its conversions.
+template <int WT, int NB, int THREADS>
+__device__ __forceinline__ void widen_stage(uint32_t src, uint32_t dst, int t) {
+  constexpr int PER = NB * 256 / THREADS;
+  static_assert(NB * 256 % THREADS == 0, "widen_stage: whole pieces per thread");
+  uint4 v[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) v[j] = lds128(src + 16 * (t + j * THREADS));
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = t + j * THREADS;
+    const int box = i / 256, r = (i / 4) % 64, q = i % 4;
+    const uint4 lo = make_uint4(widen2<WT>(v[j].x), widen2<WT>(v[j].x >> 16),
+                                widen2<WT>(v[j].y), widen2<WT>(v[j].y >> 16));
+    const uint4 hi = make_uint4(widen2<WT>(v[j].z), widen2<WT>(v[j].z >> 16),
+                                widen2<WT>(v[j].w), widen2<WT>(v[j].w >> 16));
+    const uint32_t row = dst + box * B_BYTES + r * 128;
+    sts128(row + ((2 * q) ^ (r % 8)) * 16, lo);
+    sts128(row + ((2 * q + 1) ^ (r % 8)) * 16, hi);
+  }
+}
 
 // A is always a 3-d map (slices, M, K), box (BK, BM, 1).
 // REDUCE: grid (m tiles, column tiles, splits); the block sums its split's
@@ -138,8 +222,8 @@ __device__ __forceinline__ float silu_mul(float g, float u) { return g / (1.f + 
 // grouped kernels). valid (nullptr, or a byte per slice of the second
 // bank): a slice marked 0 is padding; its producer issues no loads, and
 // its block writes zeros.
-template <int OP, int NB, int CW>
-__global__ void __launch_bounds__(Tile<OP, NB, CW>::THREADS, 1)
+template <int OP, int NB, int CW, int WT = W_SAME>
+__global__ void __launch_bounds__(Tile<OP, NB, CW, WT>::THREADS, 1)
 hopper_kernel(const __grid_constant__ CUtensorMap a_map,
               const __grid_constant__ CUtensorMap b0_local,
               const __grid_constant__ CUtensorMap b0_remote,
@@ -147,12 +231,13 @@ hopper_kernel(const __grid_constant__ CUtensorMap a_map,
               const __grid_constant__ CUtensorMap b1_remote, void* __restrict__ out,
               const unsigned char* __restrict__ valid, int n_local, int n_slices, int a_slices,
               int M, int N, int k_tiles, int stages, int splits) {
-  using TL = Tile<OP, NB, CW>;
+  using TL = Tile<OP, NB, CW, WT>;
+  static_assert(!TL::FP8 || OP == STACK, "fp8 banks: op STACK only");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* bars =
-      reinterpret_cast<uint64_t*>(ring + ring_bytes(stages, TL::STAGE, TL::EPI_BYTES));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      ring + ring_bytes(stages, TL::STAGE, TL::EPI_BYTES, TL::WIDE));
   const uint32_t ring_u32 = smem_u32(ring);
   const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * stages;
 
@@ -201,10 +286,10 @@ hopper_kernel(const __grid_constant__ CUtensorMap a_map,
         tma_3d(a, &a_map, full, k, m0, OP == REDUCE ? ss : az);
 #pragma unroll
         for (int j = 0; j < NB; ++j) {
-          tma_3d(a + TL::A_BYTES + j * B_BYTES, loc ? &b0_local : &b0_remote, full,
+          tma_3d(a + TL::A_BYTES + j * TL::BOX, loc ? &b0_local : &b0_remote, full,
                  n0 + j * BOX_N, k, sb);
           if (OP == GATE_UP)
-            tma_3d(a + TL::A_BYTES + (NB + j) * B_BYTES, loc ? &b1_local : &b1_remote, full,
+            tma_3d(a + TL::A_BYTES + (NB + j) * TL::BOX, loc ? &b1_local : &b1_remote, full,
                    n0 + j * BOX_N, k, sb);
         }
         if (++st == stages) {
@@ -227,7 +312,17 @@ hopper_kernel(const __grid_constant__ CUtensorMap a_map,
     for (long it = it0; it < it1; ++it) {
       mbar_wait(full0 + 8 * st, ph);
       const uint32_t a = ring_u32 + st * TL::STAGE + wg * (64 * BK * 2);
-      const uint32_t b = ring_u32 + st * TL::STAGE + TL::A_BYTES;
+      uint32_t b = ring_u32 + st * TL::STAGE + TL::A_BYTES;
+      if constexpr (TL::FP8) {
+        // widen the stage's fp8 boxes into widened tile (it - it0) % 3,
+        // which the wgmma of iteration it - 3 was the last to read
+        const uint32_t wide = ring_u32 + stages * TL::STAGE +
+                              (int)((it - it0) % WIDE_BUFS) * (NB * B_BYTES);
+        widen_stage<WT, NB, CW * 128>(b, wide, threadIdx.x);
+        fence_async_shared();
+        bar_sync(1, CW * 128);
+        b = wide;
+      }
       fence_regs(acc0);
       fence_regs(acc1);
       wgmma_fence();
@@ -488,11 +583,13 @@ fr_slices_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0_local,
 // ---------------------------------------------------------------------------
 // Host side.
 // ---------------------------------------------------------------------------
-// Maps of a (S_b, K, N) bank: 64 x 64 boxes.
-inline int bank_map(CUtensorMap* map, const void* w, int n_banks, int K, int N) {
+// Maps of a (S_b, K, N) bank: 64 x 64 boxes (bf16, 128-byte swizzle; or
+// fp8, ``bytes1``: 64-byte rows, no swizzle).
+inline int bank_map(CUtensorMap* map, const void* w, int n_banks, int K, int N,
+                    bool bytes1 = false) {
   const uint64_t dims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)n_banks};
   const uint32_t box[3] = {BOX_N, BK, 1};
-  return make_map(map, w, 3, dims, box);
+  return make_map(map, w, 3, dims, box, bytes1);
 }
 
 // Map of an activation (slices, M, K): (BK, bm, 1) boxes. TMA zero-fills
@@ -517,23 +614,23 @@ struct Args {
   int n_local, n_slices, a_slices, M, N, k_tiles, stages, splits;
 };
 
-template <int OP, int NB, int CW>
+template <int OP, int NB, int CW, int WT = W_SAME>
 inline int hopper_launch(const CUtensorMap& a, const CUtensorMap& b0l, const CUtensorMap& b0r,
                          const CUtensorMap& b1l, const CUtensorMap& b1r, const Args& g,
                          cudaStream_t st) {
-  using TL = Tile<OP, NB, CW>;
-  const size_t smem = smem_bytes(g.stages, TL::STAGE, TL::EPI_BYTES);
+  using TL = Tile<OP, NB, CW, WT>;
+  const size_t smem = smem_bytes(g.stages, TL::STAGE, TL::EPI_BYTES, TL::WIDE);
   // at least 2 stages: a stage is released one stage late
   if (g.stages < 2 || smem > MAX_SMEM || g.splits < 1) return (int)cudaErrorInvalidValue;
   // Set on every launch: a function-local "done" flag of an inline template
   // is one symbol for every library that includes this header, and each
   // library has its own kernel to set it on.
   const int err = (int)cudaFuncSetAttribute(
-      hopper_kernel<OP, NB, CW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      hopper_kernel<OP, NB, CW, WT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return ATTR_ERROR + err;
   const unsigned z = OP == REDUCE ? g.splits : OP == STACK ? g.n_slices * g.splits : g.n_slices;
   dim3 grid(cdiv(g.M, TL::BM), cdiv(g.N, TL::BN), z);
-  hopper_kernel<OP, NB, CW><<<grid, TL::THREADS, smem, st>>>(
+  hopper_kernel<OP, NB, CW, WT><<<grid, TL::THREADS, smem, st>>>(
       a, b0l, b0r, b1l, b1r, g.out, g.valid, g.n_local, g.n_slices, g.a_slices, g.M, g.N,
       g.k_tiles, g.stages, g.splits);
   return (int)cudaGetLastError();
@@ -660,6 +757,30 @@ inline int launch_grouped_swiglu(const void* x, const void* gl, const void* ul, 
   if (err) return err;
   return launch_slices<STACK>(h, E, dl, nullptr, dr, nullptr, out, nullptr, valid, n_local, E, C,
                               F, D, dn, st);
+}
+
+// Kernel #1 on the Hopper path: out[e] (C, F) = x[e] (C, D) @ W(e), x (E,
+// C, D) bf16, banks (E_l, D, F) / (E - E_l, D, F) in bf16 (WT W_SAME) or
+// fp8 (W_E4M3, W_E5M2, widened on the chip; F a multiple of 16 for the
+// banks' 16-byte row stride): op STACK with the activation read per
+// expert (#2's down launch), BM 64 or 128, BN 256 (BN 128 lost at C 1, 16
+// and 88 in bf16 and fp8: PERF.md), no split.
+// (A template, instantiated by split_grouped_gemm.cu alone: a kernel named
+// in an inline function of this header is compiled into every library.)
+template <int WT>
+inline int launch_gemm(const void* x, const void* wl, const void* wr, void* out, int n_local,
+                       int E, int C, int D, int F, const Plan& p, cudaStream_t st) {
+  if (C == 0 || F == 0 || E == 0) return 0;
+  if (p.path != PATH_HOPPER || p.splits != 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap a, bl, br;
+  int err = act_map(&a, x, E, C, D, p.bm);
+  if (!err) err = bank_map(&bl, wl, n_local, D, F, WT != W_SAME);
+  if (!err) err = bank_map(&br, wr, E - n_local, D, F, WT != W_SAME);
+  if (err) return err;
+  const Args g{out, nullptr, n_local, E, E, C, F, (int)cdiv(D, BK), p.stages, 1};
+  if (p.bm == 128 && p.bn == 256) return hopper_launch<STACK, 4, 2, WT>(a, bl, br, bl, br, g, st);
+  if (p.bm == 64 && p.bn == 256) return hopper_launch<STACK, 4, 1, WT>(a, bl, br, bl, br, g, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------

@@ -62,7 +62,10 @@ HOPPER_BK = 64
 #: Gemma-3's k/v widths); BM 64 serves at most 64 rows (#2's C 16)
 #: (tools/sweep_dense_plans.py, PERF.md).
 HOPPER_TILES = {"reduce": ((128, 256),), "gate_up": ((128, 128), (64, 128)),
-                "stack": ((128, 256), (128, 128), (64, 256))}
+                "stack": ((128, 256), (128, 128), (64, 256)),
+                # kernel #1 (grouped.plan_grouped op "gemm"): op STACK, its
+                # own launcher (split_hopper.cuh launch_gemm)
+                "gemm": ((128, 256), (64, 256))}
 MAX_SPLITS = 8
 MIN_SPLIT_K_TILES = 2          # k tiles a split keeps at least
 # The split decision's cost model: a full wave of the Hopper path runs at
@@ -100,17 +103,24 @@ class Plan(NamedTuple):
         return [PATH_CODES[self.path], bm, bn, self.stages, self.splits, self.chunk]
 
 
-def stage_bytes(op: str, bm: int, bn: int) -> int:
-    """Bytes of one ring stage of the Hopper path: the A tile and the B boxes."""
+#: widened bf16 B tiles beside the ring of an fp8-stored bank (split_hopper.cuh)
+WIDE_BUFS = 3
+
+
+def stage_bytes(op: str, bm: int, bn: int, wbytes: int = 2) -> int:
+    """Bytes of one ring stage of the Hopper path: the A tile and the B
+    boxes (``wbytes`` 1: an fp8-stored bank's boxes, widened on the chip)."""
     mats = 2 if op == "gate_up" else 1
-    return 2 * bm * HOPPER_BK + mats * 2 * HOPPER_BK * bn
+    return 2 * bm * HOPPER_BK + mats * wbytes * HOPPER_BK * bn
 
 
-def max_stages(op: str, bm: int, bn: int) -> int:
+def max_stages(op: str, bm: int, bn: int, wbytes: int = 2) -> int:
     """The most ring stages (and their two barriers) that fit a block's
     shared memory beside 1024 bytes of alignment slack (4 of 48 KB at
-    128 x 256)."""
-    return (SMEM - 1024) // (stage_bytes(op, bm, bn) + 16)
+    128 x 256) and, for fp8 banks (``wbytes`` 1), WIDE_BUFS widened bf16
+    B tiles."""
+    wide = WIDE_BUFS * 2 * HOPPER_BK * bn if wbytes == 1 else 0
+    return (SMEM - 1024 - wide) // (stage_bytes(op, bm, bn, wbytes) + 16)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -118,14 +128,16 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def hopper_plan(op: str, rows: int, k: int, n: int, slices: int, bm: int, bn: int,
-                splits: int = 1) -> Plan:
+                splits: int = 1, wbytes: int = 2) -> Plan:
     """The Hopper launch of ``op`` with a (bm, bn) tile, the most stages
-    that fit, and ``splits`` k splits (reduce, stack)."""
+    that fit (``wbytes`` 1: fp8-stored banks), and ``splits`` k splits
+    (reduce, stack)."""
     if (bm, bn) not in HOPPER_TILES[op]:
         raise ValueError(f"{op}: no {bm} x {bn} Hopper tile")
     per = 1 if op == "reduce" else slices  # output blocks of the partials
     scratch = splits * per * rows * n if splits > 1 else 0
-    return Plan("hopper", (bm, bn, HOPPER_BK), max_stages(op, bm, bn), splits, 0, scratch)
+    return Plan("hopper", (bm, bn, HOPPER_BK), max_stages(op, bm, bn, wbytes), splits, 0,
+                scratch)
 
 
 @functools.lru_cache(maxsize=None)  # a pure function, on every launch's host path

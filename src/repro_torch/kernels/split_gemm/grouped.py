@@ -13,7 +13,9 @@ runs its plain version for CPU tensors:
   budget; ``valid`` marks the real rows, and a padding row's output is
   exactly zero.
 - ``split_grouped_gemm`` (``csrc/split_grouped_gemm.cu``, replacing
-  ``split_gemm.py::split_grouped_gemm``): ``y[e] = x[e] @ W(e)``.
+  ``split_gemm.py::split_grouped_gemm``): ``y[e] = x[e] @ W(e)``; its
+  banks may be stored in fp8 (e4m3, e5m2) beside bf16 activations, widened
+  exactly to bf16 on the chip as the Pallas kernel's ``_cast`` does.
 
 Experts ``[0, E_l)`` read the local bank, the rest the second bank; no
 merged bank is built.
@@ -26,7 +28,9 @@ ring and wgmma, the activation read per expert) at every capacity, decode
 (``tile_few_row``, its few-row register kernels, at 2 rows or fewer;
 ``mma``/``fma`` as in ``dense.plan_split`` above). The demand kernel runs
 the plan of kernel #2 for the same shapes, so its real experts get #2's
-bits. ``PATHS`` counts the launches of each path.
+bits. ``split_grouped_gemm`` runs the one launch of op "gemm" (#2's down
+launch on its own shapes, the "hopper" path also with fp8 banks).
+``PATHS`` counts the launches of each path.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import functools
 import torch
 
 from repro_torch.kernels._launch import (
+    FP8_DTYPES,
     CudaKernel,
     bank_dims,
     cast_like,
@@ -53,10 +58,18 @@ from repro_torch.models.moe import grouped_ffn
 
 GROUPED_SWIGLU = CudaKernel("split_grouped_swiglu", n_ptrs=9, n_ints=18)
 GROUPED_SWIGLU_DEMAND = CudaKernel("split_grouped_swiglu_demand", n_ptrs=10, n_ints=18)
-GROUPED_GEMM = CudaKernel("split_grouped_gemm", n_ptrs=4, n_ints=6)
+GROUPED_GEMM = CudaKernel("split_grouped_gemm", n_ptrs=4, n_ints=13)
+#: weight codes of split_grouped_gemm's entry point (split_hopper.cuh W_*):
+#: the activation's own type, or fp8 widened to bf16 on the chip
+WEIGHT_CODES = {torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
+#: ring stages of #1 with bf16 banks: 3 beat or tied the most that fit
+#: (4-5) at C 1, 16 and 88 in two sweeps (tools/sweep_dense_plans.py,
+#: PERF.md); with fp8 banks the most that fit won
+GEMM_BF16_STAGES = 3
 
 #: Launches per (kernel, launch, path, row class) of the grouped SwiGLU
-#: kernels, counted by the wrappers (``dense.row_class``).
+#: kernels, counted by the wrappers (``dense.row_class``); kernel #1's keys
+#: add the banks' dtype: (kernel, "gemm", path, row class, dtype name).
 PATHS: collections.Counter = collections.Counter()
 
 
@@ -65,11 +78,13 @@ PATHS: collections.Counter = collections.Counter()
 # --------------------------------------------------------------------------
 @functools.lru_cache(maxsize=None)  # a pure function, on every launch's host path
 def plan_grouped(op: str, dtype: torch.dtype, rows: int, k: int, n: int,
-                 aligned: bool = True) -> Plan:
+                 aligned: bool = True, weight: torch.dtype | None = None) -> Plan:
     """The plan of one launch of the grouped SwiGLU: ``op`` "gate_up"
-    (rows C, k D, n F) or "down" (rows C, k F, n D). A pure function of the
-    per-expert shapes, never of the expert count, so the demand kernel
-    (#3) runs kernel #2's plan and gets #2's bits.
+    (rows C, k D, n F) or "down" (rows C, k F, n D); or of kernel #1, op
+    "gemm" (rows C, k D, n F; ``weight``: the banks' dtype, by default
+    ``dtype``). A pure function of the per-expert shapes, never of the
+    expert count, so the demand kernel (#3) runs kernel #2's plan and gets
+    #2's bits.
 
     - fp32, or bf16 with a width that is not a multiple of 8 or an
       unaligned pointer: split_tile.cuh's launchers, "tile_few_row" (its
@@ -83,10 +98,17 @@ def plan_grouped(op: str, dtype: torch.dtype, rows: int, k: int, n: int,
       TMA zero-filling the other 63 rows of the tile) this beat
       split_hopper.cuh's few-row kernels extended per expert and the
       library call (tools/sweep_dense_plans.py, PERF.md).
+    - "gemm" is "down" on #1's shapes, in GEMM_BF16_STAGES stages; with
+      fp8 banks the Hopper path also needs n a multiple of 16 (the banks'
+      16-byte row stride) and takes the most stages that fit beside the
+      widened tiles. fp8 banks off the Hopper path have no kernel: the
+      wrapper raises.
     """
-    if op not in ("gate_up", "down"):
+    if op not in ("gate_up", "down", "gemm"):
         raise ValueError(f"unknown grouped op {op!r}")
-    hopper = dtype == torch.bfloat16 and aligned and not (k % 8 or n % 8)
+    fp8 = op == "gemm" and weight in FP8_DTYPES
+    hopper = (dtype == torch.bfloat16 and aligned and not (k % 8 or n % 8)
+              and not (fp8 and n % 16))
     if not hopper:
         if rows <= FEW_ROW_MAXM:
             return Plan("tile_few_row", (), 0, 1, 0, 0)
@@ -94,7 +116,11 @@ def plan_grouped(op: str, dtype: torch.dtype, rows: int, k: int, n: int,
     bm = 64 if rows <= 64 else 128
     if op == "gate_up":
         return hopper_plan("gate_up", rows, k, n, 1, bm, 128)
-    return hopper_plan("stack", rows, k, n, 1, bm, 256)
+    if op == "down":
+        return hopper_plan("stack", rows, k, n, 1, bm, 256)
+    if fp8:
+        return hopper_plan("gemm", rows, k, n, 1, bm, 256, wbytes=1)
+    return hopper_plan("gemm", rows, k, n, 1, bm, 256)._replace(stages=GEMM_BF16_STAGES)
 
 
 def grouped_swiglu_plans(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r) -> tuple[Plan, Plan]:
@@ -105,6 +131,14 @@ def grouped_swiglu_plans(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r) -> tuple[Plan, P
     ok = _aligned(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r)
     return (plan_grouped("gate_up", x.dtype, c, d, f, ok),
             plan_grouped("down", x.dtype, c, f, d, ok))
+
+
+def gemm_plan(x, w_local, w_remote) -> Plan:
+    """The plan ``split_grouped_gemm`` runs for these operands."""
+    _, c, d = x.shape
+    w = w_local if w_local.shape[0] else w_remote
+    return plan_grouped("gemm", x.dtype, c, d, w.shape[2], _aligned(x, w_local, w_remote),
+                        w.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -201,9 +235,26 @@ def split_grouped_swiglu_demand(x, wg_l, wu_l, wd_l, wg_f, wu_f, wd_f, valid):
     return out
 
 
-def split_grouped_gemm(x, w_local, w_remote):
+def check_gemm_operands(x, w_local, w_remote, plan: Plan) -> tuple[int, int]:
+    """(dtype code, weight code) of a #1 launch under ``plan``; raises on
+    what the kernel does not take: fp8 banks beside fp32 activations, and
+    fp8 banks off the Hopper path (a width that is not a multiple of 8, F
+    not a multiple of 16, an unaligned pointer)."""
+    name = GROUPED_GEMM.name
+    code = check_cuda_operands(name, x, w_local, w_remote, fp8=True)  # one bank dtype
+    wcode = WEIGHT_CODES.get(w_local.dtype, 0)
+    if wcode and plan.path != "hopper":
+        raise TypeError(f"{name}: fp8-stored banks run on the Hopper path only (D a multiple "
+                        f"of 8, F of 16, 16-byte aligned operands); this launch's plan is "
+                        f"{plan.path!r}")
+    return code, wcode
+
+
+def split_grouped_gemm(x, w_local, w_remote, plan: Plan | None = None):
     """Grouped GEMM over split banks: x (E, C, D), banks (E_l, D, F) /
-    (E - E_l, D, F) -> (E, C, F)."""
+    (E - E_l, D, F) in x's dtype or, beside bf16 activations, in fp8 ->
+    (E, C, F) in x's dtype. ``plan``: the launch plan on the card (default
+    ``gemm_plan``'s)."""
     name = GROUPED_GEMM.name
     if x.dim() != 3:
         raise ValueError(f"{name}: x must be (E, C, D), got {tuple(x.shape)}")
@@ -213,7 +264,10 @@ def split_grouped_gemm(x, w_local, w_remote):
         raise ValueError(f"{name}: x {tuple(x.shape)} does not match banks ({e_l}+{e_r}, {d_w}, {f})")
     if on_cpu(x, w_local, w_remote):
         return split_grouped_gemm_torch(x, w_local, w_remote)
-    code = check_cuda_operands(name, x, w_local, w_remote)
+    plan = plan or gemm_plan(x, w_local, w_remote)
+    code, wcode = check_gemm_operands(x, w_local, w_remote, plan)
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
-    GROUPED_GEMM.launch([x, w_local, w_remote, out], [e_l, e_r, c, d, f, code])
+    GROUPED_GEMM.launch([x, w_local, w_remote, out],
+                        [e_l, e_r, c, d, f, code, wcode, *plan.ints()])
+    PATHS[(name, "gemm", plan.path, row_class(c), str(w_local.dtype).removeprefix("torch."))] += 1
     return out

@@ -380,3 +380,79 @@ def test_cuda_flash_attention_wgmma_tiles():
             again = fa.flash_attention(q, k, v, window=window, q_offset=q_offset, plan=plan)
             assert torch.equal(again, got), plan
     torch.cuda.synchronize()
+
+
+# (E, E_l, C, D, F) of kernel #1 on the Hopper path: decode's C 1, a ragged
+# C 3 with D and F not multiples of the tiles (F a multiple of 16, as fp8
+# banks need), C 16, C 88 and 130 (BM 128; two m tiles at BM 64), an empty
+# local bank and an empty remote bank.
+GEMM = [(5, 2, 1, 264, 272), (6, 4, 3, 136, 400), (4, 0, 16, 128, 256),
+        (3, 3, 88, 192, 528), (3, 1, 130, 72, 144)]
+FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_gemm_hopper_bf16_and_fp8_banks():
+    """Kernel #1 with bf16, e4m3 and e5m2 banks (bf16 activations) on its
+    default plan and on every block tile at 2 ring stages, against the
+    plain version (2e-2 relative to max|ref|), the path counted under the
+    banks' dtype; bitwise on repeat; expert 0's output unchanged when the
+    other experts' rows change; and an fp8 result bitwise the bf16 kernel's
+    on the widened banks under the same plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    from repro_torch.kernels.split_gemm import dense, grouped
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    bf = torch.bfloat16
+
+    def rnd(*s, scale=0.1):
+        return (torch.randn(*s, generator=gen, device="cuda") * scale).to(bf)
+
+    for e, e_l, c, d, f in GEMM:
+        x, wl, wr = rnd(e, c, d, scale=1.0), rnd(e_l, d, f), rnd(e - e_l, d, f)
+        for wdt in (bf, *FP8):
+            ql, qr = wl.to(wdt), wr.to(wdt)
+            ref = grouped.split_grouped_gemm_torch(x, ql, qr)
+            plan = grouped.gemm_plan(x, ql, qr)
+            assert plan.path == "hopper" and plan.tile[:2] == (64 if c <= 64 else 128, 256), plan
+            wbytes = 1 if wdt in FP8 else 2
+            plans = [plan] + [dense.hopper_plan("gemm", c, d, f, 1, bm, bn, wbytes=wbytes)
+                              ._replace(stages=2) for bm, bn in dense.HOPPER_TILES["gemm"]]
+            for p in plans:
+                key = ("split_grouped_gemm", "gemm", "hopper", dense.row_class(c),
+                       str(wdt).removeprefix("torch."))
+                before = grouped.PATHS[key]
+                got = grouped.split_grouped_gemm(x, ql, qr, plan=p)
+                assert grouped.PATHS[key] == before + 1
+                assert _rel(got, ref) <= 2e-2, (e, c, d, f, wdt, p)
+                assert torch.equal(grouped.split_grouped_gemm(x, ql, qr, plan=p), got), p
+                other = x.clone()
+                other[1:] = rnd(e - 1, c, d, scale=1.0)
+                assert torch.equal(grouped.split_grouped_gemm(other, ql, qr, plan=p)[0], got[0])
+                if wdt in FP8:
+                    wide = grouped.split_grouped_gemm(x, ql.to(bf), qr.to(bf), plan=p)
+                    assert torch.equal(wide, got), (e, c, d, f, wdt, p)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_fp8_banks_refused_where_no_kernel_takes_them():
+    """fp8 banks raise beside fp32 activations, at an F the Hopper path
+    does not take (not a multiple of 16), and on kernels #2-#6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    from repro_torch.kernels.split_gemm import dense, grouped
+
+    w8 = torch.zeros(2, 64, 128, device="cuda").to(torch.float8_e4m3fn)
+    x = torch.zeros(4, 3, 64, device="cuda")
+    with pytest.raises(TypeError, match="bfloat16 activations"):
+        grouped.split_grouped_gemm(x, w8, w8)
+    with pytest.raises(TypeError, match="Hopper path only"):
+        w120 = w8[..., :120].contiguous()
+        grouped.split_grouped_gemm(x.bfloat16(), w120, w120)
+    with pytest.raises(TypeError, match="not supported"):
+        dense.split_stack_gemm(x[0].bfloat16(), w8, w8)
+    w8t = w8.transpose(1, 2).contiguous()
+    with pytest.raises(TypeError, match="not supported"):
+        grouped.split_grouped_swiglu(x.bfloat16(), w8, w8, w8t, w8, w8, w8t)

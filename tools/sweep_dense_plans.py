@@ -5,7 +5,7 @@ DeepSeek-R1 prefill at 1024- and 8192-token prompts (256 and 2048 rows;
 expert capacity 16 and 88), decode (2 rows; expert capacity 1),
 Gemma-3-27B prefill at a 4096-token prompt (1024 rows).
 
-    python3 tools/sweep_dense_plans.py [--kernels stack,grouped,reduce,dense,flash]
+    python3 tools/sweep_dense_plans.py [--kernels stack,grouped,reduce,dense,flash,gemm]
                                        [--out build/sweep_dense_plans.json]
     python3 tools/sweep_dense_plans.py --defaults [--src OTHER/src] [--out ...]
 
@@ -14,8 +14,9 @@ Gemma-3's; "grouped" #2 (``split_grouped_swiglu``) at C 16 and 88 and at
 decode, C 1 and 2; "reduce" #5 (``split_reduce_gemm``); "dense" #6
 (``split_dense_swiglu``); "flash" #7 (``flash_attention``) at the five
 prefill shards of ``chip_smoke.py`` (R1 1024 first and last rank, R1 8192
-last rank, Gemma-3 4096 local and global layer) and its ragged case.
-Default: stack, grouped and flash.
+last rank, Gemma-3 4096 local and global layer) and its ragged case;
+"gemm" #1 (``split_grouped_gemm``) at R1's expert shapes, C 1, 16 and 88,
+with bf16 and e4m3 banks. Default: stack, grouped and flash.
 Candidates, beside the default plan (``dense.plan_split``,
 ``grouped.plan_grouped``, ``flash_attention.ops.flash_plan``): every
 Hopper block tile of the op (BM 64 or 128, BN 128 or 256), the ring depth
@@ -26,7 +27,11 @@ time, the other on its default plan; at C 1 and 2 its decode path (the
 Hopper path at BM 64) at several ring depths, both launches alike, beside
 the split_tile.cuh few-row path that #2 ran there before. #7: the ring
 depth of its Hopper kernel (its earlier mma.sync kernel: ``--defaults``
-with ``--src`` at an earlier checkout).
+with ``--src`` at an earlier checkout). #1: every block tile of its
+launcher (BM 64 or 128, BN 256) at every ring depth that fits, with bf16 banks beside split_tile.cuh's path (its
+path before the Hopper one) and with e4m3 banks beside the bf16 kernel on
+the widened banks (no PyTorch call multiplies bf16 by fp8 without
+quantizing the activations, so that is the fp8 yardstick).
 Each plan's output is held against the default plan's (2e-2 relative to
 max|ref|). #6's down product is timed as ``split_reduce_gemm`` on its
 shapes, its gate/up launch as #6 minus that. Times: CUDA events, median of
@@ -37,11 +42,11 @@ power limit and one per-bank torch.matmul/bmm composition (#7:
 graph and replayed, the device time without the host time between
 launches (small launches are bound by the host).
 
-``--defaults`` times only the default plans of #4, #2 and #7 at those cases,
-through the wrappers' public signatures, so that ``--src`` may point at
-another checkout's ``src`` (an earlier commit, unpacked with ``git
-archive``): run it for both trees in one call, in turns, to compare them
-on one card.
+``--defaults`` times only the default plans of #1 (bf16 banks; e4m3 where
+the tree takes them), #2, #4, #5, #6 and #7 at those cases, through the
+wrappers' public signatures, so that ``--src`` may point at another
+checkout's ``src`` (an earlier commit, unpacked with ``git archive``): run
+it for both trees in one call, in turns, to compare them on one card.
 """
 from __future__ import annotations
 
@@ -63,6 +68,8 @@ STACK_CASES = [("r1_1024", 256, R1, "qd"), ("r1_1024_kv", 256, R1, "kvd"),
                ("decode", 2, R1, "qd"), ("decode_kv", 2, R1, "kvd"),
                ("gemma3", 1024, GEMMA, "qd"), ("gemma3_kv", 1024, GEMMA, "kvd")]
 GROUPED_CASES = [("r1_1024", 16), ("r1_8192", 88), ("decode", 1), ("decode_c2", 2)]
+# (label, C) of kernel #1 at R1's expert shapes
+GEMM_CASES = [("decode", 1), ("r1_1024", 16), ("r1_8192", 88)]
 # (label, Sq, Sk, H, Kh, window, q_offset) of kernel #7 (batch 1, hd 128)
 FLASH_CASES = [("r1_1024_first", 256, 1024, 128, 8, 0, 0),
                ("r1_1024_last", 256, 1024, 128, 8, 0, 768),
@@ -131,20 +138,24 @@ def main() -> None:
         rows.append(row)
         print(json.dumps(row), flush=True)
 
-    kernels = ("stack", "grouped", "flash") if args.defaults else args.kernels.split(",")
+    kernels = (("stack", "grouped", "flash", "gemm", "reduce", "dense") if args.defaults
+               else args.kernels.split(","))
     if args.cases:
         keep = set(args.cases.split(","))
         STACK_CASES[:] = [c for c in STACK_CASES if c[0] in keep]
         GROUPED_CASES[:] = [c for c in GROUPED_CASES if c[0] in keep]
         FLASH_CASES[:] = [c for c in FLASH_CASES if c[0] in keep]
+        GEMM_CASES[:] = [c for c in GEMM_CASES if c[0] in keep]
     if "stack" in kernels:
         sweep_stack(args.defaults, rnd, rel, both, lib, record)
     if "grouped" in kernels:
         sweep_grouped(args.defaults, rnd, rel, both, lib, record)
     if "flash" in kernels:
         sweep_flash(args.defaults, gen, rel, both, record)
+    if "gemm" in kernels:
+        sweep_gemm(args.defaults, rnd, rel, both, lib, record)
     if "reduce" in kernels or "dense" in kernels:
-        sweep_reduce_dense(kernels, rnd, rel, ms, lib, record)
+        sweep_reduce_dense(kernels, args.defaults, rnd, rel, ms, lib, record)
     bad = [r for r in rows if r["err"] > chip_smoke.KERNEL_TOL]
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:
@@ -256,6 +267,64 @@ def grouped_decode_candidates(dense, c, d, f):
                 dense.hopper_plan("stack", c, f, d, 1, 64, 256)._replace(stages=st_dn)))
 
 
+def sweep_gemm(defaults, rnd, rel, both, lib, record) -> None:
+    """Kernel #1: the default plan with bf16 and e4m3 banks and, unless
+    ``defaults``, BM 64 and 128 at every ring depth; bf16 also on
+    split_tile.cuh's path; e4m3 beside the bf16 kernel on the widened
+    banks. Every plan is held against the bf16 default on the same banks."""
+    import torch
+    from repro_torch.kernels.split_gemm import dense, grouped
+
+    d, f, e = R1["d"], R1["fe"], R1["e"]
+    e_l = e // G
+    wl, wr = rnd(e_l, d, f), rnd(e - e_l, d, f)
+    banks = {"bfloat16": (wl, wr)}
+    q = (wl.to(torch.float8_e4m3fn), wr.to(torch.float8_e4m3fn))
+    banks["float8_e4m3fn"] = q
+    wide = (q[0].to(torch.bfloat16), q[1].to(torch.bfloat16))
+    for label, c in GEMM_CASES:
+        x = rnd(e, c, d, scale=1.0)
+        for wname, (bl, br) in banks.items():
+            ref_banks = (wl, wr) if wname == "bfloat16" else wide
+            ref = grouped.split_grouped_gemm(x, *ref_banks)
+            lib_t = both(lambda: lib["split_grouped_gemm"](x, *ref_banks))
+            base = dict(case=label, kernel="split_grouped_gemm", weight=wname, t=c, k=d, n=f,
+                        library_ms=lib_t["ms"] if wname == "bfloat16" else None,
+                        library_device_ms=lib_t["device_ms"] if wname == "bfloat16" else None)
+            if wname != "bfloat16":
+                record(**base, plan="bf16 kernel on the widened banks", err=0.0,
+                       **both(lambda: grouped.split_grouped_gemm(x, *wide)))
+            try:
+                got = grouped.split_grouped_gemm(x, bl, br)
+            except TypeError as exc:  # a tree whose kernel takes no fp8 banks
+                record(**base, plan="default", err=0.0, ms=None, unsupported=str(exc))
+                continue
+            record(**base, plan="default", err=rel(got, ref),
+                   **both(lambda: grouped.split_grouped_gemm(x, bl, br)))
+            if defaults:
+                continue
+            plan = grouped.gemm_plan(x, bl, br)
+            record(**base, plan=f"default = {plan.path} {list(plan.tile)} stages {plan.stages}",
+                   err=0.0, ms=None)
+            cands = []
+            if wname == "bfloat16":
+                path = "tile_few_row" if c <= dense.FEW_ROW_MAXM else "mma"
+                cands.append((f"split_tile {path} (the path before)",
+                              dense.Plan(path, (), 0, 1, 0, 0)))
+            wbytes = 2 if wname == "bfloat16" else 1
+            for bm, bn in dense.HOPPER_TILES["gemm"]:
+                for stages in range(2, dense.max_stages("gemm", bm, bn, wbytes) + 1):
+                    p = dense.hopper_plan("gemm", c, d, f, 1, bm, bn, wbytes=wbytes)
+                    cands.append((f"hopper {bm}x{bn} stages {stages}", p._replace(stages=stages)))
+            for name, p in cands:
+                got = grouped.split_grouped_gemm(x, bl, br, plan=p)
+                record(**base, plan=name, err=rel(got, ref),
+                       **both(lambda: grouped.split_grouped_gemm(x, bl, br, plan=p)))
+        del x
+    del wl, wr, banks, q, wide
+    torch.cuda.empty_cache()
+
+
 def sweep_flash(defaults, gen, rel, both, record) -> None:
     """Kernel #7: the default plan and, unless ``defaults``, every ring
     depth of its Hopper kernel, beside ``scaled_dot_product_attention``; each held
@@ -289,14 +358,17 @@ def sweep_flash(defaults, gen, rel, both, record) -> None:
         torch.cuda.empty_cache()
 
 
-def sweep_reduce_dense(kernels, rnd, rel, ms, lib, record) -> None:
-    """Kernels #5 and #6: ring depth and split-k 1-4 of the
-    Hopper path, the few-row block target."""
+def sweep_reduce_dense(kernels, defaults, rnd, rel, ms, lib, record) -> None:
+    """Kernels #5 and #6: the default plan and, unless ``defaults``, ring
+    depth and split-k 1-4 of the Hopper path, the few-row block target."""
     import torch
     from repro_torch.kernels.split_gemm import dense
 
     def candidates(op, t, k, n, s):
         base = dense.plan_split(op, torch.bfloat16, t, k, n, s)
+        if defaults:
+            yield "default", None
+            return
         if base.path == "few_row":
             yield "default", base
             for blocks in FEW_ROW_TARGETS:
@@ -336,10 +408,11 @@ def sweep_reduce_dense(kernels, rnd, rel, ms, lib, record) -> None:
             down = dense.dense_swiglu_plans(x, *ws)[1]
             lib_ms = ms(lambda: lib["split_dense_swiglu"](x, *ws))
             for name, plan in candidates("gate_up", t, d, f, G):
-                err = rel(dense.split_dense_swiglu(x, *ws, plans=(plan, down)), ref)
+                plans = None if plan is None else (plan, down)
+                err = rel(dense.split_dense_swiglu(x, *ws, plans=plans), ref)
                 record(case=label, kernel="split_dense_swiglu", t=t, k=d, n=f,
                        plan=f"gate_up {name}", err=err,
-                       ms=ms(lambda: dense.split_dense_swiglu(x, *ws, plans=(plan, down))),
+                       ms=ms(lambda: dense.split_dense_swiglu(x, *ws, plans=plans)),
                        library_ms=lib_ms)
             del x, ws, ref
         torch.cuda.empty_cache()
