@@ -46,31 +46,41 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    launches counted, every one on the Hopper path;
 5. serve: ``build_engine`` at DeepSeek-R1 width (2 layers, first one
    dense), mesh (data=1, model=4) as 4 logical ranks, random weights from a
-   seeded generator; 4 requests of 1024 tokens, 16 output tokens each,
-   max_batch 2. Every kernel of the all-fetch path must have launched.
-   One prefill's and one decode step's logits are compared with the plain
-   versions' (tolerance below); one profiled prefill; the path counts of
-   kernels #2-#6 over the serve are printed, and every launch above 2 rows
-   must have run the Hopper path, every one at 2 rows or fewer its
-   kernel's path as above, and every flash attention launch the Hopper
-   path (its plans are counted and printed per serve). A request served
-   alone must give the same tokens as served among the 4, and its first
-   decode step's logits beside another request those beside an empty slot
-   (row-local capacity, ``capacity_from="global"``);
-6. fetch modes: the same 4 requests on the same weights under
-   ``expert_fetch`` demand, predictive and sync_free (route-before-gather
-   decode through the demand kernel, which must launch); every request's
-   tokens must equal the all-fetch tokens, and one decode step's logits
-   must be bitwise the all-fetch step's. Per mode: TPOT, peak memory,
-   landing bytes per decode step, fallbacks, summed ``pred_stats`` and a
-   profiled decode step;
+   seeded generator, every step a captured CUDA graph; 4 requests at two
+   pow2 prefill buckets (1024 and 512 tokens), 16 output tokens each,
+   max_batch 2. Warmup captures every bucket and decode variant and the
+   serve must capture nothing more. Every kernel of the all-fetch path
+   must have launched (launches counted through the replays). One
+   prefill's and one decode step's logits are compared with the plain
+   versions' (tolerance below); one prefill profiled, replayed and eager;
+   the path counts of kernels #2-#6 over the serve are printed, and every
+   launch above 2 rows must have run the Hopper path, every one at 2 rows
+   or fewer its kernel's path as above, and every flash attention launch
+   the Hopper path (its plans are counted and printed per serve). A
+   request served alone must give the same tokens as served among the 4,
+   and its first decode step's logits beside another request those
+   beside an empty slot (row-local capacity, ``capacity_from="global"``);
+6. fetch modes: the same requests on the same weights under ``expert_fetch``
+   all, demand, predictive and sync_free, each through graphs and eagerly
+   (``graphs=False``): every serve's tokens must equal the all-fetch graph
+   serve's, and one decode step from the all-fetch serve's final state
+   (with the mode's warm predictor) its logits bitwise; the demand kernel
+   must launch in the route-before-gather modes. The demand graph engine
+   also serves the requests again switching demand <-> predictive every 4
+   steps (at least 3 switches, both tables warmed: no capture, no variant
+   built), and demand with a budget of 1 row per peer must give the
+   all-fetch tokens and logits, its overflowed steps run again eagerly and
+   counted. Per mode, graph against eager, with the card's name and power
+   limit: TPOT p50, the device ms of one replayed decode step (CUDA events)
+   and of the eager step (profiled, by kind), TPOT / device time, peak
+   memory, landing bytes per decode step and fallbacks;
 7. DeepSeek-R1 at the paper's input length: the same weights behind a
-   ``prefill_len`` 8192 engine; 2 requests of 8192 tokens, 16 output tokens
+   ``prefill_len`` 8192 engine (graphs); 2 requests of 8192 tokens, 16 output tokens
    each, max_batch 2; flash attention must launch; TTFT, TPOT, peak memory,
    one profiled prefill, and one prefill's and one decode step's logits
    against the plain versions;
 8. Gemma-3-27B (every width kept, 6 layers: one 5 local : 1 global
-   pattern), mesh (1, 4), random weights: 4 requests of 4096 tokens, 16
+   pattern), mesh (1, 4), random weights, graphs: 4 requests of 4096 tokens, 16
    output tokens each, max_batch 2. Every kernel of its path must launch
    (the dense split kernels and flash attention's window branch); prefill
    and decode-step logits against the plain versions; a request alone
@@ -803,25 +813,52 @@ def gemma_six_layers():
     return dataclasses.replace(get_arch("gemma3-27b"), num_layers=GEMMA_LAYERS)
 
 
-def serve_phase(label: str, cfg, engine, prompts, kernels) -> tuple[dict, dict]:
-    """Serve ``prompts`` on a fresh engine after its warmup, with the launch
-    counts set to 0 just before and read just after; every kernel in
-    ``kernels`` must have launched and the peak memory stay under the
-    limit. Then one prefill's and one decode step's logits against the
-    plain versions, and one profiled prefill. Returns (numbers, outputs)."""
+def free_memory() -> None:
+    """Collect dropped engines and return their memory (graph pools
+    included) to the card before the next engine."""
     import gc
 
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def in_pool(engine):
+    """Eager work in ``engine``'s graph pool (a context): the pool already
+    holds the memory of the engine's largest step, which eager work outside
+    it would need again. Outputs made there are cloned before the engine's
+    next step."""
+    import contextlib
+
+    space = engine.gen.space
+    return space.eager() if space is not None else contextlib.nullcontext()
+
+
+def captures(engine) -> tuple:
+    return engine.ctx.variants.captures(), engine.gen.variants.captures()
+
+
+def serve_phase(label: str, cfg, engine, prompts, kernels, tables=()) -> tuple[dict, dict]:
+    """Serve ``prompts`` on a fresh engine after its warmup (which captures
+    every prefill bucket and decode variant), with the launch counts set to
+    0 just before and read just after; every kernel in ``kernels`` must
+    have launched, no variant may be captured after warmup, and the peak
+    memory stays under the limit. Then one prefill's and one decode step's
+    logits against the plain versions, and one profiled prefill, replayed
+    and eager. Returns (numbers, outputs)."""
     import torch
     from repro_torch.core import execution
     from repro_torch.kernels import registry
 
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_memory()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine.warmup()
-    print(f"{label}: warmup {time.perf_counter() - t0:.2f} s, weights "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    engine.warmup(tables)
+    warm = captures(engine)
+    print(f"{label}: warmup {time.perf_counter() - t0:.2f} s, captures (ctx, gen) {warm}, "
+          f"weights and pool {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
     registry.reset_launch_counts()
     clear_path_counts()
     t0 = time.perf_counter()
@@ -831,13 +868,19 @@ def serve_phase(label: str, cfg, engine, prompts, kernels) -> tuple[dict, dict]:
     counts = registry.launch_counts()
     paths = path_counts()
     peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
     summary = engine.metrics.summary()
     for rec in sorted(engine.metrics.records, key=lambda r: r.req_id):
-        print(f"{label} request {rec.req_id}: tokens {outputs[rec.req_id]} ttft_s "
-              f"{rec.ttft:.4f} tpot_s {rec.tpot:.4f}")
+        print(f"{label} request {rec.req_id} ({rec.prompt_len} tokens): tokens "
+              f"{outputs[rec.req_id]} ttft_s {rec.ttft:.4f} tpot_s {rec.tpot:.4f}")
     print(f"{label} serve: {json.dumps(summary)} wall_s {wall:.3f} peak_gb {peak / 1e9:.2f} "
-          f"launches {json.dumps(counts)} paths of #2-#7 {json.dumps(paths)}")
+          f"reserved_gb {reserved / 1e9:.2f} captures {captures(engine)} fallbacks (ctx, gen) "
+          f"({engine.ctx.fallbacks}, {engine.gen.fallbacks}) launches {json.dumps(counts)} "
+          f"paths of #2-#7 {json.dumps(paths)}")
     check_paths(label, paths)
+    if captures(engine) != warm:
+        fail(f"{label}: serving captured new variants: {warm} after warmup, "
+             f"{captures(engine)} after the serve")
     if summary["completed"] != len(prompts):
         fail(f"{label}: {summary['completed']} of {len(prompts)} requests completed")
     for rid, toks in outputs.items():
@@ -848,12 +891,14 @@ def serve_phase(label: str, cfg, engine, prompts, kernels) -> tuple[dict, dict]:
         fail(f"{label}: kernels never launched on the served path: {missing}")
 
     def prefill_logits(impl):
-        return engine.ctx.forward(engine.params, prompts[0], impl=impl)["last_logits"]
+        return engine.ctx.forward(engine.params, prompts[0], impl=impl)["last_logits"].clone()
 
     def decode_logits(impl):
         gen = engine.gen
         ctx = execution.Ctx(model=gen.model, xp=gen.xp, impl=impl)
-        return execution.forward_decode(engine.params, gen.cur_token, gen.state, ctx)["logits"]
+        with in_pool(engine):
+            out = execution.forward_decode(engine.params, gen.cur_token, gen.state, ctx)
+        return out["logits"].clone()
 
     # one prefill, and one decode step from the served state (both rows)
     logit_err = {}
@@ -868,15 +913,23 @@ def serve_phase(label: str, cfg, engine, prompts, kernels) -> tuple[dict, dict]:
               f"(tol {LOGIT_TOL}); argmax {lk.argmax(-1).tolist()} vs {lt.argmax(-1).tolist()}")
         if err > LOGIT_TOL:
             fail(f"{label}: {step} logits disagree: {err:.3e} > {LOGIT_TOL}")
-    prof = profile_step(f"{label} prefill", lambda: engine.ctx.forward(engine.params, prompts[0]))
+        del lk, lt
+    prof = profile_step(f"{label} prefill, graph replay",
+                        lambda: engine.ctx.prefill(engine.params, prompts[0]))
+    prof_eager = profile_step(f"{label} prefill, eager",
+                              lambda: engine.ctx.forward(engine.params, prompts[0]))
     phase_peak = torch.cuda.max_memory_allocated()
-    print(f"{label}: peak over the phase (plain versions and profile included) "
-          f"{phase_peak / 1e9:.2f} GB")
+    phase_reserved = torch.cuda.max_memory_reserved()
+    print(f"{label}: peak over the phase (plain versions and profiles included) "
+          f"{phase_peak / 1e9:.2f} GB allocated, {phase_reserved / 1e9:.2f} GB reserved")
     if phase_peak > PEAK_LIMIT:
         fail(f"{label}: peak memory {phase_peak / 1e9:.2f} GB > {PEAK_LIMIT / 1e9:.0f} GB")
     return {"summary": summary, "wall_s": wall, "peak_gb": peak / 1e9,
-            "phase_peak_gb": phase_peak / 1e9, "launches": counts, "paths": paths,
-            "logit_norm_err": logit_err, "profile_prefill_ms": prof}, outputs
+            "reserved_gb": reserved / 1e9, "fallbacks": engine.gen.fallbacks,
+            "phase_peak_gb": phase_peak / 1e9,
+            "phase_reserved_gb": phase_reserved / 1e9, "captures": list(warm),
+            "launches": counts, "paths": paths, "logit_norm_err": logit_err,
+            "profile_prefill_ms": prof, "profile_prefill_eager_ms": prof_eager}, outputs
 
 
 def serve(engine, prompts) -> dict:
@@ -895,18 +948,19 @@ def serve(engine, prompts) -> dict:
 
 def check_isolation(label: str, cfg, engine, model, prompts) -> dict:
     """Request 0 served alone against served among the others, on fresh
-    servers with row-local capacity (``capacity_from="global"``): its
-    tokens must be equal, and its first decode step's logits, beside
-    request 1 or beside an empty slot, within LOGIT_TOL norm-wise. (With
-    tied embeddings and random weights greedy tokens can repeat the
-    prompt's last token whatever the context; the logits still carry it.)"""
+    servers (captured into the engine's graph pool) with row-local capacity
+    (``capacity_from="global"``): its tokens must be equal, and its first
+    decode step's logits, beside request 1 or beside an empty slot, within
+    LOGIT_TOL norm-wise. (With tied embeddings and random weights greedy
+    tokens can repeat the prompt's last token whatever the context; the
+    logits still carry it.)"""
     import torch
-    from repro_torch.core import execution
     from repro_torch.runtime.engine import ContextServer, DisaggregatedEngine, GenerationServer
 
     sizes = {"data": 1, "model": G}
-    kw = dict(capacity_from="global")
+    kw = dict(capacity_from="global", space=engine.gen.space)
     ctx = ContextServer(model, sizes, prefill_len=engine.ctx.prefill_len,
+                        prefill_buckets=engine.ctx.prefill_lens,
                         cache_len=engine.ctx.cache_len, **kw)
 
     def gen_server():
@@ -921,9 +975,8 @@ def check_isolation(label: str, cfg, engine, model, prompts) -> dict:
         for slot, tokens in enumerate(batch):
             first, state = ctx.prefill(engine.params, tokens)
             gen.admit(slot, slot, first, state)
-        step = execution.Ctx(model=model, xp=gen.xp)
-        out = execution.forward_decode(engine.params, gen.cur_token, gen.state, step)
-        return out["logits"][0, :cfg.vocab_size].float()
+        out, _, _ = gen.step_outputs(engine.params)
+        return out["logits"][0, :cfg.vocab_size].float().clone()
 
     l_alone, l_among = first_step_logits(prompts[:1]), first_step_logits(prompts[:2])
     if not (torch.isfinite(l_alone).all() and torch.isfinite(l_among).all()):
@@ -941,49 +994,107 @@ def check_isolation(label: str, cfg, engine, model, prompts) -> dict:
     return {"tokens_equal": True, "first_step_logit_norm_err": err, "logits_bitwise": bitwise}
 
 
-def serve_fetch_modes(cfg, engine, model, prompts, ref_outputs, ref_summary, ref_peak) -> dict:
-    """Serve the same requests on the all-fetch engine's weights under each
-    route-before-gather mode. Each mode's tokens must equal the all-fetch
-    tokens, and one decode step from the all-fetch engine's current state
-    (with the mode's warm predictor) must give bitwise the all-fetch step's
-    logits. Returns per-mode numbers."""
-    import gc
+def kv_leaves(gen) -> list:
+    """A generation server's position and KV ring tensors, in tree order."""
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        if isinstance(tree, list):
+            return [x for v in tree for x in leaves(v)]
+        return [tree]
 
+    return leaves({"pos": gen.state["pos"], "layers": gen.state["layers"]})
+
+
+def snapshot(gen) -> dict:
+    """A copy of a generation server's KV ring, positions and token row."""
+    return {"state": [t.clone() for t in kv_leaves(gen)], "token": gen.cur_token.clone()}
+
+
+def snapshot_step(label: str, engine, snap) -> dict:
+    """One decode step from ``snap`` (the mode's own predictor state kept)
+    through the server's step — the graph's replay, or the eager step —
+    committing nothing: its logits (cloned), the bytes it landed, its
+    device time by kind (profiled) and, for a graph, the replay's CUDA-event
+    time (median of TIME_WINDOWS windows)."""
+    import torch
+    from repro_torch.core import prefetch
+
+    gen = engine.gen
+    for dst, src in zip(kv_leaves(gen), snap["state"], strict=True):
+        dst.copy_(src)
+    gen.cur_token.copy_(snap["token"])
+    fallbacks = gen.fallbacks
+    prefetch.LANDED.bytes = 0
+    out, _, _ = gen.step_outputs(engine.params)
+    logits = out["logits"].clone()
+    del out
+    torch.cuda.synchronize()
+    row = {"logits": logits, "landed_gb": prefetch.LANDED.bytes / 1e9,
+           "fell_back": gen.fallbacks > fallbacks,
+           "profile_ms": profile_step(f"decode step, {label}",
+                                      lambda: gen.step_outputs(engine.params))}
+    if gen.space is not None:
+        row["replay_ms"], lo, hi = time_ms(lambda: gen.step(engine.params))
+        row["replay_ms_range"] = [lo, hi]
+    return row
+
+
+def switch_serve(engine, prompts, tables, every: int) -> dict:
+    """Serve ``prompts`` again on a warmed engine, switching the decode
+    policy to the next of ``tables`` every ``every`` steps."""
+    from repro_torch.runtime.engine import Request
+
+    for i, p in enumerate(prompts):
+        engine.submit(Request(100 + i, p, OUTPUT))
+    steps = switches = 0
+    while engine.busy():
+        if steps and steps % every == 0:
+            switches += engine.gen.set_policy(tables[(steps // every - 1) % len(tables)])
+        engine.run(1)
+        steps += 1
+    outs = {rid - 100: list(engine.outputs[rid]) for rid in range(100, 100 + len(prompts))}
+    return {"outputs": outs, "switches": switches}
+
+
+def serve_fetch_modes(cfg, params, prompts, ref_outputs, r1, snap, ref_step) -> dict:
+    """Every fetch mode (all, demand, predictive, sync_free) on the all-fetch
+    engine's weights, through graphs and eagerly (``graphs=False``): each
+    serve's tokens must equal the all-fetch graph serve's, and one decode
+    step from the same state (``snap``, with the mode's warm predictor) its
+    logits bitwise. The graph serves take no capture after warmup; the
+    demand one also serves the requests again switching demand <->
+    predictive every 4 steps (both tables warmed) and must capture nothing
+    and miss no variant. Then demand with a budget of 1 row per peer: its
+    overflowing steps run again eagerly, counted, with the all-fetch tokens
+    and logits. Returns per-mode numbers."""
     import numpy as np
     import torch
-    from repro_torch.core import execution, prefetch
+    from repro_torch.core import execution
+    from repro_torch.core.strategy import PolicyTable
     from repro_torch.kernels import registry
     from repro_torch.launch.serve import build_engine
 
-    params = engine.params
-    tok0, state0 = engine.gen.cur_token, engine.gen.state
-    ctx_all = execution.Ctx(model=model, xp=engine.gen.xp)
-
-    def one_step(state, ctx):
-        prefetch.LANDED.bytes = 0
-        logits = execution.forward_decode(params, tok0, state, ctx)["logits"]
-        torch.cuda.synchronize()
-        return logits, prefetch.LANDED.bytes
-
-    ref_logits, ref_landed = one_step(state0, ctx_all)
-    prof = profile_step("decode step, fetch all", lambda: one_step(state0, ctx_all))
-    rows = {"all": {"tpot_p50_s": ref_summary["tpot_p50_s"], "peak_gb": ref_peak / 1e9,
-                    "landed_gb_per_decode_step": ref_landed / 1e9, "profile_ms": prof}}
-    print(f"fetch all: tpot_p50_s {ref_summary['tpot_p50_s']:.4f} peak_gb {ref_peak / 1e9:.2f} "
-          f"landed_gb_per_decode_step {ref_landed / 1e9:.3f}")
-    for mode, kw in FETCH_MODES:
-        gc.collect()
-        torch.cuda.empty_cache()
+    ref_logits = ref_step.pop("logits")
+    rows = {"all": {"graph": dict(r1_numbers(r1), **ref_step)}}
+    predictive = PolicyTable.uniform(fetch="predictive", cache_budget=CACHE_BUDGET)
+    demand = PolicyTable.uniform(fetch="demand")
+    runs = [("all", {}, False)] + [(m, kw, g) for m, kw in FETCH_MODES for g in (True, False)]
+    for mode, kw, graphs in runs + [("demand", {"demand_budget": 1}, True)]:
+        forced = kw.get("demand_budget") == 1
+        label = f"{mode}{' budget 1' if forced else ''} {'graph' if graphs else 'eager'}"
+        free_memory()
         torch.cuda.reset_peak_memory_stats()
         eng, m_model = build_engine(
-            cfg, mesh_shape=(1, G), prefill_len=PROMPT, cache_len=PROMPT + OUTPUT,
-            max_batch=MAX_BATCH, dtype=torch.bfloat16, device="cuda", params=params,
-            geom_kwargs=GEOM, expert_fetch=mode, **kw,
+            cfg, mesh_shape=(1, G), prefill_len=PROMPT, prefill_buckets=(PROMPT // 2,),
+            cache_len=PROMPT + OUTPUT, max_batch=MAX_BATCH, dtype=torch.bfloat16, device="cuda",
+            params=params, geom_kwargs=GEOM, expert_fetch=mode, graphs=graphs, **kw,
         )
-        xp = eng.gen.xp
-        if not execution.demand_fetch_active(cfg, m_model.geom, xp):
+        if mode != "all" and not execution.demand_fetch_active(cfg, m_model.geom, eng.gen.xp):
             fail(f"expert_fetch={mode}: the decode plan does not run the demand path")
-        eng.warmup()
+        switching = mode == "demand" and graphs and not forced
+        eng.warmup((predictive,) if switching else ())
+        warm = captures(eng)
         registry.reset_launch_counts()
         clear_path_counts()
         execution.DEMAND.layers = execution.DEMAND.fallbacks = 0
@@ -993,52 +1104,102 @@ def serve_fetch_modes(cfg, engine, model, prompts, ref_outputs, ref_summary, ref
         wall = time.perf_counter() - t0
         counts = registry.launch_counts()
         paths = path_counts()
-        check_paths(f"expert_fetch={mode}", paths)
-        layers, fallbacks = execution.DEMAND.layers, execution.DEMAND.fallbacks
+        check_paths(f"expert_fetch={label}", paths)
+        layers, layer_fallbacks = execution.DEMAND.layers, execution.DEMAND.fallbacks
         peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
         summ = eng.metrics.summary()
         stats = np.sum(eng.gen.pred_stats, axis=0).tolist() if eng.gen.pred_stats else None
-        state = dict(state0)
-        if "pred" in eng.gen.state:
-            state["pred"] = eng.gen.state["pred"]
-        ctx = execution.Ctx(model=m_model, xp=xp)
-        logits, landed = one_step(state, ctx)
-        bitwise = torch.equal(logits, ref_logits)
-        prof = profile_step(f"decode step, fetch {mode}", lambda: one_step(state, ctx))
+        step = snapshot_step(label, eng, snap)
+        logits = step.pop("logits")
         budgets = {
-            "demand_or_corr": execution.resolve_demand_budget(cfg, m_model.geom, xp),
-            "spec": (execution.resolve_spec_budget(cfg, m_model.geom, xp)
-                     if execution.predictive_fetch_active(cfg, m_model.geom, xp) else 0),
+            "demand_or_corr": execution.resolve_demand_budget(cfg, m_model.geom, eng.gen.xp),
+            "spec": (execution.resolve_spec_budget(cfg, m_model.geom, eng.gen.xp)
+                     if execution.predictive_fetch_active(cfg, m_model.geom, eng.gen.xp) else 0),
             "cache_rows": kw.get("cache_budget", 0),
         }
-        print(f"fetch {mode}: budgets {json.dumps(budgets)} tpot_p50_s {summ['tpot_p50_s']:.4f} "
+        row = {"budgets": budgets, "tpot_p50_s": summ["tpot_p50_s"],
+               "tpot_p95_s": summ["tpot_p95_s"], "ttft_p50_s": summ["ttft_p50_s"],
+               "wall_s": wall, "peak_gb": peak / 1e9, "reserved_gb": reserved / 1e9,
+               "captures": list(captures(eng)), "fallbacks": eng.gen.fallbacks,
+               "ctx_fallbacks": eng.ctx.fallbacks, "demand_layers": layers,
+               "layer_fallbacks": layer_fallbacks, "pred_stats_sum": stats,
+               "launches": counts, "paths": paths, **step}
+        bitwise = torch.equal(logits, ref_logits)
+        print(f"fetch {label}: budgets {json.dumps(budgets)} tpot_p50_s {summ['tpot_p50_s']:.4f} "
               f"tpot_p95_s {summ['tpot_p95_s']:.4f} ttft_p50_s {summ['ttft_p50_s']:.4f} "
-              f"wall_s {wall:.3f} peak_gb {peak / 1e9:.2f} landed_gb_per_decode_step "
-              f"{landed / 1e9:.3f} demand_layers {layers} fallbacks {fallbacks} "
-              f"pred_stats_sum {stats} launches {json.dumps(counts)} paths {json.dumps(paths)} "
-              f"tokens_equal_all {outs == ref_outputs} logits_bitwise_all {bitwise}")
+              f"wall_s {wall:.3f} peak_gb {peak / 1e9:.2f} reserved_gb {reserved / 1e9:.2f} "
+              f"landed_gb_per_decode_step {step['landed_gb']:.3f} demand_layers {layers} "
+              f"fallbacks (steps run again) {eng.gen.fallbacks} (prefills {eng.ctx.fallbacks}) "
+              f"captures {captures(eng)} pred_stats_sum {stats} launches {json.dumps(counts)} "
+              f"paths {json.dumps(paths)} tokens_equal_all {outs == ref_outputs} "
+              f"logits_bitwise_all {bitwise}")
         if outs != ref_outputs:
-            fail(f"expert_fetch={mode}: tokens differ from the all-fetch tokens: "
+            fail(f"expert_fetch={label}: tokens differ from the all-fetch tokens: "
                  f"{outs} vs {ref_outputs}")
         if not bitwise:
             err = (logits.float() - ref_logits.float()).abs().max().item()
-            fail(f"expert_fetch={mode}: decode logits not bitwise the all-fetch ones (max {err})")
-        if counts["split_grouped_swiglu_demand"] <= 0:
-            fail(f"expert_fetch={mode}: split_grouped_swiglu_demand never launched")
+            fail(f"expert_fetch={label}: decode logits not bitwise the all-fetch ones (max {err})")
+        if captures(eng) != warm:
+            fail(f"expert_fetch={label}: serving captured new variants ({warm} -> "
+                 f"{captures(eng)})")
+        if mode != "all" and counts["split_grouped_swiglu_demand"] <= 0:
+            fail(f"expert_fetch={label}: split_grouped_swiglu_demand never launched")
+        if forced and not (eng.gen.fallbacks > 0 and step["fell_back"]):
+            fail(f"expert_fetch={label}: no decode step was run again after an overflow")
+        if not forced and eng.gen.fallbacks:
+            print(f"fetch {label}: {eng.gen.fallbacks} decode steps overflowed and ran again")
         if peak > PEAK_LIMIT:
-            fail(f"expert_fetch={mode}: peak memory {peak / 1e9:.2f} GB > {PEAK_LIMIT / 1e9:.0f} GB")
-        rows[mode] = {
-            "budgets": budgets, "tpot_p50_s": summ["tpot_p50_s"], "tpot_p95_s": summ["tpot_p95_s"],
-            "ttft_p50_s": summ["ttft_p50_s"], "peak_gb": peak / 1e9,
-            "landed_gb_per_decode_step": landed / 1e9, "demand_layers": layers,
-            "fallbacks": fallbacks, "pred_stats_sum": stats, "launches": counts, "paths": paths,
-            "profile_ms": prof,
-        }
-        del eng, m_model, state, ctx, logits
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"fetch modes: {json.dumps({k: {kk: vv for kk, vv in v.items() if kk != 'launches'} for k, v in rows.items()})}")
+            fail(f"expert_fetch={label}: peak memory {peak / 1e9:.2f} GB > "
+                 f"{PEAK_LIMIT / 1e9:.0f} GB")
+        if switching:
+            misses = (eng.ctx.variants.stats["misses"], eng.gen.variants.stats["misses"])
+            sw = switch_serve(eng, prompts, (predictive, demand), every=4)
+            print(f"fetch {label}: serve switching demand <-> predictive every 4 steps: "
+                  f"{sw['switches']} switches, tokens_equal_all {sw['outputs'] == ref_outputs}, "
+                  f"captures {captures(eng)} (after warmup {warm}), misses (ctx, gen) "
+                  f"{(eng.ctx.variants.stats['misses'], eng.gen.variants.stats['misses'])}")
+            if sw["switches"] < 3:
+                fail(f"policy switching: {sw['switches']} switches, want at least 3")
+            if sw["outputs"] != ref_outputs:
+                fail("policy switching: tokens differ from the all-fetch tokens")
+            if captures(eng) != warm or misses != (eng.ctx.variants.stats["misses"],
+                                                   eng.gen.variants.stats["misses"]):
+                fail("policy switching captured or built a variant after warmup")
+            row["switching"] = {"switches": sw["switches"], "captures": list(captures(eng))}
+        rows.setdefault(mode if not forced else "demand_budget_1", {})[
+            "graph" if graphs else "eager"] = row
+        del eng, m_model, logits
+    for mode in ("all",) + tuple(m for m, _ in FETCH_MODES):
+        g, e = rows[mode]["graph"], rows[mode]["eager"]
+        g_dev = g.get("replay_ms") or g["profile_ms"]["device_ms"]
+        e_dev = e["profile_ms"]["device_ms"]
+        print(f"graph vs eager, fetch {mode} ({card_line()}): tpot_p50_s graph "
+              f"{g['tpot_p50_s']:.4f} eager {e['tpot_p50_s']:.4f}; decode step device ms graph "
+              f"replay {g_dev:.2f} (events {g.get('replay_ms_range')}) profiled "
+              f"{g['profile_ms']['device_ms']:.2f} eager profiled {e_dev:.2f}; by kind graph "
+              f"{json.dumps({k: round(v, 2) for k, v in g['profile_ms'].items()})} eager "
+              f"{json.dumps({k: round(v, 2) for k, v in e['profile_ms'].items()})}; tpot / device "
+              f"graph {g['tpot_p50_s'] * 1e3 / g_dev:.2f} eager "
+              f"{e['tpot_p50_s'] * 1e3 / e_dev:.2f}; peak_gb graph {g['peak_gb']:.2f} eager "
+              f"{e['peak_gb']:.2f}; reserved_gb graph {g['reserved_gb']:.2f} eager "
+              f"{e['reserved_gb']:.2f}; landed_gb per step {g['landed_gb']:.3f} / "
+              f"{e['landed_gb']:.3f}; fallbacks {g['fallbacks']} / {e['fallbacks']}")
+    free_memory()
+    brief = {mode: {path: {k: v for k, v in row.items() if k not in ("launches", "paths")}
+                    for path, row in by_path.items()} for mode, by_path in rows.items()}
+    print(f"fetch modes: {json.dumps(brief)}")
     return rows
+
+
+def r1_numbers(r1: dict) -> dict:
+    """The serve numbers of the all-fetch graph serve, as a fetch-mode row."""
+    s = r1["summary"]
+    return {"tpot_p50_s": s["tpot_p50_s"], "tpot_p95_s": s["tpot_p95_s"],
+            "ttft_p50_s": s["ttft_p50_s"], "wall_s": r1["wall_s"], "peak_gb": r1["peak_gb"],
+            "reserved_gb": r1["reserved_gb"], "captures": r1["captures"],
+            "fallbacks": r1["fallbacks"],
+            "launches": r1["launches"], "paths": r1["paths"]}
 
 
 def main() -> None:
@@ -1105,14 +1266,15 @@ def main() -> None:
     gemm_launches = drive_split_gemm(cfg, gen)
 
     # ---- serve ----------------------------------------------------------
-    torch.cuda.empty_cache()
+    free_memory()
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, PROMPT) for _ in range(N_REQUESTS)]
+    # two pow2 prefill buckets: 1024 and 512 tokens, in turns
+    prompts = [rng.integers(0, cfg.vocab_size, PROMPT // (1 + i % 2)) for i in range(N_REQUESTS)]
     t0 = time.perf_counter()
     engine, model = build_engine(
-        cfg, mesh_shape=(1, G), prefill_len=PROMPT, cache_len=PROMPT + OUTPUT,
-        max_batch=MAX_BATCH, dtype=torch.bfloat16, device="cuda", seed=0,
-        geom_kwargs=GEOM,
+        cfg, mesh_shape=(1, G), prefill_len=PROMPT, prefill_buckets=(PROMPT // 2,),
+        cache_len=PROMPT + OUTPUT, max_batch=MAX_BATCH, dtype=torch.bfloat16, device="cuda",
+        seed=0, geom_kwargs=GEOM,
     )
     torch.cuda.synchronize()
     print(f"model: {cfg.name} d_model {cfg.d_model} layers {cfg.num_layers} "
@@ -1120,9 +1282,17 @@ def main() -> None:
           f"geometry {model.geom.expert_axes}/{model.geom.moe_exec} attn_shards "
           f"{model.geom.attn_shards} ffn_shards {model.geom.ffn_shards}; init "
           f"{time.perf_counter() - t0:.1f} s, weights "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; prefill buckets "
+          f"{engine.ctx.prefill_lens}")
     r1, outputs = serve_phase(f"{cfg.name} {PROMPT}", cfg, engine, prompts, ALL_FETCH_KERNELS)
     r1["isolation"] = check_isolation(cfg.name, cfg, engine, model, prompts)
+    # the all-fetch decode state after the serve: every fetch mode's one
+    # decode step starts from it
+    snap = snapshot(engine.gen)
+    ref_step = snapshot_step("fetch all graph", engine, snap)
+    params = engine.params
+    del engine, model
+    free_memory()
 
     # ---- the whole path in fp32 at reduced width: kernels vs plain ---------
     from repro_torch.configs import reduced_variant
@@ -1133,24 +1303,21 @@ def main() -> None:
         dtype=torch.float32, device="cuda", seed=1, geom_kwargs=GEOM,
     )
     toks = rng.integers(0, small_cfg.vocab_size, 64)
-    sk = small.ctx.forward(small.params, toks)["last_logits"][:, : small_cfg.vocab_size]
+    sk = small.ctx.forward(small.params, toks)["last_logits"][:, : small_cfg.vocab_size].clone()
     st = small.ctx.forward(small.params, toks, impl="torch")["last_logits"][:, : small_cfg.vocab_size]
     fp32_err = ((sk - st).abs().max() / st.abs().max()).item()
     print(f"fp32 reduced-width prefill logits kernels vs plain: max err / max|ref| "
           f"{fp32_err:.3e} (tol {FP32_LOGIT_TOL})")
     if fp32_err > FP32_LOGIT_TOL:
         fail(f"fp32 prefill logits disagree: {fp32_err:.3e} > {FP32_LOGIT_TOL}")
-    del small
+    del small, sk, st
 
-    # ---- the route-before-gather fetch modes on the same weights ----------
-    modes = serve_fetch_modes(cfg, engine, model, prompts, outputs, r1["summary"],
-                              r1["peak_gb"] * 1e9)
-    demand_launches = sum(m["launches"]["split_grouped_swiglu_demand"]
-                          for mode, m in modes.items() if mode != "all")
+    # ---- every fetch mode on the same weights, graphs and eager -----------
+    modes = serve_fetch_modes(cfg, params, prompts, outputs, r1, snap, ref_step)
+    demand_launches = sum(m["graph"]["launches"]["split_grouped_swiglu_demand"]
+                          for mode, m in modes.items() if mode in dict(FETCH_MODES))
 
     # ---- DeepSeek-R1 at the paper's input length, on the same weights ------
-    params = engine.params
-    del engine, model
     long_prompts = [rng.integers(0, cfg.vocab_size, LONG_PROMPT) for _ in range(LONG_REQUESTS)]
     long_eng, _ = build_engine(
         cfg, mesh_shape=(1, G), prefill_len=LONG_PROMPT, cache_len=LONG_PROMPT + OUTPUT,
@@ -1160,6 +1327,7 @@ def main() -> None:
     r1_long, _ = serve_phase(f"{cfg.name} {LONG_PROMPT}", cfg, long_eng, long_prompts,
                              ALL_FETCH_KERNELS)
     del long_eng, params
+    free_memory()
 
     # ---- Gemma-3-27B: sliding-window layers, dense split kernels -----------
     gemma_prompts = [rng.integers(0, gemma_cfg.vocab_size, GEMMA_PROMPT)

@@ -31,10 +31,17 @@ payload round, and the demand kernel runs over the compact (resident,
 fetched) bank; predictive decode adds a layer-ahead speculative round
 and a residency cache, sync-free mirrors the predictor on every rank.
 Where the JAX package branches on the device (the overflow
-``lax.cond``), the port reads the agreed flag on the host: one sync per
-demand-active MoE layer. Not ported yet: the validated fetch and fault
-injection, the ring transports, merged layouts, DEP, rotate execution,
-training.
+``lax.cond``), the port has two modes (``Ctx.deferred``). The eager mode
+reads each route-before-gather MoE layer's agreed flag on the host and
+takes the full-gather fallback at once. The deferred mode reads nothing:
+every layer takes the no-fallback branch, its flag is ORed into one
+device flag that ``forward_prefill`` / ``forward_decode`` return
+(``overflow``, with ``overflow_layers``), and the caller reads it once
+per step and runs the step again in the eager mode when it is set — the
+step free of host reads that a CUDA graph captures
+(``runtime.engine.CountingStep``). Not ported yet: the validated fetch
+and fault injection, the ring transports, merged layouts, DEP, rotate
+execution, training.
 """
 from __future__ import annotations
 
@@ -70,6 +77,11 @@ class Ctx:
     q_offsets: tuple = ()      # prefill: global offset of each rank's seq slice
     # speculative-round plans of the current step, by layer (filled on use)
     spec_plans: dict = dataclasses.field(default_factory=dict)
+    # True: route-before-gather layers never fall back inside the step;
+    # the forward returns the ORed overflow flag for the caller to act on
+    deferred: bool = False
+    overflow: Any = None        # this forward's ORed overflow flag (0-d bool)
+    overflow_layers: Any = None  # and its count of overflowed layers (0-d int32)
 
     @property
     def cfg(self):
@@ -98,6 +110,26 @@ class Ctx:
         named for its call site."""
         return self.dense_impl
 
+    def begin(self, device) -> None:
+        """Reset the step's overflow flag and count (start of a forward)."""
+        self.spec_plans = {}
+        self.overflow = torch.zeros((), dtype=torch.bool, device=device)
+        self.overflow_layers = torch.zeros((), dtype=torch.int32, device=device)
+
+    def overflowed(self, flag: torch.Tensor) -> bool:
+        """Record one route-before-gather layer's agreed overflow flag (0-d
+        bool) and say whether the layer takes the full-gather fallback now:
+        in the deferred mode never (the flag joins ``overflow``, read by
+        the caller once per step), in the eager mode after one host read."""
+        self.overflow = self.overflow | flag
+        self.overflow_layers = self.overflow_layers + flag.to(torch.int32)
+        DEMAND.layers += 1
+        if self.deferred:
+            return False
+        fallback = bool(flag)
+        DEMAND.fallbacks += fallback
+        return fallback
+
 
 # ==========================================================================
 # Gather set + gather.
@@ -119,8 +151,10 @@ def _require_split(geom: Geometry, xp: ExecutionPlan, axes, what: str) -> None:
 
 class DemandCounters:
     """Route-before-gather layer runs and how many took the full-gather
-    fallback (overflow or mirror divergence); plain integers a caller may
-    read and reset."""
+    fallback at once (overflow or mirror divergence; the eager mode — a
+    deferred step returns its flag instead); plain integers a caller may
+    read and reset. A replayed CUDA graph adds the layer runs its capture
+    counted (``runtime.engine.CountingStep``)."""
 
     def __init__(self):
         self.layers = 0
@@ -611,8 +645,8 @@ def _attn_layer(hs, lps, sig: LayerSig, ctx: Ctx, lstates, banks):
         pos = ctx.pos
         partials, new_states = [], []
         for r, (q, k, v) in enumerate(qkv):
-            q = apply_rope(q, pos[:, None], cfg.rope_theta)
-            k = apply_rope(k, pos[:, None], cfg.rope_theta)
+            q = apply_rope(q, pos[:, None], cfg.rope_theta, ctx.model.rope_freqs)
+            k = apply_rope(k, pos[:, None], cfg.rope_theta, ctx.model.rope_freqs)
             part, st = _attn_decode_partial(q, k, v, sig, ctx, lstates[r], r)
             partials.append(part)
             new_states.append(st)
@@ -626,8 +660,8 @@ def _attn_layer(hs, lps, sig: LayerSig, ctx: Ctx, lstates, banks):
         for r, (q, k, v) in enumerate(qkv):
             b, s = q.shape[:2]
             posb = (ctx.q_offsets[r] + torch.arange(s, device=q.device)).expand(b, s)
-            qs.append(apply_rope(q, posb, cfg.rope_theta))
-            ks.append(apply_rope(k, posb, cfg.rope_theta))
+            qs.append(apply_rope(q, posb, cfg.rope_theta, ctx.model.rope_freqs))
+            ks.append(apply_rope(k, posb, cfg.rope_theta, ctx.model.rope_freqs))
             vs.append(v)
         k_all = torch.cat(ks, dim=1) if xp.seq_axes else ks[0]
         v_all = torch.cat(vs, dim=1) if xp.seq_axes else vs[0]
@@ -793,11 +827,14 @@ def _moe_demand_layer(h2fs: list, lps: list, ctx: Ctx, pipe: BankPipeline, lid, 
        tokens' experts form its wanted bitmap.
     2. The cross-rank index round: the bitmaps are exchanged and each
        rank's fetch schedule is compacted per peer to the budget; the
-       overflow flag is agreed over every rank and read on the host (the
-       layer's one sync — the JAX package branches on it on the device).
+       overflow flag is agreed over every rank (:meth:`Ctx.overflowed`:
+       read on the host in the eager mode — the layer's one sync, where
+       the JAX package branches on the device — or left on the device for
+       the step's caller in the deferred mode).
     3. Per rank: the payload lands the requested rows (budget-padded) and
        the demand kernel runs over the compact (resident, fetched) bank;
-       on overflow the full remote bank lands and the split path runs.
+       on an eager overflow the full remote bank lands and the split path
+       runs.
 
     Predictive decode (``preds``: the layer's incoming per-rank
     ``PredictState``) serves the wanted set first from the residency cache
@@ -821,9 +858,7 @@ def _moe_demand_layer(h2fs: list, lps: list, ctx: Ctx, pipe: BankPipeline, lid, 
 
     if not predictive_fetch_active(cfg, geom, xp):
         plans = prefetch.plan_demand_fetch(wanted, pl, budget=budget)
-        fallback = bool(plans[0].overflow)
-        DEMAND.layers += 1
-        DEMAND.fallbacks += fallback
+        fallback = ctx.overflowed(plans[0].overflow)
         ys = []
         for r in range(n):
             banks = pipe.get(("ffn", lid, r)) if has_unit else {}
@@ -867,9 +902,7 @@ def _moe_demand_layer(h2fs: list, lps: list, ctx: Ctx, pipe: BankPipeline, lid, 
         for r in range(n)
     ]
     corr_plans = prefetch.plan_demand_fetch(wanted, pl, budget=cbudget, exclude=have)
-    fallback = bool(corr_plans[0].overflow | diverged)
-    DEMAND.layers += 1
-    DEMAND.fallbacks += fallback
+    fallback = ctx.overflowed(corr_plans[0].overflow | diverged)
     ys, new_preds = [], []
     for r in range(n):
         banks = pipe.get(("ffn", lid, r))
@@ -892,7 +925,7 @@ def _moe_demand_layer(h2fs: list, lps: list, ctx: Ctx, pipe: BankPipeline, lid, 
 
         # ---- residency-cache insert: keep the EMA-hottest rows of (cache |
         # this step's fetches); ids stay unique by the exclusion chain ----
-        neg_inf = torch.tensor(-math.inf, device=dev)
+        neg_inf = torch.full((), -math.inf, device=dev)  # a fill: no host copy
         if sync_free:
             # every rank replays every mirror's bookkeeping from the
             # exchanged schedules and the pre-step mirror EMA
@@ -1050,7 +1083,6 @@ def _run_stack(params, xs, ctx: Ctx, states):
     Returns ``(xs, new layer states, new predict states)``."""
     model = ctx.model
     preds = states.get("pred") if states is not None else None
-    ctx.spec_plans = {}
     pipe = BankPipeline(_pipeline_units(params, ctx, preds), model.device)
     new_layers: dict = {}
     new_preds: dict = {}
@@ -1095,22 +1127,28 @@ def _check_sharding(ctx: Ctx) -> None:
 # ==========================================================================
 @torch.no_grad()
 def forward_prefill(params: list[dict], tokens: torch.Tensor, ctx: Ctx) -> dict:
-    """tokens: (B, S) -> {"last_logits": (B, vocab_pad) f32[, "state"]}.
+    """tokens: (B, S) -> {"last_logits": (B, vocab_pad) f32, "overflow",
+    "overflow_layers"[, "state"]}.
 
     Each rank holds S / G tokens of the sequence (``_positions_offset``);
-    the last token's hidden state comes from the last shard."""
+    the last token's hidden state comes from the last shard. ``overflow``
+    (0-d bool) says a route-before-gather layer overflowed its budget and
+    ``overflow_layers`` (0-d int32) how many did: under ``ctx.deferred``
+    the outputs are then not the exact ones (see :meth:`Ctx.overflowed`)."""
     _check_sharding(ctx)
     n = ctx.model.n_ranks
     b, s = tokens.shape
     if s % n:
         raise ValueError(f"prompt length {s} must divide over the {n} sequence shards")
+    ctx.begin(tokens.device)
     s_l = s // n
     ctx.q_offsets = tuple(r * s_l for r in range(n))
     xs = [_embed(params, tokens[:, r * s_l:(r + 1) * s_l], ctx.model) for r in range(n)]
     xs, new_states, _ = _run_stack(params, xs, ctx, None)
     xl = rms_norm(xs[-1], params[-1]["final_norm"], ctx.cfg.norm_eps)[:, -1]
     logits = torch.cat([_rank_logits(xl, p, r, ctx) for r, p in enumerate(params)], dim=-1)
-    out = {"last_logits": logits}
+    out = {"last_logits": logits, "overflow": ctx.overflow,
+           "overflow_layers": ctx.overflow_layers}
     if ctx.capture_len:
         out["state"] = {
             "pos": torch.full((b,), s, dtype=torch.int32, device=tokens.device),
@@ -1121,13 +1159,17 @@ def forward_prefill(params: list[dict], tokens: torch.Tensor, ctx: Ctx) -> dict:
 
 @torch.no_grad()
 def forward_decode(params: list[dict], token: torch.Tensor, state: dict, ctx: Ctx) -> dict:
-    """token: (B, 1) -> {"next_token": (B, 1), "state", "logits": (B, vocab_pad)}.
+    """token: (B, 1) -> {"next_token": (B, 1), "state", "logits": (B, vocab_pad),
+    "overflow", "overflow_layers"[, "pred_stats"]}.
 
     The rows are replicated over the ranks; each rank runs them through
     its own banks and attends over its slice of the KV ring; the greedy
-    token is the argmax across the vocab shards."""
+    token is the argmax across the vocab shards. The input state is never
+    written (the new state is new tensors), so a step whose deferred
+    ``overflow`` is set can run again from the same inputs."""
     _check_sharding(ctx)
     n = ctx.model.n_ranks
+    ctx.begin(token.device)
     ctx.pos = state["pos"]
     x = _embed(params, token, ctx.model)
     xs, new_layers, new_preds = _run_stack(params, [x] * n, ctx, state)
@@ -1141,7 +1183,8 @@ def forward_decode(params: list[dict], token: torch.Tensor, state: dict, ctx: Ct
     best = torch.stack(vals).argmax(dim=0)
     nxt = torch.stack(idxs).gather(0, best[None])[0].to(torch.int32)
     new_state = {"pos": state["pos"] + 1, "layers": new_layers}
-    out = {"next_token": nxt[:, None], "state": new_state, "logits": torch.cat(logits, dim=-1)}
+    out = {"next_token": nxt[:, None], "state": new_state, "logits": torch.cat(logits, dim=-1),
+           "overflow": ctx.overflow, "overflow_layers": ctx.overflow_layers}
     if new_preds:
         new_preds = _fold_mirrors(new_preds, state["pred"], ctx)
         new_state["pred"] = new_preds

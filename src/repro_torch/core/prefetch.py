@@ -239,7 +239,7 @@ def exclude_bitmap(num_padded: int, exclude_ids: torch.Tensor,
     """Scatter a (ids, valid) row set into a ``(num_padded,)`` bool bitmap;
     invalid rows are dropped."""
     out = torch.zeros(num_padded + 1, dtype=torch.bool, device=exclude_ids.device)
-    out[torch.where(exclude_valid, exclude_ids, num_padded)] = True
+    out.index_fill_(0, torch.where(exclude_valid, exclude_ids, num_padded), True)
     return out[:num_padded]
 
 
@@ -374,7 +374,7 @@ def predict_bitmap(prev: torch.Tensor, ema: torch.Tensor, placement: Placement, 
     ids = (torch.arange(g, device=rows.device)[:, None] * local + top_idx).reshape(-1)
     keep = (top_vals > 0.0).reshape(-1)
     out = torch.zeros(e_pad + 1, dtype=torch.bool, device=rows.device)
-    out[torch.where(keep, ids, e_pad)] = True
+    out.index_fill_(0, torch.where(keep, ids, e_pad), True)
     return out[:e_pad]
 
 
@@ -390,7 +390,7 @@ def routed_bitmaps(top_experts: torch.Tensor, num_padded: int) -> torch.Tensor:
     rows = top_experts.shape[0]
     out = torch.zeros(rows, num_padded + 1, dtype=torch.bool, device=top_experts.device)
     safe = torch.clamp(top_experts, max=num_padded)
-    out[torch.arange(rows, device=top_experts.device)[:, None], safe] = True
+    out.scatter_(1, safe, True)
     return out[:, :num_padded]
 
 

@@ -3,7 +3,8 @@
 The counterpart of ``repro.launch.serve.build_engine``: a DWDP context
 server and generation server over one model whose ``model`` mesh axis
 is G logical ranks on one device. Runs on the card unless the caller
-passes ``device="cpu"``.
+passes ``device="cpu"``; on the card every step is a captured CUDA graph
+unless the caller passes ``graphs=False``.
 """
 from __future__ import annotations
 
@@ -12,7 +13,12 @@ from typing import Optional
 import torch
 
 from repro_torch.models.transformer import build_model
-from repro_torch.runtime.engine import ContextServer, DisaggregatedEngine, GenerationServer
+from repro_torch.runtime.engine import (
+    ContextServer,
+    DisaggregatedEngine,
+    GenerationServer,
+    GraphSpace,
+)
 
 
 def build_engine(
@@ -20,6 +26,7 @@ def build_engine(
     *,
     mesh_shape=(1, 4),
     prefill_len: int = 64,
+    prefill_buckets: tuple = (),
     cache_len: int = 128,
     max_batch: int = 2,
     ctx_mode: str = "dwdp",
@@ -33,6 +40,8 @@ def build_engine(
     seed: int = 0,
     params: Optional[list] = None,
     geom_kwargs: Optional[dict] = None,
+    variant_cache_size: int = 16,
+    graphs: Optional[bool] = None,
 ):
     """Returns ``(DisaggregatedEngine, model)``.
 
@@ -44,7 +53,12 @@ def build_engine(
     ``expert_fetch`` (all | demand | predictive | sync_free) with
     ``demand_budget`` (per-peer rows, 0 = auto) and ``cache_budget``
     (residency-cache rows, predictive / sync_free) form the uniform
-    policy of both servers."""
+    policy of both servers. ``prefill_buckets`` adds pow2 prompt lengths
+    beside ``prefill_len``, and ``variant_cache_size`` bounds the decode
+    server's policy variants (the reference's arguments). ``graphs``
+    (default: on a CUDA device) captures every step as a CUDA graph, all
+    of the engine's graphs in one memory pool (``runtime.engine.
+    GraphSpace``); ``graphs=False`` keeps the eager steps, for comparison."""
     sizes = {"data": mesh_shape[0], "model": mesh_shape[1]}
     n_ranks = max(1, mesh_shape[0] * mesh_shape[1])
     cache_len = -(-cache_len // n_ranks) * n_ranks
@@ -53,14 +67,19 @@ def build_engine(
         params = model.init_params(torch.Generator(device=model.device).manual_seed(seed))
     elif len(params) != model.n_ranks:
         raise ValueError(f"params hold {len(params)} ranks, the model has {model.n_ranks}")
+    if graphs is None:
+        graphs = model.device.type == "cuda"
+    if graphs and model.device.type != "cuda":
+        raise ValueError(f"CUDA graphs need a CUDA device, the model is on {model.device}")
+    space = GraphSpace(model.device) if graphs else None
     fetch = dict(expert_fetch=expert_fetch, demand_budget=demand_budget,
-                 cache_budget=cache_budget)
+                 cache_budget=cache_budget, capacity_from=capacity_from, space=space)
     ctx = ContextServer(
         model, sizes, mode=ctx_mode, prefill_len=prefill_len, cache_len=cache_len,
-        capacity_from=capacity_from, **fetch,
+        prefill_buckets=prefill_buckets, **fetch,
     )
     gen = GenerationServer(
         model, sizes, mode=gen_mode, max_batch=max_batch, cache_len=cache_len,
-        capacity_from=capacity_from, **fetch,
+        variant_cache_size=variant_cache_size, **fetch,
     )
     return DisaggregatedEngine(params, ctx, gen), model

@@ -17,10 +17,15 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding. x: (..., S, H, head_dim); positions: (..., S)."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               freqs: torch.Tensor | None = None) -> torch.Tensor:
+    """Rotary embedding. x: (..., S, H, head_dim); positions: (..., S).
+    ``freqs``: ``rope_frequencies(head_dim, theta)`` already on x's device
+    (``Model.rope_freqs``), which a captured step needs: it may not copy
+    from the host."""
     head_dim = x.shape[-1]
-    freqs = torch.from_numpy(rope_frequencies(head_dim, theta)).to(x.device)
+    if freqs is None:
+        freqs = torch.from_numpy(rope_frequencies(head_dim, theta)).to(x.device)
     angles = positions[..., None].float() * freqs  # (..., S, hd/2)
     angles = angles[..., None, :]  # broadcast over heads
     cos, sin = torch.cos(angles), torch.sin(angles)

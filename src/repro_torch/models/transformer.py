@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, BlockKind
 from repro_torch.core.placement import Placement, make_placement
+from repro_torch.models.layers import rope_frequencies
 
 AXIS_MODEL = "model"
 
@@ -452,6 +453,8 @@ class Model:
     dtype: torch.dtype
     mesh_sizes: tuple[tuple[str, int], ...]
     device: torch.device
+    # the RoPE frequencies of cfg.head_dim / cfg.rope_theta on the device
+    rope_freqs: torch.Tensor = dataclasses.field(compare=False, repr=False)
 
     @property
     def sizes(self) -> dict[str, int]:
@@ -523,7 +526,8 @@ def build_model(
     dtype_bytes = torch.empty((), dtype=dtype).element_size()
     geom = Geometry.build(cfg, mesh_sizes, dtype_bytes=dtype_bytes, **geom_kwargs)
     plan = tuple(make_layer_plan(cfg))
+    freqs = torch.from_numpy(rope_frequencies(cfg.head_dim, cfg.rope_theta)).to(device)
     return Model(
         cfg=cfg, geom=geom, plan=plan, dtype=dtype,
-        mesh_sizes=tuple(mesh_sizes.items()), device=device,
+        mesh_sizes=tuple(mesh_sizes.items()), device=device, rope_freqs=freqs,
     )

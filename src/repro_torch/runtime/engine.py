@@ -2,33 +2,314 @@
 capture), slot-based continuous-batching generation server, and the
 engine that moves requests between them.
 
-The port of ``repro.runtime.engine`` (``Request``, ``ContextServer``,
+The port of ``repro.runtime.engine`` (``variant_key``, ``CountingStep``,
+``PolicyVariantCache``, ``Request``, ``ContextServer``,
 ``GenerationServer``, ``DisaggregatedEngine``) for the DWDP path with the
 all-fetch and the route-before-gather expert fetches (``expert_fetch``
 demand / predictive / sync_free; the generation server carries the
 predictive state across decode steps and keeps each step's
-``pred_stats``). PyTorch runs eagerly, so there is no variant cache to compile;
-the health monitor, the online scheduler and CUDA graphs come later.
-Times are seconds on the host clock, read after the device has
-finished (``torch.cuda.synchronize``).
+``pred_stats``).
+
+Every step a server runs is one variant of a :class:`PolicyVariantCache`
+keyed as the JAX package keys its jit variants: the policy table, the
+shape bucket (the context server's pow2 prefill lengths) and the peer
+exclusion set. Where the JAX package compiles a variant once, the port
+captures it once: on a CUDA device each variant's step is a CUDA graph
+(:class:`CountingStep`), replayed with no host work inside the step, and
+``warmup`` captures every variant the server will run, so serving takes
+no new capture (``variants.captures()`` stays flat). The steps run
+deferred (``execution.Ctx.deferred``): a route-before-gather overflow is
+read once per step together with the tokens, and such a step is run
+again eagerly with per-layer host decisions (counted in ``fallbacks``).
+On the CPU, which the tests ask for explicitly, the same deferred steps
+run eagerly. The health monitor, the degradation ladder and the online
+scheduler come later. Times are seconds on the host clock, read after
+the device has finished (``torch.cuda.synchronize``).
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import gc
+import math
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import InputShape
-from repro_torch.core import execution
-from repro_torch.core.strategy import PolicyTable, make_execution_plan
+from repro_torch.core import execution, prefetch
+from repro_torch.core.strategy import (
+    PolicyTable,
+    make_execution_plan,
+    plan_activation_sharding,
+)
+from repro_torch.kernels import registry
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.split_gemm import dense, grouped
 from repro_torch.models.cache import init_decode_state
 from repro_torch.models.transformer import Model
 from repro_torch.runtime.metrics import RequestRecord, ServingMetrics
 
 
+def variant_key(table: PolicyTable, shape: InputShape, excl: tuple = ()) -> tuple:
+    """The forward-variant cache key: the canonical policy table
+    (``describe()``), the shape bucket and the peer-exclusion set — the JAX
+    package's key. Model, mesh and mode are fixed per cache."""
+    return (
+        table.describe(),
+        (shape.phase, shape.seq_len, shape.global_batch),
+        tuple(int(p) for p in excl),
+    )
+
+
+# --------------------------------------------------------------------------
+# Host counters through graph replays.
+# --------------------------------------------------------------------------
+_PATHS = {"dense": dense.PATHS, "grouped": grouped.PATHS, "flash": flash_ops.PATHS}
+
+
+def host_counts() -> collections.Counter:
+    """Every counter the port keeps on the host, flat: kernel launches
+    (``registry``), the path of every #1-#7 launch (``PATHS``), bytes landed
+    from peers (``prefetch.LANDED``) and route-before-gather layer runs
+    (``execution.DEMAND.layers``)."""
+    out = collections.Counter()
+    for name, n in registry.launch_counts().items():
+        out[("launches", name)] = n
+    for label, paths in _PATHS.items():
+        for key, n in paths.items():
+            out[(label, key)] = n
+    out[("landed",)] = prefetch.LANDED.bytes
+    out[("demand_layers",)] = execution.DEMAND.layers
+    return out
+
+
+def add_counts(record: collections.Counter) -> None:
+    """Add a record of :func:`host_counts` differences to the counters."""
+    for key, n in record.items():
+        kind = key[0]
+        if kind == "launches":
+            registry.KERNELS[key[1]].launches += n
+        elif kind in _PATHS:
+            _PATHS[kind][key[1]] += n
+        elif kind == "landed":
+            prefetch.LANDED.bytes += n
+        else:
+            execution.DEMAND.layers += n
+
+
+# --------------------------------------------------------------------------
+# Captured steps and the variant cache.
+# --------------------------------------------------------------------------
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return []  # None fields of a PredictState
+
+
+def _copy_into(dst, src) -> None:
+    """Copy a tree of tensors into a tree of the same structure, in place
+    (a leaf that is already the destination is left alone)."""
+    if isinstance(dst, torch.Tensor):
+        if dst is not src:
+            dst.copy_(src)
+    elif isinstance(dst, dict):
+        if dst.keys() != src.keys():
+            raise ValueError(f"state trees differ: {sorted(dst)} vs {sorted(src)}")
+        for key in dst:
+            _copy_into(dst[key], src[key])
+    elif isinstance(dst, (list, tuple)):
+        for d, s in zip(dst, src, strict=True):
+            _copy_into(d, s)
+    elif dst is not None or src is not None:
+        raise ValueError(f"state trees differ: {type(dst)} vs {type(src)}")
+
+
+class GraphSpace:
+    """Where one engine's CUDA graphs live: one memory pool that every graph
+    of the engine (both servers, every variant) is captured into and that
+    its eager warm-ups and overflow re-runs allocate from, and one stream
+    that captures and eager work in the pool run on (the caching allocator
+    reuses a free block only for work on the stream that freed it). Steps
+    never overlap, so the graphs share one pool the size of the largest
+    step's transient memory rather than their sum. The price: a graph's
+    outputs, and an eager tensor allocated in the pool, are valid only
+    until the next step that uses the pool — the servers copy what they
+    keep (decode state, admitted KV) at once."""
+
+    def __init__(self, device: torch.device):
+        if device.index is None:
+            device = torch.device(device.type, torch.cuda.current_device())
+        self.device = device
+        self.pool = torch.cuda.MemPool()
+        self.stream = torch.cuda.Stream(device)
+
+    @contextlib.contextmanager
+    def eager(self):
+        """Eager work in the pool, on the space's stream, ordered after the
+        caller's stream and before what the caller does next (a context)."""
+        caller = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(caller)
+        with torch.cuda.use_mem_pool(self.pool, self.device), torch.cuda.stream(self.stream):
+            yield
+        caller.wait_stream(self.stream)
+
+
+class CountingStep:
+    """One forward variant's step, ``fn(params, inputs) -> outputs``, with a
+    call counter and a capture count: ``captures()`` stands where the JAX
+    package's ``cache_size()`` counts jit executables.
+
+    ``inputs`` is the step's tree of static input tensors; a call copies the
+    new values it is given into them. With a :class:`GraphSpace` the first
+    call (or :meth:`warm`) runs ``fn`` once eagerly on the capture stream —
+    module loading, kernel builds and library handles happen there, not in
+    the capture — then captures it into a ``torch.cuda.CUDAGraph`` from the
+    space's pool, and every call replays the graph and returns the same
+    output tensors. A capture that fails raises. The host counters the
+    capture moved (:func:`host_counts`) are recorded and added again at
+    each replay, so launches, paths, landed bytes and demand layers count
+    what the card ran. Without a space (the CPU, or ``graphs=False``) every
+    call runs ``fn`` eagerly."""
+
+    def __init__(self, fn: Callable, inputs: dict, space: Optional[GraphSpace] = None):
+        self._fn = fn
+        self.inputs = inputs
+        self.space = space
+        self.calls = 0
+        self.n_captures = 0
+        self.graph = None
+        self.outputs = None
+        self._params = None
+        self._record = None
+
+    def __call__(self, params, **new_inputs) -> dict:
+        self.calls += 1
+        for key, value in new_inputs.items():
+            _copy_into(self.inputs[key], value)
+        if self.space is None:
+            return self._fn(params, self.inputs)
+        if self.graph is None:
+            self._capture(params)
+        elif params is not self._params:
+            raise ValueError("a captured step replays the weights it was captured with")
+        self.graph.replay()
+        add_counts(self._record)
+        return self.outputs
+
+    def warm(self, params) -> int:
+        """Capture the step off the serving path (one eager call without a
+        space, its outputs dropped); returns the number of captures made."""
+        if self.space is None:
+            self._fn(params, self.inputs)
+            return 0
+        if self.graph is not None:
+            return 0
+        self._capture(params)
+        return 1
+
+    def _capture(self, params) -> None:
+        space = self.space
+        with space.eager():
+            self._fn(params, self.inputs)
+        before = host_counts()
+        graph = torch.cuda.CUDAGraph()
+        # Collect dropped engines now, and not inside the capture: freeing a
+        # graph there invalidates the capture.
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=space.pool.id, stream=space.stream):
+                outputs = self._fn(params, self.inputs)
+        finally:
+            if enabled:
+                gc.enable()
+        self._record = host_counts() - before
+        self.graph, self.outputs, self._params = graph, outputs, params
+        self.n_captures += 1
+
+    def captures(self) -> int:
+        """CUDA graphs this step has captured (0 where it runs eagerly)."""
+        return self.n_captures
+
+    def release(self) -> None:
+        """Drop the graph and its outputs (their memory returns to the pool);
+        the next call captures again."""
+        self.graph = self.outputs = self._params = self._record = None
+
+
+class PolicyVariantCache:
+    """Forward-variant cache of one server: :func:`variant_key` -> ``(plan,
+    CountingStep)``, built on a miss by ``build(plan)`` and kept LRU up to
+    ``max_entries``; an eviction frees the variant's graph. ``stats``
+    counts hits, misses and evictions; ``captures()`` sums the cached
+    steps' captures and stays flat after warmup iff serving never
+    captures."""
+
+    def __init__(self, model: Model, mesh_sizes: dict, shape: InputShape,
+                 build: Callable, *, mode: str = "dwdp", capacity_from: str = "local",
+                 max_entries: int = 16):
+        self.model = model
+        self._mesh_sizes = mesh_sizes
+        self.shape = shape
+        self._build = build
+        self._mode = mode
+        self._capacity_from = capacity_from
+        self.max_entries = max(1, int(max_entries))
+        self._entries: dict = {}
+        self.stats = {"hits": 0, "misses": 0, "evictions": 0}
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def captures(self) -> int:
+        return sum(step.captures() for _, step in self._entries.values())
+
+    def get(self, table: PolicyTable, excl: tuple = (), shape: Optional[InputShape] = None):
+        """The (plan, step) variant of a policy table, built on a miss.
+        ``shape`` overrides the home shape bucket (the context server's
+        prefill lengths key in through here)."""
+        if excl:
+            raise NotImplementedError(
+                "peer exclusion (the degradation ladder's rungs) is not ported yet")
+        shape = shape if shape is not None else self.shape
+        key = variant_key(table, shape, excl)
+        if key in self._entries:
+            self.stats["hits"] += 1
+            self._entries[key] = self._entries.pop(key)  # refresh the LRU position
+            return self._entries[key]
+        self.stats["misses"] += 1
+        xp = make_execution_plan(self.model, shape, self._mesh_sizes, mode=self._mode,
+                                 policy=table, capacity_from=self._capacity_from)
+        entry = (xp, self._build(xp))
+        while len(self._entries) >= self.max_entries:
+            self._entries.pop(next(iter(self._entries)))[1].release()
+            self.stats["evictions"] += 1
+        self._entries[key] = entry
+        return entry
+
+    def adopt(self, table: PolicyTable, excl: tuple, entry,
+              shape: Optional[InputShape] = None) -> None:
+        """Seed the cache with an already-built variant without a miss."""
+        key = variant_key(table, shape if shape is not None else self.shape, excl)
+        self._entries.setdefault(key, entry)
+
+
+def _eager(space: Optional[GraphSpace]):
+    return space.eager() if space is not None else contextlib.nullcontext()
+
+
+# --------------------------------------------------------------------------
+# Servers.
+# --------------------------------------------------------------------------
 @dataclasses.dataclass
 class Request:
     req_id: int
@@ -53,70 +334,177 @@ class Request:
 class ContextServer:
     """Prefill worker: returns (first_token, captured decode state).
     ``ContextServer`` prefills one request at a time (global batch 1), so
-    the model axis shards the prompt's sequence."""
+    the model axis shards the prompt's sequence.
+
+    Prompt lengths are served from pow2 buckets: ``prefill_len`` is the
+    home bucket and ``prefill_buckets`` adds lengths, each a power of two;
+    each length is one variant of the prefill step, and :meth:`warmup`
+    captures every one. ``fallbacks`` counts prefills run again eagerly
+    after a deferred overflow."""
 
     def __init__(self, model: Model, mesh_sizes: dict, *, mode: str = "dwdp",
                  prefill_len: int, cache_len: int,
                  capacity_from: str = "local", expert_fetch: str = "all",
-                 demand_budget: int = 0, cache_budget: int = 0):
+                 demand_budget: int = 0, cache_budget: int = 0,
+                 prefill_buckets: tuple = (), space: Optional[GraphSpace] = None):
         self.model = model
         self.prefill_len = prefill_len
         self.cache_len = cache_len
-        self.xp = make_execution_plan(
-            model, InputShape("ctx", prefill_len, 1, "prefill"), mesh_sizes,
+        for b in prefill_buckets:
+            b = int(b)
+            if b < 1 or b & (b - 1):
+                raise ValueError(f"prefill_buckets must be powers of two, got {b}")
+        self.prefill_lens = tuple(sorted({int(prefill_len), *(int(b) for b in prefill_buckets)}))
+        self.space = space
+        self.fallbacks = 0
+        self._table = PolicyTable.uniform(fetch=expert_fetch, budget=demand_budget,
+                                          cache_budget=cache_budget)
+        self.variants = PolicyVariantCache(
+            model, mesh_sizes, InputShape("ctx", prefill_len, 1, "prefill"), self._build,
             mode=mode, capacity_from=capacity_from,
-            policy=PolicyTable.uniform(fetch=expert_fetch, budget=demand_budget,
-                                       cache_budget=cache_budget),
+            max_entries=max(16, len(self.prefill_lens)),
         )
+        self.xp, self.step = self._bucket(prefill_len)
+
+    def _build(self, xp) -> CountingStep:
+        tokens = torch.zeros((1, xp.seq_len), dtype=torch.int64, device=self.model.device)
+
+        def fn(params, inputs):
+            ctx = execution.Ctx(model=self.model, xp=xp, capture_len=self.cache_len,
+                                deferred=True)
+            return execution.forward_prefill(params, inputs["tokens"], ctx)
+
+        return CountingStep(fn, {"tokens": tokens}, self.space)
+
+    def _bucket(self, length: int):
+        """The (plan, step) variant of one prefill-length bucket."""
+        return self.variants.get(self._table, shape=InputShape("ctx", int(length), 1, "prefill"))
+
+    def _check_length(self, length: int) -> None:
+        if length not in self.prefill_lens:
+            raise ValueError(f"prompt length {length} matches no prefill bucket "
+                             f"(prefill_lens={self.prefill_lens})")
+
+    def warmup(self, params) -> int:
+        """Capture the prefill step of every bucket off the serving path;
+        returns the captures made."""
+        return sum(self._bucket(length)[1].warm(params) for length in self.prefill_lens)
 
     def forward(self, params, tokens: np.ndarray, *, impl: Optional[str] = None) -> dict:
-        """One prefill of ``tokens`` (prompt_len,) -> the forward's outputs
-        (``last_logits`` (1, vocab_pad) f32 and the captured ``state``).
-        ``impl="torch"`` runs the plain version of every kernel."""
-        if len(tokens) != self.prefill_len:
-            raise ValueError(f"prompt length {len(tokens)} != prefill_len {self.prefill_len}")
+        """One eager prefill of ``tokens`` (prompt_len,) with per-layer host
+        decisions -> the forward's outputs (``last_logits`` (1, vocab_pad)
+        f32 and the captured ``state``), valid until the server's next
+        step. ``impl="torch"`` runs the plain version of every kernel."""
+        self._check_length(len(tokens))
+        xp = self._bucket(len(tokens))[0]
         row = torch.as_tensor(np.asarray(tokens)[None, :], dtype=torch.int64,
                               device=self.model.device)
-        ctx = execution.Ctx(model=self.model, xp=self.xp, capture_len=self.cache_len, impl=impl)
-        return execution.forward_prefill(params, row, ctx)
+        ctx = execution.Ctx(model=self.model, xp=xp, capture_len=self.cache_len, impl=impl)
+        with _eager(self.space):
+            return execution.forward_prefill(params, row, ctx)
 
     def prefill(self, params, tokens: np.ndarray):
-        out = self.forward(params, tokens)
-        first = int(torch.argmax(out["last_logits"][0]))
+        """tokens: (prompt_len,) -> (first_token, state); the state is valid
+        until the server's next step (``GenerationServer.admit`` copies
+        it)."""
+        self._check_length(len(tokens))
+        self.xp, self.step = self._bucket(len(tokens))
+        out = self.step(params, tokens=torch.as_tensor(np.asarray(tokens)[None, :],
+                                                        dtype=torch.int64))
+        first, overflow = torch.stack([out["last_logits"][0].argmax(),
+                                       out["overflow"].long()]).tolist()
+        if overflow:
+            self.fallbacks += 1
+            out = self.forward(params, tokens)
+            first = int(out["last_logits"][0].argmax())
         return first, out["state"]
 
 
 class GenerationServer:
-    """Slot-based continuous-batching decode worker. Under the predictive
-    and sync-free fetch the decode state carries the per-rank predictor
-    and residency cache (``state["pred"]``, attached cold); it is per rank,
-    not per slot, so admitting a request leaves it as it is.
-    ``pred_stats`` keeps each decode step's ``[predicted, spec_hit,
+    """Slot-based continuous-batching decode worker.
+
+    The server owns the decode state buffers (KV ring and positions, shared
+    by every decode variant, and each variant's predictive state) and the
+    token row; they are the steps' static inputs. A step's outputs are read
+    once (the tokens with the overflow flag and ``pred_stats``) and copied
+    into the buffers. Under the predictive and sync-free fetch the state
+    carries the per-rank predictor and residency cache (``state["pred"]``);
+    it is per rank, not per slot, so admitting a request leaves it as it
+    is. ``pred_stats`` keeps each decode step's ``[predicted, spec_hit,
     cache_hit, corr_rows, evicted]`` expert rows (summed over layers and
-    ranks)."""
+    ranks); ``fallbacks`` counts steps run again eagerly after a deferred
+    overflow."""
 
     def __init__(self, model: Model, mesh_sizes: dict, *, mode: str = "dwdp",
                  max_batch: int, cache_len: int,
                  capacity_from: str = "local", expert_fetch: str = "all",
-                 demand_budget: int = 0, cache_budget: int = 0):
+                 demand_budget: int = 0, cache_budget: int = 0,
+                 variant_cache_size: int = 16, space: Optional[GraphSpace] = None):
         self.model = model
         self.max_batch = max_batch
         self.cache_len = cache_len
-        self.xp = make_execution_plan(
-            model, InputShape("gen", cache_len, max_batch, "decode"), mesh_sizes,
-            mode=mode, capacity_from=capacity_from,
-            policy=PolicyTable.uniform(fetch=expert_fetch, budget=demand_budget,
-                                       cache_budget=cache_budget),
+        self.space = space
+        self._shape = InputShape("gen", cache_len, max_batch, "decode")
+        self.variants = PolicyVariantCache(
+            model, mesh_sizes, self._shape, self._build, mode=mode,
+            capacity_from=capacity_from, max_entries=variant_cache_size,
         )
-        seq_shards = self.xp.seq_shards if self.xp.seq_axes else 1
-        self.state = execution.attach_predict_state(
-            init_decode_state(model, max_batch, cache_len, seq_shards=seq_shards),
-            model, self.xp,
-        )
+        _, seq_axes = plan_activation_sharding(model.cfg, self._shape, mesh_sizes)
+        seq_shards = math.prod(mesh_sizes[a] for a in seq_axes)
+        self._kv = init_decode_state(model, max_batch, cache_len, seq_shards=seq_shards)
+        self.cur_token = torch.zeros((max_batch, 1), dtype=torch.int64, device=model.device)
         self.pred_stats: list[np.ndarray] = []
+        self.fallbacks = 0
         self.slot_req: list[Optional[int]] = [None] * max_batch
         self.slot_remaining = np.zeros(max_batch, np.int64)
-        self.cur_token = torch.zeros((max_batch, 1), dtype=torch.int64, device=model.device)
+        self._swap(PolicyTable.uniform(fetch=expert_fetch, budget=demand_budget,
+                                       cache_budget=cache_budget))
+
+    def _build(self, xp) -> CountingStep:
+        state = {"pos": self._kv["pos"], "layers": self._kv["layers"]}
+        pred = execution.init_predict_state(self.model, xp)
+        if pred:
+            state["pred"] = pred
+
+        def fn(params, inputs):
+            ctx = execution.Ctx(model=self.model, xp=xp, deferred=True)
+            return execution.forward_decode(params, inputs["token"], inputs["state"], ctx)
+
+        return CountingStep(fn, {"token": self.cur_token, "state": state}, self.space)
+
+    def _swap(self, table: PolicyTable) -> None:
+        """Install the table's variant with a cold predictive state: its own
+        buffers zeroed in place (the predictor and the residency cache do
+        not survive a policy change; their budgets differ)."""
+        self.xp, self.step = self.variants.get(table)
+        self.state = self.step.inputs["state"]
+        for t in _leaves(self.state.get("pred")):
+            t.zero_()
+
+    def set_policy(self, table: PolicyTable) -> bool:
+        """Online policy switch: move the decode step to another policy
+        table's variant — captured already when warmed, built and captured
+        on first use otherwise — with a cold predictive state; KV slots
+        carry over. Returns whether anything changed. (The degradation
+        ladder, whose level 0 the JAX package rebases here, is not ported
+        yet, so there is no ladder to rebase.)"""
+        if table.describe() == self.xp.policies.describe():
+            return False
+        self._swap(table)
+        return True
+
+    def warmup(self, params, tables=()) -> int:
+        """Capture the decode variant of each table (and of the installed
+        one) off the serving path; slot and predictive state are left as
+        they were (a step never writes its inputs). Returns the captures
+        made."""
+        made, seen = 0, set()
+        for table in (self.xp.policies, *tables):
+            key = variant_key(table, self._shape)
+            if key not in seen:
+                seen.add(key)
+                made += self.variants.get(table)[1].warm(params)
+        return made
 
     def free_slots(self) -> list[int]:
         return [i for i, r in enumerate(self.slot_req) if r is None]
@@ -138,14 +526,38 @@ class GenerationServer:
         self.cur_token[slot, 0] = first_token
         self.slot_req[slot] = req_id
 
-    def decode_step(self, params) -> np.ndarray:
-        ctx = execution.Ctx(model=self.model, xp=self.xp)
-        out = execution.forward_decode(params, self.cur_token, self.state, ctx)
-        self.state = out["state"]
-        self.cur_token = out["next_token"].to(torch.int64)
+    def _read(self, out: dict):
+        """The step's one host read: (tokens, overflow, pred_stats or None)."""
+        parts = [out["next_token"][:, 0].double(), out["overflow"].double()[None]]
         if "pred_stats" in out:
-            self.pred_stats.append(out["pred_stats"].cpu().numpy())
-        return out["next_token"][:, 0].cpu().numpy()
+            parts.append(out["pred_stats"].double())
+        host = torch.cat(parts).cpu().numpy()
+        b = self.max_batch
+        stats = host[b + 1:].astype(np.float32) if "pred_stats" in out else None
+        return host[:b].astype(np.int64), bool(host[b]), stats
+
+    def step_outputs(self, params):
+        """One decode step from the server's state, committing nothing:
+        ``(outputs, tokens, pred_stats)``. A deferred overflow runs the step
+        again eagerly (counted in ``fallbacks``). The outputs are valid
+        until the server's next step."""
+        out = self.step(params)
+        tokens, overflow, stats = self._read(out)
+        if overflow:
+            self.fallbacks += 1
+            ctx = execution.Ctx(model=self.model, xp=self.xp)
+            with _eager(self.space):
+                out = execution.forward_decode(params, self.cur_token, self.state, ctx)
+            tokens, _, stats = self._read(out)
+        return out, tokens, stats
+
+    def decode_step(self, params) -> np.ndarray:
+        out, tokens, stats = self.step_outputs(params)
+        _copy_into(self.state, out["state"])
+        self.cur_token.copy_(out["next_token"])
+        if stats is not None:
+            self.pred_stats.append(stats)
+        return tokens
 
     def release(self, slot: int) -> None:
         self.slot_req[slot] = None
@@ -170,25 +582,23 @@ class DisaggregatedEngine:
             torch.cuda.synchronize(self.gen.model.device)
         return time.perf_counter() - self._t0
 
-    def warmup(self) -> None:
-        """One prefill and one decode step off the serving path, so that
-        one-time costs (kernel module loading, library handles) stay out
-        of the first request's TTFT. Slot and predictive state are left as
-        they were: the decode step's outputs are dropped
-        (``forward_decode`` never writes its input state)."""
-        self.ctx.forward(self.params, np.zeros(self.ctx.prefill_len, np.int64))
-        state, token = self.gen.state, self.gen.cur_token
-        n_stats = len(self.gen.pred_stats)
-        self.gen.decode_step(self.params)
-        self.gen.state, self.gen.cur_token = state, token
-        del self.gen.pred_stats[n_stats:]
+    def warmup(self, tables=()) -> int:
+        """Capture the serving variants off the serving path: the prefill
+        step of every bucket and the decode variant of each table in
+        ``tables`` (and of the installed one). After this, serving — mixed
+        bucket lengths and ``gen.set_policy`` to a warmed table included —
+        captures nothing (``variants.captures()`` stays flat on both
+        servers). Returns the decode variants captured."""
+        self.ctx.warmup(self.params)
+        made = self.gen.warmup(self.params, tables)
         self.now()
+        return made
 
     def submit(self, req: Request) -> None:
-        if len(req.tokens) != self.ctx.prefill_len:
+        if len(req.tokens) not in self.ctx.prefill_lens:
             raise ValueError(
-                f"Request {req.req_id}: prompt length {len(req.tokens)} != "
-                f"prefill_len {self.ctx.prefill_len}"
+                f"Request {req.req_id}: prompt length {len(req.tokens)} matches no "
+                f"context-server bucket (prefill_lens={self.ctx.prefill_lens})"
             )
         if len(req.tokens) + req.target_len - 1 > self.gen.cache_len:
             raise ValueError(

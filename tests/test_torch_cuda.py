@@ -7,6 +7,8 @@ imports none):
 
 Without a card the test skips.
 """
+import weakref
+
 import pytest
 import torch
 
@@ -456,3 +458,113 @@ def test_cuda_fp8_banks_refused_where_no_kernel_takes_them():
     w8t = w8.transpose(1, 2).contiguous()
     with pytest.raises(TypeError, match="not supported"):
         grouped.split_grouped_swiglu(x.bfloat16(), w8, w8, w8t, w8, w8, w8t)
+
+
+# --------------------------------------------------------------------------
+# Serving through captured CUDA graphs, at a small MoE configuration whose
+# decode runs the route-before-gather path (2 rows x top-2 < 24 remote
+# experts) and whose prefill (16 tokens per rank) gathers every expert.
+# --------------------------------------------------------------------------
+GRAPH_GEOM = dict(shard_attention=True, expert_axes=("model",), moe_exec="gather")
+GRAPH_PROMPTS = (64, 32, 64, 32)  # two pow2 buckets
+GRAPH_OUT = 5
+
+
+def _graph_cfg():
+    from repro_torch.configs import ArchConfig, MoEConfig
+
+    return ArchConfig(name="graph-test", family="moe", num_layers=3, d_model=256, num_heads=4,
+                      num_kv_heads=4, head_dim=64, d_ff=512, vocab_size=512,
+                      moe=MoEConfig(num_experts=32, top_k=2, d_ff=128, shared_d_ff=128,
+                                    first_dense=1))
+
+
+def _graph_engine(params=None, **kw):
+    from repro_torch.launch.serve import build_engine
+
+    return build_engine(_graph_cfg(), mesh_shape=(1, 4), prefill_len=64, prefill_buckets=(32,),
+                        cache_len=96, max_batch=2, dtype=torch.bfloat16, device="cuda",
+                        params=params, geom_kwargs=GRAPH_GEOM, **kw)[0]
+
+
+def _graph_serve(eng):
+    import numpy as np
+    from repro_torch.runtime.engine import Request
+
+    rng = np.random.default_rng(3)
+    for i, n in enumerate(GRAPH_PROMPTS):
+        eng.submit(Request(i, rng.integers(0, 512, n), GRAPH_OUT))
+    while eng.busy():
+        eng.run(1)
+    return dict(eng.outputs)
+
+
+def _captures(eng):
+    return eng.ctx.variants.captures(), eng.gen.variants.captures()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fetch", ["all", "demand", "predictive", "sync_free"])
+def test_cuda_graph_serving_bitwise_eager(fetch):
+    """Each fetch mode through graphs against the eager engine
+    (``graphs=False``) on the same weights: the same tokens over two
+    prefill buckets, one more decode step's logits bitwise, no capture
+    after warmup, and a replayed step and an eager deferred step free of
+    host syncs (``torch.cuda.set_sync_debug_mode("error")``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from repro_torch.core import execution
+
+    kw = dict(expert_fetch=fetch, cache_budget=4 if fetch in ("predictive", "sync_free") else 0)
+    graph = _graph_engine(**kw)
+    eager = _graph_engine(params=graph.params, graphs=False, **kw)
+    assert execution.demand_fetch_active(graph.gen.model.cfg, graph.gen.model.geom,
+                                         graph.gen.xp) == (fetch != "all")
+    graph.warmup()
+    eager.warmup()
+    warm = _captures(graph)
+    assert warm == (2, 1) and _captures(eager) == (0, 0)
+    assert _graph_serve(graph) == _graph_serve(eager)
+    assert _captures(graph) == warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits = graph.gen.step(graph.params)["logits"].clone()
+        ctx = execution.Ctx(model=eager.gen.model, xp=eager.gen.xp, deferred=True)
+        ref = execution.forward_decode(eager.params, eager.gen.cur_token, eager.gen.state,
+                                       ctx)["logits"]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(logits, ref)
+    assert graph.gen.fallbacks == eager.gen.fallbacks == 0
+
+
+@pytest.mark.cuda
+def test_cuda_graph_forced_overflow_rerun_and_eviction():
+    """Demand decode with a budget of 1 row per peer overflows: every such
+    step is run again eagerly and counted, and the tokens are the
+    all-fetch engine's. Then a one-entry variant cache: a policy switch
+    evicts the installed variant and frees its graph, and serving goes on
+    through the new variant's capture with the same tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from repro_torch.core.strategy import PolicyTable
+
+    ref = _graph_engine(graphs=False)
+    want = _graph_serve(ref)
+    forced = _graph_engine(params=ref.params, expert_fetch="demand", demand_budget=1)
+    forced.warmup()
+    assert _graph_serve(forced) == want
+    assert forced.gen.fallbacks > 0
+
+    small = _graph_engine(params=ref.params, expert_fetch="demand", variant_cache_size=1)
+    small.warmup()
+    old = small.gen.step
+    assert old.captures() == 1 and old.graph is not None
+    logits = weakref.ref(old.outputs["logits"])
+    assert small.gen.set_policy(PolicyTable.uniform(fetch="predictive", cache_budget=4))
+    assert small.gen.variants.stats["evictions"] == 1 and len(small.gen.variants) == 1
+    assert old.graph is None and old.outputs is None
+    assert logits() is None  # the graph's outputs are freed
+    assert _graph_serve(small) == want
+    assert small.gen.step.captures() == 1

@@ -12,6 +12,11 @@ sync-free) against the JAX package.
   logical mesh (1, 4): every fetch mode gives the port's all-fetch tokens
   and the JAX package's (1, 1) tokens (capacity factor E / top_k: no
   drops in either layout), the forced-overflow budget included.
+- The deferred overflow that CUDA graphs capture: its flag is the OR of
+  the eager path's per-layer decisions, the deferred step reads nothing
+  on the host, the engine runs an overflowed step again (every mode, the
+  port's all-fetch and the JAX tokens), and after warmup neither bucket
+  lengths nor policy switches build a variant.
 """
 import numpy as np
 import pytest
@@ -427,3 +432,110 @@ def test_engine_serves_every_fetch_mode_alike(decode_setup):
         outs[fetch] = eng.outputs
         assert len(eng.gen.pred_stats) == (4 if pred is not None else 0)
     assert outs["demand"] == outs["sync_free"] == outs["all"]
+
+
+# --------------------------------------------------------------------------
+# The deferred overflow: the step reads nothing on the host, its flag is
+# read once per step, and the engine runs an overflowed step again.
+# --------------------------------------------------------------------------
+FORCED = {"all": {}, "demand": dict(demand_budget=1),
+          "predictive": dict(demand_budget=1, cache_budget=8),
+          "sync_free": dict(demand_budget=1, cache_budget=4)}
+
+
+def _decode_inputs(s, fetch, budget=0, cache_budget=0):
+    model = s["model"]
+    pol = strategy.PolicyTable.uniform(fetch=fetch, budget=budget, cache_budget=cache_budget)
+    xp = strategy.make_execution_plan(model, InputShape("d", CACHE, 2, "decode"),
+                                      {"data": 1, "model": 4}, policy=pol, capacity_factor=CAP)
+    state = execution.attach_predict_state(init_decode_state(model, 2, CACHE, seq_shards=4),
+                                           model, xp)
+    return xp, state
+
+
+@pytest.mark.parametrize("fetch", sorted(FORCED))
+def test_engine_reruns_overflowed_steps_exactly(decode_setup, all_fetch_tokens, fetch):
+    """The generation server (deferred steps) with a budget of 1 row per
+    peer: every overflowed step runs again eagerly and is counted, and the
+    tokens are the port's all-fetch tokens and the JAX package's.
+    (Row-local capacity: no token drops at 2 rows, as at factor E/top_k.)"""
+    s = decode_setup
+    eng, _ = build_engine(s["cfg"], mesh_shape=(1, 4), prefill_len=16, cache_len=CACHE,
+                          max_batch=2, device="cpu", params=s["params"], geom_kwargs=GEOM,
+                          capacity_from="global", expert_fetch=fetch, **FORCED[fetch])
+    gen = eng.gen
+    gen.cur_token.copy_(torch.as_tensor(FIRST))
+    toks = [gen.decode_step(s["params"]).tolist() for _ in range(STEPS)]
+    assert toks == all_fetch_tokens == s["jax_tokens"]
+    assert (gen.fallbacks > 0) == (fetch != "all")
+    assert len(gen.pred_stats) == (STEPS if fetch in ("predictive", "sync_free") else 0)
+
+
+@pytest.mark.parametrize("fetch", ["demand", "predictive", "sync_free"])
+@pytest.mark.parametrize("budget", [0, 1])
+def test_deferred_flag_is_the_or_of_eager_decisions(decode_setup, fetch, budget):
+    """One decode step, eager (per-layer host decisions) and deferred, from
+    the same state: the deferred flag is set iff an eager layer fell back;
+    a set flag counts its layers."""
+    s = decode_setup
+    xp, state = _decode_inputs(s, fetch, budget, 4 if fetch != "demand" else 0)
+    tok = torch.as_tensor(FIRST)
+    execution.DEMAND.fallbacks = 0
+    eager = execution.forward_decode(s["params"], tok, state,
+                                     execution.Ctx(model=s["model"], xp=xp))
+    fell_back = execution.DEMAND.fallbacks
+    deferred = execution.forward_decode(s["params"], tok, state,
+                                        execution.Ctx(model=s["model"], xp=xp, deferred=True))
+    assert execution.DEMAND.fallbacks == fell_back
+    assert bool(deferred["overflow"]) == (fell_back > 0) == bool(eager["overflow"])
+    assert (int(deferred["overflow_layers"]) > 0) == bool(deferred["overflow"])
+    assert int(eager["overflow_layers"]) == fell_back
+    assert (fell_back > 0) == (budget == 1)
+    if not fell_back:
+        assert torch.equal(deferred["logits"], eager["logits"])
+
+
+@pytest.mark.parametrize("fetch", sorted(FORCED))
+def test_deferred_decode_step_reads_nothing_on_the_host(decode_setup, fetch, monkeypatch):
+    """A deferred decode step — what a CUDA graph captures — with every
+    tensor-to-host read patched to raise."""
+    s = decode_setup
+    kw = FORCED[fetch]
+    xp, state = _decode_inputs(s, fetch, kw.get("demand_budget", 0), kw.get("cache_budget", 0))
+    tok = torch.as_tensor(FIRST)
+    ctx = execution.Ctx(model=s["model"], xp=xp, deferred=True)
+
+    def read(*args, **kwargs):
+        raise AssertionError("a host read inside the deferred step")
+
+    for name in ("__bool__", "item", "tolist", "__int__", "__float__"):
+        monkeypatch.setattr(torch.Tensor, name, read)
+    out = execution.forward_decode(s["params"], tok, state, ctx)
+    monkeypatch.undo()
+    assert bool(out["overflow"]) == (fetch != "all")
+
+
+def test_no_variant_built_after_warmup(decode_setup):
+    """After warmup (two prefill buckets, the demand and predictive decode
+    tables), serving mixed prompt lengths with policy switches between
+    steps builds no variant (zero misses) and captures nothing."""
+    s = decode_setup
+    eng, _ = build_engine(s["cfg"], mesh_shape=(1, 4), prefill_len=16, prefill_buckets=(8,),
+                          cache_len=32, max_batch=2, device="cpu", params=s["params"],
+                          geom_kwargs=GEOM, expert_fetch="demand")
+    tables = (strategy.PolicyTable.uniform(fetch="predictive", cache_budget=4),
+              strategy.PolicyTable.uniform(fetch="demand"))
+    eng.warmup(tables[:1])
+    misses = (eng.ctx.variants.stats["misses"], eng.gen.variants.stats["misses"])
+    assert misses == (2, 2)
+    rng = np.random.default_rng(4)
+    for i, n in enumerate((8, 16, 8, 16)):
+        eng.submit(Request(i, rng.integers(0, 128, n), 4))
+    switches = steps = 0
+    while eng.busy():
+        switches += eng.gen.set_policy(tables[steps % 2])
+        eng.run(1)
+        steps += 1
+    assert switches >= 3 and len(eng.outputs) == 4
+    assert (eng.ctx.variants.stats["misses"], eng.gen.variants.stats["misses"]) == misses
+    assert eng.ctx.variants.captures() == eng.gen.variants.captures() == 0

@@ -96,3 +96,44 @@ def test_from_jax_params_checks_geometry(r1_smoke):
     repl = jax.tree.map(np.asarray, jm_repl.init_params(jax.random.key(0)))
     with pytest.raises(ValueError, match="attention stack"):
         from_jax_params(repl, model)
+
+
+TOL = {"float32": 2e-5}  # tests/test_kernels.py TOL
+
+
+def test_prefill_buckets_match_jax_context_server(r1_smoke):
+    """Prefill buckets 8 and 16 on the port's context server at (1, 4)
+    against the JAX package's at (1, 1): the same first token and the last
+    logits within TOL, each length through its own bucket's step; the
+    same bucket set and the same refusal of a non-pow2 bucket."""
+    cfg, jcfg, jparams, prompts = r1_smoke
+    jeng, _ = jbuild_engine(jcfg, mesh_shape=(1, 1), prefill_len=PROMPT, prefill_buckets=(8,),
+                            cache_len=CACHE, max_batch=2, gen_mode="dwdp", dtype=jnp.float32,
+                            seed=0)
+    model = build_model(cfg, {"data": 1, "model": 4}, device="cpu", **GEOM)
+    eng, _ = build_engine(cfg, mesh_shape=(1, 4), prefill_len=PROMPT, prefill_buckets=(8,),
+                          cache_len=CACHE, max_batch=2, device="cpu",
+                          params=from_jax_params(jparams, model), geom_kwargs=GEOM)
+    assert eng.ctx.prefill_lens == jeng.ctx.prefill_lens == (8, 16)
+    for length in (8, 16):
+        tokens = prompts[length // 8][:length]
+        jfirst, _ = jeng.ctx.prefill(jeng.params, tokens)
+        jlogits = jeng.ctx.step(jeng.params, {"tokens": jnp.asarray(tokens[None, :], jnp.int32)})
+        first, state = eng.ctx.prefill(eng.params, tokens)
+        assert eng.ctx.xp.seq_len == length and state["pos"].tolist() == [length]
+        assert first == jfirst
+        got = eng.ctx.step(eng.params, tokens=torch.as_tensor(tokens[None, :]))["last_logits"]
+        np.testing.assert_allclose(got[:, :cfg.vocab_size].numpy(),
+                                   np.asarray(jlogits["last_logits"])[:, :cfg.vocab_size],
+                                   atol=TOL["float32"], rtol=TOL["float32"])
+    for bad in (12, 0):
+        with pytest.raises(ValueError, match="powers of two"):
+            build_engine(cfg, mesh_shape=(1, 4), prefill_len=PROMPT, prefill_buckets=(bad,),
+                         cache_len=CACHE, device="cpu", geom_kwargs=GEOM)
+        with pytest.raises(ValueError, match="powers of two"):
+            jbuild_engine(jcfg, mesh_shape=(1, 1), prefill_len=PROMPT, prefill_buckets=(bad,),
+                          cache_len=CACHE, dtype=jnp.float32)
+    with pytest.raises(ValueError, match="matches no context-server bucket"):
+        eng.submit(Request(0, prompts[0][:12], 2))
+    with pytest.raises(ValueError, match="matches no prefill bucket"):
+        eng.ctx.prefill(eng.params, prompts[0][:4])
