@@ -50,7 +50,12 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    pow2 prefill buckets (1024 and 512 tokens), 16 output tokens each,
    max_batch 2. Warmup captures every bucket and decode variant and the
    serve must capture nothing more. Every kernel of the all-fetch path
-   must have launched (launches counted through the replays). One
+   must have launched in the replays, as measured: for each variant that
+   replayed, one replay and one eager run of its step on the same inputs
+   are traced, the port's device kernels by name and count must be the
+   same in both, and the eager run's wrapper launches must equal what
+   the capture recorded; a kernel's launches are then that record times
+   the variant's replays, which must equal the host counters. One
    prefill's and one decode step's logits are compared with the plain
    versions' (tolerance below); one prefill profiled, replayed and eager;
    the path counts of kernels #2-#6 over the serve are printed, and every
@@ -65,7 +70,8 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    (``graphs=False``): every serve's tokens must equal the all-fetch graph
    serve's, and one decode step from the all-fetch serve's final state
    (with the mode's warm predictor) its logits bitwise; the demand kernel
-   must launch in the route-before-gather modes. The demand graph engine
+   must launch in the route-before-gather modes (through graphs, launches
+   measured through the replays as in 5). The demand graph engine
    also serves the requests again switching demand <-> predictive every 4
    steps (at least 3 switches, both tables warmed: no capture, no variant
    built), and demand with a budget of 1 row per peer must give the
@@ -98,6 +104,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -249,6 +256,77 @@ def profile_step(label: str, fn) -> None:
     for ms, count, name in sorted(rows, reverse=True)[:8]:
         print(f"  {ms:9.3f} ms  x{count:<5d} {name}")
     return dict(kinds, device_ms=busy)
+
+
+# The demangled names of the port's device kernels (its CUDA namespaces).
+PORT_KERNEL = re.compile(r"^(void )?(split_hopper|split_tile|fa|hopper)::")
+
+
+def port_kernels(fn) -> collections.Counter:
+    """The port's device kernels, by name and count, in a profiler trace of
+    one call of ``fn``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return collections.Counter({e.key: e.count for e in prof.key_averages()
+                                if e.device_type == DeviceType.CUDA and PORT_KERNEL.match(e.key)})
+
+
+def replay_counts(engine) -> dict:
+    """The replays so far of every cached step of both servers."""
+    return {id(s): s.replays for srv in (engine.ctx, engine.gen) for s in srv.variants.steps()}
+
+
+def replay_launches(label: str, engine, before: dict, servers=None) -> collections.Counter:
+    """Each kernel's launches in the graph replays of ``servers`` (default:
+    both) since ``before`` (:func:`replay_counts`), measured. For every step
+    that replayed, one replay of its graph and one eager run of the step on
+    the same inputs are traced: the port's device kernels, by name and
+    count, must be the same in both, and the eager run's wrapper launches
+    must equal what the capture recorded (``step.record``). A replay then
+    launched each kernel as often as the record says, and the serve that
+    record times the step's replays."""
+    from repro_torch import counters
+    from repro_torch.kernels import registry
+
+    total = collections.Counter({name: 0 for name in registry.KERNELS})
+    for server in servers or (engine.ctx, engine.gen):
+        for step in server.variants.steps():
+            replays = step.replays - before.get(id(step), 0)
+            if not replays:
+                continue
+            replayed = port_kernels(step.graph.replay)
+            with counters.recording() as ran:
+                eager = port_kernels(lambda: step.eager(engine.params))
+            launched = {k[0]: n for k, n in ran.items() if k[0] in registry.KERNELS}
+            recorded = {k[0]: n for k, n in step.record.items() if k[0] in registry.KERNELS}
+            if replayed != eager or not replayed:
+                fail(f"{label}: a replay ran other device kernels than the eager step: "
+                     f"{dict(replayed)} vs {dict(eager)}")
+            if launched != recorded:
+                fail(f"{label}: the capture recorded {recorded} launches, the eager step "
+                     f"made {launched}")
+            for name, n in recorded.items():
+                total[name] += n * replays
+    return total
+
+
+def check_launches(label: str, engine, measured: dict, counts: dict) -> None:
+    """The host counters (each replay adding its capture's record) against
+    the launches measured through the replays: equal where no step was
+    run again eagerly, no fewer where some were."""
+    eager_reruns = engine.ctx.fallbacks + engine.gen.fallbacks
+    short = {k: (counts[k], n) for k, n in measured.items()
+             if counts[k] < n or (counts[k] != n and not eager_reruns)}
+    print(f"{label}: launches measured through the replays {json.dumps(measured)}; "
+          f"host counters {json.dumps(counts)}; steps run again eagerly {eager_reruns}")
+    if short:
+        fail(f"{label}: host launch counters disagree with the replays (host, measured): {short}")
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -842,7 +920,8 @@ def captures(engine) -> tuple:
 def serve_phase(label: str, cfg, engine, prompts, kernels, tables=()) -> tuple[dict, dict]:
     """Serve ``prompts`` on a fresh engine after its warmup (which captures
     every prefill bucket and decode variant), with the launch counts set to
-    0 just before and read just after; every kernel in ``kernels`` must
+    0 just before and read just after, and the launches measured through
+    the replays (:func:`replay_launches`); every kernel in ``kernels`` must
     have launched, no variant may be captured after warmup, and the peak
     memory stays under the limit. Then one prefill's and one decode step's
     logits against the plain versions, and one profiled prefill, replayed
@@ -861,6 +940,7 @@ def serve_phase(label: str, cfg, engine, prompts, kernels, tables=()) -> tuple[d
           f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
     registry.reset_launch_counts()
     clear_path_counts()
+    replays = replay_counts(engine)
     t0 = time.perf_counter()
     outputs = serve(engine, prompts)
     torch.cuda.synchronize()
@@ -869,14 +949,17 @@ def serve_phase(label: str, cfg, engine, prompts, kernels, tables=()) -> tuple[d
     paths = path_counts()
     peak = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.max_memory_reserved()
+    launches = replay_launches(label, engine, replays)
+    check_launches(label, engine, launches, counts)
     summary = engine.metrics.summary()
     for rec in sorted(engine.metrics.records, key=lambda r: r.req_id):
         print(f"{label} request {rec.req_id} ({rec.prompt_len} tokens): tokens "
               f"{outputs[rec.req_id]} ttft_s {rec.ttft:.4f} tpot_s {rec.tpot:.4f}")
     print(f"{label} serve: {json.dumps(summary)} wall_s {wall:.3f} peak_gb {peak / 1e9:.2f} "
           f"reserved_gb {reserved / 1e9:.2f} captures {captures(engine)} fallbacks (ctx, gen) "
-          f"({engine.ctx.fallbacks}, {engine.gen.fallbacks}) launches {json.dumps(counts)} "
-          f"paths of #2-#7 {json.dumps(paths)}")
+          f"({engine.ctx.fallbacks}, {engine.gen.fallbacks}) overflowed layers "
+          f"({engine.ctx.overflow_layers}, {engine.gen.overflow_layers}) launches "
+          f"{json.dumps(launches)} paths of #2-#7 {json.dumps(paths)}")
     check_paths(label, paths)
     if captures(engine) != warm:
         fail(f"{label}: serving captured new variants: {warm} after warmup, "
@@ -886,7 +969,7 @@ def serve_phase(label: str, cfg, engine, prompts, kernels, tables=()) -> tuple[d
     for rid, toks in outputs.items():
         if len(toks) != OUTPUT or not all(0 <= t < cfg.vocab_size for t in toks):
             fail(f"{label} request {rid}: bad tokens {toks}")
-    missing = [k for k in kernels if counts[k] <= 0]
+    missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         fail(f"{label}: kernels never launched on the served path: {missing}")
 
@@ -926,9 +1009,10 @@ def serve_phase(label: str, cfg, engine, prompts, kernels, tables=()) -> tuple[d
         fail(f"{label}: peak memory {phase_peak / 1e9:.2f} GB > {PEAK_LIMIT / 1e9:.0f} GB")
     return {"summary": summary, "wall_s": wall, "peak_gb": peak / 1e9,
             "reserved_gb": reserved / 1e9, "fallbacks": engine.gen.fallbacks,
-            "phase_peak_gb": phase_peak / 1e9,
+            "overflow_layers": engine.gen.overflow_layers, "phase_peak_gb": phase_peak / 1e9,
             "phase_reserved_gb": phase_reserved / 1e9, "captures": list(warm),
-            "launches": counts, "paths": paths, "logit_norm_err": logit_err,
+            "launches": launches, "host_launches": counts, "paths": paths,
+            "logit_norm_err": logit_err,
             "profile_prefill_ms": prof, "profile_prefill_eager_ms": prof_eager}, outputs
 
 
@@ -1098,12 +1182,22 @@ def serve_fetch_modes(cfg, params, prompts, ref_outputs, r1, snap, ref_step) -> 
         registry.reset_launch_counts()
         clear_path_counts()
         execution.DEMAND.layers = execution.DEMAND.fallbacks = 0
+        replays = replay_counts(eng)
         t0 = time.perf_counter()
         outs = serve(eng, prompts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = registry.launch_counts()
         paths = path_counts()
+        demand_measured = None
+        if graphs:
+            # The demand kernel's launches in the decode replays. (An eager
+            # prefill beside this engine's decode graphs does not fit on the
+            # card; the R1 serves check the prefill replays.)
+            measured = replay_launches(f"expert_fetch={label}", eng, replays, (eng.gen,))
+            demand_measured = measured["split_grouped_swiglu_demand"]
+            check_launches(f"expert_fetch={label}", eng,
+                           {"split_grouped_swiglu_demand": demand_measured}, counts)
         check_paths(f"expert_fetch={label}", paths)
         layers, layer_fallbacks = execution.DEMAND.layers, execution.DEMAND.fallbacks
         peak = torch.cuda.max_memory_allocated()
@@ -1122,15 +1216,18 @@ def serve_fetch_modes(cfg, params, prompts, ref_outputs, r1, snap, ref_step) -> 
                "tpot_p95_s": summ["tpot_p95_s"], "ttft_p50_s": summ["ttft_p50_s"],
                "wall_s": wall, "peak_gb": peak / 1e9, "reserved_gb": reserved / 1e9,
                "captures": list(captures(eng)), "fallbacks": eng.gen.fallbacks,
+               "overflow_layers": eng.gen.overflow_layers,
                "ctx_fallbacks": eng.ctx.fallbacks, "demand_layers": layers,
                "layer_fallbacks": layer_fallbacks, "pred_stats_sum": stats,
-               "launches": counts, "paths": paths, **step}
+               "launches": counts, "demand_launches_measured": demand_measured,
+               "paths": paths, **step}
         bitwise = torch.equal(logits, ref_logits)
         print(f"fetch {label}: budgets {json.dumps(budgets)} tpot_p50_s {summ['tpot_p50_s']:.4f} "
               f"tpot_p95_s {summ['tpot_p95_s']:.4f} ttft_p50_s {summ['ttft_p50_s']:.4f} "
               f"wall_s {wall:.3f} peak_gb {peak / 1e9:.2f} reserved_gb {reserved / 1e9:.2f} "
               f"landed_gb_per_decode_step {step['landed_gb']:.3f} demand_layers {layers} "
-              f"fallbacks (steps run again) {eng.gen.fallbacks} (prefills {eng.ctx.fallbacks}) "
+              f"fallbacks (steps run again) {eng.gen.fallbacks} (prefills {eng.ctx.fallbacks}, "
+              f"overflowed layers {eng.gen.overflow_layers}) "
               f"captures {captures(eng)} pred_stats_sum {stats} launches {json.dumps(counts)} "
               f"paths {json.dumps(paths)} tokens_equal_all {outs == ref_outputs} "
               f"logits_bitwise_all {bitwise}")
@@ -1184,7 +1281,8 @@ def serve_fetch_modes(cfg, params, prompts, ref_outputs, r1, snap, ref_step) -> 
               f"{e['tpot_p50_s'] * 1e3 / e_dev:.2f}; peak_gb graph {g['peak_gb']:.2f} eager "
               f"{e['peak_gb']:.2f}; reserved_gb graph {g['reserved_gb']:.2f} eager "
               f"{e['reserved_gb']:.2f}; landed_gb per step {g['landed_gb']:.3f} / "
-              f"{e['landed_gb']:.3f}; fallbacks {g['fallbacks']} / {e['fallbacks']}")
+              f"{e['landed_gb']:.3f}; fallbacks {g['fallbacks']} / {e['fallbacks']} (overflowed "
+              f"layers {g['overflow_layers']} / {e['overflow_layers']})")
     free_memory()
     brief = {mode: {path: {k: v for k, v in row.items() if k not in ("launches", "paths")}
                     for path, row in by_path.items()} for mode, by_path in rows.items()}
@@ -1198,7 +1296,7 @@ def r1_numbers(r1: dict) -> dict:
     return {"tpot_p50_s": s["tpot_p50_s"], "tpot_p95_s": s["tpot_p95_s"],
             "ttft_p50_s": s["ttft_p50_s"], "wall_s": r1["wall_s"], "peak_gb": r1["peak_gb"],
             "reserved_gb": r1["reserved_gb"], "captures": r1["captures"],
-            "fallbacks": r1["fallbacks"],
+            "fallbacks": r1["fallbacks"], "overflow_layers": r1["overflow_layers"],
             "launches": r1["launches"], "paths": r1["paths"]}
 
 
@@ -1314,7 +1412,7 @@ def main() -> None:
 
     # ---- every fetch mode on the same weights, graphs and eager -----------
     modes = serve_fetch_modes(cfg, params, prompts, outputs, r1, snap, ref_step)
-    demand_launches = sum(m["graph"]["launches"]["split_grouped_swiglu_demand"]
+    demand_launches = sum(m["graph"]["demand_launches_measured"]
                           for mode, m in modes.items() if mode in dict(FETCH_MODES))
 
     # ---- DeepSeek-R1 at the paper's input length, on the same weights ------
@@ -1365,8 +1463,9 @@ def main() -> None:
     }
     # the phase each kernel's headline numbers come from
     primary = {"flash_attention": "r1_1024_last"}
-    # each kernel's launches on its own path: the all-fetch serve, the
-    # three route-before-gather serves, ops.split_gemm
+    # each kernel's launches on its own path, measured through the replays:
+    # the all-fetch serve, the three route-before-gather graph serves;
+    # ops.split_gemm eagerly
     launches = dict(r1["launches"], split_grouped_swiglu_demand=demand_launches,
                     split_grouped_gemm=gemm_launches)
     kernels = []

@@ -52,6 +52,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch import counters
 from repro_torch.configs.base import BlockKind
 from repro_torch.core import prefetch
 from repro_torch.core.budget import demand_budget_rows, predictive_budget_rows
@@ -162,6 +163,7 @@ class DemandCounters:
 
 
 DEMAND = DemandCounters()
+counters.register("demand", DEMAND, ("layers", "fallbacks"))
 
 
 # ==========================================================================

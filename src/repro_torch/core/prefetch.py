@@ -35,6 +35,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch import counters
 from repro_torch.core.placement import Placement
 
 PyTree = Any
@@ -59,6 +60,7 @@ class LandingCounter:
 
 
 LANDED = LandingCounter()
+counters.register("landed", LANDED, ("bytes",))
 
 
 class AttnBank(NamedTuple):

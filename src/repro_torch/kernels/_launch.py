@@ -5,6 +5,7 @@ import ctypes
 
 import torch
 
+from repro_torch import counters
 from repro_torch.kernels import build
 
 #: dtype codes of the C entry points (``csrc/split_tile.cuh``,
@@ -29,6 +30,7 @@ class CudaKernel:
         self.n_ints = n_ints
         self.launches = 0
         self._fn = None
+        counters.register(name, self, ("launches",))
 
     def _entry(self):
         if self._fn is None:

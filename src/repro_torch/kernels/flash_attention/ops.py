@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import counters
 from repro_torch.kernels._launch import DTYPE_CODES, CudaKernel, on_cpu
 from repro_torch.kernels.split_gemm.dense import SMEM
 
@@ -45,6 +46,7 @@ WGMMA_BQ = WGMMA_BKV = 128
 PATH_CODES = {"mma": 0, "wgmma": 1}
 #: Launches per plan on the card, counted by the wrapper.
 PATHS: collections.Counter = collections.Counter()
+counters.register("flash paths", PATHS)
 
 
 class FlashPlan(NamedTuple):

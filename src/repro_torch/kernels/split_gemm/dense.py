@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import counters
 from repro_torch.kernels._launch import (
     CudaKernel,
     bank_dims,
@@ -82,6 +83,7 @@ FEW_ROW_K = 32                 # a split's k rows come in multiples of this
 
 #: Launches per (kernel, launch, path, row class), counted by the wrappers.
 PATHS: collections.Counter = collections.Counter()
+counters.register("dense paths", PATHS)
 
 
 def row_class(rows: int) -> str:

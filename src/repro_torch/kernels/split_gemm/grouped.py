@@ -39,6 +39,7 @@ import functools
 
 import torch
 
+from repro_torch import counters
 from repro_torch.kernels._launch import (
     FP8_DTYPES,
     CudaKernel,
@@ -71,6 +72,7 @@ GEMM_BF16_STAGES = 3
 #: kernels, counted by the wrappers (``dense.row_class``); kernel #1's keys
 #: add the banks' dtype: (kernel, "gemm", path, row class, dtype name).
 PATHS: collections.Counter = collections.Counter()
+counters.register("grouped paths", PATHS)
 
 
 # --------------------------------------------------------------------------

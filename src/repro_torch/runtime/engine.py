@@ -28,7 +28,6 @@ the device has finished (``torch.cuda.synchronize``).
 """
 from __future__ import annotations
 
-import collections
 import contextlib
 import dataclasses
 import gc
@@ -39,16 +38,14 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import counters
 from repro_torch.configs.base import InputShape
-from repro_torch.core import execution, prefetch
+from repro_torch.core import execution
 from repro_torch.core.strategy import (
     PolicyTable,
     make_execution_plan,
     plan_activation_sharding,
 )
-from repro_torch.kernels import registry
-from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.split_gemm import dense, grouped
 from repro_torch.models.cache import init_decode_state
 from repro_torch.models.transformer import Model
 from repro_torch.runtime.metrics import RequestRecord, ServingMetrics
@@ -63,42 +60,6 @@ def variant_key(table: PolicyTable, shape: InputShape, excl: tuple = ()) -> tupl
         (shape.phase, shape.seq_len, shape.global_batch),
         tuple(int(p) for p in excl),
     )
-
-
-# --------------------------------------------------------------------------
-# Host counters through graph replays.
-# --------------------------------------------------------------------------
-_PATHS = {"dense": dense.PATHS, "grouped": grouped.PATHS, "flash": flash_ops.PATHS}
-
-
-def host_counts() -> collections.Counter:
-    """Every counter the port keeps on the host, flat: kernel launches
-    (``registry``), the path of every #1-#7 launch (``PATHS``), bytes landed
-    from peers (``prefetch.LANDED``) and route-before-gather layer runs
-    (``execution.DEMAND.layers``)."""
-    out = collections.Counter()
-    for name, n in registry.launch_counts().items():
-        out[("launches", name)] = n
-    for label, paths in _PATHS.items():
-        for key, n in paths.items():
-            out[(label, key)] = n
-    out[("landed",)] = prefetch.LANDED.bytes
-    out[("demand_layers",)] = execution.DEMAND.layers
-    return out
-
-
-def add_counts(record: collections.Counter) -> None:
-    """Add a record of :func:`host_counts` differences to the counters."""
-    for key, n in record.items():
-        kind = key[0]
-        if kind == "launches":
-            registry.KERNELS[key[1]].launches += n
-        elif kind in _PATHS:
-            _PATHS[kind][key[1]] += n
-        elif kind == "landed":
-            prefetch.LANDED.bytes += n
-        else:
-            execution.DEMAND.layers += n
 
 
 # --------------------------------------------------------------------------
@@ -162,10 +123,14 @@ class GraphSpace:
         caller.wait_stream(self.stream)
 
 
+def _eager(space: Optional[GraphSpace]):
+    return space.eager() if space is not None else contextlib.nullcontext()
+
+
 class CountingStep:
     """One forward variant's step, ``fn(params, inputs) -> outputs``, with a
-    call counter and a capture count: ``captures()`` stands where the JAX
-    package's ``cache_size()`` counts jit executables.
+    capture count: ``captures()`` stands where the JAX package's
+    ``cache_size()`` counts jit executables.
 
     ``inputs`` is the step's tree of static input tensors; a call copies the
     new values it is given into them. With a :class:`GraphSpace` the first
@@ -173,25 +138,27 @@ class CountingStep:
     module loading, kernel builds and library handles happen there, not in
     the capture — then captures it into a ``torch.cuda.CUDAGraph`` from the
     space's pool, and every call replays the graph and returns the same
-    output tensors. A capture that fails raises. The host counters the
-    capture moved (:func:`host_counts`) are recorded and added again at
-    each replay, so launches, paths, landed bytes and demand layers count
-    what the card ran. Without a space (the CPU, or ``graphs=False``) every
-    call runs ``fn`` eagerly."""
+    output tensors. A capture that fails raises. What the capture counted
+    on the host (``counters``: launches, paths, landed bytes, demand
+    layers) is taken back out of the counters and kept as ``record``, and
+    each replay adds it, so the counters count what the card ran;
+    ``replays`` counts the replays. Without a space (the CPU, or
+    ``graphs=False``) every call runs ``fn`` eagerly. ``on_capture``, when
+    set, is called at each capture (the variant cache counts them)."""
 
     def __init__(self, fn: Callable, inputs: dict, space: Optional[GraphSpace] = None):
         self._fn = fn
         self.inputs = inputs
         self.space = space
-        self.calls = 0
         self.n_captures = 0
+        self.replays = 0
+        self.on_capture: Optional[Callable[[], None]] = None
         self.graph = None
         self.outputs = None
+        self.record = None
         self._params = None
-        self._record = None
 
     def __call__(self, params, **new_inputs) -> dict:
-        self.calls += 1
         for key, value in new_inputs.items():
             _copy_into(self.inputs[key], value)
         if self.space is None:
@@ -201,14 +168,22 @@ class CountingStep:
         elif params is not self._params:
             raise ValueError("a captured step replays the weights it was captured with")
         self.graph.replay()
-        add_counts(self._record)
+        self.replays += 1
+        counters.add(self.record)
         return self.outputs
+
+    def eager(self, params) -> dict:
+        """One eager run of the step on its current inputs (in the space's
+        pool, on its stream, where there is a space); the outputs are valid
+        until the next step in the space."""
+        with _eager(self.space):
+            return self._fn(params, self.inputs)
 
     def warm(self, params) -> int:
         """Capture the step off the serving path (one eager call without a
         space, its outputs dropped); returns the number of captures made."""
         if self.space is None:
-            self._fn(params, self.inputs)
+            self.eager(params)
             return 0
         if self.graph is not None:
             return 0
@@ -216,10 +191,7 @@ class CountingStep:
         return 1
 
     def _capture(self, params) -> None:
-        space = self.space
-        with space.eager():
-            self._fn(params, self.inputs)
-        before = host_counts()
+        self.eager(params)
         graph = torch.cuda.CUDAGraph()
         # Collect dropped engines now, and not inside the capture: freeing a
         # graph there invalidates the capture.
@@ -227,14 +199,16 @@ class CountingStep:
         enabled = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=space.pool.id, stream=space.stream):
+            with counters.recording() as record, torch.cuda.graph(
+                    graph, pool=self.space.pool.id, stream=self.space.stream):
                 outputs = self._fn(params, self.inputs)
         finally:
             if enabled:
                 gc.enable()
-        self._record = host_counts() - before
-        self.graph, self.outputs, self._params = graph, outputs, params
+        self.graph, self.outputs, self.record, self._params = graph, outputs, record, params
         self.n_captures += 1
+        if self.on_capture is not None:
+            self.on_capture()
 
     def captures(self) -> int:
         """CUDA graphs this step has captured (0 where it runs eagerly)."""
@@ -243,16 +217,16 @@ class CountingStep:
     def release(self) -> None:
         """Drop the graph and its outputs (their memory returns to the pool);
         the next call captures again."""
-        self.graph = self.outputs = self._params = self._record = None
+        self.graph = self.outputs = self.record = self._params = None
 
 
 class PolicyVariantCache:
     """Forward-variant cache of one server: :func:`variant_key` -> ``(plan,
     CountingStep)``, built on a miss by ``build(plan)`` and kept LRU up to
     ``max_entries``; an eviction frees the variant's graph. ``stats``
-    counts hits, misses and evictions; ``captures()`` sums the cached
-    steps' captures and stays flat after warmup iff serving never
-    captures."""
+    counts hits, misses and evictions; ``captures()`` counts every capture
+    of a step the cache built, evicted ones included, and stays flat after
+    warmup iff serving never captures."""
 
     def __init__(self, model: Model, mesh_sizes: dict, shape: InputShape,
                  build: Callable, *, mode: str = "dwdp", capacity_from: str = "local",
@@ -266,12 +240,22 @@ class PolicyVariantCache:
         self.max_entries = max(1, int(max_entries))
         self._entries: dict = {}
         self.stats = {"hits": 0, "misses": 0, "evictions": 0}
+        self.n_captures = 0
 
     def __len__(self) -> int:
         return len(self._entries)
 
+    def steps(self) -> list[CountingStep]:
+        """The cached variants' steps, least recently used first."""
+        return [step for _, step in self._entries.values()]
+
     def captures(self) -> int:
-        return sum(step.captures() for _, step in self._entries.values())
+        """Captures of the steps this cache built; an eviction does not
+        lower it (a compile count)."""
+        return self.n_captures
+
+    def _captured(self) -> None:
+        self.n_captures += 1
 
     def get(self, table: PolicyTable, excl: tuple = (), shape: Optional[InputShape] = None):
         """The (plan, step) variant of a policy table, built on a miss.
@@ -290,6 +274,7 @@ class PolicyVariantCache:
         xp = make_execution_plan(self.model, shape, self._mesh_sizes, mode=self._mode,
                                  policy=table, capacity_from=self._capacity_from)
         entry = (xp, self._build(xp))
+        entry[1].on_capture = self._captured
         while len(self._entries) >= self.max_entries:
             self._entries.pop(next(iter(self._entries)))[1].release()
             self.stats["evictions"] += 1
@@ -301,10 +286,6 @@ class PolicyVariantCache:
         """Seed the cache with an already-built variant without a miss."""
         key = variant_key(table, shape if shape is not None else self.shape, excl)
         self._entries.setdefault(key, entry)
-
-
-def _eager(space: Optional[GraphSpace]):
-    return space.eager() if space is not None else contextlib.nullcontext()
 
 
 # --------------------------------------------------------------------------
@@ -340,7 +321,8 @@ class ContextServer:
     home bucket and ``prefill_buckets`` adds lengths, each a power of two;
     each length is one variant of the prefill step, and :meth:`warmup`
     captures every one. ``fallbacks`` counts prefills run again eagerly
-    after a deferred overflow."""
+    after a deferred overflow, ``overflow_layers`` the route-before-gather
+    layers that overflowed in them."""
 
     def __init__(self, model: Model, mesh_sizes: dict, *, mode: str = "dwdp",
                  prefill_len: int, cache_len: int,
@@ -356,7 +338,7 @@ class ContextServer:
                 raise ValueError(f"prefill_buckets must be powers of two, got {b}")
         self.prefill_lens = tuple(sorted({int(prefill_len), *(int(b) for b in prefill_buckets)}))
         self.space = space
-        self.fallbacks = 0
+        self.fallbacks = self.overflow_layers = 0
         self._table = PolicyTable.uniform(fetch=expert_fetch, budget=demand_budget,
                                           cache_budget=cache_budget)
         self.variants = PolicyVariantCache(
@@ -411,10 +393,12 @@ class ContextServer:
         self.xp, self.step = self._bucket(len(tokens))
         out = self.step(params, tokens=torch.as_tensor(np.asarray(tokens)[None, :],
                                                         dtype=torch.int64))
-        first, overflow = torch.stack([out["last_logits"][0].argmax(),
-                                       out["overflow"].long()]).tolist()
+        first, overflow, layers = torch.stack([
+            out["last_logits"][0].argmax(), out["overflow"].long(),
+            out["overflow_layers"].long()]).tolist()
         if overflow:
             self.fallbacks += 1
+            self.overflow_layers += layers
             out = self.forward(params, tokens)
             first = int(out["last_logits"][0].argmax())
         return first, out["state"]
@@ -433,7 +417,8 @@ class GenerationServer:
     is. ``pred_stats`` keeps each decode step's ``[predicted, spec_hit,
     cache_hit, corr_rows, evicted]`` expert rows (summed over layers and
     ranks); ``fallbacks`` counts steps run again eagerly after a deferred
-    overflow."""
+    overflow, ``overflow_layers`` the route-before-gather layers that
+    overflowed in them."""
 
     def __init__(self, model: Model, mesh_sizes: dict, *, mode: str = "dwdp",
                  max_batch: int, cache_len: int,
@@ -454,7 +439,7 @@ class GenerationServer:
         self._kv = init_decode_state(model, max_batch, cache_len, seq_shards=seq_shards)
         self.cur_token = torch.zeros((max_batch, 1), dtype=torch.int64, device=model.device)
         self.pred_stats: list[np.ndarray] = []
-        self.fallbacks = 0
+        self.fallbacks = self.overflow_layers = 0
         self.slot_req: list[Optional[int]] = [None] * max_batch
         self.slot_remaining = np.zeros(max_batch, np.int64)
         self._swap(PolicyTable.uniform(fetch=expert_fetch, budget=demand_budget,
@@ -527,14 +512,16 @@ class GenerationServer:
         self.slot_req[slot] = req_id
 
     def _read(self, out: dict):
-        """The step's one host read: (tokens, overflow, pred_stats or None)."""
-        parts = [out["next_token"][:, 0].double(), out["overflow"].double()[None]]
+        """The step's one host read: (tokens, overflow, overflowed layers,
+        pred_stats or None)."""
+        parts = [out["next_token"][:, 0].double(), out["overflow"].double()[None],
+                 out["overflow_layers"].double()[None]]
         if "pred_stats" in out:
             parts.append(out["pred_stats"].double())
         host = torch.cat(parts).cpu().numpy()
         b = self.max_batch
-        stats = host[b + 1:].astype(np.float32) if "pred_stats" in out else None
-        return host[:b].astype(np.int64), bool(host[b]), stats
+        stats = host[b + 2:].astype(np.float32) if "pred_stats" in out else None
+        return host[:b].astype(np.int64), bool(host[b]), int(host[b + 1]), stats
 
     def step_outputs(self, params):
         """One decode step from the server's state, committing nothing:
@@ -542,13 +529,14 @@ class GenerationServer:
         again eagerly (counted in ``fallbacks``). The outputs are valid
         until the server's next step."""
         out = self.step(params)
-        tokens, overflow, stats = self._read(out)
+        tokens, overflow, layers, stats = self._read(out)
         if overflow:
             self.fallbacks += 1
+            self.overflow_layers += layers
             ctx = execution.Ctx(model=self.model, xp=self.xp)
             with _eager(self.space):
                 out = execution.forward_decode(params, self.cur_token, self.state, ctx)
-            tokens, _, stats = self._read(out)
+            tokens, _, _, stats = self._read(out)
         return out, tokens, stats
 
     def decode_step(self, params) -> np.ndarray:

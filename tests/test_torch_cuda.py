@@ -508,11 +508,14 @@ def _captures(eng):
 def test_cuda_graph_serving_bitwise_eager(fetch):
     """Each fetch mode through graphs against the eager engine
     (``graphs=False``) on the same weights: the same tokens over two
-    prefill buckets, one more decode step's logits bitwise, no capture
-    after warmup, and a replayed step and an eager deferred step free of
-    host syncs (``torch.cuda.set_sync_debug_mode("error")``)."""
+    prefill buckets, the same host counts (launches, paths, landed bytes,
+    demand layers: each replay adds its capture's record), one more decode
+    step's logits bitwise, no capture after warmup, and a replayed step and
+    an eager deferred step free of host syncs
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from repro_torch import counters
     from repro_torch.core import execution
 
     kw = dict(expert_fetch=fetch, cache_budget=4 if fetch in ("predictive", "sync_free") else 0)
@@ -524,7 +527,12 @@ def test_cuda_graph_serving_bitwise_eager(fetch):
     eager.warmup()
     warm = _captures(graph)
     assert warm == (2, 1) and _captures(eager) == (0, 0)
-    assert _graph_serve(graph) == _graph_serve(eager)
+    with counters.recording() as graph_counts:
+        graph_tokens = _graph_serve(graph)
+    with counters.recording() as eager_counts:
+        eager_tokens = _graph_serve(eager)
+    assert graph_tokens == eager_tokens
+    assert graph_counts == eager_counts and graph_counts
     assert _captures(graph) == warm
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -568,3 +576,4 @@ def test_cuda_graph_forced_overflow_rerun_and_eviction():
     assert logits() is None  # the graph's outputs are freed
     assert _graph_serve(small) == want
     assert small.gen.step.captures() == 1
+    assert small.gen.variants.captures() == 2  # the eviction did not lower it

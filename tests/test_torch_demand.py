@@ -468,6 +468,8 @@ def test_engine_reruns_overflowed_steps_exactly(decode_setup, all_fetch_tokens, 
     toks = [gen.decode_step(s["params"]).tolist() for _ in range(STEPS)]
     assert toks == all_fetch_tokens == s["jax_tokens"]
     assert (gen.fallbacks > 0) == (fetch != "all")
+    assert gen.overflow_layers >= gen.fallbacks
+    assert (gen.overflow_layers > 0) == (fetch != "all")
     assert len(gen.pred_stats) == (STEPS if fetch in ("predictive", "sync_free") else 0)
 
 

@@ -3,7 +3,12 @@
 sets, and ``PolicyVariantCache`` hits, misses and evictions over the same
 ``get`` sequence (a JAX ``get`` builds its plan and jit wrapper without
 compiling). The captured CUDA graphs behind each variant run only on the
-card (tests/test_torch_cuda.py)."""
+card (tests/test_torch_cuda.py); here a stand-in graph checks what a
+capture and its replays count on the host."""
+import collections
+import contextlib
+import types
+
 import pytest
 import torch
 
@@ -17,7 +22,11 @@ from repro.launch.mesh import make_smoke_mesh
 from repro.models.transformer import build_model as jbuild_model
 from repro.runtime.engine import PolicyVariantCache as JCache
 from repro.runtime.engine import variant_key as jvariant_key
+from repro_torch import counters
 from repro_torch.configs.base import ArchConfig, InputShape, MoEConfig
+from repro_torch.core import execution, prefetch
+from repro_torch.kernels import registry
+from repro_torch.kernels.split_gemm import dense
 from repro_torch.core.strategy import PolicyTable
 from repro_torch.models.transformer import build_model
 from repro_torch.runtime.engine import CountingStep, PolicyVariantCache, variant_key
@@ -128,3 +137,89 @@ def test_adopt_seeds_a_variant_without_a_miss(caches):
     assert port.get(table) is entry
     ref.get(jtable)
     assert port.stats == ref.stats and len(port) == len(ref) == 2
+
+
+# --------------------------------------------------------------------------
+# Host counters through captures and replays (a stand-in for the CUDA graph).
+# --------------------------------------------------------------------------
+class _Graph:
+    def replay(self):
+        pass
+
+
+@pytest.fixture
+def fake_graphs(monkeypatch):
+    """CountingStep captures into a stand-in graph in a stand-in space; the
+    counters are restored after the test."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda *a, **k: contextlib.nullcontext())
+    with counters.recording():
+        yield types.SimpleNamespace(eager=contextlib.nullcontext,
+                                    pool=types.SimpleNamespace(id=None), stream=None)
+
+
+def _counting_fn(params, inputs):
+    """A step that counts as the port's kernels, landings and demand layers
+    do."""
+    registry.KERNELS["split_stack_gemm"].launches += 3
+    dense.PATHS[("split_stack_gemm", "stack", "hopper", "rows>2")] += 3
+    prefetch.LANDED.bytes += 1000
+    execution.DEMAND.layers += 2
+    return {"out": inputs["x"] + 1}
+
+
+def test_recording_takes_the_record_back_out():
+    before = counters.snapshot()
+    with counters.recording() as record:
+        _counting_fn(None, {"x": torch.zeros(1)})
+    assert counters.snapshot() == before
+    assert record == {("split_stack_gemm", "launches"): 3, ("landed", "bytes"): 1000,
+                      ("demand", "layers"): 2,
+                      ("dense paths", ("split_stack_gemm", "stack", "hopper", "rows>2")): 3}
+    counters.add(record)
+    counters.add({k: -n for k, n in record.items()})
+    assert counters.snapshot() == before
+
+
+def test_capture_counts_nothing_and_each_replay_adds_its_record(fake_graphs):
+    """The eager warm-up before a capture ran on the device and counts;
+    the capture ran nothing and counts nothing; each replay adds what the
+    capture recorded."""
+    step = CountingStep(_counting_fn, {"x": torch.zeros(1)}, fake_graphs)
+    once = counters.snapshot()
+    _counting_fn(None, {"x": torch.zeros(1)})
+    once = counters.snapshot() - once
+    counters.add({k: -n for k, n in once.items()})
+    before = counters.snapshot()
+    assert step.warm(None) == 1 and step.captures() == 1
+    assert counters.snapshot() == before + once  # the warm-up only
+    assert step.record == once
+    for n in (1, 2):
+        step(None, x=torch.ones(1))
+        assert step.replays == n
+        assert counters.snapshot() == before + collections.Counter(
+            {k: (1 + n) * v for k, v in once.items()})
+    assert step.warm(None) == 0
+
+
+def test_cache_captures_count_every_capture(fake_graphs):
+    """``captures()`` counts every capture of a step the cache built: an
+    eviction does not lower it, and a recapture — of a variant built
+    again, or of an evicted step still called — raises it."""
+    model = build_model(ArchConfig(**FIELDS, moe=MoEConfig(**MOE)), {"data": 1, "model": 4},
+                        device="cpu", shard_attention=True, expert_axes=("model",),
+                        moe_exec="gather")
+    cache = PolicyVariantCache(
+        model, {"data": 1, "model": 4}, InputShape(*SHAPES["decode"]),
+        lambda xp: CountingStep(lambda params, inputs: {}, {}, fake_graphs), max_entries=1)
+    _, first = cache.get(PolicyTable.uniform())
+    first.warm(None)
+    _, second = cache.get(PolicyTable.uniform(fetch="demand"))  # evicts the first
+    assert first.graph is None and cache.captures() == 1
+    second.warm(None)
+    assert cache.captures() == 2
+    first(None)  # an evicted step still held and called captures again
+    assert cache.captures() == 3
+    _, again = cache.get(PolicyTable.uniform())
+    again(None)
+    assert again is not first and cache.captures() == 4 == cache.stats["misses"] + 1
