@@ -92,7 +92,25 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    and decode-step logits against the plain versions; a request alone
    against among the others, tokens and first decode step's logits, as in
    5; TTFT, TPOT, peak, one profiled prefill;
-9. a ``{"kernels": [...]}`` JSON line, then the last line
+9. the serving layer (``runtime.serving``), each run with the launch counts
+   set to 0 just before and read just after, its kernels required: on the
+   R1 1024 engine's weights and graph pool, servers with row-local
+   capacity serve 4 requests (buckets 1024 and 512, 8 / 16 / 8 / 16 output
+   tokens) through ``DisaggregatedEngine.run``, then ``ServingScheduler``
+   over ``LiveReplicaClient`` with rolling admission and in
+   ``epoch_mode``, then under an SLO (evict_after 2, a target above
+   1 / TPOT) that evicts and resumes: every stream bitwise equal, rolling
+   in fewer decode steps than epoch, two requests evicted and resumed in
+   each other's slot bitwise, no capture after warmup. In 6, the demand
+   graph engine switched to predictive serves through the live client
+   with a ``RoutedTraceRecorder``: (steps, 4, 256) bitmaps, at most top_k
+   x rows experts per rank, the all-fetch tokens. After 8, two Gemma-3
+   replicas behind ``MultiReplicaEngine`` serve a workload skewed to the
+   4096 bucket: every request completed, the router's assignments
+   printed. Each serving summary (TTFT, TPOT, TPS/user, TPS per card,
+   ``gather_fetch_ratio``, predictive hit rates) is printed beside the
+   landed bytes per decode step, with the card's name and power limit;
+10. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
@@ -169,6 +187,12 @@ CACHE_BUDGET = 8
 FETCH_MODES = (("demand", {}), ("predictive", {"cache_budget": CACHE_BUDGET}),
                ("sync_free", {"cache_budget": CACHE_BUDGET}))
 PEAK_LIMIT = 70e9
+# The serving layer: output lengths of the R1 1024 cell's 4 requests (unequal,
+# so rolling admission refills a freed slot where epoch mode waits), and the
+# two-replica Gemma-3 fleet's workload.
+SERVING_LENS = (8, 16, 8, 16)
+FLEET_REQUESTS = 6
+FLEET_OSL = 8
 # Kernel timing: TIME_WINDOWS windows of at least WINDOW_MS of back-to-back
 # launches each; the median window is reported beside the fastest and the
 # slowest.
@@ -951,7 +975,7 @@ def serve_phase(label: str, cfg, engine, prompts, kernels, tables=()) -> tuple[d
     reserved = torch.cuda.max_memory_reserved()
     launches = replay_launches(label, engine, replays)
     check_launches(label, engine, launches, counts)
-    summary = engine.metrics.summary()
+    summary = engine.metrics.summary(horizon=engine.horizon())
     for rec in sorted(engine.metrics.records, key=lambda r: r.req_id):
         print(f"{label} request {rec.req_id} ({rec.prompt_len} tokens): tokens "
               f"{outputs[rec.req_id]} ttft_s {rec.ttft:.4f} tpot_s {rec.tpot:.4f}")
@@ -1202,7 +1226,7 @@ def serve_fetch_modes(cfg, params, prompts, ref_outputs, r1, snap, ref_step) -> 
         layers, layer_fallbacks = execution.DEMAND.layers, execution.DEMAND.fallbacks
         peak = torch.cuda.max_memory_allocated()
         reserved = torch.cuda.max_memory_reserved()
-        summ = eng.metrics.summary()
+        summ = eng.metrics.summary(horizon=eng.horizon())
         stats = np.sum(eng.gen.pred_stats, axis=0).tolist() if eng.gen.pred_stats else None
         step = snapshot_step(label, eng, snap)
         logits = step.pop("logits")
@@ -1264,6 +1288,9 @@ def serve_fetch_modes(cfg, params, prompts, ref_outputs, r1, snap, ref_step) -> 
                                                    eng.gen.variants.stats["misses"]):
                 fail("policy switching captured or built a variant after warmup")
             row["switching"] = {"switches": sw["switches"], "captures": list(captures(eng))}
+            row["predictive_trace"] = predictive_trace(
+                "predictive trace (demand engine switched to predictive)", eng, prompts,
+                ref_outputs, predictive)
         rows.setdefault(mode if not forced else "demand_budget_1", {})[
             "graph" if graphs else "eager"] = row
         del eng, m_model, logits
@@ -1288,6 +1315,278 @@ def serve_fetch_modes(cfg, params, prompts, ref_outputs, r1, snap, ref_step) -> 
                     for path, row in by_path.items()} for mode, by_path in rows.items()}
     print(f"fetch modes: {json.dumps(brief)}")
     return rows
+
+
+# --------------------------------------------------------------------------
+# The serving layer: ServingScheduler over LiveReplicaClient, and replicas.
+# --------------------------------------------------------------------------
+def served_requests(prompts, lens) -> list:
+    from repro_torch.runtime.serving import ServedRequest
+
+    return [ServedRequest(req_id=i, prompt_len=len(p), target_len=n, tokens=p)
+            for i, (p, n) in enumerate(zip(prompts, lens))]
+
+
+def summary_line(summary: dict) -> str:
+    """The serving summary's headline numbers (tps_per_gpu: one card per
+    replica, whose G logical ranks share it)."""
+    keys = ("completed", "ttft_p50_s", "ttft_p95_s", "tpot_p50_s", "tpot_p95_s",
+            "mean_tps_user", "tps_per_gpu", "gather_fetch_ratio", "gathered_mb_fetched",
+            "gathered_mb_full", "predict_hit_rate", "spec_hit_rate", "cache_hit_rate", "admission")
+    return json.dumps({k: summary.get(k) for k in keys})
+
+
+def drive_scheduler(label: str, client, reqs, kernels, **kw) -> dict:
+    """Serve ``reqs`` through a ``ServingScheduler`` over ``client`` with the
+    launch counts and landed bytes set to 0 just before and read just after;
+    every kernel in ``kernels`` must have launched. Returns the scheduler's
+    numbers, summary and streams."""
+    import torch
+    from repro_torch.core import prefetch
+    from repro_torch.kernels import registry
+    from repro_torch.runtime.serving import ServingScheduler
+
+    for r in reqs:
+        r.resume = r.remaining = None
+    registry.reset_launch_counts()
+    prefetch.LANDED.bytes = 0
+    sched = ServingScheduler(client, **kw)
+    sched.submit(reqs)
+    t0 = time.perf_counter()
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = registry.launch_counts()
+    summary = sched.metrics.summary(horizon=sched.t)
+    gen = client.gen
+    landed_step = gen.step.record[("landed", "bytes")] if gen.step.record else None
+    print(f"serving {label}: {sched.steps} decode steps, horizon {sched.t:.4f} s, wall "
+          f"{wall:.3f} s; summary {summary_line(summary)}; landed GB over the serve "
+          f"{prefetch.LANDED.bytes / 1e9:.3f}, per decode step (all {G} ranks, prefetch.LANDED) "
+          f"{(landed_step or 0) / 1e9:.3f} beside the modelled per-rank decode step "
+          f"{gen.gather_bytes['fetched'] / 1e9:.3f} GB fetched of {gen.gather_bytes['full'] / 1e9:.3f}"
+          f" full; launches {json.dumps(counts)}")
+    missing = [k for k in kernels if counts[k] <= 0]
+    if missing:
+        fail(f"serving {label}: kernels never launched: {missing}")
+    if summary["completed"] != len(reqs):
+        fail(f"serving {label}: {summary['completed']} of {len(reqs)} requests completed")
+    return {"steps": sched.steps, "horizon_s": sched.t, "wall_s": wall, "summary": summary,
+            "launches": counts, "landed_gb": prefetch.LANDED.bytes / 1e9,
+            "landed_gb_per_decode_step": (landed_step or 0) / 1e9,
+            "model_gb_per_rank_decode_step": gen.gather_bytes["fetched"] / 1e9,
+            "outputs": {rid: list(t) for rid, t in sched.outputs.items()}}
+
+
+def swap_resume(client, reqs, ref: dict, before: int = 3) -> bool:
+    """Requests 0 and 1 admitted into slots 0 and 1, ``before`` decode steps,
+    both evicted to the host, resumed into each other's slot, then decoded
+    to their targets: their streams must equal ``ref``'s."""
+    a, b = reqs[0], reqs[1]
+    for r in (a, b):
+        r.resume = None
+    streams = {a.req_id: [client.admit(0, a)[0]], b.req_id: [client.admit(1, b)[0]]}
+    slots = {0: a, 1: b}
+    for i in range(before):
+        toks, _ = client.step([0, 1])
+        for slot, r in slots.items():
+            streams[r.req_id].append(int(toks[slot]))
+    snaps = {r.req_id: client.evict(slot) for slot, r in slots.items()}
+    slots = {0: b, 1: a}
+    for slot, r in slots.items():
+        r.resume = snaps[r.req_id]
+        client.admit(slot, r)
+        r.resume = None
+    while slots:
+        toks, _ = client.step(sorted(slots))
+        for slot, r in list(slots.items()):
+            streams[r.req_id].append(int(toks[slot]))
+            if len(streams[r.req_id]) == r.target_len:
+                client.release(slot)
+                del slots[slot]
+    ok = all(streams[r.req_id] == ref[r.req_id] for r in (a, b))
+    print(f"serving swap resume: requests {a.req_id}, {b.req_id} evicted after {before} steps "
+          f"and resumed in each other's slot: streams equal the uninterrupted ones {ok}")
+    return ok
+
+
+def serving_layer(cfg, engine, prompts) -> dict:
+    """The serving layer at DeepSeek-R1 width on the R1 engine's weights and
+    graph pool, with row-local capacity (``capacity_from="global"``: with 1
+    expert slot for 2 rows a request's tokens would depend on its batch
+    neighbour, and rolling and epoch admission pair requests differently).
+    4 requests at buckets 1024 and 512 with 8 / 16 / 8 / 16 output tokens
+    through ``DisaggregatedEngine.run``, then ``ServingScheduler`` over
+    ``LiveReplicaClient`` with rolling admission and in ``epoch_mode``: the
+    three streams must be bitwise equal and rolling must take fewer decode
+    steps. Then an SLO serve (evict_after 2, a target above 1 / TPOT) that
+    evicts and resumes with the same streams, and two requests evicted and
+    resumed in each other's slot. No capture after warmup. Returns the
+    numbers."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.runtime.engine import (
+        ContextServer, DisaggregatedEngine, GenerationServer, Request)
+    from repro_torch.runtime.serving import AdmissionController, LiveReplicaClient, SLOConfig
+
+    free_memory()
+    sizes = {"data": 1, "model": G}
+    kw = dict(capacity_from="global", space=engine.gen.space)
+    ctx = ContextServer(engine.gen.model, sizes, prefill_len=engine.ctx.prefill_len,
+                        prefill_buckets=engine.ctx.prefill_lens, cache_len=engine.ctx.cache_len,
+                        **kw)
+    gen = GenerationServer(engine.gen.model, sizes, max_batch=MAX_BATCH,
+                           cache_len=engine.gen.cache_len, **kw)
+    eng = DisaggregatedEngine(engine.params, ctx, gen)
+    client = LiveReplicaClient.from_engine(eng)
+    client.warmup()
+    warm = captures(eng)
+    lens = SERVING_LENS
+    # the engine's fixed loop
+    registry.reset_launch_counts()
+    for i, (p, n) in enumerate(zip(prompts, lens)):
+        eng.submit(Request(i, p, n))
+    run_steps = 0
+    while eng.busy():
+        eng.run(1)
+        run_steps += 1
+    ref = {rid: list(t) for rid, t in eng.outputs.items()}
+    run_summary = eng.metrics.summary(horizon=eng.horizon())
+    print(f"serving engine.run: {run_steps} decode steps; summary {summary_line(run_summary)}; "
+          f"launches {json.dumps(registry.launch_counts())}")
+    out = {"lens": list(lens), "engine_run": {"steps": run_steps, "summary": run_summary}}
+    reqs = served_requests(prompts, lens)
+    for name, kw in (("rolling", {}), ("epoch", {"epoch_mode": True})):
+        out[name] = drive_scheduler(name, client, reqs, ALL_FETCH_KERNELS, **kw)
+    tpot = out["rolling"]["summary"]["tpot_p50_s"]
+    # a fresh client: its step-time projection is empty, so both slots admit
+    # and the measured steps miss the target
+    slo = SLOConfig(target_tps_user=2.0 / tpot, evict_after=2)
+    slo_client = LiveReplicaClient.from_engine(eng)
+    out["slo"] = drive_scheduler(
+        f"SLO (target {slo.target_tps_user:.2f} tokens/s/user, evict_after 2)", slo_client, reqs,
+        ALL_FETCH_KERNELS, admission=AdmissionController(slo, slo_client.step_time))
+    out["swap_resume_bitwise"] = swap_resume(client, reqs, ref)
+    streams = {name: out[name].pop("outputs") for name in ("rolling", "epoch", "slo")}
+    adm = out["slo"]["summary"].get("admission", {})
+    print(f"serving ({card_line()}): rolling {out['rolling']['steps']} vs epoch "
+          f"{out['epoch']['steps']} decode steps; streams rolling == epoch == engine.run == SLO "
+          f"{all(s == ref for s in streams.values())}; SLO admission {json.dumps(adm)}; captures "
+          f"(ctx, gen) after warmup {warm}, after serving {captures(eng)}")
+    for name, s in streams.items():
+        if s != ref:
+            fail(f"serving {name}: streams differ from engine.run's: {s} vs {ref}")
+    if not out["rolling"]["steps"] < out["epoch"]["steps"]:
+        fail("serving: rolling admission took no fewer decode steps than epoch mode")
+    if adm.get("evicted", 0) < 1 or adm.get("resumed", 0) < 1:
+        fail(f"serving SLO: no eviction and resume ({adm})")
+    if not out["swap_resume_bitwise"]:
+        fail("serving: requests resumed in another slot gave other tokens")
+    if captures(eng) != warm:
+        fail(f"serving: captured after warmup ({warm} -> {captures(eng)})")
+    out["captures"] = list(warm)
+    del eng, client, slo_client, ctx, gen
+    free_memory()
+    return out
+
+
+def predictive_trace(label: str, eng, prompts, ref_outputs, table) -> dict:
+    """A predictive serve through the live client on a warmed demand engine
+    switched to ``table``, with a ``RoutedTraceRecorder``: the bitmaps are
+    (steps, ranks, experts), each rank's at most top_k * rows (one MoE layer),
+    the tokens those of the all-fetch serve, and nothing is captured."""
+    import numpy as np
+    from repro_torch.runtime.serving import LiveReplicaClient, RoutedTraceRecorder
+
+    warm = captures(eng)
+    eng.gen.set_policy(table)
+    trace = RoutedTraceRecorder()
+    client = LiveReplicaClient.from_engine(eng)
+    row = drive_scheduler(label, client, served_requests(prompts, [OUTPUT] * len(prompts)),
+                          ("split_grouped_swiglu_demand",), on_step=trace)
+    bm = trace.as_array()
+    cfg = eng.gen.model.cfg
+    per_rank = bm.sum(-1)
+    limit = cfg.moe.top_k * MAX_BATCH
+    print(f"serving {label}: routed trace {bm.shape} {bm.dtype}, experts per rank and step "
+          f"{int(per_rank.min())}-{int(per_rank.max())} (at most {limit}); tokens equal the "
+          f"all-fetch serve {row['outputs'] == ref_outputs}")
+    if bm.shape != (row["steps"], G, cfg.moe.num_experts) or bm.dtype != np.bool_:
+        fail(f"{label}: routed trace of shape {bm.shape} {bm.dtype}")
+    if per_rank.max() > limit or not bm.any():
+        fail(f"{label}: {int(per_rank.max())} routed experts on a rank, at most {limit}")
+    if row.pop("outputs") != ref_outputs:
+        fail(f"{label}: tokens differ from the all-fetch serve")
+    if captures(eng) != warm:
+        fail(f"{label}: captured after warmup ({warm} -> {captures(eng)})")
+    row["trace_shape"] = list(bm.shape)
+    row["experts_per_rank_max"] = int(per_rank.max())
+    return row
+
+
+def gemma_fleet(cfg) -> dict:
+    """Two Gemma-3 replicas (the same seeded weights, graphs) behind
+    ``MultiReplicaEngine``: a workload skewed to the 4096 bucket, routed
+    least loaded; every request must complete. The replicas run one after
+    another on the one card, each on its own clock; the merged
+    ``tps_per_gpu`` counts one card per replica."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.runtime.serving import (
+        LiveReplicaClient, MultiReplicaEngine, ServingScheduler, WorkloadConfig,
+        synthesize_workload)
+
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    scheds = []
+    for _ in range(2):
+        eng, _ = build_engine(
+            cfg, mesh_shape=(1, G), prefill_len=GEMMA_PROMPT, prefill_buckets=(GEMMA_PROMPT // 2,),
+            cache_len=GEMMA_PROMPT + FLEET_OSL * 2, max_batch=MAX_BATCH, dtype=torch.bfloat16,
+            device="cuda", seed=0, geom_kwargs=GEMMA_GEOM,
+        )
+        client = LiveReplicaClient.from_engine(eng)
+        client.warmup()
+        scheds.append(ServingScheduler(client))
+    warm = [captures(s.client) for s in scheds]
+    fleet = MultiReplicaEngine(scheds)
+    wl = WorkloadConfig(num_requests=FLEET_REQUESTS, isl_buckets=(GEMMA_PROMPT // 2, GEMMA_PROMPT),
+                        isl_weights=(0.2, 0.8), osl=FLEET_OSL, osl_jitter=0.5, seed=1)
+    reqs = synthesize_workload(wl, vocab_size=cfg.vocab_size)
+    registry.reset_launch_counts()
+    fleet.submit(reqs)
+    t0 = time.perf_counter()
+    merged = fleet.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = registry.launch_counts()
+    summary = merged.summary(horizon=fleet.horizon())
+    per = [{"requests": sorted(r for r, i in fleet.assignments.items() if i == k),
+            "steps": s.steps, "horizon_s": s.t,
+            "summary": s.metrics.summary(horizon=s.t)} for k, s in enumerate(scheds)]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serving fleet {cfg.name} x2 ({card_line()}): workload "
+          f"{[(r.req_id, r.prompt_len, r.target_len) for r in reqs]}; router assignments "
+          f"{json.dumps(fleet.assignments)}; per replica "
+          f"{json.dumps([{k: v for k, v in p.items() if k != 'summary'} for p in per])}; merged "
+          f"summary (num_gpus {merged.num_gpus}: one per replica, both on this card) "
+          f"{summary_line(summary)}; wall {wall:.3f} s; peak {peak / 1e9:.2f} GB; launches "
+          f"{json.dumps(counts)}")
+    if summary["completed"] != len(reqs):
+        fail(f"serving fleet: {summary['completed']} of {len(reqs)} requests completed")
+    missing = [k for k in GEMMA_KERNELS if counts[k] <= 0]
+    if missing:
+        fail(f"serving fleet: kernels never launched: {missing}")
+    if [captures(s.client) for s in scheds] != warm:
+        fail("serving fleet: captured after warmup")
+    if min(len(p["requests"]) for p in per) < 1:
+        fail("serving fleet: a replica got no request")
+    out = {"assignments": dict(fleet.assignments), "horizon_s": fleet.horizon(), "wall_s": wall,
+           "summary": summary, "replicas": per, "launches": counts, "peak_gb": peak / 1e9}
+    del fleet, scheds, eng, client
+    free_memory()
+    return out
 
 
 def r1_numbers(r1: dict) -> dict:
@@ -1384,6 +1683,7 @@ def main() -> None:
           f"{engine.ctx.prefill_lens}")
     r1, outputs = serve_phase(f"{cfg.name} {PROMPT}", cfg, engine, prompts, ALL_FETCH_KERNELS)
     r1["isolation"] = check_isolation(cfg.name, cfg, engine, model, prompts)
+    serving = serving_layer(cfg, engine, prompts)
     # the all-fetch decode state after the serve: every fetch mode's one
     # decode step starts from it
     snap = snapshot(engine.gen)
@@ -1445,6 +1745,7 @@ def main() -> None:
     gemma["isolation"] = check_isolation(gemma_cfg.name, gemma_cfg, gemma_eng, gmodel,
                                          gemma_prompts)
     del gemma_eng, gmodel
+    fleet = gemma_fleet(gemma_cfg)
 
     # ---- report ---------------------------------------------------------
     served = collections.Counter()
@@ -1505,6 +1806,18 @@ def main() -> None:
                                 if k.startswith("plan_") or k == "bitwise_repeat"})
         if name == "split_reduce_gemm":
             kernels[-1]["hopper_tile_rel_err"] = tile_err
+    predictive = modes["demand"]["graph"]["predictive_trace"]
+    print(f"serving numbers ({card}; tps_per_gpu counts one card per replica, whose {G} logical "
+          f"ranks share it): " + json.dumps({
+              "r1_1024_rolling": serving["rolling"]["summary"],
+              "r1_1024_epoch": serving["epoch"]["summary"],
+              "r1_1024_slo": serving["slo"]["summary"],
+              "r1_1024_engine_run": serving["engine_run"]["summary"],
+              "steps": {k: serving[k]["steps"] for k in ("rolling", "epoch", "slo")},
+              "landed_gb_per_decode_step": serving["rolling"]["landed_gb_per_decode_step"],
+              "model_gb_per_rank_decode_step": serving["rolling"]["model_gb_per_rank_decode_step"],
+              "r1_1024_predictive": predictive["summary"],
+              "gemma3_fleet": fleet["summary"], "gemma3_fleet_assignments": fleet["assignments"]}))
     print(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)

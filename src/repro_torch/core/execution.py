@@ -297,6 +297,95 @@ def gather_set(sig: LayerSig, geom: Geometry, xp: ExecutionPlan, cfg) -> tuple[s
     return tuple(out)
 
 
+def gathered_wire_bytes_per_step(model: Model, xp: ExecutionPlan) -> dict:
+    """Static per-rank gathered-weight wire bytes of one forward step under
+    ``xp`` (``execution.gathered_wire_bytes_per_step`` of the JAX package):
+    ``{"full", "fetched", "families": {family: {"full", "fetched"}}[,
+    "rounds"]}``.
+
+    ``fetched`` is what the plan ships (a route-before-gather expert layer
+    pays its budget-padded payload and index round); ``full`` is the same
+    step under the all-fetch expert policy, the counterfactual the serving
+    metrics report against. ``families`` splits both into ``moe_experts``,
+    ``attn_qkv``, ``attn_out`` and ``dense_ffn``. Route-before-gather plans
+    add ``rounds``: the layer-ahead speculative round (``spec``), the
+    post-routing round (``corr``; plain demand's one round counts here),
+    and under sync-free the per-step mirror all-gather (``mirror``, once
+    per step). A model, not a measurement: the landing copies' bytes are
+    ``prefetch.LANDED``."""
+    cfg, geom = model.cfg, model.geom
+    ws = model.dtype.itemsize
+    d = cfg.d_model
+    fams = {f: {"full": 0.0, "fetched": 0.0}
+            for f in ("moe_experts", "attn_qkv", "attn_out", "dense_ffn")}
+    rounds = {"spec": 0.0, "corr": 0.0}
+    any_rounds = any_sync = False
+
+    def add(fam: str, n_cycles: int, full_b: float, fetched_b=None) -> None:
+        fams[fam]["full"] += full_b * n_cycles
+        fams[fam]["fetched"] += (full_b if fetched_b is None else fetched_b) * n_cycles
+
+    demand = cfg.moe is not None and demand_fetch_active(cfg, geom, xp)
+    predictive = demand and predictive_fetch_active(cfg, geom, xp)
+    for group in model.plan:
+        for sig in group.sigs:
+            for key in gather_set(sig, geom, xp, cfg):
+                if key == "moe/experts":
+                    pl = geom.moe_placement
+                    pe = 3 * d * cfg.moe.d_ff * ws
+                    full_b = prefetch.gather_bytes(pl, pe)
+                    if predictive:
+                        # the speculative round (layer-ahead) and the
+                        # correction round replace the full gather
+                        spec_b = resolve_spec_budget(cfg, geom, xp)
+                        corr_b = resolve_demand_budget(cfg, geom, xp)
+                        if sync_free_active(cfg, geom, xp):
+                            any_sync = True
+                            by_round = prefetch.sync_free_fetch_bytes(
+                                pl, spec_b, corr_b, _routed_tokens(xp), pe)
+                        else:
+                            by_round = {"spec": prefetch.demand_fetch_bytes(pl, spec_b, pe),
+                                        "corr": prefetch.demand_fetch_bytes(pl, corr_b, pe)}
+                        any_rounds = True
+                        for rnd in ("spec", "corr"):
+                            rounds[rnd] += by_round[rnd] * group.n_cycles
+                        add("moe_experts", group.n_cycles, full_b,
+                            min(full_b, by_round["spec"] + by_round["corr"]))
+                    else:
+                        add("moe_experts", group.n_cycles, full_b)
+                elif key == "attn":
+                    a = _axes_size(xp, geom.attn_axes)
+                    qkv = d * (cfg.q_dim + 2 * cfg.kv_dim) * ws
+                    out = cfg.q_dim * d * ws
+                    add("attn_qkv", group.n_cycles, qkv * (a - 1) / max(1, a))
+                    add("attn_out", group.n_cycles, out * (a - 1) / max(1, a))
+                elif key in ("ffn", "moe/shared"):
+                    s = _axes_size(xp, geom.ffn_axes)
+                    f = sig.shared_d_ff if key == "moe/shared" else sig.ffn_dim
+                    add("dense_ffn", group.n_cycles, 3 * d * (f or 0) * ws * (s - 1) / max(1, s))
+            if sig.is_moe and demand and not predictive:
+                # route-before-gather: gather_set left the expert bank out,
+                # the layer fetches its activated remote rows after routing
+                pl = geom.moe_placement
+                pe = 3 * d * cfg.moe.d_ff * ws
+                fetched = prefetch.demand_fetch_bytes(pl, resolve_demand_budget(cfg, geom, xp), pe)
+                any_rounds = True
+                rounds["corr"] += fetched * group.n_cycles
+                add("moe_experts", group.n_cycles, prefetch.gather_bytes(pl, pe), fetched)
+    if any_sync:
+        mb = float(prefetch.sync_free_mirror_bytes(geom.moe_placement, _routed_tokens(xp)))
+        rounds["mirror"] = mb
+        fams["moe_experts"]["fetched"] += mb
+    out = {
+        "full": sum(v["full"] for v in fams.values()),
+        "fetched": sum(v["fetched"] for v in fams.values()),
+        "families": fams,
+    }
+    if any_rounds:
+        out["rounds"] = rounds
+    return out
+
+
 def _leading_placement(shards: int):
     """One slice per rank (subgroup = the whole axis, local_count 1)."""
     return make_placement(shards, shards)

@@ -451,3 +451,63 @@ def schedule_digest(masks: torch.Tensor) -> torch.Tensor:
     flat = masks.reshape(-1).float()
     w = torch.arange(flat.shape[0], device=flat.device, dtype=torch.float32) % 61.0 + 1.0
     return (flat * w).sum()
+
+
+# ==========================================================================
+# Static wire-byte formulas (per rank): the per-step model the serving
+# metrics attribute per request (``core.execution.
+# gathered_wire_bytes_per_step``). What the landing copies really moved is
+# ``LANDED``.
+# ==========================================================================
+def _no_validation(validate: bool) -> None:
+    if validate:
+        raise NotImplementedError(
+            "the validated fetch (checksum tables riding the index round) is not ported yet")
+
+
+def gather_bytes(placement: Placement, bytes_per_expert: int) -> int:
+    """Remote expert bytes one rank pulls per layer under the full gather
+    (the split and merged layouts ship the same wire bytes)."""
+    return (placement.subgroup_size - 1) * placement.local_count * bytes_per_expert
+
+
+def demand_fetch_bytes(placement: Placement, budget: int, bytes_per_expert: int, *,
+                       validate: bool = False) -> int:
+    """Wire bytes per rank per layer of the demand gather: the payload
+    round's ``(G'-1) * budget`` padded expert rows plus the index round's
+    bitmap (1 byte per expert from each subgroup peer), capped at the full
+    remote gather, so the demand counters never exceed the all-fetch
+    counterfactual."""
+    _no_validation(validate)
+    g = placement.subgroup_size
+    budget = min(budget, placement.local_count)
+    full = (g - 1) * placement.local_count * bytes_per_expert
+    return min(full, (g - 1) * (budget * bytes_per_expert + placement.num_padded))
+
+
+def sync_free_fetch_bytes(placement: Placement, spec_budget: int, corr_budget: int, rows: int,
+                          bytes_per_expert: int, *, validate: bool = False) -> dict:
+    """Per-round wire bytes per rank per layer of the sync-free fetch,
+    ``{"spec", "corr"}``: the speculative round is pure payload (both ends
+    derive its schedule from the mirrored predictor); the correction round
+    carries its payload and the residual bitmap (1 byte per expert from
+    each subgroup peer). The mirror signals ship once per step
+    (:func:`sync_free_mirror_bytes`). ``rows`` is unused, as in the JAX
+    package's formula."""
+    _no_validation(validate)
+    g = placement.subgroup_size
+    sb = min(spec_budget, placement.local_count)
+    cb = min(corr_budget, placement.local_count)
+    return {
+        "spec": (g - 1) * sb * bytes_per_expert,
+        "corr": (g - 1) * (cb * bytes_per_expert + placement.num_padded),
+    }
+
+
+def sync_free_mirror_bytes(placement: Placement, rows: int) -> int:
+    """Per-step wire bytes of the one mirror-fold all-gather
+    (:func:`pack_mirror_payload`: ``rows`` routed bitmaps and position
+    one-hots, 1 byte per bit from each subgroup peer), shared by every
+    sync-free layer of the step."""
+    g = placement.subgroup_size
+    return (g - 1) * (rows * placement.num_padded + rows * N_POS_BUCKETS)

@@ -2,13 +2,14 @@
 capture), slot-based continuous-batching generation server, and the
 engine that moves requests between them.
 
-The port of ``repro.runtime.engine`` (``variant_key``, ``CountingStep``,
-``PolicyVariantCache``, ``Request``, ``ContextServer``,
-``GenerationServer``, ``DisaggregatedEngine``) for the DWDP path with the
-all-fetch and the route-before-gather expert fetches (``expert_fetch``
-demand / predictive / sync_free; the generation server carries the
-predictive state across decode steps and keeps each step's
-``pred_stats``).
+The port of ``repro.runtime.engine`` (``validate_restore_plan``,
+``variant_key``, ``CountingStep``, ``PolicyVariantCache``, ``Request``,
+``ContextServer``, ``GenerationServer``, ``DisaggregatedEngine``) for the
+DWDP path with the all-fetch and the route-before-gather expert fetches
+(``expert_fetch`` demand / predictive / sync_free; the generation server
+carries the predictive state across decode steps and keeps each step's
+``pred_stats``), and the slot snapshots the serving layer's
+evict-to-queue takes (``GenerationServer.snapshot_slot``).
 
 Every step a server runs is one variant of a :class:`PolicyVariantCache`
 keyed as the JAX package keys its jit variants: the policy table, the
@@ -49,6 +50,28 @@ from repro_torch.core.strategy import (
 from repro_torch.models.cache import init_decode_state
 from repro_torch.models.transformer import Model
 from repro_torch.runtime.metrics import RequestRecord, ServingMetrics
+
+
+def validate_restore_plan(snapshot_plan: Optional[dict], current_plan: dict) -> None:
+    """Refuse to restore a ``snapshot_slot`` payload into a server whose
+    active plan (``GenerationServer.restore_plan``) differs from the one
+    the snapshot was taken under: its KV and position layout is valid only
+    for the same model, mesh sizes, cache length, policy table and
+    exclusion set. Raises ``ValueError`` naming every mismatched field (the
+    serving scheduler turns it into a requeue from the prompt); ``None``
+    passes."""
+    if snapshot_plan is None:
+        return
+    bad = [
+        f"{k}: snapshot {snapshot_plan.get(k)!r} != active {current_plan.get(k)!r}"
+        for k in sorted(set(snapshot_plan) | set(current_plan))
+        if snapshot_plan.get(k) != current_plan.get(k)
+    ]
+    if bad:
+        raise ValueError(
+            "snapshot_slot resume rejected — the destination's active plan differs from "
+            "the snapshot's (" + "; ".join(bad) + "); requeue the request from its prompt instead"
+        )
 
 
 def variant_key(table: PolicyTable, shape: InputShape, excl: tuple = ()) -> tuple:
@@ -320,9 +343,12 @@ class ContextServer:
     Prompt lengths are served from pow2 buckets: ``prefill_len`` is the
     home bucket and ``prefill_buckets`` adds lengths, each a power of two;
     each length is one variant of the prefill step, and :meth:`warmup`
-    captures every one. ``fallbacks`` counts prefills run again eagerly
-    after a deferred overflow, ``overflow_layers`` the route-before-gather
-    layers that overflowed in them."""
+    captures every one. ``gather_bytes`` is the installed bucket's static
+    wire-byte model (``execution.gathered_wire_bytes_per_step``), the one
+    the serving metrics attribute per request. ``fallbacks`` counts
+    prefills run again eagerly after a deferred overflow,
+    ``overflow_layers`` the route-before-gather layers that overflowed in
+    them."""
 
     def __init__(self, model: Model, mesh_sizes: dict, *, mode: str = "dwdp",
                  prefill_len: int, cache_len: int,
@@ -346,7 +372,12 @@ class ContextServer:
             mode=mode, capacity_from=capacity_from,
             max_entries=max(16, len(self.prefill_lens)),
         )
-        self.xp, self.step = self._bucket(prefill_len)
+        self._install(prefill_len)
+
+    def _install(self, length: int) -> None:
+        """Make one bucket's variant the server's current plan and step."""
+        self.xp, self.step = self._bucket(length)
+        self.gather_bytes = execution.gathered_wire_bytes_per_step(self.model, self.xp)
 
     def _build(self, xp) -> CountingStep:
         tokens = torch.zeros((1, xp.seq_len), dtype=torch.int64, device=self.model.device)
@@ -390,7 +421,7 @@ class ContextServer:
         until the server's next step (``GenerationServer.admit`` copies
         it)."""
         self._check_length(len(tokens))
-        self.xp, self.step = self._bucket(len(tokens))
+        self._install(len(tokens))
         out = self.step(params, tokens=torch.as_tensor(np.asarray(tokens)[None, :],
                                                         dtype=torch.int64))
         first, overflow, layers = torch.stack([
@@ -416,9 +447,18 @@ class GenerationServer:
     it is per rank, not per slot, so admitting a request leaves it as it
     is. ``pred_stats`` keeps each decode step's ``[predicted, spec_hit,
     cache_hit, corr_rows, evicted]`` expert rows (summed over layers and
-    ranks); ``fallbacks`` counts steps run again eagerly after a deferred
-    overflow, ``overflow_layers`` the route-before-gather layers that
-    overflowed in them."""
+    ranks), the last of them also as ``last_pred_stats`` (None under a
+    plan without the predictive fetch), and ``expert_bytes`` converts
+    those rows to bytes. ``gather_bytes`` is the installed variant's static
+    wire-byte model (``execution.gathered_wire_bytes_per_step``).
+    ``fallbacks`` counts steps run again eagerly after a deferred overflow,
+    ``overflow_layers`` the route-before-gather layers that overflowed in
+    them.
+
+    Evict-to-queue: :meth:`snapshot_slot` copies one slot's decode state to
+    the host in the context-transfer layout, stamped with
+    :meth:`restore_plan`; :meth:`admit` takes such a snapshot back into any
+    slot, in place, after :func:`validate_restore_plan`."""
 
     def __init__(self, model: Model, mesh_sizes: dict, *, mode: str = "dwdp",
                  max_batch: int, cache_len: int,
@@ -429,6 +469,7 @@ class GenerationServer:
         self.max_batch = max_batch
         self.cache_len = cache_len
         self.space = space
+        self._mesh_sizes = dict(mesh_sizes)
         self._shape = InputShape("gen", cache_len, max_batch, "decode")
         self.variants = PolicyVariantCache(
             model, mesh_sizes, self._shape, self._build, mode=mode,
@@ -439,6 +480,10 @@ class GenerationServer:
         self._kv = init_decode_state(model, max_batch, cache_len, seq_shards=seq_shards)
         self.cur_token = torch.zeros((max_batch, 1), dtype=torch.int64, device=model.device)
         self.pred_stats: list[np.ndarray] = []
+        self.last_pred_stats: Optional[np.ndarray] = None
+        cfg = model.cfg
+        self.expert_bytes = (3 * cfg.d_model * cfg.moe.d_ff * model.dtype.itemsize
+                             if cfg.moe is not None else 0)
         self.fallbacks = self.overflow_layers = 0
         self.slot_req: list[Optional[int]] = [None] * max_batch
         self.slot_remaining = np.zeros(max_batch, np.int64)
@@ -462,9 +507,11 @@ class GenerationServer:
         buffers zeroed in place (the predictor and the residency cache do
         not survive a policy change; their budgets differ)."""
         self.xp, self.step = self.variants.get(table)
+        self.gather_bytes = execution.gathered_wire_bytes_per_step(self.model, self.xp)
         self.state = self.step.inputs["state"]
         for t in _leaves(self.state.get("pred")):
             t.zero_()
+        self.last_pred_stats = None
 
     def set_policy(self, table: PolicyTable) -> bool:
         """Online policy switch: move the decode step to another policy
@@ -494,10 +541,28 @@ class GenerationServer:
     def free_slots(self) -> list[int]:
         return [i for i, r in enumerate(self.slot_req) if r is None]
 
+    def restore_plan(self) -> dict:
+        """The active plan stamped into every :meth:`snapshot_slot` payload
+        and checked on its re-admission (the JAX package's fields; the port
+        has no peer exclusion, so ``excl`` is empty)."""
+        return {
+            "model": self.model.cfg.name,
+            "mesh": tuple(sorted((str(a), int(s)) for a, s in self._mesh_sizes.items())),
+            "cache_len": int(self.cache_len),
+            "policies": self.xp.policies.describe(),
+            "excl": (),
+        }
+
     def admit(self, slot: int, req_id: int, first_token: int, ctx_state: dict) -> None:
-        """Install a context-server state into one batch slot (in place:
-        the server owns its state tensors). Scan groups carry a leading
-        cycle axis, so the batch axis is 1 there."""
+        """Install a context-server state, or a :meth:`snapshot_slot`
+        payload, into one batch slot, in place: the captured steps read the
+        server's state tensors, so they are written and never rebound. A
+        snapshot is validated against the active plan before anything is
+        written. The predictive state (``state["pred"]``) is per rank and
+        shared by the slots, so it is left as it is. Scan groups carry a
+        leading cycle axis, so the batch axis is 1 there."""
+        if "plan" in ctx_state:
+            validate_restore_plan(ctx_state["plan"], self.restore_plan())
         for group in self.model.plan:
             bax = 1 if group.scan else 0
             for key, ranks in self.state["layers"][group.name].items():
@@ -506,8 +571,8 @@ class GenerationServer:
                     for f in dst:
                         idx = (slice(None),) * bax + (slot,)
                         sidx = (slice(None),) * bax + (0,)
-                        dst[f][idx] = src[f][sidx].to(dst[f].dtype)
-        self.state["pos"][slot] = ctx_state["pos"][0]
+                        dst[f][idx] = src[f][sidx].to(dst[f].device, dst[f].dtype)
+        self.state["pos"][slot] = ctx_state["pos"][0].to(self.state["pos"].device)
         self.cur_token[slot, 0] = first_token
         self.slot_req[slot] = req_id
 
@@ -545,10 +610,65 @@ class GenerationServer:
         self.cur_token.copy_(out["next_token"])
         if stats is not None:
             self.pred_stats.append(stats)
+            self.last_pred_stats = stats
         return tokens
 
     def release(self, slot: int) -> None:
         self.slot_req[slot] = None
+
+    def snapshot_slot(self, slot: int) -> dict:
+        """Host copy of one slot's decode state in the context-transfer
+        layout (batch dim 1), re-admittable through :meth:`admit` into any
+        slot of a server with the same :meth:`restore_plan`: ``pos``,
+        ``layers``, ``token`` (the slot's pending input token, the last one
+        it emitted) and ``plan``. The predictive state is per rank, not per
+        slot, and is not captured."""
+        layers = {}
+        for group in self.model.plan:
+            idx = (slice(None),) * (1 if group.scan else 0) + (slice(slot, slot + 1),)
+            layers[group.name] = {
+                key: [{f: t[idx].to("cpu", copy=True) for f, t in rank.items()} for rank in ranks]
+                for key, ranks in self.state["layers"][group.name].items()
+            }
+        return {
+            "pos": self.state["pos"][slot:slot + 1].to("cpu", copy=True),
+            "layers": layers,
+            "token": int(self.cur_token[slot, 0]),
+            "plan": self.restore_plan(),
+        }
+
+    def _subgroup_positions(self) -> np.ndarray:
+        """Each flat rank's position within its expert-gather subgroup, in
+        rank order (the index the mirrored predictor keeps per peer)."""
+        sizes = self._mesh_sizes
+        n = math.prod(sizes.values())
+        rem, coords = np.arange(n), {}
+        for ax in reversed(list(sizes)):
+            coords[ax] = rem % sizes[ax]
+            rem = rem // sizes[ax]
+        idx = np.zeros(n, np.int64)
+        for ax in self.model.geom.expert_axes:
+            idx = idx * sizes[ax] + coords[ax]
+        return idx % self.model.geom.moe_placement.subgroup_size
+
+    def routed_bitmaps(self, group: Optional[str] = None) -> Optional[np.ndarray]:
+        """The last decode step's routed-expert bitmap of every rank,
+        ``(n_ranks, num_experts)`` bool, read from the predictive state's
+        ``prev`` (None when the installed plan runs no predictive layer).
+        ``group`` picks the layer group (the first predictive one by
+        default), whose first predictive layer and first cycle are read;
+        under sync-free each rank's own row of its mirror is taken."""
+        pred = self.state.get("pred")
+        if not pred:
+            return None
+        if group is None:
+            group = next(g.name for g in self.model.plan if g.name in pred)
+        gdict = pred[group]
+        ranks = gdict[sorted(gdict)[0]][0]
+        prev = torch.stack([ps.prev for ps in ranks]).cpu().numpy()
+        if prev.ndim == 3:  # mirrored: (n_ranks, G', e_pad) -> each rank's own row
+            prev = prev[np.arange(prev.shape[0]), self._subgroup_positions()]
+        return prev[:, :self.model.cfg.moe.num_experts].astype(bool)
 
 
 class DisaggregatedEngine:
@@ -561,7 +681,7 @@ class DisaggregatedEngine:
         self.queue: list[Request] = []
         self.records: dict[int, RequestRecord] = {}
         self.outputs: dict[int, list[int]] = {}
-        self.metrics = ServingMetrics()
+        self.metrics = ServingMetrics(num_gpus=1)
         self._t0 = time.perf_counter()
 
     def now(self) -> float:
@@ -569,6 +689,11 @@ class DisaggregatedEngine:
         if self.gen.model.device.type == "cuda":
             torch.cuda.synchronize(self.gen.model.device)
         return time.perf_counter() - self._t0
+
+    def horizon(self) -> float:
+        """Seconds from the first request's arrival to now: the span a
+        summary's ``tps_per_gpu`` divides by."""
+        return self.now() - min(r.arrival for r in self.records.values())
 
     def warmup(self, tables=()) -> int:
         """Capture the serving variants off the serving path: the prefill
@@ -606,7 +731,11 @@ class DisaggregatedEngine:
 
     def run(self, steps: int) -> ServingMetrics:
         """Each step = one decode iteration; free slots pull queued
-        requests through the context server first."""
+        requests through the context server first. Each request is
+        attributed its prefill's gathered wire bytes and an equal share of
+        every decode step's (and of its measured predictive counters) over
+        the step's active slots, as the live serving client attributes
+        them."""
         for _ in range(steps):
             for slot in self.gen.free_slots():
                 if not self.queue:
@@ -616,15 +745,20 @@ class DisaggregatedEngine:
                 rec = self.records[req.req_id]
                 rec.first_token_time = self.now()
                 rec.tokens_out = 1
+                rec.add_gather_share(self.ctx.gather_bytes)
                 self.outputs[req.req_id].append(first)
                 self.gen.admit(slot, req.req_id, first, state)
                 self.gen.slot_remaining[slot] = req.target_len - 1
             toks = self.gen.decode_step(self.params)
             t = self.now()
+            share = 1.0 / max(1, sum(r is not None for r in self.gen.slot_req))
             for slot, rid in enumerate(self.gen.slot_req):
                 if rid is None:
                     continue
                 rec = self.records[rid]
+                rec.add_gather_share(self.gen.gather_bytes, share)
+                if self.gen.last_pred_stats is not None:
+                    rec.add_predict_share(self.gen.last_pred_stats, self.gen.expert_bytes, share)
                 self.outputs[rid].append(int(toks[slot]))
                 rec.tokens_out += 1
                 self.gen.slot_remaining[slot] -= 1

@@ -1,4 +1,6 @@
-"""The port's serving engine against the JAX package's, end to end, and
+"""The port's serving engine against the JAX package's, end to end — the
+engine loop and the serving layer's live client (rolling, epoch, and an
+SLO-gated serve that evicts and resumes) against one JAX engine run — and
 the weights carried across (the card-only kernel test is
 tests/test_torch_cuda.py, which imports no JAX)."""
 import numpy as np
@@ -19,6 +21,13 @@ from repro_torch.configs import get_arch, reduced_variant
 from repro_torch.launch.serve import build_engine
 from repro_torch.models.transformer import build_model
 from repro_torch.runtime.engine import Request
+from repro_torch.runtime.serving import (
+    AdmissionController,
+    LiveReplicaClient,
+    ServedRequest,
+    ServingScheduler,
+    SLOConfig,
+)
 
 # One intra-op thread per process: the suite runs several test workers, and
 # the port's test shapes are too small to gain from more.
@@ -46,28 +55,76 @@ def r1_smoke():
     return cfg, jcfg, jparams, prompts
 
 
-def test_engine_tokens_match_jax_engine(r1_smoke):
-    cfg, jcfg, jparams, prompts = r1_smoke
+@pytest.fixture(scope="module")
+def jax_serve(r1_smoke):
+    """The JAX engine at (1, 1) serving the prompts through its loop (run
+    once for the module): its engine, outputs and summary."""
+    _, jcfg, _, prompts = r1_smoke
     jeng, _ = jbuild_engine(jcfg, mesh_shape=(1, 1), prefill_len=PROMPT, cache_len=CACHE,
                             max_batch=2, gen_mode="dwdp", dtype=jnp.float32, seed=0)
     for i, p in enumerate(prompts):
         jeng.submit(JRequest(i, p, OUT))
     jeng.run(STEPS)
+    return jeng
 
+
+def _port_engine(r1_smoke):
+    cfg, _, jparams, _ = r1_smoke
     model = build_model(cfg, {"data": 1, "model": 4}, device="cpu", **GEOM)
     eng, _ = build_engine(cfg, mesh_shape=(1, 4), prefill_len=PROMPT, cache_len=CACHE,
                           max_batch=2, device="cpu", params=from_jax_params(jparams, model),
                           geom_kwargs=GEOM)
+    return eng
+
+
+def test_engine_tokens_match_jax_engine(r1_smoke, jax_serve):
+    prompts = r1_smoke[3]
+    eng = _port_engine(r1_smoke)
     assert eng.gen.xp.seq_axes == ("model",)  # max_batch 2: KV cache seq-sharded
     eng.warmup()  # off the serving path; must leave the slots untouched
     for i, p in enumerate(prompts):
         eng.submit(Request(i, p, OUT))
     eng.run(STEPS)
     assert not eng.busy()
-    assert eng.outputs == jeng.outputs
-    summary = eng.metrics.summary()
+    assert eng.outputs == jax_serve.outputs
+    summary = eng.metrics.summary(horizon=eng.horizon())
     assert summary["completed"] == 3 and summary["total_output_tokens"] == 3 * OUT
     assert summary["ttft_p50_s"] > 0 and summary["tpot_p50_s"] > 0
+    # each request is attributed its prefill's wire bytes and its share of
+    # every decode step's (the JAX engine at (1, 1) gathers nothing)
+    full = 3 * eng.ctx.gather_bytes["full"] + STEPS * eng.gen.gather_bytes["full"]
+    assert summary["gathered_mb_full"] == round(full / 1e6, 3) > 0
+    assert summary["gather_fetch_ratio"] == 1.0
+
+
+def test_live_serving_matches_jax_engine(r1_smoke, jax_serve):
+    """The port's ServingScheduler over LiveReplicaClient: rolling and epoch
+    admission, and an SLO-gated serve whose projection admits (an
+    optimistic step time) and whose every measured step misses its target
+    (evict_after 2: evictions and resumes), all give the JAX engine's
+    streams; the snapshot plan is the reference server's (the reference
+    runs at (1, 1), the port at (1, 4))."""
+    prompts = r1_smoke[3]
+    eng = _port_engine(r1_smoke)
+    client = LiveReplicaClient.from_engine(eng)
+    client.warmup()
+    reqs = [ServedRequest(req_id=i, prompt_len=PROMPT, target_len=OUT, tokens=p)
+            for i, p in enumerate(prompts)]
+    runs = {}
+    for name in ("rolling", "epoch", "slo"):
+        admission = (AdmissionController(SLOConfig(target_tps_user=1e9, evict_after=2),
+                                         lambda batch: 0.0) if name == "slo" else None)
+        sched = ServingScheduler(client, admission=admission, epoch_mode=name == "epoch")
+        sched.submit(reqs)
+        sched.run()
+        runs[name] = sched.metrics.summary(horizon=sched.t)
+        assert sched.outputs == jax_serve.outputs, name
+    assert runs["rolling"]["completed"] == runs["epoch"]["completed"] == 3
+    assert runs["slo"]["admission"]["evicted"] >= 1
+    assert runs["slo"]["admission"]["resumed"] == runs["slo"]["admission"]["evicted"]
+    assert runs["rolling"]["gather_fetch_ratio"] == 1.0 and runs["rolling"]["tps_per_gpu"] > 0
+    assert eng.gen.restore_plan() == dict(jax_serve.gen.restore_plan(),
+                                          mesh=(("data", 1), ("model", 4)))
 
 
 def test_load_npz_reads_save_pytree(r1_smoke, tmp_path):
