@@ -85,14 +85,38 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    each, max_batch 2; flash attention must launch; TTFT, TPOT, peak memory,
    one profiled prefill, and one prefill's and one decode step's logits
    against the plain versions;
-8. Gemma-3-27B (every width kept, 6 layers: one 5 local : 1 global
+8. DEP, the paper's baseline, behind the reference's default serving pair:
+   on the same weights, a DWDP context server feeding a DEP generation
+   server (graphs; experts stay with their owners behind an all-to-all,
+   tensor-parallel FFN, decode attention gathered merged) serves the R1
+   1024 cell as in 5: warmup captures every variant, the serve none more,
+   every all-fetch kernel must launch in the replays (the context server's
+   DWDP prefill) and none in the DEP decode step's, prefill and decode
+   logits against the plain versions. From the served state: one DEP decode step
+   (replay ms, profiled by kind, landed bytes: the merged attention)
+   against the DWDP all-fetch step of the same state, and one qgather and
+   one hybrid decode step (the hybrid one must launch #4-#6) against their
+   plain versions, each within LOGIT_TOL; one DEP ``forward_prefill``
+   (tensor-parallel attention) must launch flash attention on its Hopper
+   path once per layer and rank and no other kernel (``DEP_KERNELS``), its
+   logits within LOGIT_TOL of the plain
+   versions'; a rolling ``ServingScheduler`` serve over
+   ``LiveReplicaClient``; then an eager DEP engine (``graphs=False``) must
+   give the graph serve's tokens bitwise. Printed beside the card's name
+   and power limit: TPOT p50, the all-to-all bytes per decode step (from
+   the shapes), peak memory (under the limit), and TPS/user and TPS per
+   card beside the DWDP all-fetch and demand serves'. Kernel #7 is also
+   held at DEP's tensor-parallel prefill shapes in 3, and DEP's grouped
+   expert FFN (``torch.bmm``, no kernel of the port) timed at its decode
+   shape beside its byte bound;
+9. Gemma-3-27B (every width kept, 6 layers: one 5 local : 1 global
    pattern), mesh (1, 4), random weights, graphs: 4 requests of 4096 tokens, 16
    output tokens each, max_batch 2. Every kernel of its path must launch
    (the dense split kernels and flash attention's window branch); prefill
    and decode-step logits against the plain versions; a request alone
    against among the others, tokens and first decode step's logits, as in
    5; TTFT, TPOT, peak, one profiled prefill;
-9. the serving layer (``runtime.serving``), each run with the launch counts
+10. the serving layer (``runtime.serving``), each run with the launch counts
    set to 0 just before and read just after, its kernels required: on the
    R1 1024 engine's weights and graph pool, servers with row-local
    capacity serve 4 requests (buckets 1024 and 512, 8 / 16 / 8 / 16 output
@@ -104,13 +128,13 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    each other's slot bitwise, no capture after warmup. In 6, the demand
    graph engine switched to predictive serves through the live client
    with a ``RoutedTraceRecorder``: (steps, 4, 256) bitmaps, at most top_k
-   x rows experts per rank, the all-fetch tokens. After 8, two Gemma-3
+   x rows experts per rank, the all-fetch tokens. After 9, two Gemma-3
    replicas behind ``MultiReplicaEngine`` serve a workload skewed to the
    4096 bucket: every request completed, the router's assignments
    printed. Each serving summary (TTFT, TPOT, TPS/user, TPS per card,
    ``gather_fetch_ratio``, predictive hit rates) is printed beside the
    landed bytes per decode step, with the card's name and power limit;
-10. a ``{"kernels": [...]}`` JSON line, then the last line
+11. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
@@ -169,6 +193,16 @@ GEOM = dict(shard_attention=True, expert_axes=("model",), moe_exec="gather")
 # The kernels the all-fetch serving path launches.
 ALL_FETCH_KERNELS = ("split_grouped_swiglu", "split_stack_gemm", "split_reduce_gemm",
                      "split_dense_swiglu", "flash_attention")
+# The kernels DEP's own path launches: its tensor-parallel prefill
+# attention runs flash attention; its decode runs none of the port's kernels
+# (merged attention and the tensor-parallel FFN are jnp in the JAX package,
+# its grouped expert FFN ``torch.bmm``). Served behind the reference's
+# default pair, a DWDP context server, whose prefill launches every
+# all-fetch kernel, the DEP serve must launch all of ALL_FETCH_KERNELS.
+DEP_KERNELS = ("flash_attention",)
+# The kernels a hybrid decode step runs: attention and the dense FFN as
+# split banks (the experts take DEP's all-to-all).
+HYBRID_KERNELS = ("split_stack_gemm", "split_reduce_gemm", "split_dense_swiglu")
 # DeepSeek-R1 at the paper's input length (it evaluates 8K prompts): the
 # same weights, 2 requests.
 LONG_PROMPT = 8192
@@ -262,17 +296,7 @@ def profile_step(label: str, fn) -> None:
         if us is None:
             us = e.self_cuda_time_total
         name = e.key
-        if any(k in name for k in ("grouped_kernel", "gate_up_kernel", "reduce_kernel",
-                                   "hopper_kernel", "slices_kernel")):
-            kind = "split kernels"
-        elif any(k in name for k in ("fa_wgmma_kernel", "fa_bf16_kernel", "fa_f32_kernel")):
-            kind = "attention kernel"
-        elif "Memcpy" in name or "memcpy" in name or "indexSelect" in name:
-            # landing copies of split banks, row gathers of demand payloads
-            kind = "landing copies"
-        else:
-            kind = "other device work"
-        kinds[kind] += us / 1e3
+        kinds[kernel_kind(name)] += us / 1e3
         rows.append((us / 1e3, e.count, name[:70]))
     busy = sum(kinds.values())
     print(f"profile {label}: wall_ms_under_profiler {wall_ms:.2f} device_ms_sum {busy:.2f} "
@@ -284,6 +308,21 @@ def profile_step(label: str, fn) -> None:
 
 # The demangled names of the port's device kernels (its CUDA namespaces).
 PORT_KERNEL = re.compile(r"^(void )?(split_hopper|split_tile|fa|hopper)::")
+
+
+def kernel_kind(name: str) -> str:
+    """A device kernel's kind in a profile, by its demangled name: the
+    port's split kernels and its flash attention by their CUDA namespaces
+    (a name alone would also match PyTorch's own ``at::native::
+    reduce_kernel``), the landing copies (device-to-device copies of split
+    banks and merged landings, row gathers of demand payloads), and
+    everything else."""
+    port = PORT_KERNEL.match(name)
+    if port:
+        return "attention kernel" if port.group(2) == "fa" else "split kernels"
+    if "Memcpy" in name or "memcpy" in name or "indexSelect" in name:
+        return "landing copies"
+    return "other device work"
 
 
 def port_kernels(fn) -> collections.Counter:
@@ -329,7 +368,9 @@ def replay_launches(label: str, engine, before: dict, servers=None) -> collectio
                 eager = port_kernels(lambda: step.eager(engine.params))
             launched = {k[0]: n for k, n in ran.items() if k[0] in registry.KERNELS}
             recorded = {k[0]: n for k, n in step.record.items() if k[0] in registry.KERNELS}
-            if replayed != eager or not replayed:
+            # DEP's decode is the one step that runs none of the port's kernels
+            dep_decode = server.xp.mode == "dep" and server.xp.phase == "decode"
+            if replayed != eager or not (replayed or dep_decode):
                 fail(f"{label}: a replay ran other device kernels than the eager step: "
                      f"{dict(replayed)} vs {dict(eager)}")
             if launched != recorded:
@@ -351,6 +392,21 @@ def check_launches(label: str, engine, measured: dict, counts: dict) -> None:
           f"host counters {json.dumps(counts)}; steps run again eagerly {eager_reruns}")
     if short:
         fail(f"{label}: host launch counters disagree with the replays (host, measured): {short}")
+
+
+def logit_err(label: str, got, ref) -> float:
+    """Norm-wise relative error of two logit rows, held to LOGIT_TOL."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+        fail(f"{label}: non-finite logits")
+    err = (torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref)).item()
+    print(f"{label}: norm-wise rel err {err:.3e} (tol {LOGIT_TOL}); argmax "
+          f"{got.argmax(-1).tolist()} vs {ref.argmax(-1).tolist()}")
+    if err > LOGIT_TOL:
+        fail(f"{label}: {err:.3e} > {LOGIT_TOL}")
+    return err
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -650,16 +706,25 @@ def check_hopper_tile(gen) -> float:
 def flash_cases(r1, gemma) -> list:
     """(phase, shape) of flash attention per logical rank at G' = 4: the
     prefill shards of R1's 1024-token prompt (first and last rank), R1's
-    8192-token prompt (last rank) and Gemma-3's 4096-token prompt (last
-    rank, a local and a global layer)."""
+    8192-token prompt (last rank), DEP's tensor-parallel prefill of R1's
+    1024- and 8192-token prompts (the whole sequence, 32 of the 128 heads,
+    2 of the 8 kv heads) and Gemma-3's 4096-token prompt (last rank, a local
+    and a global layer)."""
     def case(cfg, prompt, rank, window):
         sq = prompt // G
         return dict(b=1, sq=sq, sk=prompt, h=cfg.num_heads, kh=cfg.num_kv_heads,
                     hd=cfg.head_dim, q_offset=rank * sq, window=window)
 
+    def dep_tp(cfg, prompt):
+        # DEP's tensor-parallel prefill: the whole sequence, the rank's heads
+        return dict(b=1, sq=prompt, sk=prompt, h=cfg.num_heads // G,
+                    kh=cfg.num_kv_heads // G, hd=cfg.head_dim, q_offset=0, window=0)
+
     return [("r1_1024_first", case(r1, PROMPT, 0, 0)),
             ("r1_1024_last", case(r1, PROMPT, G - 1, 0)),
             ("r1_8192_last", case(r1, LONG_PROMPT, G - 1, 0)),
+            ("r1_1024_dep_tp", dep_tp(r1, PROMPT)),
+            ("r1_8192_dep_tp", dep_tp(r1, LONG_PROMPT)),
             ("gemma3_4096_last_local", case(gemma, GEMMA_PROMPT, G - 1, gemma.window)),
             ("gemma3_4096_last_global", case(gemma, GEMMA_PROMPT, G - 1, 0)),
             # ragged: neither Sq nor Sk a multiple of 128, a window, an offset
@@ -768,6 +833,40 @@ def run_flash_case(shp, gen) -> dict:
     if max(rel_err, row_err) > KERNEL_TOL:
         fail(f"flash_attention {shp}: kernel disagrees with its plain version: "
              f"rel err {rel_err:.3e}, worst row {row_err:.3e} > {KERNEL_TOL}")
+    return row
+
+
+def grouped_ffn_case(cfg, gen) -> dict:
+    """DEP's grouped expert FFN (``models.moe.grouped_ffn``: three
+    ``torch.bmm``, as the JAX package computes it in jnp, no kernel of the
+    port) at DEP's decode shape on one owner rank: its 64 resident experts,
+    each with the G' x C slots the all-to-all brings (2 rows at capacity 1,
+    from each of the 4 ranks). A library row, timed beside its bound."""
+    import torch
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.moe import capacity_for
+
+    d, fe, e_l = cfg.d_model, cfg.moe.d_ff, cfg.moe.num_experts // G
+    rows = G * capacity_for(MAX_BATCH, cfg.moe.num_experts, cfg.moe.top_k, 1.25)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    x = randn(e_l, rows, d)
+    wg, wu, wd = randn(e_l, d, fe, scale=d ** -0.5), randn(e_l, d, fe, scale=d ** -0.5), randn(
+        e_l, fe, d, scale=fe ** -0.5)
+    y = moe_lib.grouped_ffn(x, wg, wu, wd)
+    if not torch.isfinite(y).all():
+        fail("grouped_ffn at DEP's decode shape: non-finite output")
+    ms, lo, hi = time_ms(lambda: moe_lib.grouped_ffn(x, wg, wu, wd))
+    nbytes = 2 * (3 * e_l * d * fe + 2 * e_l * rows * d)
+    bound_ms, by = bound(nbytes, 2 * 3 * e_l * rows * d * fe)
+    row = {"shape": dict(e_l=e_l, rows=rows, d=d, f=fe), "ms": ms, "ms_range": [lo, hi],
+           "bound_ms": bound_ms, "bound_by": by}
+    print(f"library grouped_ffn dep_decode {row['shape']}: ms {ms:.4f} [{lo:.4f}, {hi:.4f}] "
+          f"bound_ms {bound_ms:.4f} ({by}), {bound_ms / ms:.1%} of the bound")
+    del x, wg, wu, wd, y
+    torch.cuda.empty_cache()
     return row
 
 
@@ -969,13 +1068,14 @@ def serve_phase(label: str, cfg, engine, prompts, kernels, tables=()) -> tuple[d
     outputs = serve(engine, prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # read before the replays are traced: the horizon ends now
+    summary = engine.metrics.summary(horizon=engine.horizon())
     counts = registry.launch_counts()
     paths = path_counts()
     peak = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.max_memory_reserved()
     launches = replay_launches(label, engine, replays)
     check_launches(label, engine, launches, counts)
-    summary = engine.metrics.summary(horizon=engine.horizon())
     for rec in sorted(engine.metrics.records, key=lambda r: r.req_id):
         print(f"{label} request {rec.req_id} ({rec.prompt_len} tokens): tokens "
               f"{outputs[rec.req_id]} ttft_s {rec.ttft:.4f} tpot_s {rec.tpot:.4f}")
@@ -1008,18 +1108,11 @@ def serve_phase(label: str, cfg, engine, prompts, kernels, tables=()) -> tuple[d
         return out["logits"].clone()
 
     # one prefill, and one decode step from the served state (both rows)
-    logit_err = {}
+    errs = {}
     for step, run in (("prefill", prefill_logits), ("decode", decode_logits)):
-        lk = run(None)[:, :cfg.vocab_size].float()
-        lt = run("torch")[:, :cfg.vocab_size].float()
-        if not (torch.isfinite(lk).all() and torch.isfinite(lt).all()):
-            fail(f"{label}: non-finite {step} logits")
-        err = (torch.linalg.vector_norm(lk - lt) / torch.linalg.vector_norm(lt)).item()
-        logit_err[step] = err
-        print(f"{label} {step} logits kernels vs plain: norm-wise rel err {err:.3e} "
-              f"(tol {LOGIT_TOL}); argmax {lk.argmax(-1).tolist()} vs {lt.argmax(-1).tolist()}")
-        if err > LOGIT_TOL:
-            fail(f"{label}: {step} logits disagree: {err:.3e} > {LOGIT_TOL}")
+        lk = run(None)[:, :cfg.vocab_size]
+        lt = run("torch")[:, :cfg.vocab_size]
+        errs[step] = logit_err(f"{label} {step} logits kernels vs plain", lk, lt)
         del lk, lt
     prof = profile_step(f"{label} prefill, graph replay",
                         lambda: engine.ctx.prefill(engine.params, prompts[0]))
@@ -1036,7 +1129,7 @@ def serve_phase(label: str, cfg, engine, prompts, kernels, tables=()) -> tuple[d
             "overflow_layers": engine.gen.overflow_layers, "phase_peak_gb": phase_peak / 1e9,
             "phase_reserved_gb": phase_reserved / 1e9, "captures": list(warm),
             "launches": launches, "host_launches": counts, "paths": paths,
-            "logit_norm_err": logit_err,
+            "logit_norm_err": errs,
             "profile_prefill_ms": prof, "profile_prefill_eager_ms": prof_eager}, outputs
 
 
@@ -1087,18 +1180,12 @@ def check_isolation(label: str, cfg, engine, model, prompts) -> dict:
         return out["logits"][0, :cfg.vocab_size].float().clone()
 
     l_alone, l_among = first_step_logits(prompts[:1]), first_step_logits(prompts[:2])
-    if not (torch.isfinite(l_alone).all() and torch.isfinite(l_among).all()):
-        fail(f"{label}: non-finite decode logits of request 0")
-    err = (torch.linalg.vector_norm(l_alone - l_among) / torch.linalg.vector_norm(l_among)).item()
     bitwise = torch.equal(l_alone, l_among)
-    print(f"{label} request 0 among {len(prompts)}: {among}\n{label} request 0 alone: {alone}\n"
-          f"{label} request 0 first decode step logits, alone vs beside request 1: norm-wise "
-          f"rel err {err:.3e} (tol {LOGIT_TOL}), bitwise {bitwise}")
+    print(f"{label} request 0 among {len(prompts)}: {among}\n{label} request 0 alone: {alone}")
     if among != alone:
         fail(f"{label}: a request served alone gave other tokens than served among the others")
-    if err > LOGIT_TOL:
-        fail(f"{label}: request 0's decode logits alone and among others disagree: "
-             f"{err:.3e} > {LOGIT_TOL}")
+    err = logit_err(f"{label} request 0 first decode step logits, alone vs beside request 1 "
+                    f"(bitwise {bitwise})", l_alone, l_among)
     return {"tokens_equal": True, "first_step_logit_norm_err": err, "logits_bitwise": bitwise}
 
 
@@ -1211,6 +1298,7 @@ def serve_fetch_modes(cfg, params, prompts, ref_outputs, r1, snap, ref_step) -> 
         outs = serve(eng, prompts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        summ = eng.metrics.summary(horizon=eng.horizon())  # before any tracing
         counts = registry.launch_counts()
         paths = path_counts()
         demand_measured = None
@@ -1226,7 +1314,6 @@ def serve_fetch_modes(cfg, params, prompts, ref_outputs, r1, snap, ref_step) -> 
         layers, layer_fallbacks = execution.DEMAND.layers, execution.DEMAND.fallbacks
         peak = torch.cuda.max_memory_allocated()
         reserved = torch.cuda.max_memory_reserved()
-        summ = eng.metrics.summary(horizon=eng.horizon())
         stats = np.sum(eng.gen.pred_stats, axis=0).tolist() if eng.gen.pred_stats else None
         step = snapshot_step(label, eng, snap)
         logits = step.pop("logits")
@@ -1238,6 +1325,7 @@ def serve_fetch_modes(cfg, params, prompts, ref_outputs, r1, snap, ref_step) -> 
         }
         row = {"budgets": budgets, "tpot_p50_s": summ["tpot_p50_s"],
                "tpot_p95_s": summ["tpot_p95_s"], "ttft_p50_s": summ["ttft_p50_s"],
+               "mean_tps_user": summ["mean_tps_user"], "tps_per_gpu": summ["tps_per_gpu"],
                "wall_s": wall, "peak_gb": peak / 1e9, "reserved_gb": reserved / 1e9,
                "captures": list(captures(eng)), "fallbacks": eng.gen.fallbacks,
                "overflow_layers": eng.gen.overflow_layers,
@@ -1315,6 +1403,161 @@ def serve_fetch_modes(cfg, params, prompts, ref_outputs, r1, snap, ref_step) -> 
                     for path, row in by_path.items()} for mode, by_path in rows.items()}
     print(f"fetch modes: {json.dumps(brief)}")
     return rows
+
+
+# --------------------------------------------------------------------------
+# DEP: a DWDP context server feeding a DEP generation server.
+# --------------------------------------------------------------------------
+def a2a_bytes_per_decode_step(model, xp) -> dict:
+    """DEP's all-to-all traffic of one decode step, from the shapes: per MoE
+    layer each rank dispatches an ``(E_pad, C, D)`` buffer; the two
+    all-to-alls send ``(G' - 1) / G'`` of it out and as much back (``wire``,
+    all ranks), and on one card copy every block of it twice (``copied``)."""
+    from repro_torch.models.moe import capacity_for
+
+    cfg, pl = model.cfg, model.geom.moe_placement
+    cap = capacity_for(xp.global_batch, cfg.moe.num_experts, cfg.moe.top_k, xp.capacity_factor)
+    buf = pl.num_padded * cap * cfg.d_model * model.dtype.itemsize
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    g = pl.subgroup_size
+    return {"capacity": cap, "wire": n_moe * model.n_ranks * 2 * buf * (g - 1) / g,
+            "copied": n_moe * model.n_ranks * 2 * buf}
+
+
+def dep_phase(cfg, params, prompts) -> dict:
+    """The reference's default serving pair on the R1 1024 cell: a DWDP
+    context server feeding a DEP generation server (graphs), on the same
+    weights. The serve (``serve_phase``: captures flat after warmup, the
+    replays' launches measured, flash attention required, prefill and decode
+    logits against the plain versions); from the served state one DEP decode
+    step (replay time, profile by kind, landed bytes: the merged attention)
+    against the DWDP all-fetch step, and one qgather and one hybrid decode
+    step against their plain versions; one DEP ``forward_prefill``
+    (tensor-parallel attention through flash attention's Hopper path)
+    against its plain version; a rolling ``ServingScheduler`` serve over
+    ``LiveReplicaClient``; then the same requests on an eager DEP engine
+    (``graphs=False``), whose tokens must equal the graph serve's. Returns
+    the numbers."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import execution
+    from repro_torch.core.strategy import make_execution_plan
+    from repro_torch.kernels import registry
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.runtime.serving import LiveReplicaClient
+
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(mesh_shape=(1, G), prefill_len=PROMPT, prefill_buckets=(PROMPT // 2,),
+              cache_len=PROMPT + OUTPUT, max_batch=MAX_BATCH, dtype=torch.bfloat16,
+              device="cuda", params=params, geom_kwargs=GEOM, ctx_mode="dwdp", gen_mode="dep")
+    eng, model = build_engine(cfg, **kw)
+    label = f"{cfg.name} {PROMPT} dwdp ctx + dep gen"
+    if (eng.ctx.xp.mode, eng.gen.xp.mode) != ("dwdp", "dep") or "pred" in eng.gen.state:
+        fail(f"{label}: modes {eng.ctx.xp.mode}/{eng.gen.xp.mode}, a predictive state attached")
+    row, outputs = serve_phase(label, cfg, eng, prompts, ALL_FETCH_KERNELS)
+    gen, table = eng.gen, eng.gen.xp.policies
+    recorded = {k[0]: n for k, n in gen.step.record.items() if k[0] in registry.KERNELS}
+    if recorded:
+        fail(f"{label}: the DEP decode step's capture recorded kernel launches {recorded}")
+    snap = snapshot(gen)
+    step = snapshot_step("dep graph", eng, snap)
+    dep_logits = step.pop("logits")
+    row.update(step)
+    sizes = {"data": 1, "model": G}
+
+    def variant_logits(name, mode="dep", decode_attn="gather"):
+        """One eager decode step of another plan over the served state: its
+        kernels' logits and its plain versions', and its launches."""
+        xp = make_execution_plan(model, gen.variants.shape, sizes, mode=mode, policy=table,
+                                 decode_attn=decode_attn, capacity_from=gen.xp.capacity_from)
+
+        def logits(impl):
+            with in_pool(eng):
+                out = execution.forward_decode(eng.params, gen.cur_token, gen.state,
+                                               execution.Ctx(model=model, xp=xp, impl=impl))
+            return out["logits"].clone()
+
+        registry.reset_launch_counts()
+        got = logits(None)
+        launches = {k: n for k, n in registry.launch_counts().items() if n}
+        ref = logits("torch")
+        err = logit_err(f"{label} {name} decode step, kernels vs plain",
+                        got[:, :cfg.vocab_size], ref[:, :cfg.vocab_size])
+        print(f"{label} {name} decode step launches {json.dumps(launches)}")
+        return got, err, launches
+
+    dwdp_logits, _, _ = variant_logits("dwdp all-fetch", mode="dwdp")
+    row["dep_vs_dwdp_err"] = logit_err(f"{label}: DEP decode step vs the DWDP all-fetch step",
+                                       dep_logits[:, :cfg.vocab_size],
+                                       dwdp_logits[:, :cfg.vocab_size])
+    del dwdp_logits
+    _, row["qgather_err"], _ = variant_logits("dep qgather", decode_attn="qgather")
+    _, row["hybrid_err"], hybrid_launches = variant_logits("hybrid", mode="hybrid")
+    missing = [k for k in HYBRID_KERNELS if not hybrid_launches.get(k)]
+    if missing:
+        fail(f"{label}: the hybrid decode step never launched {missing}")
+
+    # DEP's own prefill: tensor-parallel attention through flash attention
+    xp = make_execution_plan(model, InputShape("ctx", PROMPT, 1, "prefill"), sizes, mode="dep")
+    tokens = torch.as_tensor(prompts[0][None, :], dtype=torch.int64, device="cuda")
+    registry.reset_launch_counts()
+    clear_path_counts()
+    with in_pool(eng):
+        got = execution.forward_prefill(eng.params, tokens, execution.Ctx(model=model, xp=xp))
+        got = got["last_logits"].clone()
+    launched = {k: n for k, n in registry.launch_counts().items() if n}
+    paths = path_counts()
+    check_paths(f"{label} dep prefill", paths)
+    n_layers = cfg.num_layers * G
+    if launched != {k: n_layers for k in DEP_KERNELS} or sum(paths.values()) != n_layers:
+        fail(f"{label}: the DEP prefill launched {launched}, paths {paths}; want "
+             f"{n_layers} launches of each of {DEP_KERNELS} on the Hopper path, nothing else")
+    with in_pool(eng):
+        ref = execution.forward_prefill(eng.params, tokens,
+                                        execution.Ctx(model=model, xp=xp, impl="torch"))
+        ref = ref["last_logits"].clone()
+    row["dep_prefill_err"] = logit_err(f"{label} DEP prefill (tensor-parallel attention) "
+                                       f"logits, kernels vs plain", got[:, :cfg.vocab_size],
+                                       ref[:, :cfg.vocab_size])
+    row["dep_prefill_paths"] = paths
+    del got, ref, tokens
+
+    # a rolling ServingScheduler serve over the live client
+    client = LiveReplicaClient.from_engine(eng)
+    client.warmup()
+    warm = captures(eng)
+    row["rolling"] = drive_scheduler("dep rolling", client, served_requests(prompts, SERVING_LENS),
+                                     ALL_FETCH_KERNELS)
+    row["rolling"].pop("outputs")
+    if captures(eng) != warm:
+        fail(f"{label}: the rolling serve captured ({warm} -> {captures(eng)})")
+    row["a2a_bytes_per_decode_step"] = a2a_bytes_per_decode_step(model, gen.xp)
+    phase_peak = torch.cuda.max_memory_allocated()
+    row["dep_phase_peak_gb"] = phase_peak / 1e9
+    if phase_peak > PEAK_LIMIT:
+        fail(f"{label}: peak memory {phase_peak / 1e9:.2f} GB > {PEAK_LIMIT / 1e9:.0f} GB")
+    del eng, client, gen, model, dep_logits
+    free_memory()
+
+    # the same requests through eager steps
+    eager, _ = build_engine(cfg, graphs=False, **kw)
+    eager_outputs = serve(eager, prompts)
+    row["eager_tpot_p50_s"] = eager.metrics.summary(horizon=eager.horizon())["tpot_p50_s"]
+    print(f"{label}: graph and eager serves give the same tokens {eager_outputs == outputs}; "
+          f"eager tpot_p50_s {row['eager_tpot_p50_s']:.4f}")
+    if eager_outputs != outputs:
+        fail(f"{label}: the eager DEP serve gave other tokens: {eager_outputs} vs {outputs}")
+    del eager
+    free_memory()
+    a2a = row["a2a_bytes_per_decode_step"]
+    print(f"dep ({card_line()}): tpot_p50_s {row['summary']['tpot_p50_s']:.4f} decode step "
+          f"replay ms {row['replay_ms']:.2f} {row['replay_ms_range']} profiled by kind "
+          f"{json.dumps({k: round(v, 2) for k, v in row['profile_ms'].items()})} landed_gb per "
+          f"decode step {row['landed_gb']:.3f} (the merged attention) all-to-all bytes per "
+          f"decode step {json.dumps(a2a)} peak_gb {row['peak_gb']:.2f} (phase "
+          f"{row['dep_phase_peak_gb']:.2f})")
+    return row
 
 
 # --------------------------------------------------------------------------
@@ -1593,7 +1836,8 @@ def r1_numbers(r1: dict) -> dict:
     """The serve numbers of the all-fetch graph serve, as a fetch-mode row."""
     s = r1["summary"]
     return {"tpot_p50_s": s["tpot_p50_s"], "tpot_p95_s": s["tpot_p95_s"],
-            "ttft_p50_s": s["ttft_p50_s"], "wall_s": r1["wall_s"], "peak_gb": r1["peak_gb"],
+            "ttft_p50_s": s["ttft_p50_s"], "mean_tps_user": s["mean_tps_user"],
+            "tps_per_gpu": s["tps_per_gpu"], "wall_s": r1["wall_s"], "peak_gb": r1["peak_gb"],
             "reserved_gb": r1["reserved_gb"], "captures": r1["captures"],
             "fallbacks": r1["fallbacks"], "overflow_layers": r1["overflow_layers"],
             "launches": r1["launches"], "paths": r1["paths"]}
@@ -1657,6 +1901,7 @@ def main() -> None:
               f"{row['plain_ms']:.4f} library_ms {library}{widened} bound_ms "
               f"{row['bound_ms']:.4f} ({row['bound_by']})"
               + (f" {plans} bitwise_repeat {row['bitwise_repeat']}" if plans else ""))
+    grouped_ffn_row = grouped_ffn_case(cfg, gen)
     tile_err = check_hopper_tile(gen)
     demand_checks = check_demand_matches_grouped(cfg, gen)
     fp8_checks = check_fp8_matches_widened(cfg, gen)
@@ -1724,8 +1969,25 @@ def main() -> None:
     )
     r1_long, _ = serve_phase(f"{cfg.name} {LONG_PROMPT}", cfg, long_eng, long_prompts,
                              ALL_FETCH_KERNELS)
-    del long_eng, params
+    del long_eng
     free_memory()
+
+    # ---- DEP: a DWDP context server feeding a DEP generation server ---------
+    dep = dep_phase(cfg, params, prompts)
+    del params
+    free_memory()
+    rolling = {"dep": dep["rolling"]["summary"], "dwdp_all_row_local": serving["rolling"]["summary"]}
+    run = {"dep": dep["summary"], "dwdp_all": modes["all"]["graph"],
+           "dwdp_demand": modes["demand"]["graph"]}
+    print(f"dep vs dwdp ({card}; R1 {PROMPT}; tps_per_gpu counts one card, whose {G} logical "
+          f"ranks share it): engine.run, 4 requests x {OUTPUT} tokens: " + json.dumps({
+              k: {m: v.get(m) for m in ("tpot_p50_s", "mean_tps_user", "tps_per_gpu")}
+              for k, v in run.items()}) + f"; rolling ServingScheduler ({list(SERVING_LENS)} "
+          "tokens): " + json.dumps({k: {m: v.get(m) for m in ("tpot_p50_s", "mean_tps_user",
+                                                                "tps_per_gpu")}
+                                    for k, v in rolling.items()}) + "; decode step replay ms "
+          + json.dumps({"dep": dep["replay_ms"], "dwdp_all": modes["all"]["graph"]["replay_ms"],
+                        "dwdp_demand": modes["demand"]["graph"]["replay_ms"]}))
 
     # ---- Gemma-3-27B: sliding-window layers, dense split kernels -----------
     gemma_prompts = [rng.integers(0, gemma_cfg.vocab_size, GEMMA_PROMPT)
@@ -1781,6 +2043,7 @@ def main() -> None:
             "replaces": replaces[name],
             "launches": launches[name],
             "launches_r1_8192": r1_long["launches"][name],
+            "launches_r1_1024_dep": dep["launches"][name],
             "launches_gemma3_4096": gemma["launches"][name],
             "max_abs_err": dec["max_abs_err"],
             "max_rel_err": dec["max_rel_err"],
@@ -1817,6 +2080,8 @@ def main() -> None:
               "landed_gb_per_decode_step": serving["rolling"]["landed_gb_per_decode_step"],
               "model_gb_per_rank_decode_step": serving["rolling"]["model_gb_per_rank_decode_step"],
               "r1_1024_predictive": predictive["summary"],
+              "r1_1024_dep_rolling": dep["rolling"]["summary"],
+              "grouped_ffn_dep_decode": grouped_ffn_row,
               "gemma3_fleet": fleet["summary"], "gemma3_fleet_assignments": fleet["assignments"]}))
     print(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

@@ -1,26 +1,44 @@
-"""DWDP execution on logical ranks: the port of the all-fetch path of
+"""DWDP, DEP and hybrid execution on logical ranks: the port of
 ``repro.core.execution``.
 
 The JAX package runs one SPMD program per rank inside ``shard_map``. The
 port runs the same per-rank program for every logical rank of the
 ``model`` axis in one process, rank by rank, and implements each
-cross-rank operation in process:
+cross-rank operation in process (``core.collectives``):
 
 - an all-gather is a ``torch.cat`` in rank order;
-- a psum is a sum in fixed rank order (deterministic);
+- a psum is a sum in fixed rank order (deterministic), a psum_scatter that
+  sum cut into the ranks' slices;
+- an all-to-all gives each rank its block of every peer's tensor (device
+  copies between the ranks' buffers);
 - a remote pull of a split bank copies the peers' shards into the rank's
   landing buffer (``core.prefetch``), on a side CUDA stream, one unit of
   work ahead (:class:`BankPipeline` — the stand-in for the layer-ahead
   prefetch of ``_run_unrolled`` / ``_run_scan_group``), ordered with CUDA
   events.
 
-Weights move, activations do not: each rank serves its own tokens (its
-sequence shard in prefill, the replicated rows in decode) end to end,
-running the split kernels straight off its (resident, remote) bank pair.
-Prefill attention runs the flash kernel over the gathered K/V (causal, or
-sliding-window on local layers); decode attention is plain PyTorch, as
-the JAX package computes it in jnp.
-Ported: split ``attn_qkv`` / ``attn_out`` / ``dense_ffn`` /
+Modes (``ExecutionPlan.mode``). **dwdp**: weights move, activations do
+not: each rank serves its own tokens (its sequence shard in prefill, the
+replicated rows in decode) end to end, running the split kernels straight
+off its (resident, remote) bank pair. **dep**, the paper's baseline:
+activations move and weights stay put. Prefill attention is
+tensor-parallel (the tokens all-gathered, the rank's heads, a
+psum_scatter back; no KV capture, as in the JAX package), the dense FFN
+and the shared expert are tensor-parallel (decode: partial F and a psum),
+and the experts stay with their owners: each rank dispatches its tokens,
+an all-to-all sends expert block ``j`` to its owner, the owner runs the
+grouped FFN over its resident experts and a second all-to-all returns the
+results. Decode attention gathers the weights in the merged layout (every
+shard into one canonical buffer per rank), or with ``decode_attn=
+"qgather"`` keeps them sharded and all-gathers q/k/v instead. **hybrid**:
+attention and the dense FFN move as split banks, as in dwdp, the experts
+take DEP's all-to-all. Prefill attention runs the flash kernel over the
+gathered K/V (causal, or sliding-window on local layers), or over the
+whole sequence under DEP's tensor-parallel attention; decode attention is
+plain PyTorch, as the JAX package computes it in jnp; DEP's grouped
+expert FFN is ``torch.bmm``, as the JAX package computes it in jnp.
+
+Ported under dwdp: split ``attn_qkv`` / ``attn_out`` / ``dense_ffn`` /
 ``moe_experts`` banks under ``split:all:allgather``, prefill with
 sequence sharding and KV capture, decode over a sequence-sharded KV
 cache with an LSE combine, the vocab-sharded head with a cross-shard
@@ -39,9 +57,9 @@ device flag that ``forward_prefill`` / ``forward_decode`` return
 (``overflow``, with ``overflow_layers``), and the caller reads it once
 per step and runs the step again in the eager mode when it is set — the
 step free of host reads that a CUDA graph captures
-(``runtime.engine.CountingStep``). Not ported yet: the validated fetch
-and fault injection, the ring transports, merged layouts, DEP, rotate
-execution, training.
+(``runtime.engine.CountingStep``). Not ported yet: the ``replicated``
+mode, batch-sharded plans, the validated fetch and fault injection, the
+ring transports, rotate execution, training.
 """
 from __future__ import annotations
 
@@ -54,7 +72,7 @@ import torch
 
 from repro_torch import counters
 from repro_torch.configs.base import BlockKind
-from repro_torch.core import prefetch
+from repro_torch.core import collectives, prefetch
 from repro_torch.core.budget import demand_budget_rows, predictive_budget_rows
 from repro_torch.core.placement import make_placement
 from repro_torch.core.strategy import ExecutionPlan
@@ -142,11 +160,12 @@ def _axes_size(xp: ExecutionPlan, axes: tuple[str, ...]) -> int:
     return size
 
 
-def _require_split(geom: Geometry, xp: ExecutionPlan, axes, what: str) -> None:
-    """The port gathers only through split banks over the model axis."""
+def _require_single_axis(geom: Geometry, xp: ExecutionPlan, axes, what: str) -> None:
+    """The port gathers only over the model axis (split banks, or DEP's
+    merged landing)."""
     if len(axes) != 1 or _axes_size(xp, axes) <= 1:
         raise NotImplementedError(
-            f"{what} gathered over {axes}: only single-axis split banks are ported"
+            f"{what} gathered over {axes}: only single-axis gathers are ported"
         )
 
 
@@ -175,6 +194,68 @@ def _routed_tokens(xp: ExecutionPlan) -> int:
     if xp.phase == "decode":
         return max(1, xp.local_batch)
     return max(1, xp.local_batch) * max(1, xp.local_seq)
+
+
+def _dep_tp_ok(geom: Geometry, xp: ExecutionPlan, what: str) -> bool:
+    """Does DEP run this weight family tensor-parallel instead of gathering
+    it? The dense FFN over the model axis always; attention where the
+    heads divide the axis, outside decode."""
+    if what == "ffn":
+        return geom.ffn_axes == (AXIS_MODEL,)
+    if what == "attn":
+        return geom.attn_tp_ok and xp.phase != "decode" and geom.model_size > 1
+    return False
+
+
+def _qgather_ok(geom: Geometry, xp: ExecutionPlan) -> bool:
+    """Does decode attention keep its weights sharded and all-gather q/k/v
+    instead (``decode_attn="qgather"``; tokens replicated over the axis)?"""
+    return (
+        xp.phase == "decode"
+        and xp.decode_attn == "qgather"
+        and geom.attn_axes == (AXIS_MODEL,)
+        and AXIS_MODEL not in xp.batch_axes
+        and geom.model_size > 1
+    )
+
+
+def dense_split_active(xp: ExecutionPlan, axes, family: str) -> bool:
+    """Does a gathered dense family (``attn_qkv`` / ``attn_out`` /
+    ``dense_ffn``) land as a split bank? In the modes where weights move
+    (dwdp, hybrid); DEP's gathers keep the legacy merged landing."""
+    return (
+        xp.policy(family).layout == "split"
+        and xp.mode in ("dwdp", "hybrid")
+        and len(axes) == 1
+        and _axes_size(xp, axes) > 1
+    )
+
+
+def _attn_tp_active(geom: Geometry, xp: ExecutionPlan) -> bool:
+    """Does attention run DEP's tensor-parallel path (prefill)?"""
+    return (xp.mode == "dep" and bool(geom.attn_axes) and not _qgather_ok(geom, xp)
+            and _dep_tp_ok(geom, xp, "attn"))
+
+
+def _ffn_tp_active(geom: Geometry, xp: ExecutionPlan) -> bool:
+    """Do the dense FFN and the shared expert run DEP's tensor-parallel
+    path?"""
+    return xp.mode == "dep" and _dep_tp_ok(geom, xp, "ffn")
+
+
+def captures_kv(geom: Geometry, xp: ExecutionPlan) -> bool:
+    """Can a prefill under ``xp`` capture a decode state? Not where DEP runs
+    attention tensor-parallel: the JAX package's ``_attn_tp`` returns no
+    layer state (its DEP context server fails at the first prefill), and
+    the port builds no capture the reference lacks."""
+    return not _attn_tp_active(geom, xp)
+
+
+def _experts_all_to_all(geom: Geometry, xp: ExecutionPlan) -> bool:
+    """Do the experts stay with their owners behind DEP's all-to-all (dep
+    and hybrid over a sharded placement)?"""
+    pl = geom.moe_placement
+    return xp.mode in ("dep", "hybrid") and pl is not None and pl.group_size > 1
 
 
 def moe_split_active(geom: Geometry, xp: ExecutionPlan) -> bool:
@@ -266,34 +347,42 @@ def resolve_cache_rows(cfg, geom: Geometry, xp: ExecutionPlan) -> int:
 
 def gather_set(sig: LayerSig, geom: Geometry, xp: ExecutionPlan, cfg) -> tuple[str, ...]:
     """Keys of a layer's param tree that the prefetch pipeline gathers
-    (``execution.gather_set`` of the JAX package). A demand-active MoE
-    layer leaves its expert bank out — it is fetched inside the layer,
-    after routing — unless the predictive engine runs, whose speculative
-    round rides the pipeline."""
+    (``execution.gather_set`` of the JAX package), by mode. Where weights
+    move (dwdp, hybrid) attention and the dense FFN are gathered as split
+    banks; DEP gathers attention (merged) only where it cannot run it
+    tensor-parallel — in decode, unless ``decode_attn="qgather"`` — and
+    never the dense FFN. The expert bank is gathered under dwdp only; a
+    demand-active MoE layer leaves it out — it is fetched inside the
+    layer, after routing — unless the predictive engine runs, whose
+    speculative round rides the pipeline."""
     out: list[str] = []
     if sig.kind not in (BlockKind.GLOBAL_ATTN, BlockKind.LOCAL_ATTN):
         raise NotImplementedError(f"block kind {sig.kind} is not ported yet")
-    if geom.attn_axes:
-        _require_split(geom, xp, geom.attn_axes, "attention")
-        out.append("attn")
+    weights_move = xp.mode in ("dwdp", "hybrid")
+    if geom.attn_axes and not _qgather_ok(geom, xp):
+        if weights_move or not _dep_tp_ok(geom, xp, "attn"):
+            _require_single_axis(geom, xp, geom.attn_axes, "attention")
+            out.append("attn")
     if sig.is_moe:
         pl = geom.moe_placement
         assert pl is not None
-        if pl.subgroup_size > 1:
+        if pl.subgroup_size > 1 and xp.mode == "dwdp":
             if geom.moe_exec != "gather":
                 raise NotImplementedError(f"moe_exec={geom.moe_exec!r} is not ported yet")
-            _require_split(geom, xp, geom.expert_axes, "experts")
+            _require_single_axis(geom, xp, geom.expert_axes, "experts")
             if not (
                 demand_fetch_active(cfg, geom, xp)
                 and not predictive_fetch_active(cfg, geom, xp)
             ):
                 out.append("moe/experts")
         if sig.shared_d_ff and geom.ffn_axes:
-            _require_split(geom, xp, geom.ffn_axes, "shared expert")
-            out.append("moe/shared")
+            if weights_move or not _dep_tp_ok(geom, xp, "ffn"):
+                _require_single_axis(geom, xp, geom.ffn_axes, "shared expert")
+                out.append("moe/shared")
     elif sig.ffn_dim and geom.ffn_axes:
-        _require_split(geom, xp, geom.ffn_axes, "dense FFN")
-        out.append("ffn")
+        if weights_move or not _dep_tp_ok(geom, xp, "ffn"):
+            _require_single_axis(geom, xp, geom.ffn_axes, "dense FFN")
+            out.append("ffn")
     return tuple(out)
 
 
@@ -394,9 +483,15 @@ def _leading_placement(shards: int):
 _ATTN_PARTS = (("qkv", ("wq", "wk", "wv")), ("out", ("wo",)))
 
 
-def gather_attn(lps: list[dict], geom: Geometry, copy_stream=None) -> list[prefetch.AttnBank]:
-    """Every rank's attention banks as two families (qkv and out)."""
+def gather_attn(lps: list[dict], ctx: Ctx, copy_stream=None) -> list:
+    """Every rank's gathered attention: two split families (qkv and out) as
+    an :class:`prefetch.AttnBank` where weights move, else (DEP's decode)
+    the full weights, each rank's own merged landing of every shard."""
+    geom, xp = ctx.geom, ctx.xp
     pl = _leading_placement(geom.attn_shards)
+    if not dense_split_active(xp, geom.attn_axes, "attn_qkv"):
+        return [prefetch.gather_merged([lp["attn"] for lp in lps], r, pl, copy_stream=copy_stream)
+                for r in range(len(lps))]
     parts = {
         part: [{k: lp["attn"][k] for k in keys} for lp in lps]
         for part, keys in _ATTN_PARTS
@@ -612,10 +707,19 @@ def _rank_logits(h: torch.Tensor, p: dict, r: int, ctx: Ctx) -> torch.Tensor:
 # Attention.
 # ==========================================================================
 def _project_heads(h, w, heads, head_dim):
-    """h: (B,S,D); w: (A, D, dim/A) stacked -> (B,S,heads,head_dim)."""
-    b, s, _ = h.shape
-    out = torch.einsum("bsd,adh->bsah", h, w.to(h.dtype))
-    return out.reshape(b, s, heads, head_dim)
+    """h: (B,S,D); w: (A, D, dim/A) stacked -> (B,S,heads,head_dim): one
+    product per shard, straight off the stacked weights (no copy of w)."""
+    b, s, d = h.shape
+    out = torch.matmul(h.reshape(1, b * s, d), w.to(h.dtype))  # (A, T, dim/A)
+    return out.permute(1, 0, 2).reshape(b, s, heads, head_dim)
+
+
+def _project_out(out, wo):
+    """out: (B,S,...) with the A * g head features in shard order; wo:
+    (A, g, D) stacked -> (B,S,D): one product over the flattened shards."""
+    b, s = out.shape[:2]
+    y = out.reshape(b * s, -1) @ wo.reshape(-1, wo.shape[-1]).to(out.dtype)
+    return y.reshape(b, s, -1)
 
 
 def _attn_split_qkv(h, bank: prefetch.SplitBank, rank: int, ctx: Ctx):
@@ -713,19 +817,22 @@ def _attn_decode_partial(q, k_new, v_new, sig: LayerSig, ctx: Ctx, lstate: dict,
 
 def _attn_layer(hs, lps, sig: LayerSig, ctx: Ctx, lstates, banks):
     """Attention for every rank: per-rank projections off the rank's
-    banks, the cross-rank step (K/V all-gather in prefill, LSE combine in
-    decode), per-rank output projections."""
+    banks (split banks, DEP's merged landings, or with ``banks`` None the
+    replicated weights), the cross-rank step (K/V all-gather in prefill,
+    LSE combine in decode), per-rank output projections."""
     cfg, xp = ctx.cfg, ctx.xp
     n = len(hs)
     hd = cfg.head_dim
+    split = banks is not None and isinstance(banks[0], prefetch.AttnBank)
+    # full weights: DEP's merged landings, or the replicated weights
+    full = None if split else banks if banks is not None else [lp["attn"] for lp in lps]
     qkv = []
     for r, h in enumerate(hs):
-        if banks is not None:
+        if split:
             qkv.append(_attn_split_qkv(h, banks[r].qkv, r, ctx))
         else:
-            aw = lps[r]["attn"]
-            geom = ctx.geom
-            dup = max(1, aw["wk"].shape[0] // geom.kv_shard)
+            aw = full[r]
+            dup = max(1, aw["wk"].shape[0] // ctx.geom.kv_shard)
             qkv.append((
                 _project_heads(h, aw["wq"], cfg.num_heads, hd),
                 _project_heads(h, aw["wk"][::dup], cfg.num_kv_heads, hd),
@@ -765,13 +872,78 @@ def _attn_layer(hs, lps, sig: LayerSig, ctx: Ctx, lstates, banks):
             new_states = [_capture_kv_state(k_all, v_all, sig, ctx, r) for r in range(n)]
     ys = []
     for r, out in enumerate(outs):
-        if banks is not None:
+        if split:
             ys.append(_attn_split_out(out, banks[r].out, r, ctx))
         else:
-            wo = lps[r]["attn"]["wo"]
-            o = out.reshape(out.shape[0], out.shape[1], wo.shape[0], -1)
-            ys.append(torch.einsum("bsag,agd->bsd", o, wo.to(o.dtype)))
+            ys.append(_project_out(out, full[r]["wo"]))
     return ys, new_states
+
+
+def _attn_tp_layer(hs, lps, sig: LayerSig, ctx: Ctx) -> list:
+    """DEP's tensor-parallel prefill attention (``_attn_tp`` of the JAX
+    package): the tokens all-gathered over the ranks, each rank's own heads
+    projected off its resident shard, RoPE at global positions and
+    attention over the whole sequence (the flash kernel), the rank's slice
+    of ``wo``, then a psum_scatter back to the token shards. Returns no
+    layer state: the JAX package captures none here."""
+    cfg, geom = ctx.cfg, ctx.geom
+    hd = cfg.head_dim
+    hg = torch.cat(hs, dim=1)
+    b, s, _ = hg.shape
+    heads_l = cfg.num_heads // geom.attn_shards
+    kv_l = cfg.num_kv_heads // geom.kv_shard
+    posb = torch.arange(s, device=hg.device).expand(b, s)
+    parts = []
+    for lp in lps:
+        aw = lp["attn"]
+        q = apply_rope(_project_heads(hg, aw["wq"], heads_l, hd), posb, cfg.rope_theta,
+                       ctx.model.rope_freqs)
+        k = apply_rope(_project_heads(hg, aw["wk"], kv_l, hd), posb, cfg.rope_theta,
+                       ctx.model.rope_freqs)
+        v = _project_heads(hg, aw["wv"], kv_l, hd)
+        out = flash_lib.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                        window=sig.window, q_offset=0, impl=ctx.attn_impl)
+        parts.append(_project_out(out, aw["wo"]))
+    return collectives.psum_scatter(parts, [h.shape[1] for h in hs], dim=1)
+
+
+def _attn_qgather_layer(hs, lps, sig: LayerSig, ctx: Ctx, lstates):
+    """Decode attention with the weights left sharded
+    (``_attn_decode_qgather`` of the JAX package): each rank projects its
+    own q/k/v feature slices, the slices are all-gathered (the duplicated
+    kv groups dropped), every rank attends over its slice of the KV ring
+    with the LSE combine, applies its slice of ``wo`` to its own features
+    of the output, and a psum adds the ranks' products."""
+    cfg, geom, xp = ctx.cfg, ctx.geom, ctx.xp
+    b, hd, g = hs[0].shape[0], cfg.head_dim, geom.attn_shards
+
+    def proj(name):
+        # each rank's own feature slice, all-gathered
+        return torch.cat([_project_heads(h, lp["attn"][name], 1, -1).flatten(2)
+                          for h, lp in zip(hs, lps)], dim=2)
+
+    dup = g // geom.kv_shard
+    kvd_l = cfg.kv_dim // geom.kv_shard
+    q = proj("wq").reshape(b, 1, cfg.num_heads, hd)
+    k = proj("wk").reshape(b, 1, g, kvd_l)[:, :, ::dup].reshape(b, 1, cfg.num_kv_heads, hd)
+    v = proj("wv").reshape(b, 1, g, kvd_l)[:, :, ::dup].reshape(b, 1, cfg.num_kv_heads, hd)
+    pos = ctx.pos
+    q = apply_rope(q, pos[:, None], cfg.rope_theta, ctx.model.rope_freqs)
+    k = apply_rope(k, pos[:, None], cfg.rope_theta, ctx.model.rope_freqs)
+    partials, new_states = [], []
+    for r in range(len(hs)):
+        part, st = _attn_decode_partial(q, k, v, sig, ctx, lstates[r], r)
+        partials.append(part)
+        new_states.append(st)
+    if xp.seq_axes:
+        out = attn_lib.combine_partials([o for o, _ in partials], [l for _, l in partials])
+    else:
+        out = partials[0][0]
+    qd_l = cfg.q_dim // g
+    flat = out.reshape(b, 1, cfg.q_dim)
+    parts = [_project_out(flat[:, :, r * qd_l:(r + 1) * qd_l], lp["attn"]["wo"])
+             for r, lp in enumerate(lps)]
+    return [collectives.psum(parts)] * len(hs), new_states
 
 
 # ==========================================================================
@@ -798,6 +970,26 @@ def _ffn_apply(x2d, fp, ctx: Ctx, gathered=None):
         re["w_gate"], re["w_up"], re["w_down"],
         impl=ctx.dense_impl,
     )
+
+
+def _swiglu_slice(x2d, fp):
+    """One rank's partial-F SwiGLU off its resident slice (leading dim 1)."""
+    h = torch.nn.functional.silu(x2d @ fp["w_gate"][0].to(x2d.dtype)) * (
+        x2d @ fp["w_up"][0].to(x2d.dtype))
+    return h @ fp["w_down"][0].to(x2d.dtype)
+
+
+def _ffn_tp_apply(x2ds: list, fps: list, ctx: Ctx) -> list:
+    """DEP's tensor-parallel FFN (the DEP branches of ``_ffn_apply`` in the
+    JAX package) for every rank: in decode the rows are replicated, so each
+    rank computes its F slice and a psum adds them; in prefill the tokens
+    are all-gathered, each rank computes its F slice of all of them, and a
+    psum_scatter returns each rank's rows."""
+    if ctx.decode:
+        return [collectives.psum([_swiglu_slice(x, fp) for x, fp in zip(x2ds, fps)])] * len(x2ds)
+    xg = torch.cat(x2ds, dim=0)
+    return collectives.psum_scatter([_swiglu_slice(xg, fp) for fp in fps],
+                                    [x.shape[0] for x in x2ds])
 
 
 def _rolled_dispatch(d: moe_lib.Dispatch, roll: int, e_pad: int, capacity: int):
@@ -862,6 +1054,43 @@ def _moe_apply(x2d, mp, ctx: Ctx, banks: dict, rows: int, rank: int):
     else:
         y = _split_moe(x2d, d, cap, banks["moe/experts"], rank, ctx)
     return _add_shared(y, x2d, mp, ctx, banks)
+
+
+def _moe_dep_layer(h2fs: list, lps: list, ctx: Ctx, pipe: BankPipeline, lid, rows: int,
+                   has_unit: bool) -> list:
+    """DEP's (and hybrid's) expert path for every rank at once (the
+    ``else`` branch of ``_moe_apply`` in the JAX package): each rank routes
+    its tokens and dispatches them to ``(E_pad, C, D)``; an all-to-all over
+    the expert subgroup gives the owner of expert block ``j`` that block of
+    every rank, ``(local, G' * C, D)`` in source-rank order; each owner
+    runs the grouped FFN over its resident experts; a second all-to-all
+    returns the results and each rank combines its tokens. The shared
+    expert runs tensor-parallel (dep) or off its split bank (hybrid)."""
+    pl = ctx.geom.moe_placement
+    routes = [_route(x, lp["moe"], ctx, rows) for x, lp in zip(h2fs, lps)]
+    xes = [moe_lib.dispatch_tokens(x, d, pl.num_padded, cap) for x, (d, cap) in zip(h2fs, routes)]
+    xrs = collectives.all_to_all(xes, pl, split_dim=0, concat_dim=1)
+    del xes
+    yrs = []
+    for xr, lp in zip(xrs, lps):
+        ex = lp["moe"]["experts"]
+        yrs.append(moe_lib.grouped_ffn(xr, ex["w_gate"], ex["w_up"], ex["w_down"]))
+    del xrs
+    yes = collectives.all_to_all(yrs, pl, split_dim=1, concat_dim=0)
+    del yrs
+    ys = [moe_lib.combine_tokens(ye, d, x.shape[0]) for ye, (d, _), x in zip(yes, routes, h2fs)]
+    del yes
+    if "shared" not in lps[0]["moe"]:
+        return ys
+    if _ffn_tp_active(ctx.geom, ctx.xp):
+        shared = _ffn_tp_apply(h2fs, [lp["moe"]["shared"] for lp in lps], ctx)
+        return [y + s for y, s in zip(ys, shared)]
+    out = []
+    for r, (y, x2d, lp) in enumerate(zip(ys, h2fs, lps)):
+        banks = pipe.get(("ffn", lid, r)) if has_unit else {}
+        out.append(_add_shared(y, x2d, lp["moe"], ctx, banks))
+        del banks
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1094,11 +1323,19 @@ def apply_layer(xs, lps, sig: LayerSig, ctx: Ctx, lstates, pipe: BankPipeline, l
     ``lpreds`` is the layer's incoming per-rank ``PredictState`` (predictive
     decode). Returns ``(xs, new_states, new_preds)``."""
     cfg, eps = ctx.cfg, ctx.cfg.norm_eps
-    keys = gather_set(sig, ctx.geom, ctx.xp, cfg)
+    geom, xp = ctx.geom, ctx.xp
+    keys = gather_set(sig, geom, xp, cfg)
     hs = [rms_norm(x, lp["norm1"], eps) for x, lp in zip(xs, lps)]
-    attn_banks = pipe.get(("attn", lid)) if "attn" in keys else None
-    outs, new_states = _attn_layer(hs, lps, sig, ctx, lstates, attn_banks)
-    del attn_banks
+    if "attn" in keys:
+        attn_banks = pipe.get(("attn", lid))
+        outs, new_states = _attn_layer(hs, lps, sig, ctx, lstates, attn_banks)
+        del attn_banks
+    elif geom.attn_axes and _qgather_ok(geom, xp):
+        outs, new_states = _attn_qgather_layer(hs, lps, sig, ctx, lstates)
+    elif geom.attn_axes:
+        outs, new_states = _attn_tp_layer(hs, lps, sig, ctx), lstates
+    else:
+        outs, new_states = _attn_layer(hs, lps, sig, ctx, lstates, None)
     xs = [x + o for x, o in zip(xs, outs)]
     new_preds = None
     if "norm2" in lps[0]:
@@ -1106,9 +1343,13 @@ def apply_layer(xs, lps, sig: LayerSig, ctx: Ctx, lstates, pipe: BankPipeline, l
         h2s = [rms_norm(x, lp["norm2"], eps) for x, lp in zip(xs, lps)]
         b, s, dm = h2s[0].shape
         h2fs = [h.reshape(b * s, dm) for h in h2s]
-        if sig.is_moe and demand_fetch_active(cfg, ctx.geom, ctx.xp):
+        if sig.is_moe and demand_fetch_active(cfg, geom, xp):
             ys, new_preds = _moe_demand_layer(h2fs, lps, ctx, pipe, lid, b, lpreds,
                                               bool(ffn_keys))
+        elif sig.is_moe and _experts_all_to_all(geom, xp):
+            ys = _moe_dep_layer(h2fs, lps, ctx, pipe, lid, b, bool(ffn_keys))
+        elif not sig.is_moe and _ffn_tp_active(geom, xp):
+            ys = _ffn_tp_apply(h2fs, [lp["ffn"] for lp in lps], ctx)
         else:
             ys = []
             for r, lp in enumerate(lps):
@@ -1156,7 +1397,7 @@ def _pipeline_units(params, ctx: Ctx, preds=None) -> list:
         lid = (group.name, c, j)
         lps = _layer_params(params, group, c, j)
         if "attn" in keys:
-            units.append((("attn", lid), lambda st, lps=lps: gather_attn(lps, geom, st)))
+            units.append((("attn", lid), lambda st, lps=lps: gather_attn(lps, ctx, st)))
         ffn_keys = tuple(k for k in keys if k != "attn")
         if ffn_keys:
             lpreds = _layer_preds(preds, group, c, j)
@@ -1227,6 +1468,12 @@ def forward_prefill(params: list[dict], tokens: torch.Tensor, ctx: Ctx) -> dict:
     ``overflow_layers`` (0-d int32) how many did: under ``ctx.deferred``
     the outputs are then not the exact ones (see :meth:`Ctx.overflowed`)."""
     _check_sharding(ctx)
+    if ctx.capture_len and not captures_kv(ctx.geom, ctx.xp):
+        raise ValueError(
+            "a DEP prefill runs attention tensor-parallel, which captures no KV "
+            "state (as in the JAX package): prefill with mode 'dwdp' or 'hybrid' "
+            "to feed a decode state"
+        )
     n = ctx.model.n_ranks
     b, s = tokens.shape
     if s % n:

@@ -147,6 +147,31 @@ def merge_split_bank(bank: SplitBank, rank: int, placement: Placement) -> PyTree
     return tree_map(merge, bank.local, bank.remote)
 
 
+def gather_merged(shards: list, rank: int, placement: Placement, *, copy_stream=None) -> PyTree:
+    """The legacy merged landing of ``rank`` (``execution._gather_leading``
+    of the JAX package, DEP's decode-time attention gather): every shard of
+    the rank's subgroup, its own included, copied into one contiguous
+    canonical ``(G' * local, ...)`` buffer per leaf — subgroup position
+    ``q``'s shard at rows ``[q * local, (q + 1) * local)``. On
+    ``copy_stream`` when one is given (allocated on the current stream, as
+    :func:`gather_remote_shards`); every landed byte counts in
+    :data:`LANDED`."""
+    members = [shards[q] for q in subgroup_ranks(rank, placement)]
+
+    def land(*parts):
+        n = parts[0].shape[0]
+        out = torch.empty((n * len(parts),) + tuple(parts[0].shape[1:]),
+                          dtype=parts[0].dtype, device=parts[0].device)
+        on_side = torch.cuda.stream(copy_stream) if copy_stream is not None else contextlib.nullcontext()
+        with on_side:
+            for q, src in enumerate(parts):
+                out[q * n:(q + 1) * n].copy_(src, non_blocking=True)
+        LANDED.bytes += out.numel() * out.element_size()
+        return out
+
+    return tree_map(land, *members)
+
+
 # --------------------------------------------------------------------------
 # On-demand expert fetch: the two-round route-before-gather primitive.
 # --------------------------------------------------------------------------

@@ -1,16 +1,21 @@
 """Execution plans: activation sharding and per-family gather policies.
 
-The port of the parts of ``repro.core.strategy`` the DWDP all-fetch path
-reads: ``GatherPolicy`` / ``PolicyTable`` (the per-family configuration
-surface — ``moe_experts``, ``attn_qkv``, ``attn_out``, ``dense_ffn``),
+The port of the parts of ``repro.core.strategy`` the forward reads:
+``GatherPolicy`` / ``PolicyTable`` (the per-family configuration surface
+— ``moe_experts``, ``attn_qkv``, ``attn_out``, ``dense_ffn``),
 ``ExecutionPlan``, ``plan_activation_sharding`` and
 ``make_execution_plan``. The roofline ``auto`` resolver and the
-deprecated flat knobs are not ported. The port executes
+deprecated flat knobs are not ported. The port runs the modes ``dwdp``,
+``dep`` and ``hybrid`` (``replicated`` is refused) and executes
 ``split:all:allgather`` for every family, and for ``moe_experts`` also
 the route-before-gather fetches ``demand``, ``predictive`` and
 ``sync_free`` (with their ``budget`` / ``cache_budget``) over the
 ``allgather`` transport; other policies validate here and are refused by
-``make_execution_plan`` until their slices land.
+``make_execution_plan`` until their slices land. Under ``dep`` and
+``hybrid`` the experts stay put (an all-to-all moves the tokens), so an
+expert fetch other than ``all`` engages nowhere and runs as the
+all-to-all, as in the JAX package; DEP's decode gathers attention in the
+merged layout whatever the family's layout.
 """
 from __future__ import annotations
 
@@ -25,6 +30,9 @@ MODES = ("dwdp", "dep", "replicated", "hybrid")
 PREFETCH_MODES = ("allgather", "ring", "ring_sliced")
 WEIGHT_LAYOUTS = ("merged", "split")
 CAPACITY_FROM = ("local", "global")
+DECODE_ATTN = ("gather", "qgather")
+#: The modes the port runs.
+PORTED_MODES = ("dwdp", "dep", "hybrid")
 EXPERT_FETCH = ("all", "demand", "predictive", "sync_free")
 GATHER_FAMILIES = ("moe_experts", "attn_qkv", "attn_out", "dense_ffn")
 
@@ -129,7 +137,7 @@ PolicyLike = Union[None, PolicyTable, GatherPolicy]
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
-    mode: str                        # dwdp (the only ported mode)
+    mode: str                        # dwdp | dep | hybrid
     phase: str                       # prefill | decode
     batch_axes: tuple[str, ...]
     seq_axes: tuple[str, ...]
@@ -138,6 +146,9 @@ class ExecutionPlan:
     global_batch: int
     seq_len: int
     policies: PolicyTable = PolicyTable()
+    # decode attention over sharded weights: "gather" the weights each
+    # layer, or "qgather": keep them sharded and move q/k/v instead
+    decode_attn: str = "gather"
     capacity_from: str = "local"
 
     def policy(self, family: str, group: Optional[str] = None) -> GatherPolicy:
@@ -211,12 +222,15 @@ def make_execution_plan(
     mode: str = "dwdp",
     policy: PolicyLike = None,
     capacity_factor: float = 1.25,
+    decode_attn: str = "gather",
     capacity_from: str = "local",
 ) -> ExecutionPlan:
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
-    if mode != "dwdp":
-        raise NotImplementedError(f"mode {mode!r} is not ported yet (only 'dwdp')")
+    if mode not in PORTED_MODES:
+        raise NotImplementedError(f"mode {mode!r} is not ported yet (only {PORTED_MODES})")
+    if decode_attn not in DECODE_ATTN:
+        raise ValueError(f"decode_attn must be one of {DECODE_ATTN}, got {decode_attn!r}")
     if capacity_from not in CAPACITY_FROM:
         raise ValueError(f"capacity_from must be one of {CAPACITY_FROM}")
     if policy is None:
@@ -245,5 +259,6 @@ def make_execution_plan(
         global_batch=shape.global_batch,
         seq_len=shape.seq_len,
         policies=table,
+        decode_attn=decode_attn,
         capacity_from=capacity_from,
     )

@@ -1,13 +1,17 @@
 """Serving entry point of the port: ``build_engine``, ``run_serving`` and
 the command line.
 
-The counterpart of ``repro.launch.serve``: a DWDP context server and
+The counterpart of ``repro.launch.serve``: a context server and a
 generation server over one model whose ``model`` mesh axis is G logical
-ranks on one device. Runs on the card unless the caller passes
+ranks on one device. The command line takes the reference's defaults, a
+DWDP context server (``--ctx-mode dwdp``) feeding a DEP generation server
+(``--gen-mode dep``); ``build_engine``'s keyword default stays
+``gen_mode="dwdp"``. Runs on the card unless the caller passes
 ``device="cpu"`` (``--device cpu``); on the card every step is a
 captured CUDA graph unless the caller passes ``graphs=False``.
 
     python -m repro_torch.launch.serve --arch deepseek-r1 --requests 4
+    python -m repro_torch.launch.serve --arch deepseek-r1 --gen-mode dwdp --requests 4
     python -m repro_torch.launch.serve --arch deepseek-r1 --serving --replicas 2
 
 The first runs the engine's fixed loop; ``--serving`` serves a seeded
@@ -67,6 +71,13 @@ def build_engine(
 ):
     """Returns ``(DisaggregatedEngine, model)``.
 
+    ``ctx_mode`` and ``gen_mode`` (dwdp | dep | hybrid) are the two
+    servers' strategies. ``gen_mode`` defaults to ``"dwdp"`` here, where
+    the reference's ``build_engine`` and both command lines default to
+    ``"dep"``: the callers of this function (tests, ``chip_smoke.py``)
+    serve DWDP unless they ask. A DEP context server is refused (its
+    tensor-parallel prefill captures no KV state).
+
     ``params`` is a per-rank parameter list for this model (for instance
     from ``checkpoint.convert.from_jax_params``); by default the weights
     are drawn from a ``torch.Generator`` seeded with ``seed`` on the
@@ -110,7 +121,8 @@ def build_engine(
 def _engine(args, cfg, *, prefill_len: int, prefill_buckets: tuple = (), cache_len: int):
     return build_engine(
         cfg, mesh_shape=args.mesh, prefill_len=prefill_len, prefill_buckets=prefill_buckets,
-        cache_len=cache_len, max_batch=args.max_batch, capacity_from=args.capacity_from,
+        cache_len=cache_len, max_batch=args.max_batch, ctx_mode=args.ctx_mode,
+        gen_mode=args.gen_mode, capacity_from=args.capacity_from,
         expert_fetch=args.expert_fetch, demand_budget=args.demand_budget,
         cache_budget=args.cache_budget, device=args.device,
         geom_kwargs=SERVE_GEOMETRY.get(args.arch),
@@ -178,6 +190,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--max-batch", type=int, default=2,
                     help="decode slots (a multiple of the model axis would shard the decode "
                          "batch, which the port does not run yet)")
+    ap.add_argument("--ctx-mode", default="dwdp", choices=["dwdp", "hybrid", "dep"],
+                    help="context-server strategy (dep is refused: its tensor-parallel "
+                         "prefill attention captures no KV state)")
+    ap.add_argument("--gen-mode", default="dep", choices=["dep", "dwdp"],
+                    help="generation-server strategy: DEP, the paper's baseline (experts "
+                         "stay put, tokens move by all-to-all), or DWDP (weights move)")
     ap.add_argument("--capacity-from", default="local", choices=["local", "global"],
                     help="MoE capacity from the local shard's rows or per row")
     ap.add_argument("--expert-fetch", default="all",
@@ -225,8 +243,8 @@ def main(argv=None) -> dict:
                         cache_len=args.prefill_len + args.output_len)
     if not args.no_warmup:
         print(f"warmup: {engine.warmup()} decode variant(s) captured")
-    print("ctx policies:", engine.ctx.xp.policies.describe())
-    print("gen policies:", engine.gen.xp.policies.describe())
+    print(f"ctx {engine.ctx.xp.mode} policies:", engine.ctx.xp.policies.describe())
+    print(f"gen {engine.gen.xp.mode} policies:", engine.gen.xp.policies.describe())
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         engine.submit(Request(i, rng.integers(0, cfg.vocab_size, args.prefill_len),

@@ -5,11 +5,17 @@ engine that moves requests between them.
 The port of ``repro.runtime.engine`` (``validate_restore_plan``,
 ``variant_key``, ``CountingStep``, ``PolicyVariantCache``, ``Request``,
 ``ContextServer``, ``GenerationServer``, ``DisaggregatedEngine``) for the
-DWDP path with the all-fetch and the route-before-gather expert fetches
-(``expert_fetch`` demand / predictive / sync_free; the generation server
-carries the predictive state across decode steps and keeps each step's
+``dwdp``, ``dep`` and ``hybrid`` modes, with the all-fetch and the
+route-before-gather expert fetches (``expert_fetch`` demand / predictive
+/ sync_free, which engage under dwdp only; the generation server carries
+the predictive state across decode steps and keeps each step's
 ``pred_stats``), and the slot snapshots the serving layer's
-evict-to-queue takes (``GenerationServer.snapshot_slot``).
+evict-to-queue takes (``GenerationServer.snapshot_slot``). The
+reference's default serving configuration, a DWDP context server feeding
+a DEP generation server, hands the prefill's KV state over unchanged: both
+servers keep the ring sequence-sharded at one ``cache_len``. A DEP context
+server is refused: DEP's tensor-parallel prefill attention captures no KV
+state, in the JAX package as here.
 
 Every step a server runs is one variant of a :class:`PolicyVariantCache`
 keyed as the JAX package keys its jit variants: the policy table, the
@@ -280,6 +286,10 @@ class PolicyVariantCache:
     def _captured(self) -> None:
         self.n_captures += 1
 
+    def _key(self, table: PolicyTable, excl: tuple, shape: Optional[InputShape]) -> tuple:
+        """The entry key: the cache's mode, then :func:`variant_key`."""
+        return (self._mode, *variant_key(table, shape if shape is not None else self.shape, excl))
+
     def get(self, table: PolicyTable, excl: tuple = (), shape: Optional[InputShape] = None):
         """The (plan, step) variant of a policy table, built on a miss.
         ``shape`` overrides the home shape bucket (the context server's
@@ -287,15 +297,15 @@ class PolicyVariantCache:
         if excl:
             raise NotImplementedError(
                 "peer exclusion (the degradation ladder's rungs) is not ported yet")
-        shape = shape if shape is not None else self.shape
-        key = variant_key(table, shape, excl)
+        key = self._key(table, excl, shape)
         if key in self._entries:
             self.stats["hits"] += 1
             self._entries[key] = self._entries.pop(key)  # refresh the LRU position
             return self._entries[key]
         self.stats["misses"] += 1
-        xp = make_execution_plan(self.model, shape, self._mesh_sizes, mode=self._mode,
-                                 policy=table, capacity_from=self._capacity_from)
+        xp = make_execution_plan(self.model, shape if shape is not None else self.shape,
+                                 self._mesh_sizes, mode=self._mode, policy=table,
+                                 capacity_from=self._capacity_from)
         entry = (xp, self._build(xp))
         entry[1].on_capture = self._captured
         while len(self._entries) >= self.max_entries:
@@ -307,8 +317,7 @@ class PolicyVariantCache:
     def adopt(self, table: PolicyTable, excl: tuple, entry,
               shape: Optional[InputShape] = None) -> None:
         """Seed the cache with an already-built variant without a miss."""
-        key = variant_key(table, shape if shape is not None else self.shape, excl)
-        self._entries.setdefault(key, entry)
+        self._entries.setdefault(self._key(table, excl, shape), entry)
 
 
 # --------------------------------------------------------------------------
@@ -367,8 +376,16 @@ class ContextServer:
         self.fallbacks = self.overflow_layers = 0
         self._table = PolicyTable.uniform(fetch=expert_fetch, budget=demand_budget,
                                           cache_budget=cache_budget)
+        shape = InputShape("ctx", prefill_len, 1, "prefill")
+        if not execution.captures_kv(model.geom, make_execution_plan(
+                model, shape, mesh_sizes, mode=mode, policy=self._table)):
+            raise ValueError(
+                f"ContextServer(mode={mode!r}): DEP's tensor-parallel prefill attention "
+                "captures no KV state (nor does the JAX package's: its DEP context server "
+                "fails at the first prefill), so there is no decode state to hand over; "
+                "serve the context phase with mode 'dwdp' (the default) or 'hybrid'")
         self.variants = PolicyVariantCache(
-            model, mesh_sizes, InputShape("ctx", prefill_len, 1, "prefill"), self._build,
+            model, mesh_sizes, shape, self._build,
             mode=mode, capacity_from=capacity_from,
             max_entries=max(16, len(self.prefill_lens)),
         )
@@ -675,6 +692,12 @@ class DisaggregatedEngine:
     """Queues + rate matching between the context and generation servers."""
 
     def __init__(self, params, ctx: ContextServer, gen: GenerationServer):
+        kv = {name: (srv.cache_len, srv.xp.seq_axes) for name, srv in
+              (("context", ctx), ("generation", gen))}
+        if kv["context"] != kv["generation"]:
+            raise ValueError(
+                "the context server's KV state does not fit the generation server's ring "
+                f"(cache_len, sequence axes): {kv}")
         self.params = params
         self.ctx = ctx
         self.gen = gen

@@ -577,3 +577,46 @@ def test_cuda_graph_forced_overflow_rerun_and_eviction():
     assert _graph_serve(small) == want
     assert small.gen.step.captures() == 1
     assert small.gen.variants.captures() == 2  # the eviction did not lower it
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gen_mode", ["dep", "hybrid"])
+def test_cuda_dep_graph_step_bitwise_eager(gen_mode):
+    """A DWDP context server feeding a DEP (or hybrid) generation server,
+    through graphs against the eager engine on the same weights: the same
+    tokens, no capture after warmup, one more decode step's logits bitwise
+    the eager deferred step's and free of host syncs — and the same for
+    DEP's qgather decode variant over the same state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from repro_torch.core import execution
+    from repro_torch.core.strategy import make_execution_plan
+
+    graph = _graph_engine(gen_mode=gen_mode)
+    eager = _graph_engine(params=graph.params, graphs=False, gen_mode=gen_mode)
+    assert graph.gen.xp.mode == gen_mode and "pred" not in graph.gen.state
+    graph.warmup()
+    eager.warmup()
+    warm = _captures(graph)
+    assert warm == (2, 1)
+    assert _graph_serve(graph) == _graph_serve(eager)
+    assert _captures(graph) == warm
+    variants = [(graph.gen.step, graph.gen.xp)]
+    if gen_mode == "dep":
+        gen = graph.gen
+        xq = make_execution_plan(gen.model, gen.variants.shape, gen.xp.mesh_sizes, mode="dep",
+                                 policy=gen.xp.policies, decode_attn="qgather",
+                                 capacity_from=gen.xp.capacity_from)
+        variants.append((gen._build(xq), xq))
+    for step, xp in variants:
+        step(graph.params)  # captures a new variant off the timed path
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits = step(graph.params)["logits"].clone()
+            ctx = execution.Ctx(model=eager.gen.model, xp=xp, deferred=True)
+            ref = execution.forward_decode(eager.params, eager.gen.cur_token, eager.gen.state,
+                                           ctx)["logits"]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(logits, ref), xp.decode_attn

@@ -1,5 +1,6 @@
 """The port's serving engine against the JAX package's, end to end — the
-engine loop and the serving layer's live client (rolling, epoch, and an
+engine loop (DWDP, and a DWDP context server feeding a DEP generation
+server) and the serving layer's live client (rolling, epoch, and an
 SLO-gated serve that evicts and resumes) against one JAX engine run — and
 the weights carried across (the card-only kernel test is
 tests/test_torch_cuda.py, which imports no JAX)."""
@@ -68,12 +69,12 @@ def jax_serve(r1_smoke):
     return jeng
 
 
-def _port_engine(r1_smoke):
+def _port_engine(r1_smoke, gen_mode="dwdp"):
     cfg, _, jparams, _ = r1_smoke
     model = build_model(cfg, {"data": 1, "model": 4}, device="cpu", **GEOM)
     eng, _ = build_engine(cfg, mesh_shape=(1, 4), prefill_len=PROMPT, cache_len=CACHE,
-                          max_batch=2, device="cpu", params=from_jax_params(jparams, model),
-                          geom_kwargs=GEOM)
+                          max_batch=2, gen_mode=gen_mode, device="cpu",
+                          params=from_jax_params(jparams, model), geom_kwargs=GEOM)
     return eng
 
 
@@ -95,6 +96,26 @@ def test_engine_tokens_match_jax_engine(r1_smoke, jax_serve):
     full = 3 * eng.ctx.gather_bytes["full"] + STEPS * eng.gen.gather_bytes["full"]
     assert summary["gathered_mb_full"] == round(full / 1e6, 3) > 0
     assert summary["gather_fetch_ratio"] == 1.0
+
+
+def test_dep_generation_server_matches_jax_engine(r1_smoke, jax_serve):
+    """The reference's default serving configuration: a DWDP context server
+    feeding a DEP generation server (all-to-all experts, tensor-parallel
+    FFN, merged decode attention) hands its KV over unchanged and gives the
+    JAX engine's streams (at (1, 1) the JAX package's DEP is its DWDP).
+    DEP decode gathers only the attention weights and attaches no
+    predictive state."""
+    prompts = r1_smoke[3]
+    eng = _port_engine(r1_smoke, gen_mode="dep")
+    assert (eng.ctx.xp.mode, eng.gen.xp.mode) == ("dwdp", "dep")
+    assert "pred" not in eng.gen.state
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p, OUT))
+    eng.run(STEPS)
+    assert not eng.busy()
+    assert eng.outputs == jax_serve.outputs
+    fams = eng.gen.gather_bytes["families"]
+    assert fams["attn_qkv"]["full"] > 0 and fams["moe_experts"]["full"] == 0
 
 
 def test_live_serving_matches_jax_engine(r1_smoke, jax_serve):

@@ -83,3 +83,25 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_chip_smoke_profile_kinds_by_namespace():
+    """The profile's kinds classify the port's kernels by their CUDA
+    namespaces: PyTorch's own ``reduce_kernel`` is other device work, not a
+    split kernel."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    kinds = {
+        "void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float> >(float)": "other",
+        "void split_hopper::hopper_kernel<1, 2, 1, 0>(CUtensorMap_st, CUtensorMap_st)": "split",
+        "split_hopper::finish_reduce_kernel(float const*, __nv_bfloat16*)": "split",
+        "void split_tile::grouped_kernel<float>(float const*)": "split",
+        "void fa::fa_wgmma_kernel<3>(CUtensorMap_st)": "attention",
+        "Memcpy DtoD (Device -> Device)": "landing",
+        "memcpy128": "landing",
+    }
+    for name, kind in kinds.items():
+        assert smoke.kernel_kind(name).startswith(kind), name
