@@ -109,14 +109,32 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    held at DEP's tensor-parallel prefill shapes in 3, and DEP's grouped
    expert FFN (``torch.bmm``, no kernel of the port) timed at its decode
    shape beside its byte bound;
-9. Gemma-3-27B (every width kept, 6 layers: one 5 local : 1 global
+9. mesh (data=2, model=4), on R1 1024's weights (the two data replicas
+   share the model ranks' tensors): the batch-sharded prefill, B = 4 on
+   (1, 4) and B = 8 on (2, 4) (each rank a whole 1024-token row), must
+   launch every kernel as often as the shapes say, with last logits within
+   LOGIT_TOL of the plain versions' and, in the no-drop regime, of each
+   prompt's seq-sharded B = 1 prefill; then ``build_engine(mesh_shape=(2,
+   4), max_batch=4)`` serves the 4 requests with a DWDP context server (each
+   prompt over all eight ranks) and generation in DEP, DWDP all-fetch and
+   DWDP demand (two slots per replica, the KV ring over model), each
+   through graphs as in 5 and then eagerly (the same tokens); from the
+   served state one decode step: replay time, profile, ``prefetch.LANDED``
+   equal to 8 x the modelled per-rank bytes, and its logits at row-local
+   capacity within LOGIT_TOL of a (1, 4) server's step on the same slots
+   (admitted from ``snapshot_slot``). TPOT, TTFT, TPS/user, TPS per card,
+   replay time, landed bytes and peak are printed beside the (1, 4) serves'
+   of this run. Kernels #2, #4-#7 are also held in 3 at this phase's
+   per-rank shapes (the (2, 4) context prefill's 128-token shards, a whole
+   1024-token row);
+10. Gemma-3-27B (every width kept, 6 layers: one 5 local : 1 global
    pattern), mesh (1, 4), random weights, graphs: 4 requests of 4096 tokens, 16
    output tokens each, max_batch 2. Every kernel of its path must launch
    (the dense split kernels and flash attention's window branch); prefill
    and decode-step logits against the plain versions; a request alone
    against among the others, tokens and first decode step's logits, as in
    5; TTFT, TPOT, peak, one profiled prefill;
-10. the serving layer (``runtime.serving``), each run with the launch counts
+11. the serving layer (``runtime.serving``), each run with the launch counts
    set to 0 just before and read just after, its kernels required: on the
    R1 1024 engine's weights and graph pool, servers with row-local
    capacity serve 4 requests (buckets 1024 and 512, 8 / 16 / 8 / 16 output
@@ -128,13 +146,13 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    each other's slot bitwise, no capture after warmup. In 6, the demand
    graph engine switched to predictive serves through the live client
    with a ``RoutedTraceRecorder``: (steps, 4, 256) bitmaps, at most top_k
-   x rows experts per rank, the all-fetch tokens. After 9, two Gemma-3
+   x rows experts per rank, the all-fetch tokens. After 10, two Gemma-3
    replicas behind ``MultiReplicaEngine`` serve a workload skewed to the
    4096 bucket: every request completed, the router's assignments
    printed. Each serving summary (TTFT, TPOT, TPS/user, TPS per card,
    ``gather_fetch_ratio``, predictive hit rates) is printed beside the
    landed bytes per decode step, with the card's name and power limit;
-11. a ``{"kernels": [...]}`` JSON line, then the last line
+12. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
@@ -142,6 +160,7 @@ Needs a CUDA device and the repository's ``src/`` beside this file.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -232,6 +251,19 @@ FLEET_OSL = 8
 # slowest.
 TIME_WINDOWS = 5
 WINDOW_MS = 40.0
+# Mesh (data=2, model=4): eight logical ranks, two data replicas of the DWDP
+# group of four, on R1 1024's weights (shared by the replicas); 4 decode
+# slots, two per replica. The generation modes served there: DEP (the
+# reference's default), DWDP all-fetch and DWDP demand.
+MESH24 = (2, 4)
+N_DP = MESH24[0] * MESH24[1]
+MAX_BATCH24 = 4
+DP_GEN = (("dep", "all"), ("dwdp", "all"), ("dwdp", "demand"))
+# The batch-sharded prefill compares its layouts in the no-drop regime: at
+# factor 1.25 the expert capacity follows each rank's token count (a
+# 256-token shard, a whole 1024-token row), so the two layouts drop
+# different tokens; factor 4.0, as the reference's layout comparisons.
+NO_DROP_FACTOR = 4.0
 
 
 def fail(msg: str) -> None:
@@ -507,6 +539,16 @@ def kernel_cases(cfg, gemma):
     c = capacity_for(t, e, cfg.moe.top_k, 1.25)
     cases.append(("split_grouped_swiglu", "prefill_8192", dict(c=c, d=d, f=fe, e=e, e_l=e // G)))
     cases += gemm_cases("prefill_8192", c, d, fe, e)
+    # mesh (2, 4): the context server's one-row prefill over 8 ranks (128
+    # tokens each) and the batch-sharded prefill (a whole 1024-token row per
+    # rank), at the expert capacity of those token counts
+    for phase, t in (("prefill_mesh2x4", PROMPT // N_DP), ("prefill_batch_sharded", PROMPT)):
+        c = capacity_for(t, e, cfg.moe.top_k, 1.25)
+        cases += [("split_stack_gemm", phase, dict(t=t, d=d, f=qd, s=a)),
+                  ("split_stack_gemm", f"{phase}_kv", dict(t=t, d=d, f=kvd, s=a)),
+                  ("split_reduce_gemm", phase, dict(t=t, d=d, f=qd, s=a)),
+                  ("split_dense_swiglu", phase, dict(t=t, d=d, f=fs, s=G)),
+                  ("split_grouped_swiglu", phase, dict(c=c, d=d, f=fe, e=e, e_l=e // G))]
     t, d = GEMMA_PROMPT // G, gemma.d_model
     for name, phase, f in (("split_stack_gemm", "gemma3_prefill", gemma.q_dim // G),
                            ("split_stack_gemm", "gemma3_prefill_kv", gemma.kv_dim // G),
@@ -705,7 +747,8 @@ def check_hopper_tile(gen) -> float:
 
 def flash_cases(r1, gemma) -> list:
     """(phase, shape) of flash attention per logical rank at G' = 4: the
-    prefill shards of R1's 1024-token prompt (first and last rank), R1's
+    prefill shards of R1's 1024-token prompt (first and last rank, on (1, 4)
+    and on (2, 4), and a whole row of the batch-sharded prefill), R1's
     8192-token prompt (last rank), DEP's tensor-parallel prefill of R1's
     1024- and 8192-token prompts (the whole sequence, 32 of the 128 heads,
     2 of the 8 kv heads) and Gemma-3's 4096-token prompt (last rank, a local
@@ -720,8 +763,20 @@ def flash_cases(r1, gemma) -> list:
         return dict(b=1, sq=prompt, sk=prompt, h=cfg.num_heads // G,
                     kh=cfg.num_kv_heads // G, hd=cfg.head_dim, q_offset=0, window=0)
 
+    def mesh24(rank):
+        # the (2, 4) context prefill: 8 sequence shards of the 1024 tokens
+        sq = PROMPT // N_DP
+        return dict(b=1, sq=sq, sk=PROMPT, h=r1.num_heads, kh=r1.num_kv_heads,
+                    hd=r1.head_dim, q_offset=rank * sq, window=0)
+
     return [("r1_1024_first", case(r1, PROMPT, 0, 0)),
             ("r1_1024_last", case(r1, PROMPT, G - 1, 0)),
+            ("r1_1024_mesh2x4_first", mesh24(0)),
+            ("r1_1024_mesh2x4_last", mesh24(N_DP - 1)),
+            # the batch-sharded prefill: a whole row per rank, every head
+            ("r1_1024_batch_sharded", dict(b=1, sq=PROMPT, sk=PROMPT, h=r1.num_heads,
+                                           kh=r1.num_kv_heads, hd=r1.head_dim, q_offset=0,
+                                           window=0)),
             ("r1_8192_last", case(r1, LONG_PROMPT, G - 1, 0)),
             ("r1_1024_dep_tp", dep_tp(r1, PROMPT)),
             ("r1_8192_dep_tp", dep_tp(r1, LONG_PROMPT)),
@@ -1561,6 +1616,341 @@ def dep_phase(cfg, params, prompts) -> dict:
 
 
 # --------------------------------------------------------------------------
+# Mesh (data=2, model=4): batch-sharded prefill, and serving on two replicas.
+# --------------------------------------------------------------------------
+def prefill_launches(model, xp) -> dict:
+    """The kernel launches one DWDP prefill under ``xp`` makes, from the
+    shapes: per rank and layer #4 three times (q, k, v), #5 and #7 once, #6
+    once per dense FFN (dense layers and shared experts), #2 once per MoE
+    layer."""
+    cfg, n = model.cfg, model.n_ranks
+    layers = cfg.num_layers
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(layers))
+    dense = (layers - moe_layers) + (moe_layers if cfg.moe.shared_d_ff else 0)
+    return {"split_stack_gemm": 3 * layers * n, "split_reduce_gemm": layers * n,
+            "flash_attention": layers * n, "split_dense_swiglu": dense * n,
+            "split_grouped_swiglu": moe_layers * n}
+
+
+def batch_sharded_prefill(cfg, params, rng) -> dict:
+    """DWDP prefill with the batch sharded over ``model``: B = 4 on (1, 4) and
+    B = 8 on (2, 4), 1024-token prompts, each rank a whole row. At the serving
+    factor (1.25) the launches of every kernel must equal the shapes' count
+    and the last logits be within LOGIT_TOL of the plain versions'; in the
+    no-drop regime (NO_DROP_FACTOR) within LOGIT_TOL of each prompt's
+    seq-sharded B = 1 prefill on (1, 4). Returns the numbers."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import execution
+    from repro_torch.core.strategy import make_execution_plan
+    from repro_torch.kernels import registry
+    from repro_torch.models.moe import capacity_for
+    from repro_torch.models.transformer import build_model, replicate_over_data
+
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, PROMPT)), device="cuda")
+    layouts = {}
+    for mesh, b in (((1, G), 4), (MESH24, 8)):
+        sizes = {"data": mesh[0], "model": mesh[1]}
+        model = build_model(cfg, sizes, dtype=torch.bfloat16, device="cuda", **GEOM)
+        layouts[mesh] = (model, sizes, replicate_over_data(params, sizes), b)
+    out = {}
+
+    def prefill(mesh, rows, factor, impl=None):
+        model, sizes, prm, _ = layouts[mesh]
+        xp = make_execution_plan(model, InputShape("p", PROMPT, len(rows), "prefill"), sizes,
+                                 capacity_factor=factor)
+        logits = execution.forward_prefill(prm, prompts[rows],
+                                           execution.Ctx(model=model, xp=xp, impl=impl))
+        return xp, logits["last_logits"][:, :cfg.vocab_size].float().clone()
+
+    # seq-sharded references: each prompt alone on (1, 4), in the no-drop regime
+    seq_ref = torch.cat([prefill((1, G), [i], NO_DROP_FACTOR)[1] for i in range(8)])
+    for mesh, (model, _, _, b) in layouts.items():
+        label = f"batch-sharded prefill B {b} on mesh {mesh}"
+        rows = list(range(b))
+        registry.reset_launch_counts()
+        clear_path_counts()
+        xp, got = prefill(mesh, rows, 1.25)
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in registry.launch_counts().items() if n}
+        paths = path_counts()
+        want = prefill_launches(model, xp)
+        print(f"{label}: batch axes {xp.batch_axes} seq axes {xp.seq_axes}, {PROMPT} tokens and "
+              f"expert capacity {capacity_for(PROMPT, cfg.moe.num_experts, cfg.moe.top_k, 1.25)} "
+              f"per rank; launches {json.dumps(counts)} (from the shapes {json.dumps(want)}); "
+              f"paths {json.dumps(paths)}")
+        if "model" not in xp.batch_axes or xp.seq_axes:
+            fail(f"{label}: the plan is not batch-sharded over model ({xp.batch_axes}, {xp.seq_axes})")
+        if counts != want:
+            fail(f"{label}: launches {counts} differ from the shapes' {want}")
+        check_paths(label, paths)
+        plain = prefill(mesh, rows, 1.25, impl="torch")[1]
+        row = {"launches": counts,
+               "vs_plain_err": logit_err(f"{label} logits, kernels vs plain", got, plain)}
+        del plain
+        _, nodrop = prefill(mesh, rows, NO_DROP_FACTOR)
+        row["vs_seq_sharded_err"] = logit_err(
+            f"{label} logits (factor {NO_DROP_FACTOR}) vs each prompt's seq-sharded B 1 "
+            f"prefill on (1, {G})", nodrop, seq_ref[:b])
+        out[f"mesh{mesh[0]}x{mesh[1]}_b{b}"] = row
+        del got, nodrop
+    peak = torch.cuda.max_memory_allocated()
+    out["peak_gb"] = peak / 1e9
+    print(f"batch-sharded prefill ({card_line()}): peak {peak / 1e9:.2f} GB")
+    if peak > PEAK_LIMIT:
+        fail(f"batch-sharded prefill: peak memory {peak / 1e9:.2f} GB > {PEAK_LIMIT / 1e9:.0f} GB")
+    del layouts, prompts, seq_ref
+    free_memory()
+    return out
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Record every ``moe.route_topk`` call of the port (per MoE layer and
+    rank, in rank order) as (top-k expert ids, gates)."""
+    from repro_torch.models import moe
+
+    calls, route = [], moe.route_topk
+
+    def record(*args, **kw):
+        d = route(*args, **kw)
+        calls.append((d.top_experts.clone(), d.gates.float().clone()))
+        return d
+
+    moe.route_topk = record
+    try:
+        yield calls
+    finally:
+        moe.route_topk = route
+
+
+def routing_diff(got: list, ref: list, top_k: int) -> dict:
+    """Tokens whose top-k expert sets differ between two recorded runs of
+    the same prefill, the gate margin between the k-th and the next expert
+    of each in ``ref``, and whether the last call's last token differs."""
+    import torch
+
+    if len(got) != len(ref):
+        fail(f"routing recorded {len(got)} calls against {len(ref)}")
+    tokens, differ, margins, last = 0, 0, [], False
+    for i, ((ea, _), (eb, gb)) in enumerate(zip(got, ref)):
+        rows = (ea.sort(-1).values != eb.sort(-1).values).any(-1)
+        if gb.shape[-1] > top_k:
+            top = gb.topk(top_k + 1, dim=-1).values
+            margins += (top[:, top_k - 1] - top[:, top_k])[rows].tolist()
+        tokens, differ = tokens + rows.numel(), differ + int(rows.sum())
+        last = bool(rows[-1]) if i == len(got) - 1 else last
+    return {"calls": len(got), "tokens": tokens, "tokens_differ": differ,
+            "last_token_differs": last, "margins": sorted(margins)[:8]}
+
+
+def context_prefill_drops(cfg, params, prompt) -> dict:
+    """The context server's layout of one prompt, B = 1, sequence-sharded:
+    over model on (1, 4) (256-token shards) and over data and model on (2, 4)
+    (128-token shards), the prompt the serves check first. At the serving
+    factor (1.25: expert capacity 16 on (1, 4), 6 on (2, 4)) a bf16 near-tie
+    in routing can flip which tokens the kernels and the plain versions drop;
+    in the no-drop regime (NO_DROP_FACTOR) nothing is dropped. Kernels vs
+    plain on both meshes at both factors, and (2, 4) vs (1, 4) in the
+    no-drop regime, each within LOGIT_TOL. In the no-drop regime the
+    routing of both paths is recorded (``recorded_routing``): the tokens
+    whose top-k expert sets differ, their gate margins, and whether the
+    last token's set differs (the last logits read only the last token's
+    MoE output). Returns the errors and the routing differences."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import execution
+    from repro_torch.core.strategy import make_execution_plan
+    from repro_torch.models.moe import capacity_for
+    from repro_torch.models.transformer import build_model, replicate_over_data
+
+    free_memory()
+    row = torch.as_tensor(np.asarray(prompt)[None, :], dtype=torch.int64, device="cuda")
+    out, nodrop = {}, {}
+    for mesh in ((1, G), MESH24):
+        sizes = {"data": mesh[0], "model": mesh[1]}
+        model = build_model(cfg, sizes, dtype=torch.bfloat16, device="cuda", **GEOM)
+        prm = replicate_over_data(params, sizes)
+        for factor in (1.25, NO_DROP_FACTOR):
+            xp = make_execution_plan(model, InputShape("p", len(prompt), 1, "prefill"), sizes,
+                                     capacity_factor=factor)
+            if xp.seq_axes != tuple(a for a in ("data", "model") if sizes[a] > 1):
+                fail(f"context prefill on mesh {mesh}: seq axes {xp.seq_axes}")
+            logits, routes = {}, {}
+            for impl in (None, "torch"):
+                with recorded_routing() as routes[impl]:
+                    logits[impl] = execution.forward_prefill(
+                        prm, row, execution.Ctx(model=model, xp=xp, impl=impl)
+                    )["last_logits"][:, :cfg.vocab_size].float().clone()
+            cap = capacity_for(xp.local_seq, cfg.moe.num_experts, cfg.moe.top_k, factor)
+            out[f"mesh{mesh[0]}x{mesh[1]}_f{factor}"] = logit_err(
+                f"context prefill B 1 on mesh {mesh} ({xp.local_seq} tokens and expert capacity "
+                f"{cap} per rank, factor {factor}) logits kernels vs plain",
+                logits[None], logits["torch"])
+            if factor == NO_DROP_FACTOR:
+                nodrop[mesh] = logits[None]
+                out[f"mesh{mesh[0]}x{mesh[1]}_routing"] = diff = routing_diff(
+                    routes[None], routes["torch"], cfg.moe.top_k)
+                print(f"context prefill B 1 on mesh {mesh} (factor {factor}) routing, kernels vs "
+                      f"plain: {json.dumps(diff)}")
+            del logits, routes
+        del model, prm
+    out["mesh2x4_vs_mesh1x4_nodrop"] = logit_err(
+        f"context prefill B 1 (factor {NO_DROP_FACTOR}) logits, mesh {MESH24} vs (1, {G}), kernels",
+        nodrop[MESH24], nodrop[(1, G)])
+    del nodrop, row
+    free_memory()
+    return out
+
+
+def modelled_landed(model, xp) -> float:
+    """``prefetch.LANDED`` of one decode step on every rank, from the wire-byte
+    model: each rank lands its split banks' remote shards (DEP's merged
+    landing also copies the rank's own shard: G / (G - 1) of the model's
+    remote bytes) and, under the demand fetch, the payload rows alone (the
+    model's per-layer index bitmaps are wire bytes, not landed)."""
+    from repro_torch.core import execution
+
+    cfg, geom = model.cfg, model.geom
+    fams = execution.gathered_wire_bytes_per_step(model, xp)["families"]
+    dense = sum(fams[f]["fetched"] for f in ("attn_qkv", "attn_out", "dense_ffn"))
+    if xp.mode == "dep":
+        dense *= G / (G - 1)
+    experts = fams["moe_experts"]["fetched"]
+    if execution.demand_fetch_active(cfg, geom, xp):
+        pl = geom.moe_placement
+        budget = min(execution.resolve_demand_budget(cfg, geom, xp), pl.local_count)
+        pe = 3 * cfg.d_model * cfg.moe.d_ff * model.dtype.itemsize
+        n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+        experts = n_moe * (pl.subgroup_size - 1) * budget * pe
+    return model.n_ranks * (dense + experts)
+
+
+def mesh24_phase(cfg, params, prompts, ref14: dict) -> dict:
+    """Serving on mesh (2, 4), max_batch 4, R1 1024's weights shared by the
+    two replicas: a DWDP context server (each prompt sharded over all eight
+    ranks) feeding a generation server (two slots per replica, the KV ring
+    over model) in each of DP_GEN, through graphs (``serve_phase``: captures
+    flat after warmup, the replays' launches measured, prefill and decode
+    logits against the plain versions, peak under the limit), then eagerly:
+    the same tokens. From the served state one decode step: its replay time
+    and profile, ``prefetch.LANDED`` against N_DP x the modelled per-rank
+    bytes, and its logits at row-local capacity against a (1, 4) server's
+    step on the same slots (admitted from ``snapshot_slot``). The numbers
+    are printed beside the (1, 4) ones of this run (``ref14``)."""
+    import torch
+    from repro_torch.core import execution
+    from repro_torch.core.strategy import make_execution_plan
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models.transformer import build_model, replicate_over_data
+    from repro_torch.runtime.engine import GenerationServer
+
+    sizes14 = {"data": 1, "model": G}
+    sizes24 = {"data": MESH24[0], "model": MESH24[1]}
+    params24 = replicate_over_data(params, sizes24)
+    model14 = build_model(cfg, sizes14, dtype=torch.bfloat16, device="cuda", **GEOM)
+    out = {}
+    for gen_mode, fetch in DP_GEN:
+        name = gen_mode if gen_mode == "dep" else f"{gen_mode}_{fetch}"
+        label = f"{cfg.name} {PROMPT} mesh (2, 4) dwdp ctx + {gen_mode} gen, fetch {fetch}"
+        kw = dict(mesh_shape=MESH24, prefill_len=PROMPT, prefill_buckets=(PROMPT // 2,),
+                  cache_len=PROMPT + OUTPUT, max_batch=MAX_BATCH24, dtype=torch.bfloat16,
+                  device="cuda", params=params24, geom_kwargs=GEOM, gen_mode=gen_mode,
+                  expert_fetch=fetch)
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        eng, model = build_engine(cfg, **kw)
+        gen = eng.gen
+        if (eng.ctx.xp.seq_axes, gen.xp.batch_axes, gen.xp.seq_axes) != (
+                ("data", "model"), ("data",), ("model",)):
+            fail(f"{label}: plans ctx seq {eng.ctx.xp.seq_axes}, gen batch {gen.xp.batch_axes} "
+                 f"seq {gen.xp.seq_axes}")
+        demand = execution.demand_fetch_active(cfg, model.geom, gen.xp)
+        if demand != (fetch == "demand"):
+            fail(f"{label}: the decode plan's demand path is {demand}")
+        kernels = ALL_FETCH_KERNELS + (("split_grouped_swiglu_demand",) if demand else ())
+        row, outputs = serve_phase(label, cfg, eng, prompts, kernels)
+        step = snapshot_step(f"{name} mesh (2, 4) graph", eng, snapshot(gen))
+        step_logits = step.pop("logits")
+        row.update(step)
+        landed = gen.step.record[("landed", "bytes")] if gen.step.record else 0
+        want = modelled_landed(model, gen.xp)
+        row["landed_gb_per_decode_step"] = landed / 1e9
+        row["modelled_landed_gb"] = want / 1e9
+        print(f"{label}: landed per decode step (prefetch.LANDED, {N_DP} ranks) "
+              f"{landed / 1e9:.3f} GB, the model's {N_DP} x per-rank bytes {want / 1e9:.3f} GB "
+              f"(per rank fetched {gen.gather_bytes['fetched'] / 1e9:.3f} of "
+              f"{gen.gather_bytes['full'] / 1e9:.3f} GB)")
+        if abs(landed - want) > 1e-9 * want:
+            fail(f"{label}: landed {landed} bytes a decode step, the model {want}")
+        # the same slots' step at row-local capacity on (2, 4) and on a (1, 4)
+        # server: slots 0-1 and then 2-3 admitted from snapshot_slot
+        table = gen.xp.policies
+        xp24 = make_execution_plan(model, gen.variants.shape, sizes24, mode=gen_mode,
+                                   policy=table, capacity_from="global")
+        with in_pool(eng):
+            got = execution.forward_decode(eng.params, gen.cur_token, gen.state,
+                                           execution.Ctx(model=model, xp=xp24))
+            got = got["logits"][:, :cfg.vocab_size].float().clone()
+        snaps = [{k: v for k, v in gen.snapshot_slot(i).items() if k != "plan"}
+                 for i in range(MAX_BATCH24)]
+        ref = []
+        for pair in ((0, 1), (2, 3)):
+            gen14 = GenerationServer(model14, sizes14, mode=gen_mode, max_batch=MAX_BATCH,
+                                     cache_len=gen.cache_len, capacity_from="global",
+                                     expert_fetch=fetch, space=gen.space)
+            for j, i in enumerate(pair):
+                gen14.admit(j, i, snaps[i]["token"], snaps[i])
+            xp14 = make_execution_plan(model14, gen14.variants.shape, sizes14, mode=gen_mode,
+                                       policy=table, capacity_from="global")
+            with in_pool(eng):
+                o = execution.forward_decode(params, gen14.cur_token, gen14.state,
+                                             execution.Ctx(model=model14, xp=xp14))
+                ref.append(o["logits"][:, :cfg.vocab_size].float().clone())
+            del gen14, o
+        row["vs_mesh1x4_err"] = logit_err(
+            f"{label}: a decode step at row-local capacity, (2, 4) vs a (1, {G}) server on the "
+            f"same slots", got, torch.cat(ref))
+        del got, ref, snaps, step_logits
+        phase_peak = torch.cuda.max_memory_allocated()
+        row["mesh24_phase_peak_gb"] = phase_peak / 1e9
+        if phase_peak > PEAK_LIMIT:
+            fail(f"{label}: peak memory {phase_peak / 1e9:.2f} GB > {PEAK_LIMIT / 1e9:.0f} GB")
+        del eng, gen, model
+        free_memory()
+        eager, _ = build_engine(cfg, graphs=False, **kw)
+        eager_outputs = serve(eager, prompts)
+        row["eager_tpot_p50_s"] = eager.metrics.summary(horizon=eager.horizon())["tpot_p50_s"]
+        print(f"{label}: graph and eager serves give the same tokens "
+              f"{eager_outputs == outputs}; eager tpot_p50_s {row['eager_tpot_p50_s']:.4f}")
+        if eager_outputs != outputs:
+            fail(f"{label}: the eager serve gave other tokens: {eager_outputs} vs {outputs}")
+        del eager
+        free_memory()
+        out[name] = row
+    compare = {name: {"mesh2x4": headline(row["summary"], row["replay_ms"],
+                                          row["landed_gb_per_decode_step"], row["peak_gb"],
+                                          row["eager_tpot_p50_s"]),
+                      "mesh1x4": ref14[name]} for name, row in out.items()}
+    print(f"mesh (2, 4) vs (1, {G}) ({card_line()}; R1 {PROMPT}, 4 requests x {OUTPUT} tokens; "
+          f"max_batch {MAX_BATCH24} vs {MAX_BATCH}; tps_per_gpu counts one card, whose logical "
+          f"ranks share it): " + json.dumps(compare))
+    out["vs_mesh1x4"] = compare
+    return out
+
+
+def headline(summary: dict, replay_ms, landed_gb, peak_gb, eager_tpot) -> dict:
+    """A serve's numbers for the (2, 4) against (1, 4) line."""
+    return dict({k: summary[k] for k in ("tpot_p50_s", "ttft_p50_s", "mean_tps_user",
+                                          "tps_per_gpu")},
+                replay_ms=replay_ms, landed_gb=landed_gb, peak_gb=peak_gb,
+                eager_tpot_p50_s=eager_tpot)
+
+
+# --------------------------------------------------------------------------
 # The serving layer: ServingScheduler over LiveReplicaClient, and replicas.
 # --------------------------------------------------------------------------
 def served_requests(prompts, lens) -> list:
@@ -1974,6 +2364,18 @@ def main() -> None:
 
     # ---- DEP: a DWDP context server feeding a DEP generation server ---------
     dep = dep_phase(cfg, params, prompts)
+    free_memory()
+
+    # ---- mesh (2, 4): batch-sharded prefill, serving on two data replicas ---
+    batch_sharded = batch_sharded_prefill(cfg, params, np.random.default_rng(24))
+    context_drops = context_prefill_drops(cfg, params, prompts[0])
+    ref14 = {"dep": headline(dep["summary"], dep["replay_ms"], dep["landed_gb"], dep["peak_gb"],
+                             dep["eager_tpot_p50_s"])}
+    for fetch in ("all", "demand"):
+        g, e = modes[fetch]["graph"], modes[fetch]["eager"]
+        ref14[f"dwdp_{fetch}"] = headline(g, g["replay_ms"], g["landed_gb"], g["peak_gb"],
+                                          e["tpot_p50_s"])
+    mesh24 = mesh24_phase(cfg, params, prompts, ref14)
     del params
     free_memory()
     rolling = {"dep": dep["rolling"]["summary"], "dwdp_all_row_local": serving["rolling"]["summary"]}
@@ -2044,6 +2446,10 @@ def main() -> None:
             "launches": launches[name],
             "launches_r1_8192": r1_long["launches"][name],
             "launches_r1_1024_dep": dep["launches"][name],
+            **{f"launches_r1_1024_mesh2x4_{m}": mesh24[m]["launches"][name]
+               for m in mesh24 if m != "vs_mesh1x4"},
+            **{f"launches_r1_1024_batch_sharded_{k}": v["launches"].get(name, 0)
+               for k, v in batch_sharded.items() if k != "peak_gb"},
             "launches_gemma3_4096": gemma["launches"][name],
             "max_abs_err": dec["max_abs_err"],
             "max_rel_err": dec["max_rel_err"],
@@ -2081,6 +2487,9 @@ def main() -> None:
               "model_gb_per_rank_decode_step": serving["rolling"]["model_gb_per_rank_decode_step"],
               "r1_1024_predictive": predictive["summary"],
               "r1_1024_dep_rolling": dep["rolling"]["summary"],
+              "r1_1024_mesh2x4": {m: r["summary"] for m, r in mesh24.items() if m != "vs_mesh1x4"},
+              "r1_1024_batch_sharded_prefill": batch_sharded,
+              "r1_1024_context_prefill_drops": context_drops,
               "grouped_ffn_dep_decode": grouped_ffn_row,
               "gemma3_fleet": fleet["summary"], "gemma3_fleet_assignments": fleet["assignments"]}))
     print(f"total_s {time.perf_counter() - t_start:.1f}")

@@ -6,7 +6,10 @@ and returns the port's per-logical-rank trees, following the JAX
 package's partition specs (``transformer.py:332-452``): ``embed`` split
 by rows over ``model``, ``lm_head`` by columns, attention / FFN / expert
 stacks along their leading shard axis, router and norms replicated,
-scan groups keeping their leading cycle axis. ``load_npz`` reads the
+scan groups keeping their leading cycle axis. On a mesh with data
+replicas the JAX tree is the one of the ``(1, G)`` geometry (the weights
+are sharded over ``model`` only) and rank ``d * G + m`` shares model rank
+``m``'s tensors (``transformer.replicate_over_data``). ``load_npz`` reads the
 ``save_pytree`` layout (``key@chunkN`` entries plus ``__tree_meta__``)
 with numpy alone.
 """
@@ -17,7 +20,7 @@ import json
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import Model, ffn_pad, split_leading
+from repro_torch.models.transformer import Model, ffn_pad, replicate_over_data, split_leading
 
 _META = "__tree_meta__"
 
@@ -57,12 +60,12 @@ def load_npz(path: str) -> dict:
 
 def from_jax_params(params: dict, model: Model, device=None) -> list[dict]:
     """The port's per-rank parameter list from a JAX parameter tree built
-    for the same mesh sizes and geometry overrides as ``model``."""
+    for the same model axis and geometry overrides as ``model``."""
     cfg, geom = model.cfg, model.geom
     sizes = model.sizes
     dev = torch.device(device) if device is not None else model.device
     dt = model.dtype
-    n = model.n_ranks
+    n = geom.model_size
 
     def t(a):
         return _tensor(a, dt, dev)
@@ -140,4 +143,4 @@ def from_jax_params(params: dict, model: Model, device=None) -> list[dict]:
                     trees[r]["ffn"] = ff[r]
             for r in range(n):
                 ranks[r]["layers"][group.name][f"pos{j}"] = trees[r]
-    return ranks
+    return replicate_over_data(ranks, sizes)

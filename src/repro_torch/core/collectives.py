@@ -2,7 +2,11 @@
 
 The JAX package runs one SPMD program per rank and moves activations with
 ``lax`` collectives; the port runs every rank in one process and keeps one
-tensor per rank in a list, in rank order. Each collective here is the
+tensor per rank in a list, in rank order. ``psum`` and ``psum_scatter``
+take the tensors of one group's members (on a ``(data, model)`` mesh the
+model group of one data replica, ``execution.Ctx.model_groups``);
+``all_to_all`` takes every rank's and keeps to the placement's subgroups,
+which lie inside a data replica. Each collective here is the
 deterministic in-process form of its ``lax`` counterpart:
 
 - ``all_gather`` (tiled) is a ``torch.cat`` in rank order;

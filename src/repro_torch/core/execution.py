@@ -38,10 +38,23 @@ whole sequence under DEP's tensor-parallel attention; decode attention is
 plain PyTorch, as the JAX package computes it in jnp; DEP's grouped
 expert FFN is ``torch.bmm``, as the JAX package computes it in jnp.
 
+Meshes. On a ``(data, model)`` mesh the logical ranks are ``r = d * G +
+m``; the weights are sharded over ``model`` (a data replica's ranks hold
+the same tensors), so every weight gather, all-to-all and tensor-parallel
+collective runs inside the model group of one data index, while the
+activations follow the plan's ``batch_axes`` and ``seq_axes`` over both
+axes (``ExecutionPlan.batch_index`` / ``seq_index`` / ``group``): a rank
+runs its block of rows and its slice of the sequence, the prefill K/V
+all-gather, the KV ring and the decode LSE combine span its sequence group
+(on ``(2, 4)`` at one row: all eight ranks), and a batch-sharded prefill
+(``model`` in ``batch_axes``) runs whole sequences per rank with the
+gathered head. A decode batch sharded over ``model`` is refused, as the
+JAX package asserts.
+
 Ported under dwdp: split ``attn_qkv`` / ``attn_out`` / ``dense_ffn`` /
 ``moe_experts`` banks under ``split:all:allgather``, prefill with
-sequence sharding and KV capture, decode over a sequence-sharded KV
-cache with an LSE combine, the vocab-sharded head with a cross-shard
+sequence or batch sharding and KV capture, decode over a sequence-sharded
+KV cache with an LSE combine, the vocab-sharded head with a cross-shard
 argmax, and the route-before-gather expert fetch (``moe_experts`` fetch
 ``demand``, ``predictive`` and ``sync_free``): routing runs before the
 expert gather, the activated remote rows are fetched by a planned
@@ -58,8 +71,8 @@ device flag that ``forward_prefill`` / ``forward_decode`` return
 per step and runs the step again in the eager mode when it is set — the
 step free of host reads that a CUDA graph captures
 (``runtime.engine.CountingStep``). Not ported yet: the ``replicated``
-mode, batch-sharded plans, the validated fetch and fault injection, the
-ring transports, rotate execution, training.
+mode, the validated fetch and fault injection, the ring transports,
+rotate execution, training.
 """
 from __future__ import annotations
 
@@ -80,6 +93,7 @@ from repro_torch.kernels import flash_attention as flash_lib
 from repro_torch.kernels import split_gemm as split_gemm_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models.cache import RingLayout
 from repro_torch.models.layers import apply_rope, rms_norm, softcap
 from repro_torch.models.transformer import AXIS_MODEL, Geometry, LayerSig, Model
 
@@ -101,6 +115,7 @@ class Ctx:
     deferred: bool = False
     overflow: Any = None        # this forward's ORed overflow flag (0-d bool)
     overflow_layers: Any = None  # and its count of overflowed layers (0-d int32)
+    _groups: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def cfg(self):
@@ -128,6 +143,44 @@ class Ctx:
         kernel on the card, the plain version on the CPU and in training),
         named for its call site."""
         return self.dense_impl
+
+    def group(self, rank: int, axes: tuple[str, ...]) -> list[int]:
+        """The members of ``rank``'s collective over ``axes``, in shard
+        order (``ExecutionPlan.group``; cached for the forward)."""
+        key = (rank, axes)
+        members = self._groups.get(key)
+        if members is None:
+            members = self._groups[key] = self.xp.group(rank, axes)
+        return members
+
+    def groups(self, axes: tuple[str, ...]) -> list[tuple]:
+        """Every collective over ``axes``: the distinct groups, each in shard
+        order."""
+        return list(dict.fromkeys(tuple(self.group(r, axes)) for r in range(self.model.n_ranks)))
+
+    @property
+    def model_axes(self) -> tuple[str, ...]:
+        return (AXIS_MODEL,) if AXIS_MODEL in self.xp.mesh_sizes else ()
+
+    def model_groups(self) -> list[tuple]:
+        """The ranks of each data replica, in model order: the members of
+        every weight gather and tensor-parallel collective."""
+        return self.groups(self.model_axes)
+
+    def seq_groups(self) -> list[tuple]:
+        """The ranks holding the sequence slices of one block of rows, in
+        sequence order (the K/V all-gather and the LSE combine)."""
+        return self.groups(self.xp.seq_axes)
+
+    def rows(self, rank: int, batch: int) -> slice:
+        """``rank``'s block of a ``batch``-row global batch."""
+        local = batch // self.xp.batch_shards
+        j = self.xp.batch_index(rank)
+        return slice(j * local, (j + 1) * local)
+
+    def rank_pos(self, rank: int):
+        """Decode: the positions of ``rank``'s rows."""
+        return self.pos[self.rows(rank, self.pos.shape[0])]
 
     def begin(self, device) -> None:
         """Reset the step's overflow flag and count (start of a forward)."""
@@ -676,11 +729,12 @@ class BankPipeline:
 # Embedding / head.
 # ==========================================================================
 def _embed(params: list[dict], tokens: torch.Tensor, model: Model) -> torch.Tensor:
-    """Row lookup over the vocab-sharded table: each token's row comes
-    from the shard that owns it; the other shards add exact zeros (the
-    JAX package's masked lookup + psum, summed in rank order)."""
+    """Row lookup over the vocab-sharded table (the model ranks' shards):
+    each token's row comes from the shard that owns it; the other shards
+    add exact zeros (the JAX package's masked lookup + psum, summed in
+    rank order)."""
     x = None
-    for r, p in enumerate(params):
+    for r, p in enumerate(params[:model.geom.model_size]):
         emb = p["embed"]
         v_l = emb.shape[0]
         idx = tokens - r * v_l
@@ -694,12 +748,13 @@ def _head(p: dict, cfg) -> torch.Tensor:
     return p["embed"].T if cfg.tie_embeddings else p["lm_head"]
 
 
-def _rank_logits(h: torch.Tensor, p: dict, r: int, ctx: Ctx) -> torch.Tensor:
-    """One rank's vocab-shard logits, padded vocab columns masked."""
+def _rank_logits(h: torch.Tensor, p: dict, m: int, ctx: Ctx) -> torch.Tensor:
+    """The logits of vocab shard ``m`` (model rank ``m``'s slice of the
+    head), padded vocab columns masked."""
     logits = (h @ _head(p, ctx.cfg)).float()
     logits = softcap(logits, ctx.cfg.logit_softcap)
     n = logits.shape[-1]
-    cols = r * n + torch.arange(n, device=logits.device)
+    cols = m * n + torch.arange(n, device=logits.device)
     return torch.where(cols < ctx.cfg.vocab_size, logits, torch.full_like(logits, -1e30))
 
 
@@ -778,7 +833,7 @@ def _capture_kv_state(k, v, sig: LayerSig, ctx: Ctx, rank: int) -> dict:
             "sequence shards — pick a cache_len divisible by the shard count"
         )
     l_local = length // n_sh
-    mine = rank if xp.seq_axes else 0
+    mine = xp.seq_index(rank)
     l_idx = mine * l_local + torch.arange(l_local, device=k.device)
     pos_l = (s - 1) - ((s - 1 - l_idx) % length)
     valid = pos_l >= 0
@@ -793,16 +848,16 @@ def _capture_kv_state(k, v, sig: LayerSig, ctx: Ctx, rank: int) -> dict:
 
 
 def _attn_decode_partial(q, k_new, v_new, sig: LayerSig, ctx: Ctx, lstate: dict, rank: int):
-    """Write each row's new token into this rank's slice of the ring,
+    """Write each of the rank's rows' new token into its slice of the ring,
     then attend over the slice: returns ((out, lse), new_state)."""
     xp = ctx.xp
-    pos = ctx.pos
+    pos = ctx.rank_pos(rank)
     l_local = lstate["k"].shape[1]
     n_sh = xp.seq_shards if xp.seq_axes else 1
     slot = pos % (l_local * n_sh)
     owner = slot // l_local
     li = slot % l_local
-    mine = rank if xp.seq_axes else 0
+    mine = xp.seq_index(rank)
     onehot = (torch.arange(l_local, device=pos.device)[None, :] == li[:, None]) & (
         owner == mine
     )[:, None]
@@ -815,13 +870,26 @@ def _attn_decode_partial(q, k_new, v_new, sig: LayerSig, ctx: Ctx, lstate: dict,
     return partial, {"k": ck, "v": cv, "slot_pos": sp}
 
 
+def _combine_over_seq(partials: list, ctx: Ctx) -> list:
+    """Each rank's decode attention output: the LSE combine of its sequence
+    group's ``(out, lse)`` partials in sequence order, computed once per
+    group (a rank's own partial where the ring is not sharded)."""
+    outs = [out for out, _ in partials]
+    for grp in ctx.seq_groups():
+        if len(grp) > 1:
+            out = attn_lib.combine_partials([partials[j][0] for j in grp],
+                                            [partials[j][1] for j in grp])
+            for j in grp:
+                outs[j] = out
+    return outs
+
+
 def _attn_layer(hs, lps, sig: LayerSig, ctx: Ctx, lstates, banks):
     """Attention for every rank: per-rank projections off the rank's
     banks (split banks, DEP's merged landings, or with ``banks`` None the
     replicated weights), the cross-rank step (K/V all-gather in prefill,
     LSE combine in decode), per-rank output projections."""
-    cfg, xp = ctx.cfg, ctx.xp
-    n = len(hs)
+    cfg = ctx.cfg
     hd = cfg.head_dim
     split = banks is not None and isinstance(banks[0], prefetch.AttnBank)
     # full weights: DEP's merged landings, or the replicated weights
@@ -840,19 +908,15 @@ def _attn_layer(hs, lps, sig: LayerSig, ctx: Ctx, lstates, banks):
             ))
     new_states = lstates
     if ctx.decode:
-        pos = ctx.pos
         partials, new_states = [], []
         for r, (q, k, v) in enumerate(qkv):
+            pos = ctx.rank_pos(r)
             q = apply_rope(q, pos[:, None], cfg.rope_theta, ctx.model.rope_freqs)
             k = apply_rope(k, pos[:, None], cfg.rope_theta, ctx.model.rope_freqs)
             part, st = _attn_decode_partial(q, k, v, sig, ctx, lstates[r], r)
             partials.append(part)
             new_states.append(st)
-        if xp.seq_axes:
-            out = attn_lib.combine_partials([o for o, _ in partials], [l for _, l in partials])
-        else:
-            out = partials[0][0]
-        outs = [out[:, None]] * n
+        outs = [o[:, None] for o in _combine_over_seq(partials, ctx)]
     else:
         qs, ks, vs = [], [], []
         for r, (q, k, v) in enumerate(qkv):
@@ -861,15 +925,19 @@ def _attn_layer(hs, lps, sig: LayerSig, ctx: Ctx, lstates, banks):
             qs.append(apply_rope(q, posb, cfg.rope_theta, ctx.model.rope_freqs))
             ks.append(apply_rope(k, posb, cfg.rope_theta, ctx.model.rope_freqs))
             vs.append(v)
-        k_all = torch.cat(ks, dim=1) if xp.seq_axes else ks[0]
-        v_all = torch.cat(vs, dim=1) if xp.seq_axes else vs[0]
-        outs = [
-            flash_lib.flash_attention(q, k_all, v_all, window=sig.window,
-                                      q_offset=ctx.q_offsets[r], impl=ctx.attn_impl)
-            for r, q in enumerate(qs)
-        ]
+        outs = [None] * len(qs)
+        captured = [None] * len(qs)
+        for grp in ctx.seq_groups():  # the K/V all-gather over each sequence group
+            k_all = torch.cat([ks[j] for j in grp], dim=1)
+            v_all = torch.cat([vs[j] for j in grp], dim=1)
+            for j in grp:
+                outs[j] = flash_lib.flash_attention(qs[j], k_all, v_all, window=sig.window,
+                                                    q_offset=ctx.q_offsets[j], impl=ctx.attn_impl)
+                if ctx.capture_len:
+                    captured[j] = _capture_kv_state(k_all, v_all, sig, ctx, j)
+            del k_all, v_all
         if ctx.capture_len:
-            new_states = [_capture_kv_state(k_all, v_all, sig, ctx, r) for r in range(n)]
+            new_states = captured
     ys = []
     for r, out in enumerate(outs):
         if split:
@@ -881,30 +949,46 @@ def _attn_layer(hs, lps, sig: LayerSig, ctx: Ctx, lstates, banks):
 
 def _attn_tp_layer(hs, lps, sig: LayerSig, ctx: Ctx) -> list:
     """DEP's tensor-parallel prefill attention (``_attn_tp`` of the JAX
-    package): the tokens all-gathered over the ranks, each rank's own heads
-    projected off its resident shard, RoPE at global positions and
-    attention over the whole sequence (the flash kernel), the rank's slice
-    of ``wo``, then a psum_scatter back to the token shards. Returns no
-    layer state: the JAX package captures none here."""
-    cfg, geom = ctx.cfg, ctx.geom
+    package): the tokens all-gathered (the rows over the model group where
+    the batch is sharded over ``model``, else the sequence over the
+    rank's sequence group), each rank's own heads projected off its
+    resident shard, RoPE at the gathered positions and attention over the
+    whole sequence (the flash kernel), the rank's slice of ``wo``, then a
+    psum_scatter over the model group back to the rank's tokens. Returns
+    no layer state: the JAX package captures none here. (The JAX package
+    gathers the sequence over ``model`` alone: where the sequence is also
+    sharded over ``data`` its attention would see one data replica's
+    slices; the port gathers the whole sequence group.)"""
+    cfg, geom, xp = ctx.cfg, ctx.geom, ctx.xp
     hd = cfg.head_dim
-    hg = torch.cat(hs, dim=1)
-    b, s, _ = hg.shape
     heads_l = cfg.num_heads // geom.attn_shards
     kv_l = cfg.num_kv_heads // geom.kv_shard
-    posb = torch.arange(s, device=hg.device).expand(b, s)
-    parts = []
-    for lp in lps:
-        aw = lp["attn"]
-        q = apply_rope(_project_heads(hg, aw["wq"], heads_l, hd), posb, cfg.rope_theta,
-                       ctx.model.rope_freqs)
-        k = apply_rope(_project_heads(hg, aw["wk"], kv_l, hd), posb, cfg.rope_theta,
-                       ctx.model.rope_freqs)
-        v = _project_heads(hg, aw["wv"], kv_l, hd)
-        out = flash_lib.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                        window=sig.window, q_offset=0, impl=ctx.attn_impl)
-        parts.append(_project_out(out, aw["wo"]))
-    return collectives.psum_scatter(parts, [h.shape[1] for h in hs], dim=1)
+    by_rows = AXIS_MODEL in xp.batch_axes
+    dim = 0 if by_rows else 1
+    parts = [None] * len(hs)
+    for grp in ctx.model_groups() if by_rows else ctx.seq_groups():
+        hg = torch.cat([hs[j] for j in grp], dim=dim)
+        b, s, _ = hg.shape
+        posb = torch.arange(s, device=hg.device).expand(b, s)
+        for j in grp:
+            aw = lps[j]["attn"]
+            q = apply_rope(_project_heads(hg, aw["wq"], heads_l, hd), posb, cfg.rope_theta,
+                           ctx.model.rope_freqs)
+            k = apply_rope(_project_heads(hg, aw["wk"], kv_l, hd), posb, cfg.rope_theta,
+                           ctx.model.rope_freqs)
+            v = _project_heads(hg, aw["wv"], kv_l, hd)
+            out = flash_lib.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                            window=sig.window, q_offset=0, impl=ctx.attn_impl)
+            parts[j] = _project_out(out, aw["wo"])
+        del hg
+    ys = [None] * len(hs)
+    for grp in ctx.model_groups():
+        for m, r in enumerate(grp):
+            # the rank's tokens: its block of the gathered rows or sequence
+            idx = m if by_rows else xp.seq_index(r)
+            n = hs[r].shape[dim]
+            ys[r] = collectives.psum([parts[j].narrow(dim, idx * n, n) for j in grp])
+    return ys
 
 
 def _attn_qgather_layer(hs, lps, sig: LayerSig, ctx: Ctx, lstates):
@@ -914,36 +998,35 @@ def _attn_qgather_layer(hs, lps, sig: LayerSig, ctx: Ctx, lstates):
     kv groups dropped), every rank attends over its slice of the KV ring
     with the LSE combine, applies its slice of ``wo`` to its own features
     of the output, and a psum adds the ranks' products."""
-    cfg, geom, xp = ctx.cfg, ctx.geom, ctx.xp
+    cfg, geom = ctx.cfg, ctx.geom
     b, hd, g = hs[0].shape[0], cfg.head_dim, geom.attn_shards
-
-    def proj(name):
-        # each rank's own feature slice, all-gathered
-        return torch.cat([_project_heads(h, lp["attn"][name], 1, -1).flatten(2)
-                          for h, lp in zip(hs, lps)], dim=2)
-
     dup = g // geom.kv_shard
     kvd_l = cfg.kv_dim // geom.kv_shard
-    q = proj("wq").reshape(b, 1, cfg.num_heads, hd)
-    k = proj("wk").reshape(b, 1, g, kvd_l)[:, :, ::dup].reshape(b, 1, cfg.num_kv_heads, hd)
-    v = proj("wv").reshape(b, 1, g, kvd_l)[:, :, ::dup].reshape(b, 1, cfg.num_kv_heads, hd)
-    pos = ctx.pos
-    q = apply_rope(q, pos[:, None], cfg.rope_theta, ctx.model.rope_freqs)
-    k = apply_rope(k, pos[:, None], cfg.rope_theta, ctx.model.rope_freqs)
-    partials, new_states = [], []
-    for r in range(len(hs)):
-        part, st = _attn_decode_partial(q, k, v, sig, ctx, lstates[r], r)
-        partials.append(part)
-        new_states.append(st)
-    if xp.seq_axes:
-        out = attn_lib.combine_partials([o for o, _ in partials], [l for _, l in partials])
-    else:
-        out = partials[0][0]
+    partials, new_states = [None] * len(hs), [None] * len(hs)
+    for grp in ctx.model_groups():
+        def proj(name):
+            # each rank's own feature slice, all-gathered over the group
+            return torch.cat([_project_heads(hs[j], lps[j]["attn"][name], 1, -1).flatten(2)
+                              for j in grp], dim=2)
+
+        pos = ctx.rank_pos(grp[0])
+        q = proj("wq").reshape(b, 1, cfg.num_heads, hd)
+        k = proj("wk").reshape(b, 1, g, kvd_l)[:, :, ::dup].reshape(b, 1, cfg.num_kv_heads, hd)
+        v = proj("wv").reshape(b, 1, g, kvd_l)[:, :, ::dup].reshape(b, 1, cfg.num_kv_heads, hd)
+        q = apply_rope(q, pos[:, None], cfg.rope_theta, ctx.model.rope_freqs)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta, ctx.model.rope_freqs)
+        for j in grp:
+            partials[j], new_states[j] = _attn_decode_partial(q, k, v, sig, ctx, lstates[j], j)
+    outs = _combine_over_seq(partials, ctx)
     qd_l = cfg.q_dim // g
-    flat = out.reshape(b, 1, cfg.q_dim)
-    parts = [_project_out(flat[:, :, r * qd_l:(r + 1) * qd_l], lp["attn"]["wo"])
-             for r, lp in enumerate(lps)]
-    return [collectives.psum(parts)] * len(hs), new_states
+    ys = [None] * len(hs)
+    for grp in ctx.model_groups():
+        flat = outs[grp[0]].reshape(b, 1, cfg.q_dim)
+        y = collectives.psum([_project_out(flat[:, :, m * qd_l:(m + 1) * qd_l],
+                                           lps[j]["attn"]["wo"]) for m, j in enumerate(grp)])
+        for j in grp:
+            ys[j] = y
+    return ys, new_states
 
 
 # ==========================================================================
@@ -981,15 +1064,22 @@ def _swiglu_slice(x2d, fp):
 
 def _ffn_tp_apply(x2ds: list, fps: list, ctx: Ctx) -> list:
     """DEP's tensor-parallel FFN (the DEP branches of ``_ffn_apply`` in the
-    JAX package) for every rank: in decode the rows are replicated, so each
-    rank computes its F slice and a psum adds them; in prefill the tokens
-    are all-gathered, each rank computes its F slice of all of them, and a
+    JAX package) for every rank, over the model group of its data replica:
+    in decode the rows are replicated over the group, so each rank computes
+    its F slice and a psum adds them; in prefill the group's tokens are
+    all-gathered, each rank computes its F slice of all of them, and a
     psum_scatter returns each rank's rows."""
-    if ctx.decode:
-        return [collectives.psum([_swiglu_slice(x, fp) for x, fp in zip(x2ds, fps)])] * len(x2ds)
-    xg = torch.cat(x2ds, dim=0)
-    return collectives.psum_scatter([_swiglu_slice(xg, fp) for fp in fps],
-                                    [x.shape[0] for x in x2ds])
+    out = [None] * len(x2ds)
+    for grp in ctx.model_groups():
+        if ctx.decode:
+            ys = [collectives.psum([_swiglu_slice(x2ds[j], fps[j]) for j in grp])] * len(grp)
+        else:
+            xg = torch.cat([x2ds[j] for j in grp], dim=0)
+            ys = collectives.psum_scatter([_swiglu_slice(xg, fps[j]) for j in grp],
+                                          [x2ds[j].shape[0] for j in grp])
+        for j, y in zip(grp, ys):
+            out[j] = y
+    return out
 
 
 def _rolled_dispatch(d: moe_lib.Dispatch, roll: int, e_pad: int, capacity: int):
@@ -1445,13 +1535,10 @@ def _run_stack(params, xs, ctx: Ctx, states):
     return xs, new_layers, new_preds
 
 
-def _check_sharding(ctx: Ctx) -> None:
-    xp, n = ctx.xp, ctx.model.n_ranks
-    if n > 1 and xp.seq_axes != (AXIS_MODEL,):
-        raise NotImplementedError(
-            f"the port runs the model axis as a sequence axis (got batch "
-            f"{xp.batch_axes}, seq {xp.seq_axes}); batch-sharded plans are not ported"
-        )
+def _check_mesh(ctx: Ctx) -> None:
+    if ctx.xp.n_ranks != ctx.model.n_ranks:
+        raise ValueError(f"the plan's mesh {ctx.xp.mesh_sizes} is not the model's "
+                         f"{ctx.model.sizes}")
 
 
 # ==========================================================================
@@ -1462,13 +1549,19 @@ def forward_prefill(params: list[dict], tokens: torch.Tensor, ctx: Ctx) -> dict:
     """tokens: (B, S) -> {"last_logits": (B, vocab_pad) f32, "overflow",
     "overflow_layers"[, "state"]}.
 
-    Each rank holds S / G tokens of the sequence (``_positions_offset``);
-    the last token's hidden state comes from the last shard. ``overflow``
-    (0-d bool) says a route-before-gather layer overflowed its budget and
-    ``overflow_layers`` (0-d int32) how many did: under ``ctx.deferred``
-    the outputs are then not the exact ones (see :meth:`Ctx.overflowed`)."""
-    _check_sharding(ctx)
-    if ctx.capture_len and not captures_kv(ctx.geom, ctx.xp):
+    Each rank holds its block of rows (``batch_axes``) and its slice of
+    the sequence (``seq_axes``, at offset ``seq_index * S / seq_shards``,
+    ``_positions_offset`` of the JAX package); a row's last hidden state
+    comes from the rank holding its last slice and meets every vocab shard
+    (where the batch is sharded over ``model``, the rank's own rows meet
+    the gathered head). The captured ``state`` carries its
+    ``cache.RingLayout`` under ``"layout"``. ``overflow`` (0-d bool) says a
+    route-before-gather layer overflowed its budget and ``overflow_layers``
+    (0-d int32) how many did: under ``ctx.deferred`` the outputs are then
+    not the exact ones (see :meth:`Ctx.overflowed`)."""
+    _check_mesh(ctx)
+    xp = ctx.xp
+    if ctx.capture_len and not captures_kv(ctx.geom, xp):
         raise ValueError(
             "a DEP prefill runs attention tensor-parallel, which captures no KV "
             "state (as in the JAX package): prefill with mode 'dwdp' or 'hybrid' "
@@ -1476,21 +1569,37 @@ def forward_prefill(params: list[dict], tokens: torch.Tensor, ctx: Ctx) -> dict:
         )
     n = ctx.model.n_ranks
     b, s = tokens.shape
-    if s % n:
-        raise ValueError(f"prompt length {s} must divide over the {n} sequence shards")
+    if b % xp.batch_shards or s % xp.seq_shards:
+        raise ValueError(f"a ({b}, {s}) prompt batch must divide over the plan's "
+                         f"{xp.batch_shards} batch and {xp.seq_shards} sequence shards")
     ctx.begin(tokens.device)
-    s_l = s // n
-    ctx.q_offsets = tuple(r * s_l for r in range(n))
-    xs = [_embed(params, tokens[:, r * s_l:(r + 1) * s_l], ctx.model) for r in range(n)]
+    s_l = s // xp.seq_shards
+    ctx.q_offsets = tuple(xp.seq_index(r) * s_l for r in range(n))
+    embedded: dict = {}  # ranks holding the same tokens share one embedding
+    xs = []
+    for r in range(n):
+        key = (xp.batch_index(r), xp.seq_index(r))
+        if key not in embedded:
+            rows, j = ctx.rows(r, b), key[1]
+            embedded[key] = _embed(params, tokens[rows, j * s_l:(j + 1) * s_l], ctx.model)
+        xs.append(embedded[key])
+    del embedded
     xs, new_states, _ = _run_stack(params, xs, ctx, None)
-    xl = rms_norm(xs[-1], params[-1]["final_norm"], ctx.cfg.norm_eps)[:, -1]
-    logits = torch.cat([_rank_logits(xl, p, r, ctx) for r, p in enumerate(params)], dim=-1)
+    blocks = []
+    for j in range(xp.batch_shards):
+        owner = next(r for r in range(n)
+                     if xp.batch_index(r) == j and xp.seq_index(r) == xp.seq_shards - 1)
+        xl = rms_norm(xs[owner], params[owner]["final_norm"], ctx.cfg.norm_eps)[:, -1]
+        blocks.append(torch.cat([_rank_logits(xl, params[m], m, ctx)
+                                 for m in range(ctx.geom.model_size)], dim=-1))
+    logits = torch.cat(blocks, dim=0)
     out = {"last_logits": logits, "overflow": ctx.overflow,
            "overflow_layers": ctx.overflow_layers}
     if ctx.capture_len:
         out["state"] = {
             "pos": torch.full((b,), s, dtype=torch.int32, device=tokens.device),
             "layers": new_states,
+            "layout": RingLayout.of_plan(xp),
         }
     return out
 
@@ -1500,28 +1609,45 @@ def forward_decode(params: list[dict], token: torch.Tensor, state: dict, ctx: Ct
     """token: (B, 1) -> {"next_token": (B, 1), "state", "logits": (B, vocab_pad),
     "overflow", "overflow_layers"[, "pred_stats"]}.
 
-    The rows are replicated over the ranks; each rank runs them through
-    its own banks and attends over its slice of the KV ring; the greedy
-    token is the argmax across the vocab shards. The input state is never
+    Each rank holds its block of rows (sharded over ``batch_axes``, the
+    data axis; replicated over the model group) and its slice of their KV
+    ring (``seq_axes``); it runs the rows through its own banks and
+    attends over its slice; the greedy token is the argmax across the
+    model group's vocab shards. A batch sharded over ``model`` is refused
+    (``ValueError``), as the JAX package asserts. The input state is never
     written (the new state is new tensors), so a step whose deferred
     ``overflow`` is set can run again from the same inputs."""
-    _check_sharding(ctx)
+    _check_mesh(ctx)
+    xp = ctx.xp
+    if AXIS_MODEL in xp.batch_axes:
+        raise ValueError(
+            f"a decode batch of {token.shape[0]} rows on the mesh {xp.mesh_sizes} is "
+            f"sharded over {xp.batch_axes}: decode keeps its rows replicated over the "
+            "vocab-sharded model axis (the JAX package asserts AXIS_MODEL not in "
+            "batch_axes), so the batch must not divide over data * model")
     n = ctx.model.n_ranks
     ctx.begin(token.device)
     ctx.pos = state["pos"]
     x = _embed(params, token, ctx.model)
-    xs, new_layers, new_preds = _run_stack(params, [x] * n, ctx, state)
-    vals, idxs, logits = [], [], []
-    for r, (x, p) in enumerate(zip(xs, params)):
-        h = rms_norm(x, p["final_norm"], ctx.cfg.norm_eps)[:, 0]
-        lg = _rank_logits(h, p, r, ctx)
-        logits.append(lg)
-        vals.append(lg.amax(dim=-1))
-        idxs.append(lg.argmax(dim=-1) + r * lg.shape[-1])
-    best = torch.stack(vals).argmax(dim=0)
-    nxt = torch.stack(idxs).gather(0, best[None])[0].to(torch.int32)
+    xs, new_layers, new_preds = _run_stack(
+        params, [x[ctx.rows(r, x.shape[0])] for r in range(n)], ctx, state)
+    blocks, logit_blocks = [], []
+    for j in range(xp.batch_shards):
+        first = next(r for r in range(n) if xp.batch_index(r) == j)
+        vals, idxs, logits = [], [], []
+        for m, r in enumerate(ctx.group(first, ctx.model_axes)):
+            h = rms_norm(xs[r], params[r]["final_norm"], ctx.cfg.norm_eps)[:, 0]
+            lg = _rank_logits(h, params[r], m, ctx)
+            logits.append(lg)
+            vals.append(lg.amax(dim=-1))
+            idxs.append(lg.argmax(dim=-1) + m * lg.shape[-1])
+        best = torch.stack(vals).argmax(dim=0)
+        blocks.append(torch.stack(idxs).gather(0, best[None])[0].to(torch.int32))
+        logit_blocks.append(torch.cat(logits, dim=-1))
+    nxt = torch.cat(blocks)
     new_state = {"pos": state["pos"] + 1, "layers": new_layers}
-    out = {"next_token": nxt[:, None], "state": new_state, "logits": torch.cat(logits, dim=-1),
+    out = {"next_token": nxt[:, None], "state": new_state,
+           "logits": torch.cat(logit_blocks, dim=0),
            "overflow": ctx.overflow, "overflow_layers": ctx.overflow_layers}
     if new_preds:
         new_preds = _fold_mirrors(new_preds, state["pred"], ctx)
@@ -1551,14 +1677,14 @@ def _fold_mirrors(new_preds: dict, preds_in: dict, ctx: Ctx) -> dict:
         return new_preds
     pl = ctx.geom.moe_placement
     n = len(new_preds[sf[0][0]][sf[0][1]][sf[0][2]])
-    buckets = prefetch.position_buckets(ctx.pos)
     packed = []
     for r in range(n):
         routed = None
         for gname, pos, c in sf:
             rr = new_preds[gname][pos][c][r].routed
             routed = rr if routed is None else routed | rr
-        packed.append(prefetch.pack_mirror_payload(routed, buckets))
+        packed.append(prefetch.pack_mirror_payload(
+            routed, prefetch.position_buckets(ctx.rank_pos(r))))
     # pre-step mirrors are identical across sync-free layers by
     # construction, so the first layer's incoming state seeds the fold
     g0, p0, c0 = sf[0]

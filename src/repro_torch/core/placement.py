@@ -21,6 +21,8 @@ import math
 
 import numpy as np
 
+from repro_torch.core.strategy import shard_index
+
 
 @dataclasses.dataclass(frozen=True)
 class Placement:
@@ -111,3 +113,13 @@ def expand_to_storage(experts: np.ndarray, placement: Placement) -> np.ndarray:
     layout (duplicating across redundant subgroups). Used at init/ckpt."""
     table = placement.table().reshape(-1)  # (G*local,)
     return experts[table]
+
+
+def subgroup_positions(mesh_sizes: dict, expert_axes: tuple, placement: Placement) -> np.ndarray:
+    """Each logical rank's position within its expert-gather subgroup, in
+    rank order (``strategy.shard_index`` over ``expert_axes`` mod G', the
+    JAX package's ``axis_index % subgroup_size``): on a ``(data, model)``
+    mesh rank ``d * G + m`` sits at ``m % G'``."""
+    n = math.prod(mesh_sizes.values())
+    return np.array([shard_index(mesh_sizes, expert_axes, r) % placement.subgroup_size
+                     for r in range(n)], np.int64)

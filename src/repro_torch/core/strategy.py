@@ -35,6 +35,8 @@ DECODE_ATTN = ("gather", "qgather")
 PORTED_MODES = ("dwdp", "dep", "hybrid")
 EXPERT_FETCH = ("all", "demand", "predictive", "sync_free")
 GATHER_FAMILIES = ("moe_experts", "attn_qkv", "attn_out", "dense_ffn")
+#: Mesh axes in rank order, major first.
+MESH_AXES = ("pod", "data", "model")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,6 +171,78 @@ class ExecutionPlan:
     @property
     def local_seq(self) -> int:
         return self.seq_len // self.seq_shards
+
+    # ---- the logical ranks (one per mesh coordinate, ``rank_coords``) ----
+    @property
+    def n_ranks(self) -> int:
+        return math.prod(self.mesh_sizes.values())
+
+    def shard_index(self, axes: tuple[str, ...], rank: int) -> int:
+        """``rank``'s shard over ``axes`` (:func:`shard_index`)."""
+        return shard_index(self.mesh_sizes, axes, rank)
+
+    def batch_index(self, rank: int) -> int:
+        """Which block of ``local_batch`` rows ``rank`` holds."""
+        return self.shard_index(self.batch_axes, rank)
+
+    def seq_index(self, rank: int) -> int:
+        """Which block of ``local_seq`` positions (and of the KV ring)
+        ``rank`` holds."""
+        return self.shard_index(self.seq_axes, rank)
+
+    def group(self, rank: int, axes: tuple[str, ...]) -> list[int]:
+        """The ranks that differ from ``rank`` only on ``axes``, in shard
+        order over ``axes``: the members of a collective over ``axes``
+        (the model group of a data replica, the sequence shards of a row
+        block)."""
+        return rank_group(self.mesh_sizes, rank, axes)
+
+
+def mesh_axes(mesh_sizes: Mapping[str, int]) -> tuple[str, ...]:
+    """The mesh's axes in rank order, major first (``MESH_AXES``)."""
+    unknown = set(mesh_sizes) - set(MESH_AXES)
+    if unknown:
+        raise ValueError(f"unknown mesh axes {sorted(unknown)}; expected {MESH_AXES}")
+    return tuple(a for a in MESH_AXES if a in mesh_sizes)
+
+
+def rank_coords(mesh_sizes: Mapping[str, int], rank: int) -> dict[str, int]:
+    """Mesh coordinates of logical rank ``rank``: ranks are numbered row-major
+    over ``MESH_AXES`` (on a ``(data, model)`` mesh ``rank = d * G + m``),
+    the order of the JAX package's device mesh."""
+    coords = {}
+    for a in reversed(mesh_axes(mesh_sizes)):
+        coords[a] = rank % mesh_sizes[a]
+        rank //= mesh_sizes[a]
+    return coords
+
+
+def shard_index(mesh_sizes: Mapping[str, int], axes: tuple[str, ...], rank: int) -> int:
+    """``rank``'s shard over ``axes`` (``_shard_index`` of the JAX package:
+    the axes' coordinates, the first one major)."""
+    coords = rank_coords(mesh_sizes, rank)
+    idx = 0
+    for a in axes:
+        idx = idx * mesh_sizes[a] + coords[a]
+    return idx
+
+
+def rank_group(mesh_sizes: Mapping[str, int], rank: int, axes: tuple[str, ...]) -> list[int]:
+    """The ranks whose coordinates equal ``rank``'s off ``axes``, ordered by
+    their shard index over ``axes`` (the first axis major)."""
+    order = mesh_axes(mesh_sizes)
+    coords = rank_coords(mesh_sizes, rank)
+    members = []
+    for idx in range(math.prod(mesh_sizes[a] for a in axes)):
+        c = dict(coords)
+        for a in reversed(axes):
+            c[a] = idx % mesh_sizes[a]
+            idx //= mesh_sizes[a]
+        r = 0
+        for a in order:
+            r = r * mesh_sizes[a] + c[a]
+        members.append(r)
+    return members
 
 
 def plan_activation_sharding(

@@ -2,8 +2,11 @@
 the command line.
 
 The counterpart of ``repro.launch.serve``: a context server and a
-generation server over one model whose ``model`` mesh axis is G logical
-ranks on one device. The command line takes the reference's defaults, a
+generation server over one model whose ``(data, model)`` mesh is
+``data * model`` logical ranks on one device (``--mesh 2,4``: two data
+replicas of a DWDP group of four; the decode slots are sharded over
+``data``, so ``--max-batch`` must divide over it and not over ``data *
+model``). The command line takes the reference's defaults, a
 DWDP context server (``--ctx-mode dwdp``) feeding a DEP generation server
 (``--gen-mode dep``); ``build_engine``'s keyword default stays
 ``gen_mode="dwdp"``. Runs on the card unless the caller passes
@@ -13,12 +16,13 @@ captured CUDA graph unless the caller passes ``graphs=False``.
     python -m repro_torch.launch.serve --arch deepseek-r1 --requests 4
     python -m repro_torch.launch.serve --arch deepseek-r1 --gen-mode dwdp --requests 4
     python -m repro_torch.launch.serve --arch deepseek-r1 --serving --replicas 2
+    python -m repro_torch.launch.serve --arch deepseek-r1 --mesh 2,4 --max-batch 4
 
 The first runs the engine's fixed loop; ``--serving`` serves a seeded
 workload through ``ServingScheduler`` and ``LiveReplicaClient`` behind
 ``MultiReplicaEngine``'s router. The configuration is the architecture's
 reduced variant unless ``--full`` is given. Each replica counts as one
-GPU in ``tps_per_gpu``: its G logical ranks share one card.
+GPU in ``tps_per_gpu``: its logical ranks share one card.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from repro_torch.runtime.engine import (
     GenerationServer,
     GraphSpace,
     Request,
+    decode_axes,
 )
 
 # The storage geometry each architecture is served with: the default
@@ -45,6 +50,18 @@ SERVE_GEOMETRY = {
     "deepseek-r1": dict(shard_attention=True, expert_axes=("model",), moe_exec="gather"),
     "gemma3-27b": dict(shard_attention=True, ffn_axes_override=("model",)),
 }
+
+
+def check_mesh(cfg, mesh_shape, max_batch: int, cache_len: int) -> None:
+    """Refuse a mesh or a decode batch the port cannot serve, before anything
+    is built (``ValueError``): the mesh is ``(data, model)`` of positive
+    sizes, and the decode batch may divide over ``data`` but not over ``data
+    * model`` (``runtime.engine.decode_axes``)."""
+    if len(mesh_shape) != 2 or min(mesh_shape) < 1:
+        raise ValueError(f"the mesh is (data, model) of positive sizes, got {tuple(mesh_shape)}")
+    if max_batch < 1:
+        raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+    decode_axes(cfg, {"data": mesh_shape[0], "model": mesh_shape[1]}, max_batch, cache_len)
 
 
 def build_engine(
@@ -81,8 +98,10 @@ def build_engine(
     ``params`` is a per-rank parameter list for this model (for instance
     from ``checkpoint.convert.from_jax_params``); by default the weights
     are drawn from a ``torch.Generator`` seeded with ``seed`` on the
-    device. ``cache_len`` is rounded up to a multiple of the rank count,
-    as the reference does, so the KV ring divides over the shards.
+    device. ``cache_len`` is rounded up to a multiple of the rank count
+    (``data * model``), as the reference does, so the KV ring divides over
+    every shard count. ``mesh_shape`` and ``max_batch`` are checked first
+    (:func:`check_mesh`): nothing is built for a pair the port refuses.
     ``expert_fetch`` (all | demand | predictive | sync_free) with
     ``demand_budget`` (per-peer rows, 0 = auto) and ``cache_budget``
     (residency-cache rows, predictive / sync_free) form the uniform
@@ -95,6 +114,7 @@ def build_engine(
     sizes = {"data": mesh_shape[0], "model": mesh_shape[1]}
     n_ranks = max(1, mesh_shape[0] * mesh_shape[1])
     cache_len = -(-cache_len // n_ranks) * n_ranks
+    check_mesh(cfg, mesh_shape, max_batch, cache_len)
     model = build_model(cfg, sizes, dtype=dtype, device=device, **(geom_kwargs or {}))
     if params is None:
         params = model.init_params(torch.Generator(device=model.device).manual_seed(seed))
@@ -188,8 +208,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--prefill-len", type=int, default=64)
     ap.add_argument("--output-len", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=2,
-                    help="decode slots (a multiple of the model axis would shard the decode "
-                         "batch, which the port does not run yet)")
+                    help="decode slots, sharded over the mesh's data axis (a multiple of "
+                         "data * model would shard them over the model axis: refused)")
     ap.add_argument("--ctx-mode", default="dwdp", choices=["dwdp", "hybrid", "dep"],
                     help="context-server strategy (dep is refused: its tensor-parallel "
                          "prefill attention captures no KV state)")
@@ -214,7 +234,8 @@ def main(argv=None) -> dict:
                     help="the full configuration (default: its reduced variant)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--mesh", default="1,4", type=lambda v: tuple(int(x) for x in v.split(",")),
-                    help="data,model mesh of logical ranks on the device")
+                    help="data,model mesh of logical ranks on the device (2,4: two data "
+                         "replicas of a DWDP group of 4, with --max-batch 4)")
     serving = ap.add_argument_group(
         "serving", "continuous batching: rolling admission into decode slots as they free, "
         "SLO-aware admission, independent replicas behind the least-loaded router")
@@ -237,6 +258,10 @@ def main(argv=None) -> dict:
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = reduced_variant(cfg)
+    try:
+        check_mesh(cfg, args.mesh, args.max_batch, args.prefill_len + args.output_len)
+    except ValueError as err:
+        ap.error(str(err))
     if args.serving:
         return run_serving(args, cfg)
     engine, _ = _engine(args, cfg, prefill_len=args.prefill_len,

@@ -7,17 +7,94 @@ A decode state is a plain dict::
     {"pos": (B,) int32, "layers": {group: {posJ: [rank0, rank1, ...]}}}
 
 where each rank entry is ``{"k", "v", "slot_pos"}`` holding that rank's
-slice of the ring: with the KV cache sequence-sharded over ``n`` ranks,
-rank ``i`` owns ring slots ``[i*L/n, (i+1)*L/n)`` — the JAX package's
-``P(batch, seq)`` layout, one separate allocation per logical rank.
-Scan groups carry a leading cycle axis on every leaf.
+block of rows and slice of the ring: with the rows sharded into ``b``
+blocks and the ring into ``n`` shards, the rank at batch index ``j`` and
+sequence index ``i`` holds rows ``[j*B/b, (j+1)*B/b)`` and ring slots
+``[i*L/n, (i+1)*L/n)`` — the JAX package's ``P(batch, seq)`` layout, one
+separate allocation per logical rank. ``RingLayout`` records which block
+each entry of a list holds; ``read_row`` and ``write_row`` move one row's
+whole ring between two layouts (the context server's KV handed to a
+generation server that shards it otherwise). Scan groups carry a leading
+cycle axis on every leaf.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, BlockKind
 from repro_torch.models.transformer import LayerSig, Model
+
+
+class RingLayout(NamedTuple):
+    """Where the entries of a state's per-rank lists sit: ``shards`` holds
+    each entry's ``(batch index, sequence index)``, in list order: its block
+    of rows (as many rows as the entry holds) and its slice of the ring (one
+    of ``seq_shards``). Entries at the same indices are copies (ranks that
+    replicate)."""
+
+    seq_shards: int
+    shards: tuple
+
+    @classmethod
+    def of_plan(cls, xp) -> "RingLayout":
+        """The layout of a state made or read under ``xp`` (one entry per
+        logical rank)."""
+        return cls(xp.seq_shards,
+                   tuple((xp.batch_index(r), xp.seq_index(r)) for r in range(xp.n_ranks)))
+
+    @classmethod
+    def sequence(cls, n: int) -> "RingLayout":
+        """``n`` ring slices of the same rows, in order."""
+        return cls(n, tuple((0, i) for i in range(n)))
+
+
+def _entries(ranks: list, layout: RingLayout, block: int) -> list:
+    """One entry per ring slice of row block ``block``, in slice order."""
+    by_seq: dict = {}
+    for entry, (b, s) in zip(ranks, layout.shards, strict=True):
+        if b == block:
+            by_seq.setdefault(s, entry)
+    if sorted(by_seq) != list(range(layout.seq_shards)):
+        raise ValueError(f"layout {layout} misses ring slices of row block {block}")
+    return [by_seq[s] for s in range(layout.seq_shards)]
+
+
+def read_row(model: Model, layers: dict, layout: RingLayout, row: int) -> dict:
+    """Row ``row``'s whole ring, ``{group: {posJ: {field: (L, ...)}}}``
+    (scan groups ``(cycles, L, ...)``), gathered from the ranks that hold it
+    in ``layout``."""
+    out = {}
+    for group in model.plan:
+        bax = 1 if group.scan else 0
+        gd = {}
+        for key, ranks in layers[group.name].items():
+            rows = ranks[0]["slot_pos"].shape[bax]
+            block, local = divmod(row, rows)
+            parts = _entries(ranks, layout, block)
+            idx = (slice(None),) * bax + (local,)
+            gd[key] = {f: torch.cat([p[f][idx] for p in parts], dim=bax) for f in parts[0]}
+        out[group.name] = gd
+    return out
+
+
+def write_row(model: Model, layers: dict, layout: RingLayout, row: int, ring: dict) -> None:
+    """Write one row's whole ring (as :func:`read_row` returns it) into every
+    rank that holds row ``row`` in ``layout``, each its own ring slice, in
+    place (the tensors are written, never rebound)."""
+    for group in model.plan:
+        bax = 1 if group.scan else 0
+        for key, ranks in layers[group.name].items():
+            rows = ranks[0]["slot_pos"].shape[bax]
+            block, local = divmod(row, rows)
+            for entry, (b, s) in zip(ranks, layout.shards, strict=True):
+                if b != block:
+                    continue
+                for f, dst in entry.items():
+                    n = dst.shape[bax + 1]
+                    src = ring[group.name][key][f][(slice(None),) * bax + (slice(s * n, (s + 1) * n),)]
+                    dst[(slice(None),) * bax + (local,)] = src.to(dst.device, dst.dtype)
 
 
 def attn_cache_len(sig: LayerSig, seq_len: int) -> int:
@@ -39,10 +116,14 @@ def init_layer_state(cfg: ArchConfig, sig: LayerSig, batch: int, length: int,
 
 
 def init_decode_state(model: Model, batch: int, seq_len: int, *,
-                      seq_shards: int = 1, prefilled=0) -> dict:
-    """``seq_shards`` ranks split each ring; ``prefilled`` is a scalar or
-    a (batch,) per-row fill depth."""
+                      seq_shards: int = 1, batch_shards: int = 1, prefilled=0) -> dict:
+    """One entry per logical rank: ``batch_shards`` blocks of the rows and
+    ``seq_shards`` slices of each ring (a plan's ``batch_shards`` and
+    ``seq_shards``; which rank holds which is ``RingLayout.of_plan``);
+    ``prefilled`` is a scalar or a (batch,) per-row fill depth."""
     cfg, dev = model.cfg, model.device
+    if batch % batch_shards:
+        raise ValueError(f"batch {batch} must divide over {batch_shards} batch shards")
     layers: dict = {}
     for group in model.plan:
         gdict = {}
@@ -54,9 +135,9 @@ def init_decode_state(model: Model, batch: int, seq_len: int, *,
                     "sequence shards"
                 )
             ranks = []
-            for _ in range(seq_shards):
+            for _ in range(model.n_ranks):
                 st = init_layer_state(
-                    cfg, sig, batch, length // seq_shards, model.dtype, dev
+                    cfg, sig, batch // batch_shards, length // seq_shards, model.dtype, dev
                 )
                 if group.scan:
                     st = {k: v[None].repeat((group.n_cycles,) + (1,) * v.ndim)

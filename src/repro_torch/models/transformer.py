@@ -8,12 +8,14 @@ an explicit leading *shard axis*, as in the JAX package:
 - attention:       (A, D, qdim/A) etc.             A = geom.attn_shards
 - embed/lm_head:   vocab-sharded over "model"
 
-The port holds the model as one parameter tree per logical rank of the
-``model`` mesh axis (``Model.init_params`` returns a list): each tree is
-what that rank holds inside the JAX package's ``shard_map`` — leading
-shard dims of the local size, vocab slices of the embedding and head —
-under the JAX key names. Replicated leaves (norms, the router,
-replicated families) are one tensor shared by every rank's tree.
+The port holds the model as one parameter tree per logical rank
+(``Model.init_params`` returns a list, rank ``r = d * G + m`` at data
+index ``d`` and model index ``m``): each tree is what that rank holds
+inside the JAX package's ``shard_map`` — leading shard dims of the local
+size, vocab slices of the embedding and head — under the JAX key names.
+Replicated leaves (norms, the router, replicated families) are one tensor
+shared by every rank's tree. The weights are sharded over ``model`` only:
+a data replica's rank ``(d, m)`` holds the same tensors as ``(0, m)``.
 """
 from __future__ import annotations
 
@@ -294,21 +296,45 @@ def shard_axis_size(mesh_sizes: dict, axes: tuple[str, ...]) -> int:
     return math.prod(mesh_sizes.get(a, 1) for a in axes)
 
 
+def sharded_axes(axes: tuple[str, ...], mesh_sizes: dict) -> tuple[str, ...]:
+    """The axes of ``axes`` that split anything (size > 1)."""
+    return tuple(a for a in axes if mesh_sizes.get(a, 1) > 1)
+
+
 def split_leading(t: torch.Tensor, axes: tuple[str, ...], mesh_sizes: dict,
                   axis: int = 0) -> list[torch.Tensor]:
-    """One rank's block per rank of the ``model`` axis: the leading shard
-    axis split over ``axes`` (a separate allocation per rank), or the
-    whole tensor shared by every rank when ``axes`` is empty."""
+    """One block per rank of the ``model`` axis: the leading shard axis
+    split over ``axes`` (a separate allocation per model rank), or the
+    whole tensor shared by every rank when ``axes`` is empty. The data
+    replicas share these blocks (:func:`replicate_over_data`)."""
     n_ranks = mesh_sizes.get(AXIS_MODEL, 1)
     size = shard_axis_size(mesh_sizes, axes)
     if size == 1:
         return [t] * n_ranks
-    if size != n_ranks:
+    if sharded_axes(axes, mesh_sizes) != (AXIS_MODEL,):
         raise NotImplementedError(
-            f"sharding over {axes} of size {size} on {n_ranks} model ranks: "
-            "the port runs data=1 meshes only"
+            f"a weight family sharded over {tuple(axes)}: the port shards weights "
+            "over the model axis only (several axes are rotate execution's work)"
         )
     return [c.contiguous() for c in torch.chunk(t, n_ranks, dim=axis)]
+
+
+def _share(tree):
+    """A new tree of the same structure holding the same tensors."""
+    if isinstance(tree, dict):
+        return {k: _share(v) for k, v in tree.items()}
+    return tree
+
+
+def replicate_over_data(per_model_rank: list, mesh_sizes: dict) -> list:
+    """The per-logical-rank list from the trees of the ``model`` ranks: rank
+    ``d * G + m`` gets a tree holding the very tensors of model rank ``m``.
+    On one card the data replicas share their read-only weights; the
+    paper's replicas are separate GPUs, which computes the same, and two
+    copies of DeepSeek-R1's depth-2 weights (2 x 28.19 GB) with the landing
+    buffers would not fit the card."""
+    data = math.prod(v for a, v in mesh_sizes.items() if a != AXIS_MODEL)
+    return list(per_model_rank) + [_share(t) for _ in range(data - 1) for t in per_model_rank]
 
 
 def _normal(gen, shape, scale, device) -> torch.Tensor:
@@ -379,8 +405,10 @@ def init_moe_params(gen, cfg: ArchConfig, geom: "Geometry", dtype, device,
     assert moe is not None and pl is not None
     d, fe = cfg.d_model, moe.d_ff
     n_ranks = geom.model_size
-    if shard_axis_size(mesh_sizes, geom.expert_axes) != n_ranks:
-        raise NotImplementedError("the port shards experts over the model ranks only")
+    if sharded_axes(geom.expert_axes, mesh_sizes) not in ((), (AXIS_MODEL,)):
+        raise NotImplementedError(
+            f"experts sharded over {geom.expert_axes}: the port shards them over the "
+            "model axis only (several axes need rotate execution, not ported yet)")
     router = _dense(gen, (d, pl.num_padded), dtype, device, d**-0.5)
 
     def position_bank(p, shape_tail, scale):
@@ -462,14 +490,16 @@ class Model:
 
     @property
     def n_ranks(self) -> int:
-        return self.geom.model_size
+        """Logical ranks: every coordinate of the mesh (``data * model``)."""
+        return math.prod(v for _, v in self.mesh_sizes)
 
     def init_params(self, generator: torch.Generator) -> list[dict]:
         """Random weights for every logical rank, drawn from ``generator``
-        (which must live on ``self.device``)."""
+        (which must live on ``self.device``); the data replicas share the
+        model ranks' tensors (:func:`replicate_over_data`)."""
         cfg, geom, dtype, dev = self.cfg, self.geom, self.dtype, self.device
         sizes = self.sizes
-        n = self.n_ranks
+        n = geom.model_size
         v_l = geom.vocab_pad // n
         ranks = [
             {
@@ -500,7 +530,7 @@ class Model:
                     per_rank = init_layer_params(generator, cfg, geom, sig, dtype, dev, sizes)
                 for r in range(n):
                     ranks[r]["layers"][group.name][f"pos{j}"] = per_rank[r]
-        return ranks
+        return replicate_over_data(ranks, sizes)
 
 
 def build_model(
@@ -513,16 +543,19 @@ def build_model(
 ) -> Model:
     """The port's ``build_model``: one geometry for the mesh, one layer
     plan. ``device`` defaults to the card; pass ``device="cpu"`` to run on
-    the CPU. Only ``data == 1`` meshes run (the model ranks are logical
-    ranks in one process)."""
+    the CPU. The mesh is ``(data, model)``: its ``data * model`` ranks are
+    logical ranks in one process, the weights sharded over ``model`` and
+    shared by the data replicas."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the port runs on the card by default; pass "
             'device="cpu" to run on the CPU'
         )
-    if mesh_sizes.get("data", 1) != 1:
-        raise NotImplementedError("the port runs (data=1, model=G) meshes only")
+    if mesh_sizes.get("pod", 1) != 1 or set(mesh_sizes) - {"pod", "data", "model"}:
+        raise NotImplementedError(f"the port runs (data, model) meshes, got {mesh_sizes}")
+    if min(mesh_sizes.values()) < 1:
+        raise ValueError(f"mesh sizes must be positive, got {mesh_sizes}")
     dtype_bytes = torch.empty((), dtype=dtype).element_size()
     geom = Geometry.build(cfg, mesh_sizes, dtype_bytes=dtype_bytes, **geom_kwargs)
     plan = tuple(make_layer_plan(cfg))

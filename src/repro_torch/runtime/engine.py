@@ -12,10 +12,14 @@ the predictive state across decode steps and keeps each step's
 ``pred_stats``), and the slot snapshots the serving layer's
 evict-to-queue takes (``GenerationServer.snapshot_slot``). The
 reference's default serving configuration, a DWDP context server feeding
-a DEP generation server, hands the prefill's KV state over unchanged: both
-servers keep the ring sequence-sharded at one ``cache_len``. A DEP context
-server is refused: DEP's tensor-parallel prefill attention captures no KV
-state, in the JAX package as here.
+a DEP generation server, hands the prefill's KV state over at one
+``cache_len``. On a ``(data, model)`` mesh the context server shards its
+one row's sequence over every rank while the generation server shards its
+slots over ``data`` and their rings over ``model``: ``GenerationServer.
+admit`` moves the ring between the two layouts itself
+(``models.cache.read_row`` / ``write_row``), where the JAX package writes
+one global array. A DEP context server is refused: DEP's tensor-parallel
+prefill attention captures no KV state, in the JAX package as here.
 
 Every step a server runs is one variant of a :class:`PolicyVariantCache`
 keyed as the JAX package keys its jit variants: the policy table, the
@@ -35,6 +39,7 @@ the device has finished (``torch.cuda.synchronize``).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -48,13 +53,14 @@ import torch
 from repro_torch import counters
 from repro_torch.configs.base import InputShape
 from repro_torch.core import execution
+from repro_torch.core.placement import subgroup_positions
 from repro_torch.core.strategy import (
     PolicyTable,
     make_execution_plan,
     plan_activation_sharding,
 )
-from repro_torch.models.cache import init_decode_state
-from repro_torch.models.transformer import Model
+from repro_torch.models.cache import RingLayout, init_decode_state, read_row, write_row
+from repro_torch.models.transformer import AXIS_MODEL, Model
 from repro_torch.runtime.metrics import RequestRecord, ServingMetrics
 
 
@@ -323,6 +329,22 @@ class PolicyVariantCache:
 # --------------------------------------------------------------------------
 # Servers.
 # --------------------------------------------------------------------------
+def decode_axes(cfg, mesh_sizes: dict, max_batch: int, cache_len: int) -> tuple:
+    """The ``(batch_axes, seq_axes)`` of a generation server's decode plan;
+    ``ValueError`` where they would shard the batch over ``model``: decode
+    keeps its rows replicated over the vocab-sharded model axis (the JAX
+    package asserts it), so ``max_batch`` may divide over ``data`` but not
+    over ``data * model``."""
+    batch_axes, seq_axes = plan_activation_sharding(
+        cfg, InputShape("gen", cache_len, max_batch, "decode"), mesh_sizes)
+    if AXIS_MODEL in batch_axes:
+        raise ValueError(
+            f"max_batch {max_batch} on the mesh {dict(mesh_sizes)} would shard the decode "
+            f"batch over {batch_axes}: decode keeps its rows replicated over the model axis; "
+            f"pick a max_batch that {math.prod(mesh_sizes.values())} does not divide")
+    return batch_axes, seq_axes
+
+
 @dataclasses.dataclass
 class Request:
     req_id: int
@@ -347,7 +369,8 @@ class Request:
 class ContextServer:
     """Prefill worker: returns (first_token, captured decode state).
     ``ContextServer`` prefills one request at a time (global batch 1), so
-    the model axis shards the prompt's sequence.
+    the mesh shards the prompt's sequence (on ``(2, 4)`` over both axes:
+    eight slices).
 
     Prompt lengths are served from pow2 buckets: ``prefill_len`` is the
     home bucket and ``prefill_buckets`` adds lengths, each a power of two;
@@ -472,6 +495,12 @@ class GenerationServer:
     ``overflow_layers`` the route-before-gather layers that overflowed in
     them.
 
+    On a ``(data, model)`` mesh the slots are sharded over ``data`` (slot
+    ``i`` lives in data replica ``i // (max_batch / data)``) and their KV
+    rings over ``model``; a decode batch that the mesh would shard over
+    ``model`` is refused at construction (``ValueError``), as the JAX
+    package's decode asserts.
+
     Evict-to-queue: :meth:`snapshot_slot` copies one slot's decode state to
     the host in the context-transfer layout, stamped with
     :meth:`restore_plan`; :meth:`admit` takes such a snapshot back into any
@@ -488,13 +517,15 @@ class GenerationServer:
         self.space = space
         self._mesh_sizes = dict(mesh_sizes)
         self._shape = InputShape("gen", cache_len, max_batch, "decode")
+        batch_axes, seq_axes = decode_axes(model.cfg, mesh_sizes, max_batch, cache_len)
         self.variants = PolicyVariantCache(
             model, mesh_sizes, self._shape, self._build, mode=mode,
             capacity_from=capacity_from, max_entries=variant_cache_size,
         )
-        _, seq_axes = plan_activation_sharding(model.cfg, self._shape, mesh_sizes)
-        seq_shards = math.prod(mesh_sizes[a] for a in seq_axes)
-        self._kv = init_decode_state(model, max_batch, cache_len, seq_shards=seq_shards)
+        batch_shards = math.prod(mesh_sizes[a] for a in batch_axes)
+        self._kv = init_decode_state(model, max_batch, cache_len, batch_shards=batch_shards,
+                                     seq_shards=math.prod(mesh_sizes[a] for a in seq_axes))
+        self.slot_rows = max_batch // batch_shards  # slots per data replica
         self.cur_token = torch.zeros((max_batch, 1), dtype=torch.int64, device=model.device)
         self.pred_stats: list[np.ndarray] = []
         self.last_pred_stats: Optional[np.ndarray] = None
@@ -570,25 +601,29 @@ class GenerationServer:
             "excl": (),
         }
 
+    def layout(self) -> RingLayout:
+        """Which rows and ring slice each rank's state entry holds."""
+        return RingLayout.of_plan(self.xp)
+
     def admit(self, slot: int, req_id: int, first_token: int, ctx_state: dict) -> None:
         """Install a context-server state, or a :meth:`snapshot_slot`
         payload, into one batch slot, in place: the captured steps read the
-        server's state tensors, so they are written and never rebound. A
-        snapshot is validated against the active plan before anything is
-        written. The predictive state (``state["pred"]``) is per rank and
-        shared by the slots, so it is left as it is. Scan groups carry a
-        leading cycle axis, so the batch axis is 1 there."""
+        server's state tensors, so they are written and never rebound. The
+        source's row 0 is read whole from its own layout (its
+        ``"layout"``, which every state carries) and written, ring slot by
+        ring slot, into every rank that holds ``slot`` here, each its own
+        slice (``models.cache.read_row`` / ``write_row``). A snapshot is validated
+        against the active plan before anything is written. The predictive
+        state (``state["pred"]``) is per rank and shared by the slots, so it
+        is left as it is."""
         if "plan" in ctx_state:
             validate_restore_plan(ctx_state["plan"], self.restore_plan())
-        for group in self.model.plan:
-            bax = 1 if group.scan else 0
-            for key, ranks in self.state["layers"][group.name].items():
-                src_ranks = ctx_state["layers"][group.name][key]
-                for dst, src in zip(ranks, src_ranks):
-                    for f in dst:
-                        idx = (slice(None),) * bax + (slot,)
-                        sidx = (slice(None),) * bax + (0,)
-                        dst[f][idx] = src[f][sidx].to(dst[f].device, dst[f].dtype)
+        src_layers = ctx_state["layers"]
+        if "layout" not in ctx_state:
+            raise ValueError("admit needs the state's 'layout' (a RingLayout), as "
+                             "forward_prefill and snapshot_slot set it")
+        ring = read_row(self.model, src_layers, ctx_state["layout"], 0)
+        write_row(self.model, self.state["layers"], self.layout(), slot, ring)
         self.state["pos"][slot] = ctx_state["pos"][0].to(self.state["pos"].device)
         self.cur_token[slot, 0] = first_token
         self.slot_req[slot] = req_id
@@ -635,38 +670,38 @@ class GenerationServer:
 
     def snapshot_slot(self, slot: int) -> dict:
         """Host copy of one slot's decode state in the context-transfer
-        layout (batch dim 1), re-admittable through :meth:`admit` into any
-        slot of a server with the same :meth:`restore_plan`: ``pos``,
-        ``layers``, ``token`` (the slot's pending input token, the last one
-        it emitted) and ``plan``. The predictive state is per rank, not per
-        slot, and is not captured."""
+        layout (batch dim 1; the whole ring as one entry, ``"layout"``
+        ``RingLayout.sequence(1)``), re-admittable through :meth:`admit`
+        into any slot of a server with the same :meth:`restore_plan`:
+        ``pos``, ``layers``, ``layout``, ``token`` (the slot's pending input
+        token, the last one it emitted) and ``plan``. The predictive state is
+        per rank, not per slot, and is not captured."""
+        ring = read_row(self.model, self.state["layers"], self.layout(), slot)
         layers = {}
         for group in self.model.plan:
-            idx = (slice(None),) * (1 if group.scan else 0) + (slice(slot, slot + 1),)
+            bax = 1 if group.scan else 0
             layers[group.name] = {
-                key: [{f: t[idx].to("cpu", copy=True) for f, t in rank.items()} for rank in ranks]
-                for key, ranks in self.state["layers"][group.name].items()
+                key: [{f: t.unsqueeze(bax).to("cpu", copy=True) for f, t in fields.items()}]
+                for key, fields in ring[group.name].items()
             }
         return {
             "pos": self.state["pos"][slot:slot + 1].to("cpu", copy=True),
             "layers": layers,
+            "layout": RingLayout.sequence(1),
             "token": int(self.cur_token[slot, 0]),
             "plan": self.restore_plan(),
         }
 
-    def _subgroup_positions(self) -> np.ndarray:
-        """Each flat rank's position within its expert-gather subgroup, in
-        rank order (the index the mirrored predictor keeps per peer)."""
-        sizes = self._mesh_sizes
-        n = math.prod(sizes.values())
-        rem, coords = np.arange(n), {}
-        for ax in reversed(list(sizes)):
-            coords[ax] = rem % sizes[ax]
-            rem = rem // sizes[ax]
-        idx = np.zeros(n, np.int64)
-        for ax in self.model.geom.expert_axes:
-            idx = idx * sizes[ax] + coords[ax]
-        return idx % self.model.geom.moe_placement.subgroup_size
+    def replica(self, slot: int) -> int:
+        """The data replica whose ranks hold ``slot``."""
+        return slot // self.slot_rows
+
+    def step_shares(self, slots) -> list:
+        """Each active slot's share of a decode step's per-rank gathered
+        bytes: one over the active slots of its own data replica, whose
+        ranks pull the weights for those rows alone."""
+        count = collections.Counter(self.replica(s) for s in slots)
+        return [1.0 / count[self.replica(s)] for s in slots]
 
     def routed_bitmaps(self, group: Optional[str] = None) -> Optional[np.ndarray]:
         """The last decode step's routed-expert bitmap of every rank,
@@ -684,7 +719,9 @@ class GenerationServer:
         ranks = gdict[sorted(gdict)[0]][0]
         prev = torch.stack([ps.prev for ps in ranks]).cpu().numpy()
         if prev.ndim == 3:  # mirrored: (n_ranks, G', e_pad) -> each rank's own row
-            prev = prev[np.arange(prev.shape[0]), self._subgroup_positions()]
+            geom = self.model.geom
+            pos = subgroup_positions(self._mesh_sizes, geom.expert_axes, geom.moe_placement)
+            prev = prev[np.arange(prev.shape[0]), pos]
         return prev[:, :self.model.cfg.moe.num_experts].astype(bool)
 
 
@@ -692,12 +729,10 @@ class DisaggregatedEngine:
     """Queues + rate matching between the context and generation servers."""
 
     def __init__(self, params, ctx: ContextServer, gen: GenerationServer):
-        kv = {name: (srv.cache_len, srv.xp.seq_axes) for name, srv in
-              (("context", ctx), ("generation", gen))}
-        if kv["context"] != kv["generation"]:
+        if ctx.cache_len != gen.cache_len:
             raise ValueError(
-                "the context server's KV state does not fit the generation server's ring "
-                f"(cache_len, sequence axes): {kv}")
+                "the context server's KV state does not fit the generation server's ring: "
+                f"cache_len {ctx.cache_len} != {gen.cache_len}")
         self.params = params
         self.ctx = ctx
         self.gen = gen
@@ -755,10 +790,11 @@ class DisaggregatedEngine:
     def run(self, steps: int) -> ServingMetrics:
         """Each step = one decode iteration; free slots pull queued
         requests through the context server first. Each request is
-        attributed its prefill's gathered wire bytes and an equal share of
-        every decode step's (and of its measured predictive counters) over
-        the step's active slots, as the live serving client attributes
-        them."""
+        attributed its prefill's gathered wire bytes, its share of every
+        decode step's (``GenerationServer.step_shares``: over the active
+        slots of its data replica) and an equal share of the step's measured
+        predictive counters over the step's active slots, as the live
+        serving client attributes them."""
         for _ in range(steps):
             for slot in self.gen.free_slots():
                 if not self.queue:
@@ -774,12 +810,14 @@ class DisaggregatedEngine:
                 self.gen.slot_remaining[slot] = req.target_len - 1
             toks = self.gen.decode_step(self.params)
             t = self.now()
-            share = 1.0 / max(1, sum(r is not None for r in self.gen.slot_req))
+            active = [s for s, r in enumerate(self.gen.slot_req) if r is not None]
+            share = 1.0 / max(1, len(active))
+            shares = dict(zip(active, self.gen.step_shares(active)))
             for slot, rid in enumerate(self.gen.slot_req):
                 if rid is None:
                     continue
                 rec = self.records[rid]
-                rec.add_gather_share(self.gen.gather_bytes, share)
+                rec.add_gather_share(self.gen.gather_bytes, shares[slot])
                 if self.gen.last_pred_stats is not None:
                     rec.add_predict_share(self.gen.last_pred_stats, self.gen.expert_bytes, share)
                 self.outputs[rid].append(int(toks[slot]))

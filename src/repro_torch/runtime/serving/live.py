@@ -9,11 +9,13 @@ slot's decode state to the host (``GenerationServer.snapshot_slot``) and
 a resume writes it back into a slot in place, so the captured graphs keep
 reading the same tensors. Each request is attributed the gathered wire
 bytes and predictive counters as ``DisaggregatedEngine.run`` attributes
-them. Durations are host seconds read after the device has finished; the
+them (a decode step's bytes over the active slots of each request's data
+replica, ``GenerationServer.step_shares``). Durations are host seconds read after the device has finished; the
 admission projection is an EMA of the measured step times per batch size.
 
-``num_gpus`` defaults to 1: the port runs a replica's G' logical ranks on
-one card, so a summary's ``tps_per_gpu`` is per card.
+``num_gpus`` defaults to 1: the port runs a replica's logical ranks (G' on
+``(1, G')``, all eight on ``(2, 4)``) on one card, so a summary's
+``tps_per_gpu`` is per card.
 
 ``RoutedTraceRecorder`` is a scheduler ``on_step`` hook that collects each
 decode step's per-rank routed-expert bitmaps
@@ -38,6 +40,7 @@ class LiveReplicaClient:
         self.num_slots = gen.max_batch
         self.num_gpus = num_gpus
         self._step_ema: dict[int, float] = {}
+        self._active: list = []
 
     @classmethod
     def from_engine(cls, engine, *, num_gpus: int = 1):
@@ -73,6 +76,7 @@ class LiveReplicaClient:
         rec.add_gather_share(self.ctx.gather_bytes)
 
     def step(self, active: list) -> tuple:
+        self._active = list(active)
         t0 = self._now()
         toks = self.gen.decode_step(self.params)
         dur = self._now() - t0
@@ -82,9 +86,11 @@ class LiveReplicaClient:
         return toks, dur
 
     def attribute_step(self, recs) -> None:
+        """``recs``: the records of the last step's active slots, in order."""
         share = 1.0 / max(1, len(recs))
-        for rec in recs:
-            rec.add_gather_share(self.gen.gather_bytes, share)
+        shares = self.gen.step_shares(self._active)
+        for rec, gather_share in zip(recs, shares, strict=True):
+            rec.add_gather_share(self.gen.gather_bytes, gather_share)
             if self.gen.last_pred_stats is not None:
                 rec.add_predict_share(self.gen.last_pred_stats, self.gen.expert_bytes, share)
 

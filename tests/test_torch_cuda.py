@@ -620,3 +620,52 @@ def test_cuda_dep_graph_step_bitwise_eager(gen_mode):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         assert torch.equal(logits, ref), xp.decode_attn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gen_mode", ["dwdp", "dep"])
+def test_cuda_two_data_replicas_graph_bitwise_eager(gen_mode):
+    """Mesh (data=2, model=4), max_batch 4: the context server shards each
+    prompt over all eight ranks, the generation server two slots per data
+    replica. The replicas' weights are the model ranks' own storage (the
+    same ``data_ptr``); through graphs against the eager engine the same
+    tokens, no capture after warmup, and one more decode step's logits
+    bitwise the eager deferred step's, free of host syncs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from repro_torch.core import execution
+    from repro_torch.launch.serve import build_engine
+
+    def engine(**kw):
+        return build_engine(_graph_cfg(), mesh_shape=(2, 4), prefill_len=64,
+                            prefill_buckets=(32,), cache_len=96, max_batch=4,
+                            dtype=torch.bfloat16, device="cuda", gen_mode=gen_mode,
+                            geom_kwargs=GRAPH_GEOM, **kw)[0]
+
+    graph = engine()
+    eager = engine(params=graph.params, graphs=False)
+    assert graph.ctx.xp.seq_axes == ("data", "model")
+    assert (graph.gen.xp.batch_axes, graph.gen.xp.seq_axes) == (("data",), ("model",))
+
+    def leaves(tree):
+        return [x for v in tree.values() for x in leaves(v)] if isinstance(tree, dict) else [tree]
+
+    for m in range(4):
+        for a, b in zip(leaves(graph.params[m]), leaves(graph.params[m + 4]), strict=True):
+            assert a.data_ptr() == b.data_ptr()
+    graph.warmup()
+    eager.warmup()
+    warm = _captures(graph)
+    assert warm == (2, 1)
+    assert _graph_serve(graph) == _graph_serve(eager)
+    assert _captures(graph) == warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits = graph.gen.step(graph.params)["logits"].clone()
+        ctx = execution.Ctx(model=eager.gen.model, xp=eager.gen.xp, deferred=True)
+        ref = execution.forward_decode(eager.params, eager.gen.cur_token, eager.gen.state,
+                                       ctx)["logits"]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert logits.shape[0] == 4 and torch.equal(logits, ref)

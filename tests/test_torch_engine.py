@@ -12,13 +12,8 @@ import jax
 import jax.numpy as jnp
 
 from repro.checkpoint.npz import save_pytree
-from repro.configs import get_arch as jget_arch
-from repro.configs import reduced_variant as jreduced
-from repro.launch.serve import build_engine as jbuild_engine
 from repro.models.transformer import build_model as jbuild_model
-from repro.runtime.engine import Request as JRequest
 from repro_torch.checkpoint.convert import from_jax_params, load_npz
-from repro_torch.configs import get_arch, reduced_variant
 from repro_torch.launch.serve import build_engine
 from repro_torch.models.transformer import build_model
 from repro_torch.runtime.engine import Request
@@ -29,16 +24,15 @@ from repro_torch.runtime.serving import (
     ServingScheduler,
     SLOConfig,
 )
+import torch_refs
+from torch_refs import MOE_GEOM, R1_CACHE, R1_OUT, R1_PROMPT, R1_STEPS
 
 # One intra-op thread per process: the suite runs several test workers, and
 # the port's test shapes are too small to gain from more.
 torch.set_num_threads(1)
 
-GEOM = dict(shard_attention=True, expert_axes=("model",), moe_exec="gather")
-PROMPT, CACHE, OUT = 16, 32, 5
-# decode steps that serve 3 requests through 2 slots: OUT - 1 for the
-# first two, then OUT - 1 for the third
-STEPS = 2 * (OUT - 1)
+GEOM = MOE_GEOM
+PROMPT, CACHE, OUT, STEPS = R1_PROMPT, R1_CACHE, R1_OUT, R1_STEPS
 
 
 @pytest.fixture(scope="module")
@@ -46,27 +40,16 @@ def r1_smoke():
     """Reduced DeepSeek-R1 (E = top_k = 4: every expert receives every
     token, so no token is dropped in either layout at factor 1.25), the
     JAX (1, 4) weights — the same canonical values as the (1, 1) engine's
-    — and seeded prompts."""
-    jcfg = jreduced(jget_arch("deepseek-r1"))
-    cfg = reduced_variant(get_arch("deepseek-r1"))
-    jm4 = jbuild_model(jcfg, {"data": 1, "model": 4}, dtype=jnp.float32, **GEOM)
-    jparams = jax.tree.map(np.asarray, jm4.init_params(jax.random.key(0)))
-    rng = np.random.default_rng(5)
-    prompts = [rng.integers(0, cfg.vocab_size, PROMPT) for _ in range(3)]
-    return cfg, jcfg, jparams, prompts
+    — and seeded prompts (``torch_refs``, shared with
+    tests/test_torch_data_parallel.py)."""
+    return torch_refs.r1_smoke()
 
 
 @pytest.fixture(scope="module")
 def jax_serve(r1_smoke):
     """The JAX engine at (1, 1) serving the prompts through its loop (run
-    once for the module): its engine, outputs and summary."""
-    _, jcfg, _, prompts = r1_smoke
-    jeng, _ = jbuild_engine(jcfg, mesh_shape=(1, 1), prefill_len=PROMPT, cache_len=CACHE,
-                            max_batch=2, gen_mode="dwdp", dtype=jnp.float32, seed=0)
-    for i, p in enumerate(prompts):
-        jeng.submit(JRequest(i, p, OUT))
-    jeng.run(STEPS)
-    return jeng
+    once per process, ``torch_refs``)."""
+    return torch_refs.jax_serve()
 
 
 def _port_engine(r1_smoke, gen_mode="dwdp"):
@@ -171,7 +154,8 @@ def test_from_jax_params_checks_geometry(r1_smoke):
         from_jax_params(bad, model)
     # a tree built without the attention override keeps attention replicated
     jm_repl = jbuild_model(jcfg, {"data": 1, "model": 4}, dtype=jnp.float32)
-    repl = jax.tree.map(np.asarray, jm_repl.init_params(jax.random.key(0)))
+    repl = jax.tree.map(lambda s: np.zeros(s.shape, np.float32),
+                        jax.eval_shape(jm_repl.init_params, jax.random.key(0)))
     with pytest.raises(ValueError, match="attention stack"):
         from_jax_params(repl, model)
 
@@ -185,9 +169,8 @@ def test_prefill_buckets_match_jax_context_server(r1_smoke):
     logits within TOL, each length through its own bucket's step; the
     same bucket set and the same refusal of a non-pow2 bucket."""
     cfg, jcfg, jparams, prompts = r1_smoke
-    jeng, _ = jbuild_engine(jcfg, mesh_shape=(1, 1), prefill_len=PROMPT, prefill_buckets=(8,),
-                            cache_len=CACHE, max_batch=2, gen_mode="dwdp", dtype=jnp.float32,
-                            seed=0)
+    jeng = torch_refs.jax_engine(jcfg, torch_refs.r1_params1(), prefill_len=PROMPT,
+                                 prefill_buckets=(8,), cache_len=CACHE)
     model = build_model(cfg, {"data": 1, "model": 4}, device="cpu", **GEOM)
     eng, _ = build_engine(cfg, mesh_shape=(1, 4), prefill_len=PROMPT, prefill_buckets=(8,),
                           cache_len=CACHE, max_batch=2, device="cpu",
@@ -209,8 +192,8 @@ def test_prefill_buckets_match_jax_context_server(r1_smoke):
             build_engine(cfg, mesh_shape=(1, 4), prefill_len=PROMPT, prefill_buckets=(bad,),
                          cache_len=CACHE, device="cpu", geom_kwargs=GEOM)
         with pytest.raises(ValueError, match="powers of two"):
-            jbuild_engine(jcfg, mesh_shape=(1, 1), prefill_len=PROMPT, prefill_buckets=(bad,),
-                          cache_len=CACHE, dtype=jnp.float32)
+            torch_refs.jax_engine(jcfg, torch_refs.r1_params1(), prefill_len=PROMPT,
+                                  prefill_buckets=(bad,), cache_len=CACHE)
     with pytest.raises(ValueError, match="matches no context-server bucket"):
         eng.submit(Request(0, prompts[0][:12], 2))
     with pytest.raises(ValueError, match="matches no prefill bucket"):

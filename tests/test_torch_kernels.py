@@ -27,6 +27,8 @@ from repro_torch.models import moe as tmoe
 # the port's test shapes are too small to gain from more.
 torch.set_num_threads(1)
 
+# The JAX references run under jax.jit, one program each: eager JAX
+# compiles every op at every new shape, seconds per small test.
 # tests/test_kernels.py TOL: fp32 2e-5, bf16 2e-2 (atol and rtol)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -73,8 +75,8 @@ def test_split_grouped_swiglu_plain_matches_pallas_and_jnp(shape, dt):
     jx, tx = _both(arrs, dt)
     got = grouped.split_grouped_swiglu(*tx)  # CPU tensors: the plain version
     assert torch.equal(got, grouped.split_grouped_swiglu_torch(*tx))
-    _close(got, jops.split_swiglu(*jx), dt)            # Pallas, interpret mode
-    _close(got, jops.split_swiglu(*jx, impl="jnp"), dt)
+    _close(got, jax.jit(jops.split_swiglu)(*jx), dt)   # Pallas, interpret mode
+    _close(got, jax.jit(lambda *a: jops.split_swiglu(*a, impl="jnp"))(*jx), dt)
 
 
 @pytest.mark.parametrize("shape,dt", DENSE_CASES, ids=str)
@@ -88,16 +90,18 @@ def test_split_dense_kernels_plain_match_pallas_and_jnp(shape, dt):
         [x, wl, wr, xr, wl2, wr2], dt
     )
     got = dense.split_stack_gemm(tx, twl, twr)
-    _close(got, jops.split_stack_matmul(jx, jwl, jwr), dt)
-    _close(got, jops.split_stack_matmul(jx, jwl, jwr, impl="jnp"), dt)
+    stack_jnp = jax.jit(lambda *a: jops.split_stack_matmul(*a, impl="jnp"))
+    _close(got, jax.jit(jops.split_stack_matmul)(jx, jwl, jwr), dt)
+    _close(got, stack_jnp(jx, jwl, jwr), dt)
     got = dense.split_reduce_gemm(txr, twl2, twr2)
-    _close(got, jops.split_reduce_matmul(jxr, jwl2, jwr2), dt)
-    _close(got, jops.split_reduce_matmul(jxr, jwl2, jwr2, impl="jnp"), dt)
+    reduce_jnp = jax.jit(lambda *a: jops.split_reduce_matmul(*a, impl="jnp"))
+    _close(got, jax.jit(jops.split_reduce_matmul)(jxr, jwl2, jwr2), dt)
+    _close(got, reduce_jnp(jxr, jwl2, jwr2), dt)
     arrs = _arrays(sum(shape) + 1, *_dense_swiglu_shapes(*shape))
     jd, td = _both(arrs, dt)
     got = dense.split_dense_swiglu(*td)
-    _close(got, jops.split_dense_ffn(*jd), dt)
-    _close(got, jops.split_dense_ffn(*jd, impl="jnp"), dt)
+    _close(got, jax.jit(jops.split_dense_ffn)(*jd), dt)
+    _close(got, jax.jit(lambda *a: jops.split_dense_ffn(*a, impl="jnp"))(*jd), dt)
 
 
 def test_ops_dispatch_impls_agree_on_cpu():
@@ -250,24 +254,28 @@ def test_grouped_plans_ignore_expert_count(c, experts):
 @pytest.mark.parametrize("t,cap,num_real", [(12, 2, 6), (9, 2, 8), (5, 1, 8)])
 def test_route_topk_with_drops_matches_jax(t, cap, num_real):
     x, w = _arrays(t, (t, 16), (16, 8), scale=1.0)
-    dj = jmoe.route_topk(jnp.asarray(x), jnp.asarray(w), 2, cap, num_real=num_real)
+
+    def jax_route(x, w):
+        d = jmoe.route_topk(x, w, 2, cap, num_real=num_real)
+        xe = jmoe.dispatch_tokens(x, d, 8, cap)
+        return d, xe, jmoe.combine_tokens(xe, d, t)
+
+    dj, xe_j, out_j = jax.jit(jax_route)(jnp.asarray(x), jnp.asarray(w))
     dt = tmoe.route_topk(torch.from_numpy(x), torch.from_numpy(w), 2, cap, num_real=num_real)
     assert not bool(np.all(np.asarray(dj.keep)))  # some tokens dropped
     np.testing.assert_array_equal(dt.flat_slot.numpy(), np.asarray(dj.flat_slot))
     np.testing.assert_array_equal(dt.keep.numpy(), np.asarray(dj.keep))
     np.testing.assert_allclose(dt.weight.numpy(), np.asarray(dj.weight), atol=1e-6)
-    xe_j = jmoe.dispatch_tokens(jnp.asarray(x), dj, 8, cap)
     xe_t = tmoe.dispatch_tokens(torch.from_numpy(x), dt, 8, cap)
     np.testing.assert_allclose(xe_t.numpy(), np.asarray(xe_j), atol=1e-6)
-    np.testing.assert_allclose(
-        tmoe.combine_tokens(xe_t, dt, t).numpy(),
-        np.asarray(jmoe.combine_tokens(xe_j, dj, t)), atol=1e-6,
-    )
+    np.testing.assert_allclose(tmoe.combine_tokens(xe_t, dt, t).numpy(), np.asarray(out_j),
+                               atol=1e-6)
 
 
 def test_route_topk_rows_and_capacity_match_jax():
     x, w = _arrays(1, (3, 5, 16), (16, 8), scale=1.0)
-    dj = jmoe.route_topk_rows(jnp.asarray(x), jnp.asarray(w), 2, 2, num_real=7)
+    route = jax.jit(lambda x, w: jmoe.route_topk_rows(x, w, 2, 2, num_real=7))
+    dj = route(jnp.asarray(x), jnp.asarray(w))
     dt = tmoe.route_topk_rows(torch.from_numpy(x), torch.from_numpy(w), 2, 2, num_real=7)
     np.testing.assert_array_equal(dt.flat_slot.numpy(), np.asarray(dj.flat_slot))
     np.testing.assert_array_equal(dt.keep.numpy(), np.asarray(dj.keep))
@@ -281,8 +289,9 @@ def test_route_topk_rows_and_capacity_match_jax():
 def test_mha_prefill_matches_jax(window, q_offset, sk):
     sq = sk - q_offset
     q, k, v = _arrays(sk, (2, sq, 4, 8), (2, sk, 2, 8), (2, sk, 2, 8), scale=1.0)
-    ref = jattn.mha_prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                            window=window, q_offset=q_offset, block_kv=8)
+    prefill = jax.jit(lambda q, k, v: jattn.mha_prefill(q, k, v, window=window,
+                                                         q_offset=q_offset, block_kv=8))
+    ref = prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     got = tattn.mha_prefill(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                             window=window, q_offset=q_offset, block_kv=8)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
@@ -293,17 +302,18 @@ def test_mha_decode_partial_and_combine_match_jax():
     kv_pos = np.array([[0, 1, 2, 3, -1, -1], [4, 5, 6, 7, 8, 9]], np.int32)
     qpos = np.array([3, 7], np.int32)
     outs_t, lses_t, outs_j, lses_j = [], [], [], []
+    partial = jax.jit(jattn.mha_decode_partial)
     for i in range(3):
         pos_i = np.where(kv_pos >= 0, kv_pos + 10 * i, -1).astype(np.int32) if i else kv_pos
-        oj, lj = jattn.mha_decode_partial(jnp.asarray(q), jnp.asarray(k[i]), jnp.asarray(v[i]),
-                                          jnp.asarray(pos_i), jnp.asarray(qpos + 10 * (i == 2)))
+        oj, lj = partial(jnp.asarray(q), jnp.asarray(k[i]), jnp.asarray(v[i]),
+                         jnp.asarray(pos_i), jnp.asarray(qpos + 10 * (i == 2)))
         ot, lt = tattn.mha_decode_partial(torch.from_numpy(q), torch.from_numpy(k[i]),
                                           torch.from_numpy(v[i]), torch.from_numpy(pos_i),
                                           torch.from_numpy(qpos + 10 * (i == 2)))
         np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=1e-5)
         np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-5)
         outs_t.append(ot), lses_t.append(lt), outs_j.append(oj), lses_j.append(lj)
-    ref = jattn.combine_partials(jnp.stack(outs_j), jnp.stack(lses_j))
+    ref = jax.jit(jattn.combine_partials)(jnp.stack(outs_j), jnp.stack(lses_j))
     np.testing.assert_allclose(tattn.combine_partials(outs_t, lses_t).numpy(), np.asarray(ref),
                                atol=1e-5)
 
@@ -311,12 +321,15 @@ def test_mha_decode_partial_and_combine_match_jax():
 def test_rms_norm_rope_softcap_match_jax():
     x, s = _arrays(9, (2, 5, 4, 16), (16,), scale=1.0)
     pos = np.arange(10).reshape(2, 5).astype(np.int32)
+    norm, rope, cap = jax.jit(
+        lambda x, s, p: (jlayers.rms_norm(x, s, 1e-6), jlayers.apply_rope(x, p, 1e4),
+                         jlayers.softcap(x * 40, 30.0))
+    )(jnp.asarray(x), jnp.asarray(s), jnp.asarray(pos))
     np.testing.assert_allclose(
         tlayers.rms_norm(torch.from_numpy(x), torch.from_numpy(s), 1e-6).numpy(),
-        np.asarray(jlayers.rms_norm(jnp.asarray(x), jnp.asarray(s), 1e-6)), atol=1e-5)
+        np.asarray(norm), atol=1e-5)
     np.testing.assert_allclose(
         tlayers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e4).numpy(),
-        np.asarray(jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e4)), atol=1e-5)
+        np.asarray(rope), atol=1e-5)
     np.testing.assert_allclose(
-        tlayers.softcap(torch.from_numpy(x) * 40, 30.0).numpy(),
-        np.asarray(jlayers.softcap(jnp.asarray(x) * 40, 30.0)), atol=1e-4)
+        tlayers.softcap(torch.from_numpy(x) * 40, 30.0).numpy(), np.asarray(cap), atol=1e-4)

@@ -21,31 +21,24 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from repro.configs.base import ArchConfig as JArch
 from repro.configs.base import InputShape as JShape
-from repro.configs.base import MoEConfig as JMoE
 from repro.core import execution as jexec
 from repro.core import strategy as jstrategy
 from repro.launch.mesh import make_smoke_mesh
-from repro.models.transformer import build_model as jbuild_model
 from repro_torch.checkpoint.convert import from_jax_params
-from repro_torch.configs.base import ArchConfig, InputShape, MoEConfig
+from repro_torch.configs.base import InputShape
 from repro_torch.core import execution, strategy
 from repro_torch.models.transformer import build_model
+from torch_refs import MOE_EXPERTS, MOE_FIELDS, MOE_GEOM, tiny_moe
 
 # One intra-op thread per process: the suite runs several test workers, and
 # the port's test shapes are too small to gain from more.
 torch.set_num_threads(1)
 
 ATOL = RTOL = 1e-4
-GEOM = dict(shard_attention=True, expert_axes=("model",), moe_exec="gather")
-# vocab divisible by 4 (identical canonical values at (1,1) and (1,4));
-# E = 8, top_k = 2 (2 local experts per rank, rotation exercised); 2 kv
-# heads (kv_shard 2: the KV de-duplication path); a shared expert; a
-# dense first layer and an MoE second layer.
-FIELDS = dict(name="tiny-moe", family="moe", num_layers=2, d_model=64, num_heads=4,
-              num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256)
-MOE = dict(num_experts=8, top_k=2, d_ff=32, shared_d_ff=32, first_dense=1)
+# The tiny MoE model (``torch_refs``): vocab divisible by 4, E = 8, top_k
+# = 2, 2 kv heads, a shared expert, a dense first and an MoE second layer.
+GEOM, FIELDS, MOE = MOE_GEOM, MOE_FIELDS, MOE_EXPERTS
 CAP = MOE["num_experts"] / MOE["top_k"]
 PROMPT, CACHE = 16, 24
 
@@ -63,13 +56,8 @@ def _jax_step(jm1, mesh, shape, **kw):
 def setup():
     """The weights in both packages, the prompts, and the JAX package's
     (1, 1) prefill logits and greedy decode tokens (computed once)."""
-    jcfg = JArch(**FIELDS, moe=JMoE(**MOE))
-    cfg = ArchConfig(**FIELDS, moe=MoEConfig(**MOE))
-    jm1 = jbuild_model(jcfg, {"data": 1, "model": 1}, dtype=jnp.float32)
-    key = jax.random.key(3)
-    jparams1 = jm1.init_params(key)
-    jm4 = jbuild_model(jcfg, {"data": 1, "model": 4}, dtype=jnp.float32, **GEOM)
-    jparams4 = jax.tree.map(np.asarray, jm4.init_params(key))
+    w = tiny_moe()  # the weights, shared with tests/test_torch_data_parallel.py
+    cfg, jm1, jparams1, jparams4 = w["cfg"], w["jm1"], w["jparams1"], w["jparams4"]
     model = build_model(cfg, {"data": 1, "model": 4}, device="cpu", **GEOM)
     assert model.geom.kv_shard == 2 and model.geom.moe_placement.local_count == 2
     assert model.geom.attn_tp_ok and model.geom.ffn_axes == ("model",)

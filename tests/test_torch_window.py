@@ -17,39 +17,29 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from repro.configs.base import ArchConfig as JArch
-from repro.configs.base import BlockKind as JKind
 from repro.configs.base import InputShape as JShape
 from repro.core import execution as jexec
 from repro.core import strategy as jstrategy
 from repro.launch.mesh import make_smoke_mesh
-from repro.models.transformer import build_model as jbuild_model
 from repro_torch.checkpoint.convert import from_jax_params
-from repro_torch.configs.base import ArchConfig, BlockKind, InputShape
+from repro_torch.configs.base import InputShape
 from repro_torch.core import execution, strategy
 from repro_torch.models.transformer import build_model
+from torch_refs import WINDOW_GEOM, tiny_window
 
 # One intra-op thread per process: the suite runs several test workers, and
 # the port's test shapes are too small to gain from more.
 torch.set_num_threads(1)
 
 TOL = 1e-4
-GEOM = dict(shard_attention=True, ffn_axes_override=("model",))
-FIELDS = dict(name="tiny-window", family="dense", num_layers=4, d_model=64, num_heads=4,
-              num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256, window=8,
-              rope_theta=1_000_000.0, tie_embeddings=True)
+GEOM = WINDOW_GEOM
 PROMPT, CACHE, STEPS = 16, 32, 10
 
 
 @pytest.fixture(scope="module")
 def setup():
-    jcfg = JArch(**FIELDS, block_pattern=(JKind.LOCAL_ATTN, JKind.GLOBAL_ATTN))
-    cfg = ArchConfig(**FIELDS, block_pattern=(BlockKind.LOCAL_ATTN, BlockKind.GLOBAL_ATTN))
-    jm1 = jbuild_model(jcfg, {"data": 1, "model": 1}, dtype=jnp.float32)
-    key = jax.random.key(5)
-    jparams1 = jm1.init_params(key)
-    jm4 = jbuild_model(jcfg, {"data": 1, "model": 4}, dtype=jnp.float32, **GEOM)
-    jparams4 = jax.tree.map(np.asarray, jm4.init_params(key))
+    w = tiny_window()  # the weights, shared with tests/test_torch_data_parallel.py
+    cfg, jm1, jparams1, jparams4 = w["cfg"], w["jm1"], w["jparams1"], w["jparams4"]
     model = build_model(cfg, {"data": 1, "model": 4}, device="cpu", **GEOM)
     assert model.geom.attn_shards == 4 and model.geom.ffn_shards == 4
     assert [(g.name, g.scan, g.n_cycles) for g in model.plan] == [("body", True, 2)]
@@ -63,10 +53,13 @@ def setup():
 
 
 def _jax_prefill(s, toks):
-    xp = jstrategy.make_execution_plan(
-        s["jm1"], JShape("p", PROMPT, 1, "prefill"), {"data": 1, "model": 1})
-    step = jexec.make_step_fn(s["jm1"], xp, s["mesh"], capture_len=CACHE)
-    return step(s["jparams1"], {"tokens": jnp.asarray(toks[None], jnp.int32)})
+    """The JAX (1, 1) prefill; its step is built (and compiled) once for the
+    module."""
+    if "jprefill" not in s:
+        xp = jstrategy.make_execution_plan(
+            s["jm1"], JShape("p", PROMPT, 1, "prefill"), {"data": 1, "model": 1})
+        s["jprefill"] = jexec.make_step_fn(s["jm1"], xp, s["mesh"], capture_len=CACHE)
+    return s["jprefill"](s["jparams1"], {"tokens": jnp.asarray(toks[None], jnp.int32)})
 
 
 def _port_prefill(s, toks):
