@@ -152,7 +152,28 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    printed. Each serving summary (TTFT, TPOT, TPS/user, TPS per card,
    ``gather_fetch_ratio``, predictive hit rates) is printed beside the
    landed bytes per decode step, with the card's name and power limit;
-12. a ``{"kernels": [...]}`` JSON line, then the last line
+12. gather policies (run after 9, on R1 1024's weights, mesh (1, 4),
+   graphs): the merged layout (``merged:all:allgather``: every shard, the
+   resident one included, in one canonical buffer) serves the 4 requests as
+   in 5 (prefill and decode logits against the plain versions, launches
+   through the replays: flash attention in prefill, no split kernel, the
+   decode step none), landing exactly 4/3 of the split serve's bytes per
+   decode step (a quarter of them the resident copies), its peak held to
+   the card's 80 GB; its tokens' agreement with the split serve's is
+   printed (bf16 router ties break differently). The split ``ring`` and
+   ``ring_sliced`` serves must give the all-fetch serve's tokens and one
+   decode step's logits (from 5's final state) bitwise, and
+   ``merged:all:ring_sliced`` the merged serve's; the ring_sliced engine
+   then serves again switching to allgather and back every 2 steps (both
+   tables warmed: the unswitched tokens, no capture, no variant built).
+   The JAX package's MIXED table (demand-fetched split experts, merged
+   attention, the dense FFN split over the ring) must be bitwise its
+   COMPOSED table (demand -> all, ring -> allgather). Each serve prints its
+   decode and 1024-token prefill replay ms, TPOT, landed and merge bytes,
+   peak, and the decode step's device time by kind (``strided copies``:
+   ring_sliced's column-slice copies), with the card's name and power
+   limit;
+13. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
@@ -212,6 +233,7 @@ GEOM = dict(shard_attention=True, expert_axes=("model",), moe_exec="gather")
 # The kernels the all-fetch serving path launches.
 ALL_FETCH_KERNELS = ("split_grouped_swiglu", "split_stack_gemm", "split_reduce_gemm",
                      "split_dense_swiglu", "flash_attention")
+SPLIT_DECODE_KERNELS = ALL_FETCH_KERNELS[:4]  # decode attention is plain PyTorch
 # The kernels DEP's own path launches: its tensor-parallel prefill
 # attention runs flash attention; its decode runs none of the port's kernels
 # (merged attention and the tensor-parallel FFN are jnp in the JAX package,
@@ -259,6 +281,22 @@ MESH24 = (2, 4)
 N_DP = MESH24[0] * MESH24[1]
 MAX_BATCH24 = 4
 DP_GEN = (("dep", "all"), ("dwdp", "all"), ("dwdp", "demand"))
+# Gather policies on R1 1024 (mesh (1, 4), graphs): the merged layout (every
+# shard, the resident one included, landed in one canonical buffer: the
+# paper's §4.2 baseline), the ring transports, and the JAX package's MIXED
+# table (tests/test_multidevice.py) against its COMPOSED one. A merged
+# expert unit is a whole layer (256 x 3 x 7168 x 2048 x 2 B = 22.55 GB) and
+# the bank pipeline keeps two alive: the merged serve's peak is held to the
+# card's 80 GB, not to PEAK_LIMIT, and recorded as the layout's cost.
+MERGED = "merged:all:allgather"
+SPLIT_TRANSPORTS = ("split:all:ring", "split:all:ring_sliced")
+MERGED_SLICED = "merged:all:ring_sliced"
+MIXED = {"moe_experts": "split:demand", "attn_qkv": "merged", "attn_out": "merged",
+         "dense_ffn": "split:all:ring"}
+COMPOSED = {"moe_experts": "split:all", "attn_qkv": "merged", "attn_out": "merged",
+            "dense_ffn": "split:all:allgather"}
+MERGED_PEAK_LIMIT = 80e9
+SWITCH_EVERY = 2
 # The batch-sharded prefill compares its layouts in the no-drop regime: at
 # factor 1.25 the expert capacity follows each rank's token count (a
 # 256-token shard, a whole 1024-token row), so the two layouts drop
@@ -319,7 +357,7 @@ def profile_step(label: str, fn) -> None:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3  # includes the profiler's own cost
     kinds = {"split kernels": 0.0, "attention kernel": 0.0, "landing copies": 0.0,
-             "other device work": 0.0}
+             "strided copies": 0.0, "other device work": 0.0}
     rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -347,13 +385,16 @@ def kernel_kind(name: str) -> str:
     port's split kernels and its flash attention by their CUDA namespaces
     (a name alone would also match PyTorch's own ``at::native::
     reduce_kernel``), the landing copies (device-to-device copies of split
-    banks and merged landings, row gathers of demand payloads), and
-    everything else."""
+    banks and merged landings, row gathers of demand payloads), PyTorch's
+    element-wise copies between strided tensors (``ring_sliced``'s column
+    slices land so; other steps run few), and everything else."""
     port = PORT_KERNEL.match(name)
     if port:
         return "attention kernel" if port.group(2) == "fa" else "split kernels"
     if "Memcpy" in name or "memcpy" in name or "indexSelect" in name:
         return "landing copies"
+    if "direct_copy_kernel" in name:
+        return "strided copies"
     return "other device work"
 
 
@@ -377,7 +418,8 @@ def replay_counts(engine) -> dict:
     return {id(s): s.replays for srv in (engine.ctx, engine.gen) for s in srv.variants.steps()}
 
 
-def replay_launches(label: str, engine, before: dict, servers=None) -> collections.Counter:
+def replay_launches(label: str, engine, before: dict, servers=None,
+                    kernel_free: bool = False) -> collections.Counter:
     """Each kernel's launches in the graph replays of ``servers`` (default:
     both) since ``before`` (:func:`replay_counts`), measured. For every step
     that replayed, one replay of its graph and one eager run of the step on
@@ -385,7 +427,9 @@ def replay_launches(label: str, engine, before: dict, servers=None) -> collectio
     count, must be the same in both, and the eager run's wrapper launches
     must equal what the capture recorded (``step.record``). A replay then
     launched each kernel as often as the record says, and the serve that
-    record times the step's replays."""
+    record times the step's replays. A decode step may run none of the
+    port's kernels under DEP, or with ``kernel_free`` (the merged layout's
+    decode: plain products over its landings)."""
     from repro_torch import counters
     from repro_torch.kernels import registry
 
@@ -401,8 +445,8 @@ def replay_launches(label: str, engine, before: dict, servers=None) -> collectio
             launched = {k[0]: n for k, n in ran.items() if k[0] in registry.KERNELS}
             recorded = {k[0]: n for k, n in step.record.items() if k[0] in registry.KERNELS}
             # DEP's decode is the one step that runs none of the port's kernels
-            dep_decode = server.xp.mode == "dep" and server.xp.phase == "decode"
-            if replayed != eager or not (replayed or dep_decode):
+            quiet = server.xp.phase == "decode" and (server.xp.mode == "dep" or kernel_free)
+            if replayed != eager or not (replayed or quiet):
                 fail(f"{label}: a replay ran other device kernels than the eager step: "
                      f"{dict(replayed)} vs {dict(eager)}")
             if launched != recorded:
@@ -1095,15 +1139,17 @@ def captures(engine) -> tuple:
     return engine.ctx.variants.captures(), engine.gen.variants.captures()
 
 
-def serve_phase(label: str, cfg, engine, prompts, kernels, tables=()) -> tuple[dict, dict]:
+def serve_phase(label: str, cfg, engine, prompts, kernels, tables=(), peak_limit=PEAK_LIMIT,
+                kernel_free: bool = False) -> tuple[dict, dict]:
     """Serve ``prompts`` on a fresh engine after its warmup (which captures
     every prefill bucket and decode variant), with the launch counts set to
     0 just before and read just after, and the launches measured through
     the replays (:func:`replay_launches`); every kernel in ``kernels`` must
     have launched, no variant may be captured after warmup, and the peak
-    memory stays under the limit. Then one prefill's and one decode step's
-    logits against the plain versions, and one profiled prefill, replayed
-    and eager. Returns (numbers, outputs)."""
+    memory stays under ``peak_limit`` (``kernel_free``: the decode step may
+    run none of the port's kernels, :func:`replay_launches`). Then one
+    prefill's and one decode step's logits against the plain versions, and
+    one profiled prefill, replayed and eager. Returns (numbers, outputs)."""
     import torch
     from repro_torch.core import execution
     from repro_torch.kernels import registry
@@ -1129,7 +1175,7 @@ def serve_phase(label: str, cfg, engine, prompts, kernels, tables=()) -> tuple[d
     paths = path_counts()
     peak = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.max_memory_reserved()
-    launches = replay_launches(label, engine, replays)
+    launches = replay_launches(label, engine, replays, kernel_free=kernel_free)
     check_launches(label, engine, launches, counts)
     for rec in sorted(engine.metrics.records, key=lambda r: r.req_id):
         print(f"{label} request {rec.req_id} ({rec.prompt_len} tokens): tokens "
@@ -1177,8 +1223,8 @@ def serve_phase(label: str, cfg, engine, prompts, kernels, tables=()) -> tuple[d
     phase_reserved = torch.cuda.max_memory_reserved()
     print(f"{label}: peak over the phase (plain versions and profiles included) "
           f"{phase_peak / 1e9:.2f} GB allocated, {phase_reserved / 1e9:.2f} GB reserved")
-    if phase_peak > PEAK_LIMIT:
-        fail(f"{label}: peak memory {phase_peak / 1e9:.2f} GB > {PEAK_LIMIT / 1e9:.0f} GB")
+    if phase_peak > peak_limit:
+        fail(f"{label}: peak memory {phase_peak / 1e9:.2f} GB > {peak_limit / 1e9:.0f} GB")
     return {"summary": summary, "wall_s": wall, "peak_gb": peak / 1e9,
             "reserved_gb": reserved / 1e9, "fallbacks": engine.gen.fallbacks,
             "overflow_layers": engine.gen.overflow_layers, "phase_peak_gb": phase_peak / 1e9,
@@ -1275,12 +1321,13 @@ def snapshot_step(label: str, engine, snap) -> dict:
         dst.copy_(src)
     gen.cur_token.copy_(snap["token"])
     fallbacks = gen.fallbacks
-    prefetch.LANDED.bytes = 0
+    prefetch.LANDED.bytes = prefetch.LANDED.merge_bytes = 0
     out, _, _ = gen.step_outputs(engine.params)
     logits = out["logits"].clone()
     del out
     torch.cuda.synchronize()
     row = {"logits": logits, "landed_gb": prefetch.LANDED.bytes / 1e9,
+           "landed_bytes": prefetch.LANDED.bytes, "merge_bytes": prefetch.LANDED.merge_bytes,
            "fell_back": gen.fallbacks > fallbacks,
            "profile_ms": profile_step(f"decode step, {label}",
                                       lambda: gen.step_outputs(engine.params))}
@@ -1457,6 +1504,195 @@ def serve_fetch_modes(cfg, params, prompts, ref_outputs, r1, snap, ref_step) -> 
     brief = {mode: {path: {k: v for k, v in row.items() if k not in ("launches", "paths")}
                     for path, row in by_path.items()} for mode, by_path in rows.items()}
     print(f"fetch modes: {json.dumps(brief)}")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# Gather policies: the merged layout, the ring transports, mixed tables.
+# --------------------------------------------------------------------------
+def token_agreement(got: dict, ref: dict) -> float:
+    """The share of equal tokens, position by position, of two serves."""
+    pairs = [(a, b) for rid in ref for a, b in zip(got[rid], ref[rid])]
+    return sum(a == b for a, b in pairs) / len(pairs)
+
+
+def policy_serve(label: str, cfg, params, prompts, snap, policy, tables=(),
+                 kernels=SPLIT_DECODE_KERNELS, peak_limit=PEAK_LIMIT) -> dict:
+    """``policy`` on both servers of an R1 1024 engine (graphs) on the
+    shared weights: warmup (``tables`` too), the 4 requests served with
+    nothing captured after warmup, the replays' launches of both servers
+    measured (:func:`replay_launches`) and held against the host counters
+    of the same serve (:func:`check_launches`), the decode replays' kernels
+    exactly ``kernels`` (none: the step runs no kernel of the port), then
+    one decode step from
+    ``snap`` (:func:`snapshot_step`: logits, landed and merge bytes,
+    profile, replay ms) and the 1024-token prefill's replay ms. Returns the
+    row with the serve's outputs and the step's logits; the engine is
+    dropped."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.launch.serve import build_engine
+
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    eng, _ = build_engine(
+        cfg, mesh_shape=(1, G), prefill_len=PROMPT, prefill_buckets=(PROMPT // 2,),
+        cache_len=PROMPT + OUTPUT, max_batch=MAX_BATCH, dtype=torch.bfloat16, device="cuda",
+        params=params, geom_kwargs=GEOM, policy=policy,
+    )
+    eng.warmup(tables)
+    warm = captures(eng)
+    registry.reset_launch_counts()
+    replays = replay_counts(eng)
+    outs = serve(eng, prompts)
+    torch.cuda.synchronize()
+    summ = eng.metrics.summary(horizon=eng.horizon())
+    counts = registry.launch_counts()
+    launches = replay_launches(label, eng, replays, kernel_free=not kernels)
+    check_launches(label, eng, launches, counts)
+    # the decode steps' kernels: their records, each checked by replay_launches
+    decode = {k[0] for s in eng.gen.variants.steps() if s.replays > replays.get(id(s), 0)
+              for k, n in s.record.items() if n and k[0] in registry.KERNELS}
+    if decode != set(kernels):
+        fail(f"{label}: the decode replays launched {sorted(decode)}, want {sorted(kernels)}")
+    if captures(eng) != warm:
+        fail(f"{label}: serving captured new variants ({warm} -> {captures(eng)})")
+    peak = torch.cuda.max_memory_allocated()
+    if peak > peak_limit:
+        fail(f"{label}: peak memory {peak / 1e9:.2f} GB > {peak_limit / 1e9:.0f} GB")
+    step = snapshot_step(label, eng, snap)
+    eng.ctx.prefill(eng.params, prompts[0])  # installs the 1024-token bucket
+    prefill_ms = time_ms(eng.ctx.step.graph.replay)
+    row = dict(step, outputs=outs, tpot_p50_s=summ["tpot_p50_s"], ttft_p50_s=summ["ttft_p50_s"],
+               peak_gb=peak / 1e9, fallbacks=eng.gen.fallbacks, captures=list(captures(eng)),
+               launches=dict(launches), prefill_replay_ms=prefill_ms[0],
+               policies=eng.gen.xp.policies.to_dict(), engine=eng)
+    print(f"{label}: {eng.gen.xp.policies.describe()} tpot_p50_s {summ['tpot_p50_s']:.4f} "
+          f"ttft_p50_s {summ['ttft_p50_s']:.4f} decode replay_ms {step.get('replay_ms', 0):.2f} "
+          f"prefill replay_ms {prefill_ms[0]:.2f} landed_gb_per_decode_step "
+          f"{step['landed_gb']:.3f} (merge copies {step['merge_bytes'] / 1e9:.3f}) peak_gb "
+          f"{peak / 1e9:.2f} fallbacks {eng.gen.fallbacks} launches (replays of both servers) "
+          f"{json.dumps(dict(launches))}, decode kernels {sorted(decode)} by kind {json.dumps(step['profile_ms'])}")
+    return row
+
+
+def policies_phase(cfg, params, prompts, ref_outputs, snap, ref_step, ref_logits, r1) -> dict:
+    """The gather-policy space on R1 1024 against the split all-fetch serve
+    (``ref_outputs``; one decode step ``ref_step`` from ``snap``, its logits
+    ``ref_logits``; the serve ``r1``): the merged all-fetch serve
+    (``serve_phase``: logits against the plain versions, flash attention in
+    prefill only, no split kernel, the landed bytes per decode step exactly
+    4/3 of split's, its peak under the card's memory); the split ring and ring_sliced serves, tokens and one
+    decode step's logits bitwise the all-fetch serve's; merged ring_sliced
+    bitwise merged allgather; MIXED bitwise COMPOSED; and a ring_sliced
+    engine switched to allgather and back every SWITCH_EVERY steps, tokens
+    as unswitched, no capture after warmup."""
+    import torch
+    from repro_torch.core.strategy import PolicyTable
+    from repro_torch.kernels import registry
+    from repro_torch.launch.serve import build_engine
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    rows = {}
+    # ---- merged all-fetch ------------------------------------------------
+    free_memory()
+    eng, _ = build_engine(
+        cfg, mesh_shape=(1, G), prefill_len=PROMPT, prefill_buckets=(PROMPT // 2,),
+        cache_len=PROMPT + OUTPUT, max_batch=MAX_BATCH, dtype=torch.bfloat16, device="cuda",
+        params=params, geom_kwargs=GEOM, policy=MERGED,
+    )
+    label = f"{cfg.name} {PROMPT} {MERGED}"
+    merged, merged_outs = serve_phase(label, cfg, eng, prompts, ("flash_attention",),
+                                      peak_limit=MERGED_PEAK_LIMIT, kernel_free=True)
+    split_runs = {k: n for k, n in merged["launches"].items() if n and k != "flash_attention"}
+    decode_record = {k[0]: n for k, n in eng.gen.step.record.items() if k[0] in registry.KERNELS}
+    if split_runs or decode_record:
+        fail(f"{label}: split kernels launched {split_runs}, decode record {decode_record}")
+    step = snapshot_step(label, eng, snap)
+    eng.ctx.prefill(eng.params, prompts[0])
+    prefill_ms = time_ms(eng.ctx.step.graph.replay)
+    merged.update(step, outputs=merged_outs, prefill_replay_ms=prefill_ms[0])
+    agree = token_agreement(merged_outs, ref_outputs)
+    if 3 * step["landed_bytes"] != 4 * ref_step["landed_bytes"]:
+        fail(f"{label}: landed {step['landed_bytes']} bytes per decode step, want 4/3 of "
+             f"split's {ref_step['landed_bytes']}")
+    if 4 * step["merge_bytes"] != step["landed_bytes"]:
+        fail(f"{label}: merge copies {step['merge_bytes']} bytes, want 1/4 of "
+             f"{step['landed_bytes']}")
+    print(f"{label} ({card}): tokens agree with the split serve's at {agree:.4f} of positions "
+          f"(bf16 router ties break differently); decode replay_ms {step['replay_ms']:.2f} "
+          f"(split {ref_step['replay_ms']:.2f}) prefill replay_ms {prefill_ms[0]:.2f} "
+          f"{prefill_ms[1:]} (split profiled {r1['profile_prefill_ms']['device_ms']:.2f}, "
+          f"merged profiled {merged['profile_prefill_ms']['device_ms']:.2f}) landed_gb "
+          f"{step['landed_gb']:.3f} (merge {step['merge_bytes'] / 1e9:.3f}; split "
+          f"{ref_step['landed_gb']:.3f}) tpot_p50_s {merged['summary']['tpot_p50_s']:.4f} "
+          f"(split {r1['summary']['tpot_p50_s']:.4f}) peak_gb {merged['peak_gb']:.2f} phase "
+          f"{merged['phase_peak_gb']:.2f} (split {r1['peak_gb']:.2f}) by kind "
+          f"{json.dumps(step['profile_ms'])}")
+    merged["token_agreement"] = agree
+    merged_logits = merged.pop("logits")
+    rows[MERGED] = merged
+    del eng
+    # ---- transports ------------------------------------------------------
+    runs = [(pol, ref_outputs, ref_logits, SPLIT_DECODE_KERNELS, PEAK_LIMIT)
+            for pol in SPLIT_TRANSPORTS]
+    runs.append((MERGED_SLICED, merged_outs, merged_logits, (), MERGED_PEAK_LIMIT))
+    for pol, want_outs, want_logits, kernels, limit in runs:
+        tables = (PolicyTable.uniform(),) if pol == "split:all:ring_sliced" else ()
+        row = policy_serve(f"{cfg.name} {PROMPT} {pol}", cfg, params, prompts, snap, pol,
+                           tables, kernels, limit)
+        eng = row.pop("engine")
+        logits = row.pop("logits")
+        bitwise = torch.equal(logits, want_logits) and row["outputs"] == want_outs
+        print(f"policy {pol}: tokens and decode logits bitwise the allgather serve's {bitwise}")
+        if not bitwise:
+            fail(f"policy {pol}: not bitwise the allgather serve (tokens equal "
+                 f"{row['outputs'] == want_outs})")
+        if tables:
+            misses = (eng.ctx.variants.stats["misses"], eng.gen.variants.stats["misses"])
+            warm = captures(eng)
+            sw = switch_serve(eng, prompts, (PolicyTable.uniform(), eng.gen.xp.policies),
+                              every=SWITCH_EVERY)
+            after = (eng.ctx.variants.stats["misses"], eng.gen.variants.stats["misses"])
+            print(f"policy {pol}: serve switching allgather <-> ring_sliced every "
+                  f"{SWITCH_EVERY} steps: {sw['switches']} switches, tokens equal the unswitched "
+                  f"serve's {sw['outputs'] == want_outs}, captures {captures(eng)} (after warmup "
+                  f"{warm}), misses {after} (before {misses})")
+            if sw["switches"] < 3 or sw["outputs"] != want_outs:
+                fail(f"policy switching allgather <-> ring_sliced: {sw['switches']} switches "
+                     f"(want >= 3), tokens equal {sw['outputs'] == want_outs}")
+            if captures(eng) != warm or after != misses:
+                fail("policy switching allgather <-> ring_sliced captured or built a variant")
+            row["switching"] = {"switches": sw["switches"], "captures": list(captures(eng))}
+        row.pop("outputs")
+        rows[pol] = row
+        del eng, logits
+    # ---- MIXED against COMPOSED -------------------------------------------
+    pair = {}
+    for name, table in (("mixed", MIXED), ("composed", COMPOSED)):
+        kernels = ("split_grouped_swiglu_demand",) if name == "mixed" else ("split_grouped_swiglu",)
+        row = policy_serve(f"{cfg.name} {PROMPT} {name}", cfg, params, prompts, snap, table,
+                           kernels=kernels + ("split_dense_swiglu",))
+        row.pop("engine")
+        pair[name] = row
+    mixed, composed = pair["mixed"], pair["composed"]
+    bitwise = (torch.equal(mixed.pop("logits"), composed.pop("logits"))
+               and mixed["outputs"] == composed["outputs"])
+    print(f"policy MIXED vs COMPOSED ({card}): tokens and decode logits bitwise {bitwise}; "
+          f"MIXED fallbacks {mixed['fallbacks']}; tokens agree with the split serve's at "
+          f"{token_agreement(mixed['outputs'], ref_outputs):.4f}")
+    if not bitwise:
+        fail("policy MIXED: not bitwise its COMPOSED table")
+    for name in pair:
+        pair[name].pop("outputs")
+    rows.update(pair)
+    free_memory()
+    brief = {k: {m: v for m, v in r.items() if m not in ("launches", "paths", "host_launches",
+                                                          "outputs")}
+             for k, r in rows.items()}
+    print(f"policies ({card}; phase wall_s {time.perf_counter() - t_phase:.1f}): "
+          f"{json.dumps(brief, default=str)}")
     return rows
 
 
@@ -2323,6 +2559,7 @@ def main() -> None:
     # decode step starts from it
     snap = snapshot(engine.gen)
     ref_step = snapshot_step("fetch all graph", engine, snap)
+    ref_logits = ref_step["logits"]  # the fetch modes' phase pops it
     params = engine.params
     del engine, model
     free_memory()
@@ -2376,6 +2613,10 @@ def main() -> None:
         ref14[f"dwdp_{fetch}"] = headline(g, g["replay_ms"], g["landed_gb"], g["peak_gb"],
                                           e["tpot_p50_s"])
     mesh24 = mesh24_phase(cfg, params, prompts, ref14)
+    free_memory()
+
+    # ---- gather policies: merged, ring transports, mixed tables -------------
+    policies_phase(cfg, params, prompts, outputs, snap, ref_step, ref_logits, r1)
     del params
     free_memory()
     rolling = {"dep": dep["rolling"]["summary"], "dwdp_all_row_local": serving["rolling"]["summary"]}

@@ -51,8 +51,23 @@ all-gather, the KV ring and the decode LSE combine span its sequence group
 gathered head. A decode batch sharded over ``model`` is refused, as the
 JAX package asserts.
 
-Ported under dwdp: split ``attn_qkv`` / ``attn_out`` / ``dense_ffn`` /
-``moe_experts`` banks under ``split:all:allgather``, prefill with
+Gather policies. Every family lands under its own policy
+(``ExecutionPlan.policy(family, group)``, per-layer-group overrides
+included, the group passed down with each layer's id): a **split** family
+lands a remote-only :class:`prefetch.SplitBank` and runs the split kernels
+straight off the (resident, remote) pair; a **merged** family lands every
+shard, the resident one included, in one canonical buffer
+(``prefetch.gather_shards``, the §4.2 baseline) and runs plain PyTorch
+products over it, as the JAX package runs jnp — the experts a
+``torch.bmm`` grouped FFN in canonical dispatch order, the dense FFN and
+the attention projections one product per shard, k/v de-duplicated; the
+attention's ``qkv`` and ``out`` parts may differ (an
+:class:`prefetch.AttnBank` of one split and one merged part). Each
+family's transport (``allgather``, ``ring``, ``ring_sliced``) sets only
+the landing copies' schedule; the banks' content is the same.
+
+Ported under dwdp: split or merged ``attn_qkv`` / ``attn_out`` /
+``dense_ffn`` / ``moe_experts`` banks over every transport, prefill with
 sequence or batch sharding and KV capture, decode over a sequence-sharded
 KV cache with an LSE combine, the vocab-sharded head with a cross-shard
 argmax, and the route-before-gather expert fetch (``moe_experts`` fetch
@@ -71,8 +86,8 @@ device flag that ``forward_prefill`` / ``forward_decode`` return
 per step and runs the step again in the eager mode when it is set — the
 step free of host reads that a CUDA graph captures
 (``runtime.engine.CountingStep``). Not ported yet: the ``replicated``
-mode, the validated fetch and fault injection, the ring transports,
-rotate execution, training.
+mode, the ``"auto"`` policy resolver, the validated fetch and fault
+injection, rotate execution, training.
 """
 from __future__ import annotations
 
@@ -239,8 +254,9 @@ counters.register("demand", DEMAND, ("layers", "fallbacks"))
 
 
 # ==========================================================================
-# Route-before-gather gates and budgets (``execution.py:203-337`` of the
-# JAX package; the port has no per-layer-group policy overrides).
+# Layout predicates, route-before-gather gates and budgets
+# (``execution.py:151-400`` of the JAX package). ``group`` scopes the
+# per-layer-group policy overrides.
 # ==========================================================================
 def _routed_tokens(xp: ExecutionPlan) -> int:
     """Per-rank routed token count."""
@@ -272,12 +288,13 @@ def _qgather_ok(geom: Geometry, xp: ExecutionPlan) -> bool:
     )
 
 
-def dense_split_active(xp: ExecutionPlan, axes, family: str) -> bool:
+def dense_split_active(xp: ExecutionPlan, axes, family: str, group: Optional[str] = None) -> bool:
     """Does a gathered dense family (``attn_qkv`` / ``attn_out`` /
-    ``dense_ffn``) land as a split bank? In the modes where weights move
-    (dwdp, hybrid); DEP's gathers keep the legacy merged landing."""
+    ``dense_ffn``) land as a split bank? Where its policy says so, in the
+    modes where weights move (dwdp, hybrid); DEP's gathers keep the merged
+    landing."""
     return (
-        xp.policy(family).layout == "split"
+        xp.policy(family, group).layout == "split"
         and xp.mode in ("dwdp", "hybrid")
         and len(axes) == 1
         and _axes_size(xp, axes) > 1
@@ -311,10 +328,11 @@ def _experts_all_to_all(geom: Geometry, xp: ExecutionPlan) -> bool:
     return xp.mode in ("dep", "hybrid") and pl is not None and pl.group_size > 1
 
 
-def moe_split_active(geom: Geometry, xp: ExecutionPlan) -> bool:
+def moe_split_active(geom: Geometry, xp: ExecutionPlan, group: Optional[str] = None) -> bool:
+    """Does the DWDP expert gather land a split bank (else merged)?"""
     pl = geom.moe_placement
     return (
-        xp.policy("moe_experts").layout == "split"
+        xp.policy("moe_experts", group).layout == "split"
         and xp.mode == "dwdp"
         and geom.moe_exec == "gather"
         and pl is not None
@@ -322,43 +340,46 @@ def moe_split_active(geom: Geometry, xp: ExecutionPlan) -> bool:
     )
 
 
-def demand_fetch_active(cfg, geom: Geometry, xp: ExecutionPlan) -> bool:
+def demand_fetch_active(cfg, geom: Geometry, xp: ExecutionPlan,
+                        group: Optional[str] = None) -> bool:
     """Does the MoE layer run the route-before-gather path (``fetch`` in
     demand / predictive / sync_free)? Only over a single-axis split
     placement, and only at partial coverage — ``rows * top_k < remote
     experts`` — where the activated set can be a strict subset of the
     remote bank; elsewhere the all-fetch gather is kept."""
-    if xp.policy("moe_experts").fetch not in ("demand", "predictive", "sync_free"):
+    if xp.policy("moe_experts", group).fetch not in ("demand", "predictive", "sync_free"):
         return False
-    if cfg.moe is None or not moe_split_active(geom, xp) or len(geom.expert_axes) != 1:
+    if cfg.moe is None or not moe_split_active(geom, xp, group) or len(geom.expert_axes) != 1:
         return False
     pl = geom.moe_placement
     num_remote = (pl.subgroup_size - 1) * pl.local_count
     return _routed_tokens(xp) * cfg.moe.top_k < num_remote
 
 
-def predictive_fetch_active(cfg, geom: Geometry, xp: ExecutionPlan) -> bool:
+def predictive_fetch_active(cfg, geom: Geometry, xp: ExecutionPlan,
+                            group: Optional[str] = None) -> bool:
     """Does the demand path also run the predictive engine (speculative
     round + residency cache + correction round)? Decode only: the
     ``PredictState`` lives in the decode state. Elsewhere ``predictive``
     and ``sync_free`` run exactly as ``demand``."""
     return (
         xp.phase == "decode"
-        and xp.policy("moe_experts").fetch in ("predictive", "sync_free")
-        and demand_fetch_active(cfg, geom, xp)
+        and xp.policy("moe_experts", group).fetch in ("predictive", "sync_free")
+        and demand_fetch_active(cfg, geom, xp, group)
     )
 
 
-def sync_free_active(cfg, geom: Geometry, xp: ExecutionPlan) -> bool:
+def sync_free_active(cfg, geom: Geometry, xp: ExecutionPlan, group: Optional[str] = None) -> bool:
     """Does the predictive decode run the sync-free variant (mirrored
     predictor, no index exchange in the speculative round)?"""
     return (
-        xp.policy("moe_experts").fetch == "sync_free"
-        and predictive_fetch_active(cfg, geom, xp)
+        xp.policy("moe_experts", group).fetch == "sync_free"
+        and predictive_fetch_active(cfg, geom, xp, group)
     )
 
 
-def resolve_demand_budget(cfg, geom: Geometry, xp: ExecutionPlan) -> int:
+def resolve_demand_budget(cfg, geom: Geometry, xp: ExecutionPlan,
+                          group: Optional[str] = None) -> int:
     """Per-peer row budget of the demand round — of the correction round
     where the predictive engine runs. A policy ``budget`` > 0 is honoured
     (clamped to the per-rank expert count); auto (0) applies the closed
@@ -366,23 +387,24 @@ def resolve_demand_budget(cfg, geom: Geometry, xp: ExecutionPlan) -> int:
     the budget tunes bytes, never results."""
     pl = geom.moe_placement
     local = pl.local_count
-    user = xp.policy("moe_experts").budget
+    user = xp.policy("moe_experts", group).budget
     if user > 0:
         return min(user, local)
     draws = _routed_tokens(xp) * cfg.moe.top_k
-    if predictive_fetch_active(cfg, geom, xp):
+    if predictive_fetch_active(cfg, geom, xp, group):
         return predictive_budget_rows(draws, cfg.moe.num_experts, local)[1]
     return demand_budget_rows(draws, cfg.moe.num_experts, local)
 
 
-def resolve_spec_budget(cfg, geom: Geometry, xp: ExecutionPlan) -> int:
+def resolve_spec_budget(cfg, geom: Geometry, xp: ExecutionPlan,
+                        group: Optional[str] = None) -> int:
     """Per-peer row budget of the speculative round: the policy
     ``budget`` if set, else the speculative half of
     ``predictive_budget_rows``. The predictor never asks for more, so
     this round cannot overflow."""
     pl = geom.moe_placement
     local = pl.local_count
-    user = xp.policy("moe_experts").budget
+    user = xp.policy("moe_experts", group).budget
     if user > 0:
         return min(user, local)
     return predictive_budget_rows(
@@ -390,15 +412,17 @@ def resolve_spec_budget(cfg, geom: Geometry, xp: ExecutionPlan) -> int:
     )[0]
 
 
-def resolve_cache_rows(cfg, geom: Geometry, xp: ExecutionPlan) -> int:
+def resolve_cache_rows(cfg, geom: Geometry, xp: ExecutionPlan,
+                       group: Optional[str] = None) -> int:
     """Rows of the per-layer residency cache: the policy's
     ``cache_budget``, capped at the remote bank. 0 = cache off."""
     pl = geom.moe_placement
     remote = (pl.subgroup_size - 1) * pl.local_count
-    return min(xp.policy("moe_experts").cache_budget, remote)
+    return min(xp.policy("moe_experts", group).cache_budget, remote)
 
 
-def gather_set(sig: LayerSig, geom: Geometry, xp: ExecutionPlan, cfg) -> tuple[str, ...]:
+def gather_set(sig: LayerSig, geom: Geometry, xp: ExecutionPlan, cfg,
+               group: Optional[str] = None) -> tuple[str, ...]:
     """Keys of a layer's param tree that the prefetch pipeline gathers
     (``execution.gather_set`` of the JAX package), by mode. Where weights
     move (dwdp, hybrid) attention and the dense FFN are gathered as split
@@ -407,7 +431,8 @@ def gather_set(sig: LayerSig, geom: Geometry, xp: ExecutionPlan, cfg) -> tuple[s
     never the dense FFN. The expert bank is gathered under dwdp only; a
     demand-active MoE layer leaves it out — it is fetched inside the
     layer, after routing — unless the predictive engine runs, whose
-    speculative round rides the pipeline."""
+    speculative round rides the pipeline. ``group`` is the layer's
+    group."""
     out: list[str] = []
     if sig.kind not in (BlockKind.GLOBAL_ATTN, BlockKind.LOCAL_ATTN):
         raise NotImplementedError(f"block kind {sig.kind} is not ported yet")
@@ -424,8 +449,8 @@ def gather_set(sig: LayerSig, geom: Geometry, xp: ExecutionPlan, cfg) -> tuple[s
                 raise NotImplementedError(f"moe_exec={geom.moe_exec!r} is not ported yet")
             _require_single_axis(geom, xp, geom.expert_axes, "experts")
             if not (
-                demand_fetch_active(cfg, geom, xp)
-                and not predictive_fetch_active(cfg, geom, xp)
+                demand_fetch_active(cfg, geom, xp, group)
+                and not predictive_fetch_active(cfg, geom, xp, group)
             ):
                 out.append("moe/experts")
         if sig.shared_d_ff and geom.ffn_axes:
@@ -453,8 +478,11 @@ def gathered_wire_bytes_per_step(model: Model, xp: ExecutionPlan) -> dict:
     add ``rounds``: the layer-ahead speculative round (``spec``), the
     post-routing round (``corr``; plain demand's one round counts here),
     and under sync-free the per-step mirror all-gather (``mirror``, once
-    per step). A model, not a measurement: the landing copies' bytes are
-    ``prefetch.LANDED``."""
+    per step). Each layer counts under its group's policies; the bytes do
+    not depend on the layout or the transport (``prefetch.gather_bytes``).
+    A model, not a measurement: the landing copies' bytes are
+    ``prefetch.LANDED`` (the merged layout's also count its resident-shard
+    copies, ``LANDED.merge_bytes``)."""
     cfg, geom = model.cfg, model.geom
     ws = model.dtype.itemsize
     d = cfg.d_model
@@ -467,11 +495,12 @@ def gathered_wire_bytes_per_step(model: Model, xp: ExecutionPlan) -> dict:
         fams[fam]["full"] += full_b * n_cycles
         fams[fam]["fetched"] += (full_b if fetched_b is None else fetched_b) * n_cycles
 
-    demand = cfg.moe is not None and demand_fetch_active(cfg, geom, xp)
-    predictive = demand and predictive_fetch_active(cfg, geom, xp)
     for group in model.plan:
+        gname = group.name
+        demand = cfg.moe is not None and demand_fetch_active(cfg, geom, xp, gname)
+        predictive = demand and predictive_fetch_active(cfg, geom, xp, gname)
         for sig in group.sigs:
-            for key in gather_set(sig, geom, xp, cfg):
+            for key in gather_set(sig, geom, xp, cfg, gname):
                 if key == "moe/experts":
                     pl = geom.moe_placement
                     pe = 3 * d * cfg.moe.d_ff * ws
@@ -479,9 +508,9 @@ def gathered_wire_bytes_per_step(model: Model, xp: ExecutionPlan) -> dict:
                     if predictive:
                         # the speculative round (layer-ahead) and the
                         # correction round replace the full gather
-                        spec_b = resolve_spec_budget(cfg, geom, xp)
-                        corr_b = resolve_demand_budget(cfg, geom, xp)
-                        if sync_free_active(cfg, geom, xp):
+                        spec_b = resolve_spec_budget(cfg, geom, xp, gname)
+                        corr_b = resolve_demand_budget(cfg, geom, xp, gname)
+                        if sync_free_active(cfg, geom, xp, gname):
                             any_sync = True
                             by_round = prefetch.sync_free_fetch_bytes(
                                 pl, spec_b, corr_b, _routed_tokens(xp), pe)
@@ -510,7 +539,8 @@ def gathered_wire_bytes_per_step(model: Model, xp: ExecutionPlan) -> dict:
                 # the layer fetches its activated remote rows after routing
                 pl = geom.moe_placement
                 pe = 3 * d * cfg.moe.d_ff * ws
-                fetched = prefetch.demand_fetch_bytes(pl, resolve_demand_budget(cfg, geom, xp), pe)
+                fetched = prefetch.demand_fetch_bytes(
+                    pl, resolve_demand_budget(cfg, geom, xp, gname), pe)
                 any_rounds = True
                 rounds["corr"] += fetched * group.n_cycles
                 add("moe_experts", group.n_cycles, prefetch.gather_bytes(pl, pe), fetched)
@@ -533,38 +563,49 @@ def _leading_placement(shards: int):
     return make_placement(shards, shards)
 
 
-_ATTN_PARTS = (("qkv", ("wq", "wk", "wv")), ("out", ("wo",)))
+_ATTN_PARTS = (("attn_qkv", ("wq", "wk", "wv")), ("attn_out", ("wo",)))
 
 
-def gather_attn(lps: list[dict], ctx: Ctx, copy_stream=None) -> list:
-    """Every rank's gathered attention: two split families (qkv and out) as
-    an :class:`prefetch.AttnBank` where weights move, else (DEP's decode)
-    the full weights, each rank's own merged landing of every shard."""
+def _gather_family(shards: list, rank: int, pl, split: bool, pol, copy_stream):
+    """One family's bank of ``rank`` under its policy: a SplitBank, or the
+    merged landing of every shard."""
+    kw = dict(mode=pol.transport, num_slices=pol.num_slices, copy_stream=copy_stream)
+    if split:
+        return prefetch.gather_split_bank(shards, rank, pl, **kw)
+    return prefetch.gather_shards(shards, rank, pl, **kw)
+
+
+def gather_attn(lps: list[dict], ctx: Ctx, copy_stream=None, group: Optional[str] = None) -> list:
+    """Every rank's gathered attention as two policy families
+    (``_gather_attn`` of the JAX package), ``attn_qkv`` (wq/wk/wv) and
+    ``attn_out`` (wo), each under its own layout and transport in layer
+    group ``group``: a plain dict of full weights where both are merged
+    (DEP's decode always), else a :class:`prefetch.AttnBank` whose parts
+    are each a SplitBank or a merged dict."""
     geom, xp = ctx.geom, ctx.xp
     pl = _leading_placement(geom.attn_shards)
-    if not dense_split_active(xp, geom.attn_axes, "attn_qkv"):
-        return [prefetch.gather_merged([lp["attn"] for lp in lps], r, pl, copy_stream=copy_stream)
-                for r in range(len(lps))]
-    parts = {
-        part: [{k: lp["attn"][k] for k in keys} for lp in lps]
-        for part, keys in _ATTN_PARTS
-    }
-    return [
-        prefetch.AttnBank(
-            qkv=prefetch.gather_split_bank(parts["qkv"], r, pl, copy_stream=copy_stream),
-            out=prefetch.gather_split_bank(parts["out"], r, pl, copy_stream=copy_stream),
-        )
-        for r in range(len(lps))
-    ]
+    parts = {}
+    for fam, keys in _ATTN_PARTS:
+        shards = [{k: lp["attn"][k] for k in keys} for lp in lps]
+        split = dense_split_active(xp, geom.attn_axes, fam, group)
+        parts[fam] = [_gather_family(shards, r, pl, split, xp.policy(fam, group), copy_stream)
+                      for r in range(len(lps))]
+    qkv, out = parts["attn_qkv"], parts["attn_out"]
+    if not any(isinstance(b, prefetch.SplitBank) for b in (qkv[0], out[0])):
+        return [{**q, **o} for q, o in zip(qkv, out)]
+    return [prefetch.AttnBank(qkv=q, out=o) for q, o in zip(qkv, out)]
 
 
 def gather_ffn(keys: tuple[str, ...], lps: list[dict], rank: int, ctx: Ctx,
                copy_stream=None, preds=None, lid=None) -> dict:
-    """One rank's FFN-side banks: ``ffn`` / ``moe/shared`` / ``moe/experts``
-    (split banks; for a predictive decode layer the expert entry is the
-    speculative round's :class:`SpecBank`, driven by the layer's incoming
-    ``preds``)."""
-    geom = ctx.geom
+    """One rank's FFN-side banks of layer ``lid`` (``(group, cycle,
+    position)``): ``ffn`` / ``moe/shared`` (family ``dense_ffn``) and
+    ``moe/experts``, each a split bank or a merged landing under its
+    family's policy in the layer's group; for a predictive decode layer
+    the expert entry is the speculative round's :class:`SpecBank`, driven
+    by the layer's incoming ``preds``."""
+    geom, xp = ctx.geom, ctx.xp
+    group = lid[0] if lid is not None else None
     out = {}
     for key in keys:
         if key == "ffn":
@@ -573,12 +614,16 @@ def gather_ffn(keys: tuple[str, ...], lps: list[dict], rank: int, ctx: Ctx,
             shards, pl = [lp["moe"]["shared"] for lp in lps], _leading_placement(geom.ffn_shards)
         elif key == "moe/experts":
             shards, pl = [lp["moe"]["experts"] for lp in lps], geom.moe_placement
-            if predictive_fetch_active(ctx.cfg, geom, ctx.xp):
+            if predictive_fetch_active(ctx.cfg, geom, xp, group):
                 out[key] = _speculative_expert_gather(shards, rank, ctx, preds, lid, copy_stream)
                 continue
         else:
             continue
-        out[key] = prefetch.gather_split_bank(shards, rank, pl, copy_stream=copy_stream)
+        if key == "moe/experts":
+            fam, split = "moe_experts", moe_split_active(geom, xp, group)
+        else:
+            fam, split = "dense_ffn", dense_split_active(xp, geom.ffn_axes, "dense_ffn", group)
+        out[key] = _gather_family(shards, rank, pl, split, xp.policy(fam, group), copy_stream)
     return out
 
 
@@ -632,8 +677,8 @@ def _spec_plans(ctx: Ctx, lid, preds: list) -> list:
     cfg, geom, xp = ctx.cfg, ctx.geom, ctx.xp
     pl = geom.moe_placement
     g, local = pl.subgroup_size, pl.local_count
-    sbudget = min(resolve_spec_budget(cfg, geom, xp), local)
-    if sync_free_active(cfg, geom, xp):
+    sbudget = min(resolve_spec_budget(cfg, geom, xp, lid[0]), local)
+    if sync_free_active(cfg, geom, xp, lid[0]):
         plans = []
         for r, pred in enumerate(preds):
             masks = _mirror_spec_masks(pred, pl, sbudget)
@@ -661,8 +706,10 @@ def _speculative_expert_gather(shards: list, rank: int, ctx: Ctx, preds: list, l
     cfg, geom, xp = ctx.cfg, ctx.geom, ctx.xp
     pl = geom.moe_placement
     g, local = pl.subgroup_size, pl.local_count
-    sbudget = min(resolve_spec_budget(cfg, geom, xp), local)
-    cbudget = min(resolve_demand_budget(cfg, geom, xp), local)
+    group = lid[0]
+    pol = xp.policy("moe_experts", group)
+    sbudget = min(resolve_spec_budget(cfg, geom, xp, group), local)
+    cbudget = min(resolve_demand_budget(cfg, geom, xp, group), local)
     plan = _spec_plans(ctx, lid, preds)[rank]
     pred = preds[rank]
     n_cache = pred.cache_ids.shape[-1]
@@ -673,7 +720,8 @@ def _speculative_expert_gather(shards: list, rank: int, ctx: Ctx, preds: list, l
         shards[rank],
     )
     bank = prefetch.gather_demand_payload(
-        shards, plan, rank, pl, budget=sbudget, copy_stream=copy_stream,
+        shards, plan, rank, pl, budget=sbudget, mode=pol.transport,
+        num_slices=pol.num_slices, copy_stream=copy_stream,
         out=prefetch.tree_map(lambda b: b[n_cache:n_cache + n_spec], landing),
     )
     on_side = torch.cuda.stream(copy_stream) if copy_stream is not None else contextlib.nullcontext()
@@ -884,28 +932,36 @@ def _combine_over_seq(partials: list, ctx: Ctx) -> list:
     return outs
 
 
+def _merged_qkv(h, aw: dict, ctx: Ctx):
+    """q/k/v off full (merged or replicated) weights ``(A, D, dim/A)``, the
+    duplicated kv groups dropped (``_dedupe_kv``)."""
+    cfg, hd = ctx.cfg, ctx.cfg.head_dim
+    dup = max(1, aw["wk"].shape[0] // ctx.geom.kv_shard)
+    return (
+        _project_heads(h, aw["wq"], cfg.num_heads, hd),
+        _project_heads(h, aw["wk"][::dup], cfg.num_kv_heads, hd),
+        _project_heads(h, aw["wv"][::dup], cfg.num_kv_heads, hd),
+    )
+
+
 def _attn_layer(hs, lps, sig: LayerSig, ctx: Ctx, lstates, banks):
     """Attention for every rank: per-rank projections off the rank's
-    banks (split banks, DEP's merged landings, or with ``banks`` None the
-    replicated weights), the cross-rank step (K/V all-gather in prefill,
-    LSE combine in decode), per-rank output projections."""
+    banks (``gather_attn``: split banks, merged landings or a mix of the
+    two, per part; with ``banks`` None the replicated weights), the
+    cross-rank step (K/V all-gather in prefill, LSE combine in decode),
+    per-rank output projections. The split QKV path rolls its outputs back
+    to canonical head order, the order the merged output consumes."""
     cfg = ctx.cfg
-    hd = cfg.head_dim
-    split = banks is not None and isinstance(banks[0], prefetch.AttnBank)
-    # full weights: DEP's merged landings, or the replicated weights
-    full = None if split else banks if banks is not None else [lp["attn"] for lp in lps]
+    if banks is None:
+        banks = [lp["attn"] for lp in lps]
+    parts = [(b.qkv, b.out) if isinstance(b, prefetch.AttnBank) else (b, b) for b in banks]
     qkv = []
     for r, h in enumerate(hs):
-        if split:
-            qkv.append(_attn_split_qkv(h, banks[r].qkv, r, ctx))
+        w = parts[r][0]
+        if isinstance(w, prefetch.SplitBank):
+            qkv.append(_attn_split_qkv(h, w, r, ctx))
         else:
-            aw = full[r]
-            dup = max(1, aw["wk"].shape[0] // ctx.geom.kv_shard)
-            qkv.append((
-                _project_heads(h, aw["wq"], cfg.num_heads, hd),
-                _project_heads(h, aw["wk"][::dup], cfg.num_kv_heads, hd),
-                _project_heads(h, aw["wv"][::dup], cfg.num_kv_heads, hd),
-            ))
+            qkv.append(_merged_qkv(h, w, ctx))
     new_states = lstates
     if ctx.decode:
         partials, new_states = [], []
@@ -940,10 +996,11 @@ def _attn_layer(hs, lps, sig: LayerSig, ctx: Ctx, lstates, banks):
             new_states = captured
     ys = []
     for r, out in enumerate(outs):
-        if split:
-            ys.append(_attn_split_out(out, banks[r].out, r, ctx))
+        w = parts[r][1]
+        if isinstance(w, prefetch.SplitBank):
+            ys.append(_attn_split_out(out, w, r, ctx))
         else:
-            ys.append(_project_out(out, full[r]["wo"]))
+            ys.append(_project_out(out, w["wo"]))
     return ys, new_states
 
 
@@ -1033,17 +1090,21 @@ def _attn_qgather_layer(hs, lps, sig: LayerSig, ctx: Ctx, lstates):
 # FFN (dense "virtual experts") + MoE.
 # ==========================================================================
 def _ffn_full(x2d, fp):
-    """x2d: (T,D); fp stacked (S,D,F/S) full content (replicated layout)."""
-    h = torch.nn.functional.silu(
-        torch.einsum("td,sdf->tsf", x2d, fp["w_gate"].to(x2d.dtype))
-    ) * torch.einsum("td,sdf->tsf", x2d, fp["w_up"].to(x2d.dtype))
-    return torch.einsum("tsf,sfd->td", h, fp["w_down"].to(x2d.dtype))
+    """x2d: (T,D); fp stacked (S,D,F/S) / (S,F/S,D), full content (the
+    replicated layout or a merged landing): one product per shard straight
+    off the stacked weights (no copy of them), the shards summed."""
+    w = {k: v.to(x2d.dtype) for k, v in fp.items()}
+    x = x2d[None]
+    h = torch.nn.functional.silu(torch.matmul(x, w["w_gate"])) * torch.matmul(x, w["w_up"])
+    return torch.matmul(h, w["w_down"]).sum(dim=0)
 
 
 def _ffn_apply(x2d, fp, ctx: Ctx, gathered=None):
     if not ctx.geom.ffn_axes:
         return _ffn_full(x2d, fp)
-    assert isinstance(gathered, prefetch.SplitBank), "DWDP FFN weights must be prefetched"
+    assert gathered is not None, "DWDP FFN weights must be prefetched"
+    if not isinstance(gathered, prefetch.SplitBank):
+        return _ffn_full(x2d, gathered)  # the merged landing
     # y = sum_s swiglu_s(x) over (resident, remote) slice banks: the sum is
     # order-independent, so the rotated bank order needs no fix-up.
     lo, re = gathered.local, gathered.remote
@@ -1132,17 +1193,22 @@ def _add_shared(y, x2d, mp, ctx: Ctx, banks: dict):
     return y
 
 
-def _moe_apply(x2d, mp, ctx: Ctx, banks: dict, rows: int, rank: int):
+def _moe_apply(x2d, mp, ctx: Ctx, banks: dict, rows: int, rank: int, group: str):
+    """The DWDP gather-mode MoE of one rank: the split path off its
+    SplitBank, or — replicated experts, or the merged layout's canonical
+    ``(E_pad, D, F)`` landing — a canonical-order dispatch and the grouped
+    FFN (``torch.bmm``, as the JAX package runs jnp there). ``group`` is
+    the layer's group, which scopes its policy."""
     pl = ctx.geom.moe_placement
     assert ctx.cfg.moe is not None and pl is not None
     d, cap = _route(x2d, mp, ctx, rows)
-    if pl.group_size == 1:
-        ex = mp["experts"]
+    if pl.group_size > 1 and moe_split_active(ctx.geom, ctx.xp, group):
+        y = _split_moe(x2d, d, cap, banks["moe/experts"], rank, ctx)
+    else:
+        ex = mp["experts"] if pl.group_size == 1 else banks["moe/experts"]
         xe = moe_lib.dispatch_tokens(x2d, d, pl.num_padded, cap)
         ye = moe_lib.grouped_ffn(xe, ex["w_gate"], ex["w_up"], ex["w_down"])
         y = moe_lib.combine_tokens(ye, d, x2d.shape[0])
-    else:
-        y = _split_moe(x2d, d, cap, banks["moe/experts"], rank, ctx)
     return _add_shared(y, x2d, mp, ctx, banks)
 
 
@@ -1222,10 +1288,13 @@ def _remap_and_run(x2d, d, cap: int, local_tree: dict, fetched: dict, ids, valid
     return moe_lib.combine_tokens(ye, d2, x2d.shape[0])
 
 
-def _full_gather_moe(x2d, d, cap: int, shards: list, rank: int, ctx: Ctx):
-    """The overflow fallback: the full remote bank, landed now, and the
-    split path — exact for any routing."""
-    bank = prefetch.gather_split_bank(shards, rank, ctx.geom.moe_placement)
+def _full_gather_moe(x2d, d, cap: int, shards: list, rank: int, ctx: Ctx, group: str):
+    """The overflow fallback: the full remote bank, landed now over the
+    family's transport in the layer's ``group``, and the split path — exact
+    for any routing."""
+    pol = ctx.xp.policy("moe_experts", group)
+    bank = prefetch.gather_split_bank(shards, rank, ctx.geom.moe_placement, mode=pol.transport,
+                                      num_slices=pol.num_slices)
     return _split_moe(x2d, d, cap, bank, rank, ctx)
 
 
@@ -1262,11 +1331,14 @@ def _moe_demand_layer(h2fs: list, lps: list, ctx: Ctx, pipe: BankPipeline, lid, 
     g, local, e_pad = pl.subgroup_size, pl.local_count, pl.num_padded
     n = len(h2fs)
     shards = [lp["moe"]["experts"] for lp in lps]
-    budget = resolve_demand_budget(cfg, geom, xp)
+    group = lid[0]
+    pol = xp.policy("moe_experts", group)
+    wire = dict(mode=pol.transport, num_slices=pol.num_slices)
+    budget = resolve_demand_budget(cfg, geom, xp, group)
     routes = [_route(x, lp["moe"], ctx, rows) for x, lp in zip(h2fs, lps)]
     wanted = [_wanted_bitmap(d, e_pad) for d, _ in routes]
 
-    if not predictive_fetch_active(cfg, geom, xp):
+    if not predictive_fetch_active(cfg, geom, xp, group):
         plans = prefetch.plan_demand_fetch(wanted, pl, budget=budget)
         fallback = ctx.overflowed(plans[0].overflow)
         ys = []
@@ -1274,9 +1346,10 @@ def _moe_demand_layer(h2fs: list, lps: list, ctx: Ctx, pipe: BankPipeline, lid, 
             banks = pipe.get(("ffn", lid, r)) if has_unit else {}
             (d, cap), x2d = routes[r], h2fs[r]
             if fallback:
-                y = _full_gather_moe(x2d, d, cap, shards, r, ctx)
+                y = _full_gather_moe(x2d, d, cap, shards, r, ctx, group)
             else:
-                bank = prefetch.gather_demand_payload(shards, plans[r], r, pl, budget=budget)
+                bank = prefetch.gather_demand_payload(shards, plans[r], r, pl, budget=budget,
+                                                      **wire)
                 y = _remap_and_run(x2d, d, cap, bank.local, bank.fetched, bank.fetched_ids,
                                    bank.valid, r % g, ctx)
                 del bank
@@ -1284,8 +1357,8 @@ def _moe_demand_layer(h2fs: list, lps: list, ctx: Ctx, pipe: BankPipeline, lid, 
             del banks
         return ys, None
 
-    sync_free = sync_free_active(cfg, geom, xp)
-    sbudget = min(resolve_spec_budget(cfg, geom, xp), local)
+    sync_free = sync_free_active(cfg, geom, xp, group)
+    sbudget = min(resolve_spec_budget(cfg, geom, xp, group), local)
     cbudget = min(budget, local)
     spec_plans = _spec_plans(ctx, lid, preds)
     dev = h2fs[0].device
@@ -1323,14 +1396,14 @@ def _moe_demand_layer(h2fs: list, lps: list, ctx: Ctx, pipe: BankPipeline, lid, 
         n_cache = cache_ids[r].shape[0]
         n_head = n_cache + (g - 1) * sbudget
         corr = prefetch.gather_demand_payload(
-            shards, corr_plans[r], r, pl, budget=cbudget,
+            shards, corr_plans[r], r, pl, budget=cbudget, **wire,
             out=prefetch.tree_map(lambda b: b[n_head:], spec.landing),
         )
         ids_all = torch.cat([cache_ids[r], spec.bank.fetched_ids, corr.fetched_ids])
         valid_all = torch.cat([cache_valid[r], spec_valid[r], corr.valid])
         y = _remap_and_run(x2d, d, cap, shards[r], spec.landing, ids_all, valid_all, p, ctx)
         if fallback:
-            y = _full_gather_moe(x2d, d, cap, shards, r, ctx)
+            y = _full_gather_moe(x2d, d, cap, shards, r, ctx, group)
         ys.append(_add_shared(y, x2d, lps[r]["moe"], ctx, banks))
 
         # ---- residency-cache insert: keep the EMA-hottest rows of (cache |
@@ -1414,7 +1487,8 @@ def apply_layer(xs, lps, sig: LayerSig, ctx: Ctx, lstates, pipe: BankPipeline, l
     decode). Returns ``(xs, new_states, new_preds)``."""
     cfg, eps = ctx.cfg, ctx.cfg.norm_eps
     geom, xp = ctx.geom, ctx.xp
-    keys = gather_set(sig, geom, xp, cfg)
+    group = lid[0]
+    keys = gather_set(sig, geom, xp, cfg, group)
     hs = [rms_norm(x, lp["norm1"], eps) for x, lp in zip(xs, lps)]
     if "attn" in keys:
         attn_banks = pipe.get(("attn", lid))
@@ -1433,7 +1507,7 @@ def apply_layer(xs, lps, sig: LayerSig, ctx: Ctx, lstates, pipe: BankPipeline, l
         h2s = [rms_norm(x, lp["norm2"], eps) for x, lp in zip(xs, lps)]
         b, s, dm = h2s[0].shape
         h2fs = [h.reshape(b * s, dm) for h in h2s]
-        if sig.is_moe and demand_fetch_active(cfg, geom, xp):
+        if sig.is_moe and demand_fetch_active(cfg, geom, xp, group):
             ys, new_preds = _moe_demand_layer(h2fs, lps, ctx, pipe, lid, b, lpreds,
                                               bool(ffn_keys))
         elif sig.is_moe and _experts_all_to_all(geom, xp):
@@ -1445,7 +1519,8 @@ def apply_layer(xs, lps, sig: LayerSig, ctx: Ctx, lstates, pipe: BankPipeline, l
             for r, lp in enumerate(lps):
                 banks = pipe.get(("ffn", lid, r)) if ffn_keys else {}
                 if sig.is_moe:
-                    ys.append(_moe_apply(h2fs[r], lp["moe"], ctx, banks, rows=b, rank=r))
+                    ys.append(_moe_apply(h2fs[r], lp["moe"], ctx, banks, rows=b, rank=r,
+                                              group=group))
                 else:
                     ys.append(_ffn_apply(h2fs[r], lp["ffn"], ctx, banks.get("ffn")))
                 del banks  # the next rank's unit lands in this one's place
@@ -1481,13 +1556,14 @@ def _pipeline_units(params, ctx: Ctx, preds=None) -> list:
     units = []
     geom, xp = ctx.geom, ctx.xp
     for group, c, j, sig in _layer_walk(ctx.model):
-        keys = gather_set(sig, geom, xp, ctx.cfg)
+        keys = gather_set(sig, geom, xp, ctx.cfg, group.name)
         if not keys:
             continue
         lid = (group.name, c, j)
         lps = _layer_params(params, group, c, j)
         if "attn" in keys:
-            units.append((("attn", lid), lambda st, lps=lps: gather_attn(lps, ctx, st)))
+            units.append((("attn", lid),
+                          lambda st, lps=lps, g=group.name: gather_attn(lps, ctx, st, g)))
         ffn_keys = tuple(k for k in keys if k != "attn")
         if ffn_keys:
             lpreds = _layer_preds(preds, group, c, j)
@@ -1708,23 +1784,22 @@ def _fold_mirrors(new_preds: dict, preds_in: dict, ctx: Ctx) -> dict:
 def init_predict_state(model: Model, xp: ExecutionPlan) -> dict:
     """Cold per-rank :class:`prefetch.PredictState` of every predictive
     MoE layer: ``{group: {posJ: [cycle][rank] PredictState}}``, or ``{}``
-    when the plan runs no predictive decode layer. Cold = empty predictor
-    and invalid cache: the first step's speculative round fetches nothing
-    and the correction round is the plain demand round."""
+    when the plan runs no predictive decode layer (each layer group under
+    its own policy). Cold = empty predictor and invalid cache: the first
+    step's speculative round fetches nothing and the correction round is
+    the plain demand round."""
     cfg, geom = model.cfg, model.geom
-    if not (cfg.moe is not None and predictive_fetch_active(cfg, geom, xp)):
+    if cfg.moe is None:
         return {}
     pl = geom.moe_placement
     e_pad, gsz = pl.num_padded, pl.subgroup_size
-    rows = resolve_cache_rows(cfg, geom, xp)
     dm, fe = cfg.d_model, cfg.moe.d_ff
     dev = model.device
-    sync_free = sync_free_active(cfg, geom, xp)
 
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    def one_rank():
+    def one_rank(rows: int, sync_free: bool):
         lead = (gsz,) if sync_free else ()
         ps = prefetch.PredictState(
             prev=zeros(*lead, e_pad, dtype=torch.bool),
@@ -1749,8 +1824,13 @@ def init_predict_state(model: Model, xp: ExecutionPlan) -> dict:
 
     out: dict = {}
     for group in model.plan:
+        if not predictive_fetch_active(cfg, geom, xp, group.name):
+            continue
+        rows = resolve_cache_rows(cfg, geom, xp, group.name)
+        sync_free = sync_free_active(cfg, geom, xp, group.name)
         gdict = {
-            f"pos{j}": [[one_rank() for _ in range(model.n_ranks)] for _ in range(group.n_cycles)]
+            f"pos{j}": [[one_rank(rows, sync_free) for _ in range(model.n_ranks)]
+                        for _ in range(group.n_cycles)]
             for j, sig in enumerate(group.sigs) if sig.is_moe
         }
         if gdict:

@@ -1,21 +1,41 @@
-"""Split-bank prefetch between logical ranks — the port of the first half
-of ``repro.core.prefetch`` (paper §4.2/§4.3).
+"""Weight prefetch between logical ranks — the port of
+``repro.core.prefetch`` (paper §4.2/§4.3).
 
 On one card the G' ranks of a DWDP subgroup are logical ranks of one
 process, each holding its resident shard as a separate allocation. A
-rank's remote pull copies its peers' shards into a landing buffer: the
-**remote bank**, in **rotated canonical order** — position ``j * local +
-i`` holds slice ``((p + 1 + j) % G') * local + i`` for the caller's
-subgroup position ``p``. The resident shard is never copied (it *is* the
-local bank), so no buffer of the full layer exists. Consumers compensate
-with index arithmetic only, exactly as in the JAX package: MoE rolls its
-dispatch by ``p * local``, attention rolls projected activations, the
-dense FFN sum needs nothing.
+rank's pull copies its peers' shards into a landing buffer, in one of two
+layouts:
 
-Only the ``allgather`` transport is ported (one copy per peer shard, all
-independent); ``ring`` and ``ring_sliced`` are later work. The engine
-issues these copies on a side CUDA stream one unit of work ahead
-(``core.execution.BankPipeline``).
+- **split** (:func:`gather_split_bank`): the **remote bank**, in
+  **rotated canonical order** — position ``j * local + i`` holds slice
+  ``((p + 1 + j) % G') * local + i`` for the caller's subgroup position
+  ``p``. The resident shard is never copied (it *is* the local bank), so
+  no buffer of the full layer exists. Consumers compensate with index
+  arithmetic only, exactly as in the JAX package: MoE rolls its dispatch
+  by ``p * local``, attention rolls projected activations, the dense FFN
+  sum needs nothing.
+- **merged** (:func:`gather_shards`): every shard of the subgroup, the
+  resident one included, copied into one canonical ``(G' * local, ...)``
+  buffer — the explicit merge the split layout saves (the §4.2 baseline).
+  Its resident-shard copy counts in :data:`LANDED` like the pulls, and on
+  its own in ``LANDED.merge_bytes``.
+
+Each layout runs over one of three transports. On one card every pull is
+a device copy on the side stream, so the transports differ only in their
+copy schedule, and all three land the same bytes at the same positions:
+``allgather`` issues one copy per peer shard; ``ring`` issues its G'-1
+rounds one after another on one stream; ``ring_sliced`` cuts each round
+into ``num_slices`` column slices of the last dimension (stepped down
+until it divides it, as the JAX package does) issued step-major and
+slice-minor, the TDM round-robin of the paper's Listing 1. For a split
+bank, round ``t`` is neighbour ``p + 1 + t``'s shard, which is the order
+``allgather`` already issues its per-peer copies in: on one card the
+split ``ring`` is the ``allgather`` schedule, copy for copy, and only a
+merged landing changes its issue order under ``ring`` (the resident
+shard first, then the ring direction). A chained ring's forwarding
+through the intermediate ranks is not modelled on one card: every round
+copies from the owner's resident shard. The engine issues these copies on a side CUDA
+stream one unit of work ahead (``core.execution.BankPipeline``).
 
 The second half ports the route-before-gather primitives of the demand,
 predictive and sync-free expert fetch (``DemandBank``, ``PredictState``,
@@ -37,6 +57,7 @@ import torch
 
 from repro_torch import counters
 from repro_torch.core.placement import Placement
+from repro_torch.core.strategy import PREFETCH_MODES
 
 PyTree = Any
 
@@ -50,22 +71,26 @@ class SplitBank(NamedTuple):
 
 
 class LandingCounter:
-    """Bytes copied from peers' resident shards into landing buffers
-    (split banks and demand payloads): the in-process stand-in for the
-    wire bytes of the pulls. A plain integer a caller may read and
-    reset."""
+    """Bytes copied into landing buffers (split and merged banks, demand
+    payloads): the in-process stand-in for the wire bytes of the pulls,
+    plus the merged layout's copies of the rank's own resident shard.
+    ``merge_bytes`` counts those resident copies alone — the §4.2 merge
+    copy the split layout saves — so ``bytes - merge_bytes`` is what
+    crossed between ranks. Plain integers a caller may read and reset."""
 
     def __init__(self):
         self.bytes = 0
+        self.merge_bytes = 0
 
 
 LANDED = LandingCounter()
-counters.register("landed", LANDED, ("bytes",))
+counters.register("landed", LANDED, ("bytes", "merge_bytes"))
 
 
 class AttnBank(NamedTuple):
-    """Gathered attention projections as two policy families:
-    ``qkv`` (wq/wk/wv) and ``out`` (wo), each a :class:`SplitBank`."""
+    """Gathered attention projections as two policy families: ``qkv``
+    (wq/wk/wv) and ``out`` (wo), each a :class:`SplitBank` or, where the
+    family is merged, a plain dict of full weights."""
 
     qkv: PyTree
     out: PyTree
@@ -87,45 +112,85 @@ def peer_ranks(rank: int, placement: Placement) -> list[int]:
     return [base + (p + 1 + j) % g for j in range(g - 1)]
 
 
+def subgroup_ranks(rank: int, placement: Placement) -> list[int]:
+    """The ranks of ``rank``'s subgroup, in subgroup-position order."""
+    g = placement.subgroup_size
+    base = (rank // g) * g
+    return [base + q for q in range(g)]
+
+
+def num_feature_slices(feat: int, num_slices: int) -> int:
+    """``ring_sliced``'s slice count for a last dimension of ``feat``:
+    ``num_slices`` stepped down until it divides ``feat``."""
+    s = max(1, num_slices)
+    while feat % s:
+        s -= 1
+    return s
+
+
+def _check_transport(mode: str) -> None:
+    if mode not in PREFETCH_MODES:
+        raise ValueError(f"unknown transport {mode!r}; expected one of {PREFETCH_MODES}")
+
+
+def _land(blocks: list, like: torch.Tensor, mode: str, num_slices: int,
+          copy_stream) -> torch.Tensor:
+    """A fresh buffer of ``sum(rows)`` rows shaped like ``like`` (allocated
+    on the current stream), filled by ``blocks`` — ``(row offset, source)``
+    in issue order — on ``copy_stream`` when one is given: one copy per
+    block, or under ``ring_sliced`` one per column slice of each block,
+    block-major."""
+    n = sum(src.shape[0] for _, src in blocks)
+    out = torch.empty((n,) + tuple(like.shape[1:]), dtype=like.dtype, device=like.device)
+    sliced = mode == "ring_sliced" and like.dim() > 1
+    s = num_feature_slices(like.shape[-1], num_slices) if sliced else 1
+    w = like.shape[-1] // s
+    on_side = torch.cuda.stream(copy_stream) if copy_stream is not None else contextlib.nullcontext()
+    with on_side:
+        for off, src in blocks:
+            dst = out[off:off + src.shape[0]]
+            if s == 1:
+                dst.copy_(src, non_blocking=True)
+                continue
+            for j in range(s):
+                dst[..., j * w:(j + 1) * w].copy_(src[..., j * w:(j + 1) * w], non_blocking=True)
+    LANDED.bytes += out.numel() * out.element_size()
+    return out
+
+
 def gather_remote_shards(shards: list, rank: int, placement: Placement, *,
-                         mode: str = "allgather",
+                         mode: str = "allgather", num_slices: int = 4,
                          copy_stream=None) -> tuple[PyTree, PyTree]:
     """Remote-only prefetch for ``rank``: ``(local_bank, remote_bank)``.
 
     ``shards`` holds every rank's resident tree (leading dim ``local``).
     The remote bank is a fresh buffer per leaf, allocated on the current
-    stream, into which each peer's shard is copied (the in-process
-    stand-in for the peer pull) — on ``copy_stream`` when one is given;
-    the caller then orders that stream against the current one."""
-    if mode != "allgather":
-        raise NotImplementedError(
-            f"transport {mode!r} is not ported yet (only 'allgather')"
-        )
+    stream, into which each peer's shard is copied over transport
+    ``mode`` (the in-process stand-in for the peer pulls; the remote chunk
+    of round ``t`` is subgroup neighbour ``p + 1 + t``'s shard under every
+    transport, so ``ring`` issues the same copies as ``allgather`` and
+    ``ring_sliced`` only slices them) — on ``copy_stream`` when one is
+    given; the caller then orders that stream against the current one."""
+    _check_transport(mode)
     local = shards[rank]
     peers = [shards[q] for q in peer_ranks(rank, placement)]
+    if not peers:
+        return local, tree_map(lambda lo: lo[:0], local)
 
     def land(lo, *remote):
         n = lo.shape[0]
-        out = torch.empty((n * len(remote),) + tuple(lo.shape[1:]),
-                          dtype=lo.dtype, device=lo.device)
-        on_side = torch.cuda.stream(copy_stream) if copy_stream is not None else contextlib.nullcontext()
-        with on_side:
-            for j, src in enumerate(remote):
-                out[j * n:(j + 1) * n].copy_(src, non_blocking=True)
-        LANDED.bytes += out.numel() * out.element_size()
-        return out
+        return _land([(j * n, src) for j, src in enumerate(remote)], lo, mode, num_slices,
+                     copy_stream)
 
-    if not peers:
-        return local, tree_map(lambda lo: lo[:0], local)
     return local, tree_map(land, local, *peers)
 
 
 def gather_split_bank(shards: list, rank: int, placement: Placement, *,
-                      mode: str = "allgather", copy_stream=None) -> SplitBank:
+                      mode: str = "allgather", num_slices: int = 4,
+                      copy_stream=None) -> SplitBank:
     """The :class:`SplitBank` form of :func:`gather_remote_shards`."""
-    local, remote = gather_remote_shards(
-        shards, rank, placement, mode=mode, copy_stream=copy_stream
-    )
+    local, remote = gather_remote_shards(shards, rank, placement, mode=mode,
+                                         num_slices=num_slices, copy_stream=copy_stream)
     return SplitBank(local=local, remote=remote)
 
 
@@ -147,27 +212,30 @@ def merge_split_bank(bank: SplitBank, rank: int, placement: Placement) -> PyTree
     return tree_map(merge, bank.local, bank.remote)
 
 
-def gather_merged(shards: list, rank: int, placement: Placement, *, copy_stream=None) -> PyTree:
-    """The legacy merged landing of ``rank`` (``execution._gather_leading``
-    of the JAX package, DEP's decode-time attention gather): every shard of
-    the rank's subgroup, its own included, copied into one contiguous
-    canonical ``(G' * local, ...)`` buffer per leaf — subgroup position
-    ``q``'s shard at rows ``[q * local, (q + 1) * local)``. On
-    ``copy_stream`` when one is given (allocated on the current stream, as
-    :func:`gather_remote_shards`); every landed byte counts in
-    :data:`LANDED`."""
+def gather_shards(shards: list, rank: int, placement: Placement, *, mode: str = "allgather",
+                  num_slices: int = 4, copy_stream=None) -> PyTree:
+    """The merged landing of ``rank`` (``gather_shards`` /
+    ``execution._gather_leading`` of the JAX package; also DEP's
+    decode-time attention gather): every shard of the rank's subgroup, its
+    own included, copied into one contiguous canonical ``(G' * local,
+    ...)`` buffer per leaf — subgroup position ``q``'s shard at rows ``[q *
+    local, (q + 1) * local)`` — over transport ``mode``: ``allgather`` in
+    position order; ``ring`` and ``ring_sliced`` the resident shard first,
+    then round ``t``'s shard of position ``p - 1 - t`` (the JAX package's
+    ring direction). Allocated on the current stream and copied on
+    ``copy_stream`` when one is given, as :func:`gather_remote_shards`.
+    Every landed byte counts in :data:`LANDED`; the resident shard's also
+    in ``LANDED.merge_bytes``."""
+    _check_transport(mode)
+    g = placement.subgroup_size
+    p = rank % g
     members = [shards[q] for q in subgroup_ranks(rank, placement)]
+    order = list(range(g)) if mode == "allgather" else [p] + [(p - 1 - t) % g for t in range(g - 1)]
 
     def land(*parts):
         n = parts[0].shape[0]
-        out = torch.empty((n * len(parts),) + tuple(parts[0].shape[1:]),
-                          dtype=parts[0].dtype, device=parts[0].device)
-        on_side = torch.cuda.stream(copy_stream) if copy_stream is not None else contextlib.nullcontext()
-        with on_side:
-            for q, src in enumerate(parts):
-                out[q * n:(q + 1) * n].copy_(src, non_blocking=True)
-        LANDED.bytes += out.numel() * out.element_size()
-        return out
+        LANDED.merge_bytes += parts[p].numel() * parts[p].element_size()
+        return _land([(q * n, parts[q]) for q in order], parts[0], mode, num_slices, copy_stream)
 
     return tree_map(land, *members)
 
@@ -302,13 +370,6 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) -> torc
     return out
 
 
-def subgroup_ranks(rank: int, placement: Placement) -> list[int]:
-    """The ranks of ``rank``'s subgroup, in subgroup-position order."""
-    g = placement.subgroup_size
-    base = (rank // g) * g
-    return [base + q for q in range(g)]
-
-
 def plan_demand_fetch(wanted: list, placement: Placement, *, budget: int,
                       exclude: Any = None) -> list[DemandPlan]:
     """Round 1 — the index exchange, for every rank at once. ``wanted[r]``
@@ -333,17 +394,19 @@ def plan_demand_fetch(wanted: list, placement: Placement, *, budget: int,
 
 
 def gather_demand_payload(shards: list, plan: DemandPlan, rank: int, placement: Placement, *,
-                          budget: int, mode: str = "allgather", out: Any = None,
-                          copy_stream=None) -> DemandBank:
+                          budget: int, mode: str = "allgather", num_slices: int = 4,
+                          out: Any = None, copy_stream=None) -> DemandBank:
     """Round 2 — the payload for ``rank``: each subgroup peer serves the
     rows this rank asked it for out of its resident shard (the sender-side
     compaction of ``plan.masks``, which every rank holds identically),
     padded to ``budget``, landed peer-major into the rank's buffer
     (``out``: a preallocated tree of ``(G'-1) * budget`` rows, or fresh
     buffers allocated on the current stream). Copies run on
-    ``copy_stream`` when one is given."""
-    if mode != "allgather":
-        raise NotImplementedError(f"transport {mode!r} is not ported yet (only 'allgather')")
+    ``copy_stream`` when one is given. A payload is point to point, so
+    ``ring`` shares ``allgather``'s direct schedule, as in the JAX package;
+    ``ring_sliced`` gathers each peer's rows in ``num_slices`` column
+    slices of the last dimension."""
+    _check_transport(mode)
     g, local = placement.subgroup_size, placement.local_count
     budget = min(budget, local)
     own = shards[rank]
@@ -364,11 +427,19 @@ def gather_demand_payload(shards: list, plan: DemandPlan, rank: int, placement: 
         srcs, dst = leaves[:n_src], leaves[n_src:]
         buf = dst[0] if dst else torch.empty(
             ((g - 1) * budget,) + tuple(lo.shape[1:]), dtype=lo.dtype, device=lo.device)
+        s = num_feature_slices(lo.shape[-1], num_slices) if mode == "ring_sliced" else 1
+        w = lo.shape[-1] // s
         on_side = (torch.cuda.stream(copy_stream) if copy_stream is not None
                    else contextlib.nullcontext())
         with on_side:
             for t, (src, (_, idx)) in enumerate(zip(srcs, idx_by_t)):
-                gather_rows(src, idx, buf[t * budget:(t + 1) * budget])
+                rows = buf[t * budget:(t + 1) * budget]
+                if s == 1:
+                    gather_rows(src, idx, rows)
+                else:
+                    for j in range(s):
+                        torch.index_select(src[..., j * w:(j + 1) * w], 0, idx,
+                                           out=rows[..., j * w:(j + 1) * w])
                 if copy_stream is not None:
                     idx.record_stream(copy_stream)
         LANDED.bytes += buf.numel() * buf.element_size()

@@ -2,26 +2,28 @@
 
 The port of the parts of ``repro.core.strategy`` the forward reads:
 ``GatherPolicy`` / ``PolicyTable`` (the per-family configuration surface
-— ``moe_experts``, ``attn_qkv``, ``attn_out``, ``dense_ffn``),
-``ExecutionPlan``, ``plan_activation_sharding`` and
-``make_execution_plan``. The roofline ``auto`` resolver and the
-deprecated flat knobs are not ported. The port runs the modes ``dwdp``,
-``dep`` and ``hybrid`` (``replicated`` is refused) and executes
-``split:all:allgather`` for every family, and for ``moe_experts`` also
+— ``moe_experts``, ``attn_qkv``, ``attn_out``, ``dense_ffn`` — with
+per-layer-group overrides keyed ``"group/family"``), ``ExecutionPlan``,
+``plan_activation_sharding`` and ``make_execution_plan`` (with the
+deprecated flat knobs). The port runs the modes ``dwdp``, ``dep`` and
+``hybrid`` (``replicated`` is refused) and every explicit policy: both
+layouts (``split``, ``merged``), the three transports (``allgather``,
+``ring``, ``ring_sliced`` with ``num_slices``) and, for ``moe_experts``,
 the route-before-gather fetches ``demand``, ``predictive`` and
-``sync_free`` (with their ``budget`` / ``cache_budget``) over the
-``allgather`` transport; other policies validate here and are refused by
-``make_execution_plan`` until their slices land. Under ``dep`` and
-``hybrid`` the experts stay put (an all-to-all moves the tokens), so an
-expert fetch other than ``all`` engages nowhere and runs as the
-all-to-all, as in the JAX package; DEP's decode gathers attention in the
-merged layout whatever the family's layout.
+``sync_free`` with their ``budget`` / ``cache_budget``. The roofline
+``"auto"`` / ``"auto-online"`` resolver is not ported: asking for it
+raises ``NotImplementedError``. Under ``dep`` and ``hybrid`` the experts
+stay put (an all-to-all moves the tokens), so an expert fetch other than
+``all`` engages nowhere and runs as the all-to-all, as in the JAX
+package; DEP's decode gathers attention in the merged layout whatever the
+family's layout.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
+import warnings
 from typing import Any, Mapping, Optional, Union
 
 from repro_torch.configs.base import ArchConfig, BlockKind, InputShape
@@ -43,9 +45,9 @@ MESH_AXES = ("pod", "data", "model")
 class GatherPolicy:
     """How one gathered-weight family is obtained: ``layout`` (split |
     merged), ``fetch`` (all | demand | predictive | sync_free),
-    ``transport`` (allgather | ring | ring_sliced), ``num_slices``,
-    ``budget`` and ``cache_budget`` — the JAX package's fields and
-    validation."""
+    ``transport`` (allgather | ring | ring_sliced), ``num_slices`` (the
+    ring_sliced slice count), ``budget`` and ``cache_budget`` — the JAX
+    package's fields and validation."""
 
     layout: str = "split"
     fetch: str = "all"
@@ -71,8 +73,33 @@ class GatherPolicy:
         if self.cache_budget and self.fetch not in ("predictive", "sync_free"):
             raise ValueError("cache_budget only applies to the predictive/sync_free fetch")
 
+    @classmethod
+    def parse(cls, spec: Union[str, "GatherPolicy", Mapping]) -> "GatherPolicy":
+        """``"layout[:fetch[:transport[:num_slices[:budget[:cache_budget]]]]]"``
+        (the ``--policy`` spec), a kwargs mapping, or a policy passed
+        through; unknown values raise ``ValueError``."""
+        if isinstance(spec, GatherPolicy):
+            return spec
+        if isinstance(spec, Mapping):
+            extra = set(spec) - {f.name for f in dataclasses.fields(cls)}
+            if extra:
+                raise ValueError(f"unknown GatherPolicy fields {sorted(extra)}")
+            return cls(**spec)
+        parts = str(spec).split(":")
+        if not 1 <= len(parts) <= 6 or not all(parts):
+            raise ValueError(f"bad policy spec {spec!r}; expected layout[:fetch[:transport"
+                             "[:num_slices[:budget[:cache_budget]]]]]")
+        kw: dict = dict(zip(("layout", "fetch", "transport"), parts[:3]))
+        try:
+            kw.update(zip(("num_slices", "budget", "cache_budget"), map(int, parts[3:])))
+        except ValueError:
+            raise ValueError(f"bad policy spec {spec!r}: num_slices/budget/cache_budget "
+                             "must be ints") from None
+        return cls(**kw)
+
     def spec(self) -> str:
-        """``layout:fetch:transport[:num_slices][:budget][:cache_budget]``."""
+        """``layout:fetch:transport[:num_slices][:budget][:cache_budget]``
+        (``parse(spec()) == self``)."""
         s = f"{self.layout}:{self.fetch}:{self.transport}"
         if self.num_slices != 4 or self.budget != 0 or self.cache_budget != 0:
             s += f":{self.num_slices}"
@@ -83,28 +110,53 @@ class GatherPolicy:
         return s
 
 
+def _check_family(name: str, *, allow_default: bool = True) -> None:
+    ok = GATHER_FAMILIES + (("default",) if allow_default else ())
+    if name not in ok:
+        raise ValueError(f"unknown gather family {name!r}; expected one of {ok}")
+
+
+def _check_fetch_applies(family: str, pol: GatherPolicy) -> None:
+    if pol.fetch != "all" and family not in ("moe_experts", "default"):
+        raise ValueError(f'fetch="{pol.fetch}" only applies to the moe_experts family; '
+                         f"got it for {family!r}")
+
+
 @dataclasses.dataclass(frozen=True)
 class PolicyTable:
-    """Per-family gather policies; ``family(name)`` falls back to
-    ``default``. (Per-layer-group overrides are not ported yet.)"""
+    """Per-family, optionally per-layer-group, gather policies. Lookup
+    order of ``family(name, group)``: the ``(group, name)`` override, then
+    the ``name`` entry, then ``default``."""
 
     default: GatherPolicy = GatherPolicy()
     families: tuple[tuple[str, GatherPolicy], ...] = ()
+    overrides: tuple[tuple[str, str, GatherPolicy], ...] = ()
 
     def __post_init__(self):
         seen: set = set()
         for name, pol in self.families:
-            if name not in GATHER_FAMILIES:
-                raise ValueError(f"unknown gather family {name!r}; expected one of {GATHER_FAMILIES}")
-            if pol.fetch != "all" and name != "moe_experts":
-                raise ValueError(f'fetch="{pol.fetch}" only applies to moe_experts')
+            _check_family(name, allow_default=False)
+            _check_fetch_applies(name, pol)
             if name in seen:
                 raise ValueError(f"duplicate family entry {name!r}")
             seen.add(name)
+        _check_fetch_applies("default", self.default)
+        oseen: set = set()
+        for group, name, pol in self.overrides:
+            _check_family(name, allow_default=False)
+            _check_fetch_applies(name, pol)
+            if (group, name) in oseen:
+                raise ValueError(f"duplicate override {(group, name)!r}")
+            oseen.add((group, name))
 
     def family(self, name: str, group: Optional[str] = None) -> GatherPolicy:
-        if name not in GATHER_FAMILIES + ("default",):
-            raise ValueError(f"unknown gather family {name!r}")
+        """The policy of family ``name``, within layer group ``group`` when
+        given."""
+        _check_family(name)
+        if group is not None:
+            for g, n, pol in self.overrides:
+                if g == group and n == name:
+                    return pol
         for n, pol in self.families:
             if n == name:
                 return pol
@@ -114,6 +166,8 @@ class PolicyTable:
     def uniform(cls, *, layout: str = "split", fetch: str = "all",
                 transport: str = "allgather", num_slices: int = 4,
                 budget: int = 0, cache_budget: int = 0) -> "PolicyTable":
+        """One policy for every family (an expert fetch applies to
+        ``moe_experts`` only): what the deprecated flat knobs express."""
         pol = GatherPolicy(layout=layout, fetch=fetch, transport=transport,
                            num_slices=num_slices, budget=budget,
                            cache_budget=cache_budget)
@@ -124,17 +178,80 @@ class PolicyTable:
             )
         return cls(default=pol)
 
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "PolicyTable":
+        """A table from ``{family | "default" | "group/family": spec}``, each
+        spec a string (:meth:`GatherPolicy.parse`), a kwargs mapping or a
+        policy: the ``--policy-file`` JSON shape."""
+        default = GatherPolicy()
+        fams: list = []
+        overrides: list = []
+        for key, spec in d.items():
+            pol = GatherPolicy.parse(spec)
+            if key == "default":
+                default = pol
+            elif "/" in key:
+                group, name = key.split("/", 1)
+                overrides.append((group, name, pol))
+            else:
+                fams.append((key, pol))
+        return cls(default=default, families=tuple(fams), overrides=tuple(overrides))
+
     def to_dict(self) -> dict:
+        """JSON-able round-trip form (``from_dict(to_dict()) == self``)."""
         out = {"default": self.default.spec()}
         for name, pol in self.families:
             out[name] = pol.spec()
+        for group, name, pol in self.overrides:
+            out[f"{group}/{name}"] = pol.spec()
         return out
 
     def describe(self) -> str:
         return json.dumps(self.to_dict(), sort_keys=True)
 
 
-PolicyLike = Union[None, PolicyTable, GatherPolicy]
+PolicyLike = Union[None, str, Mapping, GatherPolicy, PolicyTable]
+#: The policy literals of the JAX package's roofline resolver, not ported.
+AUTO_POLICIES = ("auto", "auto-online")
+
+
+def _coerce_policy(policy: PolicyLike) -> PolicyTable:
+    """A :class:`PolicyTable` from a table, a policy, a per-family mapping or
+    a spec string; ``"auto"`` / ``"auto-online"`` raise
+    ``NotImplementedError`` (the roofline cost model is not ported)."""
+    if policy is None:
+        return PolicyTable()
+    if isinstance(policy, PolicyTable):
+        return policy
+    if isinstance(policy, GatherPolicy):
+        return PolicyTable(default=policy)
+    if isinstance(policy, Mapping):
+        return PolicyTable.from_dict(policy)
+    if isinstance(policy, str):
+        if policy in AUTO_POLICIES:
+            raise NotImplementedError(
+                f"policy {policy!r} needs the JAX package's roofline cost model "
+                "(repro.core.roofline: modeled_step_time and the resolver over it), which is "
+                "not ported; pass an explicit policy table")
+        return PolicyTable(default=GatherPolicy.parse(policy))
+    raise TypeError(f"cannot build a PolicyTable from {policy!r}")
+
+
+def resolve_policy(policy: PolicyLike = None, *, weight_layout: Optional[str] = None,
+                   expert_fetch: Optional[str] = None, prefetch: Optional[str] = None,
+                   num_slices: Optional[int] = None, demand_budget: Optional[int] = None,
+                   cache_budget: Optional[int] = None) -> PolicyTable:
+    """One policy table from either spelling (``_resolve_policy`` of the
+    JAX package): an explicit ``policy`` wins (:func:`_coerce_policy`);
+    otherwise the flat knobs spell a uniform table, each left at ``None``
+    taking the default (split, all, allgather, 4 slices, budgets 0). The
+    servers, the command line and ``make_execution_plan``'s deprecated
+    knobs all build their uniform table here."""
+    if policy is not None:
+        return _coerce_policy(policy)
+    knobs = dict(layout=weight_layout, fetch=expert_fetch, transport=prefetch,
+                 num_slices=num_slices, budget=demand_budget, cache_budget=cache_budget)
+    return PolicyTable.uniform(**{k: v for k, v in knobs.items() if v is not None})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,6 +271,7 @@ class ExecutionPlan:
     capacity_from: str = "local"
 
     def policy(self, family: str, group: Optional[str] = None) -> GatherPolicy:
+        """The policy of ``family`` (within layer group ``group``)."""
         return self.policies.family(family, group)
 
     @property
@@ -276,18 +394,6 @@ def plan_activation_sharding(
     return tuple(batch_axes), tuple(seq_axes)
 
 
-#: The policy the port executes for every family; ``moe_experts`` may
-#: also take any fetch of ``PORTED_EXPERT_FETCH`` with its budgets.
-PORTED_POLICY = GatherPolicy(layout="split", fetch="all", transport="allgather")
-PORTED_EXPERT_FETCH = ("all", "demand", "predictive", "sync_free")
-
-
-def _ported(family: str, pol: GatherPolicy) -> bool:
-    if family == "moe_experts" and pol.fetch in PORTED_EXPERT_FETCH:
-        pol = dataclasses.replace(pol, fetch="all", budget=0, cache_budget=0)
-    return pol == PORTED_POLICY
-
-
 def make_execution_plan(
     model,
     shape: InputShape,
@@ -298,7 +404,20 @@ def make_execution_plan(
     capacity_factor: float = 1.25,
     decode_attn: str = "gather",
     capacity_from: str = "local",
+    # -- deprecated flat knobs (build a uniform PolicyTable) --------------
+    prefetch: Optional[str] = None,
+    num_slices: Optional[int] = None,
+    weight_layout: Optional[str] = None,
+    expert_fetch: Optional[str] = None,
+    demand_budget: Optional[int] = None,
+    moe_ffn: Optional[str] = None,
 ) -> ExecutionPlan:
+    """The plan of one phase and shape. ``policy`` is a table, a policy, a
+    per-family mapping (``"group/family"`` keys scope an override to a
+    layer group of the model: ``prefix``, ``body``, ``suffix``) or a spec
+    string; the deprecated flat knobs build a uniform table instead (a
+    ``DeprecationWarning``; conflicting with ``policy`` or with each other
+    is a ``ValueError``), as in the JAX package."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     if mode not in PORTED_MODES:
@@ -307,21 +426,33 @@ def make_execution_plan(
         raise ValueError(f"decode_attn must be one of {DECODE_ATTN}, got {decode_attn!r}")
     if capacity_from not in CAPACITY_FROM:
         raise ValueError(f"capacity_from must be one of {CAPACITY_FROM}")
-    if policy is None:
-        table = PolicyTable()
-    elif isinstance(policy, GatherPolicy):
-        table = PolicyTable(default=policy)
-    elif isinstance(policy, PolicyTable):
-        table = policy
-    else:
-        raise TypeError(f"cannot build a PolicyTable from {policy!r}")
-    for fam in GATHER_FAMILIES:
-        if not _ported(fam, table.family(fam)):
-            raise NotImplementedError(
-                f"policy {table.family(fam).spec()!r} for {fam} is not ported "
-                f"yet; the port runs {PORTED_POLICY.spec()!r} (moe_experts also "
-                f"with fetch in {PORTED_EXPERT_FETCH[1:]})"
-            )
+    legacy = {k: v for k, v in dict(
+        prefetch=prefetch, num_slices=num_slices, weight_layout=weight_layout,
+        expert_fetch=expert_fetch, demand_budget=demand_budget, moe_ffn=moe_ffn,
+    ).items() if v is not None}
+    if legacy:
+        warnings.warn(
+            f"{', '.join(sorted(legacy))}= are deprecated flat knobs (moe_ffn is the first "
+            "spelling of weight_layout) — pass policy= (a PolicyTable / per-family dict / spec "
+            "string) instead; building a uniform PolicyTable",
+            DeprecationWarning, stacklevel=2)
+        if policy is not None:
+            raise ValueError(f"conflicting policy= and deprecated flat knobs {sorted(legacy)} "
+                             "— pass only policy=")
+        if "moe_ffn" in legacy:
+            wl = legacy.get("weight_layout")
+            if wl is not None and wl != legacy["moe_ffn"]:
+                raise ValueError(f"conflicting weight_layout={wl!r} and deprecated "
+                                 f"moe_ffn={legacy['moe_ffn']!r} — pass only weight_layout "
+                                 "(or better, policy=)")
+            legacy.setdefault("weight_layout", legacy.pop("moe_ffn"))
+        policy = resolve_policy(None, **legacy)
+    table = _coerce_policy(policy)
+    known_groups = {g.name for g in model.plan}
+    for g, fam, _ in table.overrides:
+        if g not in known_groups:
+            raise ValueError(f"policy override names unknown layer group {g!r} (for family "
+                             f"{fam!r}); this model's groups are {sorted(known_groups)}")
     batch_axes, seq_axes = plan_activation_sharding(model.cfg, shape, mesh_sizes)
     return ExecutionPlan(
         mode=mode,

@@ -17,6 +17,22 @@ captured CUDA graph unless the caller passes ``graphs=False``.
     python -m repro_torch.launch.serve --arch deepseek-r1 --gen-mode dwdp --requests 4
     python -m repro_torch.launch.serve --arch deepseek-r1 --serving --replicas 2
     python -m repro_torch.launch.serve --arch deepseek-r1 --mesh 2,4 --max-batch 4
+    python -m repro_torch.launch.serve --arch deepseek-r1 --gen-mode dwdp \
+        --policy moe_experts=split:demand --policy attn_qkv=merged \
+        --policy attn_out=merged --policy dense_ffn=split:all:ring
+    python -m repro_torch.launch.serve --arch deepseek-r1 --policy-file policies.json
+    python -m repro_torch.launch.serve --arch deepseek-r1 --weight-layout merged
+
+Gather policies are set per weight family (``moe_experts``, ``attn_qkv``,
+``attn_out``, ``dense_ffn``, ``default``; ``group/family`` for one layer
+group: ``prefix``, ``body``, ``suffix``) with the repeatable ``--policy
+family=layout[:fetch[:transport[:num_slices[:budget[:cache_budget]]]]]``
+or ``--policy-file`` (the ``PolicyTable.to_dict`` JSON; flags override
+its entries). The uniform flags ``--weight-layout``, ``--expert-fetch``,
+``--demand-budget`` and ``--cache-budget`` spell one policy for every
+family and may not be combined with ``--policy``. ``--policy auto`` (the
+JAX package's roofline resolver) is not ported: it exits with status 2
+before anything is built, as do conflicting flags.
 
 The first runs the engine's fixed loop; ``--serving`` serves a seeded
 workload through ``ServingScheduler`` and ``LiveReplicaClient`` behind
@@ -27,12 +43,14 @@ GPU in ``tps_per_gpu``: its logical ranks share one card.
 from __future__ import annotations
 
 import argparse
+import json
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, reduced_variant
+from repro_torch.core.strategy import AUTO_POLICIES, PolicyTable, resolve_policy
 from repro_torch.models.transformer import build_model
 from repro_torch.runtime.engine import (
     ContextServer,
@@ -64,6 +82,61 @@ def check_mesh(cfg, mesh_shape, max_batch: int, cache_len: int) -> None:
     decode_axes(cfg, {"data": mesh_shape[0], "model": mesh_shape[1]}, max_batch, cache_len)
 
 
+def parse_policy_flags(flags, policy_file=None):
+    """``--policy`` / ``--policy-file`` -> a PolicyTable, ``"auto"``,
+    ``"auto-online"``, or None (nothing given), as the JAX package parses
+    them: each ``--policy`` value is a standalone literal or
+    ``family=spec``; the file is the PolicyTable JSON dict; flags override
+    file entries for the same family. Unknown families or values raise
+    ``ValueError``."""
+    flags = list(flags or ())
+    for lit in AUTO_POLICIES:
+        if lit in flags:
+            if len(flags) > 1 or policy_file:
+                raise ValueError(f"--policy {lit} stands alone (it resolves every family); "
+                                 "drop the other --policy/--policy-file arguments")
+            return lit
+    spec: dict = {}
+    if policy_file:
+        with open(policy_file) as f:
+            loaded = json.load(f)
+        if not isinstance(loaded, dict):
+            raise ValueError(f"--policy-file {policy_file!r} must hold a JSON object mapping "
+                             "families to policy specs")
+        spec.update(loaded)
+    for flag in flags:
+        if "=" not in flag:
+            raise ValueError("--policy expects family=layout[:fetch[:transport...]] or the "
+                             f"literal 'auto'; got {flag!r}")
+        fam, pol = flag.split("=", 1)
+        spec[fam] = pol
+    if not spec:
+        return None
+    return PolicyTable.from_dict(spec)
+
+
+def resolve_cli_policy(args):
+    """``--policy`` / ``--policy-file`` parsed, refusing them beside the
+    uniform flags (``--weight-layout``, ``--expert-fetch``,
+    ``--demand-budget``, ``--cache-budget``): a PolicyTable, ``"auto"`` or
+    None; ``ValueError`` on conflicts or bad specs. ``main`` then turns
+    the uniform flags into the table when no ``--policy`` is given
+    (``strategy.resolve_policy``)."""
+    legacy_given = [
+        name for name, v in (
+            ("--weight-layout", args.weight_layout),
+            ("--expert-fetch", args.expert_fetch),
+            ("--demand-budget", args.demand_budget),
+            ("--cache-budget", getattr(args, "cache_budget", None)),
+        ) if v is not None
+    ]
+    policy = parse_policy_flags(args.policy, args.policy_file)
+    if policy is not None and legacy_given:
+        raise ValueError(f"conflicting --policy and uniform flags {', '.join(legacy_given)} "
+                         "— pass only --policy")
+    return policy
+
+
 def build_engine(
     cfg,
     *,
@@ -78,6 +151,8 @@ def build_engine(
     expert_fetch: str = "all",
     demand_budget: int = 0,
     cache_budget: int = 0,
+    policy=None,
+    weight_layout: Optional[str] = None,
     dtype: torch.dtype = torch.float32,
     device="cuda",
     seed: int = 0,
@@ -104,8 +179,10 @@ def build_engine(
     (:func:`check_mesh`): nothing is built for a pair the port refuses.
     ``expert_fetch`` (all | demand | predictive | sync_free) with
     ``demand_budget`` (per-peer rows, 0 = auto) and ``cache_budget``
-    (residency-cache rows, predictive / sync_free) form the uniform
-    policy of both servers. ``prefill_buckets`` adds pow2 prompt lengths
+    (residency-cache rows, predictive / sync_free) and ``weight_layout``
+    (split | merged) form the uniform policy of both servers, unless
+    ``policy`` (a PolicyTable, a per-family mapping or a spec string; any
+    transport) is given, which wins (``strategy.resolve_policy``). ``prefill_buckets`` adds pow2 prompt lengths
     beside ``prefill_len``, and ``variant_cache_size`` bounds the decode
     server's policy variants (the reference's arguments). ``graphs``
     (default: on a CUDA device) captures every step as a CUDA graph, all
@@ -126,7 +203,8 @@ def build_engine(
         raise ValueError(f"CUDA graphs need a CUDA device, the model is on {model.device}")
     space = GraphSpace(model.device) if graphs else None
     fetch = dict(expert_fetch=expert_fetch, demand_budget=demand_budget,
-                 cache_budget=cache_budget, capacity_from=capacity_from, space=space)
+                 cache_budget=cache_budget, policy=policy, weight_layout=weight_layout,
+                 capacity_from=capacity_from, space=space)
     ctx = ContextServer(
         model, sizes, mode=ctx_mode, prefill_len=prefill_len, cache_len=cache_len,
         prefill_buckets=prefill_buckets, **fetch,
@@ -138,19 +216,19 @@ def build_engine(
     return DisaggregatedEngine(params, ctx, gen), model
 
 
-def _engine(args, cfg, *, prefill_len: int, prefill_buckets: tuple = (), cache_len: int):
+def _engine(args, cfg, policy, *, prefill_len: int, prefill_buckets: tuple = (),
+            cache_len: int):
     return build_engine(
         cfg, mesh_shape=args.mesh, prefill_len=prefill_len, prefill_buckets=prefill_buckets,
         cache_len=cache_len, max_batch=args.max_batch, ctx_mode=args.ctx_mode,
-        gen_mode=args.gen_mode, capacity_from=args.capacity_from,
-        expert_fetch=args.expert_fetch, demand_budget=args.demand_budget,
-        cache_budget=args.cache_budget, device=args.device,
+        gen_mode=args.gen_mode, capacity_from=args.capacity_from, policy=policy,
+        device=args.device,
         geom_kwargs=SERVE_GEOMETRY.get(args.arch),
         variant_cache_size=args.variant_cache_size,
     )
 
 
-def run_serving(args, cfg) -> dict:
+def run_serving(args, cfg, policy=None) -> dict:
     """The ``--serving`` path: ``--replicas`` live replicas (the same
     weights, independent clocks) behind the least-loaded router, rolling
     admission, and the SLO gate when a target is set. Prints the summary,
@@ -175,7 +253,7 @@ def run_serving(args, cfg) -> dict:
     gated = args.slo_tps_user or args.slo_ttft or args.max_queue
     schedulers = []
     for _ in range(args.replicas):
-        engine, _ = _engine(args, cfg, prefill_len=max(buckets), prefill_buckets=buckets,
+        engine, _ = _engine(args, cfg, policy, prefill_len=max(buckets), prefill_buckets=buckets,
                             cache_len=max(buckets) + args.output_len)
         client = LiveReplicaClient.from_engine(engine)
         if not args.no_warmup:
@@ -218,14 +296,28 @@ def main(argv=None) -> dict:
                          "stay put, tokens move by all-to-all), or DWDP (weights move)")
     ap.add_argument("--capacity-from", default="local", choices=["local", "global"],
                     help="MoE capacity from the local shard's rows or per row")
-    ap.add_argument("--expert-fetch", default="all",
+    ap.add_argument("--policy", action="append", default=None, metavar="FAMILY=SPEC",
+                    help="per-family gather policy (repeatable): family=layout[:fetch"
+                         "[:transport[:num_slices[:budget[:cache_budget]]]]] with families "
+                         "moe_experts, attn_qkv, attn_out, dense_ffn, default, or "
+                         "group/family for one layer group (prefix, body, suffix); 'auto' "
+                         "is not ported (exits with status 2)")
+    ap.add_argument("--policy-file", default=None,
+                    help="JSON file mapping families to policy specs (PolicyTable.to_dict); "
+                         "--policy flags override its entries")
+    ap.add_argument("--weight-layout", default=None, choices=["merged", "split"],
+                    help="uniform gathered-weight layout of every family (default split)")
+    ap.add_argument("--expert-fetch", default=None,
                     choices=["all", "demand", "predictive", "sync_free"],
-                    help="expert fetch of both servers: the full gather, route-before-gather, "
-                         "with a speculative round and residency cache, or mirrored")
-    ap.add_argument("--demand-budget", type=int, default=0,
-                    help="per-peer row budget of the demand / correction round (0 = auto)")
-    ap.add_argument("--cache-budget", type=int, default=0,
-                    help="residency-cache rows per MoE layer (predictive, sync_free)")
+                    help="expert fetch of both servers (default all): the full gather, "
+                         "route-before-gather, with a speculative round and residency "
+                         "cache, or mirrored")
+    ap.add_argument("--demand-budget", type=int, default=None,
+                    help="per-peer row budget of the demand / correction round (default 0 "
+                         "= auto)")
+    ap.add_argument("--cache-budget", type=int, default=None,
+                    help="residency-cache rows per MoE layer (predictive, sync_free; "
+                         "default 0)")
     ap.add_argument("--variant-cache-size", type=int, default=16,
                     help="decode variants the generation server keeps captured (LRU)")
     ap.add_argument("--no-warmup", action="store_true",
@@ -255,6 +347,14 @@ def main(argv=None) -> dict:
     serving.add_argument("--max-queue", type=int, default=0,
                          help="queued requests beyond which arrivals are shed (0 = unbounded)")
     args = ap.parse_args(argv)
+    try:
+        # One table for both servers; "auto" raises: the roofline resolver is not ported.
+        policy = resolve_policy(
+            resolve_cli_policy(args), weight_layout=args.weight_layout,
+            expert_fetch=args.expert_fetch, demand_budget=args.demand_budget,
+            cache_budget=args.cache_budget)
+    except (ValueError, NotImplementedError) as err:
+        ap.error(str(err))
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = reduced_variant(cfg)
@@ -263,8 +363,8 @@ def main(argv=None) -> dict:
     except ValueError as err:
         ap.error(str(err))
     if args.serving:
-        return run_serving(args, cfg)
-    engine, _ = _engine(args, cfg, prefill_len=args.prefill_len,
+        return run_serving(args, cfg, policy)
+    engine, _ = _engine(args, cfg, policy, prefill_len=args.prefill_len,
                         cache_len=args.prefill_len + args.output_len)
     if not args.no_warmup:
         print(f"warmup: {engine.warmup()} decode variant(s) captured")

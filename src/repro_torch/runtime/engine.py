@@ -5,9 +5,12 @@ engine that moves requests between them.
 The port of ``repro.runtime.engine`` (``validate_restore_plan``,
 ``variant_key``, ``CountingStep``, ``PolicyVariantCache``, ``Request``,
 ``ContextServer``, ``GenerationServer``, ``DisaggregatedEngine``) for the
-``dwdp``, ``dep`` and ``hybrid`` modes, with the all-fetch and the
-route-before-gather expert fetches (``expert_fetch`` demand / predictive
-/ sync_free, which engage under dwdp only; the generation server carries
+``dwdp``, ``dep`` and ``hybrid`` modes, under any explicit gather-policy
+table (``policy=``: per family and per layer group, split or merged, over
+any transport; or the uniform knobs ``weight_layout``, ``prefetch`` and
+``expert_fetch``, resolved as the JAX package's ``_resolve_policy``),
+with the all-fetch and the route-before-gather expert fetches (demand /
+predictive / sync_free, which engage under dwdp only; the generation server carries
 the predictive state across decode steps and keeps each step's
 ``pred_stats``), and the slot snapshots the serving layer's
 evict-to-queue takes (``GenerationServer.snapshot_slot``). The
@@ -55,9 +58,12 @@ from repro_torch.configs.base import InputShape
 from repro_torch.core import execution
 from repro_torch.core.placement import subgroup_positions
 from repro_torch.core.strategy import (
+    PolicyLike,
     PolicyTable,
+    _coerce_policy,
     make_execution_plan,
     plan_activation_sharding,
+    resolve_policy,
 )
 from repro_torch.models.cache import RingLayout, init_decode_state, read_row, write_row
 from repro_torch.models.transformer import AXIS_MODEL, Model
@@ -89,7 +95,8 @@ def validate_restore_plan(snapshot_plan: Optional[dict], current_plan: dict) -> 
 def variant_key(table: PolicyTable, shape: InputShape, excl: tuple = ()) -> tuple:
     """The forward-variant cache key: the canonical policy table
     (``describe()``), the shape bucket and the peer-exclusion set — the JAX
-    package's key. Model, mesh and mode are fixed per cache."""
+    package's key, per-layer-group overrides included. Model, mesh and
+    mode are fixed per cache."""
     return (
         table.describe(),
         (shape.phase, shape.seq_len, shape.global_batch),
@@ -386,6 +393,8 @@ class ContextServer:
                  prefill_len: int, cache_len: int,
                  capacity_from: str = "local", expert_fetch: str = "all",
                  demand_budget: int = 0, cache_budget: int = 0,
+                 policy: PolicyLike = None, weight_layout: Optional[str] = None,
+                 prefetch: str = "allgather",
                  prefill_buckets: tuple = (), space: Optional[GraphSpace] = None):
         self.model = model
         self.prefill_len = prefill_len
@@ -397,8 +406,9 @@ class ContextServer:
         self.prefill_lens = tuple(sorted({int(prefill_len), *(int(b) for b in prefill_buckets)}))
         self.space = space
         self.fallbacks = self.overflow_layers = 0
-        self._table = PolicyTable.uniform(fetch=expert_fetch, budget=demand_budget,
-                                          cache_budget=cache_budget)
+        self._table = resolve_policy(policy, prefetch=prefetch, weight_layout=weight_layout,
+                                     expert_fetch=expert_fetch, demand_budget=demand_budget,
+                                     cache_budget=cache_budget)
         shape = InputShape("ctx", prefill_len, 1, "prefill")
         if not execution.captures_kv(model.geom, make_execution_plan(
                 model, shape, mesh_sizes, mode=mode, policy=self._table)):
@@ -510,6 +520,8 @@ class GenerationServer:
                  max_batch: int, cache_len: int,
                  capacity_from: str = "local", expert_fetch: str = "all",
                  demand_budget: int = 0, cache_budget: int = 0,
+                 policy: PolicyLike = None, weight_layout: Optional[str] = None,
+                 prefetch: str = "allgather",
                  variant_cache_size: int = 16, space: Optional[GraphSpace] = None):
         self.model = model
         self.max_batch = max_batch
@@ -535,8 +547,9 @@ class GenerationServer:
         self.fallbacks = self.overflow_layers = 0
         self.slot_req: list[Optional[int]] = [None] * max_batch
         self.slot_remaining = np.zeros(max_batch, np.int64)
-        self._swap(PolicyTable.uniform(fetch=expert_fetch, budget=demand_budget,
-                                       cache_budget=cache_budget))
+        self._swap(resolve_policy(policy, prefetch=prefetch, weight_layout=weight_layout,
+                                  expert_fetch=expert_fetch, demand_budget=demand_budget,
+                                  cache_budget=cache_budget))
 
     def _build(self, xp) -> CountingStep:
         state = {"pos": self._kv["pos"], "layers": self._kv["layers"]}
@@ -561,13 +574,16 @@ class GenerationServer:
             t.zero_()
         self.last_pred_stats = None
 
-    def set_policy(self, table: PolicyTable) -> bool:
+    def set_policy(self, table: PolicyLike) -> bool:
         """Online policy switch: move the decode step to another policy
-        table's variant — captured already when warmed, built and captured
-        on first use otherwise — with a cold predictive state; KV slots
-        carry over. Returns whether anything changed. (The degradation
-        ladder, whose level 0 the JAX package rebases here, is not ported
-        yet, so there is no ladder to rebase.)"""
+        table's variant (any layout, transport, fetch or per-group mix) —
+        captured already when warmed, built and captured on first use
+        otherwise — with a cold predictive state; KV slots carry over and
+        no tensor the graphs read is rebound. Returns whether anything
+        changed. (The degradation ladder, whose level 0 the JAX package
+        rebases here, is not ported yet, so there is no ladder to
+        rebase.)"""
+        table = _coerce_policy(table)
         if table.describe() == self.xp.policies.describe():
             return False
         self._swap(table)

@@ -669,3 +669,35 @@ def test_cuda_two_data_replicas_graph_bitwise_eager(gen_mode):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert logits.shape[0] == 4 and torch.equal(logits, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,same_as", [
+    ("merged:all:ring_sliced:3", "merged:all:allgather"),
+    ("split:all:ring_sliced", "split:all:allgather"),
+    ({"moe_experts": "split:demand:ring_sliced:4:100", "attn_qkv": "merged",
+      "attn_out": "split:all:ring", "body/dense_ffn": "merged:all:ring"},
+     {"moe_experts": "split:all", "attn_qkv": "merged", "body/dense_ffn": "merged"}),
+], ids=["merged-ring_sliced", "split-ring_sliced", "mixed"])
+def test_cuda_policy_tables_graph_bitwise(policy, same_as):
+    """Gather-policy tables through graphs: the landings' copies (column
+    slices on the side stream, the demand payload's sliced row gathers
+    included) land the same bytes as the allgather table's, so the tokens
+    and one more decode step's logits are bitwise those of ``same_as``
+    (a demand fetch that never overflows runs the all-fetch math); the
+    graph serve equals the eager one and captures nothing after warmup."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    graph = _graph_engine(policy=policy)
+    eager = _graph_engine(params=graph.params, graphs=False, policy=policy)
+    ref = _graph_engine(params=graph.params, policy=same_as)
+    outs, logits = [], []
+    for eng in (graph, eager, ref):
+        eng.warmup()
+        warm = _captures(eng)
+        outs.append(_graph_serve(eng))
+        assert _captures(eng) == warm
+        logits.append(eng.gen.step_outputs(eng.params)[0]["logits"].clone())
+    assert outs[0] == outs[1] == outs[2]
+    assert torch.equal(logits[0], logits[1]) and torch.equal(logits[0], logits[2])
+    assert graph.gen.fallbacks == 0

@@ -65,9 +65,12 @@ RELERR = 2e-3
 MESH24, MESH14 = {"data": 2, "model": 4}, {"data": 1, "model": 4}
 MODES = ("dwdp", "dep", "hybrid")
 # decode plans at (2, 4): (mode, expert fetch, decode attention)
+# (the fetch may also be a whole policy spec: the merged layout over the
+# sliced ring, every family)
 DECODES = [("dwdp", "all", "gather"), ("dwdp", "demand", "gather"),
            ("dwdp", "predictive", "gather"), ("dwdp", "sync_free", "gather"),
-           ("dep", "all", "gather"), ("dep", "all", "qgather"), ("hybrid", "all", "gather")]
+           ("dep", "all", "gather"), ("dep", "all", "qgather"), ("hybrid", "all", "gather"),
+           ("dwdp", "merged:all:ring_sliced", "gather")]
 
 
 def _jax_prefill(w, tokens, capture=0):
@@ -165,11 +168,13 @@ def test_decode_on_two_data_replicas_matches_jax(moe, mode, fetch, attn):
     model, params = moe["ports"][(2, 4)]
     pxp, out = _prefill(moe, (2, 4), list(range(4)), "dwdp", capture=CACHE)
     np.testing.assert_array_equal(out["last_logits"].argmax(-1).numpy(), moe["first"])
+    policy = fetch if ":" in fetch else strategy.PolicyTable.uniform(fetch=fetch)
     xp = strategy.make_execution_plan(
         model, InputShape("g", CACHE, 4, "decode"), MESH24, mode=mode, capacity_factor=CAP,
-        decode_attn=attn, policy=strategy.PolicyTable.uniform(fetch=fetch))
+        decode_attn=attn, policy=policy)
     assert (xp.batch_axes, xp.seq_axes) == (pxp.batch_axes, pxp.seq_axes) == (("data",), ("model",))
-    assert execution.demand_fetch_active(model.cfg, model.geom, xp) == (fetch != "all")
+    assert execution.demand_fetch_active(model.cfg, model.geom, xp) == (
+        fetch in strategy.EXPERT_FETCH[1:])
     state = {"pos": out["state"]["pos"], "layers": out["state"]["layers"]}
     state = execution.attach_predict_state(state, model, xp)
     tok = out["last_logits"].argmax(-1)[:, None]

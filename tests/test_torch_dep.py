@@ -80,14 +80,15 @@ def test_merged_landing_matches_cat():
     pl = make_placement(4, 4)
     shards = [{"wq": t, "wo": t.transpose(1, 2).contiguous()}
               for t in _rank_tensors(4, (1, 6, 3), seed=2)]
-    prefetch.LANDED.bytes = 0
+    prefetch.LANDED.bytes = prefetch.LANDED.merge_bytes = 0
     for r in range(4):
-        got = prefetch.gather_merged(shards, r, pl)
+        got = prefetch.gather_shards(shards, r, pl)
         for key in ("wq", "wo"):
             want = torch.cat([s[key] for s in shards])
             assert torch.equal(got[key], want)
             assert got[key].data_ptr() != shards[r][key].data_ptr()
     assert prefetch.LANDED.bytes == 4 * 2 * 4 * 18 * 4
+    assert prefetch.LANDED.merge_bytes == 4 * 2 * 18 * 4  # each rank's own shards
 
 
 def _r1_two_layers(mod):

@@ -52,11 +52,11 @@ def jax_serve(r1_smoke):
     return torch_refs.jax_serve()
 
 
-def _port_engine(r1_smoke, gen_mode="dwdp"):
+def _port_engine(r1_smoke, gen_mode="dwdp", policy=None):
     cfg, _, jparams, _ = r1_smoke
     model = build_model(cfg, {"data": 1, "model": 4}, device="cpu", **GEOM)
     eng, _ = build_engine(cfg, mesh_shape=(1, 4), prefill_len=PROMPT, cache_len=CACHE,
-                          max_batch=2, gen_mode=gen_mode, device="cpu",
+                          max_batch=2, gen_mode=gen_mode, device="cpu", policy=policy,
                           params=from_jax_params(jparams, model), geom_kwargs=GEOM)
     return eng
 
@@ -99,6 +99,27 @@ def test_dep_generation_server_matches_jax_engine(r1_smoke, jax_serve):
     assert eng.outputs == jax_serve.outputs
     fams = eng.gen.gather_bytes["families"]
     assert fams["attn_qkv"]["full"] > 0 and fams["moe_experts"]["full"] == 0
+
+
+def test_mixed_policy_engine_matches_jax_engine(r1_smoke, jax_serve):
+    """Both servers under the JAX package's MIXED table (split experts with
+    the demand fetch, merged attention, the dense FFN split over the ring;
+    tests/test_multidevice.py) give the JAX engine's streams; the servers'
+    wire-byte models are the per-family ones of that table (the merged
+    attention ships what a split one would)."""
+    mixed = {"moe_experts": "split:demand:allgather:4:100", "attn_qkv": "merged:all:allgather",
+             "attn_out": "merged:all:allgather", "dense_ffn": "split:all:ring"}
+    prompts = r1_smoke[3]
+    eng = _port_engine(r1_smoke, policy=mixed)
+    assert eng.ctx.xp.policies.to_dict() == eng.gen.xp.policies.to_dict() == dict(
+        mixed, default="split:all:allgather")
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p, OUT))
+    eng.run(STEPS)
+    assert not eng.busy()
+    assert eng.outputs == jax_serve.outputs
+    fams = eng.gen.gather_bytes["families"]
+    assert all(fams[f]["full"] > 0 for f in ("attn_qkv", "attn_out", "dense_ffn", "moe_experts"))
 
 
 def test_live_serving_matches_jax_engine(r1_smoke, jax_serve):

@@ -13,6 +13,17 @@ serving pairs them (DEP's prefill captures no KV). Tolerance: fp32,
 atol = rtol = 1e-4 (two frameworks sum in different orders). Both sides
 run with capacity_factor = E / top_k, so no token is ever dropped in
 either layout.
+
+The gather-policy space runs against the same (1, 1) outputs: at (1, 1)
+nothing is gathered, so the JAX package's outputs are the same for every
+policy. The merged layout, the ring and ring_sliced transports (3 slices,
+which divide no width of the model, so the count steps down), the JAX
+package's MIXED table (demand-fetched split experts, merged attention,
+a split-ring dense FFN; tests/test_multidevice.py), a per-layer-group
+table and hybrid with merged dense families. Within the port, ring and
+ring_sliced land the same bytes as allgather, and MIXED is its COMPOSED
+table (demand -> all, ring -> allgather) with no overflow: those
+outputs are held bitwise.
 """
 import numpy as np
 import pytest
@@ -45,6 +56,26 @@ PROMPT, CACHE = 16, 24
 
 MODES = ("dwdp", "dep", "hybrid")
 DECODE_STEPS = 6
+# The JAX package's MIXED / COMPOSED tables (tests/test_multidevice.py);
+# budget 100 >= the 2 experts per rank: the demand path never overflows.
+MIXED = {"moe_experts": "split:demand:allgather:4:100", "attn_qkv": "merged:all:allgather",
+         "attn_out": "merged:all:allgather", "dense_ffn": "split:all:ring"}
+COMPOSED = {"moe_experts": "split:all:allgather", "attn_qkv": "merged:all:allgather",
+            "attn_out": "merged:all:allgather", "dense_ffn": "split:all:allgather"}
+# the dense layer's FFN (group "prefix") merged, the MoE layer's shared
+# expert (group "body") split over the ring
+PER_GROUP = {"prefix/dense_ffn": "merged:all:allgather", "body/dense_ffn": "split:all:ring"}
+# (mode, policy) cases: the modes' default tables, then the policy space
+POLICY_CASES = [pytest.param(m, None, id=m) for m in MODES] + [
+    pytest.param("dwdp", "merged:all:allgather", id="dwdp-merged"),
+    pytest.param("dwdp", "split:all:ring", id="dwdp-ring"),
+    pytest.param("dwdp", "split:all:ring_sliced", id="dwdp-ring_sliced"),
+    pytest.param("dwdp", "merged:all:ring_sliced:3", id="dwdp-merged-ring_sliced-3"),
+    pytest.param("dwdp", MIXED, id="dwdp-mixed"),
+    pytest.param("dwdp", PER_GROUP, id="dwdp-per-group"),
+    pytest.param("hybrid", {"attn_qkv": "merged", "attn_out": "merged", "dense_ffn": "merged"},
+                 id="hybrid-merged-dense"),
+]
 
 
 def _jax_step(jm1, mesh, shape, **kw):
@@ -82,20 +113,23 @@ def setup():
                 tokens=np.stack(jtoks))
 
 
-def _port_prefill(s, toks, mode="dwdp"):
+def _port_prefill(s, toks, mode="dwdp", policy=None):
     xp = strategy.make_execution_plan(
         s["model"], InputShape("p", PROMPT, 1, "prefill"), {"data": 1, "model": 4},
-        mode=mode, capacity_factor=CAP)
+        mode=mode, capacity_factor=CAP, policy=policy)
     assert xp.seq_axes == ("model",)
     # DEP's tensor-parallel prefill attention captures no KV state
     ctx = execution.Ctx(model=s["model"], xp=xp, capture_len=0 if mode == "dep" else CACHE)
     return execution.forward_prefill(s["params"], torch.as_tensor(toks[None]), ctx)
 
 
-def _port_decode(s, mode, decode_attn="gather"):
-    """Greedy decode under ``mode`` from the prefill state of the context
-    server that feeds it (DWDP for a DEP decode)."""
-    touts = [_port_prefill(s, t, "dwdp" if mode == "dep" else mode) for t in s["prompts"]]
+def _port_decode(s, mode, decode_attn="gather", policy=None, logits=None):
+    """Greedy decode under ``mode`` (and ``policy``, in prefill and decode)
+    from the prefill state of the context server that feeds it (DWDP for a
+    DEP decode); each step's logits are appended to ``logits`` when
+    given."""
+    touts = [_port_prefill(s, t, "dwdp" if mode == "dep" else mode, policy)
+             for t in s["prompts"]]
     tstate = {
         "pos": torch.cat([o["state"]["pos"] for o in touts]),
         "layers": {
@@ -109,13 +143,15 @@ def _port_decode(s, mode, decode_attn="gather"):
     np.testing.assert_array_equal(ttok[:, 0].numpy(), s["first"])
     txp = strategy.make_execution_plan(
         s["model"], InputShape("g", CACHE, 2, "decode"), {"data": 1, "model": 4},
-        mode=mode, capacity_factor=CAP, decode_attn=decode_attn)
+        mode=mode, capacity_factor=CAP, decode_attn=decode_attn, policy=policy)
     assert txp.seq_axes == ("model",) and not txp.batch_axes  # seq-sharded KV cache
     ctx = execution.Ctx(model=s["model"], xp=txp)
     ttoks = []
     for _ in range(DECODE_STEPS):
         to = execution.forward_decode(s["params"], ttok, tstate, ctx)
         ttok, tstate = to["next_token"].long(), to["state"]
+        if logits is not None:
+            logits.append(to["logits"])
         top2 = torch.topk(to["logits"][:, : s["cfg"].vocab_size], 2, dim=-1).values
         margin = (top2[:, 0] - top2[:, 1]).min().item()
         assert margin > 10 * (ATOL + RTOL * top2[:, 0].abs().max().item()), margin
@@ -123,17 +159,41 @@ def _port_decode(s, mode, decode_attn="gather"):
     return np.stack(ttoks)
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_prefill_logits_match_jax(setup, mode):
+@pytest.mark.parametrize("mode,policy", POLICY_CASES)
+def test_prefill_logits_match_jax(setup, mode, policy):
     for toks, ref in zip(setup["prompts"], setup["logits"]):
-        got = _port_prefill(setup, toks, mode)["last_logits"].numpy()
+        got = _port_prefill(setup, toks, mode, policy)["last_logits"].numpy()
         assert got.shape == ref.shape == (1, 256)
         np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_greedy_decode_tokens_match_jax(setup, mode):
-    np.testing.assert_array_equal(_port_decode(setup, mode), setup["tokens"])
+@pytest.mark.parametrize("mode,policy", POLICY_CASES)
+def test_greedy_decode_tokens_match_jax(setup, mode, policy):
+    np.testing.assert_array_equal(_port_decode(setup, mode, policy=policy), setup["tokens"])
+
+
+@pytest.mark.parametrize("policy,same_as", [
+    ("split:all:ring", "split:all:allgather"),
+    ("split:all:ring_sliced", "split:all:allgather"),
+    ("merged:all:ring_sliced:3", "merged:all:allgather"),
+    (MIXED, COMPOSED),
+], ids=["ring", "ring_sliced", "merged-ring_sliced-3", "mixed-composed"])
+def test_policy_pairs_bitwise(setup, policy, same_as):
+    """Transports land the same bytes at the same positions, and a demand
+    fetch that never overflows runs the all-fetch kernels' math: prefill
+    logits and every decode step's logits and tokens bitwise (the JAX
+    package's MIXED == COMPOSED claim)."""
+    runs = []
+    for pol in (policy, same_as):
+        prefill = [_port_prefill(setup, t, "dwdp", pol)["last_logits"] for t in setup["prompts"]]
+        steps = []
+        toks = _port_decode(setup, "dwdp", policy=pol, logits=steps)
+        runs.append((prefill, steps, toks))
+    (p1, s1, t1), (p2, s2, t2) = runs
+    assert all(torch.equal(a, b) for a, b in zip(p1, p2))
+    assert all(torch.equal(a, b) for a, b in zip(s1, s2))
+    np.testing.assert_array_equal(t1, t2)
+    np.testing.assert_array_equal(t1, setup["tokens"])
 
 
 def test_dep_qgather_decode_matches_gather_tokens(setup):

@@ -50,9 +50,13 @@ def test_gather_split_bank_single_rank_and_transports():
     bank = prefetch.gather_split_bank(shards, 0, pl)
     assert bank.remote["w"].shape[0] == 0
     assert prefetch.merge_split_bank(bank, 0, pl) is bank.local
-    with pytest.raises(NotImplementedError, match="ring"):
-        prefetch.gather_split_bank(_shards(tplacement.make_placement(8, 4)), 0,
-                                   tplacement.make_placement(8, 4), mode="ring")
+    pl4 = tplacement.make_placement(8, 4)
+    want = prefetch.gather_split_bank(_shards(pl4), 1, pl4)
+    for mode in ("ring", "ring_sliced"):
+        got = prefetch.gather_split_bank(_shards(pl4), 1, pl4, mode=mode, num_slices=3)
+        assert torch.equal(got.remote["w"], want.remote["w"])
+    with pytest.raises(ValueError, match="transport"):
+        prefetch.gather_split_bank(_shards(pl4), 0, pl4, mode="tree")
 
 
 @pytest.mark.parametrize("experts,group", [(8, 4), (256, 4), (3, 4), (5, 8), (8, 1)])
