@@ -173,7 +173,23 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    peak, and the decode step's device time by kind (``strided copies``:
    ring_sliced's column-slice copies), with the card's name and power
    limit;
-13. a ``{"kernels": [...]}`` JSON line, then the last line
+13. the roofline cost model and the ``auto`` / ``auto-online`` policies (run
+   after 12, on R1 1024's weights, mesh (1, 4), graphs): the prefill table
+   and the decode tables at 1 and 2 rows under GB200 (1-byte weights, the
+   JAX package's default), H100 and the per-logical-rank view of the card
+   (bf16), with their residency-cache rows, must be ``AUTO_TABLES`` (the CPU
+   test's); the servers resolve for the view. ``--policy auto`` and
+   ``auto-online`` (switch interval 2) serve the 4 requests as in 12
+   (``policy_serve``: every candidate table captured in warmup and none
+   after, launches through the replays, peak under the card's 80 GB), each
+   with the all-fetch serve's tokens and one decode step's logits bitwise;
+   printed with their transitions, switches and resizes, prefill and decode
+   replay ms, TTFT and TPOT p50, TPOT / replay, landed bytes per step and
+   peak. Then the view's modeled decode step x G' beside the measured replay
+   of every table phases 6, 12 and 13 served, their ratio and the pairs the
+   model orders wrongly; and Figure 3's crossover and compute/prefetch at 1K
+   and 8K under H100 and GB200, as model output;
+14. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
@@ -287,7 +303,8 @@ DP_GEN = (("dep", "all"), ("dwdp", "all"), ("dwdp", "demand"))
 # table (tests/test_multidevice.py) against its COMPOSED one. A merged
 # expert unit is a whole layer (256 x 3 x 7168 x 2048 x 2 B = 22.55 GB) and
 # the bank pipeline keeps two alive: the merged serve's peak is held to the
-# card's 80 GB, not to PEAK_LIMIT, and recorded as the layout's cost.
+# card's 80 GB (CARD_PEAK_LIMIT), not to PEAK_LIMIT, and recorded as the
+# layout's cost. The roofline-resolved serves of phase 13 are held to it too.
 MERGED = "merged:all:allgather"
 SPLIT_TRANSPORTS = ("split:all:ring", "split:all:ring_sliced")
 MERGED_SLICED = "merged:all:ring_sliced"
@@ -295,8 +312,30 @@ MIXED = {"moe_experts": "split:demand", "attn_qkv": "merged", "attn_out": "merge
          "dense_ffn": "split:all:ring"}
 COMPOSED = {"moe_experts": "split:all", "attn_qkv": "merged", "attn_out": "merged",
             "dense_ffn": "split:all:allgather"}
-MERGED_PEAK_LIMIT = 80e9
+CARD_PEAK_LIMIT = 80e9
 SWITCH_EVERY = 2
+# The roofline-resolved policies (phase 13) on R1 1024, mesh (1, 4): the
+# tables the resolver gives under each hardware entry at the weight bytes it
+# is asked for (GB200: the JAX package's default, 1-byte weights; H100 and
+# the per-logical-rank view of one card, "H100/4": bf16), as
+# tests/test_torch_roofline.py pins them: entry -> (weight bytes, decode
+# residency-cache rows, prefill table, decode table at 1 and at 2 rows). On
+# the card the servers resolve for the view.
+_SLICED = "split:all:ring_sliced"
+_ALL_SLICED = {"default": "split:all:allgather", "moe_experts": _SLICED, "attn_qkv": _SLICED,
+               "attn_out": _SLICED, "dense_ffn": _SLICED}
+AUTO_TABLES = {
+    "GB200": (1, 192, _ALL_SLICED,
+              dict(_ALL_SLICED, moe_experts="split:predictive:ring_sliced:4:0:192")),
+    "H100": (2, 192, _ALL_SLICED,
+             dict(_ALL_SLICED, moe_experts="split:predictive:ring_sliced:4:0:192")),
+    "H100/4": (2, 24, _ALL_SLICED, dict(_ALL_SLICED, moe_experts="split:demand:ring_sliced")),
+}
+# The kernels the view's decode table runs: demand-fetched experts, split
+# attention and dense FFN.
+AUTO_DECODE_KERNELS = ("split_grouped_swiglu_demand", "split_stack_gemm", "split_reduce_gemm",
+                       "split_dense_swiglu")
+AUTO_SWITCH_INTERVAL = 2
 # The batch-sharded prefill compares its layouts in the no-drop regime: at
 # factor 1.25 the expert capacity follows each rank's token count (a
 # 256-token shard, a whole 1024-token row), so the two layouts drop
@@ -1517,7 +1556,7 @@ def token_agreement(got: dict, ref: dict) -> float:
 
 
 def policy_serve(label: str, cfg, params, prompts, snap, policy, tables=(),
-                 kernels=SPLIT_DECODE_KERNELS, peak_limit=PEAK_LIMIT) -> dict:
+                 kernels=SPLIT_DECODE_KERNELS, peak_limit=PEAK_LIMIT, **engine_kw) -> dict:
     """``policy`` on both servers of an R1 1024 engine (graphs) on the
     shared weights: warmup (``tables`` too), the 4 requests served with
     nothing captured after warmup, the replays' launches of both servers
@@ -1526,9 +1565,9 @@ def policy_serve(label: str, cfg, params, prompts, snap, policy, tables=(),
     exactly ``kernels`` (none: the step runs no kernel of the port), then
     one decode step from
     ``snap`` (:func:`snapshot_step`: logits, landed and merge bytes,
-    profile, replay ms) and the 1024-token prefill's replay ms. Returns the
-    row with the serve's outputs and the step's logits; the engine is
-    dropped."""
+    profile, replay ms) and the 1024-token prefill's replay ms. ``engine_kw``
+    goes to ``build_engine``. Returns the row with the serve's outputs, its
+    summary, the step's logits and the engine."""
     import torch
     from repro_torch.kernels import registry
     from repro_torch.launch.serve import build_engine
@@ -1538,7 +1577,7 @@ def policy_serve(label: str, cfg, params, prompts, snap, policy, tables=(),
     eng, _ = build_engine(
         cfg, mesh_shape=(1, G), prefill_len=PROMPT, prefill_buckets=(PROMPT // 2,),
         cache_len=PROMPT + OUTPUT, max_batch=MAX_BATCH, dtype=torch.bfloat16, device="cuda",
-        params=params, geom_kwargs=GEOM, policy=policy,
+        params=params, geom_kwargs=GEOM, policy=policy, **engine_kw,
     )
     eng.warmup(tables)
     warm = captures(eng)
@@ -1566,7 +1605,7 @@ def policy_serve(label: str, cfg, params, prompts, snap, policy, tables=(),
     row = dict(step, outputs=outs, tpot_p50_s=summ["tpot_p50_s"], ttft_p50_s=summ["ttft_p50_s"],
                peak_gb=peak / 1e9, fallbacks=eng.gen.fallbacks, captures=list(captures(eng)),
                launches=dict(launches), prefill_replay_ms=prefill_ms[0],
-               policies=eng.gen.xp.policies.to_dict(), engine=eng)
+               policies=eng.gen.xp.policies.to_dict(), summary=summ, engine=eng)
     print(f"{label}: {eng.gen.xp.policies.describe()} tpot_p50_s {summ['tpot_p50_s']:.4f} "
           f"ttft_p50_s {summ['ttft_p50_s']:.4f} decode replay_ms {step.get('replay_ms', 0):.2f} "
           f"prefill replay_ms {prefill_ms[0]:.2f} landed_gb_per_decode_step "
@@ -1604,7 +1643,7 @@ def policies_phase(cfg, params, prompts, ref_outputs, snap, ref_step, ref_logits
     )
     label = f"{cfg.name} {PROMPT} {MERGED}"
     merged, merged_outs = serve_phase(label, cfg, eng, prompts, ("flash_attention",),
-                                      peak_limit=MERGED_PEAK_LIMIT, kernel_free=True)
+                                      peak_limit=CARD_PEAK_LIMIT, kernel_free=True)
     split_runs = {k: n for k, n in merged["launches"].items() if n and k != "flash_attention"}
     decode_record = {k[0]: n for k, n in eng.gen.step.record.items() if k[0] in registry.KERNELS}
     if split_runs or decode_record:
@@ -1637,7 +1676,7 @@ def policies_phase(cfg, params, prompts, ref_outputs, snap, ref_step, ref_logits
     # ---- transports ------------------------------------------------------
     runs = [(pol, ref_outputs, ref_logits, SPLIT_DECODE_KERNELS, PEAK_LIMIT)
             for pol in SPLIT_TRANSPORTS]
-    runs.append((MERGED_SLICED, merged_outs, merged_logits, (), MERGED_PEAK_LIMIT))
+    runs.append((MERGED_SLICED, merged_outs, merged_logits, (), CARD_PEAK_LIMIT))
     for pol, want_outs, want_logits, kernels, limit in runs:
         tables = (PolicyTable.uniform(),) if pol == "split:all:ring_sliced" else ()
         row = policy_serve(f"{cfg.name} {PROMPT} {pol}", cfg, params, prompts, snap, pol,
@@ -1689,11 +1728,164 @@ def policies_phase(cfg, params, prompts, ref_outputs, snap, ref_step, ref_logits
     rows.update(pair)
     free_memory()
     brief = {k: {m: v for m, v in r.items() if m not in ("launches", "paths", "host_launches",
-                                                          "outputs")}
+                                                          "outputs", "summary")}
              for k, r in rows.items()}
     print(f"policies ({card}; phase wall_s {time.perf_counter() - t_phase:.1f}): "
           f"{json.dumps(brief, default=str)}")
     return rows
+
+
+# --------------------------------------------------------------------------
+# The roofline cost model and the auto / auto-online policies.
+# --------------------------------------------------------------------------
+def served_tables(modes: dict, policy_rows: dict) -> dict:
+    """Every decode table phases 6 and 12 served on R1 1024, with its
+    measured decode replay ms: name -> (table, ms)."""
+    from repro_torch.core.strategy import PolicyTable, resolve_policy
+
+    out = {f"split {m}": (PolicyTable.uniform(fetch=m, cache_budget=dict(FETCH_MODES).get(
+        m, {}).get("cache_budget", 0)), modes[m]["graph"]["replay_ms"])
+        for m in ("all",) + tuple(dict(FETCH_MODES))}
+    for name, spec in ((MERGED, MERGED), ("split:all:ring", "split:all:ring"),
+                       ("split:all:ring_sliced", "split:all:ring_sliced"),
+                       (MERGED_SLICED, MERGED_SLICED), ("mixed", MIXED), ("composed", COMPOSED)):
+        out[name] = (resolve_policy(spec), policy_rows[name]["replay_ms"])
+    return out
+
+
+def auto_phase(cfg, params, prompts, ref_outputs, snap, ref_logits, served: dict) -> dict:
+    """Phase 13, the roofline cost model (``core.roofline``) and the
+    ``"auto"`` / ``"auto-online"`` policies on R1 1024's weights, mesh (1,
+    4), graphs: the tables the resolver gives under GB200, H100 and the
+    per-logical-rank view of the card (``AUTO_TABLES``, as the CPU test pins
+    them); the ``auto`` and ``auto-online`` serves (``policy_serve``: every
+    candidate captured in warmup, none after, launches through the replays,
+    peak under the card's 80 GB), each bitwise the all-fetch serve's tokens
+    and one decode step's logits, with their transitions; the view's
+    modeled decode step x G' against the measured replay of every table
+    ``served`` (and the auto one), with the pairs the model orders wrongly;
+    and Figure 3 under H100 and GB200, as model output."""
+    import itertools
+
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import roofline, strategy
+    from repro_torch.models.transformer import build_model
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    sizes = {"data": 1, "model": G}
+    cache_len = PROMPT + OUTPUT
+    model = build_model(cfg, sizes, dtype=torch.bfloat16, device="cuda", **GEOM)  # no weights
+    view = roofline.card_view(G)
+    if roofline.serving_target(model) != (view, 2):
+        fail(f"auto: the servers resolve for {roofline.serving_target(model)}, want ({view}, 2)")
+    prefill = InputShape("ctx", PROMPT, 1, "prefill")
+    resolved = {}
+    for hw in (roofline.GB200, roofline.H100, view):
+        wb, cache, want_prefill, want_decode = AUTO_TABLES[hw.name]
+        got = {"weight_bytes": wb, "prefill": strategy.resolve_policies(
+            model, prefill, sizes, hw=hw, weight_bytes=wb).to_dict()}
+        for rows in (1, MAX_BATCH):
+            dec = InputShape("gen", cache_len, rows, "decode")
+            got[f"decode_{rows}"] = strategy.resolve_policies(model, dec, sizes, hw=hw,
+                                                              weight_bytes=wb).to_dict()
+            got[f"cache_rows_{rows}"] = strategy._auto_cache_rows(model, dec, sizes, hw, wb)
+        print(f"auto tables, model output under {hw.name} ({wb}-byte weights): {json.dumps(got)}")
+        if got["prefill"] != want_prefill or any(
+                got[f"decode_{r}"] != want_decode or got[f"cache_rows_{r}"] != cache
+                for r in (1, MAX_BATCH)):
+            fail(f"auto tables under {hw.name} differ from the pinned ones: {AUTO_TABLES[hw.name]}")
+        resolved[hw.name] = got
+    _, _, view_prefill, view_decode = AUTO_TABLES[view.name]
+
+    rows = {}
+    want_kernels = ALL_FETCH_KERNELS + ("split_grouped_swiglu_demand",)
+    for policy in ("auto", "auto-online"):
+        label = f"{cfg.name} {PROMPT} --policy {policy}"
+        row = policy_serve(label, cfg, params, prompts, snap, policy,
+                           kernels=AUTO_DECODE_KERNELS, peak_limit=CARD_PEAK_LIMIT,
+                           switch_interval=AUTO_SWITCH_INTERVAL)
+        eng, logits, summ = row.pop("engine"), row.pop("logits"), row.pop("summary")
+        boot = strategy.resolve_policies(model, InputShape("gen", cache_len, MAX_BATCH, "decode"),
+                                         sizes, hw=view, weight_bytes=2)
+        tables = {boot.describe()}
+        if eng.scheduler is not None:
+            tables |= {t.describe() for t in eng.scheduler.candidate_tables(eng.gen)}
+        transitions = summ.get("policy_transitions", [])
+        switches, resizes = summ.get("policy_switches", 0), summ.get("budget_resizes", 0)
+        bitwise = row["outputs"] == ref_outputs and torch.equal(logits, ref_logits)
+        missing = [k for k in want_kernels if row["launches"].get(k, 0) <= 0]
+        ratio = row["tpot_p50_s"] * 1e3 / row["replay_ms"]
+        print(f"{label} ({card}): ctx table {eng.ctx.xp.policies.describe()} decode table "
+              f"{eng.gen.xp.policies.describe()}; decode variants captured in warmup "
+              f"{row['captures'][1]} (candidates {len(tables)}), after the serve the same; "
+              f"transitions {json.dumps(transitions)} policy_switches {switches} budget_resizes "
+              f"{resizes}; prefill replay_ms {row['prefill_replay_ms']:.2f} decode replay_ms "
+              f"{row['replay_ms']:.2f} ttft_p50_s {row['ttft_p50_s']:.4f} tpot_p50_s "
+              f"{row['tpot_p50_s']:.4f} tpot/replay {ratio:.3f} landed_gb_per_decode_step "
+              f"{row['landed_gb']:.3f} peak_gb {row['peak_gb']:.2f}; tokens and decode logits "
+              f"bitwise the all-fetch serve's {bitwise}")
+        if eng.ctx.xp.policies.to_dict() != view_prefill:
+            fail(f"{label}: the context server runs {eng.ctx.xp.policies.to_dict()}, want "
+                 f"{view_prefill}")
+        if not transitions and eng.gen.xp.policies.to_dict() != view_decode:
+            fail(f"{label}: the generation server runs {eng.gen.xp.policies.to_dict()}, want "
+                 f"{view_decode}")
+        if row["captures"][1] != len(tables):
+            fail(f"{label}: {row['captures'][1]} decode variants captured, want every candidate "
+                 f"({len(tables)})")
+        if not bitwise:
+            fail(f"{label}: not bitwise the all-fetch serve (tokens equal "
+                 f"{row['outputs'] == ref_outputs})")
+        if missing:
+            fail(f"{label}: kernels never launched in the replays: {missing}")
+        row.pop("outputs")
+        rows[policy] = dict(row, transitions=transitions, policy_switches=switches,
+                            budget_resizes=resizes, tpot_over_replay=ratio,
+                            candidates=len(tables))
+        del eng, logits
+        free_memory()
+
+    # ---- the view's modeled decode step against the measured replays -------
+    dec = InputShape("gen", cache_len, MAX_BATCH, "decode")
+    tokens = strategy._engine_eligibility(model, dec, sizes).rows
+    table_ms = dict(served, auto=(strategy.PolicyTable.from_dict(view_decode),
+                                  rows["auto"]["replay_ms"]))
+    compare = {}
+    for name, (table, measured) in table_ms.items():
+        eff = strategy.effective_policies(model, dec, sizes, table)
+        modeled = G * 1e3 * roofline.modeled_step_time(
+            cfg, tokens=tokens, group=G, hw=view, policies=eff, kv_len=cache_len,
+            attn_gathered=bool(model.geom.attn_axes), weight_bytes=2)
+        compare[name] = {"modeled_ms": modeled, "measured_ms": measured,
+                         "measured_over_modeled": measured / modeled}
+    wrong, ties = [], []
+    for a, b in itertools.combinations(compare, 2):
+        ma, mb = compare[a]["modeled_ms"], compare[b]["modeled_ms"]
+        ra, rb = compare[a]["measured_ms"], compare[b]["measured_ms"]
+        if ma == mb:
+            ties.append([a, b])
+        elif (ma < mb) != (ra < rb):
+            wrong.append([a, b])
+    print(f"modeled (model output, {view.name} x {G}, {tokens} rows per rank) against measured "
+          f"decode replay ms ({card}): {json.dumps(compare)}; pairs the model orders wrongly "
+          f"{json.dumps(wrong)}; pairs the model ties {json.dumps(ties)}")
+
+    # ---- Figure 3 -----------------------------------------------------------
+    figure3 = {}
+    for hw in (roofline.H100, roofline.GB200):
+        sweep = roofline.figure3_sweep(cfg, group=G, hw=hw, isls=(1024, 8192))
+        figure3[hw.name] = {"crossover_isl": roofline.crossover_isl(cfg, group=G, hw=hw),
+                            **{f"compute_to_prefetch_{r['isl']}": r["compute_to_prefetch"]
+                               for r in sweep}}
+        print(f"figure 3, model output under {hw.name} (R1, G' {G}, batch 1): "
+              f"{json.dumps(figure3[hw.name])}")
+    del model
+    free_memory()
+    print(f"auto ({card}; phase wall_s {time.perf_counter() - t_phase:.1f})")
+    return {"tables": resolved, "serves": rows, "modeled_vs_measured": compare,
+            "wrong_order": wrong, "figure3": figure3}
 
 
 # --------------------------------------------------------------------------
@@ -2616,7 +2808,11 @@ def main() -> None:
     free_memory()
 
     # ---- gather policies: merged, ring transports, mixed tables -------------
-    policies_phase(cfg, params, prompts, outputs, snap, ref_step, ref_logits, r1)
+    policy_rows = policies_phase(cfg, params, prompts, outputs, snap, ref_step, ref_logits, r1)
+
+    # ---- the roofline cost model and the auto / auto-online policies --------
+    auto_phase(cfg, params, prompts, outputs, snap, ref_logits,
+               served_tables(modes, policy_rows))
     del params
     free_memory()
     rolling = {"dep": dep["rolling"]["summary"], "dwdp_all_row_local": serving["rolling"]["summary"]}

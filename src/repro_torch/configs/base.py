@@ -101,6 +101,17 @@ class ArchConfig:
             for k in self.block_pattern
         )
 
+    def param_count(self) -> int:
+        """Exact parameter count of the decoder stack and the embeddings."""
+        n = self.vocab_size * self.d_model  # embed
+        if not self.tie_embeddings:
+            n += self.vocab_size * self.d_model  # lm head
+        for layer in range(self.num_layers):
+            n += self._mixer_params(layer) + self._ffn_params(layer)
+            n += 2 * self.d_model  # two RMSNorm gains
+        n += self.d_model  # final norm
+        return n
+
     def _mixer_params(self, layer: int) -> int:
         kind = self.block_kind(layer)
         d = self.d_model
@@ -109,6 +120,16 @@ class ArchConfig:
         if kind == BlockKind.RECURRENT:
             return 2 * d * d + 4 * d + 2 * d * d + 2 * d
         return 4 * d * d + 3 * d * d + d * d
+
+    def _ffn_params(self, layer: int) -> int:
+        if self.is_moe_layer(layer):
+            per = 3 * self.d_model * self.moe.d_ff  # gate/up/down
+            n = self.moe.num_experts * per + self.d_model * self.moe.num_experts
+            if self.moe.shared_d_ff:
+                n += 3 * self.d_model * self.moe.shared_d_ff
+            return n
+        dff = self.ffn_dim(layer)
+        return 3 * self.d_model * dff if dff else 0
 
 
 @dataclasses.dataclass(frozen=True)

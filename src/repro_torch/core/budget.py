@@ -1,10 +1,12 @@
 """Closed-form row budgets of the route-before-gather expert fetch.
 
-The port's own copy of ``repro.core.roofline.demand_budget_rows`` and
-``predictive_budget_rows``: the engine (``core.execution``) sizes each
-demand, speculative and correction round with them, so the payload the
-port lands is the payload the JAX package ships. The rest of the cost
-model is not ported yet.
+The port's one copy of ``repro.core.roofline.demand_budget_rows``,
+``predictive_budget_rows`` and ``predictive_budget_rungs``: the engine
+(``core.execution``) sizes each demand, speculative and correction round
+with them, so the payload the port lands is the payload the JAX package
+ships; the cost model (``core.roofline``) prices the same rows, and the
+online scheduler's budget tuner (``runtime.engine.BudgetTuner``) steps
+over the rungs.
 """
 from __future__ import annotations
 
@@ -41,3 +43,20 @@ def predictive_budget_rows(n_draws: int, num_experts: int, local: int) -> tuple[
     spec = min(local, max(8, _align8(expected)))
     corr = min(local, max(8, _align8(expected / 2.0)))
     return spec, corr
+
+
+def predictive_budget_rungs(n_draws: int, num_experts: int, local: int,
+                            factors: tuple = (0.5, 1.0, 1.5, 2.0)) -> tuple:
+    """The speculative-budget ladder: per-peer rows at ``factors`` x the
+    expected per-peer coverage, each 8-aligned, at least 8, clamped to
+    ``local``, deduplicated in ascending order. Each rung is a
+    ``GatherPolicy.budget`` a server can capture ahead of serving."""
+    if local <= 0:
+        return (0,)
+    expected = _coverage(n_draws, num_experts, local)
+    rungs: list[int] = []
+    for f in sorted(factors):
+        spec = min(local, max(8, _align8(f * expected)))
+        if spec not in rungs:
+            rungs.append(spec)
+    return tuple(rungs)

@@ -1,22 +1,30 @@
 """Execution plans: activation sharding and per-family gather policies.
 
-The port of the parts of ``repro.core.strategy`` the forward reads:
-``GatherPolicy`` / ``PolicyTable`` (the per-family configuration surface
-— ``moe_experts``, ``attn_qkv``, ``attn_out``, ``dense_ffn`` — with
-per-layer-group overrides keyed ``"group/family"``), ``ExecutionPlan``,
-``plan_activation_sharding`` and ``make_execution_plan`` (with the
-deprecated flat knobs). The port runs the modes ``dwdp``, ``dep`` and
-``hybrid`` (``replicated`` is refused) and every explicit policy: both
-layouts (``split``, ``merged``), the three transports (``allgather``,
-``ring``, ``ring_sliced`` with ``num_slices``) and, for ``moe_experts``,
-the route-before-gather fetches ``demand``, ``predictive`` and
-``sync_free`` with their ``budget`` / ``cache_budget``. The roofline
-``"auto"`` / ``"auto-online"`` resolver is not ported: asking for it
-raises ``NotImplementedError``. Under ``dep`` and ``hybrid`` the experts
-stay put (an all-to-all moves the tokens), so an expert fetch other than
-``all`` engages nowhere and runs as the all-to-all, as in the JAX
-package; DEP's decode gathers attention in the merged layout whatever the
-family's layout.
+The port of ``repro.core.strategy``: ``GatherPolicy`` / ``PolicyTable``
+(the per-family configuration surface — ``moe_experts``, ``attn_qkv``,
+``attn_out``, ``dense_ffn`` — with per-layer-group overrides keyed
+``"group/family"``), ``ExecutionPlan``, ``plan_activation_sharding``,
+``make_execution_plan`` (with the deprecated flat knobs), and the
+roofline-guided resolver of ``policy="auto"`` / ``"auto-online"``
+(:func:`resolve_policies`, :func:`effective_policies`). The port runs the
+modes ``dwdp``, ``dep`` and ``hybrid`` (``replicated`` is refused) and every
+policy: both layouts (``split``, ``merged``), the three transports
+(``allgather``, ``ring``, ``ring_sliced`` with ``num_slices``) and, for
+``moe_experts``, the route-before-gather fetches ``demand``,
+``predictive`` and ``sync_free`` with their ``budget`` / ``cache_budget``.
+Under ``dep`` and ``hybrid`` the experts stay put (an all-to-all moves the
+tokens), so an expert fetch other than ``all`` engages nowhere and runs as
+the all-to-all, as in the JAX package; DEP's decode gathers attention in
+the merged layout whatever the family's layout.
+
+``"auto"`` scores every engine-eligible (layout, fetch) combination of the
+families with ``roofline.modeled_step_time`` against a ``Hardware`` entry
+(``hw``, default ``roofline.GB200``) at ``weight_bytes`` per weight
+(default 1, the paper's), keeps the cheapest, refines ``moe_experts`` per
+layer group, sizes a predictive residency cache from the analytic HBM
+headroom and picks each family's transport by its remote bank's size
+(``ring_sliced`` from :data:`RING_SLICED_MIN_BYTES`) — the JAX package's
+rules, on the same inputs the same table.
 """
 from __future__ import annotations
 
@@ -211,14 +219,25 @@ class PolicyTable:
 
 
 PolicyLike = Union[None, str, Mapping, GatherPolicy, PolicyTable]
-#: The policy literals of the JAX package's roofline resolver, not ported.
+#: The policy literals of the roofline resolver: ``"auto-online"`` resolves
+#: as ``"auto"`` in a plan; a serving engine's ``OnlinePolicyScheduler``
+#: re-resolves it between decode steps.
 AUTO_POLICIES = ("auto", "auto-online")
 
+#: The resolver's transport rule: ``ring_sliced`` for a family whose remote
+#: bank per layer reaches this many bytes (the §4.3 TDM regime), else
+#: ``allgather``.
+RING_SLICED_MIN_BYTES = 32 << 20
 
-def _coerce_policy(policy: PolicyLike) -> PolicyTable:
+#: The share of the analytic HBM headroom the predictive fetch's residency
+#: cache may take (the rest is left for the allocator).
+CACHE_HEADROOM_FRAC = 0.5
+
+
+def _coerce_policy(policy: PolicyLike) -> Optional[PolicyTable]:
     """A :class:`PolicyTable` from a table, a policy, a per-family mapping or
-    a spec string; ``"auto"`` / ``"auto-online"`` raise
-    ``NotImplementedError`` (the roofline cost model is not ported)."""
+    a spec string; ``None`` for ``"auto"`` / ``"auto-online"``, which need
+    the model, shape and mesh (:func:`resolve_policies`)."""
     if policy is None:
         return PolicyTable()
     if isinstance(policy, PolicyTable):
@@ -229,10 +248,7 @@ def _coerce_policy(policy: PolicyLike) -> PolicyTable:
         return PolicyTable.from_dict(policy)
     if isinstance(policy, str):
         if policy in AUTO_POLICIES:
-            raise NotImplementedError(
-                f"policy {policy!r} needs the JAX package's roofline cost model "
-                "(repro.core.roofline: modeled_step_time and the resolver over it), which is "
-                "not ported; pass an explicit policy table")
+            return None
         return PolicyTable(default=GatherPolicy.parse(policy))
     raise TypeError(f"cannot build a PolicyTable from {policy!r}")
 
@@ -240,15 +256,17 @@ def _coerce_policy(policy: PolicyLike) -> PolicyTable:
 def resolve_policy(policy: PolicyLike = None, *, weight_layout: Optional[str] = None,
                    expert_fetch: Optional[str] = None, prefetch: Optional[str] = None,
                    num_slices: Optional[int] = None, demand_budget: Optional[int] = None,
-                   cache_budget: Optional[int] = None) -> PolicyTable:
+                   cache_budget: Optional[int] = None) -> Union[PolicyTable, str]:
     """One policy table from either spelling (``_resolve_policy`` of the
-    JAX package): an explicit ``policy`` wins (:func:`_coerce_policy`);
-    otherwise the flat knobs spell a uniform table, each left at ``None``
-    taking the default (split, all, allgather, 4 slices, budgets 0). The
-    servers, the command line and ``make_execution_plan``'s deprecated
-    knobs all build their uniform table here."""
+    JAX package): an explicit ``policy`` wins (:func:`_coerce_policy`; the
+    ``"auto"`` / ``"auto-online"`` literals pass through for
+    :func:`resolve_policies`); otherwise the flat knobs spell a uniform
+    table, each left at ``None`` taking the default (split, all, allgather,
+    4 slices, budgets 0). The servers, the command line and
+    ``make_execution_plan``'s deprecated knobs all build their uniform
+    table here."""
     if policy is not None:
-        return _coerce_policy(policy)
+        return _coerce_policy(policy) or policy  # "auto" / "auto-online" pass through
     knobs = dict(layout=weight_layout, fetch=expert_fetch, transport=prefetch,
                  num_slices=num_slices, budget=demand_budget, cache_budget=cache_budget)
     return PolicyTable.uniform(**{k: v for k, v in knobs.items() if v is not None})
@@ -394,6 +412,265 @@ def plan_activation_sharding(
     return tuple(batch_axes), tuple(seq_axes)
 
 
+# --------------------------------------------------------------------------
+# The roofline-guided "auto" resolver.
+# --------------------------------------------------------------------------
+def _routed_rows(shape: InputShape, batch_shards: int, seq_shards: int) -> int:
+    """Per-rank routed token count (``execution._routed_tokens``)."""
+    lb = max(1, shape.global_batch // max(1, batch_shards))
+    if shape.phase == "decode":
+        return lb
+    return lb * max(1, shape.seq_len // max(1, seq_shards))
+
+
+def _family_remote_bank_bytes(cfg: ArchConfig, geom, family: str, fetch: str, budget: int,
+                              weight_bytes: int, routed_rows: int = 1) -> float:
+    """Per-layer remote-bank bytes of one family: the transport rule's input
+    (a representative layer; ``dense_ffn`` takes the largest FFN width).
+    The per-step accounting the serving metrics report is
+    ``execution.gathered_wire_bytes_per_step``."""
+    from repro_torch.core.budget import demand_budget_rows, predictive_budget_rows
+
+    d = cfg.d_model
+
+    def frac(shards: int) -> float:
+        return (shards - 1) / shards if shards > 1 else 0.0
+
+    if family == "moe_experts" and cfg.moe is not None and geom.moe_placement:
+        pl = geom.moe_placement
+        pe = 3 * d * cfg.moe.d_ff * weight_bytes
+        rows = (pl.subgroup_size - 1) * pl.local_count
+        if fetch == "demand":
+            b = budget or demand_budget_rows(routed_rows * cfg.moe.top_k, cfg.moe.num_experts,
+                                             pl.local_count)
+            rows = (pl.subgroup_size - 1) * min(b, pl.local_count)
+        elif fetch in ("predictive", "sync_free"):
+            if budget > 0:
+                spec = corr = min(budget, pl.local_count)
+            else:
+                spec, corr = predictive_budget_rows(routed_rows * cfg.moe.top_k,
+                                                    cfg.moe.num_experts, pl.local_count)
+            rows = (pl.subgroup_size - 1) * (spec + corr)
+        return rows * pe
+    if family == "attn_qkv":
+        return d * (cfg.q_dim + 2 * cfg.kv_dim) * weight_bytes * frac(geom.attn_shards)
+    if family == "attn_out":
+        return cfg.q_dim * d * weight_bytes * frac(geom.attn_shards)
+    if family == "dense_ffn":
+        f = cfg.d_ff or 0
+        if cfg.moe is not None:
+            f = max(f, cfg.moe.shared_d_ff, cfg.moe.dense_d_ff)
+        return 3 * d * f * weight_bytes * frac(geom.ffn_shards)
+    return 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class _Eligibility:
+    """Which per-family paths the engine can run on a (model, shape, mesh),
+    from the engine's own predicates: one computation shared by the
+    resolver and :func:`effective_policies`."""
+
+    rows: int            # per-rank routed tokens (the demand gate's input)
+    moe_gather: bool     # gather-mode MoE over a real subgroup
+    moe_split_ok: bool   # and a single expert axis (split / demand eligible)
+    demand_ok: bool      # and partial coverage (rows * top_k < remote experts)
+    attn_ok: bool        # the attention families can land split
+    ffn_ok: bool         # the dense-FFN family can land split
+
+
+def _engine_eligibility(model, shape: InputShape, mesh_sizes: dict[str, int]) -> _Eligibility:
+    cfg, geom = model.cfg, model.geom
+    batch_axes, seq_axes = plan_activation_sharding(cfg, shape, mesh_sizes)
+    bsh = math.prod(mesh_sizes[a] for a in batch_axes) if batch_axes else 1
+    ssh = math.prod(mesh_sizes[a] for a in seq_axes) if seq_axes else 1
+    rows = _routed_rows(shape, bsh, ssh)
+    pl = geom.moe_placement
+    moe_gather = (cfg.moe is not None and geom.moe_exec == "gather"
+                  and pl is not None and pl.subgroup_size > 1)
+    moe_split_ok = moe_gather and len(geom.expert_axes) == 1
+    demand_ok = (moe_split_ok
+                 and rows * cfg.moe.top_k < (pl.subgroup_size - 1) * pl.local_count)
+    return _Eligibility(
+        rows=rows, moe_gather=moe_gather, moe_split_ok=moe_split_ok, demand_ok=demand_ok,
+        attn_ok=len(geom.attn_axes) == 1 and geom.attn_shards > 1,
+        ffn_ok=len(geom.ffn_axes) == 1 and geom.ffn_shards > 1,
+    )
+
+
+def _auto_cache_rows(model, shape: InputShape, mesh_sizes: dict[str, int], hw,
+                     weight_bytes: int) -> int:
+    """The predictive fetch's ``cache_budget``: ``CACHE_HEADROOM_FRAC`` of
+    the HBM that ``analysis.residency.analytic_residency_bytes`` leaves free
+    on ``hw``, over the MoE layers, in expert rows, 8-aligned, at most the
+    remote bank; 0 (cache off) when the plan already fills the device."""
+    from repro_torch.analysis.residency import analytic_residency_bytes
+    from repro_torch.core import roofline
+
+    cfg, geom = model.cfg, model.geom
+    pl = geom.moe_placement
+    if cfg.moe is None or pl is None:
+        return 0
+    hw = hw or roofline.GB200
+    batch_axes, seq_axes = plan_activation_sharding(cfg, shape, mesh_sizes)
+    xp = ExecutionPlan(
+        mode="dwdp", phase=shape.phase, batch_axes=batch_axes, seq_axes=seq_axes,
+        mesh_sizes=dict(mesh_sizes), capacity_factor=1.25, global_batch=shape.global_batch,
+        seq_len=shape.seq_len, policies=PolicyTable.uniform(fetch="predictive"),
+    )
+    resident = analytic_residency_bytes(cfg, geom, xp, shape, dtype_bytes=weight_bytes)
+    headroom = max(0.0, hw.hbm_bytes - resident) * CACHE_HEADROOM_FRAC
+    n_moe = sum(cfg.is_moe_layer(l) for l in range(cfg.num_layers))
+    per_expert = 3 * cfg.d_model * cfg.moe.d_ff * weight_bytes
+    rows = int(headroom / max(1, n_moe * per_expert))
+    remote = (pl.subgroup_size - 1) * pl.local_count
+    return min(remote, rows // 8 * 8)
+
+
+def resolve_policies(model, shape: InputShape, mesh_sizes: dict[str, int],
+                     policy: PolicyLike = "auto", *, hw=None, weight_bytes: int = 1,
+                     hit_rates: Optional[Mapping] = None) -> PolicyTable:
+    """A concrete :class:`PolicyTable` from a ``policy=`` argument. Explicit
+    tables, mappings and specs pass through (validated), ``None`` gives the
+    uniform default, and ``"auto"`` / ``"auto-online"`` run the roofline
+    resolver on ``hw`` (default ``roofline.GB200``) at ``weight_bytes``:
+
+    - it enumerates the engine-eligible ``moe_experts`` (layout, fetch)
+      candidates — ``sync_free`` and ``predictive`` at decode, ``demand`` at
+      partial coverage, split ``all`` where the split path runs, merged
+      ``all`` always, the cheaper first so ties keep them — and ``split`` /
+      ``merged`` for ``attn_qkv``, ``attn_out`` and ``dense_ffn``, scores
+      every combination with ``roofline.modeled_step_time`` at the per-rank
+      routed rows and keeps the cheapest; predictive candidates carry a
+      residency cache sized by :func:`_auto_cache_rows`;
+    - then, layer group by layer group, it keeps a ``moe_experts`` override
+      where the whole table's modeled time strictly drops — with
+      ``hit_rates`` (``{group: {"predict_hit": r, "cache_hit": r}}``, the
+      measured rates the online scheduler replays) in place of the closed
+      forms;
+    - and gives each family ``ring_sliced`` where its remote bank reaches
+      :data:`RING_SLICED_MIN_BYTES`, else ``allgather``."""
+    table = _coerce_policy(policy)
+    if table is not None:
+        return table
+
+    from repro_torch.core import roofline
+
+    cfg, geom = model.cfg, model.geom
+    hw = hw or roofline.GB200
+    elig = _engine_eligibility(model, shape, mesh_sizes)
+    rows = tokens = elig.rows
+    pl = geom.moe_placement
+    group = pl.subgroup_size if elig.moe_gather else max(geom.attn_shards, geom.ffn_shards, 1)
+    predictive_ok = elig.demand_ok and shape.phase == "decode"
+    moe_cands = [("split", "sync_free"), ("split", "predictive")] if predictive_ok else []
+    if elig.demand_ok:
+        moe_cands.append(("split", "demand"))
+    if elig.moe_split_ok:
+        moe_cands.append(("split", "all"))
+    moe_cands.append(("merged", "all"))
+    cache_rows = (_auto_cache_rows(model, shape, mesh_sizes, hw, weight_bytes)
+                  if predictive_ok else 0)
+
+    def dense_cands(ok: bool) -> list[str]:
+        return (["split"] if ok else []) + ["merged"]
+
+    attn_gathered = bool(geom.attn_axes)
+    ph_map = ch_map = None
+    if hit_rates:
+        ph_map = {g: float(r["predict_hit"]) for g, r in hit_rates.items()
+                  if r.get("predict_hit") is not None} or None
+        ch_map = {g: float(r["cache_hit"]) for g, r in hit_rates.items()
+                  if r.get("cache_hit") is not None} or None
+
+    def score(tab: PolicyTable) -> float:
+        return roofline.modeled_step_time(
+            cfg, tokens=tokens, group=group, hw=hw, policies=tab, kv_len=shape.seq_len,
+            attn_gathered=attn_gathered, weight_bytes=weight_bytes,
+            cache_hit=ch_map, predict_hit=ph_map,
+        )
+
+    def moe_policy(layout: str, fetch: str) -> GatherPolicy:
+        return GatherPolicy(layout=layout, fetch=fetch,
+                            cache_budget=cache_rows if fetch in ("predictive", "sync_free") else 0)
+
+    best, best_t = None, float("inf")
+    for moe_layout, fetch in moe_cands:
+        moe_pol = moe_policy(moe_layout, fetch)
+        for qkv_layout in dense_cands(elig.attn_ok):
+            for out_layout in dense_cands(elig.attn_ok):
+                for ffn_layout in dense_cands(elig.ffn_ok):
+                    cand = PolicyTable(
+                        default=GatherPolicy(layout=ffn_layout),
+                        families=(("moe_experts", moe_pol),
+                                  ("attn_qkv", GatherPolicy(layout=qkv_layout)),
+                                  ("attn_out", GatherPolicy(layout=out_layout)),
+                                  ("dense_ffn", GatherPolicy(layout=ffn_layout))),
+                    )
+                    t = score(cand)
+                    if t < best_t:
+                        best, best_t = cand, t
+
+    # per-layer-group moe_experts overrides, kept on a strict improvement
+    if cfg.moe is not None and pl is not None and len(moe_cands) > 1:
+        gnames = roofline.layer_group_names(cfg)
+        moe_groups = sorted({gnames[l] for l in range(cfg.num_layers) if cfg.is_moe_layer(l)})
+        overrides: list[tuple[str, str, GatherPolicy]] = []
+        for gname in moe_groups:
+            chosen = None
+            for moe_layout, fetch in moe_cands:
+                pol = moe_policy(moe_layout, fetch)
+                if pol == best.family("moe_experts"):
+                    continue
+                cand = dataclasses.replace(
+                    best, overrides=tuple(overrides) + ((gname, "moe_experts", pol),))
+                t = score(cand)
+                if t < best_t:
+                    chosen, best_t = (gname, "moe_experts", pol), t
+            if chosen is not None:
+                overrides.append(chosen)
+        if overrides:
+            best = dataclasses.replace(best, overrides=tuple(overrides))
+
+    def with_transport(name: str, pol: GatherPolicy) -> GatherPolicy:
+        bank = _family_remote_bank_bytes(cfg, geom, name, pol.fetch, pol.budget, weight_bytes,
+                                         routed_rows=rows)
+        return dataclasses.replace(
+            pol, transport="ring_sliced" if bank >= RING_SLICED_MIN_BYTES else "allgather")
+
+    fams = tuple((name, with_transport(name, pol)) for name, pol in best.families)
+    ovr = tuple((g, name, with_transport(name, pol)) for g, name, pol in best.overrides)
+    return dataclasses.replace(best, families=fams, overrides=ovr)
+
+
+def effective_policies(model, shape: InputShape, mesh_sizes: dict[str, int],
+                       table: PolicyTable) -> PolicyTable:
+    """``table`` demoted to what the engine runs on this (model, shape,
+    mesh): ``split`` to ``merged`` where a family cannot land split,
+    ``predictive`` / ``sync_free`` to ``demand`` outside decode, and any
+    expert fetch to ``all`` outside partial coverage — the honest table to
+    price a user's policy with. Per-group overrides demote alike."""
+    elig = _engine_eligibility(model, shape, mesh_sizes)
+
+    def demote(name: str, pol: GatherPolicy) -> GatherPolicy:
+        ok = {"moe_experts": elig.moe_split_ok, "attn_qkv": elig.attn_ok,
+              "attn_out": elig.attn_ok, "dense_ffn": elig.ffn_ok}[name]
+        layout = pol.layout if (pol.layout == "merged" or ok) else "merged"
+        fetch = pol.fetch if name == "moe_experts" else "all"
+        if fetch in ("predictive", "sync_free") and shape.phase != "decode":
+            fetch = "demand"
+        if fetch != "all" and not elig.demand_ok:
+            fetch = "all"
+        if fetch == "all":
+            return GatherPolicy(layout=layout, transport=pol.transport, num_slices=pol.num_slices)
+        return dataclasses.replace(
+            pol, layout=layout, fetch=fetch,
+            cache_budget=pol.cache_budget if fetch in ("predictive", "sync_free") else 0)
+
+    fams = tuple((name, demote(name, table.family(name))) for name in GATHER_FAMILIES)
+    ovr = tuple((g, name, demote(name, pol)) for g, name, pol in table.overrides)
+    return PolicyTable(default=table.default, families=fams, overrides=ovr)
+
+
 def make_execution_plan(
     model,
     shape: InputShape,
@@ -404,6 +681,8 @@ def make_execution_plan(
     capacity_factor: float = 1.25,
     decode_attn: str = "gather",
     capacity_from: str = "local",
+    hw=None,
+    weight_bytes: int = 1,
     # -- deprecated flat knobs (build a uniform PolicyTable) --------------
     prefetch: Optional[str] = None,
     num_slices: Optional[int] = None,
@@ -414,10 +693,12 @@ def make_execution_plan(
 ) -> ExecutionPlan:
     """The plan of one phase and shape. ``policy`` is a table, a policy, a
     per-family mapping (``"group/family"`` keys scope an override to a
-    layer group of the model: ``prefix``, ``body``, ``suffix``) or a spec
-    string; the deprecated flat knobs build a uniform table instead (a
-    ``DeprecationWarning``; conflicting with ``policy`` or with each other
-    is a ``ValueError``), as in the JAX package."""
+    layer group of the model: ``prefix``, ``body``, ``suffix``), a spec
+    string, or ``"auto"`` / ``"auto-online"``, resolved for ``hw`` (default
+    ``roofline.GB200``) at ``weight_bytes`` per weight (default 1) by
+    :func:`resolve_policies`; the deprecated flat knobs build a uniform
+    table instead (a ``DeprecationWarning``; conflicting with ``policy`` or
+    with each other is a ``ValueError``), as in the JAX package."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     if mode not in PORTED_MODES:
@@ -447,7 +728,7 @@ def make_execution_plan(
                                  "(or better, policy=)")
             legacy.setdefault("weight_layout", legacy.pop("moe_ffn"))
         policy = resolve_policy(None, **legacy)
-    table = _coerce_policy(policy)
+    table = resolve_policies(model, shape, mesh_sizes, policy, hw=hw, weight_bytes=weight_bytes)
     known_groups = {g.name for g in model.plan}
     for g, fam, _ in table.overrides:
         if g not in known_groups:

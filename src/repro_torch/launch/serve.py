@@ -22,6 +22,9 @@ captured CUDA graph unless the caller passes ``graphs=False``.
         --policy attn_out=merged --policy dense_ffn=split:all:ring
     python -m repro_torch.launch.serve --arch deepseek-r1 --policy-file policies.json
     python -m repro_torch.launch.serve --arch deepseek-r1 --weight-layout merged
+    python -m repro_torch.launch.serve --arch deepseek-r1 --gen-mode dwdp --policy auto
+    python -m repro_torch.launch.serve --arch deepseek-r1 --gen-mode dwdp \
+        --policy auto-online --switch-interval 2
 
 Gather policies are set per weight family (``moe_experts``, ``attn_qkv``,
 ``attn_out``, ``dense_ffn``, ``default``; ``group/family`` for one layer
@@ -30,9 +33,15 @@ family=layout[:fetch[:transport[:num_slices[:budget[:cache_budget]]]]]``
 or ``--policy-file`` (the ``PolicyTable.to_dict`` JSON; flags override
 its entries). The uniform flags ``--weight-layout``, ``--expert-fetch``,
 ``--demand-budget`` and ``--cache-budget`` spell one policy for every
-family and may not be combined with ``--policy``. ``--policy auto`` (the
-JAX package's roofline resolver) is not ported: it exits with status 2
-before anything is built, as do conflicting flags.
+family and may not be combined with ``--policy``; conflicting flags exit
+with status 2 before anything is built. ``--policy auto`` resolves every
+family with the roofline model (``strategy.resolve_policies``) once per
+server; ``--policy auto-online`` also re-resolves the decode table before
+each decode step (``runtime.engine.OnlinePolicyScheduler``: active-row
+buckets, and every ``--switch-interval`` steps the measured hit rates).
+On the card both resolve for that card (``roofline.card_view`` over the
+logical ranks, the model's weight bytes); on the CPU for the JAX
+package's default, GB200 with 1-byte weights.
 
 The first runs the engine's fixed loop; ``--serving`` serves a seeded
 workload through ``ServingScheduler`` and ``LiveReplicaClient`` behind
@@ -57,6 +66,7 @@ from repro_torch.runtime.engine import (
     DisaggregatedEngine,
     GenerationServer,
     GraphSpace,
+    OnlinePolicyScheduler,
     Request,
     decode_axes,
 )
@@ -160,6 +170,9 @@ def build_engine(
     geom_kwargs: Optional[dict] = None,
     variant_cache_size: int = 16,
     graphs: Optional[bool] = None,
+    hw=None,
+    weight_bytes: Optional[int] = None,
+    switch_interval: int = 8,
 ):
     """Returns ``(DisaggregatedEngine, model)``.
 
@@ -182,7 +195,13 @@ def build_engine(
     (residency-cache rows, predictive / sync_free) and ``weight_layout``
     (split | merged) form the uniform policy of both servers, unless
     ``policy`` (a PolicyTable, a per-family mapping or a spec string; any
-    transport) is given, which wins (``strategy.resolve_policy``). ``prefill_buckets`` adds pow2 prompt lengths
+    transport; or ``"auto"`` / ``"auto-online"``, resolved for ``hw`` at
+    ``weight_bytes``, by default the card's per-logical-rank view and the
+    model's weight bytes on a CUDA device and the JAX package's GB200 at 1
+    byte on the CPU: ``roofline.serving_target``) is given, which wins
+    (``strategy.resolve_policy``). ``"auto-online"`` adds an
+    ``OnlinePolicyScheduler`` re-resolving every ``switch_interval`` decode
+    steps (and at each new active-row bucket). ``prefill_buckets`` adds pow2 prompt lengths
     beside ``prefill_len``, and ``variant_cache_size`` bounds the decode
     server's policy variants (the reference's arguments). ``graphs``
     (default: on a CUDA device) captures every step as a CUDA graph, all
@@ -204,7 +223,7 @@ def build_engine(
     space = GraphSpace(model.device) if graphs else None
     fetch = dict(expert_fetch=expert_fetch, demand_budget=demand_budget,
                  cache_budget=cache_budget, policy=policy, weight_layout=weight_layout,
-                 capacity_from=capacity_from, space=space)
+                 capacity_from=capacity_from, hw=hw, weight_bytes=weight_bytes, space=space)
     ctx = ContextServer(
         model, sizes, mode=ctx_mode, prefill_len=prefill_len, cache_len=cache_len,
         prefill_buckets=prefill_buckets, **fetch,
@@ -213,7 +232,11 @@ def build_engine(
         model, sizes, mode=gen_mode, max_batch=max_batch, cache_len=cache_len,
         variant_cache_size=variant_cache_size, **fetch,
     )
-    return DisaggregatedEngine(params, ctx, gen), model
+    scheduler = None
+    if isinstance(policy, str) and policy == "auto-online":
+        scheduler = OnlinePolicyScheduler(model, sizes, gen._shape, interval=switch_interval,
+                                          hw=gen.hw, weight_bytes=gen.weight_bytes)
+    return DisaggregatedEngine(params, ctx, gen, scheduler=scheduler), model
 
 
 def _engine(args, cfg, policy, *, prefill_len: int, prefill_buckets: tuple = (),
@@ -224,7 +247,7 @@ def _engine(args, cfg, policy, *, prefill_len: int, prefill_buckets: tuple = (),
         gen_mode=args.gen_mode, capacity_from=args.capacity_from, policy=policy,
         device=args.device,
         geom_kwargs=SERVE_GEOMETRY.get(args.arch),
-        variant_cache_size=args.variant_cache_size,
+        variant_cache_size=args.variant_cache_size, switch_interval=args.switch_interval,
     )
 
 
@@ -300,8 +323,9 @@ def main(argv=None) -> dict:
                     help="per-family gather policy (repeatable): family=layout[:fetch"
                          "[:transport[:num_slices[:budget[:cache_budget]]]]] with families "
                          "moe_experts, attn_qkv, attn_out, dense_ffn, default, or "
-                         "group/family for one layer group (prefix, body, suffix); 'auto' "
-                         "is not ported (exits with status 2)")
+                         "group/family for one layer group (prefix, body, suffix); or alone "
+                         "'auto' (the roofline resolver) or 'auto-online' (re-resolved "
+                         "between decode steps)")
     ap.add_argument("--policy-file", default=None,
                     help="JSON file mapping families to policy specs (PolicyTable.to_dict); "
                          "--policy flags override its entries")
@@ -318,6 +342,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--cache-budget", type=int, default=None,
                     help="residency-cache rows per MoE layer (predictive, sync_free; "
                          "default 0)")
+    ap.add_argument("--switch-interval", type=int, default=8,
+                    help="decode steps between --policy auto-online's re-resolutions "
+                         "against the measured hit rates")
     ap.add_argument("--variant-cache-size", type=int, default=16,
                     help="decode variants the generation server keeps captured (LRU)")
     ap.add_argument("--no-warmup", action="store_true",
@@ -348,12 +375,12 @@ def main(argv=None) -> dict:
                          help="queued requests beyond which arrivals are shed (0 = unbounded)")
     args = ap.parse_args(argv)
     try:
-        # One table for both servers; "auto" raises: the roofline resolver is not ported.
+        # One policy for both servers ("auto" is resolved by each server).
         policy = resolve_policy(
             resolve_cli_policy(args), weight_layout=args.weight_layout,
             expert_fetch=args.expert_fetch, demand_budget=args.demand_budget,
             cache_budget=args.cache_budget)
-    except (ValueError, NotImplementedError) as err:
+    except ValueError as err:
         ap.error(str(err))
     cfg = get_arch(args.arch)
     if not args.full:
@@ -370,6 +397,9 @@ def main(argv=None) -> dict:
         print(f"warmup: {engine.warmup()} decode variant(s) captured")
     print(f"ctx {engine.ctx.xp.mode} policies:", engine.ctx.xp.policies.describe())
     print(f"gen {engine.gen.xp.mode} policies:", engine.gen.xp.policies.describe())
+    if isinstance(policy, str):
+        print(f"--policy {policy} resolved for {engine.gen.hw.name} at "
+              f"{engine.gen.weight_bytes}-byte weights")
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         engine.submit(Request(i, rng.integers(0, cfg.vocab_size, args.prefill_len),

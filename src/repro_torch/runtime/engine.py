@@ -3,12 +3,16 @@ capture), slot-based continuous-batching generation server, and the
 engine that moves requests between them.
 
 The port of ``repro.runtime.engine`` (``validate_restore_plan``,
-``variant_key``, ``CountingStep``, ``PolicyVariantCache``, ``Request``,
-``ContextServer``, ``GenerationServer``, ``DisaggregatedEngine``) for the
-``dwdp``, ``dep`` and ``hybrid`` modes, under any explicit gather-policy
-table (``policy=``: per family and per layer group, split or merged, over
-any transport; or the uniform knobs ``weight_layout``, ``prefetch`` and
-``expert_fetch``, resolved as the JAX package's ``_resolve_policy``),
+``variant_key``, ``CountingStep``, ``PolicyVariantCache``, ``BudgetTuner``,
+``OnlinePolicyScheduler``, ``Request``, ``ContextServer``,
+``GenerationServer``, ``DisaggregatedEngine``) for the ``dwdp``, ``dep``
+and ``hybrid`` modes, under any gather-policy table (``policy=``: per
+family and per layer group, split or merged, over any transport; the
+uniform knobs ``weight_layout``, ``prefetch`` and ``expert_fetch``,
+resolved as the JAX package's ``_resolve_policy``; or ``"auto"`` /
+``"auto-online"``, resolved by the roofline model for ``hw`` at
+``weight_bytes``: by default the card the server runs on, the JAX
+package's defaults on the CPU, ``roofline.serving_target``),
 with the all-fetch and the route-before-gather expert fetches (demand /
 predictive / sync_free, which engage under dwdp only; the generation server carries
 the predictive state across decode steps and keeps each step's
@@ -36,9 +40,12 @@ deferred (``execution.Ctx.deferred``): a route-before-gather overflow is
 read once per step together with the tokens, and such a step is run
 again eagerly with per-layer host decisions (counted in ``fallbacks``).
 On the CPU, which the tests ask for explicitly, the same deferred steps
-run eagerly. The health monitor, the degradation ladder and the online
-scheduler come later. Times are seconds on the host clock, read after
-the device has finished (``torch.cuda.synchronize``).
+run eagerly. Under ``"auto-online"`` an :class:`OnlinePolicyScheduler`
+re-resolves the decode table before each decode step (active-row bucket,
+measured hit rates, budget rungs); ``warmup`` captures every table it can
+emit. The health monitor and the degradation ladder come later. Times are
+seconds on the host clock, read after the device has finished
+(``torch.cuda.synchronize``).
 """
 from __future__ import annotations
 
@@ -55,14 +62,14 @@ import torch
 
 from repro_torch import counters
 from repro_torch.configs.base import InputShape
-from repro_torch.core import execution
+from repro_torch.core import execution, roofline
 from repro_torch.core.placement import subgroup_positions
 from repro_torch.core.strategy import (
     PolicyLike,
     PolicyTable,
-    _coerce_policy,
     make_execution_plan,
     plan_activation_sharding,
+    resolve_policies,
     resolve_policy,
 )
 from repro_torch.models.cache import RingLayout, init_decode_state, read_row, write_row
@@ -334,6 +341,244 @@ class PolicyVariantCache:
 
 
 # --------------------------------------------------------------------------
+# Online policy switching (``policy="auto-online"``).
+# --------------------------------------------------------------------------
+class BudgetTuner:
+    """Online speculative-budget resizing over captured rungs.
+
+    Watches each decode step's ``pred_stats`` (``[predicted, spec_hit,
+    cache_hit, miss, evicted]`` expert rows) and moves the speculative /
+    correction row budget one rung of ``rungs``
+    (``budget.predictive_budget_rungs``) up when the miss share exceeds
+    ``raise_miss_frac``, or down when misses are rare (below
+    ``lower_miss_frac``) and the speculative round's use (``spec_hit /
+    predicted``) is below ``lower_util``; ``min_dwell`` observed steps pass
+    between moves. Every budget it emits is a rung, so a server that
+    captured one variant per rung resizes with no capture."""
+
+    def __init__(self, rungs, *, start: Optional[int] = None,
+                 raise_miss_frac: float = 0.25, lower_util: float = 0.5,
+                 lower_miss_frac: float = 0.1, min_dwell: int = 4):
+        rungs = tuple(sorted(int(r) for r in rungs))
+        if not rungs:
+            raise ValueError("BudgetTuner needs at least one rung")
+        self.rungs = rungs
+        if start is None:
+            self.idx = min(len(rungs) - 1, 1)
+        else:
+            self.idx = min(range(len(rungs)), key=lambda i: abs(rungs[i] - start))
+        self.raise_miss_frac = raise_miss_frac
+        self.lower_util = lower_util
+        self.lower_miss_frac = lower_miss_frac
+        self.min_dwell = min_dwell
+        self._since = min_dwell  # free to act on the first signal
+
+    @property
+    def budget(self) -> int:
+        return self.rungs[self.idx]
+
+    def observe(self, pred_stats) -> Optional[int]:
+        """One decode step's counters; the new rung budget when it moves,
+        else None."""
+        if pred_stats is None:
+            return None
+        pred, spec_hit, cache_hit, miss, _ = (float(s) for s in pred_stats)
+        denom = spec_hit + cache_hit + miss
+        self._since += 1
+        if denom <= 0 or self._since <= self.min_dwell:
+            return None
+        miss_frac = miss / denom
+        util = spec_hit / pred if pred > 0 else 1.0
+        if miss_frac > self.raise_miss_frac and self.idx + 1 < len(self.rungs):
+            self.idx += 1
+            self._since = 0
+            return self.rungs[self.idx]
+        if miss_frac < self.lower_miss_frac and util < self.lower_util and self.idx > 0:
+            self.idx -= 1
+            self._since = 0
+            return self.rungs[self.idx]
+        return None
+
+
+def _with_spec_budget(table: PolicyTable, budget: int) -> PolicyTable:
+    """``table`` with every predictive / sync-free ``moe_experts`` entry
+    (family and per-group overrides) pinned to ``budget`` rows: one rung's
+    table."""
+
+    def upd(name, pol):
+        if name == "moe_experts" and pol.fetch in ("predictive", "sync_free"):
+            return dataclasses.replace(pol, budget=int(budget))
+        return pol
+
+    return dataclasses.replace(
+        table,
+        families=tuple((n, upd(n, p)) for n, p in table.families),
+        overrides=tuple((g, n, upd(n, p)) for g, n, p in table.overrides),
+    )
+
+
+class OnlinePolicyScheduler:
+    """Online policy switching between captured decode variants
+    (``policy="auto-online"``): before each decode step it re-resolves the
+    table (``strategy.resolve_policies`` on ``hw`` at ``weight_bytes``)
+    from three signals and moves the generation server with ``set_policy``:
+
+    - the active rows, bucketed to powers of two (at most the server's
+      batch): a new bucket re-resolves at once, at that bucket's rows;
+    - the measured hit rates, an EMA of each step's ``pred_stats`` split
+      into ``(predict_hit, cache_hit)`` on a 0.05 grid, replayed into the
+      resolver (``hit_rates=``) every ``interval`` decode steps;
+    - a :class:`BudgetTuner` over the speculative budget's rungs.
+
+    Resolutions are cached by (bucket, quantized rates), so a revisited
+    operating point gives the same table and the same captured variant;
+    :meth:`candidate_tables` lists what ``DisaggregatedEngine.warmup``
+    captures. The JAX package acts only at its health monitor's level 0;
+    the port has no health monitor, so the scheduler acts at every step."""
+
+    def __init__(self, model: Model, mesh_sizes, shape: InputShape, *,
+                 interval: int = 8, ema_decay: float = 0.8, hw=None, weight_bytes: int = 1,
+                 tuner: Optional[BudgetTuner] = None):
+        self.model = model
+        self.mesh_sizes = dict(mesh_sizes)
+        self.shape = shape
+        self.interval = max(1, int(interval))
+        self.ema_decay = ema_decay
+        self.hw = hw
+        self.weight_bytes = weight_bytes
+        self.tuner = tuner
+        self._tuner_resolved = tuner is not None
+        self._hit_ema: Optional[tuple] = None  # (predict_hit, cache_hit)
+        self._bucket: Optional[int] = None
+        self._steps = 0
+        self._resolved: dict = {}  # (bucket, quantized rates) -> table
+
+    def _bucket_of(self, active_rows: int) -> int:
+        b = 1
+        while b < active_rows:
+            b *= 2
+        return min(b, self.shape.global_batch)
+
+    def _observe_rates(self, pred_stats) -> None:
+        if pred_stats is None:
+            return
+        _, spec_hit, cache_hit, miss, _ = (float(s) for s in pred_stats)
+        denom = spec_hit + cache_hit + miss
+        if denom <= 0:
+            return
+        # the roofline's factoring: (1 - cache_hit) * (1 - predict_hit) is
+        # the correction round's share
+        cache = cache_hit / denom
+        non_cache = spec_hit + miss
+        predict = spec_hit / non_cache if non_cache > 0 else 1.0
+        rates = (predict, cache)
+        if self._hit_ema is None:
+            self._hit_ema = rates
+        else:
+            d = self.ema_decay
+            self._hit_ema = tuple(d * e + (1.0 - d) * r for e, r in zip(self._hit_ema, rates))
+
+    def _quantized_rates(self) -> Optional[tuple]:
+        """The EMA rates on a 0.05 grid: the resolution cache's key."""
+        if self._hit_ema is None:
+            return None
+        return tuple(round(r * 20) / 20 for r in self._hit_ema)
+
+    def _resolve(self, bucket: int) -> PolicyTable:
+        q = self._quantized_rates()
+        key = (bucket, q)
+        if key not in self._resolved:
+            shape = dataclasses.replace(self.shape, global_batch=bucket)
+            hit_rates = None
+            if q is not None:
+                predict, cache = q
+                hit_rates = {g: {"predict_hit": predict, "cache_hit": cache}
+                             for g in set(roofline.layer_group_names(self.model.cfg))}
+            self._resolved[key] = resolve_policies(
+                self.model, shape, self.mesh_sizes, "auto", hw=self.hw,
+                weight_bytes=self.weight_bytes, hit_rates=hit_rates)
+        return self._resolved[key]
+
+    def _ensure_tuner(self, gen: "GenerationServer") -> None:
+        if self._tuner_resolved:
+            return
+        self._tuner_resolved = True
+        cfg, pl = self.model.cfg, self.model.geom.moe_placement
+        if cfg.moe is None or pl is None or pl.subgroup_size <= 1:
+            return
+        rows = max(1, gen.xp.local_batch)
+        rungs = roofline.predictive_budget_rungs(rows * cfg.moe.top_k, cfg.moe.num_experts,
+                                                 pl.local_count)
+        start = gen.xp.policies.family("moe_experts").budget or None
+        self.tuner = BudgetTuner(rungs, start=start)
+
+    def _snap_budget(self, table: PolicyTable) -> PolicyTable:
+        if self.tuner is None:
+            return table
+        return _with_spec_budget(table, self.tuner.budget)
+
+    def step(self, gen: "GenerationServer", active_rows: int) -> Optional[str]:
+        """One decision before a decode step: ``"switch"``, ``"resize"`` or
+        None (what the server moved to, if anything)."""
+        self._ensure_tuner(gen)
+        self._steps += 1
+        self._observe_rates(gen.last_pred_stats)
+        resized = (self.tuner.observe(gen.last_pred_stats) is not None
+                   if self.tuner is not None else False)
+        bucket = self._bucket_of(max(1, active_rows))
+        boundary = bucket != self._bucket
+        if boundary or self._steps % self.interval == 0 or resized:
+            self._bucket = bucket
+            table = self._snap_budget(self._resolve(bucket))
+            if gen.set_policy(table):
+                return "resize" if resized and not boundary else "switch"
+        return None
+
+    def candidate_tables(self, gen: "GenerationServer") -> list:
+        """The tables to capture before serving: the resolved table of each
+        bucket (at the closed-form rates) x the budget rungs, deduplicated,
+        at most the variant cache's size (warming never evicts what it just
+        captured)."""
+        self._ensure_tuner(gen)
+        out, seen = [], set()
+        budgets: tuple = (None,)
+        if self.tuner is not None:
+            budgets = (None, *self.tuner.rungs)
+        bucket, buckets = 1, []
+        while bucket <= self.shape.global_batch:
+            buckets.append(bucket)
+            bucket *= 2
+        for b in buckets:
+            base = self._resolve(b)
+            for budget in budgets:
+                t = base if budget is None else _with_spec_budget(base, budget)
+                d = t.describe()
+                if d not in seen:
+                    seen.add(d)
+                    out.append(t)
+        return out[: gen.variants.max_entries]
+
+
+def _resolve_policy_table(model: Model, shape: InputShape, mesh_sizes: dict, policy, *,
+                          hw=None, weight_bytes: int = 1) -> PolicyTable:
+    """A concrete table for the variant cache's key: a table passes through;
+    mappings, specs, ``"auto"`` and ``"auto-online"`` go through
+    ``strategy.resolve_policies`` (what ``make_execution_plan`` resolves
+    too)."""
+    if isinstance(policy, PolicyTable):
+        return policy
+    return resolve_policies(model, shape, mesh_sizes, policy, hw=hw, weight_bytes=weight_bytes)
+
+
+def _target(model: Model, hw, weight_bytes) -> tuple:
+    """A server's ``(hw, weight_bytes)``: the given ones, each ``None``
+    taken from ``roofline.serving_target``."""
+    default_hw, default_wb = roofline.serving_target(model)
+    return (hw if hw is not None else default_hw,
+            weight_bytes if weight_bytes is not None else default_wb)
+
+
+# --------------------------------------------------------------------------
 # Servers.
 # --------------------------------------------------------------------------
 def decode_axes(cfg, mesh_sizes: dict, max_batch: int, cache_len: int) -> tuple:
@@ -387,14 +632,16 @@ class ContextServer:
     the serving metrics attribute per request. ``fallbacks`` counts
     prefills run again eagerly after a deferred overflow,
     ``overflow_layers`` the route-before-gather layers that overflowed in
-    them."""
+    them. ``"auto"`` resolves once, at ``prefill_len``, for ``hw`` at
+    ``weight_bytes`` (each ``None``: ``roofline.serving_target``), and every
+    bucket runs that table, as in the JAX package."""
 
     def __init__(self, model: Model, mesh_sizes: dict, *, mode: str = "dwdp",
                  prefill_len: int, cache_len: int,
                  capacity_from: str = "local", expert_fetch: str = "all",
                  demand_budget: int = 0, cache_budget: int = 0,
                  policy: PolicyLike = None, weight_layout: Optional[str] = None,
-                 prefetch: str = "allgather",
+                 prefetch: str = "allgather", hw=None, weight_bytes: Optional[int] = None,
                  prefill_buckets: tuple = (), space: Optional[GraphSpace] = None):
         self.model = model
         self.prefill_len = prefill_len
@@ -406,10 +653,14 @@ class ContextServer:
         self.prefill_lens = tuple(sorted({int(prefill_len), *(int(b) for b in prefill_buckets)}))
         self.space = space
         self.fallbacks = self.overflow_layers = 0
-        self._table = resolve_policy(policy, prefetch=prefetch, weight_layout=weight_layout,
-                                     expert_fetch=expert_fetch, demand_budget=demand_budget,
-                                     cache_budget=cache_budget)
+        self.hw, self.weight_bytes = _target(model, hw, weight_bytes)
         shape = InputShape("ctx", prefill_len, 1, "prefill")
+        self._table = _resolve_policy_table(
+            model, shape, mesh_sizes,
+            resolve_policy(policy, prefetch=prefetch, weight_layout=weight_layout,
+                           expert_fetch=expert_fetch, demand_budget=demand_budget,
+                           cache_budget=cache_budget),
+            hw=self.hw, weight_bytes=self.weight_bytes)
         if not execution.captures_kv(model.geom, make_execution_plan(
                 model, shape, mesh_sizes, mode=mode, policy=self._table)):
             raise ValueError(
@@ -514,14 +765,19 @@ class GenerationServer:
     Evict-to-queue: :meth:`snapshot_slot` copies one slot's decode state to
     the host in the context-transfer layout, stamped with
     :meth:`restore_plan`; :meth:`admit` takes such a snapshot back into any
-    slot, in place, after :func:`validate_restore_plan`."""
+    slot, in place, after :func:`validate_restore_plan`.
+
+    ``"auto"`` / ``"auto-online"`` resolve at ``max_batch`` rows for ``hw``
+    at ``weight_bytes`` (each ``None``: ``roofline.serving_target``); an
+    :class:`OnlinePolicyScheduler` moves an ``"auto-online"`` server
+    between tables with :meth:`set_policy`."""
 
     def __init__(self, model: Model, mesh_sizes: dict, *, mode: str = "dwdp",
                  max_batch: int, cache_len: int,
                  capacity_from: str = "local", expert_fetch: str = "all",
                  demand_budget: int = 0, cache_budget: int = 0,
                  policy: PolicyLike = None, weight_layout: Optional[str] = None,
-                 prefetch: str = "allgather",
+                 prefetch: str = "allgather", hw=None, weight_bytes: Optional[int] = None,
                  variant_cache_size: int = 16, space: Optional[GraphSpace] = None):
         self.model = model
         self.max_batch = max_batch
@@ -547,9 +803,10 @@ class GenerationServer:
         self.fallbacks = self.overflow_layers = 0
         self.slot_req: list[Optional[int]] = [None] * max_batch
         self.slot_remaining = np.zeros(max_batch, np.int64)
-        self._swap(resolve_policy(policy, prefetch=prefetch, weight_layout=weight_layout,
-                                  expert_fetch=expert_fetch, demand_budget=demand_budget,
-                                  cache_budget=cache_budget))
+        self.hw, self.weight_bytes = _target(model, hw, weight_bytes)
+        self._swap(self._resolve(resolve_policy(
+            policy, prefetch=prefetch, weight_layout=weight_layout, expert_fetch=expert_fetch,
+            demand_budget=demand_budget, cache_budget=cache_budget)))
 
     def _build(self, xp) -> CountingStep:
         state = {"pos": self._kv["pos"], "layers": self._kv["layers"]}
@@ -562,6 +819,11 @@ class GenerationServer:
             return execution.forward_decode(params, inputs["token"], inputs["state"], ctx)
 
         return CountingStep(fn, {"token": self.cur_token, "state": state}, self.space)
+
+    def _resolve(self, policy: PolicyLike) -> PolicyTable:
+        """``policy`` as a concrete table at the server's decode shape."""
+        return _resolve_policy_table(self.model, self._shape, self._mesh_sizes, policy,
+                                     hw=self.hw, weight_bytes=self.weight_bytes)
 
     def _swap(self, table: PolicyTable) -> None:
         """Install the table's variant with a cold predictive state: its own
@@ -583,7 +845,7 @@ class GenerationServer:
         changed. (The degradation ladder, whose level 0 the JAX package
         rebases here, is not ported yet, so there is no ladder to
         rebase.)"""
-        table = _coerce_policy(table)
+        table = self._resolve(table)
         if table.describe() == self.xp.policies.describe():
             return False
         self._swap(table)
@@ -742,9 +1004,13 @@ class GenerationServer:
 
 
 class DisaggregatedEngine:
-    """Queues + rate matching between the context and generation servers."""
+    """Queues + rate matching between the context and generation servers;
+    with a ``scheduler`` (``policy="auto-online"``) it re-resolves the
+    generation server's table before each decode step and records each
+    move in ``metrics`` (``record_transition``)."""
 
-    def __init__(self, params, ctx: ContextServer, gen: GenerationServer):
+    def __init__(self, params, ctx: ContextServer, gen: GenerationServer,
+                 scheduler: Optional[OnlinePolicyScheduler] = None):
         if ctx.cache_len != gen.cache_len:
             raise ValueError(
                 "the context server's KV state does not fit the generation server's ring: "
@@ -752,6 +1018,8 @@ class DisaggregatedEngine:
         self.params = params
         self.ctx = ctx
         self.gen = gen
+        self.scheduler = scheduler
+        self.decode_steps = 0
         self.queue: list[Request] = []
         self.records: dict[int, RequestRecord] = {}
         self.outputs: dict[int, list[int]] = {}
@@ -772,11 +1040,15 @@ class DisaggregatedEngine:
     def warmup(self, tables=()) -> int:
         """Capture the serving variants off the serving path: the prefill
         step of every bucket and the decode variant of each table in
-        ``tables`` (and of the installed one). After this, serving — mixed
-        bucket lengths and ``gen.set_policy`` to a warmed table included —
-        captures nothing (``variants.captures()`` stays flat on both
-        servers). Returns the decode variants captured."""
+        ``tables``, of every table the scheduler can emit
+        (``OnlinePolicyScheduler.candidate_tables``) and of the installed
+        one. After this, serving — mixed bucket lengths, the scheduler's
+        moves and ``gen.set_policy`` to a warmed table included — captures
+        nothing (``variants.captures()`` stays flat on both servers).
+        Returns the decode variants captured."""
         self.ctx.warmup(self.params)
+        if self.scheduler is not None:
+            tables = (*tables, *self.scheduler.candidate_tables(self.gen))
         made = self.gen.warmup(self.params, tables)
         self.now()
         return made
@@ -824,7 +1096,17 @@ class DisaggregatedEngine:
                 self.outputs[req.req_id].append(first)
                 self.gen.admit(slot, req.req_id, first, state)
                 self.gen.slot_remaining[slot] = req.target_len - 1
+            if self.scheduler is not None:
+                # before the step, at the rows about to decode; the hit rates
+                # are the previous step's
+                moved = self.scheduler.step(
+                    self.gen, sum(r is not None for r in self.gen.slot_req))
+                if moved:
+                    self.metrics.record_transition(
+                        self.decode_steps, moved, 0,
+                        self.gen.xp.policies.family("moe_experts").fetch)
             toks = self.gen.decode_step(self.params)
+            self.decode_steps += 1
             t = self.now()
             active = [s for s, r in enumerate(self.gen.slot_req) if r is not None]
             share = 1.0 / max(1, len(active))

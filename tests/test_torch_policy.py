@@ -4,7 +4,8 @@ compile and no JAX run: the policy surface (``GatherPolicy.parse`` /
 group)``, ``make_execution_plan``'s tables and errors, the deprecated flat
 knobs), the command line's parsing (``parse_policy_flags``,
 ``resolve_cli_policy``; the reference's tests/test_core.py and
-tests/test_system.py cases), the landings (every rank's split bank
+tests/test_system.py cases; ``"auto"`` against the reference's
+resolution), the landings (every rank's split bank
 merged, and every merged landing, equal to the canonical concatenation
 over each transport, bitwise across transports), the static wire-byte
 model against the reference's for the same tables, and ``LANDED`` with
@@ -161,8 +162,9 @@ def test_plans_and_wire_bytes_match_reference(models, arch, phase, name):
 
 def test_make_execution_plan_policy_arguments(models):
     """Spec strings, per-family mappings, policies and tables all resolve;
-    group overrides name the model's groups; ``"auto"`` names the cost
-    model it lacks; the deprecated flat knobs warn, build the uniform
+    group overrides name the model's groups; ``"auto"`` and
+    ``"auto-online"`` resolve to the reference's table; the deprecated flat
+    knobs warn, build the uniform
     table and refuse conflicts — each as in the reference (whose plans also
     keep deprecated flat reads, which the port does not)."""
     jm, model = models["tiny"]
@@ -184,8 +186,8 @@ def test_make_execution_plan_policy_arguments(models):
     with pytest.raises(ValueError, match="unknown gather family"):
         strategy.make_execution_plan(model, shape, SIZES, policy={"bogus": "split"})
     for lit in strategy.AUTO_POLICIES:
-        with pytest.raises(NotImplementedError, match="roofline cost model"):
-            strategy.make_execution_plan(model, shape, SIZES, policy=lit)
+        assert strategy.make_execution_plan(model, shape, SIZES, policy=lit).policies.to_dict() \
+            == jstrategy.make_execution_plan(jm, jshape, SIZES, policy=lit).policies.to_dict()
     legacy = dict(weight_layout="merged", prefetch="ring", num_slices=8)
     for mod, m, shp in ((strategy, model, shape), (jstrategy, jm, jshape)):
         with pytest.warns(DeprecationWarning, match="deprecated flat knobs"):
@@ -248,20 +250,29 @@ def test_cli_policy_parsing_matches_reference(tmp_path):
     ["--policy", "auto"], ["--policy", "auto-online"],
     ["--policy", "attn_qkv=merged", "--weight-layout", "merged"],
     ["--policy", "dense_ffn=split:all:tree"]])
-def test_cli_refusals_exit_before_building(monkeypatch, capsys, argv):
-    """``--policy auto`` (naming the cost model), a ``--policy`` beside a
-    uniform flag and a bad spec exit with status 2 before any model is
-    built."""
+def test_cli_refusals_exit_before_building(monkeypatch, argv):
+    """A ``--policy`` beside a uniform flag and a bad spec exit with status 2
+    before any model is built; ``--policy auto`` and ``--policy
+    auto-online`` are no longer refused: the literal reaches
+    ``build_engine`` (with ``--switch-interval``), which resolves it."""
+    class Built(Exception):
+        pass
+
     def built(*a, **k):
-        raise AssertionError("built an engine")
+        raise Built(k)
 
     monkeypatch.setattr(serve, "build_engine", built)
     monkeypatch.setattr(serve, "build_model", built)
+    if "auto" in argv[1]:
+        with pytest.raises(Built) as exc:
+            serve.main(["--arch", "deepseek-r1", "--device", "cpu", "--switch-interval", "3",
+                        *argv])
+        kw = exc.value.args[0]
+        assert kw["policy"] == argv[1] and kw["switch_interval"] == 3
+        return
     with pytest.raises(SystemExit) as exc:
         serve.main(["--arch", "deepseek-r1", "--device", "cpu", *argv])
     assert exc.value.code == 2
-    if "auto" in argv[1]:
-        assert "roofline cost model" in capsys.readouterr().err
 
 
 def _tagged_shards(pl, width):
