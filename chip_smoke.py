@@ -189,7 +189,26 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    of every table phases 6, 12 and 13 served, their ratio and the pairs the
    model orders wrongly; and Figure 3's crossover and compute/prefetch at 1K
    and 8K under H100 and GB200, as model output;
-14. a ``{"kernels": [...]}`` JSON line, then the last line
+14. the validated fetch and fault injection (run after 13, on R1 1024's
+   weights, mesh (1, 4), graphs, one graph pool and one all-fetch context
+   server for a generation server per table: demand, predictive and
+   sync_free with an 8-row cache): a ``validate_fetch`` serve, then the
+   plain and validated decode replays timed from 5's final state (cold
+   predictor, alternated) and their difference, then the same server under
+   ``FAULT_SPEC`` (drop, zero, corrupt and cache faults; a mirror drift
+   under sync_free). Every serve: tokens and one decode step's logits from
+   5's final state bitwise the all-fetch serve's, no capture after warmup,
+   the fault counters consistent (detected >= injected, the per-source tail
+   summing to detected); the validated serves' demand kernel launches
+   measured through the decode replays; under the fault spec one eager
+   step's injected counters recomputed from its masks, each mask drawn on
+   the card equal to the same draw on the CPU. Then a storm of one bad peer
+   under predictive decode with a ``HealthMonitor``: every ladder rung
+   captured in warmup, the launches measured through every rung's replays,
+   the ladder walked down to ``all`` and back, faults detected from that
+   peer only. TPOT, fallbacks, counters, transitions and peak (under 70
+   GB), beside the card's name and power limit;
+15. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
@@ -336,6 +355,15 @@ AUTO_TABLES = {
 AUTO_DECODE_KERNELS = ("split_grouped_swiglu_demand", "split_stack_gemm", "split_reduce_gemm",
                        "split_dense_swiglu")
 AUTO_SWITCH_INTERVAL = 2
+# Phase 14, the validated fetch: the faults injected into each table's serve
+# (cache rot needs a residency cache; the mirror drift, sync_free), and the
+# storm of one bad peer under predictive decode with a HealthMonitor.
+# Payload rates low enough that about half the steps see no bad row in the
+# last round (a bad one there runs the step again eagerly, ~0.13 s at R1).
+FAULT_SPEC = "seed=3,drop=0.004,zero=0.002,corrupt=0.002,cache=0.1"
+FAULT_MIRROR = ",mirror=0.15"
+STORM_PEER = 2
+STORM_SPEC = f"seed=7,peers={STORM_PEER}"
 # The batch-sharded prefill compares its layouts in the no-drop regime: at
 # factor 1.25 the expert capacity follows each rank's token count (a
 # 256-token shard, a whole 1024-token row), so the two layouts drop
@@ -1889,6 +1917,263 @@ def auto_phase(cfg, params, prompts, ref_outputs, snap, ref_logits, served: dict
 
 
 # --------------------------------------------------------------------------
+# Faults: the validated fetch, fault injection, the degradation ladder.
+# --------------------------------------------------------------------------
+def restore(gen, snap) -> None:
+    """``snap``'s KV ring, positions and token row into a generation
+    server's state, in place."""
+    for dst, src in zip(kv_leaves(gen), snap["state"], strict=True):
+        dst.copy_(src)
+    gen.cur_token.copy_(snap["token"])
+
+
+def fault_counts(label: str, eng, snap, spec: str) -> dict:
+    """One eager decode step from ``snap`` under ``spec`` with the
+    injection sites logged (``Ctx.fault_log``): every logged mask drawn on
+    the card must equal the same draw on the CPU (``faults.FaultInjector``
+    keyed by the site, rank and step), and the step's injected counters
+    must equal the counts recomputed from those masks over the valid rows;
+    detected >= injected, and the per-source tail sums to detected."""
+    import torch
+    from repro_torch.core import execution, faults
+
+    gen = eng.gen
+    restore(gen, snap)
+    log = []
+    ctx = execution.Ctx(model=gen.model, xp=gen.xp, fault_log=log)
+    with in_pool(eng):
+        out = execution.forward_decode(eng.params, gen.cur_token, gen.state, ctx)
+    got = out["fault_stats"].cpu().numpy()
+    del out
+    inj = faults.FaultInjector(faults.FaultSpec.parse(spec), gen.model.geom.moe_placement,
+                               gen.xp.mesh_sizes)
+    g = gen.model.geom.moe_placement.subgroup_size
+    want = [0.0] * 4
+    per_site: dict = {}
+    for e in log:
+        step, rank = int(e["step"]), e["rank"]
+        key = inj.site_key(e["site"], step, rank)
+        cpu = ((inj.cache_mask(key, e["budget"]),) if e["site"] == "cache" else
+               inj.payload_masks(key, e["budget"], rank % g))
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(e["masks"], cpu)):
+            fail(f"{label}: the {e['site']} masks of rank {rank} at step {step} on the card "
+                 "differ from the same draws on the CPU")
+        valid = e["valid"].cpu()
+        if e["site"] == "cache":
+            n = float((cpu[0] & valid).sum())
+            want[3] += n
+        else:
+            n = 0.0
+            for i in range(3):
+                want[i] += float((cpu[i] & valid).sum())
+                n += float((cpu[i] & valid).sum())
+        site = per_site.setdefault(e["site"], [0.0, 0.0])
+        site[0] += n
+        site[1] += float(e["bad"].sum())
+    injected = sum(want)
+    print(f"{label}: one eager decode step from phase 5's state: {len(log)} injection sites, "
+          f"masks on the card = the CPU's draws; injected {want} recomputed, counters "
+          f"{got[:4].tolist()}, detected {got[4]} by source {got[7:].tolist()}, fault "
+          f"fallbacks {got[5]} mirror divergence {got[6]}; (injected, detected) by site "
+          f"{json.dumps(per_site)}")
+    short = {k: v for k, v in per_site.items() if v[1] < v[0]}
+    if short:
+        fail(f"{label}: sites detected fewer rows than were injected: {short}")
+    if got[:4].tolist() != want:
+        fail(f"{label}: injected counters {got[:4].tolist()} != recomputed {want}")
+    if got[4] < injected or abs(got[7:].sum() - got[4]) > 1e-6:
+        fail(f"{label}: detected {got[4]} (by source {got[7:].tolist()}) vs injected {injected}")
+    return {"sites": len(log), "injected": want, "stats": got.tolist()}
+
+
+def fault_serve(label: str, cfg, eng, prompts, ref_outputs, snap, ref_logits, *,
+                exclusions=None, trace: bool = True) -> dict:
+    """Warm up, serve ``prompts`` with the launch counts set to 0 just
+    before and read just after, and check: the tokens bitwise the all-fetch
+    serve's, the decode replays' launches measured (``trace``; as in phase
+    6: the demand kernel's host count no fewer than the replays'), nothing
+    captured after warmup, the fault counters consistent (detected >=
+    injected, the per-source tail summing to detected; checked by
+    :func:`check_counters`), one decode step from ``snap`` bitwise the
+    all-fetch logits."""
+    import torch
+    from repro_torch.kernels import registry
+
+    eng.warmup(exclusions=exclusions)
+    warm = captures(eng)
+    registry.reset_launch_counts()
+    replays = replay_counts(eng)
+    falls = eng.gen.fallbacks
+    outs = serve(eng, prompts)
+    torch.cuda.synchronize()
+    summ = eng.metrics.summary(horizon=eng.horizon())
+    counts = registry.launch_counts()
+    measured = {}
+    if trace:
+        measured = replay_launches(label, eng, replays, (eng.gen,))
+        check_launches(label, eng, {"split_grouped_swiglu_demand":
+                                    measured["split_grouped_swiglu_demand"]}, counts)
+    fs = summ.get("faults", {})
+    injected = sum(v for k, v in fs.items() if k.startswith("injected"))
+    restore(eng.gen, snap)
+    out, _, _ = eng.gen.step_outputs(eng.params)
+    bitwise = outs == ref_outputs and torch.equal(out["logits"], ref_logits)
+    del out
+    row = {"tpot_p50_s": summ["tpot_p50_s"], "ttft_p50_s": summ["ttft_p50_s"],
+           "fallbacks": eng.gen.fallbacks - falls, "fault_fallbacks": eng.gen.fault_fallbacks,
+           "faults": fs, "detected_by_peer": summ.get("detected_by_peer", []),
+           "transitions": summ.get("policy_transitions", []), "captures": list(captures(eng)),
+           "launches": dict(counts), "decode_launches_measured": dict(measured),
+           "bitwise": bitwise}
+    print(f"{label}: tpot_p50_s {summ['tpot_p50_s']:.4f} ttft_p50_s {summ['ttft_p50_s']:.4f} "
+          f"steps run again {row['fallbacks']} (checksum {eng.gen.fault_fallbacks}) faults "
+          f"{json.dumps(fs)} detected_by_peer {row['detected_by_peer']} transitions "
+          f"{json.dumps([(t['step'], t['kind'], t['fetch']) for t in row['transitions']])} "
+          f"captures {captures(eng)} (warmup {warm}) launches {json.dumps(counts)}; tokens and "
+          f"decode logits bitwise the all-fetch serve's {bitwise}")
+    if not bitwise:
+        fail(f"{label}: not bitwise the all-fetch serve (tokens equal {outs == ref_outputs})")
+    if captures(eng) != warm:
+        fail(f"{label}: serving captured new variants ({warm} -> {captures(eng)})")
+    if counts["split_grouped_swiglu_demand"] <= 0 and eng.gen.level == 0:
+        fail(f"{label}: the demand kernel never launched")
+    row["counters_consistent"] = not fs or (
+        fs.get("detected", 0) >= injected
+        and abs(sum(row["detected_by_peer"]) - fs["detected"]) <= 1e-6)
+    if any(v < 0 for v in list(fs.values()) + row["detected_by_peer"]):
+        fail(f"{label}: a negative fault counter")
+    return row
+
+
+def check_counters(label: str, row: dict) -> None:
+    if not row["counters_consistent"]:
+        fail(f"{label}: fault counters inconsistent: {row['faults']} by peer "
+             f"{row['detected_by_peer']}")
+
+
+def faults_phase(cfg, params, prompts, ref_outputs, snap, ref_logits) -> dict:
+    """Phase 14, the validated fetch on R1 1024's weights, mesh (1, 4),
+    graphs, one engine per table (demand, predictive and sync_free with an
+    8-row cache): a ``validate_fetch`` serve, the plain and validated decode
+    replays timed from phase 5's state (a cold predictor in both), then the
+    same engine under ``FAULT_SPEC`` (plus a mirror drift under sync_free),
+    its counters recomputed from the card's masks and the CPU's draws
+    (:func:`fault_counts`); then a one-peer storm under predictive (no
+    cache) with a ``HealthMonitor`` that must demote to the all-gather floor
+    and promote back. Every serve through :func:`fault_serve`; peak memory
+    under the 70 GB limit."""
+    import torch
+    from repro_torch.models.transformer import build_model
+    from repro_torch.runtime.engine import (
+        ContextServer,
+        DisaggregatedEngine,
+        GenerationServer,
+        GraphSpace,
+        HealthMonitor,
+    )
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    rows: dict = {}
+    sizes = {"data": 1, "model": G}
+    model = build_model(cfg, sizes, dtype=torch.bfloat16, device="cuda", **GEOM)  # no weights
+    # one graph pool and one all-fetch context server (its prefill runs no
+    # route-before-gather layer at 1024 tokens, so no fault site) for every
+    # generation server of the phase
+    space = GraphSpace(model.device)
+    ctx = ContextServer(model, sizes, prefill_len=PROMPT, prefill_buckets=(PROMPT // 2,),
+                        cache_len=PROMPT + OUTPUT, space=space)
+
+    def engine(health=None, **kw):
+        gen = GenerationServer(model, sizes, max_batch=MAX_BATCH, cache_len=PROMPT + OUTPUT,
+                               space=space, **kw)
+        return DisaggregatedEngine(params, ctx, gen, health=health)
+
+    def lap(what: str) -> None:
+        print(f"faults: {what} at {time.perf_counter() - t_phase:.1f} s")
+
+    for fetch, kw in FETCH_MODES:
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        eng = engine(expert_fetch=fetch, validate_fetch=True, **kw)
+        gen = eng.gen
+        row = {"validated": fault_serve(f"faults {fetch} --validate-fetch", cfg, eng, prompts,
+                                        ref_outputs, snap, ref_logits)}
+        lap(f"{fetch} validated serve")
+        if row["validated"]["faults"]:
+            fail(f"faults {fetch}: a healthy validated serve detected faults")
+        # the plain and validated decode replays from phase 5's state, with
+        # a cold predictor in both (a fault switch starts the predictor cold)
+        times = {}
+        for name, validate in (("plain", False), ("validated", True), ("validated_2", True),
+                               ("plain_2", False)):
+            gen.set_faults(None, validate)
+            gen.warmup(eng.params)
+            restore(gen, snap)
+            times[name] = time_ms(lambda: gen.step(eng.params))[0]
+        plain = (times["plain"] + times["plain_2"]) / 2
+        validated = (times["validated"] + times["validated_2"]) / 2
+        row["replay_ms"] = dict(times, plain_mean=plain, validated_mean=validated,
+                                checksum_ms=validated - plain)
+        print(f"faults {fetch} ({card}): decode replay ms plain {times['plain']:.2f} / "
+              f"{times['plain_2']:.2f}, validated {times['validated']:.2f} / "
+              f"{times['validated_2']:.2f}; validated - plain {validated - plain:.2f} ms "
+              f"({100 * (validated / plain - 1):.1f} %)")
+        lap(f"{fetch} replay times")
+        spec = FAULT_SPEC + (FAULT_MIRROR if fetch == "sync_free" else "")
+        gen.set_faults(spec)
+        # the fault variant runs the validated variant's kernels (traced
+        # above) and the injector's PyTorch ops: its launches are the host's
+        row["faults"] = fault_serve(f"faults {fetch} --fault-spec {spec}", cfg, eng, prompts,
+                                    ref_outputs, snap, ref_logits, trace=False)
+        row["counts"] = fault_counts(f"faults {fetch} --fault-spec {spec}", eng, snap, spec)
+        check_counters(f"faults {fetch} --fault-spec {spec}", row["faults"])
+        if not row["faults"]["faults"] or row["faults"]["fault_fallbacks"] <= 0:
+            fail(f"faults {fetch}: the fault spec injected nothing or took no full gather")
+        if fetch == "sync_free" and not row["faults"]["faults"].get("mirror_divergence"):
+            fail("faults sync_free: no mirror divergence detected")
+        row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"faults {fetch}: peak over the engine {row['peak_gb']:.2f} GB allocated")
+        if row["peak_gb"] * 1e9 > PEAK_LIMIT:
+            fail(f"faults {fetch}: peak memory {row['peak_gb']:.2f} GB > {PEAK_LIMIT / 1e9:.0f} GB")
+        rows[fetch] = row
+        lap(f"{fetch} faults serve")
+        del eng, gen
+    # ---- the storm: one bad peer, the HealthMonitor walks the ladder --------
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine(expert_fetch="predictive", fault_spec=STORM_SPEC, health=HealthMonitor(min_dwell=1))
+    ladder = [label for label, _, _ in eng.gen.ladder]
+    # two requests, 15 decode steps: the walk down to "all" takes 6, the way
+    # back 7 (decay 0.7, one step of dwell)
+    storm = fault_serve(f"faults storm {STORM_SPEC} (ladder {ladder})", cfg, eng,
+                        prompts[:MAX_BATCH], {i: ref_outputs[i] for i in range(MAX_BATCH)},
+                        snap, ref_logits, exclusions=[(STORM_PEER,)])
+    lap("storm serve")
+    check_counters("faults storm", storm)
+    kinds = [(t["kind"], t["fetch"]) for t in storm["transitions"]]
+    storm["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    storm["decode_variants"] = len(eng.gen.variants)
+    if ("demote", "all") not in kinds or not any(k == "promote" for k, _ in kinds):
+        fail(f"faults storm: the ladder did not walk down to 'all' and back: {kinds}")
+    if any(p != STORM_PEER and v for p, v in enumerate(storm["detected_by_peer"])):
+        fail(f"faults storm: rows detected from other peers than {STORM_PEER}")
+    if storm["peak_gb"] * 1e9 > PEAK_LIMIT:
+        fail(f"faults storm: peak memory {storm['peak_gb']:.2f} GB > {PEAK_LIMIT / 1e9:.0f} GB")
+    rows["storm"] = storm
+    del eng, ctx, space, model
+    free_memory()
+    wall = time.perf_counter() - t_phase
+    brief = {k: {"replay_ms": r["replay_ms"], "validated_tpot_p50_s": r["validated"]["tpot_p50_s"],
+                 "faults_tpot_p50_s": r["faults"]["tpot_p50_s"], "peak_gb": r["peak_gb"]}
+             for k, r in rows.items() if k != "storm"}
+    brief["storm"] = {k: storm[k] for k in ("tpot_p50_s", "fallbacks", "faults", "peak_gb")}
+    print(f"faults ({card}; phase wall_s {wall:.1f}): {json.dumps(brief)}")
+    rows["wall_s"] = wall
+    return rows
+
+
+# --------------------------------------------------------------------------
 # DEP: a DWDP context server feeding a DEP generation server.
 # --------------------------------------------------------------------------
 def a2a_bytes_per_decode_step(model, xp) -> dict:
@@ -2813,6 +3098,9 @@ def main() -> None:
     # ---- the roofline cost model and the auto / auto-online policies --------
     auto_phase(cfg, params, prompts, outputs, snap, ref_logits,
                served_tables(modes, policy_rows))
+
+    # ---- the validated fetch, fault injection, the degradation ladder -------
+    fault_rows = faults_phase(cfg, params, prompts, outputs, snap, ref_logits)
     del params
     free_memory()
     rolling = {"dep": dep["rolling"]["summary"], "dwdp_all_row_local": serving["rolling"]["summary"]}
@@ -2888,6 +3176,9 @@ def main() -> None:
             **{f"launches_r1_1024_batch_sharded_{k}": v["launches"].get(name, 0)
                for k, v in batch_sharded.items() if k != "peak_gb"},
             "launches_gemma3_4096": gemma["launches"][name],
+            **{f"launches_r1_1024_faults_{m}_{k}": fault_rows[m][k]["launches"][name]
+               for m, _ in FETCH_MODES for k in ("validated", "faults")},
+            "launches_r1_1024_faults_storm": fault_rows["storm"]["launches"][name],
             "max_abs_err": dec["max_abs_err"],
             "max_rel_err": dec["max_rel_err"],
             "ms": dec["ms"],

@@ -20,6 +20,7 @@ import json
 import numpy as np
 import torch
 
+from repro_torch.core.prefetch import attach_checksum_tables
 from repro_torch.models.transformer import Model, ffn_pad, replicate_over_data, split_leading
 
 _META = "__tree_meta__"
@@ -60,7 +61,9 @@ def load_npz(path: str) -> dict:
 
 def from_jax_params(params: dict, model: Model, device=None) -> list[dict]:
     """The port's per-rank parameter list from a JAX parameter tree built
-    for the same model axis and geometry overrides as ``model``."""
+    for the same model axis and geometry overrides as ``model`` (a
+    ``load_npz`` tree too), with the experts' checksum tables of the
+    validated fetch built once (``prefetch.attach_checksum_tables``)."""
     cfg, geom = model.cfg, model.geom
     sizes = model.sizes
     dev = torch.device(device) if device is not None else model.device
@@ -143,4 +146,4 @@ def from_jax_params(params: dict, model: Model, device=None) -> list[dict]:
                     trees[r]["ffn"] = ff[r]
             for r in range(n):
                 ranks[r]["layers"][group.name][f"pos{j}"] = trees[r]
-    return replicate_over_data(ranks, sizes)
+    return attach_checksum_tables(replicate_over_data(ranks, sizes), model)

@@ -85,9 +85,13 @@ device flag that ``forward_prefill`` / ``forward_decode`` return
 (``overflow``, with ``overflow_layers``), and the caller reads it once
 per step and runs the step again in the eager mode when it is set — the
 step free of host reads that a CUDA graph captures
-(``runtime.engine.CountingStep``). Not ported yet: the ``replicated``
-mode, the ``"auto"`` policy resolver, the validated fetch and fault
-injection, rotate execution, training.
+(``runtime.engine.CountingStep``). The validated fetch
+(``ExecutionPlan.validated``: a ``fault_spec`` to inject, or
+``validate_fetch``) checksums every fetched and cached expert row against
+the table built once per weight set, repairs bad rows through the
+correction round or the full gather (its flag joins the overflow flag)
+and reports ``fault_stats``. Not ported yet: the ``replicated`` mode,
+rotate execution, training.
 """
 from __future__ import annotations
 
@@ -100,7 +104,7 @@ import torch
 
 from repro_torch import counters
 from repro_torch.configs.base import BlockKind
-from repro_torch.core import collectives, prefetch
+from repro_torch.core import collectives, faults, prefetch
 from repro_torch.core.budget import demand_budget_rows, predictive_budget_rows
 from repro_torch.core.placement import make_placement
 from repro_torch.core.strategy import ExecutionPlan
@@ -130,6 +134,13 @@ class Ctx:
     deferred: bool = False
     overflow: Any = None        # this forward's ORed overflow flag (0-d bool)
     overflow_layers: Any = None  # and its count of overflowed layers (0-d int32)
+    # this forward's fault-stats vector, summed over the validated layers
+    # and ranks (``faults.FAULT_STAT_NAMES`` + the per-source tail)
+    fault_stats: Any = None
+    # when a list: every injection site appends {"site", "rank", "step",
+    # "budget", "masks", "valid", "bad"} (to check the counters against the
+    # masks)
+    fault_log: Optional[list] = None
     _groups: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -200,6 +211,7 @@ class Ctx:
     def begin(self, device) -> None:
         """Reset the step's overflow flag and count (start of a forward)."""
         self.spec_plans = {}
+        self.fault_stats = None
         self.overflow = torch.zeros((), dtype=torch.bool, device=device)
         self.overflow_layers = torch.zeros((), dtype=torch.int32, device=device)
 
@@ -421,6 +433,78 @@ def resolve_cache_rows(cfg, geom: Geometry, xp: ExecutionPlan,
     return min(xp.policy("moe_experts", group).cache_budget, remote)
 
 
+# ==========================================================================
+# The validated fetch (``execution.py:340-407`` of the JAX package).
+# ==========================================================================
+def fault_stats_active(model: Model, xp: ExecutionPlan) -> bool:
+    """Does this plan's decode step return ``out["fault_stats"]``? Where the
+    fetch is validated (``xp.validated``) and some MoE layer runs the
+    route-before-gather path; and wherever a layer runs sync-free, whose
+    schedule digest always runs, so its ``mirror_divergence`` counter
+    reaches the ``HealthMonitor`` unvalidated too (the other counters are
+    zero then). The vector: :data:`faults.FAULT_STAT_NAMES`, then the
+    detected rows by source subgroup position, summed over layers and
+    ranks."""
+    cfg, geom = model.cfg, model.geom
+    if cfg.moe is None:
+        return False
+    moe_groups = [g.name for g in model.plan if any(sig.is_moe for sig in g.sigs)]
+    if any(sync_free_active(cfg, geom, xp, g) for g in moe_groups):
+        return True
+    return xp.validated and any(demand_fetch_active(cfg, geom, xp, g) for g in moe_groups)
+
+
+def _fault_injector(ctx: Ctx) -> Optional[faults.FaultInjector]:
+    if ctx.xp.fault_spec is None:
+        return None
+    return faults.FaultInjector(ctx.xp.fault_spec, ctx.geom.moe_placement, ctx.xp.mesh_sizes)
+
+
+def _fault_step(ctx: Ctx, rank: int):
+    """The decode step that keys ``rank``'s fault draws, read on the device:
+    the maximum of its rows' positions (0 outside decode). A replayed graph
+    draws its step's masks; no host read."""
+    if ctx.pos is None:
+        return torch.zeros((), dtype=torch.int64, device=ctx.model.device)
+    return ctx.rank_pos(rank).max()
+
+
+def _injected_counts(inj: faults.FaultInjector, key, budget: int, valid, position: int,
+                     log=None, **where):
+    """The counting site's recomputation of one payload round's injected
+    rows ``[drop, zero, corrupt]``: the tamper site's masks from the same
+    key, counted where the plan marked the row valid (tampering padding
+    consumes nothing). With a ``log`` (``Ctx.fault_log``) the masks go there
+    beside ``where`` (site, rank, step)."""
+    masks = inj.payload_masks(key, budget, position)
+    if log is not None:
+        log.append(dict(where, budget=budget, masks=masks, valid=valid))
+    return torch.stack([(m & valid).sum() for m in masks]).float()
+
+
+def _per_src_detected(bad: torch.Tensor, budget: int, g: int, p: int) -> torch.Tensor:
+    """Each detected payload row by the subgroup position that served it
+    (rows are peer-major: chunk ``t`` from position ``(p + 1 + t) % g``)."""
+    out = torch.zeros(g, dtype=torch.float32, device=bad.device)
+    if bad.shape[0] == 0:
+        return out
+    src = (p + 1 + torch.arange(bad.shape[0], device=bad.device) // budget) % g
+    return out.index_add_(0, src, bad.float())
+
+
+def _checksum_table(mp: dict) -> torch.Tensor:
+    table = mp.get("checksums")
+    if table is None:
+        raise ValueError(
+            "the validated fetch reads the experts' checksum table, which this weight set "
+            "lacks: attach it once with prefetch.attach_checksum_tables(params, model)")
+    return table
+
+
+def _add_fault_stats(ctx: Ctx, vec: torch.Tensor) -> None:
+    ctx.fault_stats = vec if ctx.fault_stats is None else ctx.fault_stats + vec
+
+
 def gather_set(sig: LayerSig, geom: Geometry, xp: ExecutionPlan, cfg,
                group: Optional[str] = None) -> tuple[str, ...]:
     """Keys of a layer's param tree that the prefetch pipeline gathers
@@ -513,10 +597,14 @@ def gathered_wire_bytes_per_step(model: Model, xp: ExecutionPlan) -> dict:
                         if sync_free_active(cfg, geom, xp, gname):
                             any_sync = True
                             by_round = prefetch.sync_free_fetch_bytes(
-                                pl, spec_b, corr_b, _routed_tokens(xp), pe)
+                                pl, spec_b, corr_b, _routed_tokens(xp), pe,
+                                validate=xp.validated)
                         else:
-                            by_round = {"spec": prefetch.demand_fetch_bytes(pl, spec_b, pe),
-                                        "corr": prefetch.demand_fetch_bytes(pl, corr_b, pe)}
+                            by_round = {
+                                "spec": prefetch.demand_fetch_bytes(pl, spec_b, pe,
+                                                                    validate=xp.validated),
+                                "corr": prefetch.demand_fetch_bytes(pl, corr_b, pe,
+                                                                    validate=xp.validated)}
                         any_rounds = True
                         for rnd in ("spec", "corr"):
                             rounds[rnd] += by_round[rnd] * group.n_cycles
@@ -540,7 +628,7 @@ def gathered_wire_bytes_per_step(model: Model, xp: ExecutionPlan) -> dict:
                 pl = geom.moe_placement
                 pe = 3 * d * cfg.moe.d_ff * ws
                 fetched = prefetch.demand_fetch_bytes(
-                    pl, resolve_demand_budget(cfg, geom, xp, gname), pe)
+                    pl, resolve_demand_budget(cfg, geom, xp, gname), pe, validate=xp.validated)
                 any_rounds = True
                 rounds["corr"] += fetched * group.n_cycles
                 add("moe_experts", group.n_cycles, prefetch.gather_bytes(pl, pe), fetched)
@@ -643,17 +731,29 @@ class SpecBank(NamedTuple):
     landing: dict
 
 
-def _mirror_spec_masks(pred: prefetch.PredictState, pl, sbudget: int) -> torch.Tensor:
+def _mirror_spec_masks(pred: prefetch.PredictState, pl, sbudget: int, ctx: Ctx,
+                       rank: int) -> torch.Tensor:
     """Sync-free: the ``(G', E)`` speculative bitmaps of every subgroup
-    position, derived from the rank's mirrored ``PredictState`` alone.
+    position, derived from ``rank``'s mirrored ``PredictState`` alone.
     Deterministic in the mirror, so every rank derives the same schedule
-    and the speculative round needs no index exchange."""
+    and the speculative round needs no index exchange. The ``mirror`` fault
+    perturbs the drifting rank's view of its own EMA row here, for this
+    step only, so that rank derives another schedule for the digest to
+    catch."""
+    ema = pred.ema
+    inj = _fault_injector(ctx)
+    if inj is not None and inj.spec.mirror_rate:
+        p = rank % pl.subgroup_size
+        flag = inj.mirror_flag(_fault_step(ctx, rank), rank)
+        bump = (torch.arange(pl.num_padded, device=ema.device) % 3 == 0).float() * 10.0
+        ema = ema.clone()
+        ema[p] += flag.float() * bump
     extra = prefetch.predict_extra_score(pred.sig, pred.sigw)
     return torch.stack([
         prefetch.predict_bitmap(
-            pred.prev[q], pred.ema[q], pl, budget=sbudget,
+            pred.prev[q], ema[q], pl, budget=sbudget,
             exclude_ids=pred.cache_ids[q], exclude_valid=pred.cache_valid[q],
-            extra_score=extra[q],
+            extra_score=extra[q], exclude_peers=ctx.xp.exclude_peers,
         )
         for q in range(pl.subgroup_size)
     ])
@@ -681,14 +781,15 @@ def _spec_plans(ctx: Ctx, lid, preds: list) -> list:
     if sync_free_active(cfg, geom, xp, lid[0]):
         plans = []
         for r, pred in enumerate(preds):
-            masks = _mirror_spec_masks(pred, pl, sbudget)
+            masks = _mirror_spec_masks(pred, pl, sbudget, ctx, r)
             ids, valid, _ = prefetch.plan_from_bitmap(masks[r % g], r % g, g, local, sbudget)
             no = torch.zeros((), dtype=torch.bool, device=ids.device)
             plans.append(prefetch.DemandPlan(masks=masks, fetched_ids=ids, valid=valid, overflow=no))
     else:
         wanted = [
             prefetch.predict_bitmap(pred.prev, pred.ema, pl, budget=sbudget,
-                                    exclude_ids=pred.cache_ids, exclude_valid=pred.cache_valid)
+                                    exclude_ids=pred.cache_ids, exclude_valid=pred.cache_valid,
+                                    exclude_peers=xp.exclude_peers)
             for pred in preds
         ]
         plans = prefetch.plan_demand_fetch(wanted, pl, budget=sbudget)
@@ -719,10 +820,13 @@ def _speculative_expert_gather(shards: list, rank: int, ctx: Ctx, preds: list, l
         lambda lo: torch.empty((rows,) + tuple(lo.shape[1:]), dtype=lo.dtype, device=lo.device),
         shards[rank],
     )
+    inj = _fault_injector(ctx)
     bank = prefetch.gather_demand_payload(
         shards, plan, rank, pl, budget=sbudget, mode=pol.transport,
         num_slices=pol.num_slices, copy_stream=copy_stream,
         out=prefetch.tree_map(lambda b: b[n_cache:n_cache + n_spec], landing),
+        injector=inj,
+        fault_key=inj.site_key("spec", _fault_step(ctx, rank), rank) if inj is not None else None,
     )
     on_side = torch.cuda.stream(copy_stream) if copy_stream is not None else contextlib.nullcontext()
     with on_side:
@@ -1187,10 +1291,19 @@ def _split_moe(x2d, d, cap: int, bank: prefetch.SplitBank, rank: int, ctx: Ctx):
     return moe_lib.combine_tokens(ye, d, x2d.shape[0])
 
 
+def _shared_out(x2d, mp, ctx: Ctx, banks: dict):
+    """The shared expert's output of one rank (None without one)."""
+    if "shared" not in mp:
+        return None
+    return _ffn_apply(x2d, mp["shared"], ctx, banks.get("moe/shared"))
+
+
+def _with_shared(y, shared):
+    return y if shared is None else y + shared
+
+
 def _add_shared(y, x2d, mp, ctx: Ctx, banks: dict):
-    if "shared" in mp:
-        y = y + _ffn_apply(x2d, mp["shared"], ctx, banks.get("moe/shared"))
-    return y
+    return _with_shared(y, _shared_out(x2d, mp, ctx, banks))
 
 
 def _moe_apply(x2d, mp, ctx: Ctx, banks: dict, rows: int, rank: int, group: str):
@@ -1324,7 +1437,17 @@ def _moe_demand_layer(h2fs: list, lps: list, ctx: Ctx, pipe: BankPipeline, lid, 
     reads (cache | speculative | correction) as one fetched bank, so the
     result is the all-fetch path's for any predictor state and budget.
     Sync-free layers also cross-check the mirrored schedule with a digest
-    and replay every mirror's cache bookkeeping. Returns ``(outputs,
+    and replay every mirror's cache bookkeeping.
+
+    The validated fetch (``xp.validated``) checks every fetched and cached
+    row against the owners' checksum table (``lp["moe"]["checksums"]``,
+    built once per weight set): cache rows may rot (the injector's cache
+    mask) and payload rows arrive tampered (its payload masks); cached and
+    speculative rows are verified before the correction round is planned,
+    so bad ones are fetched again there, and a bad row in the last round
+    raises the agreed flag that takes the exact full gather, ORed into the
+    overflow flag (one host read per step in the deferred mode). Each such
+    layer adds its counters to ``ctx.fault_stats``. Returns ``(outputs,
     new per-rank PredictState or None)``."""
     cfg, geom, xp = ctx.cfg, ctx.geom, ctx.xp
     pl = geom.moe_placement
@@ -1335,33 +1458,76 @@ def _moe_demand_layer(h2fs: list, lps: list, ctx: Ctx, pipe: BankPipeline, lid, 
     pol = xp.policy("moe_experts", group)
     wire = dict(mode=pol.transport, num_slices=pol.num_slices)
     budget = resolve_demand_budget(cfg, geom, xp, group)
+    validate = xp.validated
+    inj = _fault_injector(ctx)
+    log = ctx.fault_log
+    tables = [_checksum_table(lp["moe"]) for lp in lps] if validate else None
     routes = [_route(x, lp["moe"], ctx, rows) for x, lp in zip(h2fs, lps)]
     wanted = [_wanted_bitmap(d, e_pad) for d, _ in routes]
+    dev = h2fs[0].device
+    zero = torch.zeros((), device=dev)
+
+    def site_key(tag: str, r: int):
+        return inj.site_key(tag, _fault_step(ctx, r), r) if inj is not None else None
+
+    def full_gather(r: int):
+        (d, cap), x2d = routes[r], h2fs[r]
+        return _full_gather_moe(x2d, d, cap, shards, r, ctx, group)
 
     if not predictive_fetch_active(cfg, geom, xp, group):
         plans = prefetch.plan_demand_fetch(wanted, pl, budget=budget)
-        fallback = ctx.overflowed(plans[0].overflow)
-        ys = []
+        if not validate:
+            fallback = ctx.overflowed(plans[0].overflow)
+            ys = []
+            for r in range(n):
+                banks = pipe.get(("ffn", lid, r)) if has_unit else {}
+                (d, cap), x2d = routes[r], h2fs[r]
+                if fallback:
+                    y = full_gather(r)
+                else:
+                    bank = prefetch.gather_demand_payload(shards, plans[r], r, pl,
+                                                          budget=budget, **wire)
+                    y = _remap_and_run(x2d, d, cap, bank.local, bank.fetched, bank.fetched_ids,
+                                       bank.valid, r % g, ctx)
+                    del bank
+                ys.append(_add_shared(y, x2d, lps[r]["moe"], ctx, banks))
+                del banks
+            return ys, None
+        # validated demand: every rank's payload, verification and compact
+        # kernel run; any bad row takes every rank to the full gather
+        ys, shared, bads = [], [], []
+        stats = torch.zeros(faults.FAULT_STAT_BASE + g, device=dev)
         for r in range(n):
             banks = pipe.get(("ffn", lid, r)) if has_unit else {}
             (d, cap), x2d = routes[r], h2fs[r]
-            if fallback:
-                y = _full_gather_moe(x2d, d, cap, shards, r, ctx, group)
-            else:
-                bank = prefetch.gather_demand_payload(shards, plans[r], r, pl, budget=budget,
-                                                      **wire)
-                y = _remap_and_run(x2d, d, cap, bank.local, bank.fetched, bank.fetched_ids,
-                                   bank.valid, r % g, ctx)
-                del bank
-            ys.append(_add_shared(y, x2d, lps[r]["moe"], ctx, banks))
-            del banks
-        return ys, None
+            p = r % g
+            key = site_key("corr", r)
+            bank = prefetch.gather_demand_payload(shards, plans[r], r, pl, budget=budget, **wire,
+                                                  injector=inj, fault_key=key)
+            valid_v, bad = prefetch.verify_rows(bank.fetched, bank.fetched_ids, bank.valid,
+                                                tables[r])
+            ys.append(_remap_and_run(x2d, d, cap, bank.local, bank.fetched, bank.fetched_ids,
+                                     valid_v, p, ctx))
+            shared.append(_shared_out(x2d, lps[r]["moe"], ctx, banks))
+            del bank, banks
+            bads.append(bad.sum())
+            if inj is not None:
+                stats[0:3] += _injected_counts(inj, key, budget, plans[r].valid, p, log,
+                                               site="corr", rank=r, step=_fault_step(ctx, r),
+                                               bad=bad)
+            stats[4] += bads[-1].float()
+            stats[faults.FAULT_STAT_BASE:] += _per_src_detected(bad, min(budget, local), g, p)
+        fault_fb = torch.stack(bads).sum() > 0
+        stats[5] = fault_fb.float()
+        _add_fault_stats(ctx, stats)
+        if ctx.overflowed(plans[0].overflow | fault_fb):
+            ys = [full_gather(r) for r in range(n)]
+        return [_with_shared(y, sh) for y, sh in zip(ys, shared)], None
 
     sync_free = sync_free_active(cfg, geom, xp, group)
     sbudget = min(resolve_spec_budget(cfg, geom, xp, group), local)
     cbudget = min(budget, local)
     spec_plans = _spec_plans(ctx, lid, preds)
-    dev = h2fs[0].device
     diverged = torch.zeros((), dtype=torch.bool, device=dev)
     if sync_free:
         # mirrored-schedule cross-check: each rank's digest of the
@@ -1378,15 +1544,9 @@ def _moe_demand_layer(h2fs: list, lps: list, ctx: Ctx, pipe: BankPipeline, lid, 
     else:
         cache_ids = [pred.cache_ids for pred in preds]
         cache_valid = [pred.cache_valid for pred in preds]
-    spec_valid = [pln.valid & ~diverged for pln in spec_plans]
-    have = [
-        (torch.cat([cache_ids[r], spec_plans[r].fetched_ids]),
-         torch.cat([cache_valid[r], spec_valid[r]]))
-        for r in range(n)
-    ]
-    corr_plans = prefetch.plan_demand_fetch(wanted, pl, budget=cbudget, exclude=have)
-    fallback = ctx.overflowed(corr_plans[0].overflow | diverged)
-    ys, new_preds = [], []
+    stats = torch.zeros(faults.FAULT_STAT_BASE + g, device=dev) if (
+        validate or sync_free) else None
+    ys, shared, ovfs, bad_corrs, residuals, news = [], [], [], [], [], []
     for r in range(n):
         banks = pipe.get(("ffn", lid, r))
         spec = banks["moe/experts"]
@@ -1395,86 +1555,199 @@ def _moe_demand_layer(h2fs: list, lps: list, ctx: Ctx, pipe: BankPipeline, lid, 
         (d, cap), x2d = routes[r], h2fs[r]
         n_cache = cache_ids[r].shape[0]
         n_head = n_cache + (g - 1) * sbudget
+        cache_w = prefetch.tree_map(lambda b: b[:n_cache], spec.landing)
+        if inj is not None and n_cache:
+            # residency-cache rot: the rows went bad in place between steps
+            cache_tamper = inj.cache_mask(site_key("cache", r), n_cache)
+            inj.tamper_rows(cache_w, torch.zeros_like(cache_tamper), cache_tamper)
+            stats[3] += (cache_tamper & cache_valid[r]).sum().float()
+        if validate:
+            # cached and speculative rows are verified before the exclusion
+            # set is built: bad ones fall out of it and the correction
+            # round fetches them again (the in-band repair)
+            cache_valid_v, bad_cache = prefetch.verify_rows(
+                cache_w, cache_ids[r], cache_valid[r], tables[r])
+            spec_valid_v, bad_spec = prefetch.verify_rows(
+                spec.bank.fetched, spec.bank.fetched_ids, spec.bank.valid, tables[r])
+        else:
+            cache_valid_v, spec_valid_v = cache_valid[r], spec.bank.valid
+        spec_valid = spec_valid_v & ~diverged
+        have_ids = torch.cat([cache_ids[r], spec.bank.fetched_ids])
+        have_valid = torch.cat([cache_valid_v, spec_valid])
+        residual = wanted[r] & ~prefetch.exclude_bitmap(e_pad, have_ids, have_valid)
+        c_ids, c_valid, ovf = prefetch.plan_from_bitmap(residual, p, g, local, cbudget)
+        # the payload reads the requester's own row of the exchanged
+        # residual bitmaps; the agreed overflow is taken after every rank
+        corr_plan = prefetch.DemandPlan(masks=residual[None].expand(g, e_pad), fetched_ids=c_ids,
+                                        valid=c_valid, overflow=ovf)
+        corr_key = site_key("corr", r)
         corr = prefetch.gather_demand_payload(
-            shards, corr_plans[r], r, pl, budget=cbudget, **wire,
+            shards, corr_plan, r, pl, budget=cbudget, **wire,
             out=prefetch.tree_map(lambda b: b[n_head:], spec.landing),
+            injector=inj, fault_key=corr_key,
         )
+        if validate:
+            corr_valid_v, bad_corr = prefetch.verify_rows(corr.fetched, corr.fetched_ids,
+                                                          corr.valid, tables[r])
+            bad_corrs.append(bad_corr.sum())
+        else:
+            corr_valid_v = corr.valid
         ids_all = torch.cat([cache_ids[r], spec.bank.fetched_ids, corr.fetched_ids])
-        valid_all = torch.cat([cache_valid[r], spec_valid[r], corr.valid])
-        y = _remap_and_run(x2d, d, cap, shards[r], spec.landing, ids_all, valid_all, p, ctx)
-        if fallback:
-            y = _full_gather_moe(x2d, d, cap, shards, r, ctx, group)
-        ys.append(_add_shared(y, x2d, lps[r]["moe"], ctx, banks))
+        # verified validity throughout: a bad or voided row never maps into
+        # the compact bank and scores -inf in the cache insert below
+        valid_all = torch.cat([cache_valid_v, spec_valid, corr_valid_v])
+        ys.append(_remap_and_run(x2d, d, cap, shards[r], spec.landing, ids_all, valid_all, p,
+                                 ctx))
+        shared.append(_shared_out(x2d, lps[r]["moe"], ctx, banks))
+        ovfs.append(ovf)
+        residuals.append(residual)
 
         # ---- residency-cache insert: keep the EMA-hottest rows of (cache |
         # this step's fetches); ids stay unique by the exclusion chain ----
         neg_inf = torch.full((), -math.inf, device=dev)  # a fill: no host copy
+        new = {}
         if sync_free:
-            # every rank replays every mirror's bookkeeping from the
-            # exchanged schedules and the pre-step mirror EMA
-            masks, resid_all = spec_plans[r].masks, corr_plans[r].masks
-            rep_ids, rep_valid, orders = [], [], []
-            for q in range(g):
-                s_ids, s_valid, _ = prefetch.plan_from_bitmap(masks[q], q, g, local, sbudget)
-                c_ids, c_valid, _ = prefetch.plan_from_bitmap(resid_all[q], q, g, local, cbudget)
-                ids_q = torch.cat([pred.cache_ids[q], s_ids, c_ids])
-                valid_q = torch.cat([pred.cache_valid[q], s_valid & ~diverged, c_valid])
-                score = torch.where(valid_q, pred.ema[q][ids_q], neg_inf)
-                order_q = torch.argsort(-score, stable=True)[:n_cache]
-                rep_ids.append(ids_q[order_q])
-                rep_valid.append(valid_q[order_q])
-                orders.append(order_q)
-            order = orders[p]
-            nc_valid = rep_valid[p]
+            # the rank's own position of the mirrored replay (every
+            # position's bookkeeping follows once every residual is known):
+            # structural validity only, never the local checksum results
+            ids_p, valid_p = _replay_ids(pred, spec_plans[r].masks[p], residual, p, g, local,
+                                         sbudget, cbudget, diverged, xp.exclude_peers)
+            score = torch.where(valid_p, pred.ema[p][ids_p], neg_inf)
+            order = torch.argsort(-score, stable=True)[:n_cache]
+            nc_valid = valid_p[order]
+            new["own"] = (ids_p[order], nc_valid)
         else:
             new_ema = prefetch.EMA_DECAY * pred.ema + (1.0 - prefetch.EMA_DECAY) * wanted[r].float()
             score = torch.where(valid_all, new_ema[ids_all], neg_inf)
             order = torch.argsort(-score, stable=True)[:n_cache]
-            nc_ids, nc_valid = ids_all[order], valid_all[order]
-        nc_w = prefetch.tree_map(
+            nc_valid = valid_all[order]
+            new.update(prev=wanted[r], ema=new_ema, cache_ids=ids_all[order], cache_valid=nc_valid)
+        new["cache"] = prefetch.tree_map(
             lambda w: prefetch.gather_rows(
                 w, order, torch.empty((order.shape[0],) + tuple(w.shape[1:]),
                                       dtype=w.dtype, device=w.device)),
             spec.landing,
         )
+        if sync_free and validate:
+            # the mirrors keep a row that failed its checksum (their
+            # bookkeeping never reads local checks): store it as zeros, which
+            # fail every later check, where a corrupted row corrupted again
+            # (1 - (1 - w)) could round back to within the tolerance of w
+            bad_new = torch.cat([bad_cache, bad_spec, bad_corr])[order]
+            prefetch.tree_map(lambda w: w.masked_fill_(bad_new.view((-1,) + (1,) * (w.dim() - 1)), 0),
+                              new["cache"])
 
         # ---- hit/miss accounting over the wanted remote rows ----
         local_mask = torch.zeros(e_pad, dtype=torch.bool, device=dev)
         local_mask[p * local:(p + 1) * local] = True
         wanted_remote = wanted[r] & ~local_mask
-        spec_map = prefetch.exclude_bitmap(e_pad, spec.bank.fetched_ids, spec_valid[r])
-        cache_map = prefetch.exclude_bitmap(e_pad, cache_ids[r], cache_valid[r])
-        n_pred = spec.bank.valid.sum().float()
+        spec_map = prefetch.exclude_bitmap(e_pad, spec.bank.fetched_ids, spec_valid)
+        cache_map = prefetch.exclude_bitmap(e_pad, cache_ids[r], cache_valid_v)
         n_new = spec.bank.valid.sum() + corr.valid.sum()
-        evicted = torch.clamp(cache_valid[r].sum() + n_new - nc_valid.sum(), min=0).float()
-        zero = torch.zeros((), device=dev)
-        if fallback:
-            # the full gather served every wanted remote row: no hits
-            stats = torch.stack([n_pred, zero, zero, wanted_remote.sum().float(), evicted])
-        else:
-            stats = torch.stack([
-                n_pred,
-                (wanted_remote & spec_map & ~cache_map).sum().float(),
-                (wanted_remote & cache_map).sum().float(),
-                corr.valid.sum().float(),
-                evicted,
-            ])
+        new["counts"] = (
+            spec.bank.valid.sum().float(),
+            (wanted_remote & spec_map & ~cache_map).sum().float(),
+            (wanted_remote & cache_map).sum().float(),
+            corr.valid.sum().float(),
+            wanted_remote.sum().float(),
+            torch.clamp(cache_valid[r].sum() + n_new - nc_valid.sum(), min=0).float(),
+        )
         if sync_free:
             k_top = d.top_experts.shape[-1]
-            routed = prefetch.routed_bitmaps(
-                torch.where(d.keep.reshape(-1, k_top), d.top_experts, e_pad), e_pad
-            )
+            new["routed"] = prefetch.routed_bitmaps(
+                torch.where(d.keep.reshape(-1, k_top), d.top_experts, e_pad), e_pad)
+        news.append(new)
+        if validate:
+            if inj is not None:
+                step = _fault_step(ctx, r)
+                if log is not None and n_cache:
+                    log.append({"site": "cache", "rank": r, "step": step, "budget": n_cache,
+                                "masks": (cache_tamper,), "valid": cache_valid[r],
+                                "bad": bad_cache})
+                stats[0:3] += _injected_counts(inj, site_key("spec", r), sbudget,
+                                               spec.bank.valid, p, log, site="spec", rank=r,
+                                               step=step, bad=bad_spec)
+                stats[0:3] += _injected_counts(inj, corr_key, budget, corr.valid, p, log,
+                                               site="corr", rank=r, step=step, bad=bad_corr)
+            stats[4] += (bad_cache.sum() + bad_spec.sum() + bad_corr.sum()).float()
+            # payload rows by the peer-major layout, cache rows by the
+            # position owning the expert id
+            stats[faults.FAULT_STAT_BASE:] += (
+                _per_src_detected(bad_spec, sbudget, g, p)
+                + _per_src_detected(bad_corr, cbudget, g, p)
+                + torch.zeros(g, device=dev).index_add_(0, cache_ids[r] // local,
+                                                        bad_cache.float()))
+        del banks, spec, corr, cache_w
+
+    flag = torch.stack(ovfs).any() | diverged
+    if validate:
+        # a bad correction row has no later round to fall to: the agreed
+        # flag takes the full gather, as an overflow does
+        fault_fb = torch.stack(bad_corrs).sum() > 0
+        stats[5] = fault_fb.float()
+        flag = flag | fault_fb
+    if stats is not None:
+        stats[6] = diverged.float()
+        _add_fault_stats(ctx, stats)
+    fallback = ctx.overflowed(flag)
+    if fallback:
+        ys = [full_gather(r) for r in range(n)]
+    ys = [_with_shared(y, sh) for y, sh in zip(ys, shared)]
+
+    new_preds = []
+    for r in range(n):
+        pred, p, new = preds[r], r % g, news[r]
+        n_pred, n_spec, n_cache_hit, n_corr, n_want, evicted = new["counts"]
+        if fallback:
+            # the full gather served every wanted remote row: no hits
+            stats_r = torch.stack([n_pred, zero, zero, n_want, evicted])
+        else:
+            stats_r = torch.stack([n_pred, n_spec, n_cache_hit, n_corr, evicted])
+        if sync_free:
+            # every rank replays every mirror's bookkeeping from the
+            # exchanged schedules and residuals and the pre-step mirror EMA
+            members = prefetch.subgroup_ranks(r, pl)
+            rep_ids, rep_valid = [], []
+            n_cache = cache_ids[r].shape[0]
+            neg_inf = torch.full((), -math.inf, device=dev)
+            for q in range(g):
+                if q == p:
+                    rep_ids.append(new["own"][0])
+                    rep_valid.append(new["own"][1])
+                    continue
+                ids_q, valid_q = _replay_ids(pred, spec_plans[r].masks[q], residuals[members[q]],
+                                             q, g, local, sbudget, cbudget, diverged,
+                                             xp.exclude_peers)
+                score = torch.where(valid_q, pred.ema[q][ids_q], neg_inf)
+                order_q = torch.argsort(-score, stable=True)[:n_cache]
+                rep_ids.append(ids_q[order_q])
+                rep_valid.append(valid_q[order_q])
             new_preds.append(pred._replace(
                 cache_ids=torch.stack(rep_ids), cache_valid=torch.stack(rep_valid),
-                cache=nc_w, stats=stats, routed=routed,
+                cache=new["cache"], stats=stats_r, routed=new["routed"],
             ))
         else:
             new_preds.append(pred._replace(
-                prev=wanted[r], ema=new_ema, cache_ids=nc_ids, cache_valid=nc_valid,
-                cache=nc_w, stats=stats,
+                prev=new["prev"], ema=new["ema"], cache_ids=new["cache_ids"],
+                cache_valid=new["cache_valid"], cache=new["cache"], stats=stats_r,
             ))
-        del banks, spec, corr
     return ys, new_preds
+
+
+def _replay_ids(pred, mask_q, resid_q, q: int, g: int, local: int, sbudget: int, cbudget: int,
+                diverged, exclude_peers: tuple):
+    """Sync-free: position ``q``'s candidate cache rows (ids and structural
+    validity, ``[cache | speculative | correction]``) from the mirror, the
+    derived speculative schedule and the exchanged residual bitmap; an
+    excluded peer's rows are never cached (they would go stale while the
+    peer is distrusted)."""
+    s_ids, s_valid, _ = prefetch.plan_from_bitmap(mask_q, q, g, local, sbudget)
+    c_ids, c_valid, _ = prefetch.plan_from_bitmap(resid_q, q, g, local, cbudget)
+    ids_q = torch.cat([pred.cache_ids[q], s_ids, c_ids])
+    valid_q = torch.cat([pred.cache_valid[q], s_valid & ~diverged, c_valid])
+    for peer in exclude_peers:
+        valid_q = valid_q & (ids_q // local != int(peer) % g)
+    return ids_q, valid_q
 
 
 # ==========================================================================
@@ -1683,7 +1956,7 @@ def forward_prefill(params: list[dict], tokens: torch.Tensor, ctx: Ctx) -> dict:
 @torch.no_grad()
 def forward_decode(params: list[dict], token: torch.Tensor, state: dict, ctx: Ctx) -> dict:
     """token: (B, 1) -> {"next_token": (B, 1), "state", "logits": (B, vocab_pad),
-    "overflow", "overflow_layers"[, "pred_stats"]}.
+    "overflow", "overflow_layers"[, "pred_stats"][, "fault_stats"]}.
 
     Each rank holds its block of rows (sharded over ``batch_axes``, the
     data axis; replicated over the model group) and its slice of their KV
@@ -1725,6 +1998,11 @@ def forward_decode(params: list[dict], token: torch.Tensor, state: dict, ctx: Ct
     out = {"next_token": nxt[:, None], "state": new_state,
            "logits": torch.cat(logit_blocks, dim=0),
            "overflow": ctx.overflow, "overflow_layers": ctx.overflow_layers}
+    if fault_stats_active(ctx.model, xp):
+        # [injected drop / zero / corrupt / cache, detected, fault
+        # fallbacks, mirror divergence, detected by source position...]
+        out["fault_stats"] = (ctx.fault_stats if ctx.fault_stats is not None else torch.zeros(
+            faults.FAULT_STAT_BASE + ctx.geom.moe_placement.subgroup_size, device=token.device))
     if new_preds:
         new_preds = _fold_mirrors(new_preds, state["pred"], ctx)
         new_state["pred"] = new_preds

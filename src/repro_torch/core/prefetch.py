@@ -46,6 +46,11 @@ order, the axis-agreed overflow flag an ``any`` over every rank, and a
 payload a row gather (:func:`gather_rows`) of the requested rows of each
 peer's resident shard into the requester's landing buffer. Expert ids
 are int64.
+
+The validated fetch (:func:`row_checksums`, :func:`checksum_table`,
+:func:`verify_rows`) re-checksums every fetched or cached expert row
+against the owners' table; ``gather_demand_payload`` takes a
+``faults.FaultInjector`` that tampers the arrived rows.
 """
 from __future__ import annotations
 
@@ -395,7 +400,8 @@ def plan_demand_fetch(wanted: list, placement: Placement, *, budget: int,
 
 def gather_demand_payload(shards: list, plan: DemandPlan, rank: int, placement: Placement, *,
                           budget: int, mode: str = "allgather", num_slices: int = 4,
-                          out: Any = None, copy_stream=None) -> DemandBank:
+                          out: Any = None, copy_stream=None, injector: Any = None,
+                          fault_key: Any = None) -> DemandBank:
     """Round 2 — the payload for ``rank``: each subgroup peer serves the
     rows this rank asked it for out of its resident shard (the sender-side
     compaction of ``plan.masks``, which every rank holds identically),
@@ -405,7 +411,13 @@ def gather_demand_payload(shards: list, plan: DemandPlan, rank: int, placement: 
     ``copy_stream`` when one is given. A payload is point to point, so
     ``ring`` shares ``allgather``'s direct schedule, as in the JAX package;
     ``ring_sliced`` gathers each peer's rows in ``num_slices`` column
-    slices of the last dimension."""
+    slices of the last dimension.
+
+    ``injector`` / ``fault_key`` (optional): a ``faults.FaultInjector`` and
+    the site key it draws from; the landed rows are tampered in place with
+    its drop / zero / corrupt masks (after the copies, on their stream),
+    the wire faults the caller's checksum verification must catch. The
+    caller recomputes the same masks from the same key to count them."""
     _check_transport(mode)
     g, local = placement.subgroup_size, placement.local_count
     budget = min(budget, local)
@@ -447,17 +459,30 @@ def gather_demand_payload(shards: list, plan: DemandPlan, rank: int, placement: 
 
     peers = [shards[r] for r, _ in idx_by_t]
     fetched = tree_map(land, own, *peers, *(() if out is None else (out,)))
+    if injector is not None:
+        on_side = (torch.cuda.stream(copy_stream) if copy_stream is not None
+                   else contextlib.nullcontext())
+        with on_side:
+            drop, zero, corrupt = injector.payload_masks(fault_key, budget, p)
+            injector.tamper_rows(fetched, drop | zero, corrupt)
+        if copy_stream is not None:
+            # the key was drawn on the current stream: keep its memory until
+            # the copy stream has read it
+            fault_key.record_stream(copy_stream)
     return DemandBank(local=own, fetched=fetched, fetched_ids=plan.fetched_ids, valid=plan.valid)
 
 
 def predict_bitmap(prev: torch.Tensor, ema: torch.Tensor, placement: Placement, *,
                    budget: int, exclude_ids: Any = None, exclude_valid: Any = None,
-                   extra_score: Any = None) -> torch.Tensor:
+                   extra_score: Any = None, exclude_peers: tuple = ()) -> torch.Tensor:
     """The speculative round's predicted bitmap: per subgroup slice the
     top-``budget`` experts by score — previous-step activation (+2), EMA
     frequency, the optional ``extra_score`` — minus the excluded
     (cache-resident) rows. Cold experts (score 0) are never predicted.
-    Ties go to the lower expert id, as XLA's top-k does."""
+    Ties go to the lower expert id, as XLA's top-k does. ``exclude_peers``:
+    subgroup positions whose experts are left out of the speculative
+    schedule (the degradation ladder's per-peer exclusion rung: their rows
+    ride the validated correction round instead)."""
     e_pad, local, g = placement.num_padded, placement.local_count, placement.subgroup_size
     budget = min(budget, local)
     score = prev.float() * 2.0 + ema
@@ -467,6 +492,8 @@ def predict_bitmap(prev: torch.Tensor, ema: torch.Tensor, placement: Placement, 
         score = torch.where(exclude_bitmap(e_pad, exclude_ids, exclude_valid),
                             torch.zeros((), device=score.device), score)
     rows = score.reshape(g, local)
+    for peer in exclude_peers:  # ``score`` is this call's own tensor
+        rows[int(peer) % g] = 0.0
     top_idx = torch.argsort(-rows, dim=-1, stable=True)[:, :budget]
     top_vals = torch.gather(rows, 1, top_idx)
     ids = (torch.arange(g, device=rows.device)[:, None] * local + top_idx).reshape(-1)
@@ -555,12 +582,6 @@ def schedule_digest(masks: torch.Tensor) -> torch.Tensor:
 # gathered_wire_bytes_per_step``). What the landing copies really moved is
 # ``LANDED``.
 # ==========================================================================
-def _no_validation(validate: bool) -> None:
-    if validate:
-        raise NotImplementedError(
-            "the validated fetch (checksum tables riding the index round) is not ported yet")
-
-
 def gather_bytes(placement: Placement, bytes_per_expert: int) -> int:
     """Remote expert bytes one rank pulls per layer under the full gather
     (the split and merged layouts ship the same wire bytes)."""
@@ -573,12 +594,13 @@ def demand_fetch_bytes(placement: Placement, budget: int, bytes_per_expert: int,
     round's ``(G'-1) * budget`` padded expert rows plus the index round's
     bitmap (1 byte per expert from each subgroup peer), capped at the full
     remote gather, so the demand counters never exceed the all-fetch
-    counterfactual."""
-    _no_validation(validate)
+    counterfactual. ``validate`` adds the f32 checksum table (4 bytes per
+    expert from each subgroup peer) riding the index round."""
     g = placement.subgroup_size
     budget = min(budget, placement.local_count)
+    meta = placement.num_padded * (5 if validate else 1)
     full = (g - 1) * placement.local_count * bytes_per_expert
-    return min(full, (g - 1) * (budget * bytes_per_expert + placement.num_padded))
+    return min(full, (g - 1) * (budget * bytes_per_expert + meta))
 
 
 def sync_free_fetch_bytes(placement: Placement, spec_budget: int, corr_budget: int, rows: int,
@@ -587,16 +609,18 @@ def sync_free_fetch_bytes(placement: Placement, spec_budget: int, corr_budget: i
     ``{"spec", "corr"}``: the speculative round is pure payload (both ends
     derive its schedule from the mirrored predictor); the correction round
     carries its payload and the residual bitmap (1 byte per expert from
-    each subgroup peer). The mirror signals ship once per step
+    each subgroup peer) and, when ``validate``, the f32 checksum table
+    that rides the same round. The mirror signals ship once per step
     (:func:`sync_free_mirror_bytes`). ``rows`` is unused, as in the JAX
     package's formula."""
-    _no_validation(validate)
     g = placement.subgroup_size
+    e = placement.num_padded
     sb = min(spec_budget, placement.local_count)
     cb = min(corr_budget, placement.local_count)
+    meta = e + (4 * e if validate else 0)
     return {
         "spec": (g - 1) * sb * bytes_per_expert,
-        "corr": (g - 1) * (cb * bytes_per_expert + placement.num_padded),
+        "corr": (g - 1) * (cb * bytes_per_expert + meta),
     }
 
 
@@ -607,3 +631,146 @@ def sync_free_mirror_bytes(placement: Placement, rows: int) -> int:
     sync-free layer of the step."""
     g = placement.subgroup_size
     return (g - 1) * (rows * placement.num_padded + rows * N_POS_BUCKETS)
+
+
+# ==========================================================================
+# Payload validation: per-row checksums against the owners' table.
+# ==========================================================================
+#: Relative / absolute tolerance of the checksum compare. The checksum is a
+#: positionally weighted sum of squared elements in f32; its two ends may
+#: reduce in different orders, so exact equality is wrong, but every
+#: modelled fault (a zeroed, dropped or ``w -> 1 - w`` row) moves it by
+#: orders of magnitude more than f32 rounding. Corruption below the
+#: tolerance is out of scope, as hash collisions are for real checksums.
+CHECKSUM_RTOL = 1e-2
+CHECKSUM_ATOL = 1e-6
+#: The positional weights' period: weight ``i % 61 + 1`` on flat element i.
+_CS_PERIOD = 61
+#: Elements of one leaf reduced at once: bounds the f32 temporary where a
+#: reduction upcasts by copying (the CPU); on CUDA the bf16 norm reads its
+#: input in place and accumulates in f32.
+_CS_CHUNK = 1 << 27
+
+
+def _cs_weights(n: int, device=None) -> torch.Tensor:
+    """The positional weights ``i % 61 + 1`` of ``n`` flat elements: an
+    exchange of unequal elements within a row moves the checksum too."""
+    return torch.arange(n, dtype=torch.float32, device=device) % float(_CS_PERIOD) + 1.0
+
+
+def _leaf_checksums(w: torch.Tensor) -> torch.Tensor:
+    """``(rows,)`` f32 ``sum_i (i % 61 + 1) * w[r, i]**2`` of one leaf. The
+    first ``block * m`` elements of a row (``block`` a multiple of 61, up to
+    61 x 32 = 1952 contiguous elements), seen as ``(m, block)``, reduce per
+    column with an f32 2-norm (its square is the column's sum of squares),
+    and column ``j`` takes weight ``j % 61 + 1``; the tail of fewer than
+    ``block`` elements is summed directly. Rows go in chunks of at most
+    :data:`_CS_CHUNK` elements, so no f32 copy of a whole payload exists."""
+    rows = w.shape[0]
+    flat = w.reshape(rows, -1)
+    n = flat.shape[1]
+    block = _CS_PERIOD * max(1, min(32, n // (_CS_PERIOD * 64)))
+    main = n - n % block
+    k = _cs_weights(block, w.device)
+    step = max(1, _CS_CHUNK // max(1, n))
+    parts = []
+    for i in range(0, rows, step):
+        x = flat[i:i + step]
+        s = torch.zeros(x.shape[0], dtype=torch.float32, device=w.device)
+        if main:
+            cols = torch.linalg.vector_norm(x[:, :main].reshape(x.shape[0], main // block, block),
+                                            dim=1, dtype=torch.float32)
+            s = (cols * cols * k).sum(dim=1)
+        if n > main:
+            tail = x[:, main:].float()
+            s = s + (tail * tail * k[:n - main]).sum(dim=1)
+        parts.append(s)
+    return torch.cat(parts) if parts else torch.zeros(0, dtype=torch.float32, device=w.device)
+
+
+def row_checksums(tree: PyTree) -> torch.Tensor:
+    """``(rows,)`` f32 checksum per leading-dim row of a weight tree: over
+    its leaves (in key order), the positionally weighted sum of squared
+    elements (the JAX package's ``row_checksums``; squares make any nonzero
+    row's checksum positive, so zeroed and dropped rows never match)."""
+    if isinstance(tree, dict):
+        total = None
+        for key in sorted(tree):
+            s = row_checksums(tree[key])
+            total = s if total is None else total + s
+        assert total is not None, "row_checksums of an empty tree"
+        return total
+    return _leaf_checksums(tree)
+
+
+def checksum_table(shards: list, rank: int, placement: Placement) -> torch.Tensor:
+    """The checksum wire format of ``rank``'s subgroup: each member's
+    ``(local,)`` checksums of its resident rows, concatenated in position
+    order into the canonical ``(num_padded,)`` table (position ``o`` owns
+    ids ``[o * local, (o + 1) * local)``) — the JAX package's all-gather of
+    the resident checksums. 4 bytes per expert, counted in the index
+    round's bytes (``demand_fetch_bytes(validate=True)``)."""
+    parts = [row_checksums(shards[q]) for q in subgroup_ranks(rank, placement)]
+    return torch.cat(parts)[:placement.num_padded]
+
+
+def verify_rows(tree: PyTree, ids: torch.Tensor, valid: torch.Tensor,
+                table: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Re-checksum arrived or cached rows against the owners' table:
+    ``(verified_valid, bad)``, where ``verified_valid`` is ``valid`` with the
+    mismatched rows masked out (they go to the correction round or the
+    full-gather fallback, the repair) and ``bad`` flags exactly the valid
+    but mismatched rows (the detection counters). Padding rows (``valid``
+    False) are never flagged."""
+    if valid.shape[0] == 0:
+        return valid, valid
+    got = row_checksums(tree)
+    want = table[ids]
+    ok = torch.abs(got - want) <= CHECKSUM_RTOL * torch.abs(want) + CHECKSUM_ATOL
+    bad = valid & ~ok
+    return valid & ok, bad
+
+
+@torch.no_grad()
+def attach_checksum_tables(params: list, model) -> list:
+    """Store every MoE layer's checksum table in the weight set, once:
+    ``lp["moe"]["checksums"]``, the ``(num_padded,)`` f32 table of the
+    rank's subgroup (``(n_cycles, num_padded)`` in a scanned group), on
+    the weights' device. The JAX package rebuilds the table from the
+    resident rows in every validated layer of every step; no fault it
+    models touches a resident row, so the table of a weight set is the same
+    bits at every step, and building it once spares each step a read of
+    every resident expert (at DeepSeek-R1 width 4 ranks x 64 rows x 88 MB,
+    22.5 GB per MoE layer). Returns ``params``; tables already present are
+    kept."""
+    pl = model.geom.moe_placement
+    if model.cfg.moe is None or pl is None:
+        return params
+    local_cs: dict = {}  # one checksum pass per distinct resident tensor
+
+    def local(tree, c=None) -> torch.Tensor:
+        key = (id(tree["w_gate"]), c)  # the params hold the tensors: ids stay unique
+        if key not in local_cs:
+            local_cs[key] = row_checksums(tree if c is None else {k: v[c] for k, v in tree.items()})
+        return local_cs[key]
+
+    for group in model.plan:
+        for j, sig in enumerate(group.sigs):
+            if not sig.is_moe:
+                continue
+            lps = [p["layers"][group.name][f"pos{j}"] for p in params]
+            if all("checksums" in lp["moe"] for lp in lps):
+                continue
+            shared: dict = {}  # one table per subgroup, shared like the weights
+            for r, lp in enumerate(lps):
+                members = [lps[q]["moe"]["experts"] for q in subgroup_ranks(r, pl)]
+                key = tuple(id(m["w_gate"]) for m in members)
+                if key not in shared:
+                    if group.scan:
+                        shared[key] = torch.stack([
+                            torch.cat([local(m, c) for m in members])[:pl.num_padded]
+                            for c in range(group.n_cycles)])
+                    else:
+                        shared[key] = torch.cat([local(m) for m in members])[:pl.num_padded]
+                lp["moe"]["checksums"] = shared[key]
+    return params

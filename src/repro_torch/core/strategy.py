@@ -4,9 +4,12 @@ The port of ``repro.core.strategy``: ``GatherPolicy`` / ``PolicyTable``
 (the per-family configuration surface — ``moe_experts``, ``attn_qkv``,
 ``attn_out``, ``dense_ffn`` — with per-layer-group overrides keyed
 ``"group/family"``), ``ExecutionPlan``, ``plan_activation_sharding``,
-``make_execution_plan`` (with the deprecated flat knobs), and the
-roofline-guided resolver of ``policy="auto"`` / ``"auto-online"``
-(:func:`resolve_policies`, :func:`effective_policies`). The port runs the
+``make_execution_plan`` (with the deprecated flat knobs and the fault
+arguments: ``fault_spec``, ``validate_fetch``, ``exclude_peers``), the
+fault-degradation ladder (:func:`degrade_policy_table`,
+:func:`degradation_ladder`), and the roofline-guided resolver of
+``policy="auto"`` / ``"auto-online"`` (:func:`resolve_policies`,
+:func:`effective_policies`). The port runs the
 modes ``dwdp``, ``dep`` and ``hybrid`` (``replicated`` is refused) and every
 policy: both layouts (``split``, ``merged``), the three transports
 (``allgather``, ``ring``, ``ring_sliced`` with ``num_slices``) and, for
@@ -287,6 +290,25 @@ class ExecutionPlan:
     # layer, or "qgather": keep them sharded and move q/k/v instead
     decode_attn: str = "gather"
     capacity_from: str = "local"
+    # a core.faults.FaultSpec injected into the route-before-gather fetch
+    # rounds (None: no injection); it implies validate_fetch
+    fault_spec: Optional[Any] = None
+    # checksum-validate every fetched and cached expert row (without
+    # injection: the production hardening switch); faulty rows are masked
+    # invalid and repaired through the correction round or the full-gather
+    # fallback, so outputs stay bitwise exact, and each decode step reports
+    # its fault counters ("fault_stats")
+    validate_fetch: bool = False
+    # subgroup positions dropped from the speculative plan and the sync-free
+    # cache bookkeeping (the degradation ladder's "+excl" rung): their rows
+    # ride the validated correction round
+    exclude_peers: tuple = ()
+
+    @property
+    def validated(self) -> bool:
+        """Does the route-before-gather fetch validate its payloads
+        (checksums, verification, repair, fault counters)?"""
+        return self.fault_spec is not None or self.validate_fetch
 
     def policy(self, family: str, group: Optional[str] = None) -> GatherPolicy:
         """The policy of ``family`` (within layer group ``group``)."""
@@ -683,6 +705,9 @@ def make_execution_plan(
     capacity_from: str = "local",
     hw=None,
     weight_bytes: int = 1,
+    fault_spec=None,
+    validate_fetch: bool = False,
+    exclude_peers: tuple = (),
     # -- deprecated flat knobs (build a uniform PolicyTable) --------------
     prefetch: Optional[str] = None,
     num_slices: Optional[int] = None,
@@ -698,7 +723,11 @@ def make_execution_plan(
     ``roofline.GB200``) at ``weight_bytes`` per weight (default 1) by
     :func:`resolve_policies`; the deprecated flat knobs build a uniform
     table instead (a ``DeprecationWarning``; conflicting with ``policy`` or
-    with each other is a ``ValueError``), as in the JAX package."""
+    with each other is a ``ValueError``), as in the JAX package.
+    ``fault_spec`` (a ``faults.FaultSpec`` or its ``--fault-spec`` string)
+    injects faults into the fetch rounds and implies ``validate_fetch``;
+    ``exclude_peers`` names the subgroup positions of the ladder's
+    exclusion rung."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     if mode not in PORTED_MODES:
@@ -734,6 +763,10 @@ def make_execution_plan(
         if g not in known_groups:
             raise ValueError(f"policy override names unknown layer group {g!r} (for family "
                              f"{fam!r}); this model's groups are {sorted(known_groups)}")
+    if isinstance(fault_spec, str):
+        from repro_torch.core.faults import FaultSpec
+
+        fault_spec = FaultSpec.parse(fault_spec)
     batch_axes, seq_axes = plan_activation_sharding(model.cfg, shape, mesh_sizes)
     return ExecutionPlan(
         mode=mode,
@@ -747,4 +780,64 @@ def make_execution_plan(
         policies=table,
         decode_attn=decode_attn,
         capacity_from=capacity_from,
+        fault_spec=fault_spec,
+        validate_fetch=bool(validate_fetch),
+        exclude_peers=tuple(int(p) for p in exclude_peers),
     )
+
+
+# --------------------------------------------------------------------------
+# The fault-degradation ladder.
+# --------------------------------------------------------------------------
+#: Expert fetches from the most aggressive (most per-peer payload rounds,
+#: most fetch savings, most exposure to peer faults) to the least. The
+#: ``HealthMonitor`` demotes a serving table down this ladder when a peer
+#: turns persistently bad and promotes it back on recovery.
+_FETCH_RANK = {"sync_free": 0, "predictive": 1, "demand": 2, "all": 3}
+
+
+def degrade_policy_table(table: PolicyTable, fetch: str) -> PolicyTable:
+    """``table`` with every entry whose expert fetch is more aggressive than
+    ``fetch`` rewritten down to ``fetch`` (entries at or below it are
+    untouched): demotion to ``"demand"`` drops the residency cache,
+    demotion to ``"all"`` the demand budget too, keeping layout and
+    transport."""
+    if fetch not in _FETCH_RANK:
+        raise ValueError(f"unknown fetch {fetch!r}; expected one of {tuple(_FETCH_RANK)}")
+
+    def demote(pol: GatherPolicy) -> GatherPolicy:
+        if _FETCH_RANK[pol.fetch] >= _FETCH_RANK[fetch]:
+            return pol
+        if fetch == "all":
+            return GatherPolicy(layout=pol.layout, transport=pol.transport,
+                                num_slices=pol.num_slices)
+        return dataclasses.replace(pol, fetch=fetch, cache_budget=0)
+
+    return PolicyTable(
+        default=demote(table.default),
+        families=tuple((n, demote(p)) for n, p in table.families),
+        overrides=tuple((g, n, demote(p)) for g, n, p in table.overrides),
+    )
+
+
+def degradation_ladder(table: PolicyTable) -> tuple:
+    """The fault-degradation ladder of a resolved table: ``((label, table,
+    exclude_peers), ...)`` from level 0 (as configured) down to the
+    all-gather floor and the terminal ``"reshard"`` rung, no-op levels
+    collapsed; labels name the expert fetch each level runs. A predictive
+    or sync-free root gets a ``"<fetch>+excl"`` rung right below it: the
+    same table with the bad peers left out of the speculative plan and the
+    cache bookkeeping (``None``: the engine names the peers, from its
+    ``HealthMonitor``, when it steps onto the rung). ``"reshard"`` runs the
+    all-gather table over the survivors of a rank death; fail-silent
+    demotions stop above it."""
+    root_fetch = table.family("moe_experts").fetch
+    out: list = [(root_fetch, table, ())]
+    if root_fetch in ("predictive", "sync_free"):
+        out.append((f"{root_fetch}+excl", table, None))
+    for fetch in ("demand", "all"):
+        t = degrade_policy_table(table, fetch)
+        if t != out[-1][1]:
+            out.append((fetch, t, ()))
+    out.append(("reshard", degrade_policy_table(table, "all"), ()))
+    return tuple(out)

@@ -25,6 +25,10 @@ captured CUDA graph unless the caller passes ``graphs=False``.
     python -m repro_torch.launch.serve --arch deepseek-r1 --gen-mode dwdp --policy auto
     python -m repro_torch.launch.serve --arch deepseek-r1 --gen-mode dwdp \
         --policy auto-online --switch-interval 2
+    python -m repro_torch.launch.serve --arch deepseek-r1 --gen-mode dwdp \
+        --expert-fetch predictive --fault-spec 'seed=3,drop=0.1,corrupt=0.05,peers=2'
+    python -m repro_torch.launch.serve --arch deepseek-r1 --gen-mode dwdp \
+        --expert-fetch demand --validate-fetch
 
 Gather policies are set per weight family (``moe_experts``, ``attn_qkv``,
 ``attn_out``, ``dense_ffn``, ``default``; ``group/family`` for one layer
@@ -43,6 +47,13 @@ On the card both resolve for that card (``roofline.card_view`` over the
 logical ranks, the model's weight bytes); on the CPU for the JAX
 package's default, GB200 with 1-byte weights.
 
+Fault tolerance: ``--fault-spec`` injects seeded faults into the
+route-before-gather fetch rounds (outputs stay bitwise exact through the
+checksum repair), ``--validate-fetch`` validates without injecting, and
+a ``HealthMonitor`` (``--health-decay``, ``--health-demote``,
+``--health-promote``, ``--health-dwell``; off with ``--no-health``) walks
+the generation server down its degradation ladder and back.
+
 The first runs the engine's fixed loop; ``--serving`` serves a seeded
 workload through ``ServingScheduler`` and ``LiveReplicaClient`` behind
 ``MultiReplicaEngine``'s router. The configuration is the architecture's
@@ -59,6 +70,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, reduced_variant
+from repro_torch.core.faults import FaultSpec
+from repro_torch.core.prefetch import attach_checksum_tables
 from repro_torch.core.strategy import AUTO_POLICIES, PolicyTable, resolve_policy
 from repro_torch.models.transformer import build_model
 from repro_torch.runtime.engine import (
@@ -66,6 +79,7 @@ from repro_torch.runtime.engine import (
     DisaggregatedEngine,
     GenerationServer,
     GraphSpace,
+    HealthMonitor,
     OnlinePolicyScheduler,
     Request,
     decode_axes,
@@ -173,6 +187,9 @@ def build_engine(
     hw=None,
     weight_bytes: Optional[int] = None,
     switch_interval: int = 8,
+    fault_spec=None,
+    validate_fetch: bool = False,
+    health: Optional[HealthMonitor] = None,
 ):
     """Returns ``(DisaggregatedEngine, model)``.
 
@@ -206,7 +223,12 @@ def build_engine(
     server's policy variants (the reference's arguments). ``graphs``
     (default: on a CUDA device) captures every step as a CUDA graph, all
     of the engine's graphs in one memory pool (``runtime.engine.
-    GraphSpace``); ``graphs=False`` keeps the eager steps, for comparison."""
+    GraphSpace``); ``graphs=False`` keeps the eager steps, for comparison.
+    ``fault_spec`` (a ``faults.FaultSpec`` or its ``--fault-spec`` string)
+    and ``validate_fetch`` run the validated fetch on both servers, against
+    the experts' checksum tables of the weight set (built once here when
+    ``params`` lack them); ``health`` puts a ``HealthMonitor`` on the
+    engine, which walks the degradation ladder."""
     sizes = {"data": mesh_shape[0], "model": mesh_shape[1]}
     n_ranks = max(1, mesh_shape[0] * mesh_shape[1])
     cache_len = -(-cache_len // n_ranks) * n_ranks
@@ -216,6 +238,8 @@ def build_engine(
         params = model.init_params(torch.Generator(device=model.device).manual_seed(seed))
     elif len(params) != model.n_ranks:
         raise ValueError(f"params hold {len(params)} ranks, the model has {model.n_ranks}")
+    else:
+        attach_checksum_tables(params, model)
     if graphs is None:
         graphs = model.device.type == "cuda"
     if graphs and model.device.type != "cuda":
@@ -223,7 +247,8 @@ def build_engine(
     space = GraphSpace(model.device) if graphs else None
     fetch = dict(expert_fetch=expert_fetch, demand_budget=demand_budget,
                  cache_budget=cache_budget, policy=policy, weight_layout=weight_layout,
-                 capacity_from=capacity_from, hw=hw, weight_bytes=weight_bytes, space=space)
+                 capacity_from=capacity_from, hw=hw, weight_bytes=weight_bytes,
+                 fault_spec=fault_spec, validate_fetch=validate_fetch, space=space)
     ctx = ContextServer(
         model, sizes, mode=ctx_mode, prefill_len=prefill_len, cache_len=cache_len,
         prefill_buckets=prefill_buckets, **fetch,
@@ -236,7 +261,16 @@ def build_engine(
     if isinstance(policy, str) and policy == "auto-online":
         scheduler = OnlinePolicyScheduler(model, sizes, gen._shape, interval=switch_interval,
                                           hw=gen.hw, weight_bytes=gen.weight_bytes)
-    return DisaggregatedEngine(params, ctx, gen, scheduler=scheduler), model
+    return DisaggregatedEngine(params, ctx, gen, scheduler=scheduler, health=health), model
+
+
+def health_monitor(args) -> Optional[HealthMonitor]:
+    """The ``--health-*`` monitor where the fetch is validated (``--fault-spec``
+    or ``--validate-fetch``) and ``--no-health`` is not given."""
+    if not (args.fault_spec or args.validate_fetch) or args.no_health:
+        return None
+    return HealthMonitor(decay=args.health_decay, demote_threshold=args.health_demote,
+                         promote_threshold=args.health_promote, min_dwell=args.health_dwell)
 
 
 def _engine(args, cfg, policy, *, prefill_len: int, prefill_buckets: tuple = (),
@@ -248,6 +282,8 @@ def _engine(args, cfg, policy, *, prefill_len: int, prefill_buckets: tuple = (),
         device=args.device,
         geom_kwargs=SERVE_GEOMETRY.get(args.arch),
         variant_cache_size=args.variant_cache_size, switch_interval=args.switch_interval,
+        fault_spec=args.fault_spec, validate_fetch=args.validate_fetch,
+        health=health_monitor(args),
     )
 
 
@@ -345,6 +381,24 @@ def main(argv=None) -> dict:
     ap.add_argument("--switch-interval", type=int, default=8,
                     help="decode steps between --policy auto-online's re-resolutions "
                          "against the measured hit rates")
+    ap.add_argument("--fault-spec", default=None, metavar="SPEC",
+                    help="inject seeded fetch faults, e.g. 'seed=3,drop=0.1,corrupt=0.05,"
+                         "peers=2|5' (keys: seed, drop, zero, corrupt, cache, mirror, peers, "
+                         "trace); implies --validate-fetch; outputs stay bitwise exact")
+    ap.add_argument("--validate-fetch", action="store_true",
+                    help="checksum-validate every fetched and cached expert row without "
+                         "injecting faults")
+    ap.add_argument("--health-decay", type=float, default=0.7,
+                    help="HealthMonitor per-peer fault-event EMA decay")
+    ap.add_argument("--health-demote", type=float, default=0.5,
+                    help="per-peer EMA above which the ladder demotes (predictive -> "
+                         "+excl -> demand -> all)")
+    ap.add_argument("--health-promote", type=float, default=0.1,
+                    help="all-peer EMA below which the ladder promotes")
+    ap.add_argument("--health-dwell", type=int, default=2,
+                    help="decode steps between ladder moves")
+    ap.add_argument("--no-health", action="store_true",
+                    help="no HealthMonitor, even with a validated fetch")
     ap.add_argument("--variant-cache-size", type=int, default=16,
                     help="decode variants the generation server keeps captured (LRU)")
     ap.add_argument("--no-warmup", action="store_true",
@@ -387,6 +441,8 @@ def main(argv=None) -> dict:
         cfg = reduced_variant(cfg)
     try:
         check_mesh(cfg, args.mesh, args.max_batch, args.prefill_len + args.output_len)
+        if args.fault_spec:
+            FaultSpec.parse(args.fault_spec)
     except ValueError as err:
         ap.error(str(err))
     if args.serving:
@@ -397,6 +453,11 @@ def main(argv=None) -> dict:
         print(f"warmup: {engine.warmup()} decode variant(s) captured")
     print(f"ctx {engine.ctx.xp.mode} policies:", engine.ctx.xp.policies.describe())
     print(f"gen {engine.gen.xp.mode} policies:", engine.gen.xp.policies.describe())
+    if engine.gen.xp.validated:
+        spec = engine.gen.xp.fault_spec
+        print("validated fetch, faults:", spec.describe() if spec is not None else "none",
+              "ladder:", [label for label, _, _ in engine.gen.ladder],
+              "health monitor:", engine.health is not None)
     if isinstance(policy, str):
         print(f"--policy {policy} resolved for {engine.gen.hw.name} at "
               f"{engine.gen.weight_bytes}-byte weights")
@@ -407,6 +468,9 @@ def main(argv=None) -> dict:
     engine.run(args.output_len * (args.requests // args.max_batch + 2))
     s = engine.metrics.summary(horizon=engine.horizon())
     print("summary (tps_per_gpu counts one card):", s)
+    if engine.gen.xp.validated:
+        print(f"fault fallbacks {engine.gen.fault_fallbacks}, ladder level {engine.gen.level} "
+              f"({engine.gen.fetch_label})")
     for rid, toks in list(engine.outputs.items())[:4]:
         print(f"req {rid}: {toks[:10]}{'...' if len(toks) > 10 else ''}")
     return s

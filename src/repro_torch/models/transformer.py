@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, BlockKind
 from repro_torch.core.placement import Placement, make_placement
+from repro_torch.core.prefetch import attach_checksum_tables
 from repro_torch.models.layers import rope_frequencies
 
 AXIS_MODEL = "model"
@@ -496,7 +497,9 @@ class Model:
     def init_params(self, generator: torch.Generator) -> list[dict]:
         """Random weights for every logical rank, drawn from ``generator``
         (which must live on ``self.device``); the data replicas share the
-        model ranks' tensors (:func:`replicate_over_data`)."""
+        model ranks' tensors (:func:`replicate_over_data`). The experts'
+        checksum tables of the validated fetch are built here, once
+        (``prefetch.attach_checksum_tables``)."""
         cfg, geom, dtype, dev = self.cfg, self.geom, self.dtype, self.device
         sizes = self.sizes
         n = geom.model_size
@@ -530,7 +533,7 @@ class Model:
                     per_rank = init_layer_params(generator, cfg, geom, sig, dtype, dev, sizes)
                 for r in range(n):
                     ranks[r]["layers"][group.name][f"pos{j}"] = per_rank[r]
-        return replicate_over_data(ranks, sizes)
+        return attach_checksum_tables(replicate_over_data(ranks, sizes), self)
 
 
 def build_model(

@@ -4,7 +4,7 @@ engine that moves requests between them.
 
 The port of ``repro.runtime.engine`` (``validate_restore_plan``,
 ``variant_key``, ``CountingStep``, ``PolicyVariantCache``, ``BudgetTuner``,
-``OnlinePolicyScheduler``, ``Request``, ``ContextServer``,
+``OnlinePolicyScheduler``, ``Request``, ``HealthMonitor``, ``ContextServer``,
 ``GenerationServer``, ``DisaggregatedEngine``) for the ``dwdp``, ``dep``
 and ``hybrid`` modes, under any gather-policy table (``policy=``: per
 family and per layer group, split or merged, over any transport; the
@@ -43,9 +43,14 @@ On the CPU, which the tests ask for explicitly, the same deferred steps
 run eagerly. Under ``"auto-online"`` an :class:`OnlinePolicyScheduler`
 re-resolves the decode table before each decode step (active-row bucket,
 measured hit rates, budget rungs); ``warmup`` captures every table it can
-emit. The health monitor and the degradation ladder come later. Times are
-seconds on the host clock, read after the device has finished
-(``torch.cuda.synchronize``).
+emit. The validated fetch (``fault_spec`` / ``validate_fetch``, keyed into
+every variant) reports each decode step's fault counters with the step's
+one host read; a :class:`HealthMonitor` on the engine reads their
+per-peer tail and walks the generation server down its degradation
+ladder (``strategy.degradation_ladder``: the root fetch, the per-peer
+exclusion rung, demand, all) and back, every rung captured in
+``warmup``. Times are seconds on the host clock, read after the device
+has finished (``torch.cuda.synchronize``).
 """
 from __future__ import annotations
 
@@ -63,10 +68,12 @@ import torch
 from repro_torch import counters
 from repro_torch.configs.base import InputShape
 from repro_torch.core import execution, roofline
+from repro_torch.core.faults import FAULT_STAT_BASE, FaultSpec
 from repro_torch.core.placement import subgroup_positions
 from repro_torch.core.strategy import (
     PolicyLike,
     PolicyTable,
+    degradation_ladder,
     make_execution_plan,
     plan_activation_sharding,
     resolve_policies,
@@ -269,23 +276,32 @@ class CountingStep:
         self.graph = self.outputs = self.record = self._params = None
 
 
+def _as_fault_spec(fault_spec) -> Optional[FaultSpec]:
+    return FaultSpec.parse(fault_spec) if isinstance(fault_spec, str) else fault_spec
+
+
 class PolicyVariantCache:
     """Forward-variant cache of one server: :func:`variant_key` -> ``(plan,
     CountingStep)``, built on a miss by ``build(plan)`` and kept LRU up to
     ``max_entries``; an eviction frees the variant's graph. ``stats``
     counts hits, misses and evictions; ``captures()`` counts every capture
     of a step the cache built, evicted ones included, and stays flat after
-    warmup iff serving never captures."""
+    warmup iff serving never captures. The plans carry the cache's fault
+    environment (``fault_spec``, ``validate_fetch``; :meth:`set_faults`
+    changes it) and each entry's peer-exclusion set, and the key carries
+    all three."""
 
     def __init__(self, model: Model, mesh_sizes: dict, shape: InputShape,
                  build: Callable, *, mode: str = "dwdp", capacity_from: str = "local",
-                 max_entries: int = 16):
+                 fault_spec=None, validate_fetch: bool = False, max_entries: int = 16):
         self.model = model
         self._mesh_sizes = mesh_sizes
         self.shape = shape
         self._build = build
         self._mode = mode
         self._capacity_from = capacity_from
+        self.fault_spec = _as_fault_spec(fault_spec)
+        self.validate_fetch = bool(validate_fetch)
         self.max_entries = max(1, int(max_entries))
         self._entries: dict = {}
         self.stats = {"hits": 0, "misses": 0, "evictions": 0}
@@ -306,17 +322,25 @@ class PolicyVariantCache:
     def _captured(self) -> None:
         self.n_captures += 1
 
+    def set_faults(self, fault_spec=None, validate_fetch: bool = False) -> None:
+        """The fault environment of the variants :meth:`get` returns from
+        now on (each one an entry of its own; earlier ones stay cached)."""
+        self.fault_spec = _as_fault_spec(fault_spec)
+        self.validate_fetch = bool(validate_fetch)
+
     def _key(self, table: PolicyTable, excl: tuple, shape: Optional[InputShape]) -> tuple:
-        """The entry key: the cache's mode, then :func:`variant_key`."""
-        return (self._mode, *variant_key(table, shape if shape is not None else self.shape, excl))
+        """The entry key: the cache's mode and fault environment, then
+        :func:`variant_key`."""
+        faults = (None if self.fault_spec is None else self.fault_spec.describe(),
+                  self.validate_fetch)
+        return (self._mode, faults,
+                *variant_key(table, shape if shape is not None else self.shape, excl))
 
     def get(self, table: PolicyTable, excl: tuple = (), shape: Optional[InputShape] = None):
-        """The (plan, step) variant of a policy table, built on a miss.
-        ``shape`` overrides the home shape bucket (the context server's
-        prefill lengths key in through here)."""
-        if excl:
-            raise NotImplementedError(
-                "peer exclusion (the degradation ladder's rungs) is not ported yet")
+        """The (plan, step) variant of a policy table and peer-exclusion set
+        under the cache's fault environment, built on a miss. ``shape``
+        overrides the home shape bucket (the context server's prefill
+        lengths key in through here)."""
         key = self._key(table, excl, shape)
         if key in self._entries:
             self.stats["hits"] += 1
@@ -325,7 +349,9 @@ class PolicyVariantCache:
         self.stats["misses"] += 1
         xp = make_execution_plan(self.model, shape if shape is not None else self.shape,
                                  self._mesh_sizes, mode=self._mode, policy=table,
-                                 capacity_from=self._capacity_from)
+                                 capacity_from=self._capacity_from, fault_spec=self.fault_spec,
+                                 validate_fetch=self.validate_fetch,
+                                 exclude_peers=tuple(int(p) for p in excl))
         entry = (xp, self._build(xp))
         entry[1].on_capture = self._captured
         while len(self._entries) >= self.max_entries:
@@ -433,8 +459,9 @@ class OnlinePolicyScheduler:
     Resolutions are cached by (bucket, quantized rates), so a revisited
     operating point gives the same table and the same captured variant;
     :meth:`candidate_tables` lists what ``DisaggregatedEngine.warmup``
-    captures. The JAX package acts only at its health monitor's level 0;
-    the port has no health monitor, so the scheduler acts at every step."""
+    captures. It moves the server only at ladder level 0
+    (``GenerationServer.set_policy``): a health-degraded server keeps its
+    rung until the monitor promotes it back, as in the JAX package."""
 
     def __init__(self, model: Model, mesh_sizes, shape: InputShape, *,
                  interval: int = 8, ema_decay: float = 0.8, hw=None, weight_bytes: int = 1,
@@ -618,6 +645,68 @@ class Request:
             )
 
 
+class HealthMonitor:
+    """Per-peer fault pressure with hysteresis (the JAX package's, on
+    numpy). Each decode step's per-source detected counts (the tail of the
+    fault-stats vector) feed an EMA of "this peer served a bad row this
+    step" per peer. A peer above ``demote_threshold`` asks for a demotion
+    down the degradation ladder; once every peer is below
+    ``promote_threshold`` the monitor asks for a promotion; ``min_dwell``
+    steps pass between moves, so one bad step cannot flap the policy."""
+
+    def __init__(self, *, decay: float = 0.7, demote_threshold: float = 0.5,
+                 promote_threshold: float = 0.1, min_dwell: int = 2):
+        if not 0.0 < decay < 1.0:
+            raise ValueError(f"decay must be in (0, 1), got {decay}")
+        if promote_threshold >= demote_threshold:
+            raise ValueError("promote_threshold must sit below demote_threshold (hysteresis), "
+                             f"got {promote_threshold} >= {demote_threshold}")
+        self.decay = decay
+        self.demote_threshold = demote_threshold
+        self.promote_threshold = promote_threshold
+        self.min_dwell = min_dwell
+        self.ema = np.zeros(0)
+        self._since_move = min_dwell  # free to act at once
+
+    def observe(self, detected_by_peer) -> Optional[str]:
+        """One step's per-peer detected counts: "demote", "promote" or
+        None."""
+        ev = (np.asarray(detected_by_peer, np.float64) > 0).astype(np.float64)
+        if self.ema.shape != ev.shape:
+            self.ema = np.zeros_like(ev)
+        self.ema = self.decay * self.ema + (1.0 - self.decay) * ev
+        self._since_move += 1
+        if self._since_move <= self.min_dwell or self.ema.size == 0:
+            return None
+        if np.max(self.ema) > self.demote_threshold:
+            self._since_move = 0
+            return "demote"
+        if np.max(self.ema) < self.promote_threshold:
+            self._since_move = 0
+            return "promote"
+        return None
+
+    def worst_peer(self) -> Optional[int]:
+        """The subgroup position under the most pressure (None before any
+        observation)."""
+        if self.ema.size == 0:
+            return None
+        return int(np.argmax(self.ema))
+
+    def bad_peers(self) -> tuple:
+        """The peers the exclusion rung leaves out: every position above
+        ``demote_threshold``, hottest first, or the single worst one where a
+        demotion fired on a step whose decay already brought every EMA under
+        it; never every position (at least one peer stays speculated)."""
+        if self.ema.size == 0:
+            return ()
+        order = np.argsort(-self.ema, kind="stable")
+        hot = [int(p) for p in order if self.ema[p] > self.demote_threshold]
+        if not hot:
+            hot = [int(order[0])]
+        return tuple(hot[: max(1, self.ema.size - 1)])
+
+
 class ContextServer:
     """Prefill worker: returns (first_token, captured decode state).
     ``ContextServer`` prefills one request at a time (global batch 1), so
@@ -634,7 +723,10 @@ class ContextServer:
     ``overflow_layers`` the route-before-gather layers that overflowed in
     them. ``"auto"`` resolves once, at ``prefill_len``, for ``hw`` at
     ``weight_bytes`` (each ``None``: ``roofline.serving_target``), and every
-    bucket runs that table, as in the JAX package."""
+    bucket runs that table, as in the JAX package. ``fault_spec`` /
+    ``validate_fetch`` validate (and inject faults into) the prefill's
+    route-before-gather layers, where they engage; a detected row re-runs
+    the prefill eagerly as an overflow does."""
 
     def __init__(self, model: Model, mesh_sizes: dict, *, mode: str = "dwdp",
                  prefill_len: int, cache_len: int,
@@ -642,7 +734,8 @@ class ContextServer:
                  demand_budget: int = 0, cache_budget: int = 0,
                  policy: PolicyLike = None, weight_layout: Optional[str] = None,
                  prefetch: str = "allgather", hw=None, weight_bytes: Optional[int] = None,
-                 prefill_buckets: tuple = (), space: Optional[GraphSpace] = None):
+                 prefill_buckets: tuple = (), fault_spec=None, validate_fetch: bool = False,
+                 space: Optional[GraphSpace] = None):
         self.model = model
         self.prefill_len = prefill_len
         self.cache_len = cache_len
@@ -670,8 +763,8 @@ class ContextServer:
                 "serve the context phase with mode 'dwdp' (the default) or 'hybrid'")
         self.variants = PolicyVariantCache(
             model, mesh_sizes, shape, self._build,
-            mode=mode, capacity_from=capacity_from,
-            max_entries=max(16, len(self.prefill_lens)),
+            mode=mode, capacity_from=capacity_from, fault_spec=fault_spec,
+            validate_fetch=validate_fetch, max_entries=max(16, len(self.prefill_lens)),
         )
         self._install(prefill_len)
 
@@ -770,7 +863,18 @@ class GenerationServer:
     ``"auto"`` / ``"auto-online"`` resolve at ``max_batch`` rows for ``hw``
     at ``weight_bytes`` (each ``None``: ``roofline.serving_target``); an
     :class:`OnlinePolicyScheduler` moves an ``"auto-online"`` server
-    between tables with :meth:`set_policy`."""
+    between tables with :meth:`set_policy`.
+
+    Faults: ``fault_spec`` / ``validate_fetch`` (:meth:`set_faults`) run
+    the validated fetch; each decode step's counters (the vector of
+    ``faults.FAULT_STAT_NAMES`` and the per-source tail) come back with the
+    step's one host read, as ``last_fault_stats``;
+    ``fault_fallbacks`` counts the steps run again eagerly because a
+    checksum failed. ``ladder`` is the degradation ladder of the installed
+    table (``strategy.degradation_ladder``), ``level`` the rung in use
+    (``fetch_label``); :meth:`set_level` moves between rungs, each one a
+    variant keyed by its table and peer-exclusion set, and :meth:`warmup`
+    captures them all when asked (``ladder=True``)."""
 
     def __init__(self, model: Model, mesh_sizes: dict, *, mode: str = "dwdp",
                  max_batch: int, cache_len: int,
@@ -778,6 +882,7 @@ class GenerationServer:
                  demand_budget: int = 0, cache_budget: int = 0,
                  policy: PolicyLike = None, weight_layout: Optional[str] = None,
                  prefetch: str = "allgather", hw=None, weight_bytes: Optional[int] = None,
+                 fault_spec=None, validate_fetch: bool = False,
                  variant_cache_size: int = 16, space: Optional[GraphSpace] = None):
         self.model = model
         self.max_batch = max_batch
@@ -788,8 +893,13 @@ class GenerationServer:
         batch_axes, seq_axes = decode_axes(model.cfg, mesh_sizes, max_batch, cache_len)
         self.variants = PolicyVariantCache(
             model, mesh_sizes, self._shape, self._build, mode=mode,
-            capacity_from=capacity_from, max_entries=variant_cache_size,
+            capacity_from=capacity_from, fault_spec=fault_spec, validate_fetch=validate_fetch,
+            max_entries=variant_cache_size,
         )
+        # predictive-state buffers by layout, shared by the variants of one
+        # layout: only the installed variant's state is live (a switch
+        # starts cold), and a warm-up step never writes its inputs
+        self._pred_buffers: dict = {}
         batch_shards = math.prod(mesh_sizes[a] for a in batch_axes)
         self._kv = init_decode_state(model, max_batch, cache_len, batch_shards=batch_shards,
                                      seq_shards=math.prod(mesh_sizes[a] for a in seq_axes))
@@ -797,6 +907,10 @@ class GenerationServer:
         self.cur_token = torch.zeros((max_batch, 1), dtype=torch.int64, device=model.device)
         self.pred_stats: list[np.ndarray] = []
         self.last_pred_stats: Optional[np.ndarray] = None
+        self.last_fault_stats: Optional[np.ndarray] = None
+        self.fault_fallbacks = 0
+        self.excl: tuple = ()
+        self.level = 0
         cfg = model.cfg
         self.expert_bytes = (3 * cfg.d_model * cfg.moe.d_ff * model.dtype.itemsize
                              if cfg.moe is not None else 0)
@@ -804,15 +918,18 @@ class GenerationServer:
         self.slot_req: list[Optional[int]] = [None] * max_batch
         self.slot_remaining = np.zeros(max_batch, np.int64)
         self.hw, self.weight_bytes = _target(model, hw, weight_bytes)
-        self._swap(self._resolve(resolve_policy(
+        table = self._resolve(resolve_policy(
             policy, prefetch=prefetch, weight_layout=weight_layout, expert_fetch=expert_fetch,
-            demand_budget=demand_budget, cache_budget=cache_budget)))
+            demand_budget=demand_budget, cache_budget=cache_budget))
+        self.ladder = degradation_ladder(table)
+        self._swap(table, ())
 
     def _build(self, xp) -> CountingStep:
         state = {"pos": self._kv["pos"], "layers": self._kv["layers"]}
         pred = execution.init_predict_state(self.model, xp)
         if pred:
-            state["pred"] = pred
+            layout = tuple((tuple(t.shape), t.dtype) for t in _leaves(pred))
+            state["pred"] = self._pred_buffers.setdefault(layout, pred)
 
         def fn(params, inputs):
             ctx = execution.Ctx(model=self.model, xp=xp, deferred=True)
@@ -825,43 +942,122 @@ class GenerationServer:
         return _resolve_policy_table(self.model, self._shape, self._mesh_sizes, policy,
                                      hw=self.hw, weight_bytes=self.weight_bytes)
 
-    def _swap(self, table: PolicyTable) -> None:
-        """Install the table's variant with a cold predictive state: its own
-        buffers zeroed in place (the predictor and the residency cache do
-        not survive a policy change; their budgets differ)."""
-        self.xp, self.step = self.variants.get(table)
+    def _swap(self, table: PolicyTable, excl: tuple) -> None:
+        """Install the (table, exclusion set) variant with a cold predictive
+        state: its buffers zeroed in place (the predictor and the residency
+        cache do not survive a policy change; their budgets differ)."""
+        self.xp, self.step = self.variants.get(table, excl)
+        self.excl = excl
         self.gather_bytes = execution.gathered_wire_bytes_per_step(self.model, self.xp)
         self.state = self.step.inputs["state"]
         for t in _leaves(self.state.get("pred")):
             t.zero_()
         self.last_pred_stats = None
+        self.last_fault_stats = None
+
+    @property
+    def fetch_label(self) -> str:
+        """The ladder rung in use: "sync_free" / "predictive" / "<root>+excl"
+        / "demand" / "all"."""
+        return self.ladder[self.level][0]
+
+    @property
+    def max_silent_level(self) -> int:
+        """The deepest rung fail-silent demotions reach, the all-gather
+        floor: the terminal ``"reshard"`` rung answers a rank death."""
+        top = len(self.ladder) - 1
+        return max(0, top - 1) if self.ladder[top][0] == "reshard" else top
+
+    @staticmethod
+    def _excl(bad_peers) -> tuple:
+        """An exclusion set's key: the positions, sorted (the order the
+        monitor names them in changes nothing)."""
+        return tuple(sorted({int(p) for p in bad_peers}))
+
+    def _rung(self, level: int, bad_peers=()) -> tuple:
+        """The (table, exclusion set) of a ladder level."""
+        label, table, excl = self.ladder[level]
+        if label == "reshard":
+            raise NotImplementedError(
+                "the 'reshard' rung answers a rank death: a standby engine re-sharded onto "
+                "the surviving ranks (prefetch.reshard_split_bank, "
+                "roofline.rank_death_recovery) comes with the rank-death slice of the port, "
+                "not ported yet")
+        return table, self._excl(bad_peers if excl is None else excl)
+
+    def set_level(self, level: int, bad_peers: tuple = ()) -> bool:
+        """Move to a ladder level (clamped); returns whether the level
+        changed. The level's variant is installed (captured already when
+        warmed) with a cold predictive state, the KV slots carried over; an
+        exclusion rung leaves out ``bad_peers`` (the monitor's
+        :meth:`HealthMonitor.bad_peers`), one variant per set. The
+        ``"reshard"`` rung raises ``NotImplementedError``."""
+        level = max(0, min(int(level), len(self.ladder) - 1))
+        if level == self.level:
+            return False
+        self._swap(*self._rung(level, bad_peers))
+        self.level = level
+        return True
 
     def set_policy(self, table: PolicyLike) -> bool:
         """Online policy switch: move the decode step to another policy
         table's variant (any layout, transport, fetch or per-group mix) —
         captured already when warmed, built and captured on first use
-        otherwise — with a cold predictive state; KV slots carry over and
-        no tensor the graphs read is rebound. Returns whether anything
-        changed. (The degradation ladder, whose level 0 the JAX package
-        rebases here, is not ported yet, so there is no ladder to
-        rebase.)"""
-        table = self._resolve(table)
-        if table.describe() == self.xp.policies.describe():
+        otherwise — with a cold predictive state, and rebase the ladder on
+        it; KV slots carry over and no tensor the graphs read is rebound.
+        Only at level 0 (a degraded server keeps its rung until the monitor
+        promotes it back). Returns whether anything changed."""
+        if self.level != 0:
             return False
-        self._swap(table)
+        table = self._resolve(table)
+        if table.describe() == self.xp.policies.describe() and not self.excl:
+            return False
+        self._swap(table, ())
+        self.ladder = degradation_ladder(table)
         return True
 
-    def warmup(self, params, tables=()) -> int:
+    def set_faults(self, fault_spec=None, validate_fetch: bool = False) -> None:
+        """Decode under another fault environment: the installed rung's
+        variant for it (captured when warmed), with a cold predictive
+        state."""
+        self.variants.set_faults(fault_spec, validate_fetch)
+        self._swap(self.xp.policies, self.excl)
+
+    def _ladder_variants(self, table: Optional[PolicyTable] = None, exclusions=None) -> list:
+        """The (table, exclusion set) of every fail-silent rung of
+        ``table``'s ladder (default: the installed one's): an exclusion rung
+        once per set of ``exclusions`` (default: each single subgroup
+        position)."""
+        ladder = self.ladder if table is None else degradation_ladder(table)
+        if exclusions is None:
+            g = self.model.geom.moe_placement.subgroup_size if self.model.geom.moe_placement else 1
+            exclusions = [(q,) for q in range(g)]
+        top = len(ladder) - 1 if ladder[-1][0] == "reshard" else len(ladder)
+        out = []
+        for _, t, excl in ladder[:top]:
+            sets = [self._excl(e) for e in exclusions] if excl is None else [excl]
+            out += [(t, e) for e in sets]
+        return out
+
+    def warmup(self, params, tables=(), ladder: bool = False, exclusions=None) -> int:
         """Capture the decode variant of each table (and of the installed
-        one) off the serving path; slot and predictive state are left as
-        they were (a step never writes its inputs). Returns the captures
-        made."""
+        one) off the serving path — with ``ladder``, of every fail-silent
+        rung of their ladders too (:meth:`_ladder_variants`, ``exclusions``
+        naming the exclusion rung's peer sets); slot and predictive state
+        are left as they were (a step never writes its inputs). Returns
+        the captures made."""
+        tables = [self._resolve(t) for t in tables]
+        pairs = [(self.xp.policies, self.excl)] + [(t, ()) for t in tables]
+        if ladder:
+            pairs += self._ladder_variants(None, exclusions)
+            for t in tables:
+                pairs += self._ladder_variants(t, exclusions)
         made, seen = 0, set()
-        for table in (self.xp.policies, *tables):
-            key = variant_key(table, self._shape)
+        for table, excl in pairs:
+            key = variant_key(table, self._shape, excl)
             if key not in seen:
                 seen.add(key)
-                made += self.variants.get(table)[1].warm(params)
+                made += self.variants.get(table, excl)[1].warm(params)
         return made
 
     def free_slots(self) -> list[int]:
@@ -869,14 +1065,13 @@ class GenerationServer:
 
     def restore_plan(self) -> dict:
         """The active plan stamped into every :meth:`snapshot_slot` payload
-        and checked on its re-admission (the JAX package's fields; the port
-        has no peer exclusion, so ``excl`` is empty)."""
+        and checked on its re-admission (the JAX package's fields)."""
         return {
             "model": self.model.cfg.name,
             "mesh": tuple(sorted((str(a), int(s)) for a, s in self._mesh_sizes.items())),
             "cache_len": int(self.cache_len),
             "policies": self.xp.policies.describe(),
-            "excl": (),
+            "excl": tuple(int(p) for p in self.excl),
         }
 
     def layout(self) -> RingLayout:
@@ -908,30 +1103,41 @@ class GenerationServer:
 
     def _read(self, out: dict):
         """The step's one host read: (tokens, overflow, overflowed layers,
-        pred_stats or None)."""
+        pred_stats or None, fault_stats or None)."""
         parts = [out["next_token"][:, 0].double(), out["overflow"].double()[None],
                  out["overflow_layers"].double()[None]]
-        if "pred_stats" in out:
-            parts.append(out["pred_stats"].double())
+        sizes = []
+        for name in ("pred_stats", "fault_stats"):
+            if name in out:
+                parts.append(out[name].double().reshape(-1))
+                sizes.append(parts[-1].shape[0])
+            else:
+                sizes.append(0)
         host = torch.cat(parts).cpu().numpy()
         b = self.max_batch
-        stats = host[b + 2:].astype(np.float32) if "pred_stats" in out else None
-        return host[:b].astype(np.int64), bool(host[b]), int(host[b + 1]), stats
+        pred = host[b + 2:b + 2 + sizes[0]].astype(np.float32) if "pred_stats" in out else None
+        fault = host[b + 2 + sizes[0]:].astype(np.float64) if "fault_stats" in out else None
+        return host[:b].astype(np.int64), bool(host[b]), int(host[b + 1]), pred, fault
 
     def step_outputs(self, params):
         """One decode step from the server's state, committing nothing:
-        ``(outputs, tokens, pred_stats)``. A deferred overflow runs the step
-        again eagerly (counted in ``fallbacks``). The outputs are valid
-        until the server's next step."""
+        ``(outputs, tokens, pred_stats)``; its fault counters land in
+        ``last_fault_stats``. A deferred overflow — a budget overflow, a
+        mirror divergence or a failed checksum — runs the step again
+        eagerly (counted in ``fallbacks``, the checksum ones also in
+        ``fault_fallbacks``). The outputs are valid until the server's next
+        step."""
         out = self.step(params)
-        tokens, overflow, layers, stats = self._read(out)
+        tokens, overflow, layers, stats, fstats = self._read(out)
         if overflow:
             self.fallbacks += 1
             self.overflow_layers += layers
+            self.fault_fallbacks += bool(fstats is not None and fstats[5] > 0)
             ctx = execution.Ctx(model=self.model, xp=self.xp)
             with _eager(self.space):
                 out = execution.forward_decode(params, self.cur_token, self.state, ctx)
-            tokens, _, _, stats = self._read(out)
+            tokens, _, _, stats, fstats = self._read(out)
+        self.last_fault_stats = fstats
         return out, tokens, stats
 
     def decode_step(self, params) -> np.ndarray:
@@ -1006,11 +1212,16 @@ class GenerationServer:
 class DisaggregatedEngine:
     """Queues + rate matching between the context and generation servers;
     with a ``scheduler`` (``policy="auto-online"``) it re-resolves the
-    generation server's table before each decode step and records each
-    move in ``metrics`` (``record_transition``)."""
+    generation server's table before each decode step, and with a
+    ``health`` monitor it feeds each step's per-peer fault counters to it
+    and moves the generation server down or up its degradation ladder
+    (fail-silent demotions stop at the all-gather floor); every step's
+    fault counters and each move go into ``metrics``
+    (``record_fault_stats``, ``record_transition``)."""
 
     def __init__(self, params, ctx: ContextServer, gen: GenerationServer,
-                 scheduler: Optional[OnlinePolicyScheduler] = None):
+                 scheduler: Optional[OnlinePolicyScheduler] = None,
+                 health: Optional[HealthMonitor] = None):
         if ctx.cache_len != gen.cache_len:
             raise ValueError(
                 "the context server's KV state does not fit the generation server's ring: "
@@ -1019,6 +1230,7 @@ class DisaggregatedEngine:
         self.ctx = ctx
         self.gen = gen
         self.scheduler = scheduler
+        self.health = health
         self.decode_steps = 0
         self.queue: list[Request] = []
         self.records: dict[int, RequestRecord] = {}
@@ -1037,21 +1249,53 @@ class DisaggregatedEngine:
         summary's ``tps_per_gpu`` divides by."""
         return self.now() - min(r.arrival for r in self.records.values())
 
-    def warmup(self, tables=()) -> int:
+    def warmup(self, tables=(), exclusions=None) -> int:
         """Capture the serving variants off the serving path: the prefill
         step of every bucket and the decode variant of each table in
         ``tables``, of every table the scheduler can emit
         (``OnlinePolicyScheduler.candidate_tables``) and of the installed
-        one. After this, serving — mixed bucket lengths, the scheduler's
-        moves and ``gen.set_policy`` to a warmed table included — captures
-        nothing (``variants.captures()`` stays flat on both servers).
-        Returns the decode variants captured."""
+        one; with a health monitor also every fail-silent rung of their
+        degradation ladders, the exclusion rung once per peer set of
+        ``exclusions`` (default: each single subgroup position;
+        ``GenerationServer._ladder_variants``). After this, serving — mixed
+        bucket lengths, the scheduler's moves, the monitor's demotions and
+        promotions and ``gen.set_policy`` to a warmed table included —
+        captures nothing (``variants.captures()`` stays flat on both
+        servers). Returns the decode variants captured."""
         self.ctx.warmup(self.params)
         if self.scheduler is not None:
             tables = (*tables, *self.scheduler.candidate_tables(self.gen))
-        made = self.gen.warmup(self.params, tables)
+        made = self.gen.warmup(self.params, tables, ladder=self.health is not None,
+                               exclusions=exclusions)
         self.now()
         return made
+
+    def _observe_health(self) -> None:
+        """Feed the step's fault counters to the metrics and the monitor,
+        and move the ladder as it asks."""
+        fs = self.gen.last_fault_stats
+        if fs is not None:
+            self.metrics.record_fault_stats(fs)
+        if self.health is None:
+            return
+        if fs is not None:
+            tail = fs[FAULT_STAT_BASE:]
+        elif self.health.ema.size:
+            # the all-gather floor runs no per-peer payload round, so it
+            # reports nothing: a clean observation lets the EMAs decay
+            tail = np.zeros_like(self.health.ema)
+        else:
+            return
+        move = self.health.observe(tail)
+        if move == "demote":
+            level = min(self.gen.level + 1, self.gen.max_silent_level)
+        elif move == "promote" and self.gen.level > 0:
+            level = self.gen.level - 1
+        else:
+            return
+        if self.gen.set_level(level, bad_peers=self.health.bad_peers()):
+            self.metrics.record_transition(self.decode_steps, move, self.gen.level,
+                                           self.gen.fetch_label)
 
     def submit(self, req: Request) -> None:
         if len(req.tokens) not in self.ctx.prefill_lens:
@@ -1102,11 +1346,11 @@ class DisaggregatedEngine:
                 moved = self.scheduler.step(
                     self.gen, sum(r is not None for r in self.gen.slot_req))
                 if moved:
-                    self.metrics.record_transition(
-                        self.decode_steps, moved, 0,
-                        self.gen.xp.policies.family("moe_experts").fetch)
+                    self.metrics.record_transition(self.decode_steps, moved, self.gen.level,
+                                                   self.gen.fetch_label)
             toks = self.gen.decode_step(self.params)
             self.decode_steps += 1
+            self._observe_health()
             t = self.now()
             active = [s for s, r in enumerate(self.gen.slot_req) if r is not None]
             share = 1.0 / max(1, len(active))

@@ -3,11 +3,9 @@ per-request records, TTFT / TPOT percentiles, TPS/user and TPS/GPU, and
 per-request gathered-weight wire-byte counters — totals (full against
 fetched), the per-family breakdown (moe_experts / attn_qkv / attn_out /
 dense_ffn) and the per-round split — plus the measured predictive-fetch
-counters. Times are seconds on the host clock.
-
-The fault counters of the validated fetch (``record_fault_stats`` and
-the ``faults`` / ``detected_by_peer`` summary keys) come with the fault
-slice: the port has no validated fetch yet.
+counters and the validated fetch's fault counters (``record_fault_stats``;
+the ``faults`` and ``detected_by_peer`` summary keys). Times are seconds
+on the host clock.
 """
 from __future__ import annotations
 
@@ -15,6 +13,8 @@ import dataclasses
 import math
 import statistics
 from typing import Optional
+
+from repro_torch.core.faults import FAULT_STAT_BASE, FAULT_STAT_NAMES
 
 
 def _pct(xs: list, q: float) -> float:
@@ -126,6 +126,22 @@ class ServingMetrics:
     # fail-stop recovery: cumulative counters and each event's stall (s)
     recovery: dict = dataclasses.field(default_factory=dict)
     recovery_times: list = dataclasses.field(default_factory=list)
+    # the validated fetch's counters, summed over decode steps
+    fault_counts: dict = dataclasses.field(default_factory=dict)
+    detected_by_peer: list = dataclasses.field(default_factory=list)
+
+    def record_fault_stats(self, vec) -> None:
+        """Add one decode step's fault-stats vector (``out["fault_stats"]``:
+        the named counters, then the detected rows by source subgroup
+        position)."""
+        vec = [float(v) for v in vec]
+        for name, v in zip(FAULT_STAT_NAMES, vec[:FAULT_STAT_BASE]):
+            self.fault_counts[name] = self.fault_counts.get(name, 0.0) + v
+        tail = vec[FAULT_STAT_BASE:]
+        if len(self.detected_by_peer) < len(tail):
+            self.detected_by_peer += [0.0] * (len(tail) - len(self.detected_by_peer))
+        for i, v in enumerate(tail):
+            self.detected_by_peer[i] += v
 
     def record_admission(self, kind: str, n: int = 1) -> None:
         self.admission[kind] = self.admission.get(kind, 0) + int(n)
@@ -211,6 +227,9 @@ class ServingMetrics:
                 rounds[rnd] = rounds.get(rnd, 0.0) + b
         if rounds:
             out["gathered_mb_by_round"] = {rnd: round(b / 1e6, 3) for rnd, b in sorted(rounds.items())}
+        if self.fault_counts and any(self.fault_counts.values()):
+            out["faults"] = {k: round(v, 1) for k, v in sorted(self.fault_counts.items())}
+            out["detected_by_peer"] = [round(v, 1) for v in self.detected_by_peer]
         if self.policy_transitions:
             out["policy_transitions"] = list(self.policy_transitions)
             for kind, field in (("switch", "policy_switches"), ("resize", "budget_resizes"),

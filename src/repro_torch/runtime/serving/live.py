@@ -117,8 +117,8 @@ class LiveReplicaClient:
         ``roofline.rank_death_recovery``). Not ported yet."""
         raise NotImplementedError(
             "kill_rank needs a standby engine re-sharded onto the surviving ranks "
-            "(prefetch.reshard_split_bank, the faults slice) and "
-            "roofline.rank_death_recovery (the cost-model slice); neither is ported yet")
+            "(prefetch.reshard_split_bank) and roofline.rank_death_recovery: both come with "
+            "the rank-death slice of the port, not ported yet")
 
     def can_resume(self, plan) -> bool:
         """True when a snapshot stamped with ``plan`` restores on this

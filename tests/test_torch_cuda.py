@@ -701,3 +701,80 @@ def test_cuda_policy_tables_graph_bitwise(policy, same_as):
     assert outs[0] == outs[1] == outs[2]
     assert torch.equal(logits[0], logits[1]) and torch.equal(logits[0], logits[2])
     assert graph.gen.fallbacks == 0
+
+
+@pytest.mark.cuda
+def test_cuda_fault_masks_checksums_and_tamper_match_cpu():
+    """The injector's masks on the card (keyed by a device step tensor,
+    eagerly and from a replayed CUDA graph) equal the same draws on the
+    CPU; checksums, verification and tampering agree with the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import faults, prefetch
+    from repro_torch.core.placement import make_placement
+
+    pl = make_placement(64, 4)
+    spec = faults.FaultSpec.parse("seed=3,drop=0.2,zero=0.1,corrupt=0.1,cache=0.3,mirror=0.5,"
+                                  "peers=2")
+    inj = faults.FaultInjector(spec, pl, {"data": 1, "model": 4})
+    for rank in range(4):
+        for step in (0, 7, 1000):
+            dev_step = torch.tensor([step - 1, step], dtype=torch.int32, device="cuda").max()
+            cpu = inj.payload_masks(inj.site_key("corr", step, rank), 16, rank)
+            gpu = inj.payload_masks(inj.site_key("corr", dev_step, rank), 16, rank)
+            assert all(torch.equal(a, b.cpu()) for a, b in zip(cpu, gpu))
+            assert torch.equal(inj.cache_mask(inj.site_key("cache", step, rank), 8),
+                               inj.cache_mask(inj.site_key("cache", dev_step, rank), 8).cpu())
+            assert bool(inj.mirror_flag(step, rank)) == bool(inj.mirror_flag(dev_step, rank))
+    # a replayed graph draws the step its input holds
+    step_in = torch.zeros((), dtype=torch.int64, device="cuda")
+    inj.payload_masks(inj.site_key("spec", step_in, 1), 16, 1)  # warm up outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = inj.payload_masks(inj.site_key("spec", step_in, 1), 16, 1)
+    for step in (3, 11):
+        step_in.fill_(step)
+        graph.replay()
+        ref = inj.payload_masks(inj.site_key("spec", step, 1), 16, 1)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(out, ref))
+
+    gen = torch.Generator().manual_seed(5)
+    tree = {"w_gate": (torch.randn(9, 64, 300, generator=gen) * 0.1).bfloat16(),
+            "w_down": (torch.randn(9, 300, 64, generator=gen) * 0.1).bfloat16()}
+    gtree = {k: v.cuda() for k, v in tree.items()}
+    cpu_cs, gpu_cs = prefetch.row_checksums(tree), prefetch.row_checksums(gtree).cpu()
+    assert torch.allclose(gpu_cs, cpu_cs, rtol=1e-5, atol=0)
+    drop = torch.tensor([False, True, False, False, False, False, True, False, False])
+    corrupt = torch.tensor([False, False, True, False, False, False, False, False, True])
+    faults.FaultInjector.tamper_rows(tree, drop, corrupt)
+    faults.FaultInjector.tamper_rows(gtree, drop.cuda(), corrupt.cuda())
+    assert all(torch.equal(tree[k], gtree[k].cpu()) for k in tree)
+    ids, valid = torch.arange(9), torch.ones(9, dtype=torch.bool)
+    ok, bad = prefetch.verify_rows(gtree, ids.cuda(), valid.cuda(), gpu_cs.cuda())
+    assert bad.cpu().tolist() == (drop | corrupt).tolist() and torch.equal(ok.cpu(), ~bad.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fetch", ["demand", "predictive", "sync_free"])
+def test_cuda_validated_graph_serving_bitwise_eager(fetch):
+    """The validated fetch with injected faults through graphs against the
+    eager engine and the healthy all-fetch engine: the same tokens, the same
+    fault counters (the graph's from its device step tensor), no capture
+    after warmup, the faulty steps run again eagerly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    spec = "seed=4,drop=0.2,zero=0.1,corrupt=0.1,cache=0.3" + (
+        ",mirror=0.5" if fetch == "sync_free" else "")
+    kw = dict(expert_fetch=fetch, cache_budget=4 if fetch != "demand" else 0, fault_spec=spec)
+    ref = _graph_engine(graphs=False)
+    want = _graph_serve(ref)
+    graph = _graph_engine(params=ref.params, **kw)
+    eager = _graph_engine(params=ref.params, graphs=False, **kw)
+    graph.warmup()
+    eager.warmup()
+    warm = _captures(graph)
+    assert _graph_serve(graph) == _graph_serve(eager) == want
+    assert _captures(graph) == warm
+    fg, fe = graph.metrics.summary(1.0)["faults"], eager.metrics.summary(1.0)["faults"]
+    assert fg == fe and fg["detected"] >= sum(v for k, v in fg.items() if k.startswith("injected"))
+    assert graph.gen.fault_fallbacks == eager.gen.fault_fallbacks > 0

@@ -310,3 +310,6 @@ def test_refusals(moe, monkeypatch):
         assert params[r]["layers"]["body"]["pos0"]["moe"]["experts"]["w_up"] is \
             params[r + 4]["layers"]["body"]["pos0"]["moe"]["experts"]["w_up"]
         assert params[r]["embed"] is params[r + 4]["embed"]
+        # the validated fetch's checksum table is shared like the weights
+        assert params[r]["layers"]["body"]["pos0"]["moe"]["checksums"] is \
+            params[r + 4]["layers"]["body"]["pos0"]["moe"]["checksums"]

@@ -46,7 +46,7 @@ from repro_torch.kernels.split_gemm import ops as tops
 from repro_torch.launch.serve import build_engine
 from repro_torch.models.cache import init_decode_state
 from repro_torch.models.transformer import build_model
-from repro_torch.runtime.engine import Request
+from repro_torch.runtime.engine import HealthMonitor, Request
 
 # One intra-op thread per process: the suite runs several test workers, and
 # the port's test shapes are too small to gain from more.
@@ -336,37 +336,48 @@ def decode_setup():
         out = step(jparams, {"token": tok}, state)
         tok, state = out["next_token"], out["state"]
         jtoks.append(np.asarray(tok)[:, 0].tolist())
-    return dict(model=model, params=params, jax_tokens=jtoks, cfg=cfg, runs={})
+    return dict(model=model, params=params, jax_tokens=jtoks, cfg=cfg, runs={}, logits={},
+                faults={})
 
 
-def _port_decode(s, fetch="all", budget=0, cache_budget=0):
-    """(tokens, per-step pred_stats, fallbacks) of a 6-step decode, kept
-    per configuration for the tests that read the same run."""
-    key = (fetch, budget, cache_budget)
+def _port_decode(s, fetch="all", budget=0, cache_budget=0, fault_spec=None, validate=False,
+                 steps=STEPS):
+    """(tokens, per-step pred_stats, fallbacks) of a ``steps``-step decode,
+    kept per configuration for the tests that read the same run (its
+    per-step logits and fault_stats under ``s["logits"]`` / ``s["faults"]``)."""
+    key = (fetch, budget, cache_budget, fault_spec, validate)
     if key not in s["runs"]:
-        s["runs"][key] = _run_port_decode(s, fetch, budget, cache_budget)
+        toks, stats, fallbacks, logits, fstats = _run_port_decode(
+            s, fetch, budget, cache_budget, fault_spec, validate, steps)
+        s["runs"][key] = toks, stats, fallbacks
+        s["logits"][key], s["faults"][key] = logits, fstats
     return s["runs"][key]
 
 
-def _run_port_decode(s, fetch, budget, cache_budget):
+def _run_port_decode(s, fetch, budget, cache_budget, fault_spec=None, validate=False,
+                     steps=STEPS):
     model = s["model"]
     pol = strategy.PolicyTable.uniform(fetch=fetch, budget=budget, cache_budget=cache_budget)
     xp = strategy.make_execution_plan(model, InputShape("d", CACHE, 2, "decode"),
-                                      {"data": 1, "model": 4}, policy=pol, capacity_factor=CAP)
+                                      {"data": 1, "model": 4}, policy=pol, capacity_factor=CAP,
+                                      fault_spec=fault_spec, validate_fetch=validate)
     assert execution.demand_fetch_active(s["cfg"], model.geom, xp) == (fetch != "all")
     state = execution.attach_predict_state(init_decode_state(model, 2, CACHE, seq_shards=4),
                                            model, xp)
     assert ("pred" in state) == (fetch in ("predictive", "sync_free"))
     ctx = execution.Ctx(model=model, xp=xp)
-    tok, toks, stats = torch.as_tensor(FIRST), [], []
+    tok, toks, stats, logits, fstats = torch.as_tensor(FIRST), [], [], [], []
     execution.DEMAND.layers = execution.DEMAND.fallbacks = 0
-    for _ in range(STEPS):
+    for _ in range(steps):
         out = execution.forward_decode(s["params"], tok, state, ctx)
         tok, state = out["next_token"].long(), out["state"]
         toks.append(tok[:, 0].tolist())
+        logits.append(out["logits"])
         if "pred_stats" in out:
             stats.append(out["pred_stats"].tolist())
-    return toks, stats, execution.DEMAND.fallbacks
+        if "fault_stats" in out:
+            fstats.append(out["fault_stats"].tolist())
+    return toks, stats, execution.DEMAND.fallbacks, logits, fstats
 
 
 @pytest.fixture(scope="module")
@@ -394,6 +405,81 @@ def test_fetch_modes_decode_match_all_fetch_and_jax(decode_setup, all_fetch_toke
     assert toks == all_fetch_tokens == decode_setup["jax_tokens"]
     assert (fallbacks > 0) == (budget == 1)
     assert len(stats) == (STEPS if fetch != "demand" else 0)
+
+
+# --------------------------------------------------------------------------
+# The validated fetch: checksums, fault injection, repair.
+# --------------------------------------------------------------------------
+FAULTS = "seed=5,drop=0.2,zero=0.1,corrupt=0.1,cache=0.3"
+VALIDATED = [("demand", 0), ("predictive", 8), ("sync_free", 8)]
+
+
+@pytest.mark.parametrize("fetch,cache_budget", VALIDATED)
+@pytest.mark.parametrize("faulty", [False, True], ids=["validated", "faults"])
+def test_validated_decodes_match_unvalidated_and_jax(decode_setup, all_fetch_tokens, fetch,
+                                                     cache_budget, faulty):
+    """The validated fetch, without and with injected faults (drop, zero,
+    corrupt and cache rot; sync_free also a mirror drift): the JAX engine's
+    healthy tokens and, at every step, the port's unvalidated logits
+    bitwise. A healthy validated run (2 steps: the cache is warm in the
+    second) detects nothing; a faulty one (3 steps) detects at least every
+    injected row, attributes each to a source position, and takes the full
+    gather where a correction-round row was bad."""
+    s = decode_setup
+    spec = (FAULTS + (",mirror=0.5" if fetch == "sync_free" else "")) if faulty else None
+    steps = 3 if faulty else 2
+    toks, _, fallbacks = _port_decode(s, fetch, 0, cache_budget, spec, not faulty, steps)
+    key = (fetch, 0, cache_budget, spec, not faulty)
+    assert toks == all_fetch_tokens[:steps] == s["jax_tokens"][:steps]
+    _port_decode(s, fetch, 0, cache_budget)
+    plain = s["logits"][(fetch, 0, cache_budget, None, False)]
+    assert all(torch.equal(a, b) for a, b in zip(s["logits"][key], plain[:steps]))
+    fs = np.sum(s["faults"][key], axis=0)
+    assert len(s["faults"][key]) == steps and len(fs) == 7 + 4
+    if not faulty:
+        assert not fs.any() and fallbacks == 0
+        return
+    injected = fs[0:4].sum()
+    assert injected > 0 and fs[4] >= injected
+    assert fs[4] == fs[7:].sum()
+    assert fs[5] > 0 and fallbacks >= fs[5]  # checksum fallbacks, each one taken
+    assert (fs[3] > 0) == (fetch != "demand") and (fs[6] > 0) == (fetch == "sync_free")
+
+
+def test_fault_storm_walks_the_ladder_down_and_back(decode_setup, all_fetch_tokens):
+    """A bad peer under predictive decode with a ``HealthMonitor``: the
+    engine demotes through the exclusion rung and demand to the all-gather
+    floor, promotes back once the floor has run clean, records every move
+    and the fault counters, captures every rung in warmup and builds no
+    variant after it; the tokens stay the all-fetch ones."""
+    s = decode_setup
+    eng, _ = build_engine(s["cfg"], mesh_shape=(1, 4), prefill_len=16, cache_len=CACHE,
+                          max_batch=2, device="cpu", params=s["params"], geom_kwargs=GEOM,
+                          capacity_from="global", expert_fetch="predictive",
+                          fault_spec="seed=1,peers=1",
+                          health=HealthMonitor(decay=0.5, demote_threshold=0.4, min_dwell=0))
+    gen = eng.gen
+    assert [label for label, _, _ in gen.ladder] == ["predictive", "predictive+excl", "demand",
+                                                    "all", "reshard"]
+    eng.warmup(exclusions=[(1,)])
+    misses = gen.variants.stats["misses"]
+    assert misses == 4 and gen.max_silent_level == 3
+    gen.cur_token.copy_(torch.as_tensor(FIRST))
+    toks = []
+    for _ in range(7):
+        eng.run(1)  # no request: the engine decodes the token row as it stands
+        toks.append(gen.cur_token[:, 0].tolist())
+    assert toks[:STEPS] == all_fetch_tokens
+    moves = [(t["kind"], t["fetch"]) for t in eng.metrics.policy_transitions]
+    assert moves[:3] == [("demote", "predictive+excl"), ("demote", "demand"), ("demote", "all")]
+    assert ("promote", "demand") in moves and gen.excl in ((), (1,))
+    assert gen.variants.stats["misses"] == misses and gen.variants.captures() == 0
+    faults = eng.metrics.summary(1.0)["faults"]
+    assert faults["detected"] == faults["injected_drop"] > 0
+    assert eng.metrics.detected_by_peer[1] == faults["detected"] == sum(eng.metrics.detected_by_peer)
+    assert gen.fault_fallbacks > 0
+    with pytest.raises(NotImplementedError, match="rank-death slice"):
+        gen.set_level(4)
 
 
 def test_pred_stats_cold_warm_and_evictions(decode_setup):

@@ -106,8 +106,11 @@ def test_variant_cache_stats_match_jax(caches, seq, max_entries):
                                                            jxp.global_batch)
         assert step.captures() == 0  # the CPU captures nothing
     assert port.captures() == 0
-    with pytest.raises(NotImplementedError, match="peer exclusion"):
-        port.get(PolicyTable.uniform(fetch="demand"), (1,))
+    # a peer-exclusion set (the degradation ladder's rung) keys its own variant
+    xp, _ = port.get(PolicyTable.uniform(fetch="demand"), (1,))
+    jxp = ref.get(JTable.uniform(fetch="demand"), (1,))[0]
+    assert xp.exclude_peers == jxp.exclude_peers == (1,)
+    assert port.stats == ref.stats and len(port) == len(ref)
 
 
 def test_eviction_releases_the_step():

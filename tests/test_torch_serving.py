@@ -380,17 +380,15 @@ def test_prefetch_byte_formulas_match_reference(experts, group, redundancy):
     pe = 3 * 7168 * 2048 * 2
     assert prefetch.gather_bytes(pl, pe) == jpf.gather_bytes(jpl, pe)
     for budget in (0, 1, 3, 64, 1000):
-        assert prefetch.demand_fetch_bytes(pl, budget, pe) == jpf.demand_fetch_bytes(
-            jpl, budget, pe)
-        for corr in (1, 5):
-            assert prefetch.sync_free_fetch_bytes(pl, budget, corr, 2, pe) == (
-                jpf.sync_free_fetch_bytes(jpl, budget, corr, 2, pe))
+        for validate in (False, True):  # the validated fetch's checksum table rides along
+            assert prefetch.demand_fetch_bytes(pl, budget, pe, validate=validate) == (
+                jpf.demand_fetch_bytes(jpl, budget, pe, validate=validate))
+            for corr in (1, 5):
+                assert prefetch.sync_free_fetch_bytes(pl, budget, corr, 2, pe,
+                                                      validate=validate) == (
+                    jpf.sync_free_fetch_bytes(jpl, budget, corr, 2, pe, validate=validate))
     for rows in (1, 2, 16):
         assert prefetch.sync_free_mirror_bytes(pl, rows) == jpf.sync_free_mirror_bytes(jpl, rows)
-    with pytest.raises(NotImplementedError, match="validated fetch"):
-        prefetch.demand_fetch_bytes(pl, 1, pe, validate=True)
-    with pytest.raises(NotImplementedError, match="validated fetch"):
-        prefetch.sync_free_fetch_bytes(pl, 1, 1, 2, pe, validate=True)
 
 
 def test_validate_restore_plan_matches_reference():
