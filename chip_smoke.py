@@ -208,7 +208,29 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    the ladder walked down to ``all`` and back, faults detected from that
    peer only. TPOT, fallbacks, counters, transitions and peak (under 70
    GB), beside the card's name and power limit;
-15. a ``{"kernels": [...]}`` JSON line, then the last line
+15. the cluster model (run after 14; no kernel of its own, the launch counts
+   must stay 0): the mirrored predictor (``core.traces.predictor_hit_rate``)
+   replayed on the card over the R1 acceptance trace (Zipf 1.3, affinity
+   0.8, 48 steps, E 256 over G' 4, budget 16: >= 0.9, the richer signals
+   within 0.02 of hotness alone), a uniform trace (< 0.6) and the routed
+   trace of 6's predictive serve (printed beside that serve's own
+   ``predict_hit_rate`` and the traces' skew), each equal to the same
+   replay on the CPU to 1e-6; R1's MoE-layer expert leaves of the engine
+   (four shards of 64 experts, 22.55 GB) copied to the host as ``source``,
+   the dead position's shard filled with NaN, re-sharded for G' 4 -> 3
+   (``prefetch.reshard_split_bank``): each new 86-row shard bitwise a fresh
+   ``make_placement(256, 3)`` shard of ``source``, padding zeros, no NaN,
+   rows by origin ``reshard_plan_rows(256, 4, 2)``, the wire (device to
+   device) and source (host to device) copies timed with CUDA events beside
+   ``rank_death_recovery`` on the card's view, peak under 70 GB; then model
+   output under GB200: ``ClusterSimulator.degraded_table`` of full R1
+   under predictive and sync_free fed the served trace's replayed hit rate
+   and 14's re-run share, Table 5's ``pareto_sweep`` (DEP and DWDP context
+   servers, 2 / 4 / 8 GPUs, 0.5-4 requests/s, 120 s) and DWDP's TPS/GPU
+   over DEP's in the paper's band of 20-100 TPS/user, and two
+   ``ModeledReplicaClient`` replicas that lose a rank mid-run and complete
+   every request;
+16. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
@@ -364,6 +386,27 @@ FAULT_SPEC = "seed=3,drop=0.004,zero=0.002,corrupt=0.002,cache=0.1"
 FAULT_MIRROR = ",mirror=0.15"
 STORM_PEER = 2
 STORM_SPEC = f"seed=7,peers={STORM_PEER}"
+# Phase 15, the cluster model: the predictor replayed on the card over the R1
+# acceptance trace (tests/test_syncfree.py:263: >= 0.9, the richer signals
+# within 0.02 of hotness alone), a uniform trace (< 0.6) and the routed
+# trace of the predictive serve, each against the same replay on the CPU
+# (REPLAY_TOL); R1's MoE layer re-sharded from G' 4 to 3 with rank
+# RESHARD_DEAD dead; and the simulator's model output under GB200.
+ACCEPT_TRACE = dict(steps=48, rows=8, num_experts=256, top_k=8, alpha=1.3, affinity=0.8,
+                    drift_every=24, seed=7)
+UNIFORM_TRACE = dict(steps=32, rows=8, num_experts=256, top_k=8, alpha=0.0, affinity=0.0,
+                     seed=7)
+REPLAY_BUDGET = 16
+REPLAY_TOL = 1e-6
+RESHARD_DEAD = 2
+# reshard_plan_rows(256, 4, 2): rows of each new shard by origin
+RESHARD_ROWS = {"local": [64, 42, 64], "wire": [22, 0, 0], "source": [0, 44, 20]}
+PAPER_TPS_USER = (20.0, 100.0)  # the paper's band of TPS/user (Table 5)
+# The degraded table's decode batch: 8 rows, the JAX package's R1 decode
+# acceptance shape (64 routed draws < the 224 remote experts of G' 8, so the
+# route-before-gather fetches engage; at the simulator's default 64 every
+# rung would gather the whole bank)
+DEGRADED_BATCH = 8
 # The batch-sharded prefill compares its layouts in the no-drop regime: at
 # factor 1.25 the expert capacity follows each rank's token count (a
 # 256-token shard, a whole 1024-token row), so the two layouts drop
@@ -1548,6 +1591,7 @@ def serve_fetch_modes(cfg, params, prompts, ref_outputs, r1, snap, ref_step) -> 
             row["predictive_trace"] = predictive_trace(
                 "predictive trace (demand engine switched to predictive)", eng, prompts,
                 ref_outputs, predictive)
+            row["trace_bitmaps"] = row["predictive_trace"].pop("bitmaps")
         rows.setdefault(mode if not forced else "demand_budget_1", {})[
             "graph" if graphs else "eager"] = row
         del eng, m_model, logits
@@ -1568,7 +1612,8 @@ def serve_fetch_modes(cfg, params, prompts, ref_outputs, r1, snap, ref_step) -> 
               f"{e['landed_gb']:.3f}; fallbacks {g['fallbacks']} / {e['fallbacks']} (overflowed "
               f"layers {g['overflow_layers']} / {e['overflow_layers']})")
     free_memory()
-    brief = {mode: {path: {k: v for k, v in row.items() if k not in ("launches", "paths")}
+    brief = {mode: {path: {k: v for k, v in row.items()
+                           if k not in ("launches", "paths", "trace_bitmaps")}
                     for path, row in by_path.items()} for mode, by_path in rows.items()}
     print(f"fetch modes: {json.dumps(brief)}")
     return rows
@@ -2003,7 +2048,7 @@ def fault_serve(label: str, cfg, eng, prompts, ref_outputs, snap, ref_logits, *,
     warm = captures(eng)
     registry.reset_launch_counts()
     replays = replay_counts(eng)
-    falls = eng.gen.fallbacks
+    falls, steps = eng.gen.fallbacks, eng.decode_steps
     outs = serve(eng, prompts)
     torch.cuda.synchronize()
     summ = eng.metrics.summary(horizon=eng.horizon())
@@ -2021,13 +2066,15 @@ def fault_serve(label: str, cfg, eng, prompts, ref_outputs, snap, ref_logits, *,
     del out
     row = {"tpot_p50_s": summ["tpot_p50_s"], "ttft_p50_s": summ["ttft_p50_s"],
            "fallbacks": eng.gen.fallbacks - falls, "fault_fallbacks": eng.gen.fault_fallbacks,
+           "decode_steps": eng.decode_steps - steps,
            "faults": fs, "detected_by_peer": summ.get("detected_by_peer", []),
            "transitions": summ.get("policy_transitions", []), "captures": list(captures(eng)),
            "launches": dict(counts), "decode_launches_measured": dict(measured),
            "bitwise": bitwise}
     print(f"{label}: tpot_p50_s {summ['tpot_p50_s']:.4f} ttft_p50_s {summ['ttft_p50_s']:.4f} "
           f"steps run again {row['fallbacks']} (checksum {eng.gen.fault_fallbacks}) faults "
-          f"{json.dumps(fs)} detected_by_peer {row['detected_by_peer']} transitions "
+          f"of {row['decode_steps']} decode steps {json.dumps(fs)} detected_by_peer "
+          f"{row['detected_by_peer']} transitions "
           f"{json.dumps([(t['step'], t['kind'], t['fetch']) for t in row['transitions']])} "
           f"captures {captures(eng)} (warmup {warm}) launches {json.dumps(counts)}; tokens and "
           f"decode logits bitwise the all-fetch serve's {bitwise}")
@@ -2171,6 +2218,272 @@ def faults_phase(cfg, params, prompts, ref_outputs, snap, ref_logits) -> dict:
     print(f"faults ({card}; phase wall_s {wall:.1f}): {json.dumps(brief)}")
     rows["wall_s"] = wall
     return rows
+
+
+# --------------------------------------------------------------------------
+# The cluster model: the predictor replayed, R1's banks re-sharded, the
+# simulator's model output.
+# --------------------------------------------------------------------------
+def replay_both(label: str, trace, num_experts: int, **kw) -> dict:
+    """``traces.predictor_hit_rate`` of ``trace`` on the card and on the CPU
+    (G' = G, ``REPLAY_BUDGET``): equal to ``REPLAY_TOL``, finite."""
+    import torch
+    from repro_torch.core import traces
+
+    row = {}
+    for dev in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        row[dev] = traces.predictor_hit_rate(trace, num_experts, G, budget=REPLAY_BUDGET,
+                                             device=dev, **kw)
+        row[f"{dev}_wall_s"] = time.perf_counter() - t0
+    print(f"cluster: predictor replay {label} {tuple(trace.shape)} budget {REPLAY_BUDGET}"
+          f"{' ' + json.dumps(kw) if kw else ''}: hit rate card {row['cuda']:.6f} cpu "
+          f"{row['cpu']:.6f} (wall s {row['cuda_wall_s']:.3f} / {row['cpu_wall_s']:.3f})")
+    if not all(math.isfinite(row[d]) for d in ("cuda", "cpu")):
+        fail(f"cluster: predictor replay {label}: a hit rate is not finite")
+    if abs(row["cuda"] - row["cpu"]) > REPLAY_TOL:
+        fail(f"cluster: predictor replay {label}: card {row['cuda']} != cpu {row['cpu']}")
+    return row
+
+
+def reshard_check(cfg, params) -> dict:
+    """R1's MoE-layer expert leaves at mesh (1, 4), as the engine holds them,
+    re-sharded for G' 4 -> 3 with position ``RESHARD_DEAD`` dead
+    (``prefetch.reshard_split_bank``): ``source`` is a host copy of the
+    leaves (pinned where the host allows) made before the dead shard is
+    filled with NaN; each new shard must be bitwise a fresh
+    ``make_placement(256, 3)`` shard of ``source``, padding exact zeros, no
+    NaN, its rows by origin ``RESHARD_ROWS``; the copies timed by kind with
+    CUDA events beside ``roofline.rank_death_recovery`` (model output)."""
+    import torch
+    from repro_torch.core import prefetch, roofline
+    from repro_torch.core.placement import make_placement
+
+    e = cfg.moe.num_experts
+    old, new = make_placement(e, G), make_placement(e, G - 1)
+    groups = [(g, k) for g in params[0]["layers"] for k in params[0]["layers"][g]
+              if "moe" in params[0]["layers"][g][k]]
+    if len(groups) != 1:
+        fail(f"cluster: re-shard: {len(groups)} MoE layers, want 1")
+    g, k = groups[0]
+    shards = [params[r]["layers"][g][k]["moe"]["experts"] for r in range(G)]
+    leaf_bytes = {n: t[0].numel() * t.element_size() for n, t in shards[0].items()}
+    per_expert = sum(leaf_bytes.values())
+    t0 = time.perf_counter()
+    pinned = True
+    source = {}
+    for name, leaf in shards[0].items():
+        shape = (old.local_count * G,) + tuple(leaf.shape[1:])
+        try:
+            buf = torch.empty(shape, dtype=leaf.dtype, pin_memory=True)
+        except RuntimeError:
+            pinned = False
+            buf = torch.empty(shape, dtype=leaf.dtype)
+        for r in range(G):
+            buf[r * old.local_count:(r + 1) * old.local_count].copy_(shards[r][name])
+        source[name] = buf
+    host_s = time.perf_counter() - t0
+    for leaf in shards[RESHARD_DEAD].values():
+        leaf.fill_(float("nan"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events: dict = {}
+    t0 = time.perf_counter()
+    out = prefetch.reshard_split_bank(shards, old, new, RESHARD_DEAD, source, events=events)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = {kind: a.elapsed_time(b) for kind, (a, b) in events.items()}
+    runs = prefetch.reshard_runs(old, new, RESHARD_DEAD)
+    rows = {kind: [sum(b - a for kk, _, a, b in pos if kk == kind) for pos in runs]
+            for kind in prefetch.RESHARD_KINDS}
+    plan = roofline.reshard_plan_rows(e, G, RESHARD_DEAD)
+    bitwise, nan, pad_zero = True, False, True
+    for p, tree in enumerate(out):
+        first, stop = p * new.local_count, min((p + 1) * new.local_count, e)
+        for name, leaf in tree.items():
+            if leaf.device.type != "cuda" or leaf.shape[0] != new.local_count:
+                fail(f"cluster: re-shard: new shard {p} {name} {tuple(leaf.shape)} on {leaf.device}")
+            want = torch.zeros_like(leaf)
+            want[:stop - first].copy_(source[name][first:stop])
+            bitwise &= torch.equal(leaf, want)
+            nan |= bool(torch.isnan(leaf).any())
+            pad_zero &= bool((leaf[stop - first:] == 0).all())
+            del want
+    copied = {kind: sum(rows[kind]) * per_expert for kind in rows}
+    model = {wb: roofline.rank_death_recovery(cfg, group=G, hw=roofline.card_view(G),
+                                              weight_bytes=wb)["seconds"] for wb in (1, 2)}
+    row = {"rows": rows, "ms": ms, "bytes": copied, "wall_s": wall_s, "host_copy_s": host_s,
+           "pinned": pinned, "peak_gb": peak_gb, "bitwise": bitwise, "nan": nan,
+           "padding_zero": pad_zero, "model_seconds": model,
+           "gb_per_s": {kind: copied[kind] / ms[kind] / 1e6 for kind in ms if ms[kind] > 0}}
+    print(f"cluster: re-shard R1 MoE layer G' {G} -> {G - 1}, dead {RESHARD_DEAD} "
+          f"({card_line()}): {e} experts x {per_expert / 1e6:.2f} MB, new shards of "
+          f"{new.local_count} rows; rows by origin {json.dumps(rows)} (plan "
+          f"{json.dumps({k: plan[k].tolist() for k in RESHARD_ROWS})}); copy ms by kind "
+          f"{json.dumps({k: round(v, 3) for k, v in ms.items()})} GB/s "
+          f"{json.dumps({k: round(v, 1) for k, v in row['gb_per_s'].items()})} (wire: device to "
+          f"device, source: host to device, pinned {pinned}); call wall {wall_s:.3f} s, host copy "
+          f"{host_s:.1f} s; model output rank_death_recovery(group={G}, hw=card_view({G})) "
+          f"seconds {model[1]:.6f} at 1-byte weights, {model[2]:.6f} at 2; bitwise fresh "
+          f"shards {bitwise}, NaN {nan}, padding zero {pad_zero}, peak {peak_gb:.2f} GB")
+    if rows != RESHARD_ROWS or any(plan[kk].tolist() != v for kk, v in RESHARD_ROWS.items()):
+        fail(f"cluster: re-shard rows by origin {rows}, want {RESHARD_ROWS}")
+    if not bitwise or nan or not pad_zero:
+        fail(f"cluster: re-shard bitwise {bitwise} NaN {nan} padding zero {pad_zero}")
+    if peak_gb * 1e9 > PEAK_LIMIT:
+        fail(f"cluster: re-shard peak {peak_gb:.2f} GB > {PEAK_LIMIT / 1e9:.0f} GB")
+    del out, source
+    return row
+
+
+def table5_ratio(rows: list) -> dict:
+    """DWDP's TPS/GPU over DEP's: each mode's best TPS/GPU among the points
+    with TPS/user in ``PAPER_TPS_USER`` (None where the band holds no point),
+    over the whole sweep, and at each (context GPUs, rate) point, with the
+    sweep's range of TPS/user."""
+    band, best = {}, {}
+    for mode in ("dep", "dwdp"):
+        pts = [r for r in rows if r["ctx_mode"] == mode and r["mean_tps_user"] is not None]
+        best[mode] = max(r["tps_per_gpu"] for r in pts)
+        band[mode] = max((r["tps_per_gpu"] for r in pts
+                          if PAPER_TPS_USER[0] <= r["mean_tps_user"] <= PAPER_TPS_USER[1]),
+                         default=None)
+    dep = {(r["ctx_gpus"], r["rate"]): r for r in rows if r["ctx_mode"] == "dep"}
+    per_point = {f"{r['ctx_gpus']}@{r['rate']}": r["tps_per_gpu"] / dep[(r["ctx_gpus"], r["rate"])][
+        "tps_per_gpu"] for r in rows if r["ctx_mode"] == "dwdp"}
+    users = [r["mean_tps_user"] for r in rows if r["mean_tps_user"] is not None]
+    return {"in_band": band, "in_band_dwdp_over_dep": (band["dwdp"] / band["dep"]
+                                                       if band["dep"] and band["dwdp"] else None),
+            "best": best, "best_dwdp_over_dep": best["dwdp"] / best["dep"],
+            "per_point_dwdp_over_dep": per_point, "tps_user_range": [min(users), max(users)]}
+
+
+def modeled_fleet() -> dict:
+    """Two ``ModeledReplicaClient`` replicas of full R1 (2 context and 8
+    generation GPUs each, sync-free decode, GB200): rank 0 of replica 0 is
+    killed after 8 steps of each; every submitted request must complete."""
+    from repro_torch.configs import get_arch
+    from repro_torch.runtime.serving import (
+        ModeledReplicaClient, MultiReplicaEngine, ServingScheduler, WorkloadConfig,
+        synthesize_workload,
+    )
+    from repro_torch.runtime.simulator import SimConfig
+
+    cfg = get_arch("deepseek-r1")
+    scheds = [ServingScheduler(ModeledReplicaClient(SimConfig(
+        cfg=cfg, ctx_gpus=2, gen_gpus=8, gen_mode="dwdp", expert_fetch="sync_free",
+        cache_budget=CACHE_BUDGET, gen_batch=8, isl_max=8192, osl=1024), num_slots=8))
+        for _ in range(2)]
+    fleet = MultiReplicaEngine(scheds)
+    n = 16
+    fleet.submit(synthesize_workload(WorkloadConfig(num_requests=n, isl_buckets=(4096, 8192),
+                                                    osl=64, seed=5)))
+    for _ in range(8):
+        for s in fleet.schedulers:
+            s.step()
+    active = fleet.schedulers[0].active_count()
+    report = fleet.kill_rank(0, 0)
+    summary = fleet.run().summary(fleet.horizon())
+    print(f"cluster: modeled fleet (model output, GB200): 2 replicas of R1, rank 0 of replica 0 "
+          f"killed with {active} active: {json.dumps(report)}; summary "
+          f"{summary_line(summary)} rank_deaths {summary['rank_deaths']} migrated "
+          f"{summary['migrated']} requeued {summary['requeued']} time_to_recover_p50_s "
+          f"{summary['time_to_recover_p50_s']}")
+    if summary["completed"] != n or summary["rank_deaths"] != 1 or active <= 0:
+        fail(f"cluster: modeled fleet completed {summary['completed']} of {n} after the kill "
+             f"({summary['rank_deaths']} rank deaths, {active} active)")
+    return {"report": report, "summary": summary}
+
+
+def cluster_phase(cfg, params, bitmaps, served_summary: dict, fault_rows: dict) -> dict:
+    """Phase 15, the cluster model (run after 14, on R1 1024's weights; it
+    launches no kernel of its own, checked by the launch counts): the
+    predictor replayed on the card over the R1 acceptance trace, a uniform
+    trace and the predictive serve's routed trace (``bitmaps``), each
+    beside the CPU's replay; R1's expert banks re-sharded (``params``' MoE
+    leaves, poisoned: the caller drops them after); then model output under
+    GB200: ``degraded_table`` of full R1 under predictive and sync_free fed
+    the served trace's replayed hit rate and phase 14's re-run share,
+    Table 5's sweep and the DWDP / DEP ratio, and a modeled fleet that
+    loses a rank."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import traces
+    from repro_torch.kernels import registry
+    from repro_torch.runtime.simulator import ClusterSimulator, SimConfig, pareto_sweep
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    registry.reset_launch_counts()
+    e = cfg.moe.num_experts
+    accept = traces.zipf_routing_trace(*[ACCEPT_TRACE[k] for k in ("steps", "rows", "num_experts",
+                                                                  "top_k")],
+                                       **{k: ACCEPT_TRACE[k] for k in ("alpha", "affinity",
+                                                                       "drift_every", "seed")})
+    rich = replay_both("R1 acceptance (rich)", accept, e)
+    plain = replay_both("R1 acceptance (plain)", accept, e, rich=False)
+    uniform = replay_both("uniform", traces.zipf_routing_trace(
+        *[UNIFORM_TRACE[k] for k in ("steps", "rows", "num_experts", "top_k")],
+        **{k: UNIFORM_TRACE[k] for k in ("alpha", "affinity", "seed")}), e)
+    served_trace = traces.from_served_trace(bitmaps, top_k=cfg.moe.top_k)
+    served = replay_both("served (predictive serve's routed trace)", served_trace, e)
+    skew = {"accept": traces.trace_skew(accept, e), "served": traces.trace_skew(served_trace, e),
+            "uniform": traces.trace_skew(traces.zipf_routing_trace(
+                *[UNIFORM_TRACE[k] for k in ("steps", "rows", "num_experts", "top_k")],
+                **{k: UNIFORM_TRACE[k] for k in ("alpha", "affinity", "seed")}), e)}
+    print(f"cluster: served trace {tuple(bitmaps.shape)} -> {tuple(served_trace.shape)}: replayed "
+          f"hit rate {served['cuda']:.6f} beside the serve's own predict_hit_rate "
+          f"{served_summary.get('predict_hit_rate')} (spec {served_summary.get('spec_hit_rate')}, "
+          f"cache {served_summary.get('cache_hit_rate')}); trace_skew served {skew['served']:.4f} "
+          f"acceptance {skew['accept']:.4f} uniform {skew['uniform']:.4f}")
+    if rich["cuda"] < 0.9 or rich["cuda"] < plain["cuda"] - 0.02:
+        fail(f"cluster: acceptance hit rate {rich['cuda']:.4f} (plain {plain['cuda']:.4f})")
+    if uniform["cuda"] >= 0.6:
+        fail(f"cluster: uniform trace hit rate {uniform['cuda']:.4f} >= 0.6")
+    reshard = reshard_check(cfg, params)
+
+    # ---- model output (GB200) ----------------------------------------------
+    r1 = get_arch("deepseek-r1")
+    degraded = {}
+    for fetch in ("predictive", "sync_free"):
+        f = fault_rows[fetch]["faults"]
+        rate = f["fallbacks"] / max(1, f["decode_steps"])
+        sim = ClusterSimulator(SimConfig(cfg=r1, gen_mode="dwdp", expert_fetch=fetch,
+                                         cache_budget=CACHE_BUDGET, gen_batch=DEGRADED_BATCH,
+                                         predict_hit_rate=served["cuda"], fault_rate=rate,
+                                         validate_fetch=True))
+        degraded[fetch] = {"fault_rate": rate, "rows": sim.degraded_table()}
+        print(f"cluster: model output (GB200) degraded_table R1 gen dwdp {fetch} batch "
+              f"{DEGRADED_BATCH} cache {CACHE_BUDGET} predict_hit_rate {served['cuda']:.4f} (replayed) fault_rate "
+              f"{f['fallbacks']}/{f['decode_steps']} = {rate:.4f} (phase 14's re-runs): "
+              f"{json.dumps(degraded[fetch]['rows'])}")
+    t0 = time.perf_counter()
+    sweep = [row for mode in ("dep", "dwdp") for row in pareto_sweep(
+        r1, ctx_mode=mode, ctx_gpu_options=(2, 4, 8), rate_options=(0.5, 1.0, 2.0, 4.0),
+        horizon_s=120.0)]
+    table5 = table5_ratio(sweep)
+    print(f"cluster: model output (GB200) Table 5 sweep ({time.perf_counter() - t0:.1f} s): "
+          + json.dumps([{k: r[k] for k in ("ctx_mode", "ctx_gpus", "rate", "completed",
+                                          "mean_tps_user", "tps_per_gpu", "median_ttft_s")}
+                        for r in sweep])
+          + f"; DWDP / DEP TPS/GPU at TPS/user in {list(PAPER_TPS_USER)}: "
+          + json.dumps(table5))
+    fleet = modeled_fleet()
+    counts = registry.launch_counts()
+    if any(counts.values()):
+        fail(f"cluster: the phase launched kernels: {counts}")
+    wall = time.perf_counter() - t_phase
+    out = {"replay": {"accept_rich": rich, "accept_plain": plain, "uniform": uniform,
+                      "served": served, "served_serve_predict_hit_rate":
+                      served_summary.get("predict_hit_rate"), "trace_skew": skew},
+           "reshard": reshard, "degraded": degraded, "table5": table5, "fleet": fleet,
+           "wall_s": wall}
+    print(f"cluster ({card}; phase wall_s {wall:.1f}): " + json.dumps(
+        {"replay": out["replay"], "reshard": {k: reshard[k] for k in
+                                               ("ms", "gb_per_s", "model_seconds", "peak_gb")},
+         "table5": table5}))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2867,6 +3180,7 @@ def predictive_trace(label: str, eng, prompts, ref_outputs, table) -> dict:
         fail(f"{label}: captured after warmup ({warm} -> {captures(eng)})")
     row["trace_shape"] = list(bm.shape)
     row["experts_per_rank_max"] = int(per_rank.max())
+    row["bitmaps"] = bm
     return row
 
 
@@ -2947,12 +3261,12 @@ def r1_numbers(r1: dict) -> dict:
 
 
 def main() -> None:
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        fail(f"the port's sources are not beside this script ({SRC}/repro_torch missing)")
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA device")
-    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
-        fail(f"the port's sources are not beside this script ({SRC}/repro_torch missing)")
     sys.path.insert(0, SRC)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3101,7 +3415,11 @@ def main() -> None:
 
     # ---- the validated fetch, fault injection, the degradation ladder -------
     fault_rows = faults_phase(cfg, params, prompts, outputs, snap, ref_logits)
-    del params
+
+    # ---- the cluster model: predictor replay, re-shard, model output -------
+    cluster = cluster_phase(cfg, params, modes["demand"]["graph"]["trace_bitmaps"],
+                            modes["demand"]["graph"]["predictive_trace"]["summary"], fault_rows)
+    del params  # the re-shard poisoned the dead rank's experts
     free_memory()
     rolling = {"dep": dep["rolling"]["summary"], "dwdp_all_row_local": serving["rolling"]["summary"]}
     run = {"dep": dep["summary"], "dwdp_all": modes["all"]["graph"],

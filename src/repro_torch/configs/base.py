@@ -112,6 +112,24 @@ class ArchConfig:
         n += self.d_model  # final norm
         return n
 
+    def active_param_count(self) -> int:
+        """Parameters one token touches (MoE: its top_k routed experts, the
+        router and the shared expert only)."""
+        n = self.vocab_size * self.d_model
+        if not self.tie_embeddings:
+            n += self.vocab_size * self.d_model
+        for layer in range(self.num_layers):
+            n += self._mixer_params(layer) + 2 * self.d_model
+            if self.is_moe_layer(layer):
+                n += self.moe.top_k * 3 * self.d_model * self.moe.d_ff
+                n += self.d_model * self.moe.num_experts  # router
+                if self.moe.shared_d_ff:
+                    n += 3 * self.d_model * self.moe.shared_d_ff
+            else:
+                n += self._ffn_params(layer)
+        n += self.d_model
+        return n
+
     def _mixer_params(self, layer: int) -> int:
         kind = self.block_kind(layer)
         d = self.d_model

@@ -245,6 +245,90 @@ def gather_shards(shards: list, rank: int, placement: Placement, *, mode: str = 
     return tree_map(land, *members)
 
 
+RESHARD_KINDS = ("local", "wire", "source")
+
+
+def reshard_runs(old: Placement, new: Placement, dead: int) -> list:
+    """The copies of the fail-stop re-shard ``G' -> G'-1``: per new
+    subgroup position, its contiguous runs of real rows ``(kind, owner,
+    first, stop)`` in expert ids, ``kind`` one of :data:`RESHARD_KINDS`
+    (already held by the survivor at that position, from a surviving peer,
+    from the checkpoint copy because ``owner`` is the dead rank). At most
+    one run per old owner a new range overlaps."""
+    dead = int(dead) % old.subgroup_size
+    e, old_l, new_l = old.num_experts, old.local_count, new.local_count
+    survivors = [r for r in range(old.subgroup_size) if r != dead]
+    out = []
+    for pos, held in enumerate(survivors):
+        runs, r, hi = [], pos * new_l, min((pos + 1) * new_l, e)
+        while r < hi:
+            owner = min(r // old_l, old.subgroup_size - 1)
+            stop = min(hi, (owner + 1) * old_l)
+            kind = "source" if owner == dead else "local" if owner == held else "wire"
+            runs.append((kind, owner, r, stop))
+            r = stop
+        out.append(runs)
+    return out
+
+
+def reshard_split_bank(shards: list, old: Placement, new: Placement, dead: int,
+                       source: PyTree, *, events: dict | None = None) -> list:
+    """Fail-stop re-shard of one family's resident shards after a rank
+    death, ``G' -> G'-1`` (``repro.core.prefetch.reshard_split_bank``).
+
+    ``shards`` holds each old subgroup position's resident tree (leading dim
+    ``old.local_count``, rows in expert order). The survivors' rows move to
+    the new placement's ownership ranges; every row the dead rank held comes
+    from ``source``, the checkpoint tree with leading dim >=
+    ``num_experts`` (it may live on the host), and never from
+    ``shards[dead]``, whose memory recovery must not trust. New padding
+    rows are zeros, as in a fresh ``make_placement`` shard of ``source``.
+    Rows move as the contiguous runs of :func:`reshard_runs`, one copy per
+    run and leaf, the survivors' copies first, then the checkpoint's.
+    ``events`` (CUDA): filled with a ``(start, end)`` pair of recorded
+    events per kind of copy. Returns the ``G'-1`` new trees, on the
+    survivors' device."""
+    if new.num_experts != old.num_experts:
+        raise ValueError(f"reshard must keep the expert set: {old.num_experts} != "
+                         f"{new.num_experts}")
+    if new.subgroup_size != old.subgroup_size - 1:
+        raise ValueError(f"reshard shrinks the subgroup by exactly the dead rank: "
+                         f"{old.subgroup_size} -> {new.subgroup_size}")
+    dead = int(dead) % old.subgroup_size
+    runs = reshard_runs(old, new, dead)
+    live = [q for q in range(old.subgroup_size) if q != dead]
+    leaves: list = []  # (source leaf, {old position: leaf}, new leaves)
+
+    def alloc(src_leaf, *held):
+        like = held[0]
+        outs = [torch.zeros((new.local_count,) + tuple(like.shape[1:]), dtype=like.dtype,
+                            device=like.device) for _ in range(new.subgroup_size)]
+        leaves.append((src_leaf, dict(zip(live, held)), outs))
+        return outs
+
+    trees = tree_map(alloc, source, *(shards[q] for q in live))
+    for kind in RESHARD_KINDS:
+        if events is not None:
+            events[kind] = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+            events[kind][0].record()
+        for src_leaf, held, outs in leaves:
+            for pos, pos_runs in enumerate(runs):
+                base = pos * new.local_count
+                for k, owner, first, stop in pos_runs:
+                    if k != kind:
+                        continue
+                    dst = outs[pos][first - base:stop - base]
+                    if k == "source":
+                        dst.copy_(torch.as_tensor(src_leaf[first:stop]), non_blocking=True)
+                    else:
+                        off = owner * old.local_count
+                        dst.copy_(held[owner][first - off:stop - off])
+        if events is not None:
+            events[kind][1].record()
+    return [tree_map(lambda outs, pos=pos: outs[pos], trees) for pos in range(new.subgroup_size)]
+
+
 # --------------------------------------------------------------------------
 # On-demand expert fetch: the two-round route-before-gather primitive.
 # --------------------------------------------------------------------------

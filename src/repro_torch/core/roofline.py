@@ -15,15 +15,20 @@ engine) and are imported here. Model::
 Hardware entries: ``GB200`` (the paper's card, the resolver's default),
 ``H100`` (one card of a multi-card H100 mesh) and :func:`card_view`, the
 per-logical-rank view of one card that holds every rank of a group — the
-view the servers resolve against on a CUDA device. The fault-recovery
-pricing of the JAX package (``reshard_plan_rows``, ``rank_death_recovery``,
-``degraded_step_times``) needs the degradation ladder and is not ported.
+view the servers resolve against on a CUDA device. The JAX package's
+``TPU_V5E`` entry is not ported: it is a TPU figure, read only by that
+package's paper-table benchmark. The fault pricing (:func:`reshard_plan_rows`,
+:func:`rank_death_recovery`, :func:`degraded_step_times`) prices the
+degradation ladder of ``core.strategy`` and a rank death's re-shard, the
+data movement ``prefetch.reshard_split_bank`` performs.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 from typing import Optional
+
+import numpy as np
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.budget import (  # noqa: F401  (the cost model's budget forms)
@@ -406,6 +411,108 @@ def modeled_step_time(
             pl = make_placement(moe.num_experts, sub)
             total += prefetch.sync_free_mirror_bytes(pl, tokens) / hw.link_bw
     return total
+
+
+def reshard_plan_rows(num_experts: int, group: int, dead: int) -> dict:
+    """Row accounting of the fail-stop re-shard ``G -> G-1`` of the split
+    banks (old owner of row ``r``: ``r // ceil(E/G)``): per surviving new
+    owner, how many of its new rows it already holds (``local``), receives
+    from a surviving peer (``wire``) or takes from the checkpoint copy
+    because the dead rank held them (``source``); rows never come from the
+    dead peer. ``(group-1,)`` arrays by new owner, and ``new_local``, the
+    shrunk layout's rows per rank."""
+    e, g = int(num_experts), int(group)
+    if g < 2:
+        raise ValueError(f"reshard needs group >= 2, got {g}")
+    dead = int(dead) % g
+    old_l = -(-e // g)
+    new_l = -(-e // (g - 1))
+    survivors = [r for r in range(g) if r != dead]
+    local = np.zeros(g - 1, np.int64)
+    wire = np.zeros(g - 1, np.int64)
+    source = np.zeros(g - 1, np.int64)
+    for s, old_rank in enumerate(survivors):
+        for r in range(s * new_l, min((s + 1) * new_l, e)):
+            owner = min(r // old_l, g - 1)
+            if owner == dead:
+                source[s] += 1
+            elif owner == old_rank:
+                local[s] += 1
+            else:
+                wire[s] += 1
+    return {"local": local, "wire": wire, "source": source, "new_local": new_l}
+
+
+def rank_death_recovery(cfg: ArchConfig, *, group: int, hw: Hardware = GB200,
+                        weight_bytes: int = 1) -> dict:
+    """Price a generation rank's fail-stop recovery: the ``G -> G-1``
+    re-shard's wire bytes and the stall before the first decode step after
+    it. The expert banks re-shard by :func:`reshard_plan_rows` (the last
+    rank dead); the survivors exchange their rows point to point in
+    parallel (time: the largest incoming share of one survivor) and the
+    dead rank's rows come from the checkpoint copy over the same fabric.
+    Other families are not priced. The stall adds one fixed plan-swap
+    overhead (the simulator's per-step overhead); a pre-warmed ``G-1``
+    variant compiles nothing."""
+    g = int(group)
+    out = {"wire_bytes": 0.0, "source_bytes": 0.0, "seconds": 2e-4,
+           "per_survivor_wire_bytes": 0.0}
+    if cfg.moe is None or g < 2:
+        return out
+    moe = cfg.moe
+    per_expert = 3 * cfg.d_model * moe.d_ff * float(weight_bytes)
+    n_moe = sum(cfg.is_moe_layer(l) for l in range(cfg.num_layers))
+    plan = reshard_plan_rows(moe.num_experts, g, dead=g - 1)
+    worst_in = float((plan["wire"] + plan["source"]).max())
+    out["wire_bytes"] = n_moe * float(plan["wire"].sum()) * per_expert
+    out["source_bytes"] = n_moe * float(plan["source"].sum()) * per_expert
+    out["per_survivor_wire_bytes"] = n_moe * worst_in * per_expert
+    out["seconds"] += out["per_survivor_wire_bytes"] / hw.link_bw
+    return out
+
+
+def degraded_step_times(cfg: ArchConfig, policies, *, tokens: int, group: int,
+                        hw: Hardware = GB200, validate: bool = True,
+                        excluded_peers: int = 1, **kw) -> list[dict]:
+    """Price every level of the degradation ladder
+    (``strategy.degradation_ladder``): per level, the modeled step time
+    under its table with payload validation priced in, and its ratio to the
+    healthy (unvalidated) top level. The ``+excl`` rung drops
+    ``excluded_peers`` peers' share of the remote bank from the speculative
+    schedule (a predictor hit-rate haircut). The ``"reshard"`` rung is
+    priced at the shrunk group ``group - 1`` and carries the one-time
+    re-shard (:func:`rank_death_recovery`): ``reshard_wire_mb`` and
+    ``recovery_stall_us``."""
+    from repro_torch.core.strategy import degradation_ladder
+
+    n_excl = max(1, min(int(excluded_peers), max(1, group - 1)))
+    rows = []
+    base = modeled_step_time(cfg, tokens=tokens, group=group, hw=hw, policies=policies,
+                             validate=False, **kw)
+    for level, (label, table, excl) in enumerate(degradation_ladder(policies)):
+        sub_kw = dict(kw)
+        if label == "reshard":
+            t = modeled_step_time(cfg, tokens=tokens, group=max(1, group - 1), hw=hw,
+                                  policies=table, validate=validate, **sub_kw)
+            rec = rank_death_recovery(cfg, group=group, hw=hw)
+            rows.append({
+                "level": level, "fetch": label, "t_step_us": t * 1e6,
+                "vs_healthy": t / max(base, 1e-30),
+                "reshard_wire_mb": round((rec["wire_bytes"] + rec["source_bytes"]) / 1e6, 3),
+                "recovery_stall_us": round(rec["seconds"] * 1e6, 3),
+            })
+            continue
+        if excl is None or excl:
+            ph = sub_kw.get("predict_hit")
+            if ph is None and cfg.moe is not None:
+                ph = 1.0 - (1.0 - 1.0 / max(1, cfg.moe.num_experts)) ** (tokens * cfg.moe.top_k)
+            if ph is not None:
+                sub_kw["predict_hit"] = ph * max(0, group - 1 - n_excl) / max(1, group - 1)
+        t = modeled_step_time(cfg, tokens=tokens, group=group, hw=hw, policies=table,
+                              validate=validate, **sub_kw)
+        rows.append({"level": level, "fetch": label, "t_step_us": t * 1e6,
+                     "vs_healthy": t / max(base, 1e-30)})
+    return rows
 
 
 def figure3_sweep(

@@ -9,15 +9,15 @@
   (``epoch_mode`` keeps fixed-slot epochs for comparison);
 - :mod:`replicas` — independent replicas behind a least-loaded router;
 - :mod:`live` — the replica client over live servers (``launch/serve.py
-  --serving``).
-
-The JAX package's roofline-modelled client (``modeled``) comes with the
-port of its cost model and cluster simulator.
+  --serving``);
+- :mod:`modeled` — the replica client priced by the cluster simulator's
+  roofline model (no tensors).
 """
 from repro_torch.runtime.serving.admission import (  # noqa: F401
     ADMIT, QUEUE, REJECT, AdmissionController, SLOConfig,
 )
 from repro_torch.runtime.serving.live import LiveReplicaClient, RoutedTraceRecorder  # noqa: F401
+from repro_torch.runtime.serving.modeled import ModeledReplicaClient  # noqa: F401
 from repro_torch.runtime.serving.replicas import MultiReplicaEngine, ReplicaRouter  # noqa: F401
 from repro_torch.runtime.serving.scheduler import ServingScheduler  # noqa: F401
 from repro_torch.runtime.serving.workload import (  # noqa: F401

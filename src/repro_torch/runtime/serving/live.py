@@ -113,12 +113,11 @@ class LiveReplicaClient:
 
     def kill_rank(self, dead_rank: int, active_slots=()) -> dict:
         """Fail-stop one generation rank (the JAX package swaps in a standby
-        engine re-sharded onto the survivors and prices the stall with
-        ``roofline.rank_death_recovery``). Not ported yet."""
+        engine re-sharded onto the survivors, ``prefetch.reshard_split_bank``,
+        and prices the stall with ``roofline.rank_death_recovery``). Not
+        ported yet: the standby engine is missing."""
         raise NotImplementedError(
-            "kill_rank needs a standby engine re-sharded onto the surviving ranks "
-            "(prefetch.reshard_split_bank) and roofline.rank_death_recovery: both come with "
-            "the rank-death slice of the port, not ported yet")
+            "kill_rank needs a standby engine on the surviving ranks, not ported yet")
 
     def can_resume(self, plan) -> bool:
         """True when a snapshot stamped with ``plan`` restores on this

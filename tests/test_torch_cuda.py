@@ -778,3 +778,56 @@ def test_cuda_validated_graph_serving_bitwise_eager(fetch):
     fg, fe = graph.metrics.summary(1.0)["faults"], eager.metrics.summary(1.0)["faults"]
     assert fg == fe and fg["detected"] >= sum(v for k, v in fg.items() if k.startswith("injected"))
     assert graph.gen.fault_fallbacks == eager.gen.fault_fallbacks > 0
+
+
+@pytest.mark.cuda
+def test_cuda_predictor_replay_matches_cpu():
+    """The R1 acceptance trace (tests/test_syncfree.py:263) replayed on the
+    card gives the CPU's hit rates, with and without the richer signals."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the replay runs on the card")
+    from repro_torch.core import traces
+
+    trace = traces.zipf_routing_trace(48, 8, 256, 8, alpha=1.3, affinity=0.8, drift_every=24,
+                                      seed=7)
+    card = {}
+    for rich in (True, False):
+        card[rich] = traces.predictor_hit_rate(trace, 256, 4, budget=16, rich=rich)
+        cpu = traces.predictor_hit_rate(trace, 256, 4, budget=16, rich=rich, device="cpu")
+        assert abs(card[rich] - cpu) <= 1e-6, (rich, card[rich], cpu)
+    assert card[True] >= 0.9 and card[True] >= card[False] - 0.02, card
+
+
+@pytest.mark.cuda
+def test_cuda_reshard_split_bank_bitwise_cpu():
+    """G' 4 -> 3 over E 20 with position 1 dead: the survivors' shards on the
+    card, ``source`` on the host (pinned), the dead shard NaN; the new
+    shards land on the card, bitwise the CPU re-shard's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the re-shard's copies run on the card")
+    from repro_torch.core import prefetch
+    from repro_torch.core.placement import make_placement
+
+    e, dead = 20, 1
+    old, new = make_placement(e, 4), make_placement(e, 3)
+    gen = torch.Generator().manual_seed(0)
+    source = {"w_up": torch.randn(e, 24, 16, generator=gen).to(torch.bfloat16).pin_memory(),
+              "w_down": torch.randn(e, 16, 24, generator=gen).to(torch.bfloat16).pin_memory()}
+    table = torch.as_tensor(old.table())
+
+    def shards(device):
+        out = [{k: v[table[r]].to(device) for k, v in source.items()}
+               for r in range(4)]
+        for leaf in out[dead].values():
+            leaf.fill_(float("nan"))
+        return out
+
+    events = {}
+    got = prefetch.reshard_split_bank(shards("cuda"), old, new, dead, source, events=events)
+    ref = prefetch.reshard_split_bank(shards("cpu"), old, new, dead, source)
+    torch.cuda.synchronize()
+    assert set(events) == set(prefetch.RESHARD_KINDS)
+    for g, r in zip(got, ref):
+        for k in source:
+            assert g[k].device.type == "cuda" and not torch.isnan(g[k]).any()
+            assert torch.equal(g[k].cpu(), r[k])

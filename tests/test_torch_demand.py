@@ -81,20 +81,35 @@ DEMAND = [
 ]
 
 
-@pytest.mark.parametrize("shape,dt", DEMAND, ids=str)
-def test_split_grouped_swiglu_demand_plain_matches_pallas_and_jnp(shape, dt):
+def _demand_inputs(shape, dt):
     e_l, e_f, c, d, f, pattern = shape
     arrs = _arrays(e_l + 7 * e_f + c + len(pattern), (e_l + e_f, c, d), (e_l, d, f), (e_l, d, f), (e_l, f, d),
                    (e_f, d, f), (e_f, d, f), (e_f, f, d))
     valid = (np.arange(e_f) % 2 == 0) if pattern == "half" else np.zeros(e_f, bool)
-    jx = [jnp.asarray(a, JDT[dt]) for a in arrs]
-    tx = [torch.from_numpy(a).to(TDT[dt]) for a in arrs]
-    tv = torch.from_numpy(valid)
+    return ([jnp.asarray(a, JDT[dt]) for a in arrs] + [jnp.asarray(valid)],
+            [torch.from_numpy(a).to(TDT[dt]) for a in arrs], torch.from_numpy(valid))
+
+
+@pytest.fixture(scope="module")
+def demand_refs():
+    """Every DEMAND case's Pallas kernel (interpret mode) and jnp version, in
+    one jitted program for the module."""
+    ins = {str(c): _demand_inputs(*c)[0] for c in DEMAND}
+    return jax.jit(lambda ins: {k: [jops.split_swiglu_demand(*a, **kw)
+                                    for kw in ({}, {"impl": "jnp"})]
+                                for k, a in ins.items()})(ins)
+
+
+@pytest.mark.parametrize("shape,dt", DEMAND, ids=str)
+def test_split_grouped_swiglu_demand_plain_matches_pallas_and_jnp(demand_refs, shape, dt):
+    e_l = shape[0]
+    _, tx, tv = _demand_inputs(shape, dt)
     got = grouped.split_grouped_swiglu_demand(*tx, tv)  # CPU tensors: the plain version
     assert torch.equal(got, tops.split_swiglu_demand(*tx, tv, impl="torch"))
     assert torch.all(got[e_l:][~tv] == 0)
-    _close(got, jops.split_swiglu_demand(*jx, jnp.asarray(valid)), dt)  # Pallas, interpret
-    _close(got, jops.split_swiglu_demand(*jx, jnp.asarray(valid), impl="jnp"), dt)
+    pallas, plain = demand_refs[str((shape, dt))]  # Pallas in interpret mode, jnp
+    _close(got, pallas, dt)
+    _close(got, plain, dt)
 
 
 @pytest.mark.parametrize("shape", [(4, 2, 5, 64, 32), (4, 0, 1, 64, 32), (4, 4, 3, 64, 32)],

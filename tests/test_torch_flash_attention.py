@@ -41,14 +41,31 @@ SHAPES = [
 INTERPRET = [SHAPES[3], SHAPES[1], SHAPES[4]]
 
 
+def _sid(shape):
+    return "x".join(map(str, shape))
+
+
 @pytest.fixture(scope="module")
-def jax_fns():
-    """The JAX package's reference and Pallas kernel (interpret mode),
-    jitted once for the module."""
-    ref = jax.jit(jref, static_argnames=("window", "q_offset"))
-    pallas = jax.jit(jflash, static_argnames=("window", "q_offset", "block_q", "block_k",
-                                              "interpret"))
-    return ref, pallas
+def jax_refs():
+    """The JAX package's reference at every shape and dtype and its Pallas
+    kernel (interpret mode) at the INTERPRET shapes, computed in one jitted
+    program for the module (a program per case compiled ~0.3 s each)."""
+    ins = {_sid(s): [_inputs(s), _inputs(s, seed=2)] for s in SHAPES}
+
+    def run(ins):
+        out = {}
+        for shape in SHAPES:
+            window, q_offset = shape[6], shape[7]
+            arrs, arrs2 = ins[_sid(shape)]
+            for dt in JDT:
+                out[(_sid(shape), dt)] = jref(*(a.astype(JDT[dt]) for a in arrs), window=window,
+                                              q_offset=q_offset)
+            if shape in INTERPRET:
+                out[(_sid(shape), "pallas")] = jflash(*arrs2, window=window, q_offset=q_offset,
+                                                      block_q=64, block_k=64, interpret=True)
+        return out
+
+    return jax.jit(run)(jax.tree.map(jnp.asarray, ins))
 
 
 def _inputs(shape, seed=1):
@@ -64,24 +81,21 @@ def _port(arrs, dt, window, q_offset, impl=None):
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_flash_attention_matches_jax_ref(jax_fns, shape, dt):
+@pytest.mark.parametrize("shape", SHAPES, ids=_sid)
+def test_flash_attention_matches_jax_ref(jax_refs, shape, dt):
     window, q_offset = shape[6], shape[7]
-    arrs = _inputs(shape)
-    ref = jax_fns[0](*(jnp.asarray(a, JDT[dt]) for a in arrs), window=window, q_offset=q_offset)
-    got = _port(arrs, dt, window, q_offset)
+    ref = jax_refs[(_sid(shape), dt)]
+    got = _port(_inputs(shape), dt, window, q_offset)
     assert got.shape == tuple(ref.shape) and got.dtype == TDT[dt]
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
                                atol=TOL[dt], rtol=TOL[dt])
 
 
-@pytest.mark.parametrize("shape", INTERPRET, ids=lambda s: "x".join(map(str, s)))
-def test_flash_attention_matches_pallas_interpret(jax_fns, shape):
+@pytest.mark.parametrize("shape", INTERPRET, ids=_sid)
+def test_flash_attention_matches_pallas_interpret(jax_refs, shape):
     window, q_offset = shape[6], shape[7]
-    arrs = _inputs(shape, seed=2)
-    ref = jax_fns[1](*(jnp.asarray(a) for a in arrs), window=window, q_offset=q_offset,
-                     block_q=64, block_k=64, interpret=True)
-    got = _port(arrs, "float32", window, q_offset)
+    ref = jax_refs[(_sid(shape), "pallas")]
+    got = _port(_inputs(shape, seed=2), "float32", window, q_offset)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5, rtol=2e-5)
 
 

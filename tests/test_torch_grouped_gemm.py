@@ -8,6 +8,7 @@ what the CUDA kernel refuses; and the exactness of the widening the CUDA
 kernel applies to fp8 banks. The CUDA kernel itself runs only on the card
 (tests/test_torch_cuda.py). Inputs are made with numpy from a seed.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,22 +50,38 @@ def _close(got, ref):
                                atol=TOL, rtol=TOL)
 
 
+# (seed, E, E_l, C, D, F, weight) of each Pallas comparison: E 6 (4 local, 2
+# remote), D 128, F 256 at C 1, 3 and 16; then an empty local or remote bank
+CASES = {**{("full", c, w): (c, 6, 4, c, 128, 256, w) for c in (1, 3, 16) for w in WEIGHTS},
+         **{("empty", e_l, w): (7 + e_l, 5, e_l, 2, 64, 128, w)
+            for e_l in (0, 5) for w in ("bfloat16", "float8_e4m3fn")}}
+
+
+@pytest.fixture(scope="module")
+def pallas_refs():
+    """The Pallas kernel (interpret mode) on every case's inputs, in one
+    jitted program for the module (a program per case compiled ~0.4 s)."""
+    ins = {"-".join(map(str, k)): _inputs(*args)[1] for k, args in CASES.items()}
+    out = jax.jit(lambda ins: {k: jops.split_gemm(*v) for k, v in ins.items()})(ins)
+    return {k: out["-".join(map(str, k))] for k in CASES}
+
+
 @pytest.mark.parametrize("weight", list(WEIGHTS))
 @pytest.mark.parametrize("c", [1, 3, 16])
-def test_split_gemm_matches_pallas(c, weight):
+def test_split_gemm_matches_pallas(pallas_refs, c, weight):
     """E 6 (4 local, 2 remote), D 128, F 256."""
-    (tx, twl, twr), (jx, jwl, jwr) = _inputs(c, 6, 4, c, 128, 256, weight)
+    (tx, twl, twr), _ = _inputs(*CASES[("full", c, weight)])
     got = tops.split_gemm(tx, twl, twr)  # CPU tensors: the plain version
     assert torch.equal(got, grouped.split_grouped_gemm_torch(tx, twl, twr))
-    _close(got, jops.split_gemm(jx, jwl, jwr))  # Pallas, interpret mode
+    _close(got, pallas_refs[("full", c, weight)])  # Pallas, interpret mode
 
 
 @pytest.mark.parametrize("weight", ["bfloat16", "float8_e4m3fn"])
 @pytest.mark.parametrize("e_l", [0, 5], ids=["no_local", "no_remote"])
-def test_split_gemm_empty_bank_matches_pallas(e_l, weight):
-    (tx, twl, twr), (jx, jwl, jwr) = _inputs(7 + e_l, 5, e_l, 2, 64, 128, weight)
+def test_split_gemm_empty_bank_matches_pallas(pallas_refs, e_l, weight):
+    (tx, twl, twr), _ = _inputs(*CASES[("empty", e_l, weight)])
     assert min(twl.shape[0], twr.shape[0]) == 0
-    _close(tops.split_gemm(tx, twl, twr), jops.split_gemm(jx, jwl, jwr))
+    _close(tops.split_gemm(tx, twl, twr), pallas_refs[("empty", e_l, weight)])
 
 
 def test_ops_split_gemm_impls_agree_on_cpu():

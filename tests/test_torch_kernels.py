@@ -27,7 +27,7 @@ from repro_torch.models import moe as tmoe
 # the port's test shapes are too small to gain from more.
 torch.set_num_threads(1)
 
-# The JAX references run under jax.jit, one program each: eager JAX
+# The JAX references run under jax.jit, in one program per module or test: eager JAX
 # compiles every op at every new shape, seconds per small test.
 # tests/test_kernels.py TOL: fp32 2e-5, bf16 2e-2 (atol and rtol)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -69,39 +69,59 @@ DENSE = [(5, 64, 32, 1, 3), (1, 64, 32, 0, 2), (2, 64, 32, 2, 0)]
 DENSE_CASES = [(s, "float32") for s in DENSE] + [(DENSE[0], "bfloat16")]
 
 
+def _grouped_inputs(shape, dt):
+    return _both(_arrays(sum(shape), *_swiglu_shapes(*shape)), dt)
+
+
+def _dense_inputs(shape, dt):
+    """(stack, reduce, dense-FFN) operands, each (JAX, torch)."""
+    t, d, f, s_l, s_r = shape
+    x, wl, wr, xr, wl2, wr2 = _arrays(
+        sum(shape), (t, d), (s_l, d, f), (s_r, d, f), (s_l + s_r, t, f), (s_l, f, d), (s_r, f, d))
+    return (_both([x, wl, wr], dt), _both([xr, wl2, wr2], dt),
+            _both(_arrays(sum(shape) + 1, *_dense_swiglu_shapes(*shape)), dt))
+
+
+BOTH = ({}, {"impl": "jnp"})  # each kernel: the Pallas kernel (interpret mode), then jnp
+
+
+@pytest.fixture(scope="module")
+def grouped_refs():
+    """Every grouped case's JAX references, computed in one jitted program
+    for the module (a program per case paid ~0.2 s of compile overhead)."""
+    ins = {str(c): _grouped_inputs(*c)[0] for c in GROUPED_CASES}
+    return jax.jit(lambda ins: {k: [jops.split_swiglu(*a, **kw) for kw in BOTH]
+                                for k, a in ins.items()})(ins)
+
+
+@pytest.fixture(scope="module")
+def dense_refs():
+    """Every dense case's JAX references of #4, #5 and #6, in one program."""
+    fns = (jops.split_stack_matmul, jops.split_reduce_matmul, jops.split_dense_ffn)
+    ins = {str(c): [ops[0] for ops in _dense_inputs(*c)] for c in DENSE_CASES}
+    return jax.jit(lambda ins: {k: [[fn(*a, **kw) for kw in BOTH] for fn, a in zip(fns, ops)]
+                                for k, ops in ins.items()})(ins)
+
+
 @pytest.mark.parametrize("shape,dt", GROUPED_CASES, ids=str)
-def test_split_grouped_swiglu_plain_matches_pallas_and_jnp(shape, dt):
-    arrs = _arrays(sum(shape), *_swiglu_shapes(*shape))
-    jx, tx = _both(arrs, dt)
+def test_split_grouped_swiglu_plain_matches_pallas_and_jnp(grouped_refs, shape, dt):
+    tx = _grouped_inputs(shape, dt)[1]
     got = grouped.split_grouped_swiglu(*tx)  # CPU tensors: the plain version
     assert torch.equal(got, grouped.split_grouped_swiglu_torch(*tx))
-    _close(got, jax.jit(jops.split_swiglu)(*jx), dt)   # Pallas, interpret mode
-    _close(got, jax.jit(lambda *a: jops.split_swiglu(*a, impl="jnp"))(*jx), dt)
+    pallas, plain = grouped_refs[str((shape, dt))]
+    _close(got, pallas, dt)
+    _close(got, plain, dt)
 
 
 @pytest.mark.parametrize("shape,dt", DENSE_CASES, ids=str)
-def test_split_dense_kernels_plain_match_pallas_and_jnp(shape, dt):
-    t, d, f, s_l, s_r = shape
-    s = s_l + s_r
-    x, wl, wr, xr, wl2, wr2 = _arrays(
-        sum(shape), (t, d), (s_l, d, f), (s_r, d, f), (s, t, f), (s_l, f, d), (s_r, f, d)
-    )
-    (jx, jwl, jwr, jxr, jwl2, jwr2), (tx, twl, twr, txr, twl2, twr2) = _both(
-        [x, wl, wr, xr, wl2, wr2], dt
-    )
-    got = dense.split_stack_gemm(tx, twl, twr)
-    stack_jnp = jax.jit(lambda *a: jops.split_stack_matmul(*a, impl="jnp"))
-    _close(got, jax.jit(jops.split_stack_matmul)(jx, jwl, jwr), dt)
-    _close(got, stack_jnp(jx, jwl, jwr), dt)
-    got = dense.split_reduce_gemm(txr, twl2, twr2)
-    reduce_jnp = jax.jit(lambda *a: jops.split_reduce_matmul(*a, impl="jnp"))
-    _close(got, jax.jit(jops.split_reduce_matmul)(jxr, jwl2, jwr2), dt)
-    _close(got, reduce_jnp(jxr, jwl2, jwr2), dt)
-    arrs = _arrays(sum(shape) + 1, *_dense_swiglu_shapes(*shape))
-    jd, td = _both(arrs, dt)
-    got = dense.split_dense_swiglu(*td)
-    _close(got, jax.jit(jops.split_dense_ffn)(*jd), dt)
-    _close(got, jax.jit(lambda *a: jops.split_dense_ffn(*a, impl="jnp"))(*jd), dt)
+def test_split_dense_kernels_plain_match_pallas_and_jnp(dense_refs, shape, dt):
+    stack, reduce, ffn = (ops[1] for ops in _dense_inputs(shape, dt))
+    for got, (pallas, plain) in zip((dense.split_stack_gemm(*stack),
+                                     dense.split_reduce_gemm(*reduce),
+                                     dense.split_dense_swiglu(*ffn)),
+                                    dense_refs[str((shape, dt))]):
+        _close(got, pallas, dt)
+        _close(got, plain, dt)
 
 
 def test_ops_dispatch_impls_agree_on_cpu():

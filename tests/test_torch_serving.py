@@ -269,7 +269,7 @@ def test_scheduler_matches_reference_on_a_fake_client(name):
 
 def test_live_client_kill_rank_names_what_it_waits_for():
     client = serving.LiveReplicaClient(None, None, types.SimpleNamespace(max_batch=2))
-    with pytest.raises(NotImplementedError, match="rank_death_recovery"):
+    with pytest.raises(NotImplementedError, match="standby engine"):
         client.kill_rank(1, [0])
 
 

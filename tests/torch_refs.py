@@ -11,10 +11,12 @@ reduced DeepSeek-R1 engine (``test_torch_engine``,
 builds the weights and serves the JAX engine once; the files' module
 fixtures return the cached objects, which the tests only read.
 
-The weights are the JAX package's own ``init_params`` at (1, 1) and at
-(1, 4) from one key (:func:`jax_params`): the port converts the tree that
-the JAX package laid out itself, and the JAX runs read the (1, 1) tree of
-the same canonical values.
+The weights are canonical tensors drawn with numpy and scaled as the JAX
+package's ``init_params`` scales its draws, laid out by that function's
+steps at (1, 1) and at (1, 4) (:func:`jax_params`; its ``param_struct``
+gives the same tree): the port converts the (1, 4) tree and the JAX runs
+read the (1, 1) tree of the same canonical values. Compiling the JAX
+package's ``init_params`` took seconds per configuration.
 """
 import functools
 
@@ -38,15 +40,107 @@ from repro_torch.configs import get_arch, reduced_variant
 from repro_torch.configs.base import ArchConfig, BlockKind, MoEConfig
 
 
+def _canonical_layer(rng, jcfg, geom, sig) -> dict:
+    """One layer's canonical (unsharded) weights drawn with numpy, scaled as
+    ``repro.models.transformer.init_layer_params`` scales its draws."""
+    def dense(*shape, scale=None):
+        scale = shape[-2] ** -0.5 if scale is None else scale
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    if sig.kind not in (JKind.GLOBAL_ATTN, JKind.LOCAL_ATTN):
+        raise NotImplementedError(f"no canonical draw for a {sig.kind} layer")
+    d, qd, kvd = jcfg.d_model, jcfg.q_dim, jcfg.kv_dim
+    out = {"attn": dict(wq=dense(d, qd), wk=dense(d, kvd), wv=dense(d, kvd), wo=dense(qd, d))}
+
+    def ffn(f):
+        s = geom.ffn_shards
+        f_pad = -(-f // s) * s
+        wd = dense(f_pad, d)
+        wd[f:] = 0.0  # padded hidden units must not contribute
+        return dict(w_gate=dense(d, f_pad), w_up=dense(d, f_pad), w_down=wd)
+
+    if sig.is_moe:
+        pl, fe = geom.moe_placement, jcfg.moe.d_ff
+        valid = (np.arange(pl.num_padded) < jcfg.moe.num_experts).astype(np.float32)[:, None, None]
+        out["moe"] = {"router": dense(d, pl.num_padded),
+                      "experts": dict(w_gate=dense(pl.num_padded, d, fe) * valid,
+                                      w_up=dense(pl.num_padded, d, fe) * valid,
+                                      w_down=dense(pl.num_padded, fe, d) * valid)}
+        if jcfg.moe.shared_d_ff:
+            out["moe"]["shared"] = ffn(jcfg.moe.shared_d_ff)
+    elif sig.ffn_dim:
+        out["ffn"] = ffn(sig.ffn_dim)
+    return out
+
+
+def _jax_layout(jm, canon) -> dict:
+    """The canonical weights ``canon`` in ``jm``'s storage layout: the tree
+    ``jm.init_params`` returns, by the layout steps of ``init_attn_params``,
+    ``init_ffn_params`` and ``init_moe_params``."""
+    geom, d = jm.geom, jm.cfg.d_model
+    a, ksd = geom.attn_shards, geom.kv_shard
+    kv_rank = np.arange(a) // (a // ksd)
+
+    def ffn(c):
+        s = geom.ffn_shards
+        f = c["w_down"].shape[0] // s
+        return {"w_gate": c["w_gate"].reshape(d, s, f).transpose(1, 0, 2),
+                "w_up": c["w_up"].reshape(d, s, f).transpose(1, 0, 2),
+                "w_down": c["w_down"].reshape(s, f, d)}
+
+    def layer(c):
+        at = c["attn"]
+        qd, kvd = at["wq"].shape[1], at["wk"].shape[1]
+        out = {"norm1": np.zeros(d, np.float32),
+               "attn": {"wq": at["wq"].reshape(d, a, qd // a).transpose(1, 0, 2),
+                        "wo": at["wo"].reshape(a, qd // a, d),
+                        **{k: at[k].reshape(d, ksd, kvd // ksd).transpose(1, 0, 2)[kv_rank]
+                           for k in ("wk", "wv")}}}
+        if "moe" in c:
+            table = geom.moe_placement.table().reshape(-1)
+            out["norm2"] = np.zeros(d, np.float32)
+            out["moe"] = {"router": c["moe"]["router"],
+                          "experts": {k: v[table] for k, v in c["moe"]["experts"].items()}}
+            if "shared" in c["moe"]:
+                out["moe"]["shared"] = ffn(c["moe"]["shared"])
+        elif "ffn" in c:
+            out["norm2"] = np.zeros(d, np.float32)
+            out["ffn"] = ffn(c["ffn"])
+        return out
+
+    layers = {}
+    for group, cycles in zip(jm.plan, canon["layers"]):
+        layers[group.name] = {
+            f"pos{j}": (jax.tree.map(lambda *xs: np.stack(xs), *[layer(c[j]) for c in cycles])
+                        if group.scan else layer(cycles[0][j]))
+            for j in range(len(group.sigs))}
+    tree = {"embed": canon["embed"], "final_norm": np.zeros(d, np.float32), "layers": layers}
+    if "lm_head" in canon:
+        tree["lm_head"] = canon["lm_head"]
+    return tree
+
+
 def jax_params(jm1, jm4, seed: int) -> tuple:
-    """The JAX package's own ``init_params`` of ``jm1``'s (1, 1) and
-    ``jm4``'s (1, 4) layouts from one key, compiled as one program (eager
-    ``init_params`` compiles one small program per leaf shape, seconds per
-    configuration): ``(jax (1, 1) tree, numpy (1, 4) tree)``. The JAX
-    package draws canonical tensors and then lays them out, so both trees
-    hold the same canonical values; the port converts the (1, 4) tree."""
-    both = jax.jit(lambda k: (jm1.init_params(k), jm4.init_params(k)))(jax.random.key(seed))
-    return both[0], jax.tree.map(np.asarray, both[1])
+    """Canonical weights drawn with numpy from ``seed``, scaled as the JAX
+    package's ``init_params`` scales its draws, in ``jm1``'s (1, 1) and
+    ``jm4``'s (1, 4) storage layouts: ``(jax (1, 1) tree, numpy (1, 4)
+    tree)`` of the same canonical values; the port converts the (1, 4)
+    tree. Drawing with numpy spares the compile of the JAX package's
+    ``init_params`` (seconds per configuration)."""
+    g1, g4 = jm1.geom, jm4.geom
+    pads = lambda g: (g.vocab_pad, g.moe_placement.num_padded if g.moe_placement else 0)
+    if pads(g1) != pads(g4) or [(g.name, g.scan, g.n_cycles, g.sigs) for g in jm1.plan] != \
+            [(g.name, g.scan, g.n_cycles, g.sigs) for g in jm4.plan]:
+        raise ValueError("the two layouts do not hold the same canonical weights")
+    rng = np.random.default_rng(seed)
+    d, cfg = jm1.cfg.d_model, jm1.cfg
+    canon = {"embed": rng.standard_normal((g1.vocab_pad, d)).astype(np.float32), "layers": [
+        [[_canonical_layer(rng, cfg, g4, sig) for sig in group.sigs]
+         for _ in range(group.n_cycles if group.scan else 1)]
+        for group in jm1.plan]}
+    if not cfg.tie_embeddings:
+        canon["lm_head"] = (rng.standard_normal((d, g1.vocab_pad)) * d ** -0.5).astype(np.float32)
+    return jax.tree.map(jnp.asarray, _jax_layout(jm1, canon)), _jax_layout(jm4, canon)
 
 
 def jax_engine(jcfg, params, *, prefill_len: int, cache_len: int, max_batch: int = 2,
@@ -82,7 +176,7 @@ def tiny_moe() -> dict:
     cfg = ArchConfig(**MOE_FIELDS, moe=MoEConfig(**MOE_EXPERTS))
     jm1 = jbuild_model(jcfg, {"data": 1, "model": 1}, dtype=jnp.float32)
     jm4 = jbuild_model(jcfg, {"data": 1, "model": 4}, dtype=jnp.float32, **MOE_GEOM)
-    jparams1, jparams4 = jax_params(jm1, jm4, seed=3)
+    jparams1, jparams4 = jax_params(jm1, jm4, seed=4)
     return dict(jcfg=jcfg, cfg=cfg, jm1=jm1, jparams1=jparams1, jparams4=jparams4)
 
 
