@@ -216,8 +216,10 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    trace of 6's predictive serve (printed beside that serve's own
    ``predict_hit_rate`` and the traces' skew), each equal to the same
    replay on the CPU to 1e-6; R1's MoE-layer expert leaves of the engine
-   (four shards of 64 experts, 22.55 GB) copied to the host as ``source``,
-   the dead position's shard filled with NaN, re-sharded for G' 4 -> 3
+   (four shards of 64 experts, 22.55 GB), with the layer's experts of the
+   weights' pinned host checkpoint (``checkpoint.convert.to_checkpoint``,
+   28.14 GB) as ``source``, the dead position's shard filled with NaN (and
+   written back from the checkpoint after), re-sharded for G' 4 -> 3
    (``prefetch.reshard_split_bank``): each new 86-row shard bitwise a fresh
    ``make_placement(256, 3)`` shard of ``source``, padding zeros, no NaN,
    rows by origin ``reshard_plan_rows(256, 4, 2)``, the wire (device to
@@ -230,7 +232,40 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    over DEP's in the paper's band of 20-100 TPS/user, and two
    ``ModeledReplicaClient`` replicas that lose a rank mid-run and complete
    every request;
-16. a ``{"kernels": [...]}`` JSON line, then the last line
+16. rank death on the live engine (run after 15, on R1 1024's weights and
+   their checkpoint; it takes the last references to both, since the
+   re-shard frees the old weights as the new land): a (2, 4) engine, graphs,
+   the reference kill script's policy (``RD_POLICY``), row-local capacity,
+   4 slots, serves 8 requests of 1024 tokens (16 out) through
+   ``ServingScheduler`` over ``LiveReplicaClient`` in a one-replica
+   ``MultiReplicaEngine`` uninterrupted; its generation server steps onto
+   the ladder's ``"reshard"`` rung, which must replay the captured
+   all-fetch variant with no capture and the all-fetch rung's decode
+   logits bitwise; then the same requests again, rank 5 (data row 1) killed
+   after 4 decode steps. The client's standby is a callable that, once
+   ``kill_rank`` has released the dying engine's graphs, fills the dead
+   shard with NaN, re-shards the weights in place for (2, 3)
+   (``checkpoint.convert.reshard_params``: the survivors' expert rows on the
+   card, the dead rank's from the pinned checkpoint; every other family
+   split for three shards, the attention unsharded, the vocabulary, FFN
+   widths and experts padded) and builds and warms a (2, 3) engine. One card
+   holds no second R1 weight set beside a running engine, so the fleet is
+   one replica and its migrants requeue. Checked: migrated + requeued = the
+   active slots, every request at 16 tokens, the summary's recovery counts,
+   the standby's expert shards bitwise fresh ``make_placement(256, 3)``
+   shards of the checkpoint (zero padding, no NaN anywhere), its prefill and
+   decode logits within LOGIT_TOL of the plain versions, the requeued
+   requests served again on the standby alone bitwise, the launches through
+   its replays (#2, #3, #6 and #7; not #4 or #5: its attention is
+   unsharded; #6 on its mma path at the shared expert's 683 columns), no
+   capture after the recovery, peak under the card's 80 GB. Printed: the
+   recovery's parts (snapshots, the copies by kind with CUDA events, the
+   other families, the standby's captures, the reported seconds beside
+   ``rank_death_recovery`` on GB200 and the card's view), TTFT and TPOT p50
+   on (2, 4) and on the standby, peak, the card's name and power limit.
+   Kernels #2, #3, #6 and #7 are also held in 3 at the standby's per-rank
+   shapes;
+17. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
@@ -402,6 +437,30 @@ RESHARD_DEAD = 2
 # reshard_plan_rows(256, 4, 2): rows of each new shard by origin
 RESHARD_ROWS = {"local": [64, 42, 64], "wire": [22, 0, 0], "source": [0, 44, 20]}
 PAPER_TPS_USER = (20.0, 100.0)  # the paper's band of TPS/user (Table 5)
+# Phase 16, rank death on the live engine: R1 1024's weights on (2, 4), 4
+# decode slots (two per data replica), 8 requests; rank 5 (data row 1,
+# model position 1) dies after 4 decode steps, so slots 2 and 3 lose their
+# KV; the standby runs the survivors' mesh (2, 3). Row-local capacity keeps
+# a request's tokens independent of its neighbours. The reference's kill
+# script serves "split:predictive:allgather:4:4:8" (tests/test_rank_death.py):
+# at R1 width its 4-row budget overflows on most decode steps, each then
+# run again eagerly over the whole remote bank (31.5 GiB of landings on
+# (2, 4)) beside its 8-row residency cache (5.6 GB) and the captured
+# all-fetch variant of the reshard rung, and that does not fit the card's
+# memory after the earlier phases; the demand fetch (auto budget) does.
+RD_MESH = (2, 4)
+RD_MESH_SURVIVORS = (2, 3)
+RD_BATCH = 4
+RD_ROWS = RD_BATCH // RD_MESH[0]  # decode rows of a data replica's ranks
+RD_REQUESTS = 8
+RD_DEAD = 5
+RD_PRE_STEPS = 4
+RD_POLICY = {"moe_experts": "split:demand"}
+# The kernels of the standby's path: its attention is unsharded (16384 % 3),
+# so #4 and #5 leave it for plain products, as in the JAX package.
+RD_KERNELS = ("split_grouped_swiglu", "split_grouped_swiglu_demand", "split_dense_swiglu",
+              "flash_attention")
+RD_OFF_PATH = ("split_stack_gemm", "split_reduce_gemm")
 # The degraded table's decode batch: 8 rows, the JAX package's R1 decode
 # acceptance shape (64 routed draws < the 224 remote experts of G' 8, so the
 # route-before-gather fetches engage; at the simulator's default 64 every
@@ -486,6 +545,10 @@ def profile_step(label: str, fn) -> None:
     return dict(kinds, device_ms=busy)
 
 
+# A profiler trace of a graph replay has lacked a few kernel records, and
+# has held a few twice: a replay and its eager step are traced again this
+# many times before their kernels are held to differ.
+TRACE_ATTEMPTS = 3
 # The demangled names of the port's device kernels (its CUDA namespaces).
 PORT_KERNEL = re.compile(r"^(void )?(split_hopper|split_tile|fa|hopper)::")
 
@@ -549,9 +612,15 @@ def replay_launches(label: str, engine, before: dict, servers=None,
             replays = step.replays - before.get(id(step), 0)
             if not replays:
                 continue
-            replayed = port_kernels(step.graph.replay)
-            with counters.recording() as ran:
-                eager = port_kernels(lambda: step.eager(engine.params))
+            for attempt in range(TRACE_ATTEMPTS):
+                replayed = port_kernels(step.graph.replay)
+                with counters.recording() as ran:
+                    eager = port_kernels(lambda: step.eager(engine.params))
+                if replayed == eager:
+                    break
+                print(f"{label}: trace {attempt + 1} of a replay and its eager step disagree "
+                      f"({sum(replayed.values())} against {sum(eager.values())} kernel records); "
+                      "tracing both again")
             launched = {k[0]: n for k, n in ran.items() if k[0] in registry.KERNELS}
             recorded = {k[0]: n for k, n in step.record.items() if k[0] in registry.KERNELS}
             # DEP's decode is the one step that runs none of the port's kernels
@@ -659,7 +728,10 @@ def demand_fetched_rows(cfg) -> dict:
 def kernel_cases(cfg, gemma):
     """(kernel, phase, shapes) at the per-rank main-path shapes (R1's, and
     Gemma-3's prefill for the dense kernels)."""
+    from repro_torch.core.budget import demand_budget_rows
+    from repro_torch.core.placement import make_placement
     from repro_torch.models.moe import capacity_for
+    from repro_torch.models.transformer import ffn_pad
 
     d, a = cfg.d_model, G
     qd, kvd = cfg.q_dim // a, cfg.kv_dim // a
@@ -703,6 +775,25 @@ def kernel_cases(cfg, gemma):
                   ("split_reduce_gemm", phase, dict(t=t, d=d, f=qd, s=a)),
                   ("split_dense_swiglu", phase, dict(t=t, d=d, f=fs, s=G)),
                   ("split_grouped_swiglu", phase, dict(c=c, d=d, f=fe, e=e, e_l=e // G))]
+    # mesh (2, 3), the survivors of a rank death (phase 16): the context
+    # prefill's 512-token halves (1024 % 3: the prompt shards over data
+    # only), the decode rows of a data replica; 86 resident of the 258
+    # padded experts, the dense FFN at 6144 and the shared expert at 683
+    # columns a shard (683: #6's mma path), the demand decode's fetched bank
+    # (two peers at the auto budget)
+    g3 = RD_MESH_SURVIVORS[1]
+    pl3 = make_placement(e, g3)
+    t3 = PROMPT // RD_MESH_SURVIVORS[0]
+    c3 = capacity_for(t3, e, cfg.moe.top_k, 1.25)
+    rd = dict(e=pl3.num_padded, e_l=pl3.local_count)
+    cases.append(("split_grouped_swiglu", "prefill_mesh2x3", dict(c=c3, d=d, f=fe, **rd)))
+    cases.append(("split_grouped_swiglu_demand", "decode_mesh2x3", dict(
+        c=RD_ROWS, d=d, f=fe, e_l=pl3.local_count, e_f=(g3 - 1) * demand_budget_rows(
+            RD_ROWS * cfg.moe.top_k, e, pl3.local_count))))
+    for phase, t in (("prefill_mesh2x3", t3), ("decode_mesh2x3", RD_ROWS)):
+        for tail, f in (("", cfg.d_ff), ("_shared", cfg.moe.shared_d_ff)):
+            cases.append(("split_dense_swiglu", phase + tail,
+                          dict(t=t, d=d, f=ffn_pad(f, g3) // g3, s=g3)))
     t, d = GEMMA_PROMPT // G, gemma.d_model
     for name, phase, f in (("split_stack_gemm", "gemma3_prefill", gemma.q_dim // G),
                            ("split_stack_gemm", "gemma3_prefill_kv", gemma.kv_dim // G),
@@ -823,14 +914,17 @@ def run_kernel_case(name, shp, gen):
 def check_plans(name, shp, plans, ran, bitwise) -> dict:
     """Kernels #2-#6: the plan each launch ran (counted by the wrapper),
     which must be the Hopper path above 2 rows and the kernel's path at 2
-    rows or fewer (PLANNED; bf16, every width a multiple of 8 at these
-    shapes), and a second launch bitwise equal to the first. ``ran``: the
+    rows or fewer (PLANNED; bf16), or split_tile.cuh's mma path where a
+    width is no multiple of 8 (#6 at the survivors' shared expert, 683
+    columns), and a second launch bitwise equal to the first. ``ran``: the
     wrapper's path counts of the first launch."""
     from repro_torch.kernels.split_gemm import dense
 
     launches, few = PLANNED[name]
     rows = shp["c"] if "c" in shp else shp["t"]
     want = "hopper" if rows > dense.FEW_ROW_MAXM else few
+    if shp["d"] % 8 or shp["f"] % 8:  # the tensor maps take no such width
+        want = "mma"
     tail = (shp["weight"],) if "weight" in shp else ()  # #1 counts its banks' type
     out = {"bitwise_repeat": bitwise}
     for launch, plan in zip(launches, plans):
@@ -902,7 +996,8 @@ def check_hopper_tile(gen) -> float:
 def flash_cases(r1, gemma) -> list:
     """(phase, shape) of flash attention per logical rank at G' = 4: the
     prefill shards of R1's 1024-token prompt (first and last rank, on (1, 4)
-    and on (2, 4), and a whole row of the batch-sharded prefill), R1's
+    and on (2, 4), the two 512-token halves of the survivors' (2, 3), and a
+    whole row of the batch-sharded prefill), R1's
     8192-token prompt (last rank), DEP's tensor-parallel prefill of R1's
     1024- and 8192-token prompts (the whole sequence, 32 of the 128 heads,
     2 of the 8 kv heads) and Gemma-3's 4096-token prompt (last rank, a local
@@ -923,10 +1018,19 @@ def flash_cases(r1, gemma) -> list:
         return dict(b=1, sq=sq, sk=PROMPT, h=r1.num_heads, kh=r1.num_kv_heads,
                     hd=r1.head_dim, q_offset=rank * sq, window=0)
 
+    def mesh23(row):
+        # the survivors' (2, 3) context prefill: 1024 % 3, so the prompt
+        # shards over data only, a 512-token half with every head per rank
+        sq = PROMPT // RD_MESH_SURVIVORS[0]
+        return dict(b=1, sq=sq, sk=PROMPT, h=r1.num_heads, kh=r1.num_kv_heads,
+                    hd=r1.head_dim, q_offset=row * sq, window=0)
+
     return [("r1_1024_first", case(r1, PROMPT, 0, 0)),
             ("r1_1024_last", case(r1, PROMPT, G - 1, 0)),
             ("r1_1024_mesh2x4_first", mesh24(0)),
             ("r1_1024_mesh2x4_last", mesh24(N_DP - 1)),
+            ("r1_1024_mesh2x3_first", mesh23(0)),
+            ("r1_1024_mesh2x3_last", mesh23(RD_MESH_SURVIVORS[0] - 1)),
             # the batch-sharded prefill: a whole row per rank, every head
             ("r1_1024_batch_sharded", dict(b=1, sq=PROMPT, sk=PROMPT, h=r1.num_heads,
                                            kh=r1.num_kv_heads, hd=r1.head_dim, q_offset=0,
@@ -2247,15 +2351,44 @@ def replay_both(label: str, trace, num_experts: int, **kw) -> dict:
     return row
 
 
-def reshard_check(cfg, params) -> dict:
+def checkpoint_copy(cfg, params) -> dict:
+    """R1 1024's weights as the checkpoint a re-shard reads the dead rank's
+    rows from: the JAX package's global tree (``checkpoint.convert.
+    to_checkpoint`` of the (1, 4) weight set), in page-locked host memory
+    where the host allows. Returns ``{"tree", "seconds", "pinned", "gb"}``."""
+    import torch
+    from repro_torch.checkpoint.convert import to_checkpoint
+    from repro_torch.models.transformer import build_model
+
+    model = build_model(cfg, {"data": 1, "model": G}, dtype=torch.bfloat16, device="cuda", **GEOM)
+    t0 = time.perf_counter()
+    try:
+        tree, pinned = to_checkpoint(params, model, pin_memory=True), True
+    except RuntimeError:
+        tree, pinned = to_checkpoint(params, model), False
+    seconds = time.perf_counter() - t0
+    gb = sum(t.numel() * t.element_size() for t in tree_leaves(tree)) / 1e9
+    print(f"checkpoint: {gb:.2f} GB of R1 1024's weights copied to the host in {seconds:.1f} s "
+          f"(pinned {pinned})")
+    return {"tree": tree, "seconds": seconds, "pinned": pinned, "gb": gb}
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def reshard_check(cfg, params, checkpoint: dict) -> dict:
     """R1's MoE-layer expert leaves at mesh (1, 4), as the engine holds them,
     re-sharded for G' 4 -> 3 with position ``RESHARD_DEAD`` dead
-    (``prefetch.reshard_split_bank``): ``source`` is a host copy of the
-    leaves (pinned where the host allows) made before the dead shard is
-    filled with NaN; each new shard must be bitwise a fresh
+    (``prefetch.reshard_split_bank``): ``source`` is the layer's experts in
+    the checkpoint's host copy (:func:`checkpoint_copy`), the dead shard is
+    filled with NaN first; each new shard must be bitwise a fresh
     ``make_placement(256, 3)`` shard of ``source``, padding exact zeros, no
     NaN, its rows by origin ``RESHARD_ROWS``; the copies timed by kind with
-    CUDA events beside ``roofline.rank_death_recovery`` (model output)."""
+    CUDA events beside ``roofline.rank_death_recovery`` (model output). The
+    dead shard is then written back from the checkpoint."""
     import torch
     from repro_torch.core import prefetch, roofline
     from repro_torch.core.placement import make_placement
@@ -2270,20 +2403,8 @@ def reshard_check(cfg, params) -> dict:
     shards = [params[r]["layers"][g][k]["moe"]["experts"] for r in range(G)]
     leaf_bytes = {n: t[0].numel() * t.element_size() for n, t in shards[0].items()}
     per_expert = sum(leaf_bytes.values())
-    t0 = time.perf_counter()
-    pinned = True
-    source = {}
-    for name, leaf in shards[0].items():
-        shape = (old.local_count * G,) + tuple(leaf.shape[1:])
-        try:
-            buf = torch.empty(shape, dtype=leaf.dtype, pin_memory=True)
-        except RuntimeError:
-            pinned = False
-            buf = torch.empty(shape, dtype=leaf.dtype)
-        for r in range(G):
-            buf[r * old.local_count:(r + 1) * old.local_count].copy_(shards[r][name])
-        source[name] = buf
-    host_s = time.perf_counter() - t0
+    source = checkpoint["tree"]["layers"][g][k]["moe"]["experts"]
+    host_s, pinned = checkpoint["seconds"], checkpoint["pinned"]
     for leaf in shards[RESHARD_DEAD].values():
         leaf.fill_(float("nan"))
     torch.cuda.synchronize()
@@ -2324,8 +2445,8 @@ def reshard_check(cfg, params) -> dict:
           f"{json.dumps({k: plan[k].tolist() for k in RESHARD_ROWS})}); copy ms by kind "
           f"{json.dumps({k: round(v, 3) for k, v in ms.items()})} GB/s "
           f"{json.dumps({k: round(v, 1) for k, v in row['gb_per_s'].items()})} (wire: device to "
-          f"device, source: host to device, pinned {pinned}); call wall {wall_s:.3f} s, host copy "
-          f"{host_s:.1f} s; model output rank_death_recovery(group={G}, hw=card_view({G})) "
+          f"device, source: host to device, pinned {pinned}); call wall {wall_s:.3f} s, checkpoint "
+          f"host copy {host_s:.1f} s; model output rank_death_recovery(group={G}, hw=card_view({G})) "
           f"seconds {model[1]:.6f} at 1-byte weights, {model[2]:.6f} at 2; bitwise fresh "
           f"shards {bitwise}, NaN {nan}, padding zero {pad_zero}, peak {peak_gb:.2f} GB")
     if rows != RESHARD_ROWS or any(plan[kk].tolist() != v for kk, v in RESHARD_ROWS.items()):
@@ -2334,7 +2455,10 @@ def reshard_check(cfg, params) -> dict:
         fail(f"cluster: re-shard bitwise {bitwise} NaN {nan} padding zero {pad_zero}")
     if peak_gb * 1e9 > PEAK_LIMIT:
         fail(f"cluster: re-shard peak {peak_gb:.2f} GB > {PEAK_LIMIT / 1e9:.0f} GB")
-    del out, source
+    del out
+    dead_rows = slice(RESHARD_DEAD * old.local_count, (RESHARD_DEAD + 1) * old.local_count)
+    for name, leaf in shards[RESHARD_DEAD].items():
+        leaf.copy_(source[name][dead_rows])
     return row
 
 
@@ -2397,13 +2521,15 @@ def modeled_fleet() -> dict:
     return {"report": report, "summary": summary}
 
 
-def cluster_phase(cfg, params, bitmaps, served_summary: dict, fault_rows: dict) -> dict:
+def cluster_phase(cfg, params, bitmaps, served_summary: dict, fault_rows: dict,
+                  checkpoint: dict) -> dict:
     """Phase 15, the cluster model (run after 14, on R1 1024's weights; it
     launches no kernel of its own, checked by the launch counts): the
     predictor replayed on the card over the R1 acceptance trace, a uniform
     trace and the predictive serve's routed trace (``bitmaps``), each
     beside the CPU's replay; R1's expert banks re-sharded (``params``' MoE
-    leaves, poisoned: the caller drops them after); then model output under
+    leaves, the dead shard poisoned and then restored from ``checkpoint``,
+    :func:`checkpoint_copy`); then model output under
     GB200: ``degraded_table`` of full R1 under predictive and sync_free fed
     the served trace's replayed hit rate and phase 14's re-run share,
     Table 5's sweep and the DWDP / DEP ratio, and a modeled fleet that
@@ -2441,7 +2567,7 @@ def cluster_phase(cfg, params, bitmaps, served_summary: dict, fault_rows: dict) 
         fail(f"cluster: acceptance hit rate {rich['cuda']:.4f} (plain {plain['cuda']:.4f})")
     if uniform["cuda"] >= 0.6:
         fail(f"cluster: uniform trace hit rate {uniform['cuda']:.4f} >= 0.6")
-    reshard = reshard_check(cfg, params)
+    reshard = reshard_check(cfg, params, checkpoint)
 
     # ---- model output (GB200) ----------------------------------------------
     r1 = get_arch("deepseek-r1")
@@ -2484,6 +2610,338 @@ def cluster_phase(cfg, params, bitmaps, served_summary: dict, fault_rows: dict) 
                                                ("ms", "gb_per_s", "model_seconds", "peak_gb")},
          "table5": table5}))
     return out
+
+
+# --------------------------------------------------------------------------
+# Rank death on the live engine: the standby on the survivors' mesh.
+# --------------------------------------------------------------------------
+def poison_dead_shard(params: list, dead: int, g: int) -> float:
+    """NaN into every leaf of model position ``dead`` that no survivor
+    shares (its embedding and head slices, attention, FFN and expert
+    shards); returns the GB filled."""
+    import torch
+
+    kept = {id(t) for m in range(g) if m != dead for t in tree_leaves(params[m])}
+    filled = 0
+    for t in tree_leaves(params[dead]):
+        if isinstance(t, torch.Tensor) and id(t) not in kept and t.is_floating_point():
+            t.fill_(float("nan"))
+            filled += t.numel() * t.element_size()
+    return filled / 1e9
+
+
+def standby_checks(label: str, cfg, sb, source: dict) -> dict:
+    """The standby's weights: each expert shard bitwise a fresh
+    ``make_placement(256, 3)`` shard of the checkpoint's experts with zero
+    padding, and no NaN in any leaf."""
+    import torch
+
+    pl = sb.gen.model.geom.moe_placement
+    e, chunk = cfg.moe.num_experts, 8
+    bitwise, pad_zero, layers = True, True, 0
+    for g_name, group in sb.params[0]["layers"].items():
+        for k, lp in group.items():
+            if "moe" not in lp:
+                continue
+            layers += 1
+            src = source["layers"][g_name][k]["moe"]["experts"]
+            for p in range(pl.subgroup_size):
+                first, stop = p * pl.local_count, min((p + 1) * pl.local_count, e)
+                for name, leaf in sb.params[p]["layers"][g_name][k]["moe"]["experts"].items():
+                    for a in range(0, stop - first, chunk):
+                        b = min(stop - first, a + chunk)
+                        want = src[name][first + a:first + b].to(leaf.device, non_blocking=True)
+                        bitwise &= torch.equal(leaf[a:b], want)
+                    pad_zero &= bool((leaf[stop - first:] == 0).all())
+    nan = any(bool(torch.isnan(t).any()) for p in sb.params for t in tree_leaves(p)
+              if isinstance(t, torch.Tensor) and t.is_floating_point())
+    print(f"{label}: standby expert shards of {layers} MoE layer(s) bitwise fresh "
+          f"make_placement({e}, {pl.subgroup_size}) shards of the checkpoint {bitwise}, padding "
+          f"zero {pad_zero} ({pl.num_padded - e} dummy rows), NaN in the standby's weights {nan}")
+    if not (bitwise and pad_zero) or nan:
+        fail(f"{label}: standby weights bitwise {bitwise} padding zero {pad_zero} NaN {nan}")
+    return {"experts_bitwise": bitwise, "padding_zero": pad_zero, "nan": nan}
+
+
+def time_snapshots(gen, sink: dict) -> None:
+    """Add the seconds of each of ``gen``'s ``snapshot_slot`` calls to
+    ``sink["snapshot_s"]`` (nothing but ``gen`` holds the wrapper, so a
+    dropped server is not kept alive)."""
+    inner = gen.snapshot_slot
+
+    def timed(slot):
+        t0 = time.perf_counter()
+        out = inner(slot)
+        sink["snapshot_s"] += time.perf_counter() - t0
+        return out
+
+    gen.snapshot_slot = timed
+
+
+def event_ms(pairs: list) -> float:
+    return sum(a.elapsed_time(b) for a, b in pairs)
+
+
+def rank_death_phase(cfg, held: dict, rng) -> dict:
+    """Phase 16, rank death on the live engine (run after 15, on R1 1024's
+    weights and the checkpoint's host copy, both taken from ``held``: the
+    re-shard frees the old weights as the new land, so nothing else may
+    hold them). A (2, 4) engine, graphs, ``RD_POLICY``, row-local capacity,
+    4 slots, serves ``RD_REQUESTS`` requests of 1024 tokens (16 out) through
+    ``ServingScheduler`` over ``LiveReplicaClient`` in a one-replica
+    ``MultiReplicaEngine``: first uninterrupted; its generation server then
+    steps onto the ladder's ``"reshard"`` rung, which must replay the
+    captured all-fetch variant (no capture) with one decode step's logits
+    bitwise the all-fetch rung's; then the requests again, rank ``RD_DEAD``
+    killed after ``RD_PRE_STEPS`` decode steps. The standby is the client's
+    callable: after the dying engine's graphs are released it fills the dead
+    shard with NaN, re-shards the weights in place for (2, 3)
+    (``checkpoint.convert.reshard_params``, the dead rank's rows from the
+    pinned checkpoint) and builds and warms a (2, 3) engine. One card holds
+    no second R1 weight set beside a running engine, so the fleet is one
+    replica and its migrants requeue (their owner's plan changed).
+    Checked: migrated + requeued = the active slots, every request at 16
+    tokens, the summary's recovery counts, the standby's weights
+    (:func:`standby_checks`), its prefill and decode logits against the
+    plain versions, the requeued requests served again on the standby alone
+    bitwise, the launches through its replays (#2, #3, #6 and #7 on, #4 and
+    #5 off its unsharded attention; #6 on both its Hopper and mma paths),
+    no capture after the recovery, peak under the card's 80 GB."""
+    import torch
+    from repro_torch.checkpoint.convert import reshard_params
+    from repro_torch.core import execution, roofline
+    from repro_torch.core.strategy import degrade_policy_table
+    from repro_torch.kernels import registry
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models.transformer import build_model, replicate_over_data
+    from repro_torch.runtime.serving import LiveReplicaClient, MultiReplicaEngine, ServingScheduler
+
+    card = card_line()
+    label = f"rank death ({cfg.name} {PROMPT}, mesh {RD_MESH} -> {RD_MESH_SURVIVORS})"
+    t_phase = time.perf_counter()
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    source = held.pop("source")["tree"]
+    sizes = {"data": RD_MESH[0], "model": RD_MESH[1]}
+    params = replicate_over_data(held.pop("params"), sizes)
+    kw = dict(prefill_len=PROMPT, cache_len=PROMPT + OUTPUT, max_batch=RD_BATCH,
+              dtype=torch.bfloat16, device="cuda", geom_kwargs=GEOM, policy=RD_POLICY,
+              capacity_from="global")
+    eng, model24 = build_engine(cfg, mesh_shape=RD_MESH, params=params, **kw)
+    model23 = build_model(cfg, dict(zip(("data", "model"), RD_MESH_SURVIVORS)),
+                          dtype=torch.bfloat16, device="cuda", **GEOM)
+    all_table = degrade_policy_table(eng.gen.xp.policies, "all")
+    client = LiveReplicaClient.from_engine(eng)
+    del eng
+    t0 = time.perf_counter()
+    # the prefill, the reshard rung's all-fetch decode (its landings are the
+    # largest), then the policy's decode
+    client.ctx.warmup(client.params)
+    client.gen.variants.get(all_table)[1].warm(client.params)
+    client.warmup()
+    print(f"{label}: policy {json.dumps(RD_POLICY)} (not the reference's predictive "
+          f"table: see RD_POLICY), warmup {time.perf_counter() - t0:.2f} s (prefill, the "
+          f"reshard rung's all-fetch decode, the policy's decode), "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    prompts = [rng.integers(0, cfg.vocab_size, PROMPT) for _ in range(RD_REQUESTS)]
+
+    def requests(ids=None):
+        reqs = served_requests(prompts, [OUTPUT] * RD_REQUESTS)
+        return reqs if ids is None else [r for r in reqs if r.req_id in ids]
+
+    def streams(fleet) -> dict:
+        return {rid: list(t) for s in fleet.schedulers for rid, t in s.outputs.items()}
+
+    # ---- uninterrupted --------------------------------------------------------
+    ref = MultiReplicaEngine([ServingScheduler(client)])
+    ref.submit(requests())
+    ref.run()
+    before = ref.merged_metrics().summary(ref.horizon())
+    print(f"{label} uninterrupted on {RD_MESH}: {summary_line(before)}")
+
+    # ---- the reshard rung: the all-fetch floor's captured variant -------------
+    gen = client.gen
+    snap = snapshot(gen)
+    caps = (client.ctx.variants.captures(), gen.variants.captures())
+    floor = next(i for i, (lab, _, _) in enumerate(gen.ladder) if lab == "all")
+    top = len(gen.ladder) - 1
+    logits, steps = {}, {}
+    for level in (floor, top):
+        gen.set_level(level)
+        restore(gen, snap)
+        replays = gen.step.replays
+        logits[gen.fetch_label] = gen.step_outputs(client.params)[0]["logits"].clone()
+        steps[gen.fetch_label] = (gen.step, gen.step.replays - replays)
+    rung = {"labels": [lab for lab, _, _ in gen.ladder], "max_silent_level":
+            gen.max_silent_level, "replayed": steps["reshard"][1],
+            "same_variant": steps["reshard"][0] is steps["all"][0],
+            "captures": [client.ctx.variants.captures(), gen.variants.captures()],
+            "bitwise": torch.equal(logits["all"], logits["reshard"])}
+    gen.set_level(0)
+    print(f"{label}: set_level({top}) onto the ladder {rung['labels']} (max_silent_level "
+          f"{rung['max_silent_level']}): the all-fetch rung's variant {rung['same_variant']}, "
+          f"replayed {rung['replayed']} time(s), captures {caps} -> {rung['captures']}, decode "
+          f"logits bitwise the all-fetch rung's {rung['bitwise']}")
+    if not (rung["bitwise"] and rung["same_variant"]) or rung["replayed"] != 1 \
+            or tuple(rung["captures"]) != caps or rung["max_silent_level"] != top - 1:
+        fail(f"{label}: the reshard rung {rung}")
+    del gen, snap, logits, steps
+
+    # ---- the kill ---------------------------------------------------------------
+    recovery: dict = {"snapshot_s": 0.0}
+    time_snapshots(client.gen, recovery)
+
+    def standby(dead_rank):
+        """Called by ``kill_rank`` once the dying engine's graphs are gone."""
+        torch.cuda.synchronize()
+        recovery["released_gb"] = [torch.cuda.memory_allocated() / 1e9,
+                                   torch.cuda.memory_reserved() / 1e9]
+        dead = dead_rank % RD_MESH[1]
+        recovery["poisoned_gb"] = poison_dead_shard(params, dead, RD_MESH[1])
+        events: dict = {}
+        t0 = time.perf_counter()
+        new = reshard_params(params, model24, model23, dead, source, free=True, events=events)
+        torch.cuda.synchronize()
+        recovery["reshard_s"] = time.perf_counter() - t0
+        recovery["reshard_ms"] = {k: event_ms(v) for k, v in events.items()}
+        recovery["weights_gb"] = [torch.cuda.memory_allocated() / 1e9,
+                                  torch.cuda.memory_reserved() / 1e9]
+        t0 = time.perf_counter()
+        sb, _ = build_engine(cfg, mesh_shape=RD_MESH_SURVIVORS, params=new, **kw)
+        recovery["build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sb.warmup()
+        torch.cuda.synchronize()
+        recovery["captures_s"] = time.perf_counter() - t0
+        recovery["engine"] = sb
+        return sb
+
+    client.standby = standby
+    fleet = MultiReplicaEngine([ServingScheduler(client)])
+    fleet.submit(requests())
+    sched = fleet.schedulers[0]
+    for _ in range(RD_PRE_STEPS):
+        sched.step()
+    active = sched.active_count()
+    # the slots' requests: the dead row's requeue, and the migrants come back
+    # to their owner, whose new plan turns their snapshots away (one replica)
+    requeued = sorted(r.req_id for r in sched.slots if r is not None)
+    t0 = time.perf_counter()
+    report = fleet.kill_rank(0, RD_DEAD)
+    kill_wall = time.perf_counter() - t0
+    sb = recovery.pop("engine")
+    seconds = sched.metrics.recovery_times[-1]
+    warm = captures(sb)
+    registry.reset_launch_counts()
+    clear_path_counts()
+    replays = replay_counts(sb)
+    fleet.run()
+    torch.cuda.synchronize()
+    counts = registry.launch_counts()
+    paths = path_counts()
+    after = fleet.merged_metrics().summary(fleet.horizon())
+    out = streams(fleet)
+    launches = replay_launches(label, sb, replays)
+    check_launches(label, sb, launches, counts)
+    # the requeued requests served again from their prompts, on the standby alone
+    alone = MultiReplicaEngine([ServingScheduler(client)])
+    alone.submit(requests(set(requeued)))
+    alone.run()
+    alone_out = streams(alone)
+    standby_summary = alone.merged_metrics().summary(alone.horizon())
+    bitwise_alone = all(alone_out[rid] == out[rid] for rid in requeued)
+
+    geom = sb.gen.model.geom
+    checks = standby_checks(label, cfg, sb, source)
+    errs = {}
+    for step in ("prefill", "decode"):
+        def run(impl):
+            if step == "prefill":
+                return sb.ctx.forward(sb.params, prompts[0], impl=impl)["last_logits"].clone()
+            g = sb.gen
+            ctx = execution.Ctx(model=g.model, xp=g.xp, impl=impl)
+            with in_pool(sb):
+                return execution.forward_decode(sb.params, g.cur_token, g.state, ctx)[
+                    "logits"].clone()
+        lk, lt = run(None)[:, :cfg.vocab_size], run("torch")[:, :cfg.vocab_size]
+        errs[step] = logit_err(f"{label} standby {step} logits kernels vs plain", lk, lt)
+        del lk, lt
+    peak = torch.cuda.max_memory_allocated()
+    g = RD_MESH[0] * RD_MESH[1]
+    model_s = {"gb200_group8": roofline.rank_death_recovery(cfg, group=g)["seconds"],
+               "card_view4_bf16": roofline.rank_death_recovery(
+                   cfg, group=G, hw=roofline.card_view(G), weight_bytes=2)["seconds"]}
+    mma = sum(n for k, n in paths.items() if k.startswith("split_dense_swiglu/")
+              and k.split("/")[2] == "mma")
+    tensor_core = sum(n for k, n in paths.items() if k.startswith("split_dense_swiglu/")
+                      and k.split("/")[2] != "mma")
+    row = {"policy": RD_POLICY, "active_before": active, "report": report,
+           "seconds": seconds, "kill_wall_s": kill_wall,
+           "recovery": recovery, "model_seconds": model_s,
+           "summary_before": before, "summary_after": after, "summary_standby_alone":
+           standby_summary, "rung": rung, "checks": checks, "logit_norm_err": errs,
+           "launches": dict(launches), "host_launches": dict(counts), "paths": paths,
+           "captures": list(warm), "requeued_ids": requeued, "bitwise_alone": bitwise_alone,
+           "peak_gb": peak / 1e9,
+           "geometry": {"local_count": geom.moe_placement.local_count,
+                        "num_padded": geom.moe_placement.num_padded,
+                        "attn_axes": list(geom.attn_axes), "vocab_pad": geom.vocab_pad,
+                        "ffn_shards": geom.ffn_shards,
+                        "ctx_seq_axes": list(sb.ctx.xp.seq_axes),
+                        "gen_batch_axes": list(sb.gen.xp.batch_axes)}}
+    ms = recovery["reshard_ms"]
+    print(f"{label} ({card}): {active} active at the kill, report {json.dumps(report)}; "
+          f"recovery: snapshot {recovery['snapshot_s'] * 1e3:.1f} ms, re-shard "
+          f"{recovery['reshard_s'] * 1e3:.1f} ms (copies by kind, CUDA events: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(ms.items()))
+          + f"), standby build {recovery['build_s']:.2f} s, its captures "
+          f"{recovery['captures_s']:.2f} s, kill wall {kill_wall:.2f} s, reported seconds "
+          f"{seconds:.3f} beside rank_death_recovery GB200 group {g} "
+          f"{model_s['gb200_group8']:.6f} s and card_view({G}) bf16 "
+          f"{model_s['card_view4_bf16']:.6f} s; device memory (allocated, reserved GB) after "
+          f"the release {[round(x, 2) for x in recovery['released_gb']]}, after the re-shard "
+          f"{[round(x, 2) for x in recovery['weights_gb']]} (dead shard "
+          f"{recovery['poisoned_gb']:.2f} GB NaN-filled first)")
+    print(f"{label}: standby geometry {json.dumps(row['geometry'])}; after the kill "
+          f"{summary_line(after)} rank_deaths {after['rank_deaths']} migrated "
+          f"{after['migrated']} requeued {after['requeued']} time_to_recover_p50_s "
+          f"{after['time_to_recover_p50_s']}; TTFT / TPOT p50 before (mesh {RD_MESH}) "
+          f"{before['ttft_p50_s']:.4f} / {before['tpot_p50_s']:.4f} s, after (the standby "
+          f"alone, {RD_MESH_SURVIVORS}) {standby_summary['ttft_p50_s']:.4f} / "
+          f"{standby_summary['tpot_p50_s']:.4f} s; requeued {requeued} served again on the "
+          f"standby alone bitwise {bitwise_alone}; launches through the standby's replays "
+          f"{json.dumps(launches)}; #6 launches on the mma path (683 columns) {mma}, on the "
+          f"tensor-core paths {tensor_core}; captures {captures(sb)} (after its warmup "
+          f"{warm}); peak {peak / 1e9:.2f} GB")
+    if report["migrated"] + report["requeued"] != active or active != RD_BATCH \
+            or after["admission"].get("requeued", 0) < active:
+        fail(f"{label}: {report} for {active} active slots")
+    if after["completed"] != RD_REQUESTS or any(len(t) != OUTPUT for t in out.values()) \
+            or len(out) != RD_REQUESTS:
+        fail(f"{label}: {after['completed']} completed, streams {[len(t) for t in out.values()]}")
+    if (after["rank_deaths"], after["migrated"], after["requeued"]) != \
+            (1, report["migrated"], report["requeued"]):
+        fail(f"{label}: summary recovery keys {after['rank_deaths']} {after['migrated']} "
+             f"{after['requeued']} against the report {report}")
+    if not bitwise_alone:
+        fail(f"{label}: the requeued requests served alone on the standby differ from the fleet")
+    if captures(sb) != warm:
+        fail(f"{label}: the standby captured after its warmup: {warm} -> {captures(sb)}")
+    want_geom = {"local_count": 86, "num_padded": 258, "attn_axes": [], "ffn_shards": 3,
+                 "ctx_seq_axes": ["data"], "gen_batch_axes": ["data"]}
+    if any(row["geometry"][k] != v for k, v in want_geom.items()):
+        fail(f"{label}: standby geometry {row['geometry']}, want {want_geom}")
+    missing = [k for k in RD_KERNELS if launches[k] <= 0]
+    if missing or any(launches[k] for k in RD_OFF_PATH) or not mma or not tensor_core:
+        fail(f"{label}: launches {dict(launches)} (missing {missing}), #6 mma {mma} "
+             f"tensor-core {tensor_core}")
+    check_paths(label, {k: n for k, n in paths.items()
+                        if not (k.startswith("split_dense_swiglu/") and k.split("/")[2] == "mma")})
+    if peak > CARD_PEAK_LIMIT:
+        fail(f"{label}: peak {peak / 1e9:.2f} GB > {CARD_PEAK_LIMIT / 1e9:.0f} GB")
+    row["wall_s"] = time.perf_counter() - t_phase
+    print(f"rank death ({card}; phase wall_s {row['wall_s']:.1f})")
+    return row
 
 
 # --------------------------------------------------------------------------
@@ -3417,9 +3875,16 @@ def main() -> None:
     fault_rows = faults_phase(cfg, params, prompts, outputs, snap, ref_logits)
 
     # ---- the cluster model: predictor replay, re-shard, model output -------
+    checkpoint = checkpoint_copy(cfg, params)
     cluster = cluster_phase(cfg, params, modes["demand"]["graph"]["trace_bitmaps"],
-                            modes["demand"]["graph"]["predictive_trace"]["summary"], fault_rows)
-    del params  # the re-shard poisoned the dead rank's experts
+                            modes["demand"]["graph"]["predictive_trace"]["summary"], fault_rows,
+                            checkpoint)
+
+    # ---- rank death on the live engine: the standby on the survivors -------
+    # the phase re-shards the weights in place: it takes the last references
+    held = {"params": params, "source": checkpoint}
+    del params, checkpoint
+    rank_death = rank_death_phase(cfg, held, rng)
     free_memory()
     rolling = {"dep": dep["rolling"]["summary"], "dwdp_all_row_local": serving["rolling"]["summary"]}
     run = {"dep": dep["summary"], "dwdp_all": modes["all"]["graph"],
@@ -3497,6 +3962,7 @@ def main() -> None:
             **{f"launches_r1_1024_faults_{m}_{k}": fault_rows[m][k]["launches"][name]
                for m, _ in FETCH_MODES for k in ("validated", "faults")},
             "launches_r1_1024_faults_storm": fault_rows["storm"]["launches"][name],
+            "launches_r1_1024_rank_death_standby": rank_death["launches"][name],
             "max_abs_err": dec["max_abs_err"],
             "max_rel_err": dec["max_rel_err"],
             "ms": dec["ms"],
@@ -3537,7 +4003,10 @@ def main() -> None:
               "r1_1024_batch_sharded_prefill": batch_sharded,
               "r1_1024_context_prefill_drops": context_drops,
               "grouped_ffn_dep_decode": grouped_ffn_row,
-              "gemma3_fleet": fleet["summary"], "gemma3_fleet_assignments": fleet["assignments"]}))
+              "gemma3_fleet": fleet["summary"], "gemma3_fleet_assignments": fleet["assignments"],
+              "r1_1024_rank_death": {k: rank_death[k] for k in (
+                  "report", "seconds", "summary_before", "summary_after",
+                  "summary_standby_alone", "model_seconds")}}))
     print(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)

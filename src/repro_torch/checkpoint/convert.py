@@ -15,7 +15,9 @@ with numpy alone.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+from typing import Optional
 
 import numpy as np
 import torch
@@ -147,3 +149,227 @@ def from_jax_params(params: dict, model: Model, device=None) -> list[dict]:
             for r in range(n):
                 ranks[r]["layers"][group.name][f"pos{j}"] = trees[r]
     return attach_checksum_tables(replicate_over_data(ranks, sizes), model)
+
+
+def to_checkpoint(params: list, model: Model, *, pin_memory: bool = False) -> dict:
+    """The inverse of :func:`from_jax_params`: the JAX package's parameter
+    tree (global leaves with their leading shard axes, the ``(1, G)``
+    geometry's) from the port's per-rank list, in host memory (page-locked
+    with ``pin_memory``, where a copy from it to the card runs
+    asynchronously). A leaf every model rank shares (replicated, or a family
+    the model axis does not split) is copied once; the ranks' blocks of a
+    sharded leaf land side by side along its shard axis, each copied
+    straight into its slice. The experts' checksum tables are left out: a
+    weight set builds its own (``prefetch.attach_checksum_tables``)."""
+    ranks = params[:model.geom.model_size]
+
+    def host(leaves: list, axis: int) -> torch.Tensor:
+        if all(t is leaves[0] for t in leaves):
+            leaves = leaves[:1]
+        shape = list(leaves[0].shape)
+        shape[axis] = sum(t.shape[axis] for t in leaves)
+        out = torch.empty(shape, dtype=leaves[0].dtype, pin_memory=pin_memory)
+        offset = 0
+        for t in leaves:
+            out.narrow(axis, offset, t.shape[axis]).copy_(t)
+            offset += t.shape[axis]
+        return out
+
+    def walk(trees: list, axis: int):
+        if isinstance(trees[0], dict):
+            return {k: walk([t[k] for t in trees], axis) for k in trees[0] if k != "checksums"}
+        return host(trees, axis)
+
+    tree = {"embed": host([p["embed"] for p in ranks], 0),
+            "final_norm": host([ranks[0]["final_norm"]], 0), "layers": {}}
+    if "lm_head" in ranks[0]:
+        tree["lm_head"] = host([p["lm_head"] for p in ranks], 1)
+    for group in model.plan:
+        tree["layers"][group.name] = walk([p["layers"][group.name] for p in ranks],
+                                          1 if group.scan else 0)
+    return tree
+
+
+def _get(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _put(tree, path: tuple, value) -> None:
+    _get(tree, path[:-1])[path[-1]] = value
+
+
+def _specs(model: Model) -> tuple:
+    """How each sharded or padded leaf of a per-rank tree splits one
+    canonical axis, ``{path: (axis, blocks, block of each model rank, block
+    size, real length, source axis, source step)}`` (the axis and size are
+    the per-rank leaf's; the real length excludes the geometry's padding;
+    the dead position's block in a checkpoint leaf is ``narrow(source axis,
+    position * step, step)``), and the paths of the expert banks with their
+    expert axis. Leaves in neither are replicated."""
+    cfg, geom = model.cfg, model.geom
+    n = geom.model_size
+    a, ksd = geom.attn_shards, geom.kv_shard
+    v_l = geom.vocab_pad // n
+    specs = {("embed",): (0, n, list(range(n)), v_l, cfg.vocab_size, 0, v_l)}
+    if not cfg.tie_embeddings:
+        specs[("lm_head",)] = (1, n, list(range(n)), v_l, cfg.vocab_size, 1, v_l)
+    experts = {}
+
+    def blocks_of(count):
+        return [r if count > 1 else 0 for r in range(n)]
+
+    kv_table = [r // (a // ksd) if a > 1 else 0 for r in range(n)]
+    for group in model.plan:
+        lead = 1 if group.scan else 0
+        for j, sig in enumerate(group.sigs):
+            base = ("layers", group.name, f"pos{j}")
+            specs[base + ("attn", "wq")] = (lead + 2, a, blocks_of(a), cfg.q_dim // a,
+                                            cfg.q_dim, lead, 1)
+            specs[base + ("attn", "wo")] = (lead + 1, a, blocks_of(a), cfg.q_dim // a,
+                                            cfg.q_dim, lead, 1)
+            for leaf in ("wk", "wv"):
+                specs[base + ("attn", leaf)] = (lead + 2, ksd, kv_table, cfg.kv_dim // ksd,
+                                                cfg.kv_dim, lead, 1)
+            ffn = None
+            if sig.is_moe:
+                pl = geom.moe_placement
+                specs[base + ("moe", "router")] = (lead + 1, 1, [0] * n, pl.num_padded,
+                                                   cfg.moe.num_experts, None, None)
+                experts[base + ("moe", "experts")] = lead
+                if cfg.moe.shared_d_ff:
+                    ffn = (base + ("moe", "shared"), cfg.moe.shared_d_ff)
+            elif sig.ffn_dim:
+                ffn = (base + ("ffn",), sig.ffn_dim)
+            if ffn is not None:
+                s = geom.ffn_shards
+                size = ffn_pad(ffn[1], s) // s
+                for leaf, axis in (("w_gate", lead + 2), ("w_up", lead + 2),
+                                   ("w_down", lead + 1)):
+                    specs[ffn[0] + (leaf,)] = (axis, s, blocks_of(s), size, ffn[1], lead, 1)
+    return specs, experts
+
+
+def _resplit(old_blocks: list, axis: int, size: int, blocks: int, real: int,
+             like: torch.Tensor) -> list:
+    """New blocks of ``size`` along ``axis``, of ``like``'s dtype and device
+    (a survivor's leaf), from the old blocks (block ``q`` covering ``[q *
+    old size, (q + 1) * old size)`` of the canonical axis): one copy per
+    overlap of real indices, padding zeros. One unpadded block that keeps
+    its size is kept as it is."""
+    old_size = like.shape[axis]
+    if blocks == len(old_blocks) == 1 and size == old_size == real:
+        return [old_blocks[0]]
+    out = []
+    for k in range(blocks):
+        shape = list(like.shape)
+        shape[axis] = size
+        t = torch.zeros(shape, dtype=like.dtype, device=like.device)
+        i, hi = k * size, min((k + 1) * size, real)
+        while i < hi:
+            q = i // old_size
+            stop = min(hi, (q + 1) * old_size)
+            t.narrow(axis, i - k * size, stop - i).copy_(
+                old_blocks[q].narrow(axis, i - q * old_size, stop - i), non_blocking=True)
+            i = stop
+        out.append(t)
+    return out
+
+
+@contextlib.contextmanager
+def _timed(pairs: list):
+    """A CUDA event pair around the block, appended to ``pairs``."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    yield
+    end.record()
+    pairs.append((start, end))
+
+
+def reshard_params(params: list, old: Model, new: Model, dead: int, source: dict, *,
+                   free: bool = False, events: Optional[dict] = None) -> list:
+    """The per-rank parameter list of ``new``, the same model on the mesh
+    with one ``model`` rank fewer, from ``params`` (``old``'s) after model
+    position ``dead`` died: the standby's weights after a rank death.
+
+    ``source`` is the checkpoint in ``old``'s storage layout (the tree
+    :func:`from_jax_params` takes or :func:`to_checkpoint` makes; numpy or
+    torch, on the host or the card). The expert banks move with
+    ``prefetch.reshard_split_bank``: the survivors' rows device to device,
+    the dead rank's from ``source``. Every other sharded or padded leaf is
+    split again for the new geometry, each new block copied from the
+    survivors' blocks and, for the dead position's block, from ``source``:
+    an attention that the new model axis does not divide becomes one tensor
+    shared by every rank, and the vocabulary, the FFN widths and the
+    router's expert columns take the new padding, as zeros. The dead rank's
+    leaves are never read; replicated leaves (norms) carry over. ``free``
+    drops each old leaf from ``params``' trees as its new one lands (the
+    experts first) and, on the card, returns its memory at once, so the old
+    weights go as the new arrive and no new leaf is carved out of a freed
+    old block (which would keep the rest of that block from any other use):
+    on one card this is how a standby fits beside them. ``events`` (CUDA):
+    ``{kind: [(start, end), ...]}``, CUDA events around the expert copies by
+    kind (``prefetch.RESHARD_KINDS``, per MoE layer) and around each other
+    leaf's copies (``"other"``). The experts' checksum tables are built for
+    the new weight set."""
+    from repro_torch.core.prefetch import reshard_split_bank
+
+    g_old, g_new = old.geom.model_size, new.geom.model_size
+    rest = lambda m: {a: v for a, v in m.sizes.items() if a != "model"}  # noqa: E731
+    if new.cfg != old.cfg or g_new != g_old - 1 or rest(new) != rest(old):
+        raise ValueError(f"reshard_params takes the model axis from {g_old} to {g_old - 1} "
+                         f"ranks of one model, got {old.sizes} -> {new.sizes}")
+    dead = int(dead)
+    if not 0 <= dead < g_old:
+        raise ValueError(f"the dead model position {dead} is not in [0, {g_old})")
+    live = [m for m in range(g_old) if m != dead]
+    on_card = params[live[0]]["embed"].device.type == "cuda"
+    old_specs, old_experts = _specs(old)
+    new_specs, _ = _specs(new)
+
+    def skeleton(tree):
+        return {k: skeleton(v) for k, v in tree.items() if k != "checksums"} \
+            if isinstance(tree, dict) else tree
+
+    ranks = [skeleton(params[live[0]]) for _ in range(g_new)]
+
+    def land(path, fresh, drop=()) -> None:
+        for r in range(g_new):
+            _put(ranks[r], path, fresh[r])
+        if free:
+            for tree in params:
+                for key in (path[-1], *drop):
+                    _get(tree, path[:-1]).pop(key, None)
+            if on_card:
+                # return the old blocks to the card now: a later leaf carved
+                # out of them would pin each one, free but unusable
+                torch.cuda.empty_cache()
+
+    for path, axis in old_experts.items():
+        kinds: dict = {} if events is not None else None
+        out = reshard_split_bank([_get(params[m], path) for m in range(g_old)],
+                                 old.geom.moe_placement, new.geom.moe_placement, dead,
+                                 _get(source, path), events=kinds, axis=axis)
+        for kind, pair in (kinds or {}).items():
+            events.setdefault(kind, []).append(pair)
+        land(path, out, drop=("checksums",))
+        del out
+    for path, (axis, blocks, table, _, real, src_axis, step) in old_specs.items():
+        old_blocks = []
+        for q in range(blocks):
+            holder = next((m for m in live if table[m] == q), None)
+            if holder is not None:
+                old_blocks.append(_get(params[holder], path))
+            else:
+                src = torch.as_tensor(_get(source, path))
+                old_blocks.append(src.narrow(src_axis, dead * step, step))
+        _, n_blocks, new_table, size, _, _, _ = new_specs[path]
+        with (_timed(events.setdefault("other", [])) if events is not None
+              else contextlib.nullcontext()):
+            fresh = _resplit(old_blocks, axis, size, n_blocks, real,
+                             _get(params[live[0]], path))
+        del old_blocks
+        land(path, [fresh[new_table[r]] for r in range(g_new)])
+        del fresh
+    return attach_checksum_tables(replicate_over_data(ranks, new.sizes), new)

@@ -112,7 +112,7 @@ from repro_torch.kernels import flash_attention as flash_lib
 from repro_torch.kernels import split_gemm as split_gemm_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.cache import RingLayout
+from repro_torch.models.cache import RingLayout, relayout
 from repro_torch.models.layers import apply_rope, rms_norm, softcap
 from repro_torch.models.transformer import AXIS_MODEL, Geometry, LayerSig, Model
 
@@ -1802,7 +1802,10 @@ def apply_layer(xs, lps, sig: LayerSig, ctx: Ctx, lstates, pipe: BankPipeline, l
 
 
 def _index(tree, c):
-    return prefetch.tree_map(lambda t: t[c], tree)
+    """Cycle ``c`` of a scanned group's tree (a view of every leaf)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, c) for k, v in tree.items()}
+    return tree[c]
 
 
 def _layer_walk(model: Model):
@@ -1962,7 +1965,9 @@ def forward_decode(params: list[dict], token: torch.Tensor, state: dict, ctx: Ct
     data axis; replicated over the model group) and its slice of their KV
     ring (``seq_axes``); it runs the rows through its own banks and
     attends over its slice; the greedy token is the argmax across the
-    model group's vocab shards. A batch sharded over ``model`` is refused
+    model group's vocab shards. A state that carries another ``"layout"``
+    (a prefill's, sharded otherwise) is laid out in the plan's first
+    (``cache.relayout``). A batch sharded over ``model`` is refused
     (``ValueError``), as the JAX package asserts. The input state is never
     written (the new state is new tensors), so a step whose deferred
     ``overflow`` is set can run again from the same inputs."""
@@ -1975,6 +1980,9 @@ def forward_decode(params: list[dict], token: torch.Tensor, state: dict, ctx: Ct
             "vocab-sharded model axis (the JAX package asserts AXIS_MODEL not in "
             "batch_axes), so the batch must not divide over data * model")
     n = ctx.model.n_ranks
+    mine = RingLayout.of_plan(xp)
+    if state.get("layout", mine) != mine:
+        state = relayout(ctx.model, state, mine)
     ctx.begin(token.device)
     ctx.pos = state["pos"]
     x = _embed(params, token, ctx.model)

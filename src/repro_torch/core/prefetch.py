@@ -272,7 +272,7 @@ def reshard_runs(old: Placement, new: Placement, dead: int) -> list:
 
 
 def reshard_split_bank(shards: list, old: Placement, new: Placement, dead: int,
-                       source: PyTree, *, events: dict | None = None) -> list:
+                       source: PyTree, *, events: dict | None = None, axis: int = 0) -> list:
     """Fail-stop re-shard of one family's resident shards after a rank
     death, ``G' -> G'-1`` (``repro.core.prefetch.reshard_split_bank``).
 
@@ -286,7 +286,9 @@ def reshard_split_bank(shards: list, old: Placement, new: Placement, dead: int,
     Rows move as the contiguous runs of :func:`reshard_runs`, one copy per
     run and leaf, the survivors' copies first, then the checkpoint's.
     ``events`` (CUDA): filled with a ``(start, end)`` pair of recorded
-    events per kind of copy. Returns the ``G'-1`` new trees, on the
+    events per kind of copy. ``axis`` is the expert axis of every leaf, of
+    the shards and of ``source`` alike (1 in a scanned group, whose leaves
+    lead with the cycle axis). Returns the ``G'-1`` new trees, on the
     survivors' device."""
     if new.num_experts != old.num_experts:
         raise ValueError(f"reshard must keep the expert set: {old.num_experts} != "
@@ -301,9 +303,11 @@ def reshard_split_bank(shards: list, old: Placement, new: Placement, dead: int,
 
     def alloc(src_leaf, *held):
         like = held[0]
-        outs = [torch.zeros((new.local_count,) + tuple(like.shape[1:]), dtype=like.dtype,
-                            device=like.device) for _ in range(new.subgroup_size)]
-        leaves.append((src_leaf, dict(zip(live, held)), outs))
+        shape = list(like.shape)
+        shape[axis] = new.local_count
+        outs = [torch.zeros(shape, dtype=like.dtype, device=like.device)
+                for _ in range(new.subgroup_size)]
+        leaves.append((torch.as_tensor(src_leaf), dict(zip(live, held)), outs))
         return outs
 
     trees = tree_map(alloc, source, *(shards[q] for q in live))
@@ -318,12 +322,12 @@ def reshard_split_bank(shards: list, old: Placement, new: Placement, dead: int,
                 for k, owner, first, stop in pos_runs:
                     if k != kind:
                         continue
-                    dst = outs[pos][first - base:stop - base]
+                    dst = outs[pos].narrow(axis, first - base, stop - first)
                     if k == "source":
-                        dst.copy_(torch.as_tensor(src_leaf[first:stop]), non_blocking=True)
+                        dst.copy_(src_leaf.narrow(axis, first, stop - first), non_blocking=True)
                     else:
                         off = owner * old.local_count
-                        dst.copy_(held[owner][first - off:stop - off])
+                        dst.copy_(held[owner].narrow(axis, first - off, stop - first))
         if events is not None:
             events[kind][1].record()
     return [tree_map(lambda outs, pos=pos: outs[pos], trees) for pos in range(new.subgroup_size)]
@@ -430,20 +434,22 @@ def exclude_bitmap(num_padded: int, exclude_ids: torch.Tensor,
 def plan_from_bitmap(wanted: torch.Tensor, p: int, g: int, local: int, budget: int):
     """Requester-side fetch schedule of subgroup position ``p`` from its
     ``(num_padded,)`` wanted bitmap: per peer (distance 1 first) the
-    ascending-id compaction padded to ``budget``. Returns ``(fetched_ids,
-    valid, overflow)`` with a raw (un-agreed) 0-d overflow flag."""
-    ids, valids = [], []
-    overflow = torch.zeros((), dtype=torch.bool, device=wanted.device)
-    for t in range(1, g):
-        o = (p + t) % g
-        idx, valid_t, cnt = _compact_requests(wanted[o * local:(o + 1) * local], budget)
-        ids.append(o * local + idx)
-        valids.append(valid_t)
-        overflow = overflow | (cnt > budget)
-    if not ids:
-        return (torch.zeros(0, dtype=torch.int64, device=wanted.device),
-                torch.zeros(0, dtype=torch.bool, device=wanted.device), overflow)
-    return torch.cat(ids), torch.cat(valids), overflow
+    ascending-id compaction padded to ``budget`` (:func:`_compact_requests`,
+    every peer's slice at once). Returns ``(fetched_ids, valid, overflow)``
+    with a raw (un-agreed) 0-d overflow flag."""
+    dev = wanted.device
+    if g < 2:
+        return (torch.zeros(0, dtype=torch.int64, device=dev),
+                torch.zeros(0, dtype=torch.bool, device=dev),
+                torch.zeros((), dtype=torch.bool, device=dev))
+    # the peers' slices in distance order, no index copied from the host
+    masks = wanted[:g * local].reshape(g, local).roll(-(p + 1), dims=0)[:g - 1]
+    order = torch.argsort((~masks).to(torch.int8), dim=1, stable=True)
+    count = masks.sum(1)
+    idx = order[:, :budget]
+    valid = torch.arange(idx.shape[1], device=dev) < torch.clamp(count, max=budget)[:, None]
+    first = (torch.arange(p + 1, p + g, device=dev) % g) * local
+    return (idx + first[:, None]).reshape(-1), valid.reshape(-1), (count > budget).any()
 
 
 def gather_rows(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) -> torch.Tensor:

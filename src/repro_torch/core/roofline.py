@@ -384,19 +384,24 @@ def modeled_step_time(
         groups = layer_group_names(cfg)
     total = 0.0
     sync_free_used = False
+    # a layer's terms follow from its kind (MoE or its dense width) and its
+    # group alone: price each kind once, sum in layer order
+    priced: dict = {}
     for layer in range(cfg.num_layers):
         gname = groups[layer] if groups else None
-        lt = layer_times(
-            cfg, tokens=tokens, group=group, hw=hw, layer=layer,
-            policies=policies, weight_layout=weight_layout,
-            expert_fetch=expert_fetch, attn_gathered=attn_gathered,
-            kv_len=kv_len, redundancy=redundancy,
-            weight_bytes=weight_bytes, act_bytes=act_bytes,
-            cache_hit=_rate_for(cache_hit, gname),
-            predict_hit=_rate_for(predict_hit, gname),
-            validate=validate, layer_group=gname,
-        )
-        total += layer_step_time(lt)
+        kind = (cfg.is_moe_layer(layer), cfg.ffn_dim(layer), gname)
+        if kind not in priced:
+            priced[kind] = layer_step_time(layer_times(
+                cfg, tokens=tokens, group=group, hw=hw, layer=layer,
+                policies=policies, weight_layout=weight_layout,
+                expert_fetch=expert_fetch, attn_gathered=attn_gathered,
+                kv_len=kv_len, redundancy=redundancy,
+                weight_bytes=weight_bytes, act_bytes=act_bytes,
+                cache_hit=_rate_for(cache_hit, gname),
+                predict_hit=_rate_for(predict_hit, gname),
+                validate=validate, layer_group=gname,
+            ))
+        total += priced[kind]
         if cfg.moe is not None and cfg.is_moe_layer(layer):
             fetch = (policies.family("moe_experts", gname).fetch
                      if policies is not None else expert_fetch)

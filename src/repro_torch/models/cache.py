@@ -14,8 +14,8 @@ sequence index ``i`` holds rows ``[j*B/b, (j+1)*B/b)`` and ring slots
 separate allocation per logical rank. ``RingLayout`` records which block
 each entry of a list holds; ``read_row`` and ``write_row`` move one row's
 whole ring between two layouts (the context server's KV handed to a
-generation server that shards it otherwise). Scan groups carry a leading
-cycle axis on every leaf.
+generation server that shards it otherwise), and ``relayout`` a whole
+state. Scan groups carry a leading cycle axis on every leaf.
 """
 from __future__ import annotations
 
@@ -95,6 +95,23 @@ def write_row(model: Model, layers: dict, layout: RingLayout, row: int, ring: di
                     n = dst.shape[bax + 1]
                     src = ring[group.name][key][f][(slice(None),) * bax + (slice(s * n, (s + 1) * n),)]
                     dst[(slice(None),) * bax + (local,)] = src.to(dst.device, dst.dtype)
+
+
+def relayout(model: Model, state: dict, dst: RingLayout) -> dict:
+    """``state``, held in its ``"layout"``, laid out again in ``dst``: each
+    row's whole ring read and written into new per-rank entries (the JAX
+    package's global state resharded between two plans, say a prefill
+    whose prompt does not divide over ``model`` feeding a decode whose ring
+    does)."""
+    src = state["layout"]
+    lengths = [ranks[0]["slot_pos"].shape[-1] * src.seq_shards
+               for group in model.plan for ranks in state["layers"][group.name].values()]
+    batch = state["pos"].shape[0]
+    out = init_decode_state(model, batch, max(lengths), seq_shards=dst.seq_shards,
+                            batch_shards=len({b for b, _ in dst.shards}))
+    for row in range(batch):
+        write_row(model, out["layers"], dst, row, read_row(model, state["layers"], src, row))
+    return {**state, "layers": out["layers"], "layout": dst}
 
 
 def attn_cache_len(sig: LayerSig, seq_len: int) -> int:

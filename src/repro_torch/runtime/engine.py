@@ -49,7 +49,10 @@ one host read; a :class:`HealthMonitor` on the engine reads their
 per-peer tail and walks the generation server down its degradation
 ladder (``strategy.degradation_ladder``: the root fetch, the per-peer
 exclusion rung, demand, all) and back, every rung captured in
-``warmup``. Times are seconds on the host clock, read after the device
+``warmup``; the terminal ``"reshard"`` rung (the all-gather table) is
+stepped onto only explicitly, where a rank death swaps in a standby
+engine on the survivors (``serving.live.LiveReplicaClient.kill_rank``).
+Times are seconds on the host clock, read after the device
 has finished (``torch.cuda.synchronize``).
 """
 from __future__ import annotations
@@ -236,10 +239,14 @@ class CountingStep:
             return self._fn(params, self.inputs)
 
     def warm(self, params) -> int:
-        """Capture the step off the serving path (one eager call without a
-        space, its outputs dropped); returns the number of captures made."""
+        """Capture the step off the serving path; returns the number of
+        captures made. Without a space there is nothing to capture: on the
+        card one eager call, its outputs dropped, pays the step's first-use
+        costs here; on the host the step runs first when served."""
         if self.space is None:
-            self.eager(params)
+            first = next(iter(self.inputs.values()))
+            if first.device.type != "cpu":
+                self.eager(params)
             return 0
         if self.graph is not None:
             return 0
@@ -359,6 +366,12 @@ class PolicyVariantCache:
             self.stats["evictions"] += 1
         self._entries[key] = entry
         return entry
+
+    def release(self) -> None:
+        """Drop every cached variant's graph and outputs (their memory goes
+        back to the pool); a later call captures again."""
+        for step in self.steps():
+            step.release()
 
     def adopt(self, table: PolicyTable, excl: tuple, entry,
               shape: Optional[InputShape] = None) -> None:
@@ -975,14 +988,11 @@ class GenerationServer:
         return tuple(sorted({int(p) for p in bad_peers}))
 
     def _rung(self, level: int, bad_peers=()) -> tuple:
-        """The (table, exclusion set) of a ladder level."""
-        label, table, excl = self.ladder[level]
-        if label == "reshard":
-            raise NotImplementedError(
-                "the 'reshard' rung answers a rank death: a standby engine re-sharded onto "
-                "the surviving ranks (prefetch.reshard_split_bank, "
-                "roofline.rank_death_recovery) comes with the rank-death slice of the port, "
-                "not ported yet")
+        """The (table, exclusion set) of a ladder level. The ``"reshard"``
+        rung is the ladder's own entry, the all-gather table with no
+        exclusion (``degrade_policy_table(table, "all")``): the variant the
+        all-gather floor captured already."""
+        _, table, excl = self.ladder[level]
         return table, self._excl(bad_peers if excl is None else excl)
 
     def set_level(self, level: int, bad_peers: tuple = ()) -> bool:
@@ -990,8 +1000,11 @@ class GenerationServer:
         changed. The level's variant is installed (captured already when
         warmed) with a cold predictive state, the KV slots carried over; an
         exclusion rung leaves out ``bad_peers`` (the monitor's
-        :meth:`HealthMonitor.bad_peers`), one variant per set. The
-        ``"reshard"`` rung raises ``NotImplementedError``."""
+        :meth:`HealthMonitor.bad_peers`), one variant per set. Only an
+        explicit call steps onto the terminal ``"reshard"`` rung
+        (:attr:`max_silent_level` keeps a monitor above it); the shrunk mesh
+        itself is the standby engine ``LiveReplicaClient.kill_rank`` swaps
+        in."""
         level = max(0, min(int(level), len(self.ladder) - 1))
         if level == self.level:
             return False
@@ -1024,25 +1037,24 @@ class GenerationServer:
         self._swap(self.xp.policies, self.excl)
 
     def _ladder_variants(self, table: Optional[PolicyTable] = None, exclusions=None) -> list:
-        """The (table, exclusion set) of every fail-silent rung of
-        ``table``'s ladder (default: the installed one's): an exclusion rung
-        once per set of ``exclusions`` (default: each single subgroup
-        position)."""
+        """The (table, exclusion set) of every rung of ``table``'s ladder
+        (default: the installed one's), the ``"reshard"`` rung's included:
+        an exclusion rung once per set of ``exclusions`` (default: each
+        single subgroup position)."""
         ladder = self.ladder if table is None else degradation_ladder(table)
         if exclusions is None:
             g = self.model.geom.moe_placement.subgroup_size if self.model.geom.moe_placement else 1
             exclusions = [(q,) for q in range(g)]
-        top = len(ladder) - 1 if ladder[-1][0] == "reshard" else len(ladder)
         out = []
-        for _, t, excl in ladder[:top]:
+        for _, t, excl in ladder:
             sets = [self._excl(e) for e in exclusions] if excl is None else [excl]
             out += [(t, e) for e in sets]
         return out
 
     def warmup(self, params, tables=(), ladder: bool = False, exclusions=None) -> int:
         """Capture the decode variant of each table (and of the installed
-        one) off the serving path — with ``ladder``, of every fail-silent
-        rung of their ladders too (:meth:`_ladder_variants`, ``exclusions``
+        one) off the serving path — with ``ladder``, of every rung of their
+        ladders too (:meth:`_ladder_variants`, ``exclusions``
         naming the exclusion rung's peer sets); slot and predictive state
         are left as they were (a step never writes its inputs). Returns
         the captures made."""
@@ -1254,7 +1266,7 @@ class DisaggregatedEngine:
         step of every bucket and the decode variant of each table in
         ``tables``, of every table the scheduler can emit
         (``OnlinePolicyScheduler.candidate_tables``) and of the installed
-        one; with a health monitor also every fail-silent rung of their
+        one; with a health monitor also every rung of their
         degradation ladders, the exclusion rung once per peer set of
         ``exclusions`` (default: each single subgroup position;
         ``GenerationServer._ladder_variants``). After this, serving — mixed

@@ -17,34 +17,58 @@ admission projection is an EMA of the measured step times per batch size.
 ``(1, G')``, all eight on ``(2, 4)``) on one card, so a summary's
 ``tps_per_gpu`` is per card.
 
+Fail-stop (:meth:`LiveReplicaClient.kill_rank`): a generation rank dies and
+the client swaps in a ``standby`` engine on the survivors' mesh (the model
+axis one smaller), as the JAX package does. Where the JAX package takes a
+pre-built engine, the port also takes a callable ``standby(dead_rank) ->
+engine`` that ``kill_rank`` calls after releasing the dying engine's
+graphs: one card does not hold two DeepSeek-R1 weight sets beside a running
+engine, so the standby re-shards the weights in place
+(``checkpoint.convert.reshard_params``) and captures its steps inside the
+recovery.
+
 ``RoutedTraceRecorder`` is a scheduler ``on_step`` hook that collects each
 decode step's per-rank routed-expert bitmaps
 (``GenerationServer.routed_bitmaps``).
 """
 from __future__ import annotations
 
+import gc
+import math
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import roofline
 from repro_torch.runtime.engine import validate_restore_plan
 
 
+def _check_slots(standby, max_batch: int) -> None:
+    if standby.gen.max_batch != max_batch:
+        raise ValueError("the standby engine must keep the decode slot count: "
+                         f"{standby.gen.max_batch} != {max_batch}")
+
+
 class LiveReplicaClient:
-    def __init__(self, params, ctx, gen, *, num_gpus: int = 1):
+    """``standby``: the engine :meth:`kill_rank` swaps in, built on the
+    survivors' mesh (pre-warmed, it captures nothing at the swap), or a
+    callable ``standby(dead_rank) -> engine`` that builds it."""
+
+    def __init__(self, params, ctx, gen, *, num_gpus: int = 1, standby=None):
         self.params = params
         self.ctx = ctx
         self.gen = gen
         self.num_slots = gen.max_batch
         self.num_gpus = num_gpus
+        self.standby = standby
         self._step_ema: dict[int, float] = {}
         self._active: list = []
 
     @classmethod
-    def from_engine(cls, engine, *, num_gpus: int = 1):
-        return cls(engine.params, engine.ctx, engine.gen, num_gpus=num_gpus)
+    def from_engine(cls, engine, *, num_gpus: int = 1, standby=None):
+        return cls(engine.params, engine.ctx, engine.gen, num_gpus=num_gpus, standby=standby)
 
     def _now(self) -> float:
         """The host clock after the device has finished the work queued so
@@ -112,12 +136,69 @@ class LiveReplicaClient:
         return snap
 
     def kill_rank(self, dead_rank: int, active_slots=()) -> dict:
-        """Fail-stop one generation rank (the JAX package swaps in a standby
-        engine re-sharded onto the survivors, ``prefetch.reshard_split_bank``,
-        and prices the stall with ``roofline.rank_death_recovery``). Not
-        ported yet: the standby engine is missing."""
-        raise NotImplementedError(
-            "kill_rank needs a standby engine on the surviving ranks, not ported yet")
+        """Fail-stop one generation rank and swap in the ``standby`` engine
+        on the survivors' mesh (``repro.runtime.serving.live``).
+
+        The decode batch is sharded over ``data``, so a slot's KV lives on
+        its data row (flat ranks data-major, ``max_batch // data`` slots a
+        row): the slots of the dead rank's row lost their KV and requeue from
+        the prompt; every other active slot is snapshotted
+        (``snapshot_slot``) before the swap and migrates. A callable standby
+        is called with ``dead_rank`` after the dying engine's graphs are
+        released and its servers dropped (their memory back on the card), so
+        its build and captures count in the recovery. Returns ``{"migrate":
+        {slot: snapshot}, "requeue": [slots], "seconds", "wire_bytes"}``:
+        the measured swap's seconds floored by the modeled re-shard stall
+        (``roofline.rank_death_recovery``), and its modeled wire and
+        checkpoint bytes. ``ValueError`` without a standby, or where a
+        pre-built standby keeps another slot count (nothing is swapped).
+        Where a callable standby raises or returns another slot count, the
+        dying engine is gone already: ``RuntimeError``, and the client holds
+        no engine (``params``, ``ctx`` and ``gen`` are ``None``)."""
+        if self.standby is None:
+            raise ValueError("kill_rank needs a standby engine on the surviving ranks "
+                             "(LiveReplicaClient(..., standby=engine or callable))")
+        t0 = self._now()
+        gen = self.gen
+        sizes = dict(gen._mesh_sizes)
+        data = int(sizes.get("data", 1))
+        model_size = max(1, math.prod(v for a, v in sizes.items() if a != "data"))
+        g = data * model_size
+        dead_row = int(dead_rank) % g // model_size
+        rows_per = max(1, gen.max_batch // max(1, data))
+        migrate, requeue = {}, []
+        for slot in active_slots:
+            if slot // rows_per == dead_row:
+                requeue.append(int(slot))
+            else:
+                migrate[int(slot)] = gen.snapshot_slot(slot)
+        max_batch, cfg, device = gen.max_batch, gen.model.cfg, gen.model.device
+        standby = self.standby
+        if hasattr(standby, "gen"):
+            _check_slots(standby, max_batch)
+        else:
+            self.ctx.variants.release()
+            gen.variants.release()
+            # no engine from here until the standby lands
+            self.params = self.ctx = self.gen = gen = None
+            if device.type == "cuda":
+                gc.collect()
+                torch.cuda.empty_cache()
+            try:
+                standby = standby(dead_rank)
+                _check_slots(standby, max_batch)
+            except Exception as exc:
+                raise RuntimeError(
+                    f"the standby for dead rank {dead_rank} failed after the dying engine was "
+                    "released: this replica holds no engine") from exc
+        self.params, self.ctx, self.gen = standby.params, standby.ctx, standby.gen
+        self.standby = None
+        self.num_gpus = max(1, self.num_gpus - 1)
+        self._step_ema.clear()
+        rec = roofline.rank_death_recovery(cfg, group=g)
+        return {"migrate": migrate, "requeue": requeue,
+                "seconds": max(self._now() - t0, rec["seconds"]),
+                "wire_bytes": rec["wire_bytes"] + rec["source_bytes"]}
 
     def can_resume(self, plan) -> bool:
         """True when a snapshot stamped with ``plan`` restores on this

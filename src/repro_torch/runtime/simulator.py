@@ -115,6 +115,8 @@ class ClusterSimulator:
     def __init__(self, sc: SimConfig):
         self.sc = sc
         self.rng = random.Random(sc.seed)
+        # (active, total) parameters of the config, read by every decode step
+        self._params = (sc.cfg.active_param_count(), sc.cfg.param_count())
 
     # ---- service-time models ---------------------------------------------
     def ctx_time(self, batch_isls: list[int]) -> float:
@@ -179,17 +181,16 @@ class ClusterSimulator:
         fallback step of a payload fault."""
         sc, cfg = self.sc, self.sc.cfg
         fr = sc.fault_rate if fault_rate is None else fault_rate
-        w_params = cfg.active_param_count()
+        active, total = self._params
+        w_params = active
         if cfg.moe is not None:
             e, k = cfg.moe.num_experts, cfg.moe.top_k
             frac = 1.0 - (1.0 - k / e) ** batch
-            w_params = cfg.active_param_count() + frac * (
-                cfg.param_count() - cfg.active_param_count()) * (k and 1.0)
-            w_params = min(w_params, cfg.param_count())
+            w_params = min(active + frac * (total - active) * (k and 1.0), total)
         w_bytes = w_params * 1.0  # 1-byte weights
         kv_bytes = batch * sc.isl_max * cfg.kv_dim * 2 * cfg.num_layers * 1.0
         t_mem = (w_bytes + kv_bytes) / (sc.hw.hbm_bw * sc.gen_gpus)
-        t_flops = 2 * cfg.active_param_count() * batch / (sc.hw.flops * sc.gen_gpus)
+        t_flops = 2 * active * batch / (sc.hw.flops * sc.gen_gpus)
         t = max(t_mem, t_flops)
         if sc.gen_mode == "dwdp":
             total, serial = self._fetch_terms(batch)

@@ -831,3 +831,67 @@ def test_cuda_reshard_split_bank_bitwise_cpu():
         for k in source:
             assert g[k].device.type == "cuda" and not torch.isnan(g[k]).any()
             assert torch.equal(g[k].cpu(), r[k])
+
+
+@pytest.mark.cuda
+def test_cuda_reshard_params_bitwise_cpu():
+    """The standby's weights (``checkpoint.convert.reshard_params``) of a
+    tiny MoE model with a dense layer and a shared expert, (2, 4) -> (2, 3)
+    with model position 1 dead and NaN-filled: the survivors' leaves on the
+    card, the checkpoint pinned on the host; every new leaf lands on the
+    card, bitwise the CPU re-shard's, with CUDA events for every kind of
+    copy; the old trees are emptied as the new leaves land."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the re-shard's copies run on the card")
+    from repro_torch.checkpoint.convert import reshard_params, to_checkpoint
+    from repro_torch.configs.base import ArchConfig, MoEConfig
+    from repro_torch.core import prefetch
+    from repro_torch.models.transformer import build_model
+
+    cfg = ArchConfig(name="tiny-moe", family="moe", num_layers=2, d_model=64, num_heads=4,
+                     num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256,
+                     moe=MoEConfig(num_experts=8, top_k=2, d_ff=32, shared_d_ff=32,
+                                   first_dense=1))
+    geom = dict(shard_attention=True, expert_axes=("model",), moe_exec="gather")
+    dead = 1
+
+    def models(device):
+        return [build_model(cfg, {"data": 2, "model": g}, dtype=torch.bfloat16, device=device,
+                            **geom) for g in (4, 3)]
+
+    (m4, m3), (m4g, m3g) = models("cpu"), models("cuda")
+    params = m4.init_params(torch.Generator().manual_seed(0))
+    source = to_checkpoint(params, m4, pin_memory=True)
+    memo: dict = {}
+
+    def on_card(tree):
+        if isinstance(tree, dict):
+            return {k: on_card(v) for k, v in tree.items()}
+        return memo.setdefault(id(tree), tree.to("cuda"))
+
+    card = [on_card(t) for t in params]
+    kept = {id(x) for m in (0, 2, 3) for _, x in _tree_items(card[m])}
+    for _, x in _tree_items(card[dead]):
+        if id(x) not in kept and x.is_floating_point():
+            x.fill_(float("nan"))
+    events: dict = {}
+    got = reshard_params(card, m4g, m3g, dead, source, free=True, events=events)
+    ref = reshard_params(params, m4, m3, dead, source)
+    torch.cuda.synchronize()
+    assert set(events) == set(prefetch.RESHARD_KINDS) | {"other"}
+    assert all(a.elapsed_time(b) >= 0 for pairs in events.values() for a, b in pairs)
+    for g, r in zip(got, ref, strict=True):
+        for (path, a), (_, b) in zip(_tree_items(g), _tree_items(r), strict=True):
+            assert a.device.type == "cuda" and not torch.isnan(a).any()
+            if path[-1] == "checksums":  # f32 norms, summed in another order on the card
+                assert torch.allclose(a.cpu(), b, rtol=1e-5, atol=0), path
+            else:
+                assert torch.equal(a.cpu(), b), path
+    assert {id(x) for t in card for _, x in _tree_items(t)} <= \
+        {id(x) for t in got for _, x in _tree_items(t)}
+
+
+def _tree_items(tree, path=()) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_items(tree[k], path + (k,))]
+    return [(path, tree)]

@@ -123,12 +123,19 @@ def window():
 
 
 def _prefill(s, mesh, rows, mode, capture=0):
-    model, params = s["ports"][mesh]
-    sizes = {"data": mesh[0], "model": mesh[1]}
-    xp = strategy.make_execution_plan(model, InputShape("p", S, len(rows), "prefill"), sizes,
-                                      mode=mode, capacity_factor=CAP)
-    ctx = execution.Ctx(model=model, xp=xp, capture_len=capture)
-    return xp, execution.forward_prefill(params, torch.as_tensor(s["tokens"][rows]), ctx)
+    """The port's prefill of ``rows`` on ``mesh``, run once per module for
+    its arguments (every decode case starts from the same one; the runs are
+    deterministic on the CPU and no test writes their outputs)."""
+    key = (mesh, tuple(rows), mode, capture)
+    runs = s.setdefault("runs", {})
+    if key not in runs:
+        model, params = s["ports"][mesh]
+        sizes = {"data": mesh[0], "model": mesh[1]}
+        xp = strategy.make_execution_plan(model, InputShape("p", S, len(rows), "prefill"),
+                                          sizes, mode=mode, capacity_factor=CAP)
+        ctx = execution.Ctx(model=model, xp=xp, capture_len=capture)
+        runs[key] = xp, execution.forward_prefill(params, torch.as_tensor(s["tokens"][rows]), ctx)
+    return runs[key]
 
 
 def _relerr(got, ref):

@@ -493,8 +493,15 @@ def test_fault_storm_walks_the_ladder_down_and_back(decode_setup, all_fetch_toke
     assert faults["detected"] == faults["injected_drop"] > 0
     assert eng.metrics.detected_by_peer[1] == faults["detected"] == sum(eng.metrics.detected_by_peer)
     assert gen.fault_fallbacks > 0
-    with pytest.raises(NotImplementedError, match="rank-death slice"):
-        gen.set_level(4)
+    # the terminal rung, only ever stepped onto explicitly: the all-gather
+    # floor's variant, built in warmup, and its tokens
+    assert gen.max_silent_level + 1 == len(gen.ladder) - 1 == 4
+    gen.set_level(3)
+    floor_step = gen.step
+    want = gen.step_outputs(s["params"])[0]["logits"].clone()  # commits nothing
+    assert gen.set_level(4) and gen.fetch_label == "reshard" and gen.step is floor_step
+    assert torch.equal(gen.step_outputs(s["params"])[0]["logits"], want)
+    assert gen.variants.stats["misses"] == misses and gen.variants.captures() == 0
 
 
 def test_pred_stats_cold_warm_and_evictions(decode_setup):

@@ -25,22 +25,19 @@ ring_sliced land the same bytes as allgather, and MIXED is its COMPOSED
 table (demand -> all, ring -> allgather) with no overflow: those
 outputs are held bitwise.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
-
-from repro.configs.base import InputShape as JShape
-from repro.core import execution as jexec
-from repro.core import strategy as jstrategy
-from repro.launch.mesh import make_smoke_mesh
 from repro_torch.checkpoint.convert import from_jax_params
 from repro_torch.configs.base import InputShape
 from repro_torch.core import execution, strategy
 from repro_torch.models.transformer import build_model
-from torch_refs import MOE_EXPERTS, MOE_FIELDS, MOE_GEOM, tiny_moe
+from torch_refs import (
+    MOE_CACHE, MOE_CAP, MOE_DECODE_STEPS, MOE_GEOM, MOE_PROMPT, tiny_moe, tiny_moe_run,
+)
 
 # One intra-op thread per process: the suite runs several test workers, and
 # the port's test shapes are too small to gain from more.
@@ -49,13 +46,11 @@ torch.set_num_threads(1)
 ATOL = RTOL = 1e-4
 # The tiny MoE model (``torch_refs``): vocab divisible by 4, E = 8, top_k
 # = 2, 2 kv heads, a shared expert, a dense first and an MoE second layer.
-GEOM, FIELDS, MOE = MOE_GEOM, MOE_FIELDS, MOE_EXPERTS
-CAP = MOE["num_experts"] / MOE["top_k"]
-PROMPT, CACHE = 16, 24
+GEOM, CAP = MOE_GEOM, MOE_CAP
+PROMPT, CACHE, DECODE_STEPS = MOE_PROMPT, MOE_CACHE, MOE_DECODE_STEPS
 
 
 MODES = ("dwdp", "dep", "hybrid")
-DECODE_STEPS = 6
 # The JAX package's MIXED / COMPOSED tables (tests/test_multidevice.py);
 # budget 100 >= the 2 experts per rank: the demand path never overflows.
 MIXED = {"moe_experts": "split:demand:allgather:4:100", "attn_qkv": "merged:all:allgather",
@@ -78,49 +73,48 @@ POLICY_CASES = [pytest.param(m, None, id=m) for m in MODES] + [
 ]
 
 
-def _jax_step(jm1, mesh, shape, **kw):
-    xp = jstrategy.make_execution_plan(jm1, shape, {"data": 1, "model": 1}, capacity_factor=CAP)
-    return jexec.make_step_fn(jm1, xp, mesh, **kw)
-
-
 @pytest.fixture(scope="module")
 def setup():
     """The weights in both packages, the prompts, and the JAX package's
-    (1, 1) prefill logits and greedy decode tokens (computed once)."""
+    (1, 1) prefill logits and greedy decode tokens (``torch_refs``, computed
+    once per process)."""
     w = tiny_moe()  # the weights, shared with tests/test_torch_data_parallel.py
-    cfg, jm1, jparams1, jparams4 = w["cfg"], w["jm1"], w["jparams1"], w["jparams4"]
-    model = build_model(cfg, {"data": 1, "model": 4}, device="cpu", **GEOM)
+    model = build_model(w["cfg"], {"data": 1, "model": 4}, device="cpu", **GEOM)
     assert model.geom.kv_shard == 2 and model.geom.moe_placement.local_count == 2
     assert model.geom.attn_tp_ok and model.geom.ffn_axes == ("model",)
-    params = from_jax_params(jparams4, model)
-    mesh = make_smoke_mesh()
-    rng = np.random.default_rng(11)
-    prompts = [rng.integers(0, cfg.vocab_size, PROMPT) for _ in range(2)]
+    run = tiny_moe_run()
+    return dict(model=model, params=from_jax_params(w["jparams4"], model), cfg=w["cfg"],
+                prompts=run["prompts"], logits=run["logits"], first=run["first"],
+                tokens=run["tokens"])
 
-    prefill = _jax_step(jm1, mesh, JShape("p", PROMPT, 1, "prefill"), capture_len=CACHE)
-    jouts = [prefill(jparams1, {"tokens": jnp.asarray(t[None], jnp.int32)}) for t in prompts]
-    jstate = jax.tree.map(lambda *xs: jnp.concatenate(xs, 0), *[o["state"] for o in jouts])
-    jtok = jnp.asarray([[int(np.argmax(o["last_logits"][0]))] for o in jouts], jnp.int32)
-    decode = _jax_step(jm1, mesh, JShape("g", CACHE, 2, "decode"))
-    jtoks = []
-    for _ in range(DECODE_STEPS):
-        jo = decode(jparams1, {"token": jtok}, jstate)
-        jtok, jstate = jo["next_token"], jo["state"]
-        jtoks.append(np.asarray(jtok)[:, 0])
-    return dict(model=model, params=params, prompts=prompts, cfg=cfg,
-                logits=[np.asarray(o["last_logits"]) for o in jouts],
-                first=np.asarray([int(np.argmax(o["last_logits"][0])) for o in jouts]),
-                tokens=np.stack(jtoks))
+
+def _once(s, key, run):
+    """``run()``'s result, computed once per module for ``key``: several
+    tests read the same port run (a policy's prefill feeds its decode, and
+    the bitwise pairs compare runs the parity tests make), which is
+    deterministic on the CPU."""
+    runs = s.setdefault("runs", {})
+    if key not in runs:
+        runs[key] = run()
+    return runs[key]
+
+
+def _policy_key(policy):
+    return json.dumps(policy, sort_keys=True)
 
 
 def _port_prefill(s, toks, mode="dwdp", policy=None):
-    xp = strategy.make_execution_plan(
-        s["model"], InputShape("p", PROMPT, 1, "prefill"), {"data": 1, "model": 4},
-        mode=mode, capacity_factor=CAP, policy=policy)
-    assert xp.seq_axes == ("model",)
-    # DEP's tensor-parallel prefill attention captures no KV state
-    ctx = execution.Ctx(model=s["model"], xp=xp, capture_len=0 if mode == "dep" else CACHE)
-    return execution.forward_prefill(s["params"], torch.as_tensor(toks[None]), ctx)
+    def run():
+        xp = strategy.make_execution_plan(
+            s["model"], InputShape("p", PROMPT, 1, "prefill"), {"data": 1, "model": 4},
+            mode=mode, capacity_factor=CAP, policy=policy)
+        assert xp.seq_axes == ("model",)
+        # DEP's tensor-parallel prefill attention captures no KV state
+        ctx = execution.Ctx(model=s["model"], xp=xp, capture_len=0 if mode == "dep" else CACHE)
+        return execution.forward_prefill(s["params"], torch.as_tensor(toks[None]), ctx)
+
+    index = next(i for i, t in enumerate(s["prompts"]) if t is toks)
+    return _once(s, ("prefill", index, mode, _policy_key(policy)), run)
 
 
 def _port_decode(s, mode, decode_attn="gather", policy=None, logits=None):
@@ -128,6 +122,15 @@ def _port_decode(s, mode, decode_attn="gather", policy=None, logits=None):
     from the prefill state of the context server that feeds it (DWDP for a
     DEP decode); each step's logits are appended to ``logits`` when
     given."""
+    steps = []
+    toks = _once(s, ("decode", mode, decode_attn, _policy_key(policy)),
+                 lambda: _greedy(s, mode, decode_attn, policy, steps))
+    if logits is not None:
+        logits.extend(s["runs"][("logits", mode, decode_attn, _policy_key(policy))])
+    return toks
+
+
+def _greedy(s, mode, decode_attn, policy, steps):
     touts = [_port_prefill(s, t, "dwdp" if mode == "dep" else mode, policy)
              for t in s["prompts"]]
     tstate = {
@@ -150,12 +153,12 @@ def _port_decode(s, mode, decode_attn="gather", policy=None, logits=None):
     for _ in range(DECODE_STEPS):
         to = execution.forward_decode(s["params"], ttok, tstate, ctx)
         ttok, tstate = to["next_token"].long(), to["state"]
-        if logits is not None:
-            logits.append(to["logits"])
+        steps.append(to["logits"])
         top2 = torch.topk(to["logits"][:, : s["cfg"].vocab_size], 2, dim=-1).values
         margin = (top2[:, 0] - top2[:, 1]).min().item()
         assert margin > 10 * (ATOL + RTOL * top2[:, 0].abs().max().item()), margin
         ttoks.append(ttok[:, 0].numpy())
+    s["runs"][("logits", mode, decode_attn, _policy_key(policy))] = steps
     return np.stack(ttoks)
 
 

@@ -268,8 +268,10 @@ def test_scheduler_matches_reference_on_a_fake_client(name):
 
 
 def test_live_client_kill_rank_names_what_it_waits_for():
+    """Without a standby engine there is nothing to swap in: ``kill_rank``
+    says so (``ValueError``, as the reference's)."""
     client = serving.LiveReplicaClient(None, None, types.SimpleNamespace(max_batch=2))
-    with pytest.raises(NotImplementedError, match="standby engine"):
+    with pytest.raises(ValueError, match="standby engine"):
         client.kill_rank(1, [0])
 
 

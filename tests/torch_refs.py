@@ -3,7 +3,8 @@ per process.
 
 Several ``tests/test_torch_*.py`` files hold the port against the JAX
 package on the same weights and the same JAX runs: the tiny MoE model
-(``test_torch_model``, ``test_torch_data_parallel``), the Gemma-3-like
+and its (1, 1) run (``test_torch_model``, ``test_torch_data_parallel``,
+``test_torch_rank_death``), the Gemma-3-like
 window model (``test_torch_window``, ``test_torch_data_parallel``) and the
 reduced DeepSeek-R1 engine (``test_torch_engine``,
 ``test_torch_data_parallel``). Each builder is cached
@@ -29,8 +30,11 @@ from repro.configs import get_arch as jget_arch
 from repro.configs import reduced_variant as jreduced
 from repro.configs.base import ArchConfig as JArch
 from repro.configs.base import BlockKind as JKind
+from repro.configs.base import InputShape as JShape
 from repro.configs.base import MoEConfig as JMoE
-from repro.launch.mesh import _mesh
+from repro.core import execution as jexec
+from repro.core import strategy as jstrategy
+from repro.launch.mesh import _mesh, make_smoke_mesh
 from repro.models.transformer import build_model as jbuild_model
 from repro.runtime.engine import ContextServer as JContextServer
 from repro.runtime.engine import DisaggregatedEngine as JEngine
@@ -143,6 +147,82 @@ def jax_params(jm1, jm4, seed: int) -> tuple:
     return jax.tree.map(jnp.asarray, _jax_layout(jm1, canon)), _jax_layout(jm4, canon)
 
 
+def canonical_weights(cfg, model, seed: int) -> dict:
+    """Unpadded canonical weights drawn with numpy from ``seed``, scaled as
+    ``_canonical_layer`` scales them, for ``model``'s layer plan (either
+    package's: the plan does not depend on the mesh): the real vocabulary,
+    FFN widths and experts only, so that :func:`zero_padded_layout` lays the
+    same values out at any geometry."""
+    rng = np.random.default_rng(seed)
+    d = cfg.d_model
+
+    def dense(*shape):
+        return (rng.standard_normal(shape) * shape[-2] ** -0.5).astype(np.float32)
+
+    def ffn(f):
+        return dict(w_gate=dense(d, f), w_up=dense(d, f), w_down=dense(f, d))
+
+    def layer(sig):
+        if sig.kind.name not in ("GLOBAL_ATTN", "LOCAL_ATTN"):
+            raise NotImplementedError(f"no canonical draw for a {sig.kind} layer")
+        out = {"attn": dict(wq=dense(d, cfg.q_dim), wk=dense(d, cfg.kv_dim),
+                            wv=dense(d, cfg.kv_dim), wo=dense(cfg.q_dim, d))}
+        if sig.is_moe:
+            e, fe = cfg.moe.num_experts, cfg.moe.d_ff
+            out["moe"] = {"router": dense(d, e), "experts": dict(
+                w_gate=dense(e, d, fe), w_up=dense(e, d, fe), w_down=dense(e, fe, d))}
+            if cfg.moe.shared_d_ff:
+                out["moe"]["shared"] = ffn(cfg.moe.shared_d_ff)
+        elif sig.ffn_dim:
+            out["ffn"] = ffn(sig.ffn_dim)
+        return out
+
+    canon = {"embed": rng.standard_normal((cfg.vocab_size, d)).astype(np.float32),
+             "layers": [[[layer(sig) for sig in group.sigs]
+                         for _ in range(group.n_cycles if group.scan else 1)]
+                        for group in model.plan]}
+    if not cfg.tie_embeddings:
+        canon["lm_head"] = dense(d, cfg.vocab_size)
+    return canon
+
+
+def zero_padded_layout(model, canon) -> dict:
+    """``canon`` (:func:`canonical_weights`) padded with zeros to ``model``'s
+    geometry (vocabulary, FFN widths, experts and the router's expert
+    columns) and laid out in its storage layout (``_jax_layout``; either
+    package's model)."""
+    geom = model.geom
+
+    def pad(a, axis, n):
+        width = [(0, 0)] * a.ndim
+        width[axis] = (0, n - a.shape[axis])
+        return np.pad(a, width)
+
+    def ffn(c):
+        f = -(-c["w_down"].shape[0] // geom.ffn_shards) * geom.ffn_shards
+        return {"w_gate": pad(c["w_gate"], 1, f), "w_up": pad(c["w_up"], 1, f),
+                "w_down": pad(c["w_down"], 0, f)}
+
+    def layer(c):
+        out = dict(c)
+        if "moe" in c:
+            e_pad = geom.moe_placement.num_padded
+            out["moe"] = {"router": pad(c["moe"]["router"], 1, e_pad),
+                          "experts": {k: pad(v, 0, e_pad) for k, v in c["moe"]["experts"].items()}}
+            if "shared" in c["moe"]:
+                out["moe"]["shared"] = ffn(c["moe"]["shared"])
+        elif "ffn" in c:
+            out["ffn"] = ffn(c["ffn"])
+        return out
+
+    padded = {"embed": pad(canon["embed"], 0, geom.vocab_pad),
+              "layers": [[[layer(c) for c in cycle] for cycle in group]
+                         for group in canon["layers"]]}
+    if "lm_head" in canon:
+        padded["lm_head"] = pad(canon["lm_head"], 1, geom.vocab_pad)
+    return _jax_layout(model, padded)
+
+
 def jax_engine(jcfg, params, *, prefill_len: int, cache_len: int, max_batch: int = 2,
                prefill_buckets: tuple = (), gen_mode: str = "dwdp"):
     """The JAX package's engine at (1, 1) on ``params`` (``repro.launch.serve.
@@ -178,6 +258,42 @@ def tiny_moe() -> dict:
     jm4 = jbuild_model(jcfg, {"data": 1, "model": 4}, dtype=jnp.float32, **MOE_GEOM)
     jparams1, jparams4 = jax_params(jm1, jm4, seed=4)
     return dict(jcfg=jcfg, cfg=cfg, jm1=jm1, jparams1=jparams1, jparams4=jparams4)
+
+
+MOE_PROMPT, MOE_CACHE, MOE_DECODE_STEPS = 16, 24, 6
+MOE_CAP = MOE_EXPERTS["num_experts"] / MOE_EXPERTS["top_k"]  # no token dropped
+
+
+@functools.cache
+def tiny_moe_run() -> dict:
+    """The JAX package's (1, 1) run of ``tiny_moe``'s weights on two seeded
+    prompts of ``MOE_PROMPT`` tokens at capacity factor ``MOE_CAP``: each
+    prompt's prefill logits, the greedy first tokens and the tokens of
+    ``MOE_DECODE_STEPS`` greedy decode steps of the pair (``(steps, 2)``)."""
+    w = tiny_moe()
+    jm1, jparams1 = w["jm1"], w["jparams1"]
+    mesh = make_smoke_mesh()
+
+    def step(shape, **kw):
+        xp = jstrategy.make_execution_plan(jm1, shape, {"data": 1, "model": 1},
+                                           capacity_factor=MOE_CAP)
+        return jexec.make_step_fn(jm1, xp, mesh, **kw)
+
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, w["cfg"].vocab_size, MOE_PROMPT) for _ in range(2)]
+    prefill = step(JShape("p", MOE_PROMPT, 1, "prefill"), capture_len=MOE_CACHE)
+    outs = [prefill(jparams1, {"tokens": jnp.asarray(t[None], jnp.int32)}) for t in prompts]
+    state = jax.tree.map(lambda *xs: jnp.concatenate(xs, 0), *[o["state"] for o in outs])
+    first = np.asarray([int(np.argmax(o["last_logits"][0])) for o in outs])
+    tok = jnp.asarray(first[:, None], jnp.int32)
+    decode = step(JShape("g", MOE_CACHE, 2, "decode"))
+    toks = []
+    for _ in range(MOE_DECODE_STEPS):
+        o = decode(jparams1, {"token": tok}, state)
+        tok, state = o["next_token"], o["state"]
+        toks.append(np.asarray(tok)[:, 0])
+    return dict(prompts=prompts, logits=[np.asarray(o["last_logits"]) for o in outs],
+                first=first, tokens=np.stack(toks))
 
 
 # --- the Gemma-3-like window model -----------------------------------------
