@@ -265,7 +265,32 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    on (2, 4) and on the standby, peak, the card's name and power limit.
    Kernels #2, #3, #6 and #7 are also held in 3 at the standby's per-rank
    shapes;
-17. a ``{"kernels": [...]}`` JSON line, then the last line
+17. R1 1024 stored in e4m3 (run after 16, with every earlier weight set
+   freed): weights (14.1 GB) and KV cache in e4m3 drawn on the card from a
+   seeded generator, compute in bf16, phase 5's widths, depth, mesh and
+   prompts; one graph pool and one all-fetch context server serve the four
+   fetch modes (all, demand, predictive and sync_free with an 8-row
+   cache) through graphs: warmup captures every variant and no serve
+   captures after it; the all-fetch serve as in 5 (the launches of #2,
+   #4-#7 measured through the replays, one prefill's and one decode
+   step's logits within LOGIT_TOL of the plain versions on the same fp8
+   weights, the prefill profiled), #3's launches measured through the
+   route-before-gather decode replays; every launch of #2-#6 counted
+   under the banks' dtype on its planned path (the fp8 paths); every mode's
+   tokens the all-fetch serve's and one decode step from its state bitwise.
+   Printed beside 5's and 6's bf16 figures of the same run: per mode TPOT
+   p50, the decode step's replay ms and landed GB, the step's device time
+   by kind; the serve's peak memory and TTFT p50; one prefill's profiled
+   device ms (and its replay ms). Kernels #2-#6 are also held in 3 with
+   e4m3 and e5m2 banks (#4-#6 at 2, 256 and 2048 rows, #4 at the q and k/v
+   widths; #2 at C 1, 16 and 88; #3 at the demand and predictive decodes'
+   fetched banks): within KERNEL_TOL of the plain version, bitwise the bf16
+   kernel on the widened banks under the same plans, the plan printed and
+   run (the Hopper path above 2 rows, the few-row path of #4-#6 at 2), a
+   second launch bitwise, timed beside the plain version, the bf16 kernel
+   on the widened banks and the bound at 1-byte weights (no library call:
+   none multiplies bf16 by fp8);
+18. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
@@ -305,6 +330,11 @@ GROUPED_KERNELS = ("split_grouped_swiglu", "split_grouped_swiglu_demand", "split
 # kernel cases and the entry-point path run e4m3; the bitwise check both).
 GEMM_WEIGHTS = ("bfloat16", "float8_e4m3fn")
 FP8_WEIGHTS = ("float8_e4m3fn", "float8_e5m2")
+# Phase 17: R1 1024 stored in this type (weights and KV cache), and the
+# kernels whose every launch there must run its fp8 path (#2-#6)
+FP8_MODEL = "float8_e4m3fn"
+FP8_KERNELS = ("split_grouped_swiglu", "split_stack_gemm", "split_reduce_gemm",
+               "split_dense_swiglu", "split_grouped_swiglu_demand")
 # End to end through two bf16 layers the kernels and the plain versions
 # round at different points (the kernels round h once after silu*mul in
 # fp32, the plain versions after every product), and with random weights
@@ -794,6 +824,27 @@ def kernel_cases(cfg, gemma):
         for tail, f in (("", cfg.d_ff), ("_shared", cfg.moe.shared_d_ff)):
             cases.append(("split_dense_swiglu", phase + tail,
                           dict(t=t, d=d, f=ffn_pad(f, g3) // g3, s=g3)))
+    # fp8-stored banks of #2-#6 (phase 17's weights), e4m3 and e5m2 (bf16
+    # activations): #4-#6 at decode, R1 1024's and R1 8192's per-rank
+    # prefill (2, 256 and 2048 rows), #4 also at the k/v width; #2 at C 1,
+    # 16 and 88; #3 at the demand and predictive decodes' fetched banks
+    for w in FP8_WEIGHTS:
+        tag = w.split("_")[1]
+        for phase, t in (("decode", MAX_BATCH), ("prefill", PROMPT // G),
+                         ("prefill_8192", LONG_PROMPT // G)):
+            cases += [("split_stack_gemm", f"{phase}_{tag}", dict(t=t, d=d, f=qd, s=a, weight=w)),
+                      ("split_stack_gemm", f"{phase}_kv_{tag}",
+                       dict(t=t, d=d, f=kvd, s=a, weight=w)),
+                      ("split_reduce_gemm", f"{phase}_{tag}", dict(t=t, d=d, f=qd, s=a, weight=w)),
+                      ("split_dense_swiglu", f"{phase}_{tag}", dict(t=t, d=d, f=fs, s=G, weight=w))]
+        for phase, t in (("decode", MAX_BATCH), ("prefill", PROMPT // G),
+                         ("prefill_8192", LONG_PROMPT // G)):
+            c = capacity_for(t, e, cfg.moe.top_k, 1.25)
+            cases.append(("split_grouped_swiglu", f"{phase}_{tag}",
+                          dict(c=c, d=d, f=fe, e=e, e_l=e // G, weight=w)))
+        for phase in ("decode", "decode_predictive"):
+            cases.append(("split_grouped_swiglu_demand", f"{phase}_{tag}",
+                          dict(c=1, d=d, f=fe, e_l=e // G, e_f=rows[phase], weight=w)))
     t, d = GEMMA_PROMPT // G, gemma.d_model
     for name, phase, f in (("split_stack_gemm", "gemma3_prefill", gemma.q_dim // G),
                            ("split_stack_gemm", "gemma3_prefill_kv", gemma.kv_dim // G),
@@ -810,11 +861,46 @@ def gemm_cases(phase, c, d, f, e) -> list:
              dict(c=c, d=d, f=f, e=e, e_l=e // G, weight=w)) for w in GEMM_WEIGHTS]
 
 
+#: the bank operands of #2-#6 (the positions of their weight tensors)
+BANK_ARGS = {"split_stack_gemm": (1, 2), "split_reduce_gemm": (1, 2),
+             "split_dense_swiglu": range(1, 7), "split_grouped_swiglu": range(1, 7),
+             "split_grouped_swiglu_demand": range(1, 7)}
+
+
+def banks_fp8(name, shp, args):
+    """A case of #2-#6 with ``shp["weight"]`` (an fp8 type): ``(args with
+    the banks stored in it, args with those banks widened back to bf16)``;
+    None for a bf16 case. The bf16 draws are dropped as they are cast."""
+    import torch
+
+    if "weight" not in shp:
+        return None
+    wdt, pos = getattr(torch, shp["weight"]), BANK_ARGS[name]
+    args = list(args)
+    for i in pos:
+        args[i] = args[i].to(wdt)
+    wide = list(args)
+    for i in pos:
+        wide[i] = args[i].to(torch.bfloat16)
+    return tuple(args), tuple(wide)
+
+
+def fp8_weight_elems(name, shp) -> int:
+    """The bank elements a case of #2-#6 reads (the real experts' of #3)."""
+    if name in ("split_stack_gemm", "split_reduce_gemm"):
+        return shp["s"] * shp["d"] * shp["f"]
+    if name == "split_dense_swiglu":
+        return 3 * shp["s"] * shp["d"] * shp["f"]
+    n = shp["e"] if name == "split_grouped_swiglu" else shp["e_l"] + shp["n_valid"]
+    return 3 * n * shp["d"] * shp["f"]
+
+
 def run_kernel_case(name, shp, gen):
     import torch
     from repro_torch.kernels.split_gemm import dense, grouped
 
     dev, bf = "cuda", torch.bfloat16
+    widened = None
 
     def rnd(*shape, scale=0.05):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf)
@@ -872,6 +958,14 @@ def run_kernel_case(name, shp, gen):
         shp = dict(shp, n_valid=int(valid.sum()))
         nbytes = 2 * (n_real * c * d + (e_l + e_f) * c * d + 3 * n_real * d * f)
         flops = 6 * n_real * c * d * f
+    widened = banks_fp8(name, shp, args) if name != "split_grouped_gemm" else widened
+    if widened is not None and name != "split_grouped_gemm":
+        # the banks stored in fp8: read at 1 byte; no PyTorch call
+        # multiplies bf16 by fp8 (the bf16 kernel on the widened banks is
+        # timed beside it)
+        args, widened = widened
+        nbytes -= fp8_weight_elems(name, shp)
+        lib = None
     plans = None
     if name in PLANNED:
         plans = {"split_stack_gemm": lambda: (dense.stack_plan(*args),),
@@ -892,14 +986,23 @@ def run_kernel_case(name, shp, gen):
     row = {"max_abs_err": abs_err, "max_rel_err": rel_err, "tol_rel": KERNEL_TOL}
     if plans is not None:
         row.update(check_plans(name, shp, plans, ran, torch.equal(kern(*args), got)))
+    # #2-#6 with fp8 banks: the bf16 kernel on the widened banks under the
+    # same plans (the few-row paths' k chunks follow the fp8 blocks' width)
+    plan_kw = {} if plans is None or name == "split_grouped_gemm" else (
+        {"plan": plans[0]} if name in ("split_stack_gemm", "split_reduce_gemm")
+        else {"plans": plans})
+    if widened is not None and plan_kw:
+        row["bitwise_widened_bf16"] = torch.equal(kern(*widened, **plan_kw), got)
+        if not row["bitwise_widened_bf16"]:
+            fail(f"{name} {shp}: not bitwise the bf16 kernel on the widened banks")
     for key, fn in (("ms", kern), ("plain_ms", plain), ("library_ms", lib)):
         if fn is None:
             row[key] = row[f"{key}_range"] = None
             continue
         row[key], lo, hi = time_ms(lambda: fn(*args))
         row[f"{key}_range"] = [lo, hi]
-    if name == "split_grouped_gemm" and lib is None:
-        row["widened_bf16_ms"], lo, hi = time_ms(lambda: kern(*widened))
+    if widened is not None:
+        row["widened_bf16_ms"], lo, hi = time_ms(lambda: kern(*widened, **plan_kw))
         row["widened_bf16_ms_range"] = [lo, hi]
         del widened
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
@@ -3718,6 +3821,149 @@ def r1_numbers(r1: dict) -> dict:
             "launches": r1["launches"], "paths": r1["paths"]}
 
 
+# --------------------------------------------------------------------------
+# Phase 17: DeepSeek-R1 1024 stored in e4m3.
+# --------------------------------------------------------------------------
+def check_fp8_paths(label: str, paths: dict) -> None:
+    """Every launch of #2-#6 ran its fp8 path: counted under the banks'
+    dtype (FP8_MODEL), on its planned path (:func:`check_paths`)."""
+    check_paths(label, paths)
+    bad = {k: n for k, n in paths.items()
+           if k.split("/")[0] in FP8_KERNELS and not k.endswith("/" + FP8_MODEL)}
+    if bad:
+        fail(f"{label}: launches of #2-#6 off their fp8 path: {bad}")
+
+
+def fp8_phase(cfg, prompts, modes: dict, r1: dict) -> dict:
+    """Phase 17: R1 1024 with its weights and KV cache stored in e4m3
+    (FP8_MODEL), drawn on the card from a seeded generator (phase 5's
+    widths, depth and mesh), compute in bf16. One graph pool and one
+    all-fetch context server serve the four fetch modes, each a generation
+    server of its own, on phase 5's prompts: the all-fetch serve through
+    :func:`serve_phase` (launches of #2, #4-#7 measured through the
+    replays, prefill and decode logits against the plain versions on the
+    same fp8 weights, the prefill profiled); the route-before-gather serves
+    with #3's launches measured through the decode replays. No serve may
+    capture after its warmup; every launch of #2-#6 must run its fp8 path;
+    each mode's tokens must be the all-fetch serve's, and one decode step
+    from the all-fetch serve's state its logits bitwise. Printed beside
+    phase 5's and 6's bf16 figures of the same run."""
+    import torch
+    from repro_torch.core import execution
+    from repro_torch.kernels import registry
+    from repro_torch.models.transformer import build_model
+    from repro_torch.runtime.engine import (
+        ContextServer,
+        DisaggregatedEngine,
+        GenerationServer,
+        GraphSpace,
+    )
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    sizes = {"data": 1, "model": G}
+    model = build_model(cfg, sizes, dtype=getattr(torch, FP8_MODEL), device="cuda", **GEOM)
+    before = torch.cuda.memory_allocated()
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    # the weight set's own bytes (the ranks' shared tensors once each)
+    weights_gb = sum({t.data_ptr(): t.numel() * t.element_size()
+                      for p in params for t in tree_leaves(p) if torch.is_tensor(t)}.values()) / 1e9
+    print(f"fp8: {cfg.name} stored in {FP8_MODEL} (compute {model.compute_dtype}), weights "
+          f"{weights_gb:.2f} GB ({(torch.cuda.memory_allocated() - before) / 1e9:.2f} GB "
+          f"allocated by the draw, {before / 1e9:.2f} GB held before it)")
+    space = GraphSpace(model.device)
+    ctx = ContextServer(model, sizes, prefill_len=PROMPT, prefill_buckets=(PROMPT // 2,),
+                        cache_len=PROMPT + OUTPUT, space=space)
+    rows: dict = {}
+    ref_outputs = snap = ref_logits = None
+    for fetch, kw in (("all", {}),) + FETCH_MODES:
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        gen = GenerationServer(model, sizes, max_batch=MAX_BATCH, cache_len=PROMPT + OUTPUT,
+                               space=space, expert_fetch=fetch, **kw)
+        eng = DisaggregatedEngine(params, ctx, gen)
+        label = f"fp8 {cfg.name} {PROMPT} {fetch}"
+        if fetch == "all":
+            num, outs = serve_phase(label, cfg, eng, prompts, ALL_FETCH_KERNELS)
+            ref_outputs, snap = outs, snapshot(gen)
+            row = dict(r1_numbers(num), logit_norm_err=num["logit_norm_err"],
+                       profile_prefill_ms=num["profile_prefill_ms"], launches=num["launches"])
+            row["prefill_replay_ms"], lo, hi = time_ms(lambda: ctx.prefill(params, prompts[0]))
+            row["prefill_replay_ms_range"] = [lo, hi]
+        else:
+            if not execution.demand_fetch_active(cfg, model.geom, gen.xp):
+                fail(f"{label}: the decode plan does not run the demand path")
+            eng.warmup()
+            warm = captures(eng)
+            registry.reset_launch_counts()
+            clear_path_counts()
+            replays = replay_counts(eng)
+            outs = serve(eng, prompts)
+            torch.cuda.synchronize()
+            summ = eng.metrics.summary(horizon=eng.horizon())
+            counts, paths = registry.launch_counts(), path_counts()
+            peak = torch.cuda.max_memory_allocated()
+            measured = replay_launches(label, eng, replays, (gen,))
+            check_launches(label, eng, {"split_grouped_swiglu_demand":
+                                        measured["split_grouped_swiglu_demand"]}, counts)
+            if measured["split_grouped_swiglu_demand"] <= 0:
+                fail(f"{label}: split_grouped_swiglu_demand never launched in the replays")
+            if captures(eng) != warm:
+                fail(f"{label}: serving captured new variants ({warm} -> {captures(eng)})")
+            row = {"tpot_p50_s": summ["tpot_p50_s"], "tpot_p95_s": summ["tpot_p95_s"],
+                   "ttft_p50_s": summ["ttft_p50_s"], "peak_gb": peak / 1e9,
+                   "captures": list(captures(eng)), "fallbacks": gen.fallbacks,
+                   "launches": dict(measured), "host_launches": counts, "paths": paths}
+        check_fp8_paths(label, row["paths"])
+        step = snapshot_step(label, eng, snap)
+        logits = step.pop("logits")
+        if ref_logits is None:
+            ref_logits = logits
+        row.update(step)
+        bitwise = torch.equal(logits, ref_logits)
+        print(f"{label}: tokens_equal_all {outs == ref_outputs} decode logits bitwise all "
+              f"{bitwise}; tpot_p50_s {row['tpot_p50_s']:.4f} decode replay ms "
+              f"{row['replay_ms']:.2f} landed_gb_per_decode_step {row['landed_gb']:.3f} "
+              f"fallbacks {row['fallbacks']} at {time.perf_counter() - t_phase:.1f} s")
+        if outs != ref_outputs:
+            fail(f"{label}: tokens differ from the all-fetch tokens: {outs} vs {ref_outputs}")
+        if not bitwise:
+            fail(f"{label}: decode logits not bitwise the all-fetch ones")
+        rows[fetch] = row
+        del eng, gen, logits
+    launched = collections.Counter(rows["all"]["launches"])
+    for m, _ in FETCH_MODES:
+        launched.update(rows[m]["launches"])
+    missing = [k for k in FP8_KERNELS + ("flash_attention",) if launched[k] <= 0]
+    if missing:
+        fail(f"fp8: kernels never launched in the replays: {missing}")
+    peak = torch.cuda.max_memory_allocated()
+    del ctx, space, params, model
+    free_memory()
+    for fetch, row in rows.items():
+        ref = modes[fetch]["graph"]
+        print(f"fp8 vs bf16 ({card}; R1 {PROMPT}, fetch {fetch}): tpot_p50_s e4m3 "
+              f"{row['tpot_p50_s']:.4f} bf16 {ref['tpot_p50_s']:.4f}; decode replay ms e4m3 "
+              f"{row['replay_ms']:.2f} bf16 {ref['replay_ms']:.2f}; landed GB per decode step "
+              f"e4m3 {row['landed_gb']:.3f} bf16 {ref['landed_gb']:.3f}; decode step by kind "
+              f"e4m3 {json.dumps({k: round(v, 2) for k, v in row['profile_ms'].items()})} bf16 "
+              f"{json.dumps({k: round(v, 2) for k, v in ref['profile_ms'].items()})}")
+    a = rows["all"]
+    print(f"fp8 vs bf16 ({card}; R1 {PROMPT}, the all-fetch serve): weights GB e4m3 "
+          f"{weights_gb:.2f}; peak GB e4m3 {a['peak_gb']:.2f} bf16 {r1['peak_gb']:.2f}; "
+          f"ttft_p50_s e4m3 {a['ttft_p50_s']:.4f} bf16 {r1['summary']['ttft_p50_s']:.4f}; one "
+          f"1024-token prefill, profiled device ms e4m3 "
+          f"{a['profile_prefill_ms']['device_ms']:.2f} bf16 "
+          f"{r1['profile_prefill_ms']['device_ms']:.2f}, replay ms e4m3 "
+          f"{a['prefill_replay_ms']:.2f}; phase peak {peak / 1e9:.2f} GB; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"weights_gb": weights_gb, "phase_peak_gb": peak / 1e9, "modes": rows,
+            "launches": dict(launched), "seconds": time.perf_counter() - t_phase}
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"the port's sources are not beside this script ({SRC}/repro_torch missing)")
@@ -3771,6 +4017,8 @@ def main() -> None:
         library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
         widened = (f" widened_bf16_ms {row['widened_bf16_ms']:.4f}"
                    if "widened_bf16_ms" in row else "")
+        if "bitwise_widened_bf16" in row:
+            widened += f" bitwise_widened_bf16 {row['bitwise_widened_bf16']}"
         print(f"kernel {name} {phase} {row['shape']}: rel_err {row['max_rel_err']:.3e}{worst_row} "
               f"(tol {KERNEL_TOL}) ms {row['ms']:.4f} {row['ms_range']} plain_ms "
               f"{row['plain_ms']:.4f} library_ms {library}{widened} bound_ms "
@@ -3886,6 +4134,9 @@ def main() -> None:
     del params, checkpoint
     rank_death = rank_death_phase(cfg, held, rng)
     free_memory()
+
+    # ---- R1 1024 stored in e4m3: the four fetch modes through graphs -------
+    fp8 = fp8_phase(cfg, prompts, modes, r1)
     rolling = {"dep": dep["rolling"]["summary"], "dwdp_all_row_local": serving["rolling"]["summary"]}
     run = {"dep": dep["summary"], "dwdp_all": modes["all"]["graph"],
            "dwdp_demand": modes["demand"]["graph"]}
@@ -3963,6 +4214,7 @@ def main() -> None:
                for m, _ in FETCH_MODES for k in ("validated", "faults")},
             "launches_r1_1024_faults_storm": fault_rows["storm"]["launches"][name],
             "launches_r1_1024_rank_death_standby": rank_death["launches"][name],
+            "launches_r1_1024_fp8": fp8["launches"].get(name, 0),
             "max_abs_err": dec["max_abs_err"],
             "max_rel_err": dec["max_rel_err"],
             "ms": dec["ms"],

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.prefetch import attach_checksum_tables
+from repro_torch.kernels._launch import FP8_DTYPES
 from repro_torch.models.transformer import Model, ffn_pad, replicate_over_data, split_leading
 
 _META = "__tree_meta__"
@@ -33,8 +34,16 @@ def _bf16_to_f32(arr: np.ndarray) -> np.ndarray:
     return (arr.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
 
 
+#: ml_dtypes' fp8 types (the JAX package's fp8 leaves), by numpy dtype name
+_FP8_LEAVES = {"float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
+
+
 def _tensor(arr, dtype: torch.dtype, device) -> torch.Tensor:
     arr = np.asarray(arr)
+    fp8 = _FP8_LEAVES.get(arr.dtype.name)
+    if fp8 is not None:  # torch.from_numpy takes no fp8 array: carry its bytes
+        raw = torch.from_numpy(np.array(arr, copy=True, order="C").view(np.uint8))
+        return raw.view(fp8).to(device=device, dtype=dtype)
     if arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V" and arr.dtype.itemsize == 2):
         arr = _bf16_to_f32(arr)
     return torch.from_numpy(np.array(arr, copy=True, order="C")).to(device=device, dtype=dtype)
@@ -315,6 +324,9 @@ def reshard_params(params: list, old: Model, new: Model, dead: int, source: dict
     the new weight set."""
     from repro_torch.core.prefetch import reshard_split_bank
 
+    if old.dtype in FP8_DTYPES:
+        raise NotImplementedError(f"reshard_params: a rank death of an fp8-stored model "
+                                  f"({old.dtype}) is not ported for fp8")
     g_old, g_new = old.geom.model_size, new.geom.model_size
     rest = lambda m: {a: v for a, v in m.sizes.items() if a != "model"}  # noqa: E731
     if new.cfg != old.cfg or g_new != g_old - 1 or rest(new) != rest(old):

@@ -110,6 +110,7 @@ from repro_torch.core.placement import make_placement
 from repro_torch.core.strategy import ExecutionPlan
 from repro_torch.kernels import flash_attention as flash_lib
 from repro_torch.kernels import split_gemm as split_gemm_lib
+from repro_torch.kernels._launch import FP8_DTYPES
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.cache import RingLayout, relayout
@@ -431,6 +432,47 @@ def resolve_cache_rows(cfg, geom: Geometry, xp: ExecutionPlan,
     pl = geom.moe_placement
     remote = (pl.subgroup_size - 1) * pl.local_count
     return min(xp.policy("moe_experts", group).cache_budget, remote)
+
+
+def check_fp8_plan(model: Model, xp: ExecutionPlan) -> None:
+    """Raise ``NotImplementedError`` naming fp8 where a model stored in fp8
+    would leave the path this port holds for it: DWDP over a ``(1, G)``
+    mesh, every family landing as a split bank (whose kernels widen each
+    fp8 tile on the chip), no validated fetch. Elsewhere the port would
+    widen whole banks in plain products, or has nothing held against the
+    JAX package."""
+    if model.dtype not in FP8_DTYPES:
+        return
+    geom = model.geom
+
+    def off_split_banks():
+        for group in model.plan:
+            g = group.name
+            for sig in group.sigs:
+                if not (dense_split_active(xp, geom.attn_axes, "attn_qkv", g)
+                        and dense_split_active(xp, geom.attn_axes, "attn_out", g)):
+                    return "attention"
+                if (sig.shared_d_ff if sig.is_moe else sig.ffn_dim) and \
+                        not dense_split_active(xp, geom.ffn_axes, "dense_ffn", g):
+                    return "a dense FFN"
+                if sig.is_moe and not moe_split_active(geom, xp, g):
+                    return "experts"
+        return None
+
+    data = math.prod(v for a, v in xp.mesh_sizes.items() if a != AXIS_MODEL)
+    if xp.mode != "dwdp":
+        what = f"mode {xp.mode!r}"
+    elif data > 1:
+        what = f"a mesh with data {data}"
+    elif xp.validated or xp.fault_spec is not None:
+        what = "the validated fetch and fault injection"
+    else:
+        family = off_split_banks()
+        what = family and f"{family} off split banks (merged or replicated weights)"
+    if what is not None:
+        raise NotImplementedError(
+            f"an fp8-stored model ({model.dtype}) runs DWDP on a (1, G) mesh with every "
+            f"family on split banks and no validated fetch; {what} is not ported for fp8")
 
 
 # ==========================================================================
@@ -885,13 +927,13 @@ def _embed(params: list[dict], tokens: torch.Tensor, model: Model) -> torch.Tens
     each token's row comes from the shard that owns it; the other shards
     add exact zeros (the JAX package's masked lookup + psum, summed in
     rank order)."""
-    x = None
+    x, cd = None, model.compute_dtype
     for r, p in enumerate(params[:model.geom.model_size]):
         emb = p["embed"]
         v_l = emb.shape[0]
         idx = tokens - r * v_l
         valid = (idx >= 0) & (idx < v_l)
-        part = emb[idx.clamp(0, v_l - 1)].to(model.dtype) * valid[..., None].to(model.dtype)
+        part = emb[idx.clamp(0, v_l - 1)].to(cd) * valid[..., None].to(cd)
         x = part if x is None else x + part
     return x
 
@@ -903,7 +945,7 @@ def _head(p: dict, cfg) -> torch.Tensor:
 def _rank_logits(h: torch.Tensor, p: dict, m: int, ctx: Ctx) -> torch.Tensor:
     """The logits of vocab shard ``m`` (model rank ``m``'s slice of the
     head), padded vocab columns masked."""
-    logits = (h @ _head(p, ctx.cfg)).float()
+    logits = (h @ _head(p, ctx.cfg).to(h.dtype)).float()
     logits = softcap(logits, ctx.cfg.logit_softcap)
     n = logits.shape[-1]
     cols = m * n + torch.arange(n, device=logits.device)
@@ -991,9 +1033,10 @@ def _capture_kv_state(k, v, sig: LayerSig, ctx: Ctx, rank: int) -> dict:
     valid = pos_l >= 0
     take = pos_l.clamp(0, s - 1)
     vmask = valid[None, :, None, None].to(k.dtype)
+    cache = ctx.model.dtype  # an fp8 model's cache stores the compute dtype's K/V in fp8
     return {
-        "k": k[:, take] * vmask,
-        "v": v[:, take] * vmask,
+        "k": (k[:, take] * vmask).to(cache),
+        "v": (v[:, take] * vmask).to(cache),
         "slot_pos": torch.where(valid, pos_l, torch.full_like(pos_l, -1))[None, :]
         .expand(b, l_local).to(torch.int32).contiguous(),
     }

@@ -63,6 +63,7 @@ import torch
 from repro_torch import counters
 from repro_torch.core.placement import Placement
 from repro_torch.core.strategy import PREFETCH_MODES
+from repro_torch.kernels._launch import FP8_DTYPES
 
 PyTree = Any
 
@@ -834,8 +835,8 @@ def attach_checksum_tables(params: list, model) -> list:
     22.5 GB per MoE layer). Returns ``params``; tables already present are
     kept."""
     pl = model.geom.moe_placement
-    if model.cfg.moe is None or pl is None:
-        return params
+    if model.cfg.moe is None or pl is None or model.dtype in FP8_DTYPES:
+        return params  # an fp8 model's plans refuse the validated fetch
     local_cs: dict = {}  # one checksum pass per distinct resident tensor
 
     def local(tree, c=None) -> torch.Tensor:

@@ -768,7 +768,7 @@ def make_execution_plan(
 
         fault_spec = FaultSpec.parse(fault_spec)
     batch_axes, seq_axes = plan_activation_sharding(model.cfg, shape, mesh_sizes)
-    return ExecutionPlan(
+    xp = ExecutionPlan(
         mode=mode,
         phase=shape.phase,
         batch_axes=batch_axes,
@@ -784,6 +784,10 @@ def make_execution_plan(
         validate_fetch=bool(validate_fetch),
         exclude_peers=tuple(int(p) for p in exclude_peers),
     )
+    from repro_torch.core.execution import check_fp8_plan  # execution imports this module
+
+    check_fp8_plan(model, xp)
+    return xp
 
 
 # --------------------------------------------------------------------------

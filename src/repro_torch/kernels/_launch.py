@@ -11,8 +11,13 @@ from repro_torch.kernels import build
 #: dtype codes of the C entry points (``csrc/split_tile.cuh``,
 #: ``csrc/flash_attention.cu``).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the weight storage types kernel #1 widens to bf16 on the chip
+#: the weight storage types the split kernels (#1-#6) widen to bf16 on the chip
 FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+#: weight codes of the split kernels' entry points (split_hopper.cuh W_*):
+#: 0 the activation's own type, else fp8 widened to bf16 on the chip
+WEIGHT_CODES = {torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
+#: the plan paths that take fp8 banks (split_hopper.cuh; split_tile.cuh takes none)
+FP8_PATHS = ("hopper", "few_row")
 
 
 class CudaKernel:
@@ -88,7 +93,7 @@ def check_cuda_operands(name: str, x: torch.Tensor, *weights: torch.Tensor,
     """Dtype and layout checks of a kernel launch; returns the dtype code.
 
     ``fp8``: the kernel takes fp8-stored weights (all of one type) beside
-    bfloat16 activations (kernel #1); every other kernel refuses them."""
+    bfloat16 activations (the split kernels #1-#6); the others refuse them."""
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: activations must be float32 or bfloat16, got {x.dtype}")
     for w in weights:
@@ -113,6 +118,22 @@ def check_cuda_operands(name: str, x: torch.Tensor, *weights: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
     return DTYPE_CODES[x.dtype]
+
+
+def weight_code(name: str, weights, *plans) -> int:
+    """The weight code (WEIGHT_CODES) of a split-kernel launch whose banks
+    are ``weights`` under ``plans``; raises ``TypeError`` where fp8 banks
+    meet a plan off the paths that widen them (split_tile.cuh's, taken for
+    widths the tensor maps or 16-byte loads cannot take, or unaligned
+    pointers). Call after ``check_cuda_operands(..., fp8=True)``, which
+    refuses fp8 beside fp32 activations. No launch falls back."""
+    code = WEIGHT_CODES.get(weights[0].dtype, 0)
+    off = [p.path for p in plans if p.path not in FP8_PATHS]
+    if code and off:
+        raise TypeError(f"{name}: fp8-stored banks run on the Hopper and few-row paths only "
+                        f"(k a multiple of 8, n of 16, 16-byte aligned operands); this "
+                        f"launch's plan is {off[0]!r}")
+    return code
 
 
 def bank_dims(name: str, local: torch.Tensor, remote: torch.Tensor) -> tuple:

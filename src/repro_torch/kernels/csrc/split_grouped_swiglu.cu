@@ -30,7 +30,12 @@
 // H100, ahead of split_hopper.cuh's few-row kernels extended per expert
 // (the other decode design, timed and dropped: PERF.md) and of the
 // per-bank torch.bmm composition.
-// fp32 and other widths keep split_tile.cuh's launchers.
+// fp32 and other widths keep split_tile.cuh's launchers. fp8-stored
+// banks (e4m3, e5m2; bf16 activations, D and F multiples of 16), the
+// Pallas kernel's _cast, run the Hopper path with each fp8 tile widened
+// exactly to bf16 in shared memory before its wgmma (gate_up's gate and
+// up tiles both): bitwise the bf16 kernel on the widened banks under the
+// same plans. split_tile.cuh takes no fp8.
 // No atomics: each output element has one fp32 accumulator in a fixed k
 // order, so the result is deterministic and a row's result never depends
 // on another row or expert.
@@ -41,20 +46,24 @@ extern "C" int split_grouped_swiglu(const void* x, const void* g_local, const vo
                                     const void* d_local, const void* g_remote,
                                     const void* u_remote, const void* d_remote, void* h,
                                     void* out, int e_local, int e_remote, int c, int d, int f,
-                                    int dtype, int gu_path, int gu_bm, int gu_bn, int gu_stages,
-                                    int gu_splits, int gu_chunk, int dn_path,
+                                    int dtype, int wtype, int gu_path, int gu_bm, int gu_bn,
+                                    int gu_stages, int gu_splits, int gu_chunk, int dn_path,
                                     int dn_bm, int dn_bn, int dn_stages, int dn_splits,
                                     int dn_chunk, void* stream) {
+  using namespace split_hopper;
   const int e = e_local + e_remote;
   cudaStream_t st = (cudaStream_t)stream;
-  if (gu_path != split_hopper::PATH_TILE || dn_path != split_hopper::PATH_TILE) {
+  if (gu_path != PATH_TILE || dn_path != PATH_TILE) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
-    const split_hopper::Plan gu{gu_path, gu_bm, gu_bn, gu_stages, gu_splits, gu_chunk};
-    const split_hopper::Plan dn{dn_path, dn_bm, dn_bn, dn_stages, dn_splits, dn_chunk};
-    return split_hopper::launch_grouped_swiglu(x, g_local, u_local, d_local, g_remote, u_remote,
-                                               d_remote, h, out, nullptr, e_local, e, c, d, f,
-                                               gu, dn, st);
+    const Plan gu{gu_path, gu_bm, gu_bn, gu_stages, gu_splits, gu_chunk};
+    const Plan dn{dn_path, dn_bm, dn_bn, dn_stages, dn_splits, dn_chunk};
+    return by_weight(wtype, [&](auto w) {
+      return launch_grouped_swiglu<decltype(w)::value>(x, g_local, u_local, d_local, g_remote,
+                                                       u_remote, d_remote, h, out, nullptr,
+                                                       e_local, e, c, d, f, gu, dn, st);
+    });
   }
+  if (wtype != W_SAME) return (int)cudaErrorInvalidValue;
   int err = SPLIT_DISPATCH(dtype, c, split_tile::launch_gate_up, x, (long)c * d, g_local,
                            u_local, g_remote, u_remote, h, e_local, e, c, d, f, st);
   if (err) return err;

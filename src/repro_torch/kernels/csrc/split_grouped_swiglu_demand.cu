@@ -23,6 +23,8 @@
 // real expert runs the very code of kernel #2, so its (C, D) block is
 // bitwise kernel #2's for the same rows and weights: the demand,
 // predictive and sync-free decodes give the all-fetch decode's bits.
+// fp8-stored banks (e4m3, e5m2; bf16 activations) run kernel #2's fp8
+// Hopper path on #2's plan, so the same holds for an fp8 model.
 #include "split_hopper.cuh"
 #include "split_tile.cuh"
 
@@ -31,21 +33,25 @@ extern "C" int split_grouped_swiglu_demand(const void* x, const void* g_local,
                                            const void* g_fetched, const void* u_fetched,
                                            const void* d_fetched, const void* valid, void* h,
                                            void* out, int e_local, int e_fetched, int c, int d,
-                                           int f, int dtype, int gu_path, int gu_bm, int gu_bn,
-                                           int gu_stages, int gu_splits, int gu_chunk,
+                                           int f, int dtype, int wtype, int gu_path, int gu_bm,
+                                           int gu_bn, int gu_stages, int gu_splits, int gu_chunk,
                                            int dn_path, int dn_bm, int dn_bn, int dn_stages,
                                            int dn_splits, int dn_chunk, void* stream) {
+  using namespace split_hopper;
   const int e = e_local + e_fetched;
   const unsigned char* v = (const unsigned char*)valid;
   cudaStream_t st = (cudaStream_t)stream;
-  if (gu_path != split_hopper::PATH_TILE || dn_path != split_hopper::PATH_TILE) {
+  if (gu_path != PATH_TILE || dn_path != PATH_TILE) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
-    const split_hopper::Plan gu{gu_path, gu_bm, gu_bn, gu_stages, gu_splits, gu_chunk};
-    const split_hopper::Plan dn{dn_path, dn_bm, dn_bn, dn_stages, dn_splits, dn_chunk};
-    return split_hopper::launch_grouped_swiglu(x, g_local, u_local, d_local, g_fetched,
-                                               u_fetched, d_fetched, h, out, v, e_local, e, c, d,
-                                               f, gu, dn, st);
+    const Plan gu{gu_path, gu_bm, gu_bn, gu_stages, gu_splits, gu_chunk};
+    const Plan dn{dn_path, dn_bm, dn_bn, dn_stages, dn_splits, dn_chunk};
+    return by_weight(wtype, [&](auto w) {
+      return launch_grouped_swiglu<decltype(w)::value>(x, g_local, u_local, d_local, g_fetched,
+                                                       u_fetched, d_fetched, h, out, v, e_local,
+                                                       e, c, d, f, gu, dn, st);
+    });
   }
+  if (wtype != W_SAME) return (int)cudaErrorInvalidValue;
   int err = SPLIT_DISPATCH(dtype, c, split_tile::launch_gate_up, x, (long)c * d, g_local,
                            u_local, g_fetched, u_fetched, h, e_local, e, c, d, f, st, v);
   if (err) return err;

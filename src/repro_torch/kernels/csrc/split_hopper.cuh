@@ -1,8 +1,8 @@
 // Hopper paths of the split-bank GEMMs, bf16 activations: split_stack_gemm
 // (#4), the grouped SwiGLU (#2, and #3 on #2's plan), split_reduce_gemm
-// (#5), split_dense_swiglu (#6) and split_grouped_gemm (#1, whose banks
-// may also be stored in fp8). The TMA, mbarrier and wgmma helpers are
-// hopper.cuh's.
+// (#5), split_dense_swiglu (#6) and split_grouped_gemm (#1), their banks
+// stored in bf16 or in fp8 (e4m3, e5m2). The TMA, mbarrier and wgmma
+// helpers are hopper.cuh's.
 //
 // Replaces, for these kernels, the mma.sync tiles and the few-row register
 // path of split_tile.cuh (which fp32 and widths that are not multiples of
@@ -47,13 +47,15 @@
 // k loop into fp32 partials, summed in split order by a second launch: no
 // atomics.
 //
-// fp8-stored banks (kernel #1, op STACK; the weight type WT a template
-// parameter of the mainloop, the bf16 instantiations unchanged): wgmma has
-// no bf16 x fp8 form, and quantizing the activations would compute
-// another function, so the weights are widened exactly to bf16 on the
-// chip (every e4m3 and e5m2 value, NaN and e5m2's infinities included, is
-// a bf16 value). The producer TMA-loads each B box as 64 x 64 bytes
-// (1-byte elements, no swizzle) into a stage that is half the bf16 one.
+// fp8-stored banks (every op; the weight type WT a template parameter of
+// the mainloop and of the few-row kernels, the bf16 instantiations
+// unchanged; the Pallas kernels' _cast): wgmma has no bf16 x fp8 form,
+// and quantizing the activations would compute another function, so the
+// weights are widened exactly to bf16 on the chip (every e4m3 and e5m2
+// value, NaN and e5m2's infinities included, is a bf16 value). The
+// producer TMA-loads each B box as 64 x 64 bytes (1-byte elements, no
+// swizzle) into a stage whose B part is half the bf16 one (gate_up's two
+// matrices both).
 // The consumer warpgroups widen their stage, on their own, before its
 // wgmma: each thread takes 16 fp8 bytes of a k row (one 16-byte shared
 // load, the warp reading 512 contiguous bytes), widens them
@@ -62,16 +64,19 @@
 // a bf16 B tile that the unchanged wgmma descriptors read (the 8 lanes of
 // a store phase hit 8 distinct chunks: no bank conflicts). Then
 // fence.proxy.async and a barrier of the consumer threads. The widened
-// tiles are WIDE_BUFS (3) buffers outside the ring: buffer i % 3 is
+// tiles (gate_up: the gate and the up boxes of a stage, 2 NB of them) are
+// WIDE_BUFS (3) buffers outside the ring: buffer i % 3 is
 // rewritten at iteration i and was last read by the wgmma of iteration
 // i - 3; a consumer gets there only past the barrier of iteration i - 1,
 // which every consumer passes only after waiting out its wgmma group
 // i - 3, so no wgmma still reads it, with one or two consumer warpgroups.
-// The widening of stage i overlaps the wgmma of stage i - 1. In flight per SM
-// at R1 width: 5 stages of 8 KB (A, zero-filled at C 1) + 16 KB (fp8 B)
-// at BM 64, 4 of 16 + 16 KB at BM 128, beside 96 KB of widened tiles.
-// The result is bitwise the bf16 kernel's on the widened banks under the
-// same block tile: the same B tile bits meet the same wgmma sequence.
+// The widening of stage i overlaps the wgmma of stage i - 1. Every tile
+// keeps the stages of its bf16 plan (dense.py max_stages): 5 stages of 8
+// KB (A, zero-filled at C 1) + 16 KB (fp8 B) at BM 64, 4 of 16 + 16 KB at
+// BM 128 (gate_up 128 x 128 included), beside 96 KB of widened tiles; 7
+// of 16 + 8 KB beside 48 KB for stack's 128 x 128. The result is bitwise
+// the bf16 kernel's on the widened banks under the same block tile: the
+// same B tile bits meet the same wgmma sequence.
 //
 // The few-row path (#4-#6 at most 2 rows): few-row kernels stream the
 // weights in 16-byte loads (ld.global.nc.L1::no_allocate, 8 in flight per
@@ -81,7 +86,11 @@
 // fp32 partials that a second launch sums in order (and applies silu * up
 // for gate_up). Bound: the weight bytes at 3.35 TB/s. (Extended with an
 // activation per expert and #3's valid bytes, they lost to the Hopper path
-// as the grouped kernels' decode design: PERF.md.)
+// as the grouped kernels' decode design: PERF.md.) With fp8 banks a
+// lane's 16-byte load holds 16 columns of a k row, widened in registers
+// (the same exact conversion), so a block covers 512 columns; each
+// column's sums run in the bf16 kernel's order, so under the same plan
+// (k chunk) the result is bitwise the bf16 kernel's on the widened banks.
 //
 // Every sum runs in a fixed order that depends on the shapes only, and a
 // row's result never reads another row's data: repeated launches give the
@@ -89,6 +98,8 @@
 #pragma once
 
 #include <cuda_fp16.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -112,9 +123,21 @@ constexpr int B_BYTES = BK * BOX_N * 2;        // 8 KB
 constexpr int B8_BYTES = BK * BOX_N;           // 4 KB: one fp8 box, 64-byte rows
 constexpr int WIDE_BUFS = 3;                   // widened bf16 B tiles of an fp8 ring
 
-// Weight types of the banks (grouped.py WEIGHT_CODES): the activation's
-// own, or fp8 widened to bf16 on the chip (op STACK, bf16 activations).
+// Weight types of the banks (_launch.py WEIGHT_CODES): the activation's
+// own, or fp8 widened to bf16 on the chip (bf16 activations).
 constexpr int W_SAME = 0, W_E4M3 = 1, W_E5M2 = 2;
+
+// f(std::integral_constant<int, WT>()) for the weight code wt: the
+// entry points' one switch from a runtime code to the templates.
+template <class F>
+inline int by_weight(int wt, F&& f) {
+  switch (wt) {
+    case W_SAME: return f(std::integral_constant<int, W_SAME>());
+    case W_E4M3: return f(std::integral_constant<int, W_E4M3>());
+    case W_E5M2: return f(std::integral_constant<int, W_E5M2>());
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 // Dynamic shared memory of a ring: 1024 bytes of alignment slack, the
 // stages and the widened B tiles of an fp8 ring (or, if larger, the
@@ -152,7 +175,7 @@ struct Tile {
   static constexpr int BOX = FP8 ? B8_BYTES : B_BYTES;  // a landed B box
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int STAGE = A_BYTES + MATS * NB * BOX;
-  static constexpr int WIDE = FP8 ? WIDE_BUFS * NB * B_BYTES : 0;  // widened B tiles
+  static constexpr int WIDE = FP8 ? WIDE_BUFS * MATS * NB * B_BYTES : 0;  // widened B tiles
   static constexpr int ACC = BN / 2;                    // fp32 per thread per matrix
   static constexpr int THREADS = 128 * (CW + 1);        // + the producer warpgroup
   // The epilogue stages the tile in shared memory, rows padded by 8
@@ -163,18 +186,24 @@ struct Tile {
 
 __device__ __forceinline__ float silu_mul(float g, float u) { return g / (1.f + __expf(-g)) * u; }
 
-// Two fp8 values (the low byte first) -> bf16x2, exactly: the hardware's
-// fp8x2 -> f16x2 conversion, f16 -> f32, and the top half of each f32 (an
-// fp8 value has at most 4 significant bits, so the f32's low 16 bits are
-// zero and the top half is its bf16; NaN and infinity stay so).
+// Two fp8 values (the low byte of v first) -> two f32, exactly: the
+// hardware's fp8x2 -> f16x2 conversion, then f16 -> f32.
 template <int WT>
-__device__ __forceinline__ uint32_t widen2(uint32_t v) {
+__device__ __forceinline__ float2 fp8x2_float2(uint32_t v) {
   uint32_t h;
   if constexpr (WT == W_E4M3)
     asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(h) : "h"((uint16_t)v));
   else
     asm("cvt.rn.f16x2.e5m2x2 %0, %1;\n" : "=r"(h) : "h"((uint16_t)v));
-  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
+  return __half22float2(*reinterpret_cast<const __half2*>(&h));
+}
+
+// Two fp8 values -> bf16x2, exactly: the top half of each f32 (an fp8
+// value has at most 4 significant bits, so the f32's low 16 bits are zero
+// and the top half is its bf16; NaN and infinity stay so).
+template <int WT>
+__device__ __forceinline__ uint32_t widen2(uint32_t v) {
+  const float2 f = fp8x2_float2<WT>(v);
   return __byte_perm(__float_as_uint(f.x), __float_as_uint(f.y), 0x7632);
 }
 
@@ -232,7 +261,6 @@ hopper_kernel(const __grid_constant__ CUtensorMap a_map,
               const unsigned char* __restrict__ valid, int n_local, int n_slices, int a_slices,
               int M, int N, int k_tiles, int stages, int splits) {
   using TL = Tile<OP, NB, CW, WT>;
-  static_assert(!TL::FP8 || OP == STACK, "fp8 banks: op STACK only");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -314,11 +342,12 @@ hopper_kernel(const __grid_constant__ CUtensorMap a_map,
       const uint32_t a = ring_u32 + st * TL::STAGE + wg * (64 * BK * 2);
       uint32_t b = ring_u32 + st * TL::STAGE + TL::A_BYTES;
       if constexpr (TL::FP8) {
-        // widen the stage's fp8 boxes into widened tile (it - it0) % 3,
-        // which the wgmma of iteration it - 3 was the last to read
+        // widen the stage's fp8 boxes (gate_up: the gate boxes, then the
+        // up boxes) into widened tile (it - it0) % 3, which the wgmma of
+        // iteration it - 3 was the last to read
         const uint32_t wide = ring_u32 + stages * TL::STAGE +
-                              (int)((it - it0) % WIDE_BUFS) * (NB * B_BYTES);
-        widen_stage<WT, NB, CW * 128>(b, wide, threadIdx.x);
+                              (int)((it - it0) % WIDE_BUFS) * (TL::MATS * NB * B_BYTES);
+        widen_stage<WT, TL::MATS * NB, CW * 128>(b, wide, threadIdx.x);
         fence_async_shared();
         bar_sync(1, CW * 128);
         b = wide;
@@ -432,16 +461,26 @@ __global__ void finish_gate_up_kernel(const float* __restrict__ part, bf16* __re
 }
 
 // ---------------------------------------------------------------------------
-// Few-row path (at most FR_MAXM rows): grid (256-column blocks, [slices,]
-// k splits). Lane l of every warp owns columns n0 + 8l .. n0 + 8l + 7;
-// warp w takes the k rows k0 + w, k0 + w + 8, ... of its split's chunk,
-// several rows' 16-byte loads in flight at once.
+// Few-row path (at most FR_MAXM rows): grid (column blocks, [slices,] k
+// splits). Lane l of every warp owns the VEC columns n0 + VEC l .. of a
+// 16-byte load (8 bf16, or 16 fp8 widened in registers: FrW); warp w
+// takes the k rows k0 + w, k0 + w + 8, ... of its split's chunk, several
+// rows' 16-byte loads in flight at once.
 // ---------------------------------------------------------------------------
 constexpr int FR_THREADS = 256, FR_WARPS = 8, FR_COLS = 256, FR_MAXM = 2;
 constexpr int FR_UNROLL = 4;    // gate_up: 2 matrices, 8 loads in flight per thread
 constexpr int FR_UNROLL_R = 8;  // reduce: 8 loads in flight per thread
 
-__device__ __forceinline__ uint4 ld_stream(const bf16* p) {
+// The few-row kernels' view of a weight type: VEC columns per 16-byte
+// load, COLS columns per block, ESZ bytes per weight.
+template <int WT>
+struct FrW {
+  static constexpr int VEC = WT == W_SAME ? 8 : 16;
+  static constexpr int COLS = 32 * VEC;
+  static constexpr int ESZ = WT == W_SAME ? 2 : 1;
+};
+
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
   uint4 v;
   asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
@@ -449,12 +488,18 @@ __device__ __forceinline__ uint4 ld_stream(const bf16* p) {
   return v;
 }
 
-__device__ __forceinline__ void fr_fma(float (&acc)[FR_MAXM][8], const uint4& w,
+// acc[m][j] += a[m] * w[j] over the VEC weights of one 16-byte load.
+template <int WT>
+__device__ __forceinline__ void fr_fma(float (&acc)[FR_MAXM][FrW<WT>::VEC], const uint4& w,
                                        const float (&a)[FR_MAXM]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+  const uint32_t* q = reinterpret_cast<const uint32_t*>(&w);
 #pragma unroll
-  for (int v = 0; v < 4; ++v) {
-    const float2 f = __bfloat1622float2(h[v]);
+  for (int v = 0; v < FrW<WT>::VEC / 2; ++v) {
+    float2 f;
+    if constexpr (WT == W_SAME)
+      f = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&w)[v]);
+    else
+      f = fp8x2_float2<WT>(q[v / 2] >> (16 * (v % 2)));
 #pragma unroll
     for (int m = 0; m < FR_MAXM; ++m) {
       acc[m][2 * v] = fmaf(a[m], f.x, acc[m][2 * v]);
@@ -464,46 +509,55 @@ __device__ __forceinline__ void fr_fma(float (&acc)[FR_MAXM][8], const uint4& w,
 }
 
 // Sum the FR_WARPS warps' sums in warp order and store the rows < M of
-// this block's columns (< N) at dst[nb] + m * N + n0 + col.
-template <int NB>
+// this block's columns (< N) at dst[nb] + m * N + n0 + col, 8 columns of
+// every lane at a time (VEC / 8 rounds through red).
+template <int NB, int VEC>
 __device__ __forceinline__ void fr_store(float (&red)[FR_WARPS][NB][FR_MAXM][FR_COLS],
-                                         const float (&acc)[NB][FR_MAXM][8], float* const* dst,
+                                         const float (&acc)[NB][FR_MAXM][VEC], float* const* dst,
                                          int M, int N, int n0) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
+  for (int h = 0; h < VEC / 8; ++h) {
+    if (h) __syncthreads();  // the last round's sums have read red
 #pragma unroll
-    for (int m = 0; m < FR_MAXM; ++m)
+    for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-      for (int v = 0; v < 8; ++v) red[warp][nb][m][lane * 8 + v] = acc[nb][m][v];
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < NB * FR_MAXM * FR_COLS; idx += FR_THREADS) {
-    const int nb = idx / (FR_MAXM * FR_COLS), m = (idx / FR_COLS) % FR_MAXM, col = idx % FR_COLS;
-    if (m >= M || n0 + col >= N) continue;
-    float s = 0.f;
+      for (int m = 0; m < FR_MAXM; ++m)
 #pragma unroll
-    for (int w = 0; w < FR_WARPS; ++w) s += red[w][nb][m][col];
-    dst[nb][(long)m * N + n0 + col] = s;
+        for (int v = 0; v < 8; ++v) red[warp][nb][m][lane * 8 + v] = acc[nb][m][8 * h + v];
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < NB * FR_MAXM * FR_COLS; idx += FR_THREADS) {
+      const int nb = idx / (FR_MAXM * FR_COLS), m = (idx / FR_COLS) % FR_MAXM, col = idx % FR_COLS;
+      const int n = n0 + (col / 8) * VEC + 8 * h + col % 8;
+      if (m >= M || n >= N) continue;
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < FR_WARPS; ++w) s += red[w][nb][m][col];
+      dst[nb][(long)m * N + n] = s;
+    }
   }
 }
 
 // part (S * per_slice, M, N): block row y = s * per_slice + p sums the
 // chunk p of slice s's k rows of A[s] @ W(s) (a chunk never crosses a
 // slice, so the bank and A pointers are fixed per block).
+template <int WT>
 __global__ void __launch_bounds__(FR_THREADS)
-fr_reduce_kernel(const bf16* __restrict__ A, const bf16* __restrict__ w_local,
-                 const bf16* __restrict__ w_remote, float* __restrict__ part, int n_local, int M,
+fr_reduce_kernel(const bf16* __restrict__ A, const void* __restrict__ w_local,
+                 const void* __restrict__ w_remote, float* __restrict__ part, int n_local, int M,
                  int Fs, int N, int chunk, int per_slice) {
+  using W = FrW<WT>;
   __shared__ float red[FR_WARPS][1][FR_MAXM][FR_COLS];
-  const int n0 = blockIdx.x * FR_COLS, z = blockIdx.y;
+  const int n0 = blockIdx.x * W::COLS, z = blockIdx.y;
   const int s = z / per_slice;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int k0 = (z - s * per_slice) * chunk, k1 = min(Fs, k0 + chunk);
-  const int c = n0 + lane * 8;
-  const bf16* w = (s < n_local ? w_local + (long)s * Fs * N
-                               : w_remote + (long)(s - n_local) * Fs * N) + c;
+  const int c = n0 + lane * W::VEC;
+  const bool loc = s < n_local;
+  const char* w = static_cast<const char*>(loc ? w_local : w_remote) +
+                  ((long)(loc ? s : s - n_local) * Fs * N + c) * W::ESZ;
   const bf16* a_s = A + (long)s * M * Fs;
-  float acc[1][FR_MAXM][8] = {};
+  float acc[1][FR_MAXM][W::VEC] = {};
   if (c < N) {
     for (int k = k0 + warp; k < k1; k += FR_WARPS * FR_UNROLL_R) {
       uint4 wv[FR_UNROLL_R];
@@ -515,39 +569,41 @@ fr_reduce_kernel(const bf16* __restrict__ A, const bf16* __restrict__ w_local,
 #pragma unroll
         for (int m = 0; m < FR_MAXM; ++m) a[u][m] = 0.f;
         if (kk < k1) {
-          wv[u] = ld_stream(w + (long)kk * N);
+          wv[u] = ld_stream(w + (long)kk * N * W::ESZ);
 #pragma unroll
           for (int m = 0; m < FR_MAXM; ++m)
             if (m < M) a[u][m] = __bfloat162float(a_s[(long)m * Fs + kk]);
         }
       }
 #pragma unroll
-      for (int u = 0; u < FR_UNROLL_R; ++u) fr_fma(acc[0], wv[u], a[u]);
+      for (int u = 0; u < FR_UNROLL_R; ++u) fr_fma<WT>(acc[0], wv[u], a[u]);
     }
   }
   float* dst[1] = {part + (long)z * M * N};
-  fr_store<1>(red, acc, dst, M, N, n0);
+  fr_store<1, W::VEC>(red, acc, dst, M, N, n0);
 }
 
 // part (ksplit, MATS, S, M, N): the split's k rows of x @ W0(s) and, for
 // gate_up (MATS 2), of x @ W1(s); 8 loads in flight per thread either way.
-template <int MATS>
+template <int MATS, int WT>
 __global__ void __launch_bounds__(FR_THREADS)
-fr_slices_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0_local,
-                 const bf16* __restrict__ w1_local, const bf16* __restrict__ w0_remote,
-                 const bf16* __restrict__ w1_remote, float* __restrict__ part, int n_local,
+fr_slices_kernel(const bf16* __restrict__ x, const void* __restrict__ w0_local,
+                 const void* __restrict__ w1_local, const void* __restrict__ w0_remote,
+                 const void* __restrict__ w1_remote, float* __restrict__ part, int n_local,
                  int n_slices, int M, int K, int N, int chunk) {
+  using W = FrW<WT>;
   constexpr int U = MATS == 2 ? FR_UNROLL : FR_UNROLL_R;
   __shared__ float red[FR_WARPS][MATS][FR_MAXM][FR_COLS];
-  const int n0 = blockIdx.x * FR_COLS, s = blockIdx.y, z = blockIdx.z;
+  const int n0 = blockIdx.x * W::COLS, s = blockIdx.y, z = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int k0 = z * chunk, k1 = min(K, k0 + chunk);
-  const int c = n0 + lane * 8;
+  const int c = n0 + lane * W::VEC;
   const bool loc = s < n_local;
-  const long off = (long)(loc ? s : s - n_local) * K * N;
-  const bf16* w[2] = {(loc ? w0_local : w0_remote) + off,
-                      MATS == 2 ? (loc ? w1_local : w1_remote) + off : nullptr};
-  float acc[MATS][FR_MAXM][8] = {};
+  const long off = ((long)(loc ? s : s - n_local) * K * N + c) * W::ESZ;
+  const char* w[2] = {static_cast<const char*>(loc ? w0_local : w0_remote) + off,
+                      MATS == 2 ? static_cast<const char*>(loc ? w1_local : w1_remote) + off
+                                : nullptr};
+  float acc[MATS][FR_MAXM][W::VEC] = {};
   if (c < N) {
     for (int k = k0 + warp; k < k1; k += FR_WARPS * U) {
       uint4 wv[MATS][U];
@@ -561,7 +617,7 @@ fr_slices_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0_local,
         for (int m = 0; m < FR_MAXM; ++m) a[u][m] = 0.f;
         if (kk < k1) {
 #pragma unroll
-          for (int j = 0; j < MATS; ++j) wv[j][u] = ld_stream(w[j] + (long)kk * N + c);
+          for (int j = 0; j < MATS; ++j) wv[j][u] = ld_stream(w[j] + (long)kk * N * W::ESZ);
 #pragma unroll
           for (int m = 0; m < FR_MAXM; ++m)
             if (m < M) a[u][m] = __bfloat162float(x[(long)m * K + kk]);
@@ -570,14 +626,14 @@ fr_slices_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0_local,
 #pragma unroll
       for (int u = 0; u < U; ++u)
 #pragma unroll
-        for (int j = 0; j < MATS; ++j) fr_fma(acc[j], wv[j][u], a[u]);
+        for (int j = 0; j < MATS; ++j) fr_fma<WT>(acc[j], wv[j][u], a[u]);
     }
   }
   const long plane = (long)n_slices * M * N;
   float* dst[MATS];
 #pragma unroll
   for (int j = 0; j < MATS; ++j) dst[j] = part + ((long)MATS * z + j) * plane + (long)s * M * N;
-  fr_store<MATS>(red, acc, dst, M, N, n0);
+  fr_store<MATS, W::VEC>(red, acc, dst, M, N, n0);
 }
 
 // ---------------------------------------------------------------------------
@@ -636,20 +692,21 @@ inline int hopper_launch(const CUtensorMap& a, const CUtensorMap& b0l, const CUt
   return (int)cudaGetLastError();
 }
 
-// The block tiles (BM, BN) each op is built for (dense.py HOPPER_TILES).
-template <int OP>
+// The block tiles (BM, BN) each op is built for (dense.py HOPPER_TILES),
+// with banks of weight type WT.
+template <int OP, int WT>
 inline int hopper_tiled(int bm, int bn, const CUtensorMap& a, const CUtensorMap& b0l,
                         const CUtensorMap& b0r, const CUtensorMap& b1l, const CUtensorMap& b1r,
                         const Args& g, cudaStream_t st) {
   if constexpr (OP == REDUCE) {
-    if (bm == 128 && bn == 256) return hopper_launch<OP, 4, 2>(a, b0l, b0r, b1l, b1r, g, st);
+    if (bm == 128 && bn == 256) return hopper_launch<OP, 4, 2, WT>(a, b0l, b0r, b1l, b1r, g, st);
   } else if constexpr (OP == GATE_UP) {
-    if (bm == 128 && bn == 128) return hopper_launch<OP, 2, 2>(a, b0l, b0r, b1l, b1r, g, st);
-    if (bm == 64 && bn == 128) return hopper_launch<OP, 2, 1>(a, b0l, b0r, b1l, b1r, g, st);
+    if (bm == 128 && bn == 128) return hopper_launch<OP, 2, 2, WT>(a, b0l, b0r, b1l, b1r, g, st);
+    if (bm == 64 && bn == 128) return hopper_launch<OP, 2, 1, WT>(a, b0l, b0r, b1l, b1r, g, st);
   } else {
-    if (bm == 128 && bn == 256) return hopper_launch<OP, 4, 2>(a, b0l, b0r, b1l, b1r, g, st);
-    if (bm == 128 && bn == 128) return hopper_launch<OP, 2, 2>(a, b0l, b0r, b1l, b1r, g, st);
-    if (bm == 64 && bn == 256) return hopper_launch<OP, 4, 1>(a, b0l, b0r, b1l, b1r, g, st);
+    if (bm == 128 && bn == 256) return hopper_launch<OP, 4, 2, WT>(a, b0l, b0r, b1l, b1r, g, st);
+    if (bm == 128 && bn == 128) return hopper_launch<OP, 2, 2, WT>(a, b0l, b0r, b1l, b1r, g, st);
+    if (bm == 64 && bn == 256) return hopper_launch<OP, 4, 1, WT>(a, b0l, b0r, b1l, b1r, g, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -660,31 +717,33 @@ inline int finish_reduce(const float* part, void* out, int splits, long count, c
 }
 
 // out (M, N) = sum_s A[s] @ W(s): A (S, M, K) bf16, banks (S_l, K, N) /
-// (S - S_l, K, N). scratch: fp32 partials when splits > 1.
+// (S - S_l, K, N) of weight type WT (fp8: N a multiple of 16, the banks'
+// 16-byte row stride). scratch: fp32 partials when splits > 1.
+template <int WT>
 inline int launch_reduce(const void* A, const void* wl, const void* wr, void* out, float* scratch,
                          int n_local, int n_slices, int M, int K, int N, const Plan& p,
                          cudaStream_t st) {
   if (M == 0 || N == 0) return 0;
+  if (WT != W_SAME && N % 16) return (int)cudaErrorInvalidValue;
   if (p.path == PATH_FEW_ROW) {
     if (M > FR_MAXM) return (int)cudaErrorInvalidValue;
     const int per_slice = cdiv(K, p.chunk);  // splits == n_slices * per_slice
     if (p.chunk < 1 || p.splits != n_slices * per_slice) return (int)cudaErrorInvalidValue;
-    dim3 grid(cdiv(N, FR_COLS), p.splits);
-    fr_reduce_kernel<<<grid, FR_THREADS, 0, st>>>((const bf16*)A, (const bf16*)wl,
-                                                  (const bf16*)wr, scratch, n_local, M, K, N,
-                                                  p.chunk, per_slice);
+    dim3 grid(cdiv(N, FrW<WT>::COLS), p.splits);
+    fr_reduce_kernel<WT><<<grid, FR_THREADS, 0, st>>>((const bf16*)A, wl, wr, scratch, n_local,
+                                                      M, K, N, p.chunk, per_slice);
     const int err = (int)cudaGetLastError();
     return err ? err : finish_reduce(scratch, out, p.splits, (long)M * N, st);
   }
   if (p.path != PATH_HOPPER) return (int)cudaErrorInvalidValue;
   CUtensorMap a, bl, br;
   int err = act_map(&a, A, n_slices, M, K, p.bm);
-  if (!err) err = bank_map(&bl, wl, n_local, K, N);
-  if (!err) err = bank_map(&br, wr, n_slices - n_local, K, N);
+  if (!err) err = bank_map(&bl, wl, n_local, K, N, WT != W_SAME);
+  if (!err) err = bank_map(&br, wr, n_slices - n_local, K, N, WT != W_SAME);
   if (err) return err;
   const Args g{p.splits == 1 ? out : (void*)scratch, nullptr, n_local, n_slices, n_slices, M, N,
                (int)cdiv(K, BK), p.stages, p.splits};
-  err = hopper_tiled<REDUCE>(p.bm, p.bn, a, bl, br, bl, br, g, st);
+  err = hopper_tiled<REDUCE, WT>(p.bm, p.bn, a, bl, br, bl, br, g, st);
   if (err || p.splits == 1) return err;
   return finish_reduce(scratch, out, p.splits, (long)M * N, st);
 }
@@ -693,9 +752,10 @@ inline int launch_reduce(const void* A, const void* wl, const void* wr, void* ou
 // (b0 the gate banks, b1 the up banks); STACK out[s] (M, N) = A @ W(s) (b0
 // the banks, b1 unused). A is (M, K), shared by every slice (a_slices 1),
 // or (S, M, K), one per slice (a_slices S: the grouped kernels' experts).
-// Banks (S_l, K, N) / (S - S_l, K, N). scratch: fp32 partials (few-row
-// path, split k). valid: see hopper_kernel (Hopper path only).
-template <int OP>
+// Banks (S_l, K, N) / (S - S_l, K, N) of weight type WT (fp8: N a
+// multiple of 16). scratch: fp32 partials (few-row path, split k). valid:
+// see hopper_kernel (Hopper path only).
+template <int OP, int WT>
 inline int launch_slices(const void* A, int a_slices, const void* b0l, const void* b1l,
                          const void* b0r, const void* b1r, void* out, float* scratch,
                          const unsigned char* valid, int n_local, int n_slices, int M, int K,
@@ -704,15 +764,15 @@ inline int launch_slices(const void* A, int a_slices, const void* b0l, const voi
   if (M == 0 || N == 0 || n_slices == 0) return 0;
   const long count = (long)n_slices * M * N;
   if (a_slices != 1 && a_slices != n_slices) return (int)cudaErrorInvalidValue;
+  if (WT != W_SAME && N % 16) return (int)cudaErrorInvalidValue;
   if (p.path == PATH_FEW_ROW) {
     // one activation for every slice, every slice real
     if (M > FR_MAXM || a_slices != 1 || valid != nullptr || p.chunk < 1 ||
         p.splits != (int)cdiv(K, p.chunk))
       return (int)cudaErrorInvalidValue;
-    dim3 grid(cdiv(N, FR_COLS), n_slices, p.splits);
-    fr_slices_kernel<OP == GATE_UP ? 2 : 1><<<grid, FR_THREADS, 0, st>>>(
-        (const bf16*)A, (const bf16*)b0l, (const bf16*)b1l, (const bf16*)b0r, (const bf16*)b1r,
-        scratch, n_local, n_slices, M, K, N, p.chunk);
+    dim3 grid(cdiv(N, FrW<WT>::COLS), n_slices, p.splits);
+    fr_slices_kernel<OP == GATE_UP ? 2 : 1, WT><<<grid, FR_THREADS, 0, st>>>(
+        (const bf16*)A, b0l, b1l, b0r, b1r, scratch, n_local, n_slices, M, K, N, p.chunk);
     const int err = (int)cudaGetLastError();
     if (err) return err;
     if (OP == STACK) return finish_reduce(scratch, out, p.splits, count, st);
@@ -723,11 +783,12 @@ inline int launch_slices(const void* A, int a_slices, const void* b0l, const voi
   if (p.path != PATH_HOPPER || (OP == GATE_UP && p.splits != 1)) return (int)cudaErrorInvalidValue;
   CUtensorMap a, m0l, m0r, m1l, m1r;
   int err = act_map(&a, A, a_slices, M, K, p.bm);
-  if (!err) err = bank_map(&m0l, b0l, n_local, K, N);
-  if (!err) err = bank_map(&m0r, b0r, n_slices - n_local, K, N);
+  constexpr bool b8 = WT != W_SAME;
+  if (!err) err = bank_map(&m0l, b0l, n_local, K, N, b8);
+  if (!err) err = bank_map(&m0r, b0r, n_slices - n_local, K, N, b8);
   if (OP == GATE_UP) {
-    if (!err) err = bank_map(&m1l, b1l, n_local, K, N);
-    if (!err) err = bank_map(&m1r, b1r, n_slices - n_local, K, N);
+    if (!err) err = bank_map(&m1l, b1l, n_local, K, N, b8);
+    if (!err) err = bank_map(&m1r, b1r, n_slices - n_local, K, N, b8);
   } else {
     m1l = m0l;
     m1r = m0r;
@@ -735,7 +796,7 @@ inline int launch_slices(const void* A, int a_slices, const void* b0l, const voi
   if (err) return err;
   const Args g{p.splits == 1 ? out : (void*)scratch, valid, n_local, n_slices, a_slices, M, N,
                (int)cdiv(K, BK), p.stages, p.splits};
-  err = hopper_tiled<OP>(p.bm, p.bn, a, m0l, m0r, m1l, m1r, g, st);
+  err = hopper_tiled<OP, WT>(p.bm, p.bn, a, m0l, m0r, m1l, m1r, g, st);
   if (err || p.splits == 1) return err;
   return finish_reduce(scratch, out, p.splits, count, st);
 }
@@ -745,6 +806,9 @@ inline int launch_slices(const void* A, int a_slices, const void* b0l, const voi
 // (E - E_l, F, D). Launch 1 (GATE_UP, A per expert) writes h (E, C, F);
 // launch 2 (STACK, A per expert) writes out (E, C, D). Every weight byte is
 // streamed once per m tile; at C <= BM all of an expert's rows sit in one.
+// The banks are of weight type WT (fp8: D and F multiples of 16); h is
+// bf16 either way.
+template <int WT>
 inline int launch_grouped_swiglu(const void* x, const void* gl, const void* ul, const void* dl,
                                  const void* gr, const void* ur, const void* dr, void* h,
                                  void* out, const unsigned char* valid, int n_local, int E,
@@ -752,11 +816,11 @@ inline int launch_grouped_swiglu(const void* x, const void* gl, const void* ul, 
                                  cudaStream_t st) {
   if (gu.path != PATH_HOPPER || dn.path != PATH_HOPPER || dn.splits != 1)
     return (int)cudaErrorInvalidValue;
-  const int err = launch_slices<GATE_UP>(x, E, gl, ul, gr, ur, h, nullptr, valid, n_local, E, C,
-                                         D, F, gu, st);
+  const int err = launch_slices<GATE_UP, WT>(x, E, gl, ul, gr, ur, h, nullptr, valid, n_local, E,
+                                             C, D, F, gu, st);
   if (err) return err;
-  return launch_slices<STACK>(h, E, dl, nullptr, dr, nullptr, out, nullptr, valid, n_local, E, C,
-                              F, D, dn, st);
+  return launch_slices<STACK, WT>(h, E, dl, nullptr, dr, nullptr, out, nullptr, valid, n_local,
+                                  E, C, F, D, dn, st);
 }
 
 // Kernel #1 on the Hopper path: out[e] (C, F) = x[e] (C, D) @ W(e), x (E,

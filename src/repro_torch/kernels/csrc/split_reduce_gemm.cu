@@ -16,23 +16,32 @@
 // most 2 rows the few-row kernels, k split over enough blocks to fill the
 // card. fp32, and bf16 widths that are not multiples of 8, keep the
 // split_tile.cuh launcher (FMA or mma.sync tiles, one block per output
-// tile looping over every slice in order). No atomics anywhere: results
-// are deterministic.
+// tile looping over every slice in order). fp8-stored banks (e4m3, e5m2;
+// bf16 activations, D a multiple of 16), the Pallas kernel's _cast: both
+// split_hopper.cuh paths widen each fp8 tile exactly to bf16 on the chip,
+// bitwise the bf16 kernel's result on the widened banks under the same
+// plan; split_tile.cuh takes no fp8. No atomics anywhere: results are
+// deterministic.
 #include "split_hopper.cuh"
 #include "split_tile.cuh"
 
 extern "C" int split_reduce_gemm(const void* x, const void* w_local, const void* w_remote,
                                  void* out, void* scratch, int s_local, int s_remote, int t,
-                                 int fs, int d, int dtype, int path, int bm, int bn, int stages,
-                                 int splits, int chunk, void* stream) {
+                                 int fs, int d, int dtype, int wtype, int path, int bm, int bn,
+                                 int stages, int splits, int chunk, void* stream) {
+  using namespace split_hopper;
   cudaStream_t st = (cudaStream_t)stream;
-  if (path == split_hopper::PATH_TILE)
-    return SPLIT_DISPATCH(dtype, t, split_tile::launch_reduce, x, w_local, w_remote, out,
-                          s_local, s_local + s_remote, t, fs, d, st);
+  if (path == PATH_TILE)
+    return wtype != W_SAME ? (int)cudaErrorInvalidValue
+                           : SPLIT_DISPATCH(dtype, t, split_tile::launch_reduce, x, w_local,
+                                            w_remote, out, s_local, s_local + s_remote, t, fs, d,
+                                            st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  const split_hopper::Plan plan{path, bm, bn, stages, splits, chunk};
-  return split_hopper::launch_reduce(x, w_local, w_remote, out, (float*)scratch, s_local,
-                                     s_local + s_remote, t, fs, d, plan, st);
+  const Plan plan{path, bm, bn, stages, splits, chunk};
+  return by_weight(wtype, [&](auto w) {
+    return launch_reduce<decltype(w)::value>(x, w_local, w_remote, out, (float*)scratch, s_local,
+                                             s_local + s_remote, t, fs, d, plan, st);
+  });
 }
 
 // The prefill path's single-tile check (split_hopper.cuh::tile_check):

@@ -19,23 +19,32 @@
 // partials, summed in split order by a second launch. At most 2 rows the
 // few-row kernel streams the banks with k split over ~1000 blocks. fp32,
 // and bf16 widths or pointers the tensor maps cannot take, keep
-// split_tile.cuh's grouped launcher. No atomics: results are
+// split_tile.cuh's grouped launcher. fp8-stored banks (e4m3, e5m2; bf16
+// activations, Fs a multiple of 16), the Pallas kernel's _cast: both
+// split_hopper.cuh paths widen each fp8 tile exactly to bf16 on the chip
+// (in shared memory before the wgmma; in registers on the few-row path),
+// bitwise the bf16 kernel's result on the widened banks under the same
+// plan; split_tile.cuh takes no fp8. No atomics: results are
 // deterministic.
 #include "split_hopper.cuh"
 #include "split_tile.cuh"
 
 extern "C" int split_stack_gemm(const void* x, const void* w_local, const void* w_remote,
                                 void* out, void* scratch, int s_local, int s_remote, int t,
-                                int d, int f, int dtype, int path, int bm, int bn, int stages,
-                                int splits, int chunk, void* stream) {
+                                int d, int f, int dtype, int wtype, int path, int bm, int bn,
+                                int stages, int splits, int chunk, void* stream) {
+  using namespace split_hopper;
   cudaStream_t st = (cudaStream_t)stream;
   const int s = s_local + s_remote;
-  if (path == split_hopper::PATH_TILE)
-    return SPLIT_DISPATCH(dtype, t, split_tile::launch_grouped, x, 0L, w_local, w_remote, out,
-                          s_local, s, t, d, f, st);
+  if (path == PATH_TILE)
+    return wtype != W_SAME ? (int)cudaErrorInvalidValue
+                           : SPLIT_DISPATCH(dtype, t, split_tile::launch_grouped, x, 0L, w_local,
+                                            w_remote, out, s_local, s, t, d, f, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  const split_hopper::Plan plan{path, bm, bn, stages, splits, chunk};
-  return split_hopper::launch_slices<split_hopper::STACK>(x, 1, w_local, nullptr, w_remote,
-                                                          nullptr, out, (float*)scratch, nullptr,
-                                                          s_local, s, t, d, f, plan, st);
+  const Plan plan{path, bm, bn, stages, splits, chunk};
+  return by_weight(wtype, [&](auto w) {
+    return launch_slices<STACK, decltype(w)::value>(x, 1, w_local, nullptr, w_remote, nullptr,
+                                                    out, (float*)scratch, nullptr, s_local, s, t,
+                                                    d, f, plan, st);
+  });
 }

@@ -19,6 +19,11 @@ wgmma) over more than 2 bf16 rows, ``few_row`` at 2 rows or fewer, and
 the ``split_tile.cuh`` tiles (``mma`` in bf16, ``fma`` in fp32) for fp32
 and for widths or pointers the tensor maps cannot take. ``PATHS`` counts
 the launches of each path.
+
+The banks may be stored in fp8 (e4m3, e5m2) beside bf16 activations, as
+the Pallas kernels' ``_cast`` allows: the ``hopper`` and ``few_row``
+paths widen each fp8 tile exactly to bf16 on the chip (n a multiple of
+16); where a plan leaves those paths the wrapper raises ``TypeError``.
 """
 from __future__ import annotations
 
@@ -30,16 +35,18 @@ import torch
 
 from repro_torch import counters
 from repro_torch.kernels._launch import (
+    FP8_DTYPES,
     CudaKernel,
     bank_dims,
     cast_like,
     check_cuda_operands,
     on_cpu,
+    weight_code,
 )
 
-STACK_GEMM = CudaKernel("split_stack_gemm", n_ptrs=5, n_ints=12)
-REDUCE_GEMM = CudaKernel("split_reduce_gemm", n_ptrs=5, n_ints=12)
-DENSE_SWIGLU = CudaKernel("split_dense_swiglu", n_ptrs=10, n_ints=18)
+STACK_GEMM = CudaKernel("split_stack_gemm", n_ptrs=5, n_ints=13)
+REDUCE_GEMM = CudaKernel("split_reduce_gemm", n_ptrs=5, n_ints=13)
+DENSE_SWIGLU = CudaKernel("split_dense_swiglu", n_ptrs=10, n_ints=19)
 #: The prefill path's single-tile check (not on any serving path).
 HOPPER_TILE_CHECK = CudaKernel("split_hopper_tile_check", n_ptrs=3, n_ints=1,
                                lib="split_reduce_gemm")
@@ -81,7 +88,8 @@ FEW_ROW_COLS = 256             # 32 lanes x 8 bf16 columns
 FEW_ROW_BLOCKS = {"reduce": 1024, "gate_up": 2048, "stack": 256}
 FEW_ROW_K = 32                 # a split's k rows come in multiples of this
 
-#: Launches per (kernel, launch, path, row class), counted by the wrappers.
+#: Launches per (kernel, launch, path, row class[, banks' dtype]), counted
+#: by the wrappers (``path_key``).
 PATHS: collections.Counter = collections.Counter()
 counters.register("dense paths", PATHS)
 
@@ -90,6 +98,13 @@ def row_class(rows: int) -> str:
     """The row class of a launch in the ``PATHS`` keys: the few-row paths
     serve "rows<=2", the Hopper path "rows>2"."""
     return "rows>2" if rows > FEW_ROW_MAXM else "rows<=2"
+
+
+def path_key(name: str, launch: str, plan: "Plan", rows: int, weight: torch.dtype) -> tuple:
+    """The ``PATHS`` key of one launch: (kernel, launch, path, row class),
+    then the banks' dtype name where they are stored in fp8."""
+    key = (name, launch, plan.path, row_class(rows))
+    return key + (str(weight).removeprefix("torch."),) if weight in FP8_DTYPES else key
 
 
 class Plan(NamedTuple):
@@ -120,8 +135,9 @@ def max_stages(op: str, bm: int, bn: int, wbytes: int = 2) -> int:
     """The most ring stages (and their two barriers) that fit a block's
     shared memory beside 1024 bytes of alignment slack (4 of 48 KB at
     128 x 256) and, for fp8 banks (``wbytes`` 1), WIDE_BUFS widened bf16
-    B tiles."""
-    wide = WIDE_BUFS * 2 * HOPPER_BK * bn if wbytes == 1 else 0
+    B tiles (gate_up: of both matrices)."""
+    mats = 2 if op == "gate_up" else 1
+    wide = WIDE_BUFS * mats * 2 * HOPPER_BK * bn if wbytes == 1 else 0
     return (SMEM - 1024 - wide) // (stage_bytes(op, bm, bn, wbytes) + 16)
 
 
@@ -144,8 +160,9 @@ def hopper_plan(op: str, rows: int, k: int, n: int, slices: int, bm: int, bn: in
 
 @functools.lru_cache(maxsize=None)  # a pure function, on every launch's host path
 def plan_split(op: str, dtype: torch.dtype, rows: int, k: int, n: int, slices: int,
-               aligned: bool = True) -> Plan:
-    """The launch plan of one split launch, a pure function of its shapes.
+               aligned: bool = True, weight: torch.dtype | None = None) -> Plan:
+    """The launch plan of one split launch, a pure function of its shapes
+    and of the banks' dtype ``weight`` (by default ``dtype``).
 
     ``op`` "reduce": out (rows, n) = sum over ``slices`` of (rows, k) @ (k, n);
     "gate_up": per slice silu((rows, k) @ Wg) * ((rows, k) @ Wu), (k, n)
@@ -166,18 +183,24 @@ def plan_split(op: str, dtype: torch.dtype, rows: int, k: int, n: int, slices: i
       two waves of SMS may split where the waves saved outweigh the
       partials' traffic and launch (each split keeps at least
       MIN_SPLIT_K_TILES k tiles); gate_up never splits.
+    - fp8 banks: the same paths and tiles (the stages that fit beside the
+      widened tiles are the bf16 plan's at every tile; the few-row path's
+      blocks cover 512 columns), where n is also a multiple of 16 (the
+      banks' 16-byte row stride); else "mma", which the wrapper refuses
+      for fp8.
     """
     if op not in HOPPER_TILES:
         raise ValueError(f"unknown split op {op!r}")
+    wbytes = 1 if weight in FP8_DTYPES else 2
     if dtype != torch.bfloat16:
         return Plan("fma", (), 0, 1, 0, 0)
-    if not aligned or k % 8 or n % 8:
+    if not aligned or k % 8 or n % (8 if wbytes == 2 else 16):
         return Plan("mma", (), 0, 1, 0, 0)
     if rows <= FEW_ROW_MAXM:
-        return few_row_plan(op, rows, k, n, slices)
+        return few_row_plan(op, rows, k, n, slices, wbytes=wbytes)
     bm = 64 if rows <= 64 and op != "reduce" else 128
     if op == "gate_up":
-        return hopper_plan(op, rows, k, n, slices, bm, 128)
+        return hopper_plan(op, rows, k, n, slices, bm, 128, wbytes=wbytes)
     flops = 2 * rows * n * slices * k
     k_tiles = (slices if op == "reduce" else 1) * _cdiv(k, HOPPER_BK)
     per = 1 if op == "reduce" else slices
@@ -197,17 +220,17 @@ def plan_split(op: str, dtype: torch.dtype, rows: int, k: int, n: int, slices: i
             top = max(1, min(MAX_SPLITS, k_tiles // MIN_SPLIT_K_TILES))
         options += [(cost(bn, s), -bn, s) for s in range(1, top + 1)]
     _, neg_bn, splits = min(options)
-    return hopper_plan(op, rows, k, n, slices, bm, -neg_bn, splits)
+    return hopper_plan(op, rows, k, n, slices, bm, -neg_bn, splits, wbytes=wbytes)
 
 
 def few_row_plan(op: str, rows: int, k: int, n: int, slices: int,
-                 blocks: int | None = None) -> Plan:
+                 blocks: int | None = None, wbytes: int = 2) -> Plan:
     """The few-row launch with about ``blocks`` blocks: each block streams
-    a chunk of ``chunk`` k rows (a multiple of FEW_ROW_K) of 256 columns;
-    a reduce's chunks never cross a slice (``splits`` = slices x chunks
-    per slice)."""
+    a chunk of ``chunk`` k rows (a multiple of FEW_ROW_K) of 256 columns
+    (512 of fp8-stored banks, ``wbytes`` 1); a reduce's chunks never cross
+    a slice (``splits`` = slices x chunks per slice)."""
     blocks = blocks or FEW_ROW_BLOCKS[op]
-    cols = _cdiv(n, FEW_ROW_COLS)
+    cols = _cdiv(n, FEW_ROW_COLS * 2 // wbytes)
     if op == "reduce":
         per = _cdiv(_cdiv(blocks, cols), slices)
         chunk = _cdiv(_cdiv(k, per), FEW_ROW_K) * FEW_ROW_K
@@ -231,14 +254,16 @@ def stack_plan(x, w_local, w_remote) -> Plan:
     t, d = x.shape
     s = w_local.shape[0] + w_remote.shape[0]
     f = (w_local if w_local.shape[0] else w_remote).shape[2]
-    return plan_split("stack", x.dtype, t, d, f, s, _aligned(x, w_local, w_remote))
+    return plan_split("stack", x.dtype, t, d, f, s, _aligned(x, w_local, w_remote),
+                      w_local.dtype)
 
 
 def reduce_plan(x, w_local, w_remote) -> Plan:
     """The plan ``split_reduce_gemm`` runs for these operands."""
     s, t, f = x.shape
     d = (w_local if w_local.shape[0] else w_remote).shape[2]
-    return plan_split("reduce", x.dtype, t, f, d, s, _aligned(x, w_local, w_remote))
+    return plan_split("reduce", x.dtype, t, f, d, s, _aligned(x, w_local, w_remote),
+                      w_local.dtype)
 
 
 def dense_swiglu_plans(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r) -> tuple[Plan, Plan]:
@@ -247,8 +272,8 @@ def dense_swiglu_plans(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r) -> tuple[Plan, Pla
     s = wg_l.shape[0] + wg_r.shape[0]
     f = (wg_l if wg_l.shape[0] else wg_r).shape[2]
     ok = _aligned(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r)
-    return (plan_split("gate_up", x.dtype, t, d, f, s, ok),
-            plan_split("reduce", x.dtype, t, f, d, s, ok))
+    return (plan_split("gate_up", x.dtype, t, d, f, s, ok, wg_l.dtype),
+            plan_split("reduce", x.dtype, t, f, d, s, ok, wg_l.dtype))
 
 
 def _scratch(n: int, device):
@@ -308,14 +333,15 @@ def split_stack_gemm(x, w_local, w_remote, plan: Plan | None = None):
         raise ValueError(f"{name}: x {tuple(x.shape)} does not match banks (*, {d}, {f})")
     if on_cpu(x, w_local, w_remote):
         return split_stack_gemm_torch(x, w_local, w_remote)
-    code = check_cuda_operands(name, x, w_local, w_remote)
+    code = check_cuda_operands(name, x, w_local, w_remote, fp8=True)
     t = x.shape[0]
     plan = plan or stack_plan(x, w_local, w_remote)
+    wcode = weight_code(name, (w_local, w_remote), plan)
     out = torch.empty((s_l + s_r, t, f), dtype=x.dtype, device=x.device)
     scratch = _scratch(plan.scratch, x.device)
     STACK_GEMM.launch([x, w_local, w_remote, out, scratch],
-                      [s_l, s_r, t, d, f, code, *plan.ints()])
-    PATHS[(name, "stack", plan.path, row_class(t))] += 1
+                      [s_l, s_r, t, d, f, code, wcode, *plan.ints()])
+    PATHS[path_key(name, "stack", plan, t, w_local.dtype)] += 1
     return out
 
 
@@ -328,14 +354,15 @@ def split_reduce_gemm(x, w_local, w_remote, plan: Plan | None = None):
         raise ValueError(f"{name}: x {tuple(x.shape)} does not match banks ({s_l}+{s_r}, {f}, {d})")
     if on_cpu(x, w_local, w_remote):
         return split_reduce_gemm_torch(x, w_local, w_remote)
-    code = check_cuda_operands(name, x, w_local, w_remote)
+    code = check_cuda_operands(name, x, w_local, w_remote, fp8=True)
     t = x.shape[1]
     plan = plan or reduce_plan(x, w_local, w_remote)
+    wcode = weight_code(name, (w_local, w_remote), plan)
     out = torch.empty((t, d), dtype=x.dtype, device=x.device)
     scratch = _scratch(plan.scratch, x.device)
     REDUCE_GEMM.launch([x, w_local, w_remote, out, scratch],
-                       [s_l, s_r, t, f, d, code, *plan.ints()])
-    PATHS[(name, "reduce", plan.path, row_class(t))] += 1
+                       [s_l, s_r, t, f, d, code, wcode, *plan.ints()])
+    PATHS[path_key(name, "reduce", plan, t, w_local.dtype)] += 1
     return out
 
 
@@ -353,15 +380,16 @@ def split_dense_swiglu(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r, plans: tuple | Non
     ops = (x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r)
     if on_cpu(*ops):
         return split_dense_swiglu_torch(*ops)
-    code = check_cuda_operands(name, *ops)
+    code = check_cuda_operands(name, *ops, fp8=True)
     t = x.shape[0]
     gate_up, down = plans or dense_swiglu_plans(*ops)
+    wcode = weight_code(name, ops[1:], gate_up, down)
     h = torch.empty((s_l + s_r, t, f), dtype=x.dtype, device=x.device)
     out = torch.empty((t, d), dtype=x.dtype, device=x.device)
     # one scratch for both launches: stream order keeps them apart
     scratch = _scratch(max(gate_up.scratch, down.scratch), x.device)
     DENSE_SWIGLU.launch([*ops, h, out, scratch],
-                        [s_l, s_r, t, d, f, code, *gate_up.ints(), *down.ints()])
-    PATHS[(name, "gate_up", gate_up.path, row_class(t))] += 1
-    PATHS[(name, "reduce", down.path, row_class(t))] += 1
+                        [s_l, s_r, t, d, f, code, wcode, *gate_up.ints(), *down.ints()])
+    PATHS[path_key(name, "gate_up", gate_up, t, wg_l.dtype)] += 1
+    PATHS[path_key(name, "reduce", down, t, wg_l.dtype)] += 1
     return out

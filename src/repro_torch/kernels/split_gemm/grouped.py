@@ -29,8 +29,11 @@ ring and wgmma, the activation read per expert) at every capacity, decode
 ``mma``/``fma`` as in ``dense.plan_split`` above). The demand kernel runs
 the plan of kernel #2 for the same shapes, so its real experts get #2's
 bits. ``split_grouped_gemm`` runs the one launch of op "gemm" (#2's down
-launch on its own shapes, the "hopper" path also with fp8 banks).
-``PATHS`` counts the launches of each path.
+launch on its own shapes). The banks of all three may be stored in fp8
+(e4m3, e5m2) beside bf16 activations: the "hopper" path widens each fp8
+tile exactly to bf16 on the chip (the Pallas kernels' ``_cast``); off it
+the wrappers raise ``TypeError``. ``PATHS`` counts the launches of each
+path.
 """
 from __future__ import annotations
 
@@ -42,35 +45,36 @@ import torch
 from repro_torch import counters
 from repro_torch.kernels._launch import (
     FP8_DTYPES,
+    WEIGHT_CODES,
     CudaKernel,
     bank_dims,
     cast_like,
     check_cuda_operands,
     on_cpu,
+    weight_code,
 )
 from repro_torch.kernels.split_gemm.dense import (
     FEW_ROW_MAXM,
     Plan,
     _aligned,
     hopper_plan,
+    path_key,
     row_class,
 )
 from repro_torch.models.moe import grouped_ffn
 
-GROUPED_SWIGLU = CudaKernel("split_grouped_swiglu", n_ptrs=9, n_ints=18)
-GROUPED_SWIGLU_DEMAND = CudaKernel("split_grouped_swiglu_demand", n_ptrs=10, n_ints=18)
+GROUPED_SWIGLU = CudaKernel("split_grouped_swiglu", n_ptrs=9, n_ints=19)
+GROUPED_SWIGLU_DEMAND = CudaKernel("split_grouped_swiglu_demand", n_ptrs=10, n_ints=19)
 GROUPED_GEMM = CudaKernel("split_grouped_gemm", n_ptrs=4, n_ints=13)
-#: weight codes of split_grouped_gemm's entry point (split_hopper.cuh W_*):
-#: the activation's own type, or fp8 widened to bf16 on the chip
-WEIGHT_CODES = {torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 #: ring stages of #1 with bf16 banks: 3 beat or tied the most that fit
 #: (4-5) at C 1, 16 and 88 in two sweeps (tools/sweep_dense_plans.py,
 #: PERF.md); with fp8 banks the most that fit won
 GEMM_BF16_STAGES = 3
 
 #: Launches per (kernel, launch, path, row class) of the grouped SwiGLU
-#: kernels, counted by the wrappers (``dense.row_class``); kernel #1's keys
-#: add the banks' dtype: (kernel, "gemm", path, row class, dtype name).
+#: kernels, counted by the wrappers (``dense.path_key``: fp8 banks add
+#: their dtype's name); kernel #1's keys always add the banks' dtype:
+#: (kernel, "gemm", path, row class, dtype name).
 PATHS: collections.Counter = collections.Counter()
 counters.register("grouped paths", PATHS)
 
@@ -83,8 +87,8 @@ def plan_grouped(op: str, dtype: torch.dtype, rows: int, k: int, n: int,
                  aligned: bool = True, weight: torch.dtype | None = None) -> Plan:
     """The plan of one launch of the grouped SwiGLU: ``op`` "gate_up"
     (rows C, k D, n F) or "down" (rows C, k F, n D); or of kernel #1, op
-    "gemm" (rows C, k D, n F; ``weight``: the banks' dtype, by default
-    ``dtype``). A pure function of the per-expert shapes, never of the
+    "gemm" (rows C, k D, n F). ``weight``: the banks' dtype, by default
+    ``dtype``. A pure function of the per-expert shapes, never of the
     expert count, so the demand kernel (#3) runs kernel #2's plan and gets
     #2's bits.
 
@@ -100,15 +104,16 @@ def plan_grouped(op: str, dtype: torch.dtype, rows: int, k: int, n: int,
       TMA zero-filling the other 63 rows of the tile) this beat
       split_hopper.cuh's few-row kernels extended per expert and the
       library call (tools/sweep_dense_plans.py, PERF.md).
-    - "gemm" is "down" on #1's shapes, in GEMM_BF16_STAGES stages; with
-      fp8 banks the Hopper path also needs n a multiple of 16 (the banks'
-      16-byte row stride) and takes the most stages that fit beside the
-      widened tiles. fp8 banks off the Hopper path have no kernel: the
-      wrapper raises.
+    - "gemm" is "down" on #1's shapes, in GEMM_BF16_STAGES stages.
+    - fp8 banks: the same Hopper tiles where n is also a multiple of 16
+      (the banks' 16-byte row stride), in the most stages that fit beside
+      the widened tiles (the bf16 plan's for gate_up and down). fp8 banks
+      off the Hopper path have no kernel: the wrapper raises.
     """
     if op not in ("gate_up", "down", "gemm"):
         raise ValueError(f"unknown grouped op {op!r}")
-    fp8 = op == "gemm" and weight in FP8_DTYPES
+    fp8 = weight in FP8_DTYPES
+    wbytes = 1 if fp8 else 2
     hopper = (dtype == torch.bfloat16 and aligned and not (k % 8 or n % 8)
               and not (fp8 and n % 16))
     if not hopper:
@@ -117,9 +122,9 @@ def plan_grouped(op: str, dtype: torch.dtype, rows: int, k: int, n: int,
         return Plan("mma" if dtype == torch.bfloat16 else "fma", (), 0, 1, 0, 0)
     bm = 64 if rows <= 64 else 128
     if op == "gate_up":
-        return hopper_plan("gate_up", rows, k, n, 1, bm, 128)
+        return hopper_plan("gate_up", rows, k, n, 1, bm, 128, wbytes=wbytes)
     if op == "down":
-        return hopper_plan("stack", rows, k, n, 1, bm, 256)
+        return hopper_plan("stack", rows, k, n, 1, bm, 256, wbytes=wbytes)
     if fp8:
         return hopper_plan("gemm", rows, k, n, 1, bm, 256, wbytes=1)
     return hopper_plan("gemm", rows, k, n, 1, bm, 256)._replace(stages=GEMM_BF16_STAGES)
@@ -131,8 +136,8 @@ def grouped_swiglu_plans(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r) -> tuple[Plan, P
     _, c, d = x.shape
     f = (wg_l if wg_l.shape[0] else wg_r).shape[2]
     ok = _aligned(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r)
-    return (plan_grouped("gate_up", x.dtype, c, d, f, ok),
-            plan_grouped("down", x.dtype, c, f, d, ok))
+    return (plan_grouped("gate_up", x.dtype, c, d, f, ok, wg_l.dtype),
+            plan_grouped("down", x.dtype, c, f, d, ok, wg_l.dtype))
 
 
 def gemm_plan(x, w_local, w_remote) -> Plan:
@@ -201,22 +206,24 @@ def split_grouped_swiglu(x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r, plans: tuple | N
     ops = (x, wg_l, wu_l, wd_l, wg_r, wu_r, wd_r)
     if on_cpu(*ops):
         return split_grouped_swiglu_torch(*ops)
-    code = check_cuda_operands(name, *ops)
+    code = check_cuda_operands(name, *ops, fp8=True)
     gate_up, down = plans or grouped_swiglu_plans(*ops)
+    wcode = weight_code(name, ops[1:], gate_up, down)
     h = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     GROUPED_SWIGLU.launch([*ops, h, out],
-                          [e_l, e_r, c, d, f, code, *gate_up.ints(), *down.ints()])
-    PATHS[(name, "gate_up", gate_up.path, row_class(c))] += 1
-    PATHS[(name, "down", down.path, row_class(c))] += 1
+                          [e_l, e_r, c, d, f, code, wcode, *gate_up.ints(), *down.ints()])
+    PATHS[path_key(name, "gate_up", gate_up, c, wg_l.dtype)] += 1
+    PATHS[path_key(name, "down", down, c, wg_l.dtype)] += 1
     return out
 
 
-def split_grouped_swiglu_demand(x, wg_l, wu_l, wd_l, wg_f, wu_f, wd_f, valid):
+def split_grouped_swiglu_demand(x, wg_l, wu_l, wd_l, wg_f, wu_f, wd_f, valid,
+                                plans: tuple | None = None):
     """Fused SwiGLU over the (local, fetched) bank pair: (E_l + E_f, C, D)
     -> (E_l + E_f, C, D); ``valid`` (E_f,) bool marks the real fetched
     rows (padding rows read no weights and give zeros). Runs kernel #2's
-    plans for these shapes."""
+    plans for these shapes (``plans``: others on the card)."""
     name = GROUPED_SWIGLU_DEMAND.name
     e, c, d, e_l, e_f, f = _swiglu_dims(name, x, wg_l, wu_l, wd_l, wg_f, wu_f, wd_f)
     if valid.dim() != 1 or valid.shape[0] != e_f or valid.dtype != torch.bool:
@@ -225,15 +232,16 @@ def split_grouped_swiglu_demand(x, wg_l, wu_l, wd_l, wg_f, wu_f, wd_f, valid):
     ops = (x, wg_l, wu_l, wd_l, wg_f, wu_f, wd_f)
     if on_cpu(*ops, valid):
         return split_grouped_swiglu_demand_torch(*ops, valid)
-    code = check_cuda_operands(name, *ops)
-    gate_up, down = grouped_swiglu_plans(*ops)
+    code = check_cuda_operands(name, *ops, fp8=True)
+    gate_up, down = plans or grouped_swiglu_plans(*ops)
+    wcode = weight_code(name, ops[1:], gate_up, down)
     valid = valid.contiguous()
     h = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     GROUPED_SWIGLU_DEMAND.launch([*ops, valid, h, out],
-                                 [e_l, e_f, c, d, f, code, *gate_up.ints(), *down.ints()])
-    PATHS[(name, "gate_up", gate_up.path, row_class(c))] += 1
-    PATHS[(name, "down", down.path, row_class(c))] += 1
+                                 [e_l, e_f, c, d, f, code, wcode, *gate_up.ints(), *down.ints()])
+    PATHS[path_key(name, "gate_up", gate_up, c, wg_l.dtype)] += 1
+    PATHS[path_key(name, "down", down, c, wg_l.dtype)] += 1
     return out
 
 

@@ -161,6 +161,11 @@ def resolve_cli_policy(args):
     return policy
 
 
+#: the ``--dtype`` choices: the weights' (and KV cache's) storage type
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
+
+
 def build_engine(
     cfg,
     *,
@@ -279,7 +284,7 @@ def _engine(args, cfg, policy, *, prefill_len: int, prefill_buckets: tuple = (),
         cfg, mesh_shape=args.mesh, prefill_len=prefill_len, prefill_buckets=prefill_buckets,
         cache_len=cache_len, max_batch=args.max_batch, ctx_mode=args.ctx_mode,
         gen_mode=args.gen_mode, capacity_from=args.capacity_from, policy=policy,
-        device=args.device,
+        dtype=DTYPES[args.dtype], device=args.device,
         geom_kwargs=SERVE_GEOMETRY.get(args.arch),
         variant_cache_size=args.variant_cache_size, switch_interval=args.switch_interval,
         fault_spec=args.fault_spec, validate_fetch=args.validate_fetch,
@@ -406,6 +411,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--full", action="store_true",
                     help="the full configuration (default: its reduced variant)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES),
+                    help="the weights' storage type; fp8 (float8_e4m3fn, float8_e5m2) stores "
+                         "the KV cache so too and computes in bfloat16, under DWDP on a "
+                         "(1, G) mesh only (--gen-mode dwdp)")
     ap.add_argument("--mesh", default="1,4", type=lambda v: tuple(int(x) for x in v.split(",")),
                     help="data,model mesh of logical ranks on the device (2,4: two data "
                          "replicas of a DWDP group of 4, with --max-batch 4)")

@@ -29,6 +29,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, BlockKind
 from repro_torch.core.placement import Placement, make_placement
 from repro_torch.core.prefetch import attach_checksum_tables
+from repro_torch.kernels._launch import FP8_DTYPES
 from repro_torch.models.layers import rope_frequencies
 
 AXIS_MODEL = "model"
@@ -488,6 +489,13 @@ class Model:
     @property
     def sizes(self) -> dict[str, int]:
         return dict(self.mesh_sizes)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The activations' dtype: bfloat16 for weights stored in fp8 (every
+        consumer widens a weight on use), else the weights' own (the JAX
+        package's ``_compute_dtype``)."""
+        return torch.bfloat16 if self.dtype in FP8_DTYPES else self.dtype
 
     @property
     def n_ranks(self) -> int:

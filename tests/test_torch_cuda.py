@@ -440,8 +440,9 @@ def test_cuda_grouped_gemm_hopper_bf16_and_fp8_banks():
 
 @pytest.mark.cuda
 def test_cuda_fp8_banks_refused_where_no_kernel_takes_them():
-    """fp8 banks raise beside fp32 activations, at an F the Hopper path
-    does not take (not a multiple of 16), and on kernels #2-#6."""
+    """fp8 banks raise beside fp32 activations and at a width no fp8 path
+    takes (not a multiple of 16: the plan is split_tile.cuh's, which has
+    no fp8 load), on #1, #4 and #2."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
     from repro_torch.kernels.split_gemm import dense, grouped
@@ -453,11 +454,85 @@ def test_cuda_fp8_banks_refused_where_no_kernel_takes_them():
     with pytest.raises(TypeError, match="Hopper path only"):
         w120 = w8[..., :120].contiguous()
         grouped.split_grouped_gemm(x.bfloat16(), w120, w120)
-    with pytest.raises(TypeError, match="not supported"):
-        dense.split_stack_gemm(x[0].bfloat16(), w8, w8)
-    w8t = w8.transpose(1, 2).contiguous()
-    with pytest.raises(TypeError, match="not supported"):
-        grouped.split_grouped_swiglu(x.bfloat16(), w8, w8, w8t, w8, w8, w8t)
+    with pytest.raises(TypeError, match="bfloat16 activations"):
+        dense.split_stack_gemm(x[0], w8, w8)
+    w120 = w8[..., :120].contiguous()
+    with pytest.raises(TypeError, match="Hopper and few-row paths only"):
+        dense.split_stack_gemm(x[0].bfloat16(), w120, w120)
+    w120t = w120.transpose(1, 2).contiguous()
+    with pytest.raises(TypeError, match="Hopper and few-row paths only"):
+        grouped.split_grouped_swiglu(x.bfloat16(), w120, w120, w120t, w120, w120, w120t)
+
+
+# (kernel, rows, D, F, local, remote): #4-#6 on the few-row path (2 rows)
+# and the Hopper path (17, 200 rows: ragged tiles, a split k at 17); #2 /
+# #3 at C 1 and 17; widths multiples of 16, not of the tiles
+FP8_CASES = [("stack", 2, 200, 272, 1, 3), ("stack", 17, 200, 272, 1, 3),
+             ("stack", 200, 136, 48, 0, 4), ("reduce", 2, 272, 208, 2, 2),
+             ("reduce", 17, 272, 208, 1, 3), ("dense", 2, 208, 144, 1, 3),
+             ("dense", 200, 208, 144, 4, 0), ("grouped", 1, 208, 144, 3, 5),
+             ("grouped", 17, 208, 144, 3, 5), ("demand", 1, 208, 144, 3, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FP8_CASES, ids=str)
+@pytest.mark.parametrize("weight", ["float8_e4m3fn", "float8_e5m2"])
+def test_cuda_fp8_banks_bitwise_widened_bf16(case, weight):
+    """#2-#6 with fp8 banks: within 2e-2 of the plain version, bitwise the
+    bf16 kernel on the widened banks under the same plans, counted under
+    the banks' dtype, and a second launch bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    from repro_torch.kernels.split_gemm import dense, grouped
+
+    kind, rows, d, f, n_l, n_r = case
+    wdt, bf = getattr(torch, weight), torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(rows + d + f)
+
+    def rnd(*s, scale=0.1):
+        return (torch.randn(*s, generator=gen, device="cuda") * scale).to(bf)
+
+    def banks(*tail):
+        return [rnd(n_l, *tail).to(wdt), rnd(n_r, *tail).to(wdt)]
+
+    n = n_l + n_r
+    if kind == "stack":
+        args, kern, plain = [rnd(rows, d, scale=1.0)] + banks(d, f), dense.split_stack_gemm, \
+            dense.split_stack_gemm_torch
+        plans, kw, launches = (dense.stack_plan(*args),), "plan", ("stack",)
+    elif kind == "reduce":
+        args, kern, plain = [rnd(n, rows, d, scale=1.0)] + banks(d, f), dense.split_reduce_gemm, \
+            dense.split_reduce_gemm_torch
+        plans, kw, launches = (dense.reduce_plan(*args),), "plan", ("reduce",)
+    elif kind == "dense":
+        g, u, w = banks(d, f), banks(d, f), banks(f, d)
+        args = [rnd(rows, d, scale=1.0), g[0], u[0], w[0], g[1], u[1], w[1]]
+        kern, plain = dense.split_dense_swiglu, dense.split_dense_swiglu_torch
+        plans, kw, launches = dense.dense_swiglu_plans(*args), "plans", ("gate_up", "reduce")
+    else:
+        g, u, w = banks(d, f), banks(d, f), banks(f, d)
+        args = [rnd(n, rows, d, scale=1.0), g[0], u[0], w[0], g[1], u[1], w[1]]
+        kern, plain = grouped.split_grouped_swiglu, grouped.split_grouped_swiglu_torch
+        if kind == "demand":
+            args.append(torch.arange(n_r, device="cuda") % 2 == 0)
+            kern, plain = grouped.split_grouped_swiglu_demand, \
+                grouped.split_grouped_swiglu_demand_torch
+        plans, kw, launches = grouped.grouped_swiglu_plans(*args[:7]), "plans", ("gate_up", "down")
+    name = kern.__name__
+    counter = grouped.PATHS if kind in ("grouped", "demand") else dense.PATHS
+    keys = [(name, launch, p.path, dense.row_class(rows), weight) for launch, p in
+            zip(launches, plans)]
+    want = "hopper" if rows > 2 or kind in ("grouped", "demand") else "few_row"
+    assert all(p.path == want for p in plans), plans
+    before = [counter[k] for k in keys]
+    got = kern(*args)
+    assert [counter[k] for k in keys] == [b + 1 for b in before]
+    wide = [a.to(bf) if a.dtype == wdt else a for a in args]
+    ref = plain(*args)
+    assert _rel(got, ref) <= 2e-2, (case, plans)
+    assert torch.equal(kern(*wide, **{kw: plans if kw == "plans" else plans[0]}), got), plans
+    assert torch.equal(kern(*args), got)
+    torch.cuda.synchronize()
 
 
 # --------------------------------------------------------------------------
@@ -479,11 +554,11 @@ def _graph_cfg():
                                     first_dense=1))
 
 
-def _graph_engine(params=None, **kw):
+def _graph_engine(params=None, dtype=torch.bfloat16, **kw):
     from repro_torch.launch.serve import build_engine
 
     return build_engine(_graph_cfg(), mesh_shape=(1, 4), prefill_len=64, prefill_buckets=(32,),
-                        cache_len=96, max_batch=2, dtype=torch.bfloat16, device="cuda",
+                        cache_len=96, max_batch=2, dtype=dtype, device="cuda",
                         params=params, geom_kwargs=GRAPH_GEOM, **kw)[0]
 
 
@@ -545,6 +620,38 @@ def test_cuda_graph_serving_bitwise_eager(fetch):
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(logits, ref)
     assert graph.gen.fallbacks == eager.gen.fallbacks == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fetch", ["all", "demand"])
+def test_cuda_fp8_graph_decode_step_bitwise_eager(fetch):
+    """The model stored in e4m3 (weights and KV cache) through graphs
+    against its eager engine on the same weights: the same tokens, no
+    capture after warmup, every launch of #2-#6 counted under e4m3, and one
+    more decode step's logits bitwise the eager deferred step's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from repro_torch import counters
+    from repro_torch.core import execution
+
+    kw = dict(expert_fetch=fetch, dtype=torch.float8_e4m3fn)
+    graph = _graph_engine(**kw)
+    eager = _graph_engine(params=graph.params, graphs=False, **kw)
+    graph.warmup()
+    eager.warmup()
+    warm = _captures(graph)
+    with counters.recording() as graph_counts:
+        tokens = _graph_serve(graph)
+    assert tokens == _graph_serve(eager)
+    assert _captures(graph) == warm
+    paths = {k: n for k, n in graph_counts.items() if k[0] in ("dense paths", "grouped paths")}
+    assert paths and all(k[1][-1] == "float8_e4m3fn" for k in paths), paths
+    assert graph.gen.state["layers"]["body"]["pos0"][0]["k"].dtype == torch.float8_e4m3fn
+    logits = graph.gen.step(graph.params)["logits"].clone()
+    ctx = execution.Ctx(model=eager.gen.model, xp=eager.gen.xp, deferred=True)
+    ref = execution.forward_decode(eager.params, eager.gen.cur_token, eager.gen.state,
+                                   ctx)["logits"]
+    assert torch.equal(logits, ref)
 
 
 @pytest.mark.cuda

@@ -271,16 +271,33 @@ def test_grouped_plans_ignore_expert_count(c, experts):
 # --------------------------------------------------------------------------
 # Routing, dispatch, attention and the small layers.
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("t,cap,num_real", [(12, 2, 6), (9, 2, 8), (5, 1, 8)])
-def test_route_topk_with_drops_matches_jax(t, cap, num_real):
-    x, w = _arrays(t, (t, 16), (16, 8), scale=1.0)
+ROUTE_CASES = [(12, 2, 6), (9, 2, 8), (5, 1, 8)]  # (tokens, capacity, real experts)
+ROWS_ARRAYS = dict(seed=1, shapes=((3, 5, 16), (16, 8)))
 
-    def jax_route(x, w):
+
+@pytest.fixture(scope="module")
+def route_refs():
+    """The JAX routing, dispatch and combine of every ROUTE_CASES case and
+    ``route_topk_rows`` of the rows case, in one jitted program (a program
+    per case compiled ~0.35 s)."""
+    def jax_route(x, w, t, cap, num_real):
         d = jmoe.route_topk(x, w, 2, cap, num_real=num_real)
         xe = jmoe.dispatch_tokens(x, d, 8, cap)
         return d, xe, jmoe.combine_tokens(xe, d, t)
 
-    dj, xe_j, out_j = jax.jit(jax_route)(jnp.asarray(x), jnp.asarray(w))
+    ins = {c: [jnp.asarray(a) for a in _arrays(c[0], (c[0], 16), (16, 8), scale=1.0)]
+           for c in ROUTE_CASES}
+    rows = [jnp.asarray(a) for a in _arrays(ROWS_ARRAYS["seed"], *ROWS_ARRAYS["shapes"],
+                                            scale=1.0)]
+    return jax.jit(lambda ins, rows: (
+        {c: jax_route(*a, *c) for c, a in ins.items()},
+        jmoe.route_topk_rows(*rows, 2, 2, num_real=7)))(ins, rows)
+
+
+@pytest.mark.parametrize("t,cap,num_real", ROUTE_CASES)
+def test_route_topk_with_drops_matches_jax(route_refs, t, cap, num_real):
+    x, w = _arrays(t, (t, 16), (16, 8), scale=1.0)
+    dj, xe_j, out_j = route_refs[0][(t, cap, num_real)]
     dt = tmoe.route_topk(torch.from_numpy(x), torch.from_numpy(w), 2, cap, num_real=num_real)
     assert not bool(np.all(np.asarray(dj.keep)))  # some tokens dropped
     np.testing.assert_array_equal(dt.flat_slot.numpy(), np.asarray(dj.flat_slot))
@@ -292,10 +309,9 @@ def test_route_topk_with_drops_matches_jax(t, cap, num_real):
                                atol=1e-6)
 
 
-def test_route_topk_rows_and_capacity_match_jax():
-    x, w = _arrays(1, (3, 5, 16), (16, 8), scale=1.0)
-    route = jax.jit(lambda x, w: jmoe.route_topk_rows(x, w, 2, 2, num_real=7))
-    dj = route(jnp.asarray(x), jnp.asarray(w))
+def test_route_topk_rows_and_capacity_match_jax(route_refs):
+    x, w = _arrays(ROWS_ARRAYS["seed"], *ROWS_ARRAYS["shapes"], scale=1.0)
+    dj = route_refs[1]
     dt = tmoe.route_topk_rows(torch.from_numpy(x), torch.from_numpy(w), 2, 2, num_real=7)
     np.testing.assert_array_equal(dt.flat_slot.numpy(), np.asarray(dj.flat_slot))
     np.testing.assert_array_equal(dt.keep.numpy(), np.asarray(dj.keep))
@@ -305,13 +321,27 @@ def test_route_topk_rows_and_capacity_match_jax():
             assert tmoe.capacity_for(tokens, e, k, f) == jmoe.capacity_for(tokens, e, k, f)
 
 
-@pytest.mark.parametrize("window,q_offset,sk", [(0, 0, 20), (6, 4, 24), (0, 8, 24)])
-def test_mha_prefill_matches_jax(window, q_offset, sk):
+PREFILL_CASES = [(0, 0, 20), (6, 4, 24), (0, 8, 24)]  # (window, q_offset, Sk)
+
+
+def _prefill_arrays(window, q_offset, sk):
     sq = sk - q_offset
-    q, k, v = _arrays(sk, (2, sq, 4, 8), (2, sk, 2, 8), (2, sk, 2, 8), scale=1.0)
-    prefill = jax.jit(lambda q, k, v: jattn.mha_prefill(q, k, v, window=window,
-                                                         q_offset=q_offset, block_kv=8))
-    ref = prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return _arrays(sk, (2, sq, 4, 8), (2, sk, 2, 8), (2, sk, 2, 8), scale=1.0)
+
+
+@pytest.fixture(scope="module")
+def prefill_refs():
+    """The JAX ``mha_prefill`` of every PREFILL_CASES case in one jitted
+    program (a program per case compiled ~0.4 s)."""
+    ins = {c: [jnp.asarray(a) for a in _prefill_arrays(*c)] for c in PREFILL_CASES}
+    return jax.jit(lambda ins: {c: jattn.mha_prefill(*a, window=c[0], q_offset=c[1], block_kv=8)
+                                for c, a in ins.items()})(ins)
+
+
+@pytest.mark.parametrize("window,q_offset,sk", PREFILL_CASES)
+def test_mha_prefill_matches_jax(prefill_refs, window, q_offset, sk):
+    q, k, v = _prefill_arrays(window, q_offset, sk)
+    ref = prefill_refs[(window, q_offset, sk)]
     got = tattn.mha_prefill(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                             window=window, q_offset=q_offset, block_kv=8)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
