@@ -290,7 +290,33 @@ Phases (each fails loudly; the exit code is non-zero on any error):
    second launch bitwise, timed beside the plain version, the bf16 kernel
    on the widened banks and the bound at 1-byte weights (no library call:
    none multiplies bf16 by fp8);
-18. a ``{"kernels": [...]}`` JSON line, then the last line
+18. the other architectures at full width (run after 10 and the Gemma-3
+   fleet, with every earlier weight set freed; each with the launch counts
+   set to 0 just before its serve and read just after):
+   RecurrentGemma-2B at full depth (26 layers: 18 RG-LRU, 8 local attention
+   at head dim 256), mesh (1, 4), graphs, 4 requests of 1024 tokens (the
+   sequence sharded 256 a rank) and 16 output tokens, served as in 5 (#6
+   and #7 launches measured through the replays, #7 on its hd-256 mma path,
+   no capture after warmup, prefill and decode logits within LOGIT_TOL of
+   the plain versions, peak printed); then 8 decode steps from the (1, 4)
+   prefill's captured state (the RG-LRU fix-up's) against a (1, 1)
+   unsharded prefill of the same prompt on the same weights: the same
+   tokens, each step's logits within LOGIT_TOL. xLSTM-350M at full depth
+   (24 layers; no kernel of the port on its path), 4 requests of 256
+   tokens through graphs (no capture after warmup), the first 2 eagerly
+   too (the same tokens), one prefill and one decode step in fp32 on the
+   card against the same fp32 run on the CPU (FP32_LOGIT_TOL) and in bf16
+   against the fp32 run (printed: bf16's own rounding over 24 layers,
+   ~0.1 norm-wise, is no check), the prefill's wall time eager and
+   replayed printed (the recurrences loop over tokens). Grok-1
+   at 2 of its 64 layers (weights reckoned 22.90 GB), 4 requests of 1024
+   tokens, all-fetch as in 5 (#2, #4, #5 and #7), then a demand engine on
+   the same weights (#3 through its replays): the same tokens, one decode
+   step from the all-fetch serve's state bitwise, landed GB per decode step
+   and the replay ms printed. Phase 3 also holds #7 at head dim 256 at
+   RecurrentGemma's prefill shards and #2 / #3 at Grok-1's per-rank expert
+   shapes;
+19. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
@@ -345,6 +371,14 @@ LOGIT_TOL = 1e-1
 # The same comparison in fp32 at the reduced DeepSeek-R1 width, where both
 # sides round alike (tests/test_torch_model.py's 1e-4, relative to max|ref|).
 FP32_LOGIT_TOL = 1e-4
+# xLSTM-350M in bf16 against the same weights in fp32, norm-wise: both
+# packages round the residual stream and every projection to bf16, and 24
+# exponentially gated layers carry it to the logits. tests/xlstm_drift.py
+# (the pattern and depth at d_model 256, 256-token prompts, 8 draws) reads
+# the JAX package's own bf16 0.061-0.215 from its fp32, the port's
+# 0.063-0.256; a decode step from a zeroed state (the prefill's state
+# dropped) 1.06-1.35, which the limit must refuse (phase 18 checks both).
+XLSTM_BF16_TOL = 0.5
 
 G = 4                         # DWDP4: the model axis, G' = 4 logical ranks
 PROMPT = 1024
@@ -485,6 +519,22 @@ RD_ROWS = RD_BATCH // RD_MESH[0]  # decode rows of a data replica's ranks
 RD_REQUESTS = 8
 RD_DEAD = 5
 RD_PRE_STEPS = 4
+# Phase 18, the other architectures at full width: RecurrentGemma-2B at full
+# depth (26 layers) over 1024-token prompts (the sequence sharded, 256
+# tokens a rank; its local attention at head dim 256 runs #7's mma path),
+# RG_CONTINUE decode steps of the (1, 4) prefill's captured state held
+# against a (1, 1) unsharded prefill; xLSTM-350M at full depth (24 layers)
+# over 256-token prompts; Grok-1 at 2 of its 64 layers over 1024-token
+# prompts, all-fetch and demand.
+RG_PROMPT = 1024
+RG_KERNELS = ("split_dense_swiglu", "flash_attention")
+RG_CONTINUE = 8
+XLSTM_PROMPT = 256
+XLSTM_EAGER = 2
+GROK_LAYERS = 2
+GROK_PROMPT = 1024
+GROK_KERNELS = ("split_grouped_swiglu", "split_stack_gemm", "split_reduce_gemm",
+                "flash_attention")
 RD_POLICY = {"moe_experts": "split:demand"}
 # The kernels of the standby's path: its attention is unsharded (16384 % 3),
 # so #4 and #5 leave it for plain products, as in the JAX package.
@@ -679,18 +729,18 @@ def check_launches(label: str, engine, measured: dict, counts: dict) -> None:
         fail(f"{label}: host launch counters disagree with the replays (host, measured): {short}")
 
 
-def logit_err(label: str, got, ref) -> float:
-    """Norm-wise relative error of two logit rows, held to LOGIT_TOL."""
+def logit_err(label: str, got, ref, tol: float = LOGIT_TOL) -> float:
+    """Norm-wise relative error of two logit rows, held to ``tol``."""
     import torch
 
     got, ref = got.float(), ref.float()
     if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
         fail(f"{label}: non-finite logits")
     err = (torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref)).item()
-    print(f"{label}: norm-wise rel err {err:.3e} (tol {LOGIT_TOL}); argmax "
+    print(f"{label}: norm-wise rel err {err:.3e} (tol {tol}); argmax "
           f"{got.argmax(-1).tolist()} vs {ref.argmax(-1).tolist()}")
-    if err > LOGIT_TOL:
-        fail(f"{label}: {err:.3e} > {LOGIT_TOL}")
+    if err > tol:
+        fail(f"{label}: {err:.3e} > {tol}")
     return err
 
 
@@ -1062,14 +1112,15 @@ def clear_path_counts() -> None:
         counter.clear()
 
 
-def check_paths(label: str, paths: dict) -> None:
+def check_paths(label: str, paths: dict, flash: str = "wgmma") -> None:
     """Every launch of #1-#6 above 2 rows ran the Hopper path, every one at
     2 rows or fewer its kernel's path (PLANNED), and every flash attention
-    launch (bf16, hd 128 on the serving paths) the Hopper path."""
+    launch the path ``flash`` (``flash_plan``'s: the Hopper path at bf16 and
+    hd 128, else "mma")."""
     bad = {}
     for key, n in paths.items():
         if key.startswith("flash_attention/"):
-            if not key.split("/")[1].startswith("wgmma "):
+            if key.split("/")[1].split(" ")[0] != flash:
                 bad[key] = n
             continue
         name, _, path, rows, *_ = key.split("/")
@@ -1191,8 +1242,9 @@ def run_flash_case(shp, gen) -> dict:
     (max error over max|ref|) and per query row and head (the worst row's
     max error over that row's max|ref|): rows that see few keys have
     outputs far larger than rows that see many. The plan must be the
-    Hopper path (bf16, hd 128), counted by the wrapper, and a second launch
-    must give the same bits."""
+    Hopper path at hd 128 (bf16) and the mma path at hd 256 (RecurrentGemma's:
+    ``flash_plan``), counted by the wrapper, and a second launch must give
+    the same bits."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa
 
@@ -1216,8 +1268,9 @@ def run_flash_case(shp, gen) -> dict:
     ref = plain()
     lib = library().transpose(1, 2)
     torch.cuda.synchronize()
-    if plan.path != "wgmma" or ran != 1:
-        fail(f"flash_attention {shp}: ran {fa.plan_label(plan)} ({ran} counted), not wgmma")
+    want = "wgmma" if hd == 128 else "mma"  # the Hopper path at hd 128 only
+    if plan.path != want or ran != 1:
+        fail(f"flash_attention {shp}: ran {fa.plan_label(plan)} ({ran} counted), not {want}")
     if not bitwise:
         fail(f"flash_attention {shp}: a second launch gave other bits")
     if not torch.isfinite(got).all():
@@ -1464,12 +1517,15 @@ def serve_phase(label: str, cfg, engine, prompts, kernels, tables=(), peak_limit
     the replays (:func:`replay_launches`); every kernel in ``kernels`` must
     have launched, no variant may be captured after warmup, and the peak
     memory stays under ``peak_limit`` (``kernel_free``: the decode step may
-    run none of the port's kernels, :func:`replay_launches`). Then one
+    run none of the port's kernels, :func:`replay_launches`; every flash
+    attention launch on the path ``flash_plan`` gives the model's head dim,
+    :func:`check_paths`). Then one
     prefill's and one decode step's logits against the plain versions, and
     one profiled prefill, replayed and eager. Returns (numbers, outputs)."""
     import torch
     from repro_torch.core import execution
     from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention import ops as fa
 
     free_memory()
     torch.cuda.reset_peak_memory_stats()
@@ -1502,7 +1558,7 @@ def serve_phase(label: str, cfg, engine, prompts, kernels, tables=(), peak_limit
           f"({engine.ctx.fallbacks}, {engine.gen.fallbacks}) overflowed layers "
           f"({engine.ctx.overflow_layers}, {engine.gen.overflow_layers}) launches "
           f"{json.dumps(launches)} paths of #2-#7 {json.dumps(paths)}")
-    check_paths(label, paths)
+    check_paths(label, paths, fa.flash_plan(engine.gen.model.compute_dtype, cfg.head_dim).path)
     if captures(engine) != warm:
         fail(f"{label}: serving captured new variants: {warm} after warmup, "
              f"{captures(engine)} after the serve")
@@ -3964,6 +4020,396 @@ def fp8_phase(cfg, prompts, modes: dict, r1: dict) -> dict:
             "launches": dict(launched), "seconds": time.perf_counter() - t_phase}
 
 
+# --------------------------------------------------------------------------
+# Phase 18: RecurrentGemma-2B, xLSTM-350M and Grok-1 at full width.
+# --------------------------------------------------------------------------
+def arch_kernel_cases() -> list:
+    """Phase 3's cases at phase 18's per-rank shapes: #7 at head dim 256
+    (RecurrentGemma's local attention: 10 heads, 1 kv head, window 2048)
+    over the first and the last 256-token shard of a 1024-token prompt, and
+    #2 / #3 at Grok-1's expert shapes (E 8 over G' 4: 2 resident and 6
+    remote experts of 6144 x 32768): the prefill's and decode's capacity,
+    and the demand decode's fetched bank (3 peers x 2 rows, the auto budget
+    clamped to a peer's 2 experts)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.budget import demand_budget_rows
+    from repro_torch.models.moe import capacity_for
+
+    rg, grok = get_arch("recurrentgemma-2b"), get_arch("grok-1-314b")
+    sq = RG_PROMPT // G
+    att = dict(b=1, sq=sq, h=rg.num_heads, kh=rg.num_kv_heads, hd=rg.head_dim, window=rg.window)
+    cases = [("flash_attention", "recurrentgemma_1024_first", dict(att, sk=sq, q_offset=0)),
+             ("flash_attention", "recurrentgemma_1024_last",
+              dict(att, sk=RG_PROMPT, q_offset=RG_PROMPT - sq))]
+    e, k, d, fe = grok.moe.num_experts, grok.moe.top_k, grok.d_model, grok.moe.d_ff
+    for phase, t in (("grok1_prefill", GROK_PROMPT // G), ("grok1_decode", MAX_BATCH)):
+        cases.append(("split_grouped_swiglu", phase,
+                      dict(c=capacity_for(t, e, k, 1.25), d=d, f=fe, e=e, e_l=e // G)))
+    e_f = (G - 1) * demand_budget_rows(MAX_BATCH * k, e, e // G)
+    cases.append(("split_grouped_swiglu_demand", "grok1_decode",
+                  dict(c=capacity_for(MAX_BATCH, e, k, 1.25), d=d, f=fe, e_l=e // G, e_f=e_f)))
+    return cases
+
+
+def whole_params(params: list, model, whole) -> list:
+    """The parameter list of ``whole``, the same architecture on mesh (1, 1),
+    from ``model``'s per-rank trees (mesh (1, G)): the embedding's vocab
+    shards and the dense FFN's shards concatenated in rank order (the
+    canonical order), every replicated leaf shared. For the dense and
+    recurrent families only (RecurrentGemma: attention unsharded)."""
+    import torch
+
+    geom = model.geom
+    if geom.attn_axes or geom.moe_placement is not None or \
+            geom.vocab_pad != whole.geom.vocab_pad:
+        fail("whole_params: sharded attention, experts or another vocab padding")
+    ranks = params[:geom.model_size]
+    out = {"embed": torch.cat([p["embed"] for p in ranks]), "final_norm": ranks[0]["final_norm"],
+           "layers": {}}
+    if "lm_head" in ranks[0]:
+        out["lm_head"] = torch.cat([p["lm_head"] for p in ranks], dim=-1)
+    for group in model.plan:
+        gd = {}
+        for key, lp in ranks[0]["layers"][group.name].items():
+            tree = dict(lp)
+            if "ffn" in lp:
+                parts = [p["layers"][group.name][key]["ffn"] for p in ranks]
+                tree["ffn"] = {"w_gate": torch.cat([t["w_gate"] for t in parts], dim=-1),
+                               "w_up": torch.cat([t["w_up"] for t in parts], dim=-1),
+                               "w_down": torch.cat([t["w_down"] for t in parts], dim=-2)}
+            gd[key] = tree
+        out["layers"][group.name] = gd
+    return [out]
+
+
+def continuation_check(label: str, cfg, engine, model, prompt) -> dict:
+    """The (1, G) prefill's captured state handed to decode against the same
+    prompt prefilled unsharded on (1, 1), on the same weights on the card:
+    the engine's context server prefills ``prompt`` (its sequence sharded
+    over the G ranks, the RG-LRU fix-up capturing the fixed-up state) and
+    its generation server decodes RG_CONTINUE greedy steps from it
+    (graph replays); a (1, 1) model with the merged weights
+    (:func:`whole_params`) prefills and decodes eagerly. The first token and
+    every decoded token must be equal, and each step's logits within
+    LOGIT_TOL norm-wise."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import execution, strategy
+    from repro_torch.models.transformer import build_model
+
+    v = cfg.vocab_size
+    gen, params = engine.gen, engine.params
+    first, state = engine.ctx.prefill(params, prompt)
+    slot = gen.free_slots()[0]
+    gen.admit(slot, 10_000, first, state)
+    sharded = {"tokens": [first], "logits": []}
+    for _ in range(RG_CONTINUE):
+        tokens = gen.decode_step(params)
+        sharded["logits"].append(gen.step.outputs["logits"][slot, :v].float().clone())
+        sharded["tokens"].append(int(tokens[slot]))
+    gen.release(slot)
+    sizes1 = {"data": 1, "model": 1}
+    whole = build_model(cfg, sizes1, dtype=model.dtype, device="cuda")  # nothing sharded
+    params1 = whole_params(params, model, whole)
+    cache = engine.ctx.cache_len
+    with in_pool(engine):
+        xp = strategy.make_execution_plan(whole, InputShape("p", len(prompt), 1, "prefill"),
+                                          sizes1)
+        out = execution.forward_prefill(params1, torch.as_tensor(prompt[None], device="cuda"),
+                                        execution.Ctx(model=whole, xp=xp, capture_len=cache))
+        xpd = strategy.make_execution_plan(whole, InputShape("g", cache, 1, "decode"), sizes1)
+        ref = {"tokens": [int(out["last_logits"][0].argmax())], "logits": []}
+        st, tok = out["state"], out["last_logits"][:, :].argmax(-1, keepdim=True)
+        for _ in range(RG_CONTINUE):
+            o = execution.forward_decode(params1, tok, st, execution.Ctx(model=whole, xp=xpd))
+            ref["logits"].append(o["logits"][0, :v].float().clone())
+            st, tok = o["state"], o["next_token"]
+            ref["tokens"].append(int(tok[0, 0]))
+        del out, st, o
+    print(f"{label} (1, {G}) sequence-sharded prefill + decode: {sharded['tokens']}\n"
+          f"{label} (1, 1) unsharded prefill + decode:        {ref['tokens']}")
+    if sharded["tokens"] != ref["tokens"]:
+        fail(f"{label}: the (1, {G}) prefill's captured state decodes other tokens than the "
+             "(1, 1) prefill")
+    errs = [logit_err(f"{label} decode step {i} logits, (1, {G}) vs (1, 1)", a, b)
+            for i, (a, b) in enumerate(zip(sharded["logits"], ref["logits"]))]
+    del params1, whole
+    free_memory()
+    return {"tokens": sharded["tokens"], "logit_norm_err": errs}
+
+
+def recurrentgemma_phase(rng) -> dict:
+    """RecurrentGemma-2B at full width and depth (26 layers: 18 RG-LRU, 8
+    local attention at head dim 256), mesh (1, G), graphs: RG_PROMPT-token
+    prompts (the sequence sharded, 256 tokens a rank), served as in 5
+    (:func:`serve_phase`: launches of #6 and #7 measured through the
+    replays, #7 on its hd-256 mma path, no capture after warmup, prefill
+    and decode logits against the plain versions), then the (1, G) against
+    (1, 1) continuation (:func:`continuation_check`)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import SERVE_GEOMETRY, build_engine
+
+    cfg = get_arch("recurrentgemma-2b")
+    free_memory()
+    prompts = [rng.integers(0, cfg.vocab_size, RG_PROMPT) for _ in range(N_REQUESTS)]
+    t0 = time.perf_counter()
+    eng, model = build_engine(
+        cfg, mesh_shape=(1, G), prefill_len=RG_PROMPT, cache_len=RG_PROMPT + OUTPUT,
+        max_batch=MAX_BATCH, dtype=torch.bfloat16, device="cuda", seed=0,
+        geom_kwargs=SERVE_GEOMETRY[cfg.name])
+    torch.cuda.synchronize()
+    kinds = collections.Counter(s.kind.value for g in model.plan for s in g.sigs
+                                for _ in range(g.n_cycles))
+    print(f"model: {cfg.name} d_model {cfg.d_model} layers {cfg.num_layers} {dict(kinds)} "
+          f"params {cfg.param_count() / 1e9:.3f} B attn_shards {model.geom.attn_shards} "
+          f"ffn_shards {model.geom.ffn_shards}; init {time.perf_counter() - t0:.1f} s, weights "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    label = f"{cfg.name} {RG_PROMPT}"
+    row, _ = serve_phase(label, cfg, eng, prompts, RG_KERNELS)
+    row["continuation"] = continuation_check(label, cfg, eng, model, prompts[0])
+    del eng, model
+    free_memory()
+    return row
+
+
+def map_leaves(params: list, fn) -> list:
+    """The per-rank trees (dicts and lists) with ``fn`` applied to every
+    leaf, a leaf the ranks share mapped once (the new trees share it too)."""
+    memo: dict = {}
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        if id(t) not in memo:
+            memo[id(t)] = fn(t)
+        return memo[id(t)]
+
+    return [walk(p) for p in params]
+
+
+def xlstm_phase(rng) -> dict:
+    """xLSTM-350M at full width and depth (24 layers: 18 mLSTM, 6 sLSTM;
+    no attention, no FFN: no kernel of the port on its path), mesh (1, G)
+    (the ranks replicate the rows: the JAX package never shards an xLSTM
+    sequence), XLSTM_PROMPT-token prompts, 4 requests of OUTPUT tokens:
+    through graphs (no capture after warmup), and the first XLSTM_EAGER
+    eagerly: the same tokens. One prefill and one decode step (of the
+    served first token) in bf16 against the same weights in fp32 on the
+    card (XLSTM_BF16_TOL, with its control: a decode step from a zeroed
+    state must fail it), and the fp32 run on the card against the same
+    fp32 run on the CPU (FP32_LOGIT_TOL). The prefill's wall time, eager
+    and replayed, is printed: the recurrences are a loop over tokens."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import execution, strategy
+    from repro_torch.kernels import registry
+    from repro_torch.launch.serve import SERVE_GEOMETRY, build_engine
+    from repro_torch.models.transformer import build_model
+
+    cfg = get_arch("xlstm-350m")
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    geom = SERVE_GEOMETRY[cfg.name]
+    prompts = [rng.integers(0, cfg.vocab_size, XLSTM_PROMPT) for _ in range(N_REQUESTS)]
+    kw = dict(mesh_shape=(1, G), prefill_len=XLSTM_PROMPT, cache_len=XLSTM_PROMPT + OUTPUT,
+              max_batch=MAX_BATCH, dtype=torch.bfloat16, device="cuda", geom_kwargs=geom)
+    eng, model = build_engine(cfg, seed=0, **kw)
+    label = f"{cfg.name} {XLSTM_PROMPT}"
+    t0 = time.perf_counter()
+    eng.warmup()
+    warm = captures(eng)
+    warm_s = time.perf_counter() - t0
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    outputs = serve(eng, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    summary = eng.metrics.summary(horizon=eng.horizon())
+    counts = {k: v for k, v in registry.launch_counts().items() if v}
+    if captures(eng) != warm:
+        fail(f"{label}: serving captured new variants: {warm} after warmup, {captures(eng)}")
+    if summary["completed"] != len(prompts):
+        fail(f"{label}: {summary['completed']} of {len(prompts)} requests completed")
+    for rid, toks in outputs.items():
+        if len(toks) != OUTPUT or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"{label} request {rid}: bad tokens {toks}")
+    # the eager serve of the first two requests (an eager prefill costs ~2.5 s)
+    eager, _ = build_engine(cfg, params=eng.params, graphs=False, **kw)
+    eager_outputs = serve(eager, prompts[:XLSTM_EAGER])
+    eager_ttft = eager.metrics.summary(horizon=eager.horizon())["ttft_p50_s"]
+    print(f"{label}: graph tokens {outputs}\n{label}: eager tokens {eager_outputs}")
+    if eager_outputs != {i: outputs[i] for i in range(XLSTM_EAGER)}:
+        fail(f"{label}: the eager serve gave other tokens than the graph serve")
+    del eager
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def zeroed(state):
+        """The state with every layer's tensors zero: the prefill's dropped."""
+        return {**state, "layers": map_leaves([state["layers"]], torch.zeros_like)[0]}
+
+    v, nxt = cfg.vocab_size, outputs[0][0]  # every run decodes the served first token
+    # the served path, replayed: prompts[0]'s prefill, then one decode step of
+    # nxt from its captured state and one from a zeroed state
+    gen, params = eng.gen, eng.params
+    (_, state), prefill_replay_s = timed(lambda: eng.ctx.prefill(params, prompts[0]))
+    bf = [eng.ctx.step.outputs["last_logits"][0, :v].float().cpu()]
+    slot = gen.free_slots()[0]
+    for st in (state, zeroed(state)):
+        gen.admit(slot, 10_000, nxt, st)
+        gen.decode_step(params)
+        bf.append(gen.step.outputs["logits"][slot, :v].float().cpu())
+    gen.release(slot)
+    del state
+    sizes = {"data": 1, "model": G}
+    cache_len = XLSTM_PROMPT + OUTPUT
+
+    def run(m, params, device):
+        """The same prefill (timed) and decode step, eagerly, on ``m``."""
+        xp = strategy.make_execution_plan(m, InputShape("p", XLSTM_PROMPT, 1, "prefill"), sizes)
+        toks = torch.as_tensor(prompts[0][None], device=device)
+        out, s = timed(lambda: execution.forward_prefill(
+            params, toks, execution.Ctx(model=m, xp=xp, capture_len=cache_len)))
+        xpd = strategy.make_execution_plan(m, InputShape("g", cache_len, 1, "decode"), sizes)
+        dec = execution.forward_decode(params, torch.tensor([[nxt]], device=device),
+                                       out["state"], execution.Ctx(model=m, xp=xpd))
+        return [out["last_logits"][0, :v].float().cpu(), dec["logits"][0, :v].float().cpu()], s
+
+    with in_pool(eng):
+        m32 = build_model(cfg, sizes, dtype=torch.float32, device="cuda", **geom)
+        p32 = map_leaves(eng.params, lambda t: t.float())
+        f32, prefill_fp32_s = run(m32, p32, "cuda")
+    del p32
+    m_cpu = build_model(cfg, sizes, dtype=torch.float32, device="cpu", **geom)
+    p_cpu = map_leaves(eng.params, lambda t: t.cpu().float())
+    t0 = time.perf_counter()
+    cpu, _ = run(m_cpu, p_cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    del p_cpu
+    errs = {}
+    for i, step in enumerate(("prefill", "decode")):
+        errs[f"{step}_bf16_vs_fp32"] = logit_err(
+            f"{label} {step} logits, bf16 served (graph) vs fp32 (card)", bf[i], f32[i],
+            XLSTM_BF16_TOL)
+        e32 = ((f32[i] - cpu[i]).abs().max() / cpu[i].abs().max()).item()
+        print(f"{label} {step} logits fp32 card vs fp32 CPU: max err / max|ref| {e32:.3e} "
+              f"(tol {FP32_LOGIT_TOL})")
+        if e32 > FP32_LOGIT_TOL:
+            fail(f"{label} {step}: fp32 logits on the card and the CPU disagree: {e32:.3e}")
+        errs[f"{step}_fp32_card_vs_cpu"] = e32
+    # the control: a decode step that lost the prefill's state must fail the limit
+    ctl = (torch.linalg.vector_norm(bf[2] - f32[1]) / torch.linalg.vector_norm(f32[1])).item()
+    print(f"{label} control, bf16 decode step from a zeroed state vs fp32 from the prefill's: "
+          f"norm-wise rel err {ctl:.3e} (must exceed {XLSTM_BF16_TOL})")
+    if not ctl > XLSTM_BF16_TOL:
+        fail(f"{label}: XLSTM_BF16_TOL {XLSTM_BF16_TOL} passes a decode step whose state was "
+             f"dropped ({ctl:.3e})")
+    errs["control_zeroed_state_bf16_vs_fp32"] = ctl
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label} ({card_line()}): serve {json.dumps(summary)} wall_s {wall:.3f} warmup_s "
+          f"{warm_s:.2f} captures {list(warm)} prefill of {XLSTM_PROMPT} tokens: graph replay "
+          f"{prefill_replay_s:.3f} s, eager serve TTFT p50 {eager_ttft:.3f} s, eager fp32 "
+          f"{prefill_fp32_s:.3f} s (the recurrences loop over tokens); fp32 CPU prefill + decode "
+          f"step {cpu_s:.2f} s; launches of the port's kernels {counts} (none on this path); "
+          f"peak {peak / 1e9:.2f} GB")
+    del eng, model
+    free_memory()
+    return {"summary": summary, "wall_s": wall, "warmup_s": warm_s, "captures": list(warm),
+            "eager_ttft_p50_s": eager_ttft, "prefill_replay_s": prefill_replay_s,
+            "prefill_fp32_eager_s": prefill_fp32_s, "logit_err": errs, "peak_gb": peak / 1e9,
+            "launches": counts}
+
+
+def grok_phase(rng) -> dict:
+    """Grok-1 at full width, GROK_LAYERS of its 64 layers (8 experts of
+    6144 x 32768, top-2, every layer MoE), mesh (1, G), graphs:
+    GROK_PROMPT-token prompts served all-fetch as in 5 (launches of #2,
+    #4, #5 and #7 measured through the replays, prefill and decode logits
+    against the plain versions), then on the same weights a demand-fetch
+    engine (#3 through its decode replays): the same tokens, and one decode
+    step from the all-fetch serve's final state bitwise the all-fetch step.
+    Landed GB per decode step and the replay ms of each are printed."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import registry
+    from repro_torch.launch.serve import SERVE_GEOMETRY, build_engine
+
+    cfg = dataclasses.replace(get_arch("grok-1-314b"), num_layers=GROK_LAYERS)
+    free_memory()
+    reckoned = cfg.param_count() * 2 / 1e9
+    prompts = [rng.integers(0, cfg.vocab_size, GROK_PROMPT) for _ in range(N_REQUESTS)]
+    kw = dict(mesh_shape=(1, G), prefill_len=GROK_PROMPT, cache_len=GROK_PROMPT + OUTPUT,
+              max_batch=MAX_BATCH, dtype=torch.bfloat16, device="cuda",
+              geom_kwargs=SERVE_GEOMETRY["grok-1-314b"])
+    t0 = time.perf_counter()
+    eng, model = build_engine(cfg, seed=0, **kw)
+    torch.cuda.synchronize()
+    print(f"model: {cfg.name} layers {cfg.num_layers} experts {cfg.moe.num_experts} top_k "
+          f"{cfg.moe.top_k} expert d_ff {cfg.moe.d_ff} attn_shards {model.geom.attn_shards} "
+          f"kv_shard {model.geom.kv_shard}; weights reckoned {reckoned:.2f} GB (bf16), allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; init {time.perf_counter() - t0:.1f} s")
+    label = f"{cfg.name} {GROK_PROMPT}"
+    row, outputs = serve_phase(label, cfg, eng, prompts, GROK_KERNELS)
+    snap = snapshot(eng.gen)
+    ref_step = snapshot_step(f"{label} all-fetch graph", eng, snap)
+    params = eng.params
+    del eng, model
+    free_memory()
+    dem, _ = build_engine(cfg, params=params, expert_fetch="demand", **kw)
+    dem.warmup()
+    warm = captures(dem)
+    registry.reset_launch_counts()
+    replays = replay_counts(dem)
+    dem_outputs = serve(dem, prompts)
+    launches = replay_launches(f"{label} demand", dem, replays)
+    check_launches(f"{label} demand", dem, launches, registry.launch_counts())
+    if captures(dem) != warm:
+        fail(f"{label} demand: serving captured new variants")
+    if dem_outputs != outputs:
+        fail(f"{label}: the demand serve gave other tokens than the all-fetch serve")
+    if launches["split_grouped_swiglu_demand"] <= 0:
+        fail(f"{label} demand: the demand kernel never launched")
+    step = snapshot_step(f"{label} demand graph", dem, snap)
+    bitwise = torch.equal(step["logits"], ref_step["logits"])
+    print(f"{label} ({card_line()}): demand tokens equal the all-fetch tokens; one decode step "
+          f"bitwise {bitwise}; landed GB per decode step all {ref_step['landed_gb']:.3f} demand "
+          f"{step['landed_gb']:.3f}; decode replay ms all {ref_step['replay_ms']:.3f} demand "
+          f"{step['replay_ms']:.3f}; demand launches {json.dumps(launches)}")
+    if not bitwise:
+        fail(f"{label}: the demand decode step is not bitwise the all-fetch step")
+    row.update(reckoned_gb=reckoned, demand_launches=launches,
+               landed_gb={"all": ref_step["landed_gb"], "demand": step["landed_gb"]},
+               replay_ms={"all": ref_step["replay_ms"], "demand": step["replay_ms"]},
+               demand_bitwise=bitwise)
+    del dem, params, snap
+    free_memory()
+    return row
+
+
+def archs_phase(rng) -> dict:
+    """Phase 18: RecurrentGemma-2B, xLSTM-350M and Grok-1, each with the
+    launch counts set to 0 just before its serve and read just after."""
+    out, seconds = {}, {}
+    for name, fn in (("recurrentgemma", recurrentgemma_phase), ("xlstm", xlstm_phase),
+                     ("grok", grok_phase)):
+        t0 = time.perf_counter()
+        out[name] = fn(rng)
+        seconds[name] = time.perf_counter() - t0
+    out["seconds"] = sum(seconds.values())
+    print(f"phase 18 (RecurrentGemma-2B, xLSTM-350M, Grok-1): {out['seconds']:.1f} s "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in seconds.items())})")
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"the port's sources are not beside this script ({SRC}/repro_torch missing)")
@@ -3980,11 +4426,16 @@ def main() -> None:
     from repro_torch.launch.serve import build_engine
 
     t_start = time.perf_counter()
+    laps: list = []  # (section, its start): the sections' seconds, printed at the end
+
+    def lap(name: str) -> None:
+        laps.append((name, time.perf_counter()))
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     # ---- build ----------------------------------------------------------
+    lap("build")
     t0 = time.perf_counter()
     report = build.build_all()
     print(f"build: {len(report)} kernel libraries compiled in {time.perf_counter() - t0:.1f} s "
@@ -3999,12 +4450,14 @@ def main() -> None:
         build.load(name)
 
     # ---- kernel checks --------------------------------------------------
+    lap("kernel checks")
     cfg = r1_two_layers()
     gen = torch.Generator(device="cuda").manual_seed(0)
     results: dict = {}
     gemma_cfg = gemma_six_layers()
     cases = kernel_cases(cfg, gemma_cfg) + [("flash_attention", phase, shp)
                                             for phase, shp in flash_cases(cfg, gemma_cfg)]
+    cases += arch_kernel_cases()
     for name, phase, shp in cases:
         if name == "flash_attention":
             row = run_flash_case(shp, gen)
@@ -4031,6 +4484,7 @@ def main() -> None:
     gemm_launches = drive_split_gemm(cfg, gen)
 
     # ---- serve ----------------------------------------------------------
+    lap("serve")
     free_memory()
     rng = np.random.default_rng(0)
     # two pow2 prefill buckets: 1024 and 512 tokens, in turns
@@ -4062,6 +4516,7 @@ def main() -> None:
     free_memory()
 
     # ---- the whole path in fp32 at reduced width: kernels vs plain ---------
+    lap("the whole path in fp32 at reduced width")
     from repro_torch.configs import reduced_variant
 
     small_cfg = reduced_variant(cfg)
@@ -4080,11 +4535,13 @@ def main() -> None:
     del small, sk, st
 
     # ---- every fetch mode on the same weights, graphs and eager -----------
+    lap("every fetch mode on the same weights, graphs and eager")
     modes = serve_fetch_modes(cfg, params, prompts, outputs, r1, snap, ref_step)
     demand_launches = sum(m["graph"]["demand_launches_measured"]
                           for mode, m in modes.items() if mode in dict(FETCH_MODES))
 
     # ---- DeepSeek-R1 at the paper's input length, on the same weights ------
+    lap("DeepSeek-R1 at the paper's input length, on the same weights")
     long_prompts = [rng.integers(0, cfg.vocab_size, LONG_PROMPT) for _ in range(LONG_REQUESTS)]
     long_eng, _ = build_engine(
         cfg, mesh_shape=(1, G), prefill_len=LONG_PROMPT, cache_len=LONG_PROMPT + OUTPUT,
@@ -4097,10 +4554,12 @@ def main() -> None:
     free_memory()
 
     # ---- DEP: a DWDP context server feeding a DEP generation server ---------
+    lap("DEP")
     dep = dep_phase(cfg, params, prompts)
     free_memory()
 
     # ---- mesh (2, 4): batch-sharded prefill, serving on two data replicas ---
+    lap("mesh (2, 4)")
     batch_sharded = batch_sharded_prefill(cfg, params, np.random.default_rng(24))
     context_drops = context_prefill_drops(cfg, params, prompts[0])
     ref14 = {"dep": headline(dep["summary"], dep["replay_ms"], dep["landed_gb"], dep["peak_gb"],
@@ -4113,22 +4572,27 @@ def main() -> None:
     free_memory()
 
     # ---- gather policies: merged, ring transports, mixed tables -------------
+    lap("gather policies")
     policy_rows = policies_phase(cfg, params, prompts, outputs, snap, ref_step, ref_logits, r1)
 
     # ---- the roofline cost model and the auto / auto-online policies --------
+    lap("the roofline cost model and the auto / auto-online policies")
     auto_phase(cfg, params, prompts, outputs, snap, ref_logits,
                served_tables(modes, policy_rows))
 
     # ---- the validated fetch, fault injection, the degradation ladder -------
+    lap("the validated fetch, fault injection, the degradation ladder")
     fault_rows = faults_phase(cfg, params, prompts, outputs, snap, ref_logits)
 
     # ---- the cluster model: predictor replay, re-shard, model output -------
+    lap("the cluster model")
     checkpoint = checkpoint_copy(cfg, params)
     cluster = cluster_phase(cfg, params, modes["demand"]["graph"]["trace_bitmaps"],
                             modes["demand"]["graph"]["predictive_trace"]["summary"], fault_rows,
                             checkpoint)
 
     # ---- rank death on the live engine: the standby on the survivors -------
+    lap("rank death on the live engine")
     # the phase re-shards the weights in place: it takes the last references
     held = {"params": params, "source": checkpoint}
     del params, checkpoint
@@ -4136,6 +4600,7 @@ def main() -> None:
     free_memory()
 
     # ---- R1 1024 stored in e4m3: the four fetch modes through graphs -------
+    lap("R1 1024 stored in e4m3")
     fp8 = fp8_phase(cfg, prompts, modes, r1)
     rolling = {"dep": dep["rolling"]["summary"], "dwdp_all_row_local": serving["rolling"]["summary"]}
     run = {"dep": dep["summary"], "dwdp_all": modes["all"]["graph"],
@@ -4151,6 +4616,7 @@ def main() -> None:
                         "dwdp_demand": modes["demand"]["graph"]["replay_ms"]}))
 
     # ---- Gemma-3-27B: sliding-window layers, dense split kernels -----------
+    lap("Gemma-3-27B")
     gemma_prompts = [rng.integers(0, gemma_cfg.vocab_size, GEMMA_PROMPT)
                      for _ in range(N_REQUESTS)]
     gemma_eng, gmodel = build_engine(
@@ -4169,7 +4635,13 @@ def main() -> None:
                                          gemma_prompts)
     del gemma_eng, gmodel
     fleet = gemma_fleet(gemma_cfg)
+    free_memory()
 
+    # ---- RecurrentGemma-2B, xLSTM-350M, Grok-1 at full width ----------------
+    lap("RecurrentGemma-2B, xLSTM-350M, Grok-1 at full width")
+    archs = archs_phase(rng)
+
+    lap("end")
     # ---- report ---------------------------------------------------------
     served = collections.Counter()
     for run in (r1, r1_long, gemma):
@@ -4215,6 +4687,10 @@ def main() -> None:
             "launches_r1_1024_faults_storm": fault_rows["storm"]["launches"][name],
             "launches_r1_1024_rank_death_standby": rank_death["launches"][name],
             "launches_r1_1024_fp8": fp8["launches"].get(name, 0),
+            "launches_recurrentgemma_1024": archs["recurrentgemma"]["launches"][name],
+            "launches_xlstm_256": archs["xlstm"]["launches"].get(name, 0),
+            "launches_grok1_1024": archs["grok"]["launches"][name],
+            "launches_grok1_1024_demand": archs["grok"]["demand_launches"][name],
             "max_abs_err": dec["max_abs_err"],
             "max_rel_err": dec["max_rel_err"],
             "ms": dec["ms"],
@@ -4259,6 +4735,8 @@ def main() -> None:
               "r1_1024_rank_death": {k: rank_death[k] for k in (
                   "report", "seconds", "summary_before", "summary_after",
                   "summary_standby_alone", "model_seconds")}}))
+    print("section seconds " + json.dumps({name: round(end - start, 1) for (name, start), (_, end)
+                                           in zip(laps, laps[1:])}))
     print(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)

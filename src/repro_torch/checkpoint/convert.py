@@ -6,6 +6,8 @@ and returns the port's per-logical-rank trees, following the JAX
 package's partition specs (``transformer.py:332-452``): ``embed`` split
 by rows over ``model``, ``lm_head`` by columns, attention / FFN / expert
 stacks along their leading shard axis, router and norms replicated,
+the recurrent (``rec``: RG-LRU) and cell (``cell``: mLSTM / sLSTM) trees
+replicated too (``a_param`` kept in float32, as the JAX package keeps it),
 scan groups keeping their leading cycle axis. On a mesh with data
 replicas the JAX tree is the one of the ``(1, G)`` geometry (the weights
 are sharded over ``model`` only) and rank ``d * G + m`` shares model rank
@@ -22,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.base import BlockKind
 from repro_torch.core.prefetch import attach_checksum_tables
 from repro_torch.kernels._launch import FP8_DTYPES
 from repro_torch.models.transformer import Model, ffn_pad, replicate_over_data, split_leading
@@ -119,16 +122,25 @@ def from_jax_params(params: dict, model: Model, device=None) -> list[dict]:
             lp = params["layers"][group.name][f"pos{j}"]
             trees = [{} for _ in range(n)]
             norm1 = t(lp["norm1"])
-            wq = np.asarray(lp["attn"]["wq"])
-            if wq.shape[1 if scan else 0] != geom.attn_shards:
-                raise ValueError(
-                    f"attention stack {wq.shape} != attn_shards {geom.attn_shards}: build "
-                    "the JAX model with the same geometry overrides"
-                )
-            attn = {k: split(lp["attn"][k], geom.attn_axes, scan) for k in ("wq", "wk", "wv", "wo")}
             for r in range(n):
                 trees[r]["norm1"] = norm1
-                trees[r]["attn"] = {k: attn[k][r] for k in attn}
+            if "attn" in lp:
+                wq = np.asarray(lp["attn"]["wq"])
+                if wq.shape[1 if scan else 0] != geom.attn_shards:
+                    raise ValueError(
+                        f"attention stack {wq.shape} != attn_shards {geom.attn_shards}: build "
+                        "the JAX model with the same geometry overrides"
+                    )
+                attn = {k: split(lp["attn"][k], geom.attn_axes, scan)
+                        for k in ("wq", "wk", "wv", "wo")}
+                for r in range(n):
+                    trees[r]["attn"] = {k: attn[k][r] for k in attn}
+            else:  # rec / cell: replicated at serve time, one tree for every rank
+                key = "rec" if "rec" in lp else "cell"
+                mixer = {k: _tensor(v, torch.float32, dev) if k == "a_param" else t(v)
+                         for k, v in lp[key].items()}
+                for r in range(n):
+                    trees[r][key] = mixer
             if "norm2" in lp:
                 norm2 = t(lp["norm2"])
                 for r in range(n):
@@ -234,13 +246,14 @@ def _specs(model: Model) -> tuple:
         lead = 1 if group.scan else 0
         for j, sig in enumerate(group.sigs):
             base = ("layers", group.name, f"pos{j}")
-            specs[base + ("attn", "wq")] = (lead + 2, a, blocks_of(a), cfg.q_dim // a,
-                                            cfg.q_dim, lead, 1)
-            specs[base + ("attn", "wo")] = (lead + 1, a, blocks_of(a), cfg.q_dim // a,
-                                            cfg.q_dim, lead, 1)
-            for leaf in ("wk", "wv"):
-                specs[base + ("attn", leaf)] = (lead + 2, ksd, kv_table, cfg.kv_dim // ksd,
-                                                cfg.kv_dim, lead, 1)
+            if sig.kind in (BlockKind.GLOBAL_ATTN, BlockKind.LOCAL_ATTN):
+                specs[base + ("attn", "wq")] = (lead + 2, a, blocks_of(a), cfg.q_dim // a,
+                                                cfg.q_dim, lead, 1)
+                specs[base + ("attn", "wo")] = (lead + 1, a, blocks_of(a), cfg.q_dim // a,
+                                                cfg.q_dim, lead, 1)
+                for leaf in ("wk", "wv"):
+                    specs[base + ("attn", leaf)] = (lead + 2, ksd, kv_table,
+                                                    cfg.kv_dim // ksd, cfg.kv_dim, lead, 1)
             ffn = None
             if sig.is_moe:
                 pl = geom.moe_placement

@@ -19,9 +19,9 @@ class BlockKind(str, enum.Enum):
 
     GLOBAL_ATTN = "global_attn"    # full causal attention
     LOCAL_ATTN = "local_attn"      # sliding-window causal attention
-    RECURRENT = "recurrent"        # RG-LRU linear recurrence (not ported yet)
-    MLSTM = "mlstm"                # matrix-memory LSTM (not ported yet)
-    SLSTM = "slstm"                # scalar-memory LSTM (not ported yet)
+    RECURRENT = "recurrent"        # RG-LRU linear recurrence (RecurrentGemma)
+    MLSTM = "mlstm"                # matrix-memory LSTM (xLSTM)
+    SLSTM = "slstm"                # scalar-memory LSTM (xLSTM)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,11 +157,22 @@ class InputShape:
     name: str
     seq_len: int
     global_batch: int
-    phase: str  # "prefill" | "decode" (training is not ported yet)
+    phase: str  # "train" | "prefill" | "decode" (training is not ported yet)
 
     @property
     def tokens(self) -> int:
         return self.seq_len * self.global_batch
+
+
+SHAPES: dict[str, InputShape] = {
+    s.name: s
+    for s in (
+        InputShape("train_4k", 4_096, 256, "train"),
+        InputShape("prefill_32k", 32_768, 32, "prefill"),
+        InputShape("decode_32k", 32_768, 128, "decode"),
+        InputShape("long_500k", 524_288, 1, "decode"),
+    )
+}
 
 
 def reduced_variant(cfg: ArchConfig) -> ArchConfig:

@@ -15,7 +15,13 @@ deterministic in-process form of its ``lax`` counterpart:
   slices along the scattered dimension;
 - ``all_to_all`` (tiled) gives every rank the ``j``-th block of each peer
   of its subgroup, concatenated in the peers' order: on the card, device
-  copies between the logical ranks' buffers.
+  copies between the logical ranks' buffers;
+- ``shift_forward`` is the ``lax.ppermute`` that sends member ``i`` of a
+  sequence group to member ``i + 1`` (member 0 receives zeros), and
+  ``gather_stack`` the untiled ``lax.all_gather`` over one: the RG-LRU
+  halo and the gather of its shards' last decays and states
+  (``execution._rec_layer``). Both are device copies with no host read, so
+  a prefill that runs them can be captured as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -52,3 +58,17 @@ def all_to_all(xs: list, placement: Placement, *, split_dim: int, concat_dim: in
         blocks = [xs[base + q].chunk(g, dim=split_dim)[p] for q in range(g)]
         out.append(torch.cat(blocks, dim=concat_dim))
     return out
+
+
+def shift_forward(xs: list) -> list:
+    """``lax.ppermute`` with the pairs ``(i, i + 1)`` over a group in order:
+    member ``i + 1`` receives a copy of member ``i``'s tensor, member 0
+    zeros (the last member's tensor goes nowhere)."""
+    return [torch.zeros_like(xs[0])] + [x.clone() for x in xs[:-1]]
+
+
+def gather_stack(xs: list) -> torch.Tensor:
+    """``lax.all_gather`` (untiled) over a group: the members' tensors
+    stacked along a new leading axis, in group order (one tensor every
+    member reads)."""
+    return torch.stack(xs)

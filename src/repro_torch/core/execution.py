@@ -92,6 +92,16 @@ the table built once per weight set, repairs bad rows through the
 correction round or the full gather (its flag joins the overflow flag)
 and reports ``fault_stats``. Not ported yet: the ``replicated`` mode,
 rotate execution, training.
+
+Recurrent layers (RG-LRU, mLSTM, sLSTM) run under every mode: their
+weights are replicated at serve time, so nothing of theirs is gathered,
+and ranks that hold the same rows compute them once. A prefill whose
+sequence is sharded runs the RG-LRU's linear-recurrence fix-up (the conv
+halo and the gather of the shards' last decays and states,
+``collectives.shift_forward`` / ``gather_stack``) and, where it captures
+a decode state, captures the fixed-up recurrent state, which the JAX
+package's sequence-sharded branch drops. ``forward_prefill`` also takes
+input embeddings in place of token ids (the ``embeds`` input).
 """
 from __future__ import annotations
 
@@ -101,6 +111,7 @@ import math
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import counters
 from repro_torch.configs.base import BlockKind
@@ -114,8 +125,10 @@ from repro_torch.kernels._launch import FP8_DTYPES
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.cache import RingLayout, relayout
-from repro_torch.models.layers import apply_rope, rms_norm, softcap
+from repro_torch.models.layers import apply_rope, causal_conv1d, rms_norm, softcap
+from repro_torch.models.recurrent import recurrent_block, rglru_parts
 from repro_torch.models.transformer import AXIS_MODEL, Geometry, LayerSig, Model
+from repro_torch.models.xlstm import mlstm_block, slstm_block
 
 PyTree = Any
 
@@ -440,10 +453,17 @@ def check_fp8_plan(model: Model, xp: ExecutionPlan) -> None:
     mesh, every family landing as a split bank (whose kernels widen each
     fp8 tile on the chip), no validated fetch. Elsewhere the port would
     widen whole banks in plain products, or has nothing held against the
-    JAX package."""
+    JAX package. A model with recurrent or cell layers is refused too: its
+    plain products and states have no fp8 form here."""
     if model.dtype not in FP8_DTYPES:
         return
     geom = model.geom
+    recurrent = sorted({sig.kind.value for group in model.plan for sig in group.sigs
+                        if sig.kind not in (BlockKind.GLOBAL_ATTN, BlockKind.LOCAL_ATTN)})
+    if recurrent:
+        raise NotImplementedError(
+            f"an fp8-stored model ({model.dtype}) with {', '.join(recurrent)} layers: their "
+            "weights and states are not ported for fp8")
 
     def off_split_banks():
         for group in model.plan:
@@ -558,12 +578,17 @@ def gather_set(sig: LayerSig, geom: Geometry, xp: ExecutionPlan, cfg,
     demand-active MoE layer leaves it out — it is fetched inside the
     layer, after routing — unless the predictive engine runs, whose
     speculative round rides the pipeline. ``group`` is the layer's
-    group."""
+    group. The recurrent (``rec``) and cell (``cell``) weights are
+    replicated at serve time (``Geometry.cell_axes`` empty), so nothing of
+    theirs is gathered."""
     out: list[str] = []
-    if sig.kind not in (BlockKind.GLOBAL_ATTN, BlockKind.LOCAL_ATTN):
-        raise NotImplementedError(f"block kind {sig.kind} is not ported yet")
+    is_attn = sig.kind in (BlockKind.GLOBAL_ATTN, BlockKind.LOCAL_ATTN)
+    if not is_attn and geom.cell_axes:
+        raise NotImplementedError(
+            f"{sig.kind.value} weights sharded over {geom.cell_axes} (training's ZeRO "
+            "layout): the port serves them replicated")
     weights_move = xp.mode in ("dwdp", "hybrid")
-    if geom.attn_axes and not _qgather_ok(geom, xp):
+    if is_attn and geom.attn_axes and not _qgather_ok(geom, xp):
         if weights_move or not _dep_tp_ok(geom, xp, "attn"):
             _require_single_axis(geom, xp, geom.attn_axes, "attention")
             out.append("attn")
@@ -1794,6 +1819,100 @@ def _replay_ids(pred, mask_q, resid_q, q: int, g: int, local: int, sbudget: int,
 
 
 # ==========================================================================
+# Recurrent layers: RG-LRU, mLSTM, sLSTM.
+# ==========================================================================
+def _row_runs(ctx: Ctx) -> list:
+    """The ranks grouped by the activations they hold, as ``forward_prefill``
+    shares its embeddings: one block of rows (and, in a prefill, of
+    positions; a decode step's one position is every rank's). The rec /
+    cell weights are one tree every rank shares, so each run computes a
+    block once and every member takes the result, which is what each of
+    them would compute."""
+    xp, runs = ctx.xp, {}
+    for r in range(ctx.model.n_ranks):
+        runs.setdefault((xp.batch_index(r), 0 if ctx.decode else xp.seq_index(r)), []).append(r)
+    return list(runs.values())
+
+
+def _by_runs(fn, hs, trees, ctx: Ctx, lstates):
+    """``fn(h, tree, state)`` once per run of ranks (:func:`_row_runs`),
+    each member taking the run's ``(out, new_state)``; ``lstates`` None
+    runs every block from zeros. Returns ``(outs, new_states)``."""
+    outs, states = [None] * len(hs), [None] * len(hs)
+    for ranks in _row_runs(ctx):
+        r = ranks[0]
+        out, st = fn(hs[r], trees[r], None if lstates is None else lstates[r])
+        for j in ranks:
+            outs[j], states[j] = out, st
+    return outs, states
+
+
+def _rec_layer(hs, lps, ctx: Ctx, lstates):
+    """RG-LRU for every rank (``_rec_apply`` of the JAX package). Decode and
+    an unsharded prefill run ``recurrent_block`` whole. A prefill whose
+    sequence is sharded runs the linear-recurrence fix-up over each
+    sequence group: the conv halo (the last K-1 inputs of the previous
+    shard; zeros into the first), each shard's zero-state ``rglru_parts``,
+    the gather of every shard's last decay and state, the prefix chain
+    ``h0_{i+1} = a_last_i * h0_i + h_last_i`` in fp32, and ``h_loc + A *
+    h0``. With ``capture_len`` it also captures the fixed-up state, which
+    the JAX package's sequence-sharded branch drops (it returns no state):
+    the last shard's conv inputs and fixed-up last ``h``, held by every
+    rank of the group. Returns ``(outs, new_states)``."""
+    xp, n = ctx.xp, len(hs)
+    keep = ctx.decode or ctx.capture_len
+    if ctx.decode or not xp.seq_axes:
+        outs, states = _by_runs(recurrent_block, hs, [lp["rec"] for lp in lps], ctx,
+                                lstates if ctx.decode else None)
+        return outs, (states if keep else lstates)
+    outs, states = [None] * n, [None] * n
+    for grp in ctx.seq_groups():
+        rps = [lps[j]["rec"] for j in grp]
+        kw = rps[0]["conv_w"].shape[0]
+        branches = [hs[j] @ rp["w_x"] for j, rp in zip(grp, rps)]
+        if branches[0].shape[1] < kw - 1:
+            raise ValueError(f"a sequence shard of {branches[0].shape[1]} tokens is shorter "
+                             f"than the RG-LRU conv halo ({kw - 1})")
+        halos = collectives.shift_forward([br[:, -(kw - 1):] for br in branches])
+        parts = []  # (conv state, A, h_loc) per shard
+        for br, halo, rp in zip(branches, halos, rps):
+            conv, conv_state = causal_conv1d(br, rp["conv_w"], halo)
+            parts.append((conv_state, *rglru_parts(conv, rp["w_r"], rp["w_i"], rp["a_param"])))
+        a_last = collectives.gather_stack([a[:, -1] for _, a, _ in parts])  # (G, B, D)
+        h_last = collectives.gather_stack([hl[:, -1] for _, _, hl in parts])
+        h0 = torch.zeros_like(h_last[0])
+        prefixes = [h0]
+        for i in range(len(grp) - 1):
+            h0 = a_last[i] * h0 + h_last[i]
+            prefixes.append(h0)
+        for i, (j, rp) in enumerate(zip(grp, rps)):
+            _, a, hl = parts[i]
+            hfix = hl + a * prefixes[i][:, None]
+            gate = F.gelu(hs[j] @ rp["w_gate"], approximate="tanh")
+            outs[j] = (hfix.to(hs[j].dtype) * gate) @ rp["w_o"]
+        if ctx.capture_len:  # the last shard's conv inputs and its fixed-up last h
+            conv_state, a, hl = parts[-1]
+            h_end = hl[:, -1] + a[:, -1] * prefixes[-1]
+            state = {"conv": conv_state, "h": h_end.to(hs[grp[-1]].dtype)}
+            for j in grp:
+                states[j] = state
+    return outs, (states if keep else lstates)
+
+
+def _cell_layer(hs, lps, sig: LayerSig, ctx: Ctx, lstates):
+    """mLSTM / sLSTM for every rank (``_cell_apply`` of the JAX package):
+    the block over the rank's tokens, from its state in decode and from
+    zeros in prefill. The JAX package never shards an xLSTM sequence
+    (``strategy.plan_activation_sharding``). Returns ``(outs, new_states)``."""
+    if ctx.xp.seq_axes and not ctx.decode:
+        raise ValueError(f"a {sig.kind.value} layer cannot run a sequence-sharded prefill")
+    fn = mlstm_block if sig.kind == BlockKind.MLSTM else slstm_block
+    outs, states = _by_runs(fn, hs, [lp["cell"] for lp in lps], ctx,
+                            lstates if ctx.decode else None)
+    return outs, (states if ctx.decode or ctx.capture_len else lstates)
+
+
+# ==========================================================================
 # One layer, the stack.
 # ==========================================================================
 def apply_layer(xs, lps, sig: LayerSig, ctx: Ctx, lstates, pipe: BankPipeline, lid,
@@ -1806,7 +1925,11 @@ def apply_layer(xs, lps, sig: LayerSig, ctx: Ctx, lstates, pipe: BankPipeline, l
     group = lid[0]
     keys = gather_set(sig, geom, xp, cfg, group)
     hs = [rms_norm(x, lp["norm1"], eps) for x, lp in zip(xs, lps)]
-    if "attn" in keys:
+    if sig.kind == BlockKind.RECURRENT:
+        outs, new_states = _rec_layer(hs, lps, ctx, lstates)
+    elif sig.kind in (BlockKind.MLSTM, BlockKind.SLSTM):
+        outs, new_states = _cell_layer(hs, lps, sig, ctx, lstates)
+    elif "attn" in keys:
         attn_banks = pipe.get(("attn", lid))
         outs, new_states = _attn_layer(hs, lps, sig, ctx, lstates, attn_banks)
         del attn_banks
@@ -1941,8 +2064,10 @@ def _check_mesh(ctx: Ctx) -> None:
 # ==========================================================================
 @torch.no_grad()
 def forward_prefill(params: list[dict], tokens: torch.Tensor, ctx: Ctx) -> dict:
-    """tokens: (B, S) -> {"last_logits": (B, vocab_pad) f32, "overflow",
-    "overflow_layers"[, "state"]}.
+    """tokens: (B, S) token ids, or (B, S, D) input embeddings (the
+    ``embeds`` input of the JAX package's ``_input_embed``: Chameleon's and
+    MusicGen's stubbed frontends), cast to the compute dtype -> {"last_logits":
+    (B, vocab_pad) f32, "overflow", "overflow_layers"[, "state"]}.
 
     Each rank holds its block of rows (``batch_axes``) and its slice of
     the sequence (``seq_axes``, at offset ``seq_index * S / seq_shards``,
@@ -1963,7 +2088,8 @@ def forward_prefill(params: list[dict], tokens: torch.Tensor, ctx: Ctx) -> dict:
             "to feed a decode state"
         )
     n = ctx.model.n_ranks
-    b, s = tokens.shape
+    b, s = tokens.shape[:2]
+    embeds = tokens.is_floating_point()
     if b % xp.batch_shards or s % xp.seq_shards:
         raise ValueError(f"a ({b}, {s}) prompt batch must divide over the plan's "
                          f"{xp.batch_shards} batch and {xp.seq_shards} sequence shards")
@@ -1976,7 +2102,9 @@ def forward_prefill(params: list[dict], tokens: torch.Tensor, ctx: Ctx) -> dict:
         key = (xp.batch_index(r), xp.seq_index(r))
         if key not in embedded:
             rows, j = ctx.rows(r, b), key[1]
-            embedded[key] = _embed(params, tokens[rows, j * s_l:(j + 1) * s_l], ctx.model)
+            part = tokens[rows, j * s_l:(j + 1) * s_l]
+            embedded[key] = (part.to(ctx.model.compute_dtype) if embeds
+                             else _embed(params, part, ctx.model))
         xs.append(embedded[key])
     del embedded
     xs, new_states, _ = _run_stack(params, xs, ctx, None)

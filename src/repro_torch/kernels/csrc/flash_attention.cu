@@ -45,9 +45,13 @@
 // exactly zero once a visible key has set m, and every row sees its own
 // key, so skipping changes no result.
 //
-// fp32, and bf16 at hd 64, keep the earlier kernels below: 64 query rows
-// and 64-key tiles per block of 4 warps; bf16 with mma.sync m16n8k16 and a
-// two-stage cp.async ring, fp32 with FMAs and synchronous loads.
+// fp32, and bf16 at hd 64 and 256, keep the earlier kernels below: 64
+// query rows and 64-key tiles per block of 4 warps; bf16 with mma.sync
+// m16n8k16 and a two-stage cp.async ring, fp32 with FMAs and synchronous
+// loads. At hd 256 (RecurrentGemma's local attention) the bf16 kernel's
+// shared memory is 165 KB (the q tile and two stages of K and V, rows
+// padded by 16 bytes): one block per SM; its q fragments are read from
+// shared memory at each use instead of held in registers.
 #include <math.h>
 
 #include "hopper.cuh"
@@ -210,10 +214,16 @@ fa_bf16_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
   cp_async_commit();
   load_q<HD>(sm.q, qb, ldq, g.sq, q0, g.scale);
   __syncthreads();
-  uint32_t qf[HD / 16][4];
+  // The q fragments stay in registers up to hd 128; at hd 256 they would
+  // take 64 more registers beside the 128 of the accumulator, so they are
+  // read from the q tile (which stays in shared memory) at each use.
+  constexpr bool QREG = HD <= 128;
+  uint32_t qf[QREG ? HD / 16 : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks)
-    ldmatrix_x4(qf[ks], &sm.q[warp * 16 + (lane % 16)][ks * 16 + (lane / 16) * 8]);
+    for (int ks = 0; ks < HD / 16; ++ks)
+      ldmatrix_x4(qf[ks], &sm.q[warp * 16 + (lane % 16)][ks * 16 + (lane / 16) * 8]);
+  }
 
   float o[HD / 8][4];
 #pragma unroll
@@ -239,13 +249,20 @@ fa_bf16_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
       for (int r = 0; r < 4; ++r) s[j][r] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < HD / 16; ++ks) {
+      uint32_t a[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[r] = qf[ks][r];
+      } else {
+        ldmatrix_x4(a, &sm.q[warp * 16 + (lane % 16)][ks * 16 + (lane / 16) * 8]);
+      }
 #pragma unroll
       for (int jp = 0; jp < BKV / 16; ++jp) {
         uint32_t b[4];
         ldmatrix_x4(b, &sm.k[st][jp * 16 + (lane % 8) + (lane / 16) * 8]
                            [ks * 16 + ((lane / 8) % 2) * 8]);
-        mma_bf16(s[2 * jp], qf[ks], b[0], b[1]);
-        mma_bf16(s[2 * jp + 1], qf[ks], b[2], b[3]);
+        mma_bf16(s[2 * jp], a, b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
       }
     }
     if (!tile_full(g, q0, q1, k0)) {
@@ -749,7 +766,7 @@ int launch(Kern kern, const void* q, const void* k, const void* v, void* out, in
 // dtype codes shared with the Python wrapper: 0 = float32, 1 = bfloat16.
 // The plan (ops.py flash_plan): path 1 = the Hopper kernel (bf16, hd 128)
 // with that many ring stages; path 0 = the earlier kernels (fp32 at hd 64 or 128,
-// bf16 at hd 64).
+// bf16 at hd 64 or 256).
 // q, k, v and out must be 16-byte aligned; the wrapper checks shapes,
 // types and layout.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out, int b,
@@ -767,6 +784,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
     if (hd == 64)
       return fa::launch<fa::BfSmem<64>, decltype(&fa::fa_bf16_kernel<64>), fa::bf16>(
           fa::fa_bf16_kernel<64>, q, k, v, out, b, g, st);
+    if (hd == 256)
+      return fa::launch<fa::BfSmem<256>, decltype(&fa::fa_bf16_kernel<256>), fa::bf16>(
+          fa::fa_bf16_kernel<256>, q, k, v, out, b, g, st);
   } else if (dtype == 0) {
     if (hd == 64)
       return fa::launch<fa::F32Smem<64>, decltype(&fa::fa_f32_kernel<64>), float>(

@@ -12,10 +12,11 @@ out like q; query head ``h`` reads kv head ``h // (H // Kh)``; query row
 - ``"torch"``: the plain version on any device.
 
 On the card each launch runs the plan ``flash_plan`` picks from the
-shapes: "wgmma" (bf16 at hd 128, every launch of the serving path: TMA-fed
-K/V tiles, wgmma, 128 query rows and 128-key tiles a block) or "mma"
-(fp32, and bf16 at hd 64: the earlier mma.sync / FMA kernels; bf16 at hd
-128 has no "mma" kernel).
+shapes: "wgmma" (bf16 at hd 128, the launches of every model but
+RecurrentGemma: TMA-fed K/V tiles, wgmma, 128 query rows and 128-key
+tiles a block) or "mma" (fp32, and bf16 at hd 64 and 256: the earlier
+mma.sync / FMA kernels, 64 query rows and 64-key tiles; bf16 at hd 128
+has no "mma" kernel, fp32 at hd 256 none at all).
 
 The plain version, ``flash_attention_torch`` (online softmax over
 512-key blocks, every block visited and masked), is also the port's
@@ -37,8 +38,8 @@ from repro_torch.kernels.split_gemm.dense import SMEM
 NEG_INF = -1e30
 
 FLASH_ATTENTION = CudaKernel("flash_attention", n_ptrs=4, n_ints=11)
-#: head dims the kernel is built for
-HEAD_DIMS = (64, 128)
+#: head dims the kernel is built for (hd 256, RecurrentGemma's, in bf16 only)
+HEAD_DIMS = (64, 128, 256)
 #: query rows (two consumer warpgroups) and keys per tile of the Hopper
 #: kernel (csrc/flash_attention.cu WgTile): the tile that won at every
 #: prefill shape of the serving path (tools/sweep_dense_plans.py, PERF.md)
@@ -185,6 +186,8 @@ def flash_attention(q, k, v, *, window: int = 0, q_offset: int = 0, impl=None,
     sk, kh = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {hd} is not built (kernel head dims {HEAD_DIMS})")
+    if hd == 256 and q.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: head dim 256 is built for bfloat16 only, got {q.dtype}")
     plan = plan or flash_plan(q.dtype, hd)
     out = torch.empty_like(q)
     FLASH_ATTENTION.launch([q, k, v, out], [b, sq, sk, h, kh, hd, q_offset, window,

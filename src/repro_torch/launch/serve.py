@@ -14,6 +14,9 @@ DWDP context server (``--ctx-mode dwdp``) feeding a DEP generation server
 captured CUDA graph unless the caller passes ``graphs=False``.
 
     python -m repro_torch.launch.serve --arch deepseek-r1 --requests 4
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b --gen-mode dwdp --requests 4
+    python -m repro_torch.launch.serve --arch xlstm-350m --requests 4
+    python -m repro_torch.launch.serve --arch grok-1-314b --gen-mode dwdp --requests 4
     python -m repro_torch.launch.serve --arch deepseek-r1 --gen-mode dwdp --requests 4
     python -m repro_torch.launch.serve --arch deepseek-r1 --serving --replicas 2
     python -m repro_torch.launch.serve --arch deepseek-r1 --mesh 2,4 --max-batch 4
@@ -87,10 +90,25 @@ from repro_torch.runtime.engine import (
 
 # The storage geometry each architecture is served with: the default
 # geometry (sized for a 16 GB device) picks rotate execution or replicated
-# attention at these depths, which the port does not run.
+# attention at these depths, which the port does not run. MoE models shard
+# attention and keep their experts on the model axis under the gather
+# execution; dense, hybrid and recurrent models shard the dense FFN over
+# the model axis (attention as the default geometry sizes it: replicated
+# for RecurrentGemma, whose 10 heads are 0.6 GB of every weight).
+_MOE_GEOMETRY = dict(shard_attention=True, expert_axes=("model",), moe_exec="gather")
+_DENSE_GEOMETRY = dict(ffn_axes_override=("model",))
 SERVE_GEOMETRY = {
-    "deepseek-r1": dict(shard_attention=True, expert_axes=("model",), moe_exec="gather"),
+    "deepseek-r1": _MOE_GEOMETRY,
     "gemma3-27b": dict(shard_attention=True, ffn_axes_override=("model",)),
+    "grok-1-314b": _MOE_GEOMETRY,
+    "llama4-maverick-400b-a17b": _MOE_GEOMETRY,
+    "recurrentgemma-2b": _DENSE_GEOMETRY,
+    "xlstm-350m": _DENSE_GEOMETRY,
+    "yi-9b": _DENSE_GEOMETRY,
+    "deepseek-67b": _DENSE_GEOMETRY,
+    "glm4-9b": _DENSE_GEOMETRY,
+    "chameleon-34b": _DENSE_GEOMETRY,
+    "musicgen-medium": _DENSE_GEOMETRY,
 }
 
 
@@ -345,7 +363,7 @@ def run_serving(args, cfg, policy=None) -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=sorted(SERVE_GEOMETRY))
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prefill-len", type=int, default=64)
     ap.add_argument("--output-len", type=int, default=16)

@@ -7,6 +7,7 @@ an explicit leading *shard axis*, as in the JAX package:
 - MoE experts:     (G*local, D, Fe) / (..., Fe, D) placement-expanded
 - attention:       (A, D, qdim/A) etc.             A = geom.attn_shards
 - embed/lm_head:   vocab-sharded over "model"
+- recurrent / cell (``rec``, ``cell``): replicated at serve time
 
 The port holds the model as one parameter tree per logical rank
 (``Model.init_params`` returns a list, rank ``r = d * G + m`` at data
@@ -31,6 +32,8 @@ from repro_torch.core.placement import Placement, make_placement
 from repro_torch.core.prefetch import attach_checksum_tables
 from repro_torch.kernels._launch import FP8_DTYPES
 from repro_torch.models.layers import rope_frequencies
+from repro_torch.models.recurrent import init_recurrent_params
+from repro_torch.models.xlstm import init_mlstm_params, init_slstm_params
 
 AXIS_MODEL = "model"
 
@@ -442,15 +445,29 @@ def init_moe_params(gen, cfg: ArchConfig, geom: "Geometry", dtype, device,
 
 def init_layer_params(gen, cfg: ArchConfig, geom: "Geometry", sig: LayerSig,
                       dtype, device, mesh_sizes: dict) -> list[dict]:
+    """One layer's trees, one per model rank. The recurrent (``rec``) and
+    cell (``cell``) weights are replicated at serve time (``cell_axes`` is
+    empty unless training): one tree shared by every rank."""
     n = geom.model_size
     trees = [{"norm1": None} for _ in range(n)]
     norm1 = torch.zeros(cfg.d_model, dtype=dtype, device=device)
-    if sig.kind not in (BlockKind.GLOBAL_ATTN, BlockKind.LOCAL_ATTN):
-        raise NotImplementedError(f"block kind {sig.kind} is not ported yet")
-    attn = init_attn_params(gen, cfg, geom, dtype, device, mesh_sizes)
+    if sig.kind in (BlockKind.GLOBAL_ATTN, BlockKind.LOCAL_ATTN):
+        key, mixer = "attn", init_attn_params(gen, cfg, geom, dtype, device, mesh_sizes)
+    else:
+        if geom.cell_axes:
+            raise NotImplementedError(
+                f"{sig.kind.value} weights sharded over {geom.cell_axes}: the port serves "
+                "them replicated (training's ZeRO sharding is not ported)")
+        if sig.kind == BlockKind.RECURRENT:
+            key, tree = "rec", init_recurrent_params(gen, cfg.d_model, dtype, device)
+        elif sig.kind == BlockKind.MLSTM:
+            key, tree = "cell", init_mlstm_params(gen, cfg.d_model, cfg.num_heads, dtype, device)
+        else:
+            key, tree = "cell", init_slstm_params(gen, cfg.d_model, cfg.num_heads, dtype, device)
+        mixer = [tree] * n
     for r in range(n):
         trees[r]["norm1"] = norm1
-        trees[r]["attn"] = attn[r]
+        trees[r][key] = mixer[r]
     if sig.is_moe or sig.ffn_dim:
         norm2 = torch.zeros(cfg.d_model, dtype=dtype, device=device)
         if sig.is_moe:
@@ -463,13 +480,19 @@ def init_layer_params(gen, cfg: ArchConfig, geom: "Geometry", sig: LayerSig,
     return trees
 
 
-def stack_cycles(cycle_trees: list[dict]) -> dict:
+def stack_cycles(cycle_trees: list[dict], memo: Optional[dict] = None) -> dict:
     """Stack one rank's per-cycle trees along a new leading cycle axis
-    (a scan group's storage layout)."""
+    (a scan group's storage layout). Leaves the ranks share (replicated
+    weights) are stacked once when the ranks pass the same ``memo``."""
     first = cycle_trees[0]
     if isinstance(first, dict):
-        return {k: stack_cycles([t[k] for t in cycle_trees]) for k in first}
-    return torch.stack(cycle_trees)
+        return {k: stack_cycles([t[k] for t in cycle_trees], memo) for k in first}
+    if memo is None:
+        return torch.stack(cycle_trees)
+    key = tuple(id(t) for t in cycle_trees)
+    if key not in memo:
+        memo[key] = torch.stack(cycle_trees)
+    return memo[key]
 
 
 # --------------------------------------------------------------------------
@@ -536,7 +559,8 @@ class Model:
                         init_layer_params(generator, cfg, geom, sig, dtype, dev, sizes)
                         for _ in range(group.n_cycles)
                     ]
-                    per_rank = [stack_cycles([c[r] for c in cyc]) for r in range(n)]
+                    memo: dict = {}
+                    per_rank = [stack_cycles([c[r] for c in cyc], memo) for r in range(n)]
                 else:
                     per_rank = init_layer_params(generator, cfg, geom, sig, dtype, dev, sizes)
                 for r in range(n):

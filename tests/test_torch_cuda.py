@@ -384,6 +384,39 @@ def test_cuda_flash_attention_wgmma_tiles():
     torch.cuda.synchronize()
 
 
+@pytest.mark.cuda
+def test_cuda_flash_attention_hd256():
+    """Kernel #7 at head dim 256 (RecurrentGemma's local attention: 10
+    heads, one kv head, window 2048) on its bf16 "mma" path, at the first
+    and the last sequence shard of a 1024-token prompt over 4 ranks and a
+    ragged windowed shape, against the plain version (2e-2 relative to
+    max|ref|, over the whole output and per query row and head); bitwise on
+    repeat; fp32 at hd 256 is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    assert fa.flash_plan(torch.bfloat16, 256) == fa.FlashPlan("mma", 0)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    # (b, sq, sk, h, kh, window, q_offset)
+    for b, sq, sk, h, kh, window, q_offset in ((1, 256, 256, 10, 1, 2048, 0),
+                                               (1, 256, 1024, 10, 1, 2048, 768),
+                                               (2, 77, 300, 4, 2, 100, 223)):
+        q, k, v = (torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
+                   for s in ((b, sq, h, 256), (b, sk, kh, 256), (b, sk, kh, 256)))
+        ref = fa.flash_attention_torch(q, k, v, window=window, q_offset=q_offset)
+        got = fa.flash_attention(q, k, v, window=window, q_offset=q_offset)
+        diff, ref_abs = (got.float() - ref.float()).abs(), ref.float().abs()
+        err = (diff.max() / ref_abs.max()).item()
+        row_err = (diff.amax(-1) / ref_abs.amax(-1).clamp_min(1e-30)).max().item()
+        assert max(err, row_err) <= 2e-2, (b, sq, sk, window, err, row_err)
+        again = fa.flash_attention(q, k, v, window=window, q_offset=q_offset)
+        assert torch.equal(again, got)
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        fa.flash_attention(q.float(), k.float(), v.float(), window=100, q_offset=223)
+    torch.cuda.synchronize()
+
+
 # (E, E_l, C, D, F) of kernel #1 on the Hopper path: decode's C 1, a ragged
 # C 3 with D and F not multiples of the tiles (F a multiple of 16, as fp8
 # banks need), C 16, C 88 and 130 (BM 128; two m tiles at BM 64), an empty

@@ -53,7 +53,7 @@ from repro_torch.models import cache
 from repro_torch.models.transformer import build_model
 from repro_torch.runtime.engine import GenerationServer, Request
 import torch_refs
-from torch_refs import MOE_EXPERTS, MOE_GEOM, WINDOW_GEOM
+from torch_refs import MOE_EXPERTS, MOE_GEOM, WINDOW_GEOM, jit_quick
 
 # One intra-op thread per process: the suite runs several test workers, and
 # the port's test shapes are too small to gain from more.
@@ -77,7 +77,7 @@ def _jax_prefill(w, tokens, capture=0):
     xp = jstrategy.make_execution_plan(w["jm1"], JShape("p", tokens.shape[1], tokens.shape[0],
                                                         "prefill"),
                                        {"data": 1, "model": 1}, capacity_factor=CAP)
-    step = jexec.make_step_fn(w["jm1"], xp, make_smoke_mesh(), capture_len=capture)
+    step = jit_quick(jexec.make_step_fn(w["jm1"], xp, make_smoke_mesh(), capture_len=capture))
     return step(w["jparams1"], {"tokens": jnp.asarray(tokens, jnp.int32)})
 
 
@@ -97,7 +97,7 @@ def moe():
     tok = jnp.argmax(out["last_logits"][:4], axis=-1).astype(jnp.int32)[:, None]
     xp = jstrategy.make_execution_plan(w["jm1"], JShape("g", CACHE, 4, "decode"),
                                        {"data": 1, "model": 1}, capacity_factor=CAP)
-    decode = jexec.make_step_fn(w["jm1"], xp, make_smoke_mesh())
+    decode = jit_quick(jexec.make_step_fn(w["jm1"], xp, make_smoke_mesh()))
     jtoks = []
     for _ in range(STEPS):
         o = decode(w["jparams1"], {"token": tok}, state)

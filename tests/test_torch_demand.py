@@ -47,6 +47,7 @@ from repro_torch.launch.serve import build_engine
 from repro_torch.models.cache import init_decode_state
 from repro_torch.models.transformer import build_model
 from repro_torch.runtime.engine import HealthMonitor, Request
+from torch_refs import jit_quick
 
 # One intra-op thread per process: the suite runs several test workers, and
 # the port's test shapes are too small to gain from more.
@@ -95,9 +96,9 @@ def demand_refs():
     """Every DEMAND case's Pallas kernel (interpret mode) and jnp version, in
     one jitted program for the module."""
     ins = {str(c): _demand_inputs(*c)[0] for c in DEMAND}
-    return jax.jit(lambda ins: {k: [jops.split_swiglu_demand(*a, **kw)
-                                    for kw in ({}, {"impl": "jnp"})]
-                                for k, a in ins.items()})(ins)
+    return jit_quick(lambda ins: {k: [jops.split_swiglu_demand(*a, **kw)
+                                      for kw in ({}, {"impl": "jnp"})]
+                                  for k, a in ins.items()})(ins)
 
 
 @pytest.mark.parametrize("shape,dt", DEMAND, ids=str)
@@ -162,7 +163,7 @@ def test_plan_and_payload_match_jax(budget):
                                      exclude_ids=ids, exclude_valid=v)
         return plan, jpf.gather_demand_payload(t, plan, "model", PL_J, budget=budget)
 
-    jplan, jbank = jax.jit(jax.vmap(jfn, axis_name="model"))(
+    jplan, jbank = jit_quick(jax.vmap(jfn, axis_name="model"))(
         jnp.asarray(wanted), jnp.asarray(have, jnp.int32), jnp.asarray(have_valid),
         {"w": jnp.asarray(rows)})
     plans = prefetch.plan_demand_fetch(
@@ -189,7 +190,7 @@ def test_compaction_and_bitmaps_match_jax():
     pos = np.array([0, 63, 64, 200, 1000])
     masks = _masks(4)
 
-    @jax.jit  # one compile for every JAX function of the test
+    @jit_quick  # one compile for every JAX function of the test
     def ref(m, ids, valid, w, top, pos, masks):
         return (
             [jpf._compact_requests(m[i], b) for i, b in enumerate((1, 3, 5))],
@@ -232,7 +233,7 @@ def test_predictor_matches_jax():
     # (budget, which extra-score row or None)
     cases = ((2, None), (3, 0), (5, 1))
 
-    @jax.jit
+    @jit_quick
     def ref(prev, ema, cids, cvalid, routed, buckets, sig, sigw, aff, posb, emas):
         extra = jax.vmap(jpf.predict_extra_score)(sig, sigw)
         bitmaps = [
@@ -343,7 +344,7 @@ def decode_setup():
     params = from_jax_params(_jax_layout(jm4, canon), model)
     xp = jstrategy.make_execution_plan(jm1, JShape("d", CACHE, 2, "decode"),
                                        {"data": 1, "model": 1}, capacity_factor=CAP)
-    step = jexec.make_step_fn(jm1, xp, make_smoke_mesh())
+    step = jit_quick(jexec.make_step_fn(jm1, xp, make_smoke_mesh()))
     jparams = jax.tree.map(jnp.asarray, _jax_layout(jm1, canon))
     state = jinit_decode_state(jm1, 2, CACHE)
     tok, jtoks = jnp.asarray(FIRST, jnp.int32), []

@@ -36,6 +36,7 @@ from repro.runtime.engine import HealthMonitor as JHealthMonitor
 from repro_torch.core import execution, faults, prefetch, strategy
 from repro_torch.core.placement import make_placement
 from repro_torch.runtime.engine import HealthMonitor
+from torch_refs import jit_quick
 
 torch.set_num_threads(1)
 
@@ -73,7 +74,7 @@ def test_checksums_table_and_verify_match_jax():
             if i not in (2, 5):
                 rows[k][i] = shards[e // LOCAL][k][e % LOCAL]
 
-    @jax.jit
+    @jit_quick
     def ref(stacked, rows, ids, valid):
         def one(tree):
             table = jpf.checksum_table(tree, "model", PL_J)
@@ -128,7 +129,7 @@ def test_tamper_verify_and_counters_match_jax_on_its_masks():
     drop16 = np.array([False, True, False, False])
     corrupt16 = np.array([True, False, False, True])
 
-    @jax.jit
+    @jit_quick
     def ref(stacked):
         def one(tree, jspec):
             inj = jfaults.FaultInjector(jspec, "model", PL_J, {"model": G})

@@ -19,6 +19,7 @@ from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.flash_attention import flash_attention_ref as jref
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.models.attention import mha_prefill
+from torch_refs import jit_quick
 
 # One intra-op thread per process: the suite runs several test workers, and
 # the port's test shapes are too small to gain from more.
@@ -65,7 +66,7 @@ def jax_refs():
                                                       block_q=64, block_k=64, interpret=True)
         return out
 
-    return jax.jit(run)(jax.tree.map(jnp.asarray, ins))
+    return jit_quick(run)(jax.tree.map(jnp.asarray, ins))
 
 
 def _inputs(shape, seed=1):

@@ -49,7 +49,7 @@ from repro_torch.kernels import _launch
 from repro_torch.kernels.split_gemm import dense, grouped
 from repro_torch.models.cache import init_decode_state
 from repro_torch.models.transformer import build_model
-from torch_refs import MOE_CACHE, MOE_CAP, MOE_GEOM, MOE_PROMPT, tiny_moe
+from torch_refs import MOE_CACHE, MOE_CAP, MOE_GEOM, MOE_PROMPT, jit_quick, tiny_moe
 
 # One intra-op thread per process: the suite runs several test workers.
 torch.set_num_threads(1)
@@ -140,7 +140,7 @@ PALLAS = {"split_grouped_swiglu": jops.split_swiglu,
 def pallas_refs():
     """Every kernel under MIX through its Pallas kernel (interpret mode),
     in one jitted program (each bank operand keeps its own fp8 type)."""
-    return jax.jit(lambda ins: {k: PALLAS[k](*a) for k, a in ins.items()})(
+    return jit_quick(lambda ins: {k: PALLAS[k](*a) for k, a in ins.items()})(
         _inputs(*MIX)["jax"])
 
 
@@ -225,7 +225,7 @@ def jax_prefill(fp8_moe):
     jm = jbuild_model(s["w"]["jcfg"], sizes1, dtype=jnp.bfloat16)
     xp = jstrategy.make_execution_plan(jm, JShape("p", MOE_PROMPT, 2, "prefill"), sizes1,
                                        capacity_factor=MOE_CAP)
-    pre = jexec.make_step_fn(jm, xp, make_smoke_mesh(), capture_len=MOE_CACHE)
+    pre = jit_quick(jexec.make_step_fn(jm, xp, make_smoke_mesh(), capture_len=MOE_CACHE))
     out = pre(jax.tree.map(lambda a: jnp.asarray(a.astype(np.float32), jnp.bfloat16), s["p1"]),
               {"tokens": jnp.asarray(s["prompts"], jnp.int32)})
     return np.asarray(out["last_logits"]), out["state"]
@@ -238,7 +238,7 @@ def jax_decode_tokens(fp8_moe):
     jm = jbuild_model(s["w"]["jcfg"], sizes1, dtype=jnp.float8_e4m3fn)
     xp = jstrategy.make_execution_plan(jm, JShape("g", MOE_CACHE, 2, "decode"), sizes1,
                                        capacity_factor=MOE_CAP)
-    dec = jexec.make_step_fn(jm, xp, make_smoke_mesh())
+    dec = jit_quick(jexec.make_step_fn(jm, xp, make_smoke_mesh()))
     params, state = jax.tree.map(jnp.asarray, s["p1"]), jinit_decode_state(jm, 2, MOE_CACHE)
     tok, toks = jnp.asarray(FIRST, jnp.int32), []
     for _ in range(DECODE_STEPS):

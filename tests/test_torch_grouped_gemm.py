@@ -18,6 +18,7 @@ from repro.kernels.split_gemm import ops as jops
 from repro_torch.kernels import _launch
 from repro_torch.kernels.split_gemm import dense, grouped
 from repro_torch.kernels.split_gemm import ops as tops
+from torch_refs import jit_quick
 
 # One intra-op thread per process: the suite runs several test workers.
 torch.set_num_threads(1)
@@ -62,7 +63,7 @@ def pallas_refs():
     """The Pallas kernel (interpret mode) on every case's inputs, in one
     jitted program for the module (a program per case compiled ~0.4 s)."""
     ins = {"-".join(map(str, k)): _inputs(*args)[1] for k, args in CASES.items()}
-    out = jax.jit(lambda ins: {k: jops.split_gemm(*v) for k, v in ins.items()})(ins)
+    out = jit_quick(lambda ins: {k: jops.split_gemm(*v) for k, v in ins.items()})(ins)
     return {k: out["-".join(map(str, k))] for k in CASES}
 
 

@@ -22,13 +22,14 @@ from repro_torch.kernels.split_gemm import ops as tops
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import moe as tmoe
+from torch_refs import jit_quick
 
 # One intra-op thread per process: the suite runs several test workers, and
 # the port's test shapes are too small to gain from more.
 torch.set_num_threads(1)
 
-# The JAX references run under jax.jit, in one program per module or test: eager JAX
-# compiles every op at every new shape, seconds per small test.
+# The JAX references run under jax.jit (torch_refs.jit_quick), in one program per
+# module or test: eager JAX compiles every op at every new shape, seconds per small test.
 # tests/test_kernels.py TOL: fp32 2e-5, bf16 2e-2 (atol and rtol)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -90,8 +91,8 @@ def grouped_refs():
     """Every grouped case's JAX references, computed in one jitted program
     for the module (a program per case paid ~0.2 s of compile overhead)."""
     ins = {str(c): _grouped_inputs(*c)[0] for c in GROUPED_CASES}
-    return jax.jit(lambda ins: {k: [jops.split_swiglu(*a, **kw) for kw in BOTH]
-                                for k, a in ins.items()})(ins)
+    return jit_quick(lambda ins: {k: [jops.split_swiglu(*a, **kw) for kw in BOTH]
+                                  for k, a in ins.items()})(ins)
 
 
 @pytest.fixture(scope="module")
@@ -99,8 +100,8 @@ def dense_refs():
     """Every dense case's JAX references of #4, #5 and #6, in one program."""
     fns = (jops.split_stack_matmul, jops.split_reduce_matmul, jops.split_dense_ffn)
     ins = {str(c): [ops[0] for ops in _dense_inputs(*c)] for c in DENSE_CASES}
-    return jax.jit(lambda ins: {k: [[fn(*a, **kw) for kw in BOTH] for fn, a in zip(fns, ops)]
-                                for k, ops in ins.items()})(ins)
+    return jit_quick(lambda ins: {k: [[fn(*a, **kw) for kw in BOTH] for fn, a in zip(fns, ops)]
+                                  for k, ops in ins.items()})(ins)
 
 
 @pytest.mark.parametrize("shape,dt", GROUPED_CASES, ids=str)
@@ -289,7 +290,7 @@ def route_refs():
            for c in ROUTE_CASES}
     rows = [jnp.asarray(a) for a in _arrays(ROWS_ARRAYS["seed"], *ROWS_ARRAYS["shapes"],
                                             scale=1.0)]
-    return jax.jit(lambda ins, rows: (
+    return jit_quick(lambda ins, rows: (
         {c: jax_route(*a, *c) for c, a in ins.items()},
         jmoe.route_topk_rows(*rows, 2, 2, num_real=7)))(ins, rows)
 
@@ -334,7 +335,7 @@ def prefill_refs():
     """The JAX ``mha_prefill`` of every PREFILL_CASES case in one jitted
     program (a program per case compiled ~0.4 s)."""
     ins = {c: [jnp.asarray(a) for a in _prefill_arrays(*c)] for c in PREFILL_CASES}
-    return jax.jit(lambda ins: {c: jattn.mha_prefill(*a, window=c[0], q_offset=c[1], block_kv=8)
+    return jit_quick(lambda ins: {c: jattn.mha_prefill(*a, window=c[0], q_offset=c[1], block_kv=8)
                                 for c, a in ins.items()})(ins)
 
 
@@ -352,7 +353,7 @@ def test_mha_decode_partial_and_combine_match_jax():
     kv_pos = np.array([[0, 1, 2, 3, -1, -1], [4, 5, 6, 7, 8, 9]], np.int32)
     qpos = np.array([3, 7], np.int32)
     outs_t, lses_t, outs_j, lses_j = [], [], [], []
-    partial = jax.jit(jattn.mha_decode_partial)
+    partial = jit_quick(jattn.mha_decode_partial)
     for i in range(3):
         pos_i = np.where(kv_pos >= 0, kv_pos + 10 * i, -1).astype(np.int32) if i else kv_pos
         oj, lj = partial(jnp.asarray(q), jnp.asarray(k[i]), jnp.asarray(v[i]),
@@ -363,7 +364,7 @@ def test_mha_decode_partial_and_combine_match_jax():
         np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=1e-5)
         np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-5)
         outs_t.append(ot), lses_t.append(lt), outs_j.append(oj), lses_j.append(lj)
-    ref = jax.jit(jattn.combine_partials)(jnp.stack(outs_j), jnp.stack(lses_j))
+    ref = jit_quick(jattn.combine_partials)(jnp.stack(outs_j), jnp.stack(lses_j))
     np.testing.assert_allclose(tattn.combine_partials(outs_t, lses_t).numpy(), np.asarray(ref),
                                atol=1e-5)
 
@@ -371,7 +372,7 @@ def test_mha_decode_partial_and_combine_match_jax():
 def test_rms_norm_rope_softcap_match_jax():
     x, s = _arrays(9, (2, 5, 4, 16), (16,), scale=1.0)
     pos = np.arange(10).reshape(2, 5).astype(np.int32)
-    norm, rope, cap = jax.jit(
+    norm, rope, cap = jit_quick(
         lambda x, s, p: (jlayers.rms_norm(x, s, 1e-6), jlayers.apply_rope(x, p, 1e4),
                          jlayers.softcap(x * 40, 30.0))
     )(jnp.asarray(x), jnp.asarray(s), jnp.asarray(pos))

@@ -25,7 +25,7 @@ from repro_torch.checkpoint.convert import from_jax_params
 from repro_torch.configs.base import InputShape
 from repro_torch.core import execution, strategy
 from repro_torch.models.transformer import build_model
-from torch_refs import WINDOW_GEOM, tiny_window
+from torch_refs import WINDOW_GEOM, jit_quick, tiny_window
 
 # One intra-op thread per process: the suite runs several test workers, and
 # the port's test shapes are too small to gain from more.
@@ -58,7 +58,7 @@ def _jax_prefill(s, toks):
     if "jprefill" not in s:
         xp = jstrategy.make_execution_plan(
             s["jm1"], JShape("p", PROMPT, 1, "prefill"), {"data": 1, "model": 1})
-        s["jprefill"] = jexec.make_step_fn(s["jm1"], xp, s["mesh"], capture_len=CACHE)
+        s["jprefill"] = jit_quick(jexec.make_step_fn(s["jm1"], xp, s["mesh"], capture_len=CACHE))
     return s["jprefill"](s["jparams1"], {"tokens": jnp.asarray(toks[None], jnp.int32)})
 
 
@@ -125,7 +125,7 @@ def test_window_greedy_decode_matches_jax(setup):
 
     jxp = jstrategy.make_execution_plan(
         s["jm1"], JShape("g", CACHE, 2, "decode"), {"data": 1, "model": 1})
-    jstep = jexec.make_step_fn(s["jm1"], jxp, s["mesh"])
+    jstep = jit_quick(jexec.make_step_fn(s["jm1"], jxp, s["mesh"]))
     txp = strategy.make_execution_plan(
         model, InputShape("g", CACHE, 2, "decode"), {"data": 1, "model": 4})
     assert txp.seq_axes == ("model",) and not txp.batch_axes  # seq-sharded KV rings

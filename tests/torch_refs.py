@@ -44,6 +44,30 @@ from repro_torch.configs import get_arch, reduced_variant
 from repro_torch.configs.base import ArchConfig, BlockKind, MoEConfig
 
 
+# The JAX references compile at XLA's lowest backend optimisation level: the
+# same HLO program (the same operations, in the same order), its machine code
+# unoptimised, which compiles in a third of the default's time at these sizes.
+COMPILER_OPTIONS = {"xla_backend_optimization_level": 0}
+
+
+def jit_quick(fn):
+    """``fn`` under ``jax.jit`` (``fn`` itself where it is jitted already,
+    as ``make_step_fn``'s steps are) compiled with ``COMPILER_OPTIONS``,
+    once per tree structure, shapes and dtypes of its arguments."""
+    jitted = fn if hasattr(fn, "lower") else jax.jit(fn)
+    compiled: dict = {}
+
+    def call(*args, **kwargs):
+        leaves, tree = jax.tree.flatten((args, kwargs))
+        key = (tree, tuple((np.shape(a), np.result_type(a)) for a in leaves))
+        if key not in compiled:
+            compiled[key] = jitted.lower(*args, **kwargs).compile(
+                compiler_options=COMPILER_OPTIONS)
+        return compiled[key](*args, **kwargs)
+
+    return call
+
+
 def _canonical_layer(rng, jcfg, geom, sig) -> dict:
     """One layer's canonical (unsharded) weights drawn with numpy, scaled as
     ``repro.models.transformer.init_layer_params`` scales its draws."""
@@ -51,10 +75,11 @@ def _canonical_layer(rng, jcfg, geom, sig) -> dict:
         scale = shape[-2] ** -0.5 if scale is None else scale
         return (rng.standard_normal(shape) * scale).astype(np.float32)
 
-    if sig.kind not in (JKind.GLOBAL_ATTN, JKind.LOCAL_ATTN):
-        raise NotImplementedError(f"no canonical draw for a {sig.kind} layer")
     d, qd, kvd = jcfg.d_model, jcfg.q_dim, jcfg.kv_dim
-    out = {"attn": dict(wq=dense(d, qd), wk=dense(d, kvd), wv=dense(d, kvd), wo=dense(qd, d))}
+    if sig.kind in (JKind.GLOBAL_ATTN, JKind.LOCAL_ATTN):
+        out = {"attn": dict(wq=dense(d, qd), wk=dense(d, kvd), wv=dense(d, kvd), wo=dense(qd, d))}
+    else:
+        out = recurrent_canonical(rng, sig.kind.value, d, jcfg.num_heads)
 
     def ffn(f):
         s = geom.ffn_shards
@@ -77,6 +102,33 @@ def _canonical_layer(rng, jcfg, geom, sig) -> dict:
     return out
 
 
+def recurrent_canonical(rng, kind: str, d: int, heads: int) -> dict:
+    """A recurrent layer's weights (``{"rec": ...}`` or ``{"cell": ...}``,
+    replicated at serve time) drawn with numpy at the JAX package's
+    scales; the RG-LRU conv taps are random (its init's [0, 0, 0, 1] would
+    make the sequence-sharded conv halo contribute nothing) and ``a_param``
+    follows Griffin's init."""
+    def dense(*shape, scale):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    s = d ** -0.5
+    if kind == "recurrent":
+        u = rng.uniform(0.9, 0.999, d)
+        rec = {k: dense(d, d, scale=s) for k in ("w_x", "w_gate", "w_o", "w_r", "w_i")}
+        rec["conv_w"] = dense(4, d, scale=0.5)
+        rec["a_param"] = np.log(np.expm1(-np.log(u) / 8.0)).astype(np.float32)
+        return {"rec": rec}
+    if kind == "mlstm":
+        cell = {k: dense(d, d, scale=s) for k in ("w_q", "w_k", "w_v", "w_og", "w_out")}
+        cell["w_if"] = dense(d, 2 * heads, scale=s)
+        return {"cell": cell}
+    hd = d // heads
+    cell = {f"w_{g}": dense(d, d, scale=s) for g in "zifo"}
+    cell.update({f"r_{g}": dense(heads, hd, hd, scale=hd ** -0.5) for g in "zifo"})
+    cell["w_out"] = dense(d, d, scale=s)
+    return {"cell": cell}
+
+
 def _jax_layout(jm, canon) -> dict:
     """The canonical weights ``canon`` in ``jm``'s storage layout: the tree
     ``jm.init_params`` returns, by the layout steps of ``init_attn_params``,
@@ -93,13 +145,17 @@ def _jax_layout(jm, canon) -> dict:
                 "w_down": c["w_down"].reshape(s, f, d)}
 
     def layer(c):
-        at = c["attn"]
-        qd, kvd = at["wq"].shape[1], at["wk"].shape[1]
-        out = {"norm1": np.zeros(d, np.float32),
-               "attn": {"wq": at["wq"].reshape(d, a, qd // a).transpose(1, 0, 2),
-                        "wo": at["wo"].reshape(a, qd // a, d),
-                        **{k: at[k].reshape(d, ksd, kvd // ksd).transpose(1, 0, 2)[kv_rank]
-                           for k in ("wk", "wv")}}}
+        out = {"norm1": np.zeros(d, np.float32)}
+        for key in ("rec", "cell"):
+            if key in c:
+                out[key] = dict(c[key])
+        if "attn" in c:
+            at = c["attn"]
+            qd, kvd = at["wq"].shape[1], at["wk"].shape[1]
+            out["attn"] = {"wq": at["wq"].reshape(d, a, qd // a).transpose(1, 0, 2),
+                           "wo": at["wo"].reshape(a, qd // a, d),
+                           **{k: at[k].reshape(d, ksd, kvd // ksd).transpose(1, 0, 2)[kv_rank]
+                              for k in ("wk", "wv")}}
         if "moe" in c:
             table = geom.moe_placement.table().reshape(-1)
             out["norm2"] = np.zeros(d, np.float32)
@@ -277,7 +333,7 @@ def tiny_moe_run() -> dict:
     def step(shape, **kw):
         xp = jstrategy.make_execution_plan(jm1, shape, {"data": 1, "model": 1},
                                            capacity_factor=MOE_CAP)
-        return jexec.make_step_fn(jm1, xp, mesh, **kw)
+        return jit_quick(jexec.make_step_fn(jm1, xp, mesh, **kw))
 
     rng = np.random.default_rng(11)
     prompts = [rng.integers(0, w["cfg"].vocab_size, MOE_PROMPT) for _ in range(2)]
@@ -360,3 +416,65 @@ def jax_serve():
         jeng.submit(JRequest(i, p, R1_OUT))
     jeng.run(R1_STEPS)
     return jeng
+
+
+# --- the other architectures: RecurrentGemma, xLSTM, Llama-4 Maverick, MusicGen ---
+# Both packages built with the geometry the port serves each with
+# (``repro_torch.launch.serve.SERVE_GEOMETRY``); RecurrentGemma at 4 layers
+# (two (RG-LRU, local attention) cycles: a scan group).
+ARCH_LAYERS = {"recurrentgemma-2b": 4}
+
+
+@functools.cache
+def reduced_arch(name: str) -> dict:
+    """The reduced ``name`` (``reduced_variant`` in both packages, at
+    ``ARCH_LAYERS`` depth where given) and its weights: the JAX (1, 1) tree
+    and the (1, 4) tree (numpy) of the same canonical values."""
+    import dataclasses
+
+    from repro_torch.launch.serve import SERVE_GEOMETRY
+
+    jcfg, cfg = jreduced(jget_arch(name)), reduced_variant(get_arch(name))
+    if name in ARCH_LAYERS:
+        jcfg = dataclasses.replace(jcfg, num_layers=ARCH_LAYERS[name])
+        cfg = dataclasses.replace(cfg, num_layers=ARCH_LAYERS[name])
+    geom = SERVE_GEOMETRY[name]
+    jm1 = jbuild_model(jcfg, {"data": 1, "model": 1}, dtype=jnp.float32)
+    jm4 = jbuild_model(jcfg, {"data": 1, "model": 4}, dtype=jnp.float32, **geom)
+    jparams1, jparams4 = jax_params(jm1, jm4, seed=sum(map(ord, name)))
+    return dict(jcfg=jcfg, cfg=cfg, geom=geom, jm1=jm1, jparams1=jparams1, jparams4=jparams4)
+
+
+@functools.cache
+def arch_run(name: str, prompt: int, cache: int, steps: int, embeds: bool = False,
+             capacity_factor: float = 1.25) -> dict:
+    """The JAX package's (1, 1) run of ``reduced_arch(name)`` on one seeded
+    prompt of ``prompt`` tokens (or, with ``embeds``, a seeded (1, prompt,
+    D) embedding input): the prefill's logits and captured state (numpy),
+    then ``steps`` greedy decode steps' tokens (none with ``steps`` 0)."""
+    w = reduced_arch(name)
+    jm1, jparams1 = w["jm1"], w["jparams1"]
+    mesh = make_smoke_mesh()
+    rng = np.random.default_rng(prompt)
+    if embeds:
+        x = rng.standard_normal((1, prompt, w["cfg"].d_model)).astype(np.float32)
+        batch = {"embeds": jnp.asarray(x)}
+    else:
+        x = rng.integers(0, w["cfg"].vocab_size, prompt)
+        batch = {"tokens": jnp.asarray(x[None], jnp.int32)}
+    sizes = {"data": 1, "model": 1}
+    xp = jstrategy.make_execution_plan(jm1, JShape("p", prompt, 1, "prefill"), sizes,
+                                       capacity_factor=capacity_factor)
+    out = jit_quick(jexec.make_step_fn(jm1, xp, mesh, capture_len=cache if steps else 0))(
+        jparams1, batch)
+    run = dict(inputs=x, logits=np.asarray(out["last_logits"]), tokens=[])
+    if steps:
+        run["state"] = jax.tree.map(np.asarray, out["state"])
+        decode = jit_quick(jexec.make_step_fn(jm1, jstrategy.make_execution_plan(
+            jm1, JShape("g", cache, 1, "decode"), sizes, capacity_factor=capacity_factor), mesh))
+        tok, state = jnp.asarray(np.argmax(run["logits"], -1)[:, None], jnp.int32), out["state"]
+        for _ in range(steps):
+            o = decode(jparams1, {"token": tok}, state)
+            tok, state = o["next_token"], o["state"]
+            run["tokens"].append(int(tok[0, 0]))
+    return run
